@@ -1,0 +1,162 @@
+"""Blockwise (flash) attention (counterpart of ``elephas_tpu/ops/attention.py``).
+
+``flash_attention(q, k, v, causal)`` computes softmax attention in tiles
+so the (seq × seq) score matrix never exists in device memory. The
+device decides the implementation: a CUDA tensor launches the
+hand-written kernel (``ops/attention_cuda.py``, ``csrc/flash_fwd.cu``)
+or raises; a CPU tensor runs ``blockwise_reference``, the kernel's plain
+PyTorch version with the same numerics.
+
+Shapes: q, k, v are (batch, heads, seq, head_dim); the output is the
+same, and the optional lse is (batch, heads, seq) float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from elephas_tpu_torch.ops import attention_cuda
+
+# The CUDA kernel's tile: 64 query rows by 64 keys. The plain version
+# defaults to the same tiling so both sum in the same order of tiles.
+BLOCK_Q = 64
+BLOCK_K = 64
+
+
+def blockwise_reference(q, k, v, causal: bool = True, block_q: int = BLOCK_Q,
+                        block_k: int = BLOCK_K):
+    """Plain PyTorch version of the flash forward, returning ``(o, lse)``.
+
+    Follows the numerics of ``attention_pallas.py::_flash_fwd_kernel``:
+    q is scaled in float32, masked scores are ``-inf``, the running max
+    is replaced by 0 where it is not finite (so a fully-masked row gives
+    0 weights and a finite lse instead of NaN), the output is
+    ``acc / max(l, 1e-30)`` cast to the input dtype and the lse is
+    ``shift + log(max(l, 1e-30))`` in float32. Causal k-tiles that lie
+    wholly above the diagonal are skipped, as the kernel skips them.
+    """
+    b, h, s, d = q.shape
+    sk = k.shape[2]
+    qf = q.float() * (1.0 / math.sqrt(d))
+    kf, vf = k.float(), v.float()
+    outs, lses = [], []
+    for q0 in range(0, s, block_q):
+        q_blk = qf[:, :, q0:q0 + block_q]
+        n = q_blk.shape[2]
+        q_pos = torch.arange(q0, q0 + n, device=q.device)
+        acc = torch.zeros((b, h, n, d), dtype=torch.float32, device=q.device)
+        row_max = torch.full((b, h, n), -math.inf, dtype=torch.float32,
+                             device=q.device)
+        row_sum = torch.zeros((b, h, n), dtype=torch.float32, device=q.device)
+        k_end = min(sk, q0 + n) if causal else sk
+        for k0 in range(0, k_end, block_k):
+            k_blk = kf[:, :, k0:k0 + block_k]
+            v_blk = vf[:, :, k0:k0 + block_k]
+            scores = q_blk @ k_blk.transpose(-1, -2)
+            if causal:
+                k_pos = torch.arange(k0, k0 + k_blk.shape[2], device=q.device)
+                scores = scores.masked_fill(
+                    k_pos[None, :] > q_pos[:, None], -math.inf
+                )
+            new_max = torch.maximum(row_max, scores.amax(dim=-1))
+            shift = torch.where(torch.isfinite(new_max), new_max, 0.0)
+            p = torch.exp(scores - shift[..., None])
+            correction = torch.where(
+                torch.isfinite(row_max), torch.exp(row_max - shift), 0.0
+            )
+            acc = acc * correction[..., None] + p @ v_blk
+            row_sum = row_sum * correction + p.sum(dim=-1)
+            row_max = new_max
+        denom = row_sum.clamp_min(1e-30)
+        outs.append((acc / denom[..., None]).to(q.dtype))
+        shift = torch.where(torch.isfinite(row_max), row_max, 0.0)
+        lses.append(shift + torch.log(denom))
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def cache_attention_mask(max_len, seq, idx, pad_offset=None, device=None):
+    """Validity mask for KV-cache incremental attention.
+
+    The current block of ``seq`` queries lands at cache columns
+    ``idx + [0, seq)``; each query may attend every cached column up to
+    its own, but never the leading left-pad columns of its row.
+
+    ``idx``: an int (one shared write position, the ``generate`` path) or
+    a (batch,) tensor of per-row positions. ``pad_offset``: None, or a
+    (batch,) tensor of left-pad counts; column ``j`` is a pad key of row
+    ``b`` iff ``j < pad_offset[b]``.
+
+    Returns a bool mask broadcastable against (batch, heads, seq,
+    max_len) scores: (1, 1, seq, max_len) when both idx and pad_offset
+    are row-independent, else (batch, 1, seq, max_len).
+    """
+    if device is None:
+        device = pad_offset.device if pad_offset is not None else (
+            idx.device if torch.is_tensor(idx) else None
+        )
+    cols = torch.arange(max_len, device=device)
+    rows = torch.arange(seq, device=device)
+    if not torch.is_tensor(idx) or idx.dim() == 0:
+        valid = (cols[None, :] <= idx + rows[:, None])[None]  # (1, seq, max_len)
+    else:
+        valid = cols[None, None, :] <= idx[:, None, None] + rows[None, :, None]
+    if pad_offset is not None:
+        valid = valid & (cols[None, None, :] >= pad_offset[:, None, None])
+    return valid[:, None]  # broadcast over heads
+
+
+class _FlashAttentionCUDA(torch.autograd.Function):
+    """The CUDA forward kernel under autograd. Its backward kernels (K2
+    and K3 of the JAX package) are not ported yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = attention_cuda.flash_fwd(q, k, v, causal)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, grad_o, grad_lse):
+        raise NotImplementedError(
+            "the flash-attention backward kernels (K2 _flash_dq_kernel and "
+            "K3 _flash_dkv_kernel of elephas_tpu/ops/attention_pallas.py) "
+            "are not ported yet; they arrive with the LM training slice "
+            "(ROADMAP.md, queue 1)"
+        )
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    return_lse: bool = False):
+    """Blockwise attention; ``(o, lse)`` with ``return_lse=True``.
+
+    A CUDA tensor launches the hand-written kernel, which tiles at
+    ``BLOCK_Q`` x ``BLOCK_K``; other block sizes raise there. A CPU
+    tensor runs ``blockwise_reference`` at the given tiling (default the
+    kernel's). q, k and v must have one shape: the kernel assumes equal
+    query and key lengths, as the JAX package's does.
+    """
+    if q.dim() != 4 or q.shape != k.shape or k.shape != v.shape:
+        raise ValueError(
+            "flash_attention needs q, k, v of one (batch, heads, seq, "
+            f"head_dim) shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}"
+        )
+    block_q = BLOCK_Q if block_q is None else block_q
+    block_k = BLOCK_K if block_k is None else block_k
+    if q.device.type == "cuda":
+        if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+            raise ValueError(
+                f"the CUDA kernel tiles at {BLOCK_Q}x{BLOCK_K}; "
+                f"got block_q={block_q}, block_k={block_k}"
+            )
+        o, lse = _FlashAttentionCUDA.apply(q, k, v, causal)
+    elif q.device.type == "cpu":
+        o, lse = blockwise_reference(q, k, v, causal, block_q, block_k)
+    else:
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    return (o, lse) if return_lse else o
