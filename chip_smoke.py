@@ -7,24 +7,33 @@ Phases, in order; any failed check raises and the process exits non-zero:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions;
-2. build: ``csrc/flash_fwd.cu`` compiled with ``nvcc`` for ``sm_90a``;
-3. kernel: the flash-attention forward against its plain PyTorch version
-   (``blockwise_reference``) on the card, at the LM's shape in float32
-   and bf16, at head_dim 64 and 128 and at a 37-token sequence, causal and
-   full; timed beside the
-   plain version and one ``F.scaled_dot_product_attention`` call (the
-   yardstick, never called by the port) and printed with its bound;
-4. slice: the Transformer LM at the registry's full width
+2. build: ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` compiled with
+   ``nvcc`` for ``sm_90a``, one ``nvcc`` each, both at once;
+3. kernels: the flash-attention forward (K1) against its plain PyTorch
+   version (``blockwise_reference``), then the backward kernels (K2 dq,
+   K3 dk/dv) against theirs (``flash_backward_reference``, on K1's o and
+   lse and a seeded dO; by max error and by norm, over each output and
+   each 64-row block), on the card, at the LM's shape in float32 and
+   bf16, at head_dim 64 and 128 and at a 37-token sequence, causal and
+   full; each timed at the LM's shape beside its plain version and one
+   PyTorch call (``F.scaled_dot_product_attention`` and its backward: the
+   yardsticks, never called by the port) and printed with its bound;
+4. inference: the Transformer LM at the registry's full width
    (``get_model("transformer_lm")``, random weights from a NumPy seed) —
-   scoring forwards of 8 x 2048 tokens in float32 and bf16 through the
-   kernel, checked against the dense-attention model, then greedy and
-   sampled ``generate`` on 8 ragged prompts, two rows of the greedy
-   stream checked against the same port on the CPU; a ``torch.profiler``
-   kernel breakdown of one scoring forward per dtype and of one greedy
-   ``generate``;
-5. a JSON line with the kernel's launches on the slice, errors, times and
-   bound;
-6. the last line: ``{"ok": true, "device": {...}}``.
+   scoring forwards of 8 x 2048 tokens in float32 and bf16 through K1,
+   checked against the dense-attention model, then greedy and sampled
+   ``generate`` on 8 ragged prompts, two rows of the greedy stream checked
+   against the same port on the CPU; a ``torch.profiler`` kernel breakdown
+   of one scoring forward per dtype and of one greedy ``generate``;
+5. training: the same LM through ``make_train_step`` (Adam, lr 1e-3) on
+   a seeded 8 x 2048 batch — float32 and bf16 loss and gradients through
+   K1-K3 checked against the dense-attention model, then 20 steps in float32
+   and in bf16 (loss falls, stays finite, exactly 4 launches of each
+   kernel per step), train tokens/s, MFU and a kernel breakdown of one
+   step per dtype;
+6. a JSON line with each kernel's launches on the paths, errors, times
+   and bound;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device, ``nvcc`` and this repository; exits non-zero without
 them. Imports nothing of JAX.
@@ -41,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 SEED = 0
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 BATCH, SEQ = 8, 2048          # scoring batch: the LM's full context
 NEW_TOKENS = 128
 PROMPT_LENS = np.linspace(128, 1024, 8).astype(int)
@@ -51,6 +61,18 @@ MARGIN = 1e-3                 # top-2 logit gap below which a tie may flip
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}  # (O, lse)
+# K2/K3: max |error| <= tol * max(1, max |reference|), per output.
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# K2/K3: ||error|| <= tol * ||reference||, per output and per 64-row block
+# of each (batch, head): the late rows and keys of a causal sequence carry
+# gradients far below the early ones' max, which the max-abs limit misses.
+TOL_BWD_NORM = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TRAIN_STEPS, TRAIN_WARMUP = 20, 2  # steps per dtype; untimed leading steps
+LOSS_DROP = 2.0                    # the loss falls by at least this over the steps
+GRAD_RTOL = 1e-3                   # flash vs dense f32 grads, relative to each max
+LOSS_ATOL = 1e-4                   # flash vs dense f32 loss
+BF16_GRAD_RTOL = 5e-2              # flash vs dense bf16 grads, by norm, per parameter
+BF16_LOSS_ATOL = 1e-2              # flash vs dense bf16 loss
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -68,24 +90,40 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def flash_bound(shape, dtype, causal):
+def bound_ms(ops, nbytes, dtype):
     """Least time (ms) for the work: operations over the dtype's peak, and
     each input read once and each output written once over memory rate."""
-    b, h, s, d = shape
-    ops = (2.0 if causal else 4.0) * b * h * s * s * d
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4.0 * b * h * s * d * itemsize + 4.0 * b * h * s
     t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_bound(shape, dtype, causal):
+    """K1: 2·B·H·S²·D FLOPs causal (4 full); q, k, v read, o and lse written."""
+    b, h, s, d = shape
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    return bound_ms((2.0 if causal else 4.0) * b * h * s * s * d,
+                    4.0 * b * h * s * d * itemsize + 4.0 * b * h * s, dtype)
+
+
+def backward_bounds(shape, dtype, causal):
+    """K2: 3·B·H·S²·D FLOPs causal (6 full), K3: 4 (8), the Pallas kernels'
+    CostEstimates; both read q, k, v, dO, lse and delta, K2 writes dq and
+    K3 writes dk and dv."""
+    b, h, s, d = shape
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    tensor, rows = b * h * s * d * itemsize, 2.0 * 4 * b * h * s
+    half = 0.5 if causal else 1.0
+    return {"flash_dq": bound_ms(6.0 * half * b * h * s * s * d, 5 * tensor + rows, dtype),
+            "flash_dkv": bound_ms(8.0 * half * b * h * s * s * d, 6 * tensor + rows, dtype)}
 
 
 def ptxas_summary(log):
     """Registers and spills per kernel instantiation from nvcc's -Xptxas -v."""
     parts, name = [], None
     for line in log.splitlines():
-        entry = re.search(r"flash_fwd_(bf16|f32)_kernelILi(\d+)E", line)
+        entry = re.search(r"(flash_[a-z]+)_(bf16|f32)_kernelILi(\d+)E", line)
         if "Compiling entry function" in line and entry:
-            name = f"{entry.group(1)} D={entry.group(2)}"
+            name = f"{entry.group(1)} {entry.group(2)} D={entry.group(3)}"
             spill = "spills not reported"
         elif name and "spill stores" in line:
             spill = line.split(",")[1].strip()
@@ -98,7 +136,10 @@ def ptxas_summary(log):
 
 def device_breakdown(fn, top=6):
     """Kernel time by name over one call of ``fn`` under torch.profiler,
-    beside the call's wall time (which includes the profiler's cost)."""
+    beside the call's wall time (which includes the profiler's cost), and
+    each flash kernel's total. User annotations (the optimizer's
+    ``Optimizer.step`` range) are left out: their device time is that of
+    the kernels inside them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -107,13 +148,29 @@ def device_breakdown(fn, top=6):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash_ms = {name: sum(e.self_device_time_total for e in kernels
+                          if f"{name}_" in e.key) / 1e3 for name in KERNELS}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms,
+            "busy_share": device_ms / wall_ms, "flash_ms": flash_ms,
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                     for e in kernels[:top]]}
+
+
+def norm_errors(got, ref, rows=64):
+    """||got - ref|| / ||ref|| over the whole tensor, and the largest over
+    blocks of ``rows`` rows of each (batch, head) of a (B, H, S, D) pair."""
+    got, ref = got.float(), ref.float()
+    whole = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+    b, h, s, d = ref.shape
+    pad = (0, 0, 0, -s % rows)
+    diff = F.pad(got - ref, pad).reshape(b, h, -1, rows * d)
+    ref = F.pad(ref, pad).reshape(b, h, -1, rows * d)
+    block = (diff.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
+    return whole, block
 
 
 def check(cond, what):
@@ -121,7 +178,14 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def kernel_phase(attention_cuda, blockwise_reference):
+def kernel_phase(attention_cuda):
+    """Every kernel against its plain version at 14 cases; times at the
+    LM's shape. Returns per-kernel max errors and timings by dtype."""
+    from elephas_tpu_torch.ops.attention import (
+        blockwise_reference,
+        flash_backward_reference,
+    )
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     cases = [((BATCH, 8, SEQ, 32), True, torch.float32),
@@ -131,12 +195,17 @@ def kernel_phase(attention_cuda, blockwise_reference):
               for dtype in (torch.float32, torch.bfloat16)]
     cases += [((3, 2, 37, 32), causal, dtype) for causal in (True, False)
               for dtype in (torch.float32, torch.bfloat16)]
-    errors = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    timing = {}
+    errors = {name: {torch.float32: 0.0, torch.bfloat16: 0.0} for name in KERNELS}
+    norm_worst = {name: {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+                  for name in KERNELS if name != "flash_fwd"}
+    timing = {name: {} for name in KERNELS}
     for shape, causal, dtype in cases:
-        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
-                   for _ in range(3))
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                       for _ in range(4))
         o, lse = attention_cuda.flash_fwd(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
         ref_o, ref_lse = blockwise_reference(q, k, v, causal)
         err_o = (o.float() - ref_o.float()).abs().max().item()
@@ -147,23 +216,68 @@ def kernel_phase(attention_cuda, blockwise_reference):
               f"(atol {tol_lse})", flush=True)
         check(err_o <= tol_o and err_lse <= tol_lse,
               f"flash_fwd disagrees with blockwise_reference at {shape} {dtype}")
-        errors[dtype] = max(errors[dtype], err_o, err_lse)
+        errors["flash_fwd"][dtype] = max(errors["flash_fwd"][dtype], err_o, err_lse)
+
+        ref = dict(zip(("dq", "dk", "dv"),
+                       flash_backward_reference(q, k, v, o, lse, do, causal)))
+        parts = []
+        for name, label, got in (("flash_dq", "dq", dq), ("flash_dkv", "dk", dk),
+                                 ("flash_dkv", "dv", dv)):
+            err = (got.float() - ref[label].float()).abs().max().item()
+            allowed = TOL_BWD[dtype] * max(1.0, ref[label].float().abs().max().item())
+            whole, block = norm_errors(got, ref[label])
+            parts.append(f"max|d{label}|={err:.3e} (allowed {allowed:.3e}) "
+                         f"norm {whole:.2e} worst block {block:.2e}")
+            check(err <= allowed, f"{name} {label} disagrees with "
+                  f"flash_backward_reference at {shape} causal={causal} {dtype}")
+            check(max(whole, block) <= TOL_BWD_NORM[dtype],
+                  f"{name} {label} norm error {whole:.2e} (worst block {block:.2e}) "
+                  f"above {TOL_BWD_NORM[dtype]} at {shape} causal={causal} {dtype}")
+            errors[name][dtype] = max(errors[name][dtype], err)
+            worst = norm_worst[name][dtype]
+            worst[:] = max(worst[0], whole), max(worst[1], block)
+        print(f"kernel bwd {tuple(shape)} causal={causal} {dtype}: " + "; ".join(parts)
+              + f" (norm limit {TOL_BWD_NORM[dtype]})", flush=True)
+
         if shape[2] == SEQ:
-            bound_ms, bound_by = flash_bound(shape, dtype, causal)
-            timing[dtype] = {
+            fwd_bound, fwd_by = flash_bound(shape, dtype, causal)
+            timing["flash_fwd"][dtype] = {
                 "ms": cuda_ms(lambda: attention_cuda.flash_fwd(q, k, v, causal), 20),
                 "plain_ms": cuda_ms(lambda: blockwise_reference(q, k, v, causal), 3, 1),
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal), 20),
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
+                "bound_ms": fwd_bound,
+                "bound_by": fwd_by,
             }
-            print(f"timing {tuple(shape)} {dtype}: {json.dumps(timing[dtype])}",
-                  flush=True)
+            # The plain version and SDPA's backward each compute dq, dk and
+            # dv together; SDPA's forward runs once, outside the timing.
+            plain_ms = cuda_ms(lambda: flash_backward_reference(
+                q, k, v, o, lse, do, causal), 3, 1)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), 20)
+            launch = {
+                "flash_dq": lambda: attention_cuda.flash_bwd_dq(
+                    q, k, v, do, lse, delta, causal),
+                "flash_dkv": lambda: attention_cuda.flash_bwd_dkv(
+                    q, k, v, do, lse, delta, causal),
+            }
+            for name, (bound, by) in backward_bounds(shape, dtype, causal).items():
+                timing[name][dtype] = {"ms": cuda_ms(launch[name], 20),
+                                       "plain_ms": plain_ms, "library_ms": library_ms,
+                                       "bound_ms": bound, "bound_by": by}
+            for name in KERNELS:
+                print(f"timing {name} {tuple(shape)} {dtype}: "
+                      f"{json.dumps(timing[name][dtype])}", flush=True)
+    for name, by_dtype in norm_worst.items():
+        for dtype, (whole, block) in by_dtype.items():
+            print(f"kernel bwd {name} {dtype}: worst norm error {whole:.3e}, worst "
+                  f"64-row block {block:.3e} over the cases", flush=True)
     return errors, timing
 
 
-def slice_phase(attention_cuda):
+def inference_phase(attention_cuda):
     from elephas_tpu_torch.api import CompiledModel
     from elephas_tpu_torch.metrics import mfu, peak_flops, transformer_flops_per_token
     from elephas_tpu_torch.models import generate, get_model
@@ -178,18 +292,18 @@ def slice_phase(attention_cuda):
 
     report = {}
     flash_forwards = 0
-    attention_cuda.launches = 0
+    attention_cuda.reset_launches()
     logits = {}
     for dtype in ("float32", "bfloat16"):
         model = compiled(attention="flash", dtype=dtype)
         layers = model.module.num_layers
-        before = attention_cuda.launches
+        before = attention_cuda.launches["flash_fwd"]
         logits[dtype] = model.apply_eval(tokens)
         torch.cuda.synchronize()
         flash_forwards += 1
-        check(attention_cuda.launches - before == layers,
-              f"{dtype} forward launched flash_fwd "
-              f"{attention_cuda.launches - before} times, expected {layers}")
+        launched = attention_cuda.launches["flash_fwd"] - before
+        check(launched == layers,
+              f"{dtype} forward launched flash_fwd {launched} times, expected {layers}")
         check(tuple(logits[dtype].shape) == (BATCH, SEQ, 32000)
               and bool(torch.isfinite(logits[dtype]).all()),
               f"{dtype} logits not finite or misshapen")
@@ -248,10 +362,10 @@ def slice_phase(attention_cuda):
           and ((sampled >= 0) & (sampled < 32000)).all(), "sampled stream misshapen")
     check((generate(model, prompts, NEW_TOKENS, temperature=0.8, top_k=40, seed=1)
            == sampled).all(), "sampled stream not reproducible from its seed")
-    launches = attention_cuda.launches
-    check(launches == flash_forwards * 4,
-          f"flash_fwd launched {launches} times on the slice, expected "
-          f"{flash_forwards * 4}")
+    launches = dict(attention_cuda.launches)
+    check(launches == {"flash_fwd": flash_forwards * 4, "flash_dq": 0, "flash_dkv": 0},
+          f"inference launched {launches}, expected {flash_forwards * 4} flash_fwd "
+          "and no backward kernel")
     print(f"generate: {json.dumps(report['generate_greedy'])} "
           f"sampled {json.dumps(report['generate_sampled'])}", flush=True)
 
@@ -297,12 +411,145 @@ def slice_phase(attention_cuda):
     return launches, report
 
 
+def train_phase(attention_cuda):
+    """LM training at full width through K1-K3: f32 loss and gradients
+    against the dense model, then TRAIN_STEPS steps per dtype."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.engine.step import (
+        init_train_state,
+        make_loss_fn,
+        make_train_step,
+    )
+    from elephas_tpu_torch.metrics import mfu, peak_flops, transformer_flops_per_token
+    from elephas_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, 32000, (BATCH, SEQ + 1)), device="cuda")
+    x, y = tokens[:, :-1], tokens[:, 1:]
+
+    def compiled(**kw):
+        return CompiledModel(get_model("transformer_lm", **kw),
+                             optimizer={"name": "adam", "learning_rate": 1e-3},
+                             loss="sparse_categorical_crossentropy",
+                             metrics=["acc"], seed=SEED)
+
+    def expect_launches(before, steps, what):
+        launched = {k: attention_cuda.launches[k] - before[k] for k in KERNELS}
+        layers = 4
+        check(launched == {k: layers * steps for k in KERNELS},
+              f"{what} launched {launched}, expected {layers * steps} of each")
+
+    report = {}
+    attention_cuda.reset_launches()
+
+    def loss_and_grads(attention, dtype):
+        """One loss and gradient; the key third of each qkv bias is left
+        out, its exact gradient being 0 (softmax ignores a shift shared by
+        all of a query's scores), so that what is left is rounding."""
+        model = compiled(attention=attention, dtype=dtype)
+        before = dict(attention_cuda.launches)
+        loss, _ = make_loss_fn(model)(x, y)
+        loss.backward()
+        torch.cuda.synchronize()
+        if attention == "flash":
+            expect_launches(before, 1, f"the {dtype} flash loss and gradient")
+        grads = {}
+        for n, p in model.module.named_parameters():
+            g = p.grad
+            if n.endswith("attn.qkv.bias"):
+                third = len(g) // 3
+                g = torch.cat([g[:third], g[2 * third:]])
+            grads[n] = g
+        return loss.item(), grads
+
+    def norm_rel(got, ref):
+        """Worst parameter's ||got - ref|| / ||ref||, and its name."""
+        rel = {n: ((got[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+               for n, g in ref.items()}
+        name = max(rel, key=rel.get)
+        return rel[name], name
+
+    # (a) One float32 loss and gradient through the kernels, and through
+    # plain autograd of the dense-attention model on the same weights;
+    # then the same in bf16, each also held against the f32 dense one.
+    losses, grads = {}, {}
+    for attention in ("flash", "dense"):
+        losses[attention], grads[attention] = loss_and_grads(attention, "float32")
+    worst = max(((grads["flash"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                for n, g in grads["dense"].items())
+    dloss = abs(losses["flash"] - losses["dense"])
+    print(f"train f32 flash vs dense: loss {losses['flash']:.6f} vs {losses['dense']:.6f} "
+          f"(|d| {dloss:.2e}, atol {LOSS_ATOL}); worst gradient max|d| / max|g| "
+          f"{worst:.2e} (rtol {GRAD_RTOL}) over {len(grads['dense'])} parameters",
+          flush=True)
+    check(dloss <= LOSS_ATOL, "flash and dense f32 losses disagree")
+    check(worst <= GRAD_RTOL, "flash and dense f32 gradients disagree")
+    report["f32_flash_vs_dense"] = {"loss_abs_err": dloss, "grad_rel_err": worst}
+    f32 = grads.pop("dense")
+    for attention in ("flash", "dense"):
+        losses[attention], grads[attention] = loss_and_grads(attention, "bfloat16")
+    rel, rel_name = norm_rel(grads["flash"], grads["dense"])
+    flash_f32, flash_f32_name = norm_rel(grads["flash"], f32)
+    dense_f32, dense_f32_name = norm_rel(grads["dense"], f32)
+    dloss = abs(losses["flash"] - losses["dense"])
+    print(f"train bf16 flash vs dense: loss {losses['flash']:.6f} vs {losses['dense']:.6f} "
+          f"(|d| {dloss:.2e}, atol {BF16_LOSS_ATOL}); worst gradient ||d|| / ||g|| "
+          f"{rel:.3e} at {rel_name} (rtol {BF16_GRAD_RTOL}); against the f32 dense "
+          f"gradients: flash {flash_f32:.3e} at {flash_f32_name}, dense {dense_f32:.3e} "
+          f"at {dense_f32_name}", flush=True)
+    check(dloss <= BF16_LOSS_ATOL, "flash and dense bf16 losses disagree")
+    check(rel <= BF16_GRAD_RTOL, "flash and dense bf16 gradients disagree")
+    report["bf16_flash_vs_dense"] = {"loss_abs_err": dloss, "grad_norm_rel_err": rel,
+                                     "flash_vs_f32_dense": flash_f32,
+                                     "dense_vs_f32_dense": dense_f32}
+    del grads, f32
+
+    # (b)-(d) TRAIN_STEPS steps per dtype on the fixed batch.
+    for dtype in ("float32", "bfloat16"):
+        model = compiled(attention="flash", dtype=dtype)
+        step = make_train_step(model)
+        state = init_train_state(model)
+        before = dict(attention_cuda.launches)
+        history = []
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, metrics = step(state, x, y)
+            history.append(metrics)
+        torch.cuda.synchronize()
+        elapsed = (time.perf_counter() - t0) / (TRAIN_STEPS - TRAIN_WARMUP)
+        expect_launches(before, TRAIN_STEPS, f"{TRAIN_STEPS} {dtype} train steps")
+        curve = [float(m["loss"]) for m in history]
+        print(f"train {dtype} loss: {[round(v, 4) for v in curve]}", flush=True)
+        check(all(np.isfinite(curve)), f"{dtype} training loss not finite")
+        check(curve[-1] <= curve[0] - LOSS_DROP,
+              f"{dtype} loss fell {curve[0] - curve[-1]:.3f} over {TRAIN_STEPS} steps, "
+              f"expected at least {LOSS_DROP}")
+        tok_s = BATCH * SEQ / elapsed
+        fpt = transformer_flops_per_token(model.count_params(), model.module.num_layers,
+                                          model.module.d_model, SEQ, backward=True)
+        report[f"train_{dtype}"] = {
+            "step_ms": elapsed * 1e3,
+            "tokens_per_s": tok_s,
+            "mfu_vs_bf16_peak": mfu(tok_s, fpt, peak_flops()),
+            "loss_first": curve[0],
+            "loss_last": curve[-1],
+            "acc_last": float(history[-1]["acc"]),
+        }
+        report[f"profile_train_{dtype}"] = device_breakdown(lambda: step(state, x, y))
+        print(f"train {dtype}: {json.dumps(report[f'train_{dtype}'])}", flush=True)
+        print(f"profile train {dtype}: {json.dumps(report[f'profile_train_{dtype}'])}",
+              flush=True)
+        del model, step, state, history
+    return dict(attention_cuda.launches), report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from elephas_tpu_torch.ops import attention_cuda
-    from elephas_tpu_torch.ops.attention import blockwise_reference
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -316,32 +563,48 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    lib = attention_cuda.build()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    print("ptxas: " + ptxas_summary(lib.with_suffix(".log").read_text()), flush=True)
+    libs = attention_cuda.build_all()
+    print(f"build: {', '.join(lib.name for lib in libs.values())} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in libs.values():
+        print("ptxas: " + ptxas_summary(lib.with_suffix(".log").read_text()), flush=True)
 
-    errors, timing = kernel_phase(attention_cuda, blockwise_reference)
-    launches, report = slice_phase(attention_cuda)
-    print(f"slice: {json.dumps(report)}")
+    errors, timing = kernel_phase(attention_cuda)
+    launches = {}
+    launches["inference"], report = inference_phase(attention_cuda)
+    print(f"inference: {json.dumps(report)}", flush=True)
+    launches["train"], report = train_phase(attention_cuda)
+    print(f"train: {json.dumps(report)}", flush=True)
 
-    f32, bf16 = timing[torch.float32], timing[torch.bfloat16]
-    entry = {
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "elephas_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "elephas_tpu/ops/attention_pallas.py:36",
-        "launches": launches,
-        "max_abs_err": errors[torch.float32],
-        "max_err_f32": errors[torch.float32],
-        "max_err_bf16": errors[torch.bfloat16],
-        **f32,
-        "bf16": bf16,
+    sources = {
+        "flash_fwd": ("elephas_tpu_torch/csrc/flash_fwd.cu",
+                      "elephas_tpu/ops/attention_pallas.py:36"),
+        "flash_dq": ("elephas_tpu_torch/csrc/flash_bwd.cu",
+                     "elephas_tpu/ops/attention_pallas.py:248"),
+        "flash_dkv": ("elephas_tpu_torch/csrc/flash_bwd.cu",
+                      "elephas_tpu/ops/attention_pallas.py:307"),
     }
-    print(json.dumps({"kernels": [entry]}))
+    entries = []
+    for name in KERNELS:
+        f32, bf16 = timing[name][torch.float32], timing[name][torch.bfloat16]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": launches["train"][name],
+            "launches_by_path": {path: counts[name] for path, counts in launches.items()},
+            "max_abs_err": errors[name][torch.float32],
+            "max_err_f32": errors[name][torch.float32],
+            "max_err_bf16": errors[name][torch.bfloat16],
+            **f32,
+            "bf16": bf16,
+        })
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,
     }}))
     return 0
 

@@ -8,11 +8,12 @@ hand-written CUDA kernels under ``csrc/``, built with ``nvcc`` at first
 use (``ops/attention_cuda.py``).
 
 Entry points (``models.get_model``, ``api.CompiledModel``,
-``models.transformer.generate``) run on ``cuda`` unless the caller passes
-``device="cpu"``; without a GPU and without that argument they raise.
+``models.transformer.generate``, ``engine.step.make_train_step``) run on
+``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
+without that argument they raise.
 
-Importing the package builds and loads nothing: the kernel module is
-imported where a kernel is launched.
+Importing the package builds and loads nothing: a kernel library is
+built and loaded where one of its kernels is first launched.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,602 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces elephas_tpu/ops/attention_pallas.py::_flash_dq_kernel (K2) and
+// ::_flash_dkv_kernel (K3). With p_ij = exp(scale * q_i.k_j - lse_i)
+// recomputed from the forward's float32 lse (0 where the key is masked)
+// and delta_i = rowsum(dO_i * O_i) computed by the caller:
+//
+//   K2: dq_i = scale * sum_j ds_ij k_j
+//   K3: dv_j = sum_i p_ij dO_i,   dk_j = scale * sum_i ds_ij q_i
+//
+// where ds_ij = p_ij (dO_i.v_j - delta_i). Sums run in float32 over tiles
+// of 64 in increasing order and are cast to the input dtype at the end.
+//
+// Design. The TPU grid's sequential axis and its VMEM accumulators become
+// a loop inside one block, as in the forward:
+//
+// - K2: one block per (64-row query tile, batch*head). Q, dO, lse and delta
+//   stay put; K/V tiles of 64 keys stream through shared memory up to the
+//   diagonal (causal) or the end.
+// - K3: one block per (64-key tile, batch*head). K and V stay put; Q/dO
+//   tiles stream from the one holding the tile's first key (causal) or from
+//   the start, with lse and delta staged beside them. dk and dv accumulate
+//   in float32 registers.
+//
+// Two kernels per dtype, no atomics, so the sums are deterministic and in
+// the reference's order. Keys and rows at or past `seq` contribute nothing.
+//
+// - bfloat16: every product on the tensor cores with mma.sync m16n8k16
+//   (bf16 in, f32 accumulate), four warps of 16 rows (K2: query rows; K3:
+//   keys), 16 columns at a time so only two score fragments are live. K3
+//   computes the transposed scores K Q^T directly, so P^T and dS^T come out
+//   of the accumulators in A-operand layout; the second operand of every
+//   "times a tile" product (K in dS K, dO in P^T dO, Q in dS^T Q) is read
+//   with ldmatrix .trans. P and dS are rounded to bf16 before their
+//   products, which is where the error against the plain version comes from.
+// - float32: float32 FMAs (no TF32, to keep full precision). A row (K2) or
+//   key (K3) is split over neighbouring threads that each own 32 (K2) or 16
+//   (K3, which keeps two accumulators) of its columns, so the accumulators
+//   take 32 registers at every head_dim; the partial dot products meet by
+//   warp shuffles. A thread's columns are interleaved 16 bytes at a time
+//   with its neighbours', so the threads of one row read neighbouring banks.
+//   K2 takes 16 keys per step. K3 takes one query row per step, its key's
+//   K and V columns held in registers, the row's Q and dO columns feeding
+//   both the dot products and the updates (per-step arrays of scores made
+//   ptxas spill up to 6 KB a thread).
+//
+// Bound. Causal work is 3*B*H*S^2*D FLOPs for K2 and 4*B*H*S^2*D for K3
+// (the Pallas kernels' CostEstimates) against 5*B*H*S*D*itemsize bytes, so
+// at the LM's shape (8, 8, 2048, 32) both are bound by operations. Neither
+// uses wgmma or TMA, nor overlaps tile loads with compute beyond what other
+// resident blocks provide (later work).
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+using namespace flash;
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------- bf16
+
+template <int D>
+constexpr size_t bf16_smem_bytes() {
+  return sizeof(bf16) * 4 * kTile * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dq, int seq, int causal, float scale_log2,
+                     float scale) {
+  constexpr int DS = D + 8;  // padded row stride (elements)
+  extern __shared__ float4 smem4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);
+  bf16* do_s = q_s + kTile * DS;
+  bf16* k_s = do_s + kTile * DS;
+  bf16* v_s = k_s + kTile * DS;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
+  const int q0 = blockIdx.x * kTile;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float lse2[2], dlt[2];  // lse in base 2, delta, of this thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t i = static_cast<int64_t>(blockIdx.y) * seq + rows[r];
+    lse2[r] = rows[r] < seq ? lse[i] * kLog2e : 0.f;
+    dlt[r] = rows[r] < seq ? delta[i] : 0.f;
+  }
+
+  load_tile<bf16, D, 8, kMmaThreads>(q_s, q + base, q0, seq);
+  load_tile<bf16, D, 8, kMmaThreads>(do_s, dout + base, q0, seq);
+  __syncthreads();
+  uint32_t qf[D / 16][4], dof[D / 16][4];  // this warp's rows as A fragments
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    load_a<DS>(qf[kk], q_s, warp * 16, kk * 16);
+    load_a<DS>(dof[kk], do_s, warp * 16, kk * 16);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    __syncthreads();  // the previous tile is consumed
+    load_tile<bf16, D, 8, kMmaThreads>(k_s, k + base, k0, seq);
+    load_tile<bf16, D, 8, kMmaThreads>(v_s, v + base, k0, seq);
+    __syncthreads();
+
+#pragma unroll
+    for (int kc = 0; kc < kTile; kc += 16) {  // 16 keys at a time
+      float s[2][4] = {}, dp[2][4] = {};      // S = Q K^T, dP = dO V^T
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t b[4];
+        load_b<DS>(b, k_s, kc, kk * 16);
+        mma_bf16(s[0], qf[kk], b[0], b[1]);
+        mma_bf16(s[1], qf[kk], b[2], b[3]);
+        load_b<DS>(b, v_s, kc, kk * 16);
+        mma_bf16(dp[0], dof[kk], b[0], b[1]);
+        mma_bf16(dp[1], dof[kk], b[2], b[3]);
+      }
+      // dS = P (dP - delta) (fragment: c0,c1 row g; c2,c3 row g+8).
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = k0 + kc + j * 8 + 2 * t + (c & 1);
+          const bool valid = col < seq && (!causal || col <= rows[c / 2]);
+          const float p = valid ? exp2f(s[j][c] * scale_log2 - lse2[c / 2]) : 0.f;
+          s[j][c] = p * (dp[j][c] - dlt[c / 2]);
+        }
+      }
+      uint32_t a[4];
+      pack_a(a, s);
+      // dQ += dS K over these 16 keys.
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        load_b_trans<DS>(b, k_s, kc, np * 16);
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= seq) continue;
+    bf16* out = dq + base + static_cast<int64_t>(rows[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+          __floats2bfloat162_rn(scale * acc[n][2 * r], scale * acc[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int seq,
+                      int causal, float scale_log2, float scale) {
+  constexpr int DS = D + 8;
+  extern __shared__ float4 smem4[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem4);
+  bf16* v_s = k_s + kTile * DS;
+  bf16* q_s = v_s + kTile * DS;
+  bf16* do_s = q_s + kTile * DS;
+  __shared__ float lse_s[kTile], dlt_s[kTile];  // lse in base 2, delta
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * kTile;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
+  const int64_t row_base = static_cast<int64_t>(blockIdx.y) * seq;
+  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+
+  load_tile<bf16, D, 8, kMmaThreads>(k_s, k + base, k0, seq);
+  load_tile<bf16, D, 8, kMmaThreads>(v_s, v + base, k0, seq);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
+  }
+
+  // Causal: query tiles before the one holding this tile's first key see
+  // none of its keys.
+  for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kTile) {
+    __syncthreads();  // the previous tile is consumed
+    load_tile<bf16, D, 8, kMmaThreads>(q_s, q + base, q0, seq);
+    load_tile<bf16, D, 8, kMmaThreads>(do_s, dout + base, q0, seq);
+    for (int i = threadIdx.x; i < kTile; i += kMmaThreads) {
+      const bool in = q0 + i < seq;
+      lse_s[i] = in ? lse[row_base + q0 + i] * kLog2e : 0.f;
+      dlt_s[i] = in ? delta[row_base + q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int qc = 0; qc < kTile; qc += 16) {  // 16 query rows at a time
+      float s[2][4] = {}, dp[2][4] = {};      // S^T = K Q^T, dP^T = V dO^T
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4], b[4];
+        load_a<DS>(a, k_s, warp * 16, kk * 16);
+        load_b<DS>(b, q_s, qc, kk * 16);
+        mma_bf16(s[0], a, b[0], b[1]);
+        mma_bf16(s[1], a, b[2], b[3]);
+        load_a<DS>(a, v_s, warp * 16, kk * 16);
+        load_b<DS>(b, do_s, qc, kk * 16);
+        mma_bf16(dp[0], a, b[0], b[1]);
+        mma_bf16(dp[1], a, b[2], b[3]);
+      }
+      // P^T and dS^T (fragment rows are keys, columns query rows).
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qi = qc + j * 8 + 2 * t + (c & 1);
+          const int key = keys[c / 2];
+          const bool valid =
+              key < seq && q0 + qi < seq && (!causal || key <= q0 + qi);
+          const float p = valid ? exp2f(s[j][c] * scale_log2 - lse_s[qi]) : 0.f;
+          s[j][c] = p;
+          dp[j][c] = p * (dp[j][c] - dlt_s[qi]);
+        }
+      }
+      uint32_t pa[4], dsa[4];
+      pack_a(pa, s);
+      pack_a(dsa, dp);
+      // dV += P^T dO and dK += dS^T Q over these 16 query rows.
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        load_b_trans<DS>(b, do_s, qc, np * 16);
+        mma_bf16(dv_acc[2 * np], pa, b[0], b[1]);
+        mma_bf16(dv_acc[2 * np + 1], pa, b[2], b[3]);
+        load_b_trans<DS>(b, q_s, qc, np * 16);
+        mma_bf16(dk_acc[2 * np], dsa, b[0], b[1]);
+        mma_bf16(dk_acc[2 * np + 1], dsa, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= seq) continue;
+    const int64_t off = base + static_cast<int64_t>(keys[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
+          __floats2bfloat162_rn(scale * dk_acc[n][2 * r], scale * dk_acc[n][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
+          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- float32
+
+constexpr int kChunk = 16;  // K2: keys per inner step
+
+// A row (K2) or key (K3) of a tile is split over kSplit = D / kCols
+// neighbouring threads, each owning kCols of its columns in float4 groups
+// that interleave with its neighbours'. K2 owns 32 columns (one 32-float
+// accumulator), K3 16 (two 16-float accumulators), so each kernel keeps
+// 32 accumulator registers at every head_dim.
+template <int D, int kCols>
+struct F32Layout {
+  static constexpr int kSplit = D / kCols;
+  static constexpr int kThreads = kTile * kSplit;
+  static constexpr int kOwn = kCols / 4;  // float4 groups per thread
+  static constexpr int RS = D + 4;        // padded row stride (floats)
+
+  // Column of this thread's i-th float4 group.
+  __device__ static __forceinline__ int col(int part, int i) { return 4 * (part + kSplit * i); }
+
+  // Sum of a value over the kSplit threads that share one row.
+  __device__ static __forceinline__ float row_sum(float x) {
+#pragma unroll
+    for (int o = 1; o < kSplit; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  }
+};
+
+template <int D>
+constexpr size_t f32_smem_bytes(int tiles) {
+  return sizeof(float) * tiles * kTile * (D + 4);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+__device__ __forceinline__ void axpy4(float* acc, float s, float4 x) {
+  acc[0] = fmaf(s, x.x, acc[0]);
+  acc[1] = fmaf(s, x.y, acc[1]);
+  acc[2] = fmaf(s, x.z, acc[2]);
+  acc[3] = fmaf(s, x.w, acc[3]);
+}
+
+// Write a [64][D + 4] shared tile's first rows (up to `seq`) to `dst`.
+template <int D, int kThreads>
+__device__ __forceinline__ void store_tile_f32(float* dst, const float* tile, int row0,
+                                               int seq) {
+  for (int i = threadIdx.x; i < kTile * D / 4; i += kThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    if (row0 + r < seq) {
+      *reinterpret_cast<float4*>(dst + static_cast<int64_t>(row0 + r) * D + c) =
+          *reinterpret_cast<const float4*>(tile + r * (D + 4) + c);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Layout<D, 32>::kThreads)
+flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int seq, int causal, float scale_log2,
+                    float scale) {
+  using L = F32Layout<D, 32>;
+  constexpr int RS = L::RS, kThreads = L::kThreads;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* do_s = q_s + kTile * RS;
+  float* k_s = do_s + kTile * RS;
+  float* v_s = k_s + kTile * RS;
+
+  const int r = threadIdx.x / L::kSplit, part = threadIdx.x % L::kSplit;
+  const int q0 = blockIdx.x * kTile, row = q0 + r;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
+  const int64_t i_row = static_cast<int64_t>(blockIdx.y) * seq + row;
+  const float lse2 = row < seq ? lse[i_row] * kLog2e : 0.f;
+  const float dlt = row < seq ? delta[i_row] : 0.f;
+
+  load_tile<float, D, 4, kThreads>(q_s, q + base, q0, seq);
+  load_tile<float, D, 4, kThreads>(do_s, dout + base, q0, seq);
+  float acc[4 * L::kOwn];
+#pragma unroll
+  for (int i = 0; i < 4 * L::kOwn; ++i) acc[i] = 0.f;
+
+  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    __syncthreads();  // the previous tile is consumed (and q_s, do_s written)
+    load_tile<float, D, 4, kThreads>(k_s, k + base, k0, seq);
+    load_tile<float, D, 4, kThreads>(v_s, v + base, k0, seq);
+    __syncthreads();
+
+#pragma unroll 1
+    for (int j0 = 0; j0 < kTile; j0 += kChunk) {
+      float ds[kChunk], dp[kChunk];  // S and dP, then dS
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) ds[j] = dp[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < L::kOwn; ++i) {
+        const int c = L::col(part, i);
+        const float4 qv = *reinterpret_cast<const float4*>(q_s + r * RS + c);
+        const float4 dov = *reinterpret_cast<const float4*>(do_s + r * RS + c);
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          ds[j] = dot4(qv, *reinterpret_cast<const float4*>(k_s + (j0 + j) * RS + c), ds[j]);
+          dp[j] = dot4(dov, *reinterpret_cast<const float4*>(v_s + (j0 + j) * RS + c), dp[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const float s = L::row_sum(ds[j]);
+        const float dpj = L::row_sum(dp[j]);
+        const int col = k0 + j0 + j;
+        const bool valid = col < seq && (!causal || col <= row);
+        const float p = valid ? exp2f(s * scale_log2 - lse2) : 0.f;
+        ds[j] = p * (dpj - dlt);
+      }
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+#pragma unroll
+        for (int i = 0; i < L::kOwn; ++i) {
+          axpy4(acc + 4 * i, ds[j],
+                *reinterpret_cast<const float4*>(k_s + (j0 + j) * RS + L::col(part, i)));
+        }
+      }
+    }
+  }
+
+  // Stage scale * dq in this thread's own slots of q_s, then store the tile
+  // row-major so consecutive threads write consecutive addresses.
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < L::kOwn; ++i) {
+    *reinterpret_cast<float4*>(q_s + r * RS + L::col(part, i)) =
+        make_float4(scale * acc[4 * i], scale * acc[4 * i + 1], scale * acc[4 * i + 2],
+                    scale * acc[4 * i + 3]);
+  }
+  __syncthreads();
+  store_tile_f32<D, kThreads>(dq + base, q_s, q0, seq);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Layout<D, 16>::kThreads)
+flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int seq, int causal,
+                     float scale_log2, float scale) {
+  using L = F32Layout<D, 16>;
+  constexpr int RS = L::RS, kThreads = L::kThreads;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* do_s = q_s + kTile * RS;
+  __shared__ float lse_s[kTile], dlt_s[kTile];  // lse in base 2, delta
+
+  const int r = threadIdx.x / L::kSplit, part = threadIdx.x % L::kSplit;
+  const int k0 = blockIdx.x * kTile, key = k0 + r;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
+  const int64_t row_base = static_cast<int64_t>(blockIdx.y) * seq;
+
+  // This thread's columns of its key's K and V rows stay in registers.
+  float4 kr[L::kOwn], vr[L::kOwn];
+#pragma unroll
+  for (int i = 0; i < L::kOwn; ++i) {
+    const int64_t off = base + static_cast<int64_t>(key) * D + L::col(part, i);
+    kr[i] = key < seq ? *reinterpret_cast<const float4*>(k + off) : make_float4(0, 0, 0, 0);
+    vr[i] = key < seq ? *reinterpret_cast<const float4*>(v + off) : make_float4(0, 0, 0, 0);
+  }
+  float dk_acc[4 * L::kOwn], dv_acc[4 * L::kOwn];
+#pragma unroll
+  for (int i = 0; i < 4 * L::kOwn; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kTile) {
+    __syncthreads();  // the previous tile is consumed
+    load_tile<float, D, 4, kThreads>(q_s, q + base, q0, seq);
+    load_tile<float, D, 4, kThreads>(do_s, dout + base, q0, seq);
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+      const bool in = q0 + i < seq;
+      lse_s[i] = in ? lse[row_base + q0 + i] * kLog2e : 0.f;
+      dlt_s[i] = in ? delta[row_base + q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    // One query row at a time: its Q and dO columns feed both the dot
+    // products and, from the same registers, the dK and dV updates.
+#pragma unroll 4
+    for (int j = 0; j < kTile; ++j) {
+      float4 qj[L::kOwn], dj[L::kOwn];
+      float s = 0.f, dp = 0.f;  // S^T and dP^T for (key, q0 + j)
+#pragma unroll
+      for (int i = 0; i < L::kOwn; ++i) {
+        qj[i] = *reinterpret_cast<const float4*>(q_s + j * RS + L::col(part, i));
+        dj[i] = *reinterpret_cast<const float4*>(do_s + j * RS + L::col(part, i));
+        s = dot4(kr[i], qj[i], s);
+        dp = dot4(vr[i], dj[i], dp);
+      }
+      s = L::row_sum(s);
+      dp = L::row_sum(dp);
+      const int qpos = q0 + j;
+      const bool valid = key < seq && qpos < seq && (!causal || key <= qpos);
+      const float p = valid ? exp2f(s * scale_log2 - lse_s[j]) : 0.f;
+      const float ds = p * (dp - dlt_s[j]);
+#pragma unroll
+      for (int i = 0; i < L::kOwn; ++i) {
+        axpy4(dv_acc + 4 * i, p, dj[i]);
+        axpy4(dk_acc + 4 * i, ds, qj[i]);
+      }
+    }
+  }
+
+  // Stage scale * dk and dv in this thread's own slots of q_s and do_s,
+  // then store both tiles row-major.
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < L::kOwn; ++i) {
+    const int c = L::col(part, i);
+    *reinterpret_cast<float4*>(q_s + r * RS + c) =
+        make_float4(scale * dk_acc[4 * i], scale * dk_acc[4 * i + 1],
+                    scale * dk_acc[4 * i + 2], scale * dk_acc[4 * i + 3]);
+    *reinterpret_cast<float4*>(do_s + r * RS + c) =
+        make_float4(dv_acc[4 * i], dv_acc[4 * i + 1], dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+  }
+  __syncthreads();
+  store_tile_f32<D, kThreads>(dk + base, q_s, k0, seq);
+  store_tile_f32<D, kThreads>(dv + base, do_s, k0, seq);
+}
+
+// ---------------------------------------------------------------- launch
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *out0, *out1;  // dq; or dk, dv
+  int batch_heads, seq, causal;
+  float scale_log2, scale;
+  cudaStream_t stream;
+};
+
+template <int D, bool kBf16>
+cudaError_t launch_dq(const Args& a) {
+  const dim3 grid((a.seq + kTile - 1) / kTile, a.batch_heads);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  cudaError_t err;
+  if constexpr (kBf16) {
+    constexpr size_t smem = bf16_smem_bytes<D>();
+    if ((err = allow_smem(flash_dq_bf16_kernel<D>, smem)) != cudaSuccess) return err;
+    flash_dq_bf16_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), lse, delta,
+        static_cast<bf16*>(a.out0), a.seq, a.causal, a.scale_log2, a.scale);
+  } else {
+    constexpr size_t smem = f32_smem_bytes<D>(4);
+    constexpr int threads = F32Layout<D, 32>::kThreads;
+    if ((err = allow_smem(flash_dq_f32_kernel<D>, smem)) != cudaSuccess) return err;
+    flash_dq_f32_kernel<D><<<grid, threads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse, delta,
+        static_cast<float*>(a.out0), a.seq, a.causal, a.scale_log2, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int D, bool kBf16>
+cudaError_t launch_dkv(const Args& a) {
+  const dim3 grid((a.seq + kTile - 1) / kTile, a.batch_heads);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  cudaError_t err;
+  if constexpr (kBf16) {
+    constexpr size_t smem = bf16_smem_bytes<D>();
+    if ((err = allow_smem(flash_dkv_bf16_kernel<D>, smem)) != cudaSuccess) return err;
+    flash_dkv_bf16_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), lse, delta,
+        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.seq, a.causal,
+        a.scale_log2, a.scale);
+  } else {
+    constexpr size_t smem = f32_smem_bytes<D>(2);
+    constexpr int threads = F32Layout<D, 16>::kThreads;
+    if ((err = allow_smem(flash_dkv_f32_kernel<D>, smem)) != cudaSuccess) return err;
+    flash_dkv_f32_kernel<D><<<grid, threads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse, delta,
+        static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.seq, a.causal,
+        a.scale_log2, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kDq, bool kBf16>
+cudaError_t dispatch_dim(const Args& a, int head_dim) {
+  switch (head_dim) {
+    case 32:
+      return kDq ? launch_dq<32, kBf16>(a) : launch_dkv<32, kBf16>(a);
+    case 64:
+      return kDq ? launch_dq<64, kBf16>(a) : launch_dkv<64, kBf16>(a);
+    case 128:
+      return kDq ? launch_dq<128, kBf16>(a) : launch_dkv<128, kBf16>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kDq>
+int dispatch(const Args& a, int head_dim, int is_bf16) {
+  return static_cast<int>(is_bf16 ? dispatch_dim<kDq, true>(a, head_dim)
+                                  : dispatch_dim<kDq, false>(a, head_dim));
+}
+
+}  // namespace
+
+// q, k, v, dout, dq: (batch_heads, seq, head_dim) contiguous and 16-byte
+// aligned, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse, delta:
+// (batch_heads, seq) float32. Launches K2 on `stream` and returns
+// cudaGetLastError() after the launch (0 = success).
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, int batch_heads,
+                            int seq, int head_dim, int is_bf16, int causal, float sm_scale,
+                            void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, batch_heads, seq, causal,
+               sm_scale * kLog2e, sm_scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(a, head_dim, is_bf16);
+}
+
+// As flash_bwd_dq, writing dk and dv (the layout of k and v); launches K3.
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dk, void* dv,
+                             int batch_heads, int seq, int head_dim, int is_bf16, int causal,
+                             float sm_scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dk, dv, batch_heads, seq, causal,
+               sm_scale * kLog2e, sm_scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(a, head_dim, is_bf16);
+}

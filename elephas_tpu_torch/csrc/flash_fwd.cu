@@ -30,74 +30,22 @@
 // wgmma or TMA yet (later work), and neither overlaps tile loads with
 // compute beyond what other resident blocks provide.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;  // query rows per block
-constexpr int kBlockK = 64;  // keys per shared-memory tile
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace flash;
+
+constexpr int kBlockQ = kTile;  // query rows per block
+constexpr int kBlockK = kTile;  // keys per shared-memory tile
 
 // ---------------------------------------------------------------- bf16
-
-constexpr int kWarps = 4;                 // 16 query rows each
-constexpr int kMmaThreads = 32 * kWarps;
 
 template <int D>
 constexpr size_t bf16_smem_bytes() {
   return sizeof(__nv_bfloat16) * (kBlockQ + 2 * kBlockK) * (D + 8);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16x8, f32) += a (16x16, bf16, row-major) * b (16x8, bf16, col-major).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 64 rows of D bf16 from `src` (row stride D) starting at `row0` into a
-// [64][D + 8] shared tile, 16 bytes per load; rows past `seq` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int seq) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < 64 * kVecs; i += kMmaThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < seq) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<int64_t>(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
-  }
 }
 
 template <int D>
@@ -119,12 +67,12 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  load_tile_bf16<D>(q_s, q + base, q0, seq);
+  load_tile<__nv_bfloat16, D, 8, kMmaThreads>(q_s, q + base, q0, seq);
   __syncthreads();
   uint32_t qf[D / 16][4];  // this warp's 16 query rows as A fragments
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    ldsm_x4(qf[kk], q_s + (warp * 16 + lane % 16) * DS + kk * 16 + (lane / 16) * 8);
+    load_a<DS>(qf[kk], q_s, warp * 16, kk * 16);
   }
 
   float acc[D / 8][4];
@@ -136,8 +84,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int kv_end = causal ? min(seq, q0 + kBlockQ) : seq;
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile is consumed
-    load_tile_bf16<D>(k_s, k + base, k0, seq);
-    load_tile_bf16<D>(v_s, v + base, k0, seq);
+    load_tile<__nv_bfloat16, D, 8, kMmaThreads>(k_s, k + base, k0, seq);
+    load_tile<__nv_bfloat16, D, 8, kMmaThreads>(v_s, v + base, k0, seq);
     __syncthreads();
 
     // S = Q K^T for 16 rows x 64 keys: 8 fragments of 16x8.
@@ -149,8 +97,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int jp = 0; jp < kBlockK / 16; ++jp) {
         uint32_t b[4];
-        ldsm_x4(b, k_s + (jp * 16 + lane % 8 + (lane / 16) * 8) * DS + kk * 16 +
-                       ((lane / 8) % 2) * 8);
+        load_b<DS>(b, k_s, jp * 16, kk * 16);
         mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
         mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
       }
@@ -201,8 +148,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int np = 0; np < D / 16; ++np) {
         uint32_t b[4];
-        ldsm_x4_trans(b, v_s + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * DS +
-                             np * 16 + (lane / 16) * 8);
+        load_b_trans<DS>(b, v_s, kk * 16, np * 16);
         mma_bf16(acc[2 * np], a, b[0], b[1]);
         mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
       }
@@ -364,9 +310,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if constexpr (kBf16) {
     using T = __nv_bfloat16;
     constexpr size_t smem = bf16_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    err = allow_smem(flash_fwd_bf16_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     flash_fwd_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -374,9 +318,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
         scale_log2);
   } else {
     constexpr size_t smem = f32_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    err = allow_smem(flash_fwd_f32_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     flash_fwd_f32_kernel<D><<<grid, kBlockQ, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),

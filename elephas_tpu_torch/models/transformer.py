@@ -188,9 +188,14 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.pos_embed.device
 
-    def forward(self, tokens, cache: Optional[DecodeCache] = None,
-                pad_offset=None):
+    def forward(self, tokens, train: bool = False,
+                cache: Optional[DecodeCache] = None, pad_offset=None):
         """Next-token logits (batch, seq, vocab) in float32.
+
+        ``train`` is the flax model's flag; the LM has no dropout or
+        batch statistics, so it changes nothing. Gradients reach the
+        float32 parameters through ``_dense``'s casts, so a bf16 model
+        keeps float32 parameters and gradients, as the flax model does.
 
         Without ``cache``: the full causal forward. With ``cache``: the
         incremental decode path — the block's k/v are written into the

@@ -1,11 +1,13 @@
 """Blockwise (flash) attention (counterpart of ``elephas_tpu/ops/attention.py``).
 
 ``flash_attention(q, k, v, causal)`` computes softmax attention in tiles
-so the (seq × seq) score matrix never exists in device memory. The
-device decides the implementation: a CUDA tensor launches the
-hand-written kernel (``ops/attention_cuda.py``, ``csrc/flash_fwd.cu``)
-or raises; a CPU tensor runs ``blockwise_reference``, the kernel's plain
-PyTorch version with the same numerics.
+so the (seq × seq) score matrix never exists in device memory, forward
+or backward. The device decides the implementation: a CUDA tensor
+launches the hand-written kernels (``ops/attention_cuda.py``; K1
+forward, K2 and K3 backward) or raises; a CPU tensor runs
+``blockwise_reference``, K1's plain PyTorch version with the same
+numerics, and autograd differentiates it. ``flash_backward_reference``
+is the plain version of K2 and K3.
 
 Shapes: q, k, v are (batch, heads, seq, head_dim); the output is the
 same, and the optional lse is (batch, heads, seq) float32.
@@ -20,8 +22,8 @@ import torch
 
 from elephas_tpu_torch.ops import attention_cuda
 
-# The CUDA kernel's tile: 64 query rows by 64 keys. The plain version
-# defaults to the same tiling so both sum in the same order of tiles.
+# The CUDA kernels' tile: 64 query rows by 64 keys. The plain versions
+# default to the same tiling so both sum in the same order of tiles.
 BLOCK_Q = 64
 BLOCK_K = 64
 
@@ -108,24 +110,65 @@ def cache_attention_mask(max_len, seq, idx, pad_offset=None, device=None):
     return valid[:, None]  # broadcast over heads
 
 
+def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
+                             block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+    """Plain PyTorch version of the flash backward (K2 and K3), returning
+    ``(dq, dk, dv)`` in the input dtypes.
+
+    Follows the numerics of ``attention_pallas.py::_flash_dq_kernel`` and
+    ``_flash_dkv_kernel``: ``delta = rowsum(dO * O)`` in float32; p is
+    recomputed as ``exp(scale * q.k - lse)`` from the forward's lse and
+    is 0 where the key is masked; ``ds = p * (dO.v - delta)``; ``dq =
+    scale * sum ds k``, ``dv = sum p^T dO`` and ``dk = scale * sum ds^T q``
+    accumulate in float32 over tiles in increasing order. Causal tiles
+    wholly above the diagonal are skipped, as the kernels skip them.
+    """
+    s, d = q.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    lse = lse.float()
+    delta = (dof * o.float()).sum(-1)
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for q0 in range(0, s, block_q):
+        rows = slice(q0, q0 + block_q)
+        q_pos = torch.arange(q0, min(s, q0 + block_q), device=q.device)
+        k_end = min(s, q0 + block_q) if causal else s
+        for k0 in range(0, k_end, block_k):
+            cols = slice(k0, k0 + block_k)
+            scores = scale * (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2))
+            p = torch.exp(scores - lse[:, :, rows, None])
+            if causal:
+                k_pos = torch.arange(k0, min(s, k0 + block_k), device=q.device)
+                p = p.masked_fill(k_pos[None, :] > q_pos[:, None], 0.0)
+            dp = dof[:, :, rows] @ vf[:, :, cols].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, rows, None])
+            dq[:, :, rows] += ds @ kf[:, :, cols]
+            dv[:, :, cols] += p.transpose(-1, -2) @ dof[:, :, rows]
+            dk[:, :, cols] += ds.transpose(-1, -2) @ qf[:, :, rows]
+    return (scale * dq).to(q.dtype), (scale * dk).to(k.dtype), dv.to(v.dtype)
+
+
 class _FlashAttentionCUDA(torch.autograd.Function):
-    """The CUDA forward kernel under autograd. Its backward kernels (K2
-    and K3 of the JAX package) are not ported yet."""
+    """The CUDA kernels under autograd: K1 forward, K2 and K3 backward,
+    as the JAX package's ``custom_vjp`` pairs the Pallas kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
         o, lse = attention_cuda.flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, grad_o, grad_lse):
-        raise NotImplementedError(
-            "the flash-attention backward kernels (K2 _flash_dq_kernel and "
-            "K3 _flash_dkv_kernel of elephas_tpu/ops/attention_pallas.py) "
-            "are not ported yet; they arrive with the LM training slice "
-            "(ROADMAP.md, queue 1)"
-        )
+        q, k, v, o, lse = ctx.saved_tensors
+        # The model's head merge hands the gradient back as a strided view.
+        do = grad_o.contiguous()
+        delta = (do.float() * o.float()).sum(-1)
+        dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -134,7 +177,7 @@ def flash_attention(q, k, v, causal: bool = True,
                     return_lse: bool = False):
     """Blockwise attention; ``(o, lse)`` with ``return_lse=True``.
 
-    A CUDA tensor launches the hand-written kernel, which tiles at
+    A CUDA tensor launches the hand-written kernels, which tile at
     ``BLOCK_Q`` x ``BLOCK_K``; other block sizes raise there. A CPU
     tensor runs ``blockwise_reference`` at the given tiling (default the
     kernel's). q, k and v must have one shape: the kernel assumes equal

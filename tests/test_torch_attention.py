@@ -2,10 +2,10 @@
 JAX package's, on the CPU.
 
 The JAX side runs as its own tests run it here (``flash_attention``
-reaches ``_blockwise_reference``, the Pallas kernel needs a TPU); the port
-runs its plain versions, which is what a CPU tensor selects. The CUDA
-kernel itself is checked against the same plain version on the card by
-``chip_smoke.py``.
+reaches ``_blockwise_reference`` and its XLA VJP; the Pallas kernels need a
+TPU); the port runs its plain versions, which is what a CPU tensor
+selects. The CUDA kernels themselves are checked against the same plain
+versions on the card by ``chip_smoke.py``.
 """
 
 import jax.numpy as jnp
@@ -37,6 +37,29 @@ def jax_out():
         return memo[key]
 
     return get
+
+
+@pytest.fixture(scope="module")
+def jax_vjp():
+    """JAX flash_attention gradients (q, k, v) for a seeded cotangent,
+    computed once per (causal, dim, seq)."""
+    import jax
+
+    memo = {}
+
+    def get(causal, head_dim, seq):
+        key = (causal, head_dim, seq)
+        if key not in memo:
+            q, k, v = _qkv(head_dim, seq)
+            out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=causal), q, k, v)
+            memo[key] = [np.asarray(g) for g in vjp(_cotangent(q.shape))]
+        return memo[key]
+
+    return get
+
+
+def _cotangent(shape):
+    return np.random.default_rng(7).standard_normal(shape).astype(np.float32)
 
 
 @pytest.mark.parametrize("blocks", [(16, 32), (64, 64)])
@@ -97,7 +120,7 @@ def test_cpu_flash_attention_gradients_match_jax():
     import jax
 
     q, k, v = _qkv(32, 37)
-    cot = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    cot = _cotangent(q.shape)
     want = jax.grad(
         lambda a, b, c: jnp.sum(jax_flash(a, b, c, causal=True) * cot),
         argnums=(0, 1, 2),
@@ -108,27 +131,79 @@ def test_cpu_flash_attention_gradients_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
-def test_cuda_function_backward_raises(monkeypatch):
-    """The kernel's autograd Function has no backward yet (K2/K3): it
-    raises rather than differentiating anything else. The launch is
-    replaced by a stand-in, since there is no card here."""
+@pytest.mark.parametrize("blocks", [(16, 32), (64, 64)])
+@pytest.mark.parametrize("seq", [37, 100])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_reference_matches_jax(jax_vjp, causal, head_dim, seq, blocks):
+    """K2/K3's plain version, fed the forward's o and lse, equals the JAX
+    package's VJP and torch autograd through the plain forward."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(head_dim, seq))
+    do = torch.from_numpy(_cotangent(q.shape))
+    o, lse = ops.blockwise_reference(q, k, v, causal, *blocks)
+    got = ops.flash_backward_reference(q, k, v, o, lse, do, causal, *blocks)
+    # Both sides compute in float32 and differ only in summation order.
+    for g, want in zip(got, jax_vjp(causal, head_dim, seq)):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), want, atol=1e-5, rtol=1e-5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    autograd = torch.autograd.grad(
+        ops.blockwise_reference(*leaves, causal, *blocks)[0], leaves, do)
+    for g, want in zip(got, autograd):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_cuda_function_backward_wiring(monkeypatch):
+    """The kernels' autograd Function: forward saves K1's o and lse; the
+    backward passes dO contiguous and delta = rowsum(dO * O) in float32 to
+    K2 and K3, once each, and returns their gradients in q, k, v's slots.
+    The launches are replaced by stand-ins, since there is no card here."""
     calls = []
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(32, 8, batch=1))
+    lse = torch.from_numpy(rng.standard_normal((1, 2, 8)).astype(np.float32))
+    grads = [torch.full_like(q, float(i)) for i in (1, 2, 3)]
 
-    def fake_flash_fwd(q, k, v, causal):
-        calls.append(causal)
-        return q * 1.0, torch.zeros(q.shape[:3])
+    def fake_fwd(q_, k_, v_, causal):
+        calls.append(("fwd", causal))
+        return q_ * 2.0, lse
 
-    monkeypatch.setattr(attention_cuda, "flash_fwd", fake_flash_fwd)
-    before = attention_cuda.launches
-    q = torch.randn(1, 2, 8, 32, requires_grad=True)
-    o, lse = ops._FlashAttentionCUDA.apply(q, q.detach(), q.detach(), True)
-    assert calls == [True]
-    with pytest.raises(NotImplementedError, match="K2"):
-        o.sum().backward()
+    def fake_dq(q_, k_, v_, do, lse_, delta, causal):
+        calls.append(("dq", causal, do, lse_, delta))
+        return grads[0]
+
+    def fake_dkv(q_, k_, v_, do, lse_, delta, causal):
+        calls.append(("dkv", causal, do, lse_, delta))
+        return grads[1], grads[2]
+
+    monkeypatch.setattr(attention_cuda, "flash_fwd", fake_fwd)
+    monkeypatch.setattr(attention_cuda, "flash_bwd_dq", fake_dq)
+    monkeypatch.setattr(attention_cuda, "flash_bwd_dkv", fake_dkv)
+    before = dict(attention_cuda.launches)
+    o, out_lse = ops._FlashAttentionCUDA.apply(q, k, v, True)
+    assert out_lse is lse and not out_lse.requires_grad
+    # The model's head merge: the gradient reaches o as a strided view.
+    merged = o.transpose(1, 2).reshape(1, 8, 64)
+    cot = torch.from_numpy(rng.standard_normal((1, 8, 64)).astype(np.float32))
+    (merged * cot).sum().backward()
+    want_do = cot.reshape(1, 8, 2, 32).transpose(1, 2)
+    assert [c[0] for c in calls] == ["fwd", "dq", "dkv"]
+    for name, causal, do, lse_, delta in calls[1:]:
+        assert causal is True and do.is_contiguous() and lse_ is lse
+        torch.testing.assert_close(do, want_do, rtol=0, atol=0)
+        assert delta.dtype == torch.float32
+        torch.testing.assert_close(delta, (want_do * (q.detach() * 2.0)).sum(-1))
+    for leaf, want in zip((q, k, v), grads):
+        assert torch.equal(leaf.grad, want)
     assert attention_cuda.launches == before
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
     q = torch.zeros(1, 2, 8, 32)
+    rows = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         attention_cuda.flash_fwd(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_cuda.flash_bwd_dq(q, q, q, q, rows, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_cuda.flash_bwd_dkv(q, q, q, q, rows, rows)

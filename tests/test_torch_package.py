@@ -33,7 +33,7 @@ def test_importing_every_submodule_loads_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "from elephas_tpu_torch.ops import attention_cuda\n"
         "print(json.dumps({'imported': names, 'loaded': sorted(sys.modules),\n"
-        "                  'kernel_loaded': attention_cuda._lib is not None}))\n"
+        "                  'kernel_loaded': bool(attention_cuda._libs)}))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
