@@ -8,16 +8,23 @@ Phases, in order; any failed check raises and the process exits non-zero:
 1. environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions;
 2. build: ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` compiled with
-   ``nvcc`` for ``sm_90a``, one ``nvcc`` each, both at once;
+   ``nvcc`` for ``sm_90a``, one ``nvcc`` each, both at once; ptxas's
+   registers and spills per kernel, and from ``cuobjdump -sass`` the
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of each bf16
+   kernel: the run fails if bf16 K1 or K3 has none of either;
 3. kernels: the flash-attention forward (K1) against its plain PyTorch
    version (``blockwise_reference``), then the backward kernels (K2 dq,
    K3 dk/dv) against theirs (``flash_backward_reference``, on K1's o and
    lse and a seeded dO; by max error and by norm, over each output and
    each 64-row block), on the card, at the LM's shape in float32 and
    bf16, at head_dim 64 and 128 and at a 37-token sequence, causal and
-   full; each timed at the LM's shape beside its plain version and one
-   PyTorch call (``F.scaled_dot_product_attention`` and its backward: the
-   yardsticks, never called by the port) and printed with its bound;
+   full, the plain versions at each kernel's own tiling
+   (``attention_cuda.kernel_tiles``); each timed at the LM's shape beside
+   its plain version and one PyTorch call
+   (``F.scaled_dot_product_attention`` and its backward: the yardsticks,
+   never called by the port) and printed with its bound, the floor the
+   exponentials set (one per valid score, 16 a clock per SM at the card's
+   maximum SM clock) and the card's clock, power draw and temperature;
 4. inference: the Transformer LM at the registry's full width
    (``get_model("transformer_lm")``, random weights from a NumPy seed) —
    scoring forwards of 8 x 2048 tokens in float32 and bf16 through K1,
@@ -44,6 +51,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -117,6 +125,40 @@ def backward_bounds(shape, dtype, causal):
             "flash_dkv": bound_ms(8.0 * half * b * h * s * s * d, 6 * tensor + rows, dtype)}
 
 
+def exp_floor_ms(shape, causal, sms, clock_mhz):
+    """Least time (ms) the special-function units take for the kernel's
+    exponentials: one per valid score element, 16 per clock per SM."""
+    b, h, s, _ = shape
+    valid = b * h * (s * (s + 1) / 2 if causal else s * s)
+    return valid / (16.0 * sms * clock_mhz * 1e6) * 1e3
+
+
+def smi(fields):
+    """The card's ``nvidia-smi`` values of ``fields`` (comma-separated), as
+    printed (units included)."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def sass_counts(lib, cuobjdump):
+    """``HGMMA`` and ``UTMALDG`` instructions per kernel instantiation in
+    the library's SASS (``cuobjdump -sass``)."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        entry = re.search(r"Function : \S*?(flash_[a-z]+)_(bf16|f32)_kernelILi(\d+)E", line)
+        if entry:
+            name = f"{entry.group(1)} {entry.group(2)} D={entry.group(3)}"
+            counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name:
+            for op in counts[name]:
+                counts[name][op] += line.count(op)
+    return counts
+
+
 def ptxas_summary(log):
     """Registers and spills per kernel instantiation from nvcc's -Xptxas -v."""
     parts, name = [], None
@@ -179,8 +221,9 @@ def check(cond, what):
 
 
 def kernel_phase(attention_cuda):
-    """Every kernel against its plain version at 14 cases; times at the
-    LM's shape. Returns per-kernel max errors and timings by dtype."""
+    """Every kernel against its plain version at 14 cases, the plain
+    version at the kernel's own tiling; times at the LM's shape. Returns
+    per-kernel max errors and timings by dtype."""
     from elephas_tpu_torch.ops.attention import (
         blockwise_reference,
         flash_backward_reference,
@@ -199,7 +242,10 @@ def kernel_phase(attention_cuda):
     norm_worst = {name: {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
                   for name in KERNELS if name != "flash_fwd"}
     timing = {name: {} for name in KERNELS}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_clock = float(smi("clocks.max.sm").split()[0])
     for shape, causal, dtype in cases:
+        tiles = {name: attention_cuda.kernel_tiles(name, dtype, shape[3]) for name in KERNELS}
         q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                        for _ in range(4))
         o, lse = attention_cuda.flash_fwd(q, k, v, causal)
@@ -207,7 +253,7 @@ def kernel_phase(attention_cuda):
         dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, causal)
         dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
-        ref_o, ref_lse = blockwise_reference(q, k, v, causal)
+        ref_o, ref_lse = blockwise_reference(q, k, v, causal, *tiles["flash_fwd"])
         err_o = (o.float() - ref_o.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         tol_o, tol_lse = TOL[dtype]
@@ -218,8 +264,12 @@ def kernel_phase(attention_cuda):
               f"flash_fwd disagrees with blockwise_reference at {shape} {dtype}")
         errors["flash_fwd"][dtype] = max(errors["flash_fwd"][dtype], err_o, err_lse)
 
-        ref = dict(zip(("dq", "dk", "dv"),
-                       flash_backward_reference(q, k, v, o, lse, do, causal)))
+        # K2's dq and K3's dk, dv each from the plain version at its tiling.
+        ref = dict(zip(("dq", "dk", "dv"), flash_backward_reference(
+            q, k, v, o, lse, do, causal, *tiles["flash_dq"])))
+        if tiles["flash_dkv"] != tiles["flash_dq"]:
+            ref["dk"], ref["dv"] = flash_backward_reference(
+                q, k, v, o, lse, do, causal, *tiles["flash_dkv"])[1:]
         parts = []
         for name, label, got in (("flash_dq", "dq", dq), ("flash_dkv", "dk", dk),
                                  ("flash_dkv", "dv", dv)):
@@ -241,18 +291,21 @@ def kernel_phase(attention_cuda):
 
         if shape[2] == SEQ:
             fwd_bound, fwd_by = flash_bound(shape, dtype, causal)
+            exp_floor = exp_floor_ms(shape, causal, sms, max_clock)
             timing["flash_fwd"][dtype] = {
                 "ms": cuda_ms(lambda: attention_cuda.flash_fwd(q, k, v, causal), 20),
-                "plain_ms": cuda_ms(lambda: blockwise_reference(q, k, v, causal), 3, 1),
+                "plain_ms": cuda_ms(lambda: blockwise_reference(
+                    q, k, v, causal, *tiles["flash_fwd"]), 3, 1),
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal), 20),
                 "bound_ms": fwd_bound,
                 "bound_by": fwd_by,
+                "exp_floor_ms": exp_floor,
             }
             # The plain version and SDPA's backward each compute dq, dk and
             # dv together; SDPA's forward runs once, outside the timing.
             plain_ms = cuda_ms(lambda: flash_backward_reference(
-                q, k, v, o, lse, do, causal), 3, 1)
+                q, k, v, o, lse, do, causal, *tiles["flash_dkv"]), 3, 1)
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
             library_ms = cuda_ms(lambda: torch.autograd.grad(
@@ -266,7 +319,12 @@ def kernel_phase(attention_cuda):
             for name, (bound, by) in backward_bounds(shape, dtype, causal).items():
                 timing[name][dtype] = {"ms": cuda_ms(launch[name], 20),
                                        "plain_ms": plain_ms, "library_ms": library_ms,
-                                       "bound_ms": bound, "bound_by": by}
+                                       "bound_ms": bound, "bound_by": by,
+                                       "exp_floor_ms": exp_floor}
+            print(f"card during the timings ({dtype}): "
+                  f"{smi('clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu')} "
+                  "(clocks.sm, clocks.max.sm, power.draw, power.limit, temperature.gpu)",
+                  flush=True)
             for name in KERNELS:
                 print(f"timing {name} {tuple(shape)} {dtype}: "
                       f"{json.dumps(timing[name][dtype])}", flush=True)
@@ -553,11 +611,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(card)
+    print(smi("name,power.limit"))
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -566,8 +620,27 @@ def main():
     libs = attention_cuda.build_all()
     print(f"build: {', '.join(lib.name for lib in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for lib in libs.values():
-        print("ptxas: " + ptxas_summary(lib.with_suffix(".log").read_text()), flush=True)
+    cuobjdump = str(Path(attention_cuda._nvcc()).with_name("cuobjdump"))
+    instances = {"flash_fwd": [f"flash_fwd {t} D={d}" for t in ("bf16", "f32")
+                               for d in attention_cuda.HEAD_DIMS],
+                 "flash_bwd": [f"flash_{k} {t} D={d}" for k in ("dq", "dkv")
+                               for t in ("bf16", "f32") for d in attention_cuda.HEAD_DIMS]}
+    for source, lib in libs.items():
+        log = lib.with_suffix(".log").read_text()
+        summary = ptxas_summary(log)
+        print("ptxas: " + summary, flush=True)
+        check(all(f"{name}:" in summary for name in instances[source]),
+              f"ptxas summary of {lib.name} misses a kernel of {instances[source]}")
+        for line in log.splitlines():
+            if "warning" in line.lower() or "Performance Loss" in line:
+                print(f"nvcc: {line.strip()}", flush=True)
+        counts = sass_counts(lib, cuobjdump)
+        print(f"sass {lib.name}: {json.dumps(counts)}", flush=True)
+        for name in instances[source]:
+            if name.startswith(("flash_fwd bf16", "flash_dkv bf16")):
+                ops = counts.get(name, {})
+                check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0,
+                      f"{name} has {ops} in its SASS: no wgmma or no TMA load")
 
     errors, timing = kernel_phase(attention_cuda)
     launches = {}
@@ -604,7 +677,7 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": 1,
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

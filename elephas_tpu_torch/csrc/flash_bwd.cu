@@ -17,22 +17,37 @@
 // - K2: one block per (64-row query tile, batch*head). Q, dO, lse and delta
 //   stay put; K/V tiles of 64 keys stream through shared memory up to the
 //   diagonal (causal) or the end.
-// - K3: one block per (64-key tile, batch*head). K and V stay put; Q/dO
-//   tiles stream from the one holding the tile's first key (causal) or from
-//   the start, with lse and delta staged beside them. dk and dv accumulate
-//   in float32 registers.
+// - K3: one block per (key tile, batch*head): 64 keys in float32; in bf16
+//   192 at D = 32 and 128 at D = 64 and 128. K and V stay put; Q/dO tiles
+//   of 64 rows stream from the one
+//   holding the tile's first key (causal) or from the start, with lse and
+//   delta staged beside them. dk and dv accumulate in float32 registers.
 //
 // Two kernels per dtype, no atomics, so the sums are deterministic and in
 // the reference's order. Keys and rows at or past `seq` contribute nothing.
 //
-// - bfloat16: every product on the tensor cores with mma.sync m16n8k16
-//   (bf16 in, f32 accumulate), four warps of 16 rows (K2: query rows; K3:
-//   keys), 16 columns at a time so only two score fragments are live. K3
-//   computes the transposed scores K Q^T directly, so P^T and dS^T come out
-//   of the accumulators in A-operand layout; the second operand of every
-//   "times a tile" product (K in dS K, dO in P^T dO, Q in dS^T Q) is read
-//   with ldmatrix .trans. P and dS are rounded to bf16 before their
-//   products, which is where the error against the plain version comes from.
+// - bfloat16 K2: every product on the tensor cores with mma.sync m16n8k16
+//   (bf16 in, f32 accumulate), four warps of 16 query rows, 16 keys at a
+//   time so only two score fragments are live; K in dS K is read with
+//   ldmatrix .trans.
+// - bfloat16 K3, built for Hopper (sm90.cuh): warp 0 is the producer. It
+//   loads the block's K and V tiles once by TMA and streams Q and dO tiles
+//   through a 3-stage ring with full/empty mbarriers, its lanes storing the
+//   tile's lse (base 2) and delta beside them (rows past `seq` as 0; TMA
+//   fills those rows of Q and dO with zeros). Consumer warpgroups own 64
+//   keys each: three at D = 32 (160 registers a thread), two at D = 64
+//   and 128, where dK and dV take 64-128 accumulators a thread (240
+//   registers). They overlap one another, not the exponentials with their
+//   own products. Per tile: S^T = K Q^T and dP^T = V dO^T as wgmma with K
+//   and V from shared memory and Q and dO K-major; P^T = exp2(S^T c - lse)
+//   and dS^T = P^T (dP^T - delta) in registers, masked only on the causal
+//   diagonal and a ragged last tile; then dV += P^T dO and dK += dS^T Q
+//   with P^T and dS^T as bf16 register A operands and the same dO and Q
+//   tiles read MN-major. Keys being the rows (wgmma's 64-row M) is what
+//   puts P^T and dS^T in A-operand layout without a transpose.
+// - In both bf16 kernels P and dS are rounded to bf16 before their
+//   products, which is where the error against the plain version comes
+//   from.
 // - float32: float32 FMAs (no TF32, to keep full precision). A row (K2) or
 //   key (K3) is split over neighbouring threads that each own 32 (K2) or 16
 //   (K3, which keeps two accumulators) of its columns, so the accumulators
@@ -46,13 +61,14 @@
 //
 // Bound. Causal work is 3*B*H*S^2*D FLOPs for K2 and 4*B*H*S^2*D for K3
 // (the Pallas kernels' CostEstimates) against 5*B*H*S*D*itemsize bytes, so
-// at the LM's shape (8, 8, 2048, 32) both are bound by operations. Neither
-// uses wgmma or TMA, nor overlaps tile loads with compute beyond what other
-// resident blocks provide (later work).
+// at the LM's shape (8, 8, 2048, 32) both are bound by operations. In bf16
+// the exponentials (one per valid score, 16 per clock per SM) are a floor
+// of their own, about equal to K3's tensor-core bound at D = 32.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -163,110 +179,247 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// K3 in bf16, built for Hopper (sm90.cuh).
+namespace hopper {
+
+using namespace flash::sm90;
+
+constexpr int kQRows = 64;  // query rows per streamed tile
+constexpr int kStages = 3;  // Q/dO ring depth
+
+// Consumer warpgroups own 64 keys each: three at D = 32, where their
+// registers fit in 160 a thread; two (240 registers) at D = 64 and 128.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int seq,
-                      int causal, float scale_log2, float scale) {
-  constexpr int DS = D + 8;
-  extern __shared__ float4 smem4[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem4);
-  bf16* v_s = k_s + kTile * DS;
-  bf16* q_s = v_s + kTile * DS;
-  bf16* do_s = q_s + kTile * DS;
-  __shared__ float lse_s[kTile], dlt_s[kTile];  // lse in base 2, delta
+struct DkvShape {
+  static constexpr int kConsumers = D == 32 ? 3 : 2;
+  static constexpr int kKeys = 64 * kConsumers;  // keys per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;  // after setmaxnreg
+};
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * kTile;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
-  const int64_t row_base = static_cast<int64_t>(blockIdx.y) * seq;
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+// Shared memory: the K and V tiles, then per stage a Q tile, a dO tile
+// (each on a 1024-byte boundary) and the stage's lse (base 2) and delta
+// rows, then the barriers; plus slack to align the base.
+template <int D>
+struct DkvSmem {
+  static constexpr size_t kKV = align1k(tile_bytes<D>(DkvShape<D>::kKeys));
+  static constexpr size_t kQ = align1k(tile_bytes<D>(kQRows));
+  static constexpr size_t kK = 0;
+  static constexpr size_t kV = kKV;
+  static constexpr size_t kStage0 = 2 * kKV;
+  static constexpr size_t kStage = align1k(2 * kQ + 2 * kQRows * sizeof(float));
+  static constexpr size_t kDo = kQ;                // within a stage
+  static constexpr size_t kLse = 2 * kQ;           // within a stage
+  static constexpr size_t kDlt = kLse + kQRows * sizeof(float);
+  static constexpr size_t kBar = kStage0 + kStages * kStage;
+  static constexpr size_t kBytes = kBar + (1 + 2 * kStages) * sizeof(uint64_t) + 1024;
+};
 
-  load_tile<bf16, D, 8, kMmaThreads>(k_s, k + base, k0, seq);
-  load_tile<bf16, D, 8, kMmaThreads>(v_s, v + base, k0, seq);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+// S^T = K Q^T and dP^T = V dO^T for one warpgroup's 64 keys (from row
+// k_row0 of the K and V tiles) against the stage's Q and dO tiles,
+// committed as one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_sdp(float (&s)[kQRows / 2], float (&dp)[kQRows / 2],
+                                          const uint8_t* k_s, const uint8_t* v_s, int k_row0,
+                                          const uint8_t* st) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss<kQRows>(s, desc_k_major<D>(k_s, DkvShape<D>::kKeys, k_row0, kk),
+                     desc_k_major<D>(st, kQRows, 0, kk), kk > 0);
+  }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss<kQRows>(dp, desc_k_major<D>(v_s, DkvShape<D>::kKeys, k_row0, kk),
+                     desc_k_major<D>(st + DkvSmem<D>::kDo, kQRows, 0, kk), kk > 0);
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvShape<D>::kThreads, 1)
+flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int seq, int causal, float scale_log2, float scale) {
+  using S = DkvSmem<D>;
+  constexpr int kKeys = DkvShape<D>::kKeys;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kKeys;  // causal: the longest (first) key tiles first
+  // Causal: query tiles before the one holding the block's first key see
+  // none of its keys.
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = (seq - q_begin + kQRows - 1) / kQRows;
+  const int warpgroup = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const auto stage = [&](int i) { return smem + S::kStage0 + (i % kStages) * S::kStage; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes: their lse/delta stores
+      mbar_init(&empty[s], DkvShape<D>::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {  // producer: warp 0
+    setmaxnreg_dec<24>();
+    if (threadIdx.x >= 32) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * tile_bytes<D>(kKeys));
+      load_tile_tma<D>(smem + S::kK, &k_map, kv_full, kKeys, k0, bh);
+      load_tile_tma<D>(smem + S::kV, &v_map, kv_full, kKeys, k0, bh);
+    }
+    const int64_t row_base = static_cast<int64_t>(bh) * seq;
+    for (int i = 0; i < tiles; ++i) {
+      const int q0 = q_begin + i * kQRows;
+      uint8_t* st = stage(i);
+      // This lane's lse (base 2) and delta rows, read before the stage is free.
+      float lse_r[kQRows / 32], dlt_r[kQRows / 32];
+#pragma unroll
+      for (int c = 0; c < kQRows / 32; ++c) {
+        const int r = q0 + lane + 32 * c;
+        lse_r[c] = r < seq ? lse[row_base + r] * kLog2e : 0.f;
+        dlt_r[c] = r < seq ? delta[row_base + r] : 0.f;
+      }
+      mbar_wait(&empty[i % kStages], ((i / kStages) & 1) ^ 1);
+#pragma unroll
+      for (int c = 0; c < kQRows / 32; ++c) {
+        reinterpret_cast<float*>(st + S::kLse)[lane + 32 * c] = lse_r[c];
+        reinterpret_cast<float*>(st + S::kDlt)[lane + 32 * c] = dlt_r[c];
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[i % kStages], 2 * tile_bytes<D>(kQRows));
+        load_tile_tma<D>(st, &q_map, &full[i % kStages], kQRows, q0, bh);
+        load_tile_tma<D>(st + S::kDo, &do_map, &full[i % kStages], kQRows, q0, bh);
+      } else {
+        mbar_arrive(&full[i % kStages]);
+      }
+    }
+    return;
   }
 
-  // Causal: query tiles before the one holding this tile's first key see
-  // none of its keys.
-  for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<bf16, D, 8, kMmaThreads>(q_s, q + base, q0, seq);
-    load_tile<bf16, D, 8, kMmaThreads>(do_s, dout + base, q0, seq);
-    for (int i = threadIdx.x; i < kTile; i += kMmaThreads) {
-      const bool in = q0 + i < seq;
-      lse_s[i] = in ? lse[row_base + q0 + i] * kLog2e : 0.f;
-      dlt_s[i] = in ? delta[row_base + q0 + i] : 0.f;
-    }
-    __syncthreads();
+  // Consumers: this warpgroup's 64 keys start at kw0.
+  setmaxnreg_inc<DkvShape<D>::kConsumerRegs>();
+  const int warp = (threadIdx.x / 32) % 4, t = lane % 4;
+  const int k_row0 = (warpgroup - 1) * 64;  // within the K and V tiles
+  const int kw0 = k0 + k_row0;
+  const int keys[2] = {kw0 + warp * 16 + lane / 4, kw0 + warp * 16 + lane / 4 + 8};
 
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-    for (int qc = 0; qc < kTile; qc += 16) {  // 16 query rows at a time
-      float s[2][4] = {}, dp[2][4] = {};      // S^T = K Q^T, dP^T = V dO^T
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float s[kQRows / 2], dp[kQRows / 2];  // S^T = K Q^T and dP^T = V dO^T
+  uint32_t pa[kQRows / 16][4], dsa[kQRows / 16][4];  // P^T and dS^T as bf16 A operands
+
+  const uint8_t* k_s = smem + S::kK;
+  const uint8_t* v_s = smem + S::kV;
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < tiles; ++i) {
+    const int q0 = q_begin + i * kQRows;
+    const uint8_t* st = stage(i);
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    wgmma_fence();
+    issue_sdp<D>(s, dp, k_s, v_s, k_row0, st);
+    wgmma_wait<0>();
+    fence_operand(s);
+    fence_operand(dp);
+
+    // P^T = exp2(S^T c - lse) and dS^T = P^T (dP^T - delta); rows are keys,
+    // columns query rows. Masks only on the causal diagonal and a ragged
+    // last tile.
+    const bool mask = (causal && q0 < kw0 + 63) || q0 + kQRows > seq;
+    const float* lse_s = reinterpret_cast<const float*>(st + S::kLse);
+    const float* dlt_s = reinterpret_cast<const float*>(st + S::kDlt);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4], b[4];
-        load_a<DS>(a, k_s, warp * 16, kk * 16);
-        load_b<DS>(b, q_s, qc, kk * 16);
-        mma_bf16(s[0], a, b[0], b[1]);
-        mma_bf16(s[1], a, b[2], b[3]);
-        load_a<DS>(a, v_s, warp * 16, kk * 16);
-        load_b<DS>(b, do_s, qc, kk * 16);
-        mma_bf16(dp[0], a, b[0], b[1]);
-        mma_bf16(dp[1], a, b[2], b[3]);
-      }
-      // P^T and dS^T (fragment rows are keys, columns query rows).
+    for (int j = 0; j < kQRows / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(dlt_s + 8 * j + 2 * t);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int qi = qc + j * 8 + 2 * t + (c & 1);
-          const int key = keys[c / 2];
-          const bool valid =
-              key < seq && q0 + qi < seq && (!causal || key <= q0 + qi);
-          const float p = valid ? exp2f(s[j][c] * scale_log2 - lse_s[qi]) : 0.f;
-          s[j][c] = p;
-          dp[j][c] = p * (dp[j][c] - dlt_s[qi]);
-        }
-      }
-      uint32_t pa[4], dsa[4];
-      pack_a(pa, s);
-      pack_a(dsa, dp);
-      // dV += P^T dO and dK += dS^T Q over these 16 query rows.
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        load_b_trans<DS>(b, do_s, qc, np * 16);
-        mma_bf16(dv_acc[2 * np], pa, b[0], b[1]);
-        mma_bf16(dv_acc[2 * np + 1], pa, b[2], b[3]);
-        load_b_trans<DS>(b, q_s, qc, np * 16);
-        mma_bf16(dk_acc[2 * np], dsa, b[0], b[1]);
-        mma_bf16(dk_acc[2 * np + 1], dsa, b[2], b[3]);
+      for (int e = 4 * j; e < 4 * j + 4; ++e) {
+        const int qi = q0 + 8 * j + 2 * t + (e & 1);
+        float p = exp2_approx(fmaf(s[e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+        if (mask && (qi >= seq || (causal && keys[(e / 2) & 1] > qi))) p = 0.f;
+        s[e] = p;
+        dp[e] = p * (dp[e] - ((e & 1) ? dl.y : dl.x));
       }
     }
+#pragma unroll
+    for (int kk = 0; kk < kQRows / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        dsa[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major.
+    fence_operand(dk_acc);
+    fence_operand(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQRows / 16; ++kk) {
+      wgmma_rs<D>(dv_acc, pa[kk], desc_mn_major<D>(st + S::kDo, kQRows, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kQRows / 16; ++kk) {
+      wgmma_rs<D>(dk_acc, dsa[kk], desc_mn_major<D>(st, kQRows, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(dk_acc);
+    fence_operand(dv_acc);
+    if (lane == 0) mbar_arrive(&empty[i % kStages]);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (keys[r] >= seq) continue;
-    const int64_t off = base + static_cast<int64_t>(keys[r]) * D + 2 * t;
+    const int64_t off = (static_cast<int64_t>(bh) * seq + keys[r]) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
-          __floats2bfloat162_rn(scale * dk_acc[n][2 * r], scale * dk_acc[n][2 * r + 1]);
+          __floats2bfloat162_rn(scale * dk_acc[4 * n + 2 * r], scale * dk_acc[4 * n + 2 * r + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
-          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+          __floats2bfloat162_rn(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
     }
   }
 }
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dk, void* dv, int batch_heads,
+                       int seq, int causal, float scale_log2, float scale, cudaStream_t stream) {
+  constexpr int kKeys = DkvShape<D>::kKeys;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err;
+  if ((err = make_tile_map<D>(&q_map, q, batch_heads, seq, kQRows)) != cudaSuccess ||
+      (err = make_tile_map<D>(&k_map, k, batch_heads, seq, kKeys)) != cudaSuccess ||
+      (err = make_tile_map<D>(&v_map, v, batch_heads, seq, kKeys)) != cudaSuccess ||
+      (err = make_tile_map<D>(&do_map, dout, batch_heads, seq, kQRows)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = DkvSmem<D>::kBytes;
+  if ((err = allow_smem(flash_dkv_bf16_kernel<D>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + kKeys - 1) / kKeys);
+  flash_dkv_bf16_kernel<D><<<grid, DkvShape<D>::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      seq, causal, scale_log2, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
 
 // ---------------------------------------------------------------- float32
 
@@ -531,29 +684,25 @@ cudaError_t launch_dq(const Args& a) {
 
 template <int D, bool kBf16>
 cudaError_t launch_dkv(const Args& a) {
-  const dim3 grid((a.seq + kTile - 1) / kTile, a.batch_heads);
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t err;
   if constexpr (kBf16) {
-    constexpr size_t smem = bf16_smem_bytes<D>();
-    if ((err = allow_smem(flash_dkv_bf16_kernel<D>, smem)) != cudaSuccess) return err;
-    flash_dkv_bf16_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), lse, delta,
-        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.seq, a.causal,
-        a.scale_log2, a.scale);
+    return hopper::launch_dkv<D>(a.q, a.k, a.v, a.dout, lse, delta, a.out0, a.out1,
+                                 a.batch_heads, a.seq, a.causal, a.scale_log2, a.scale,
+                                 a.stream);
   } else {
+    const dim3 grid((a.seq + kTile - 1) / kTile, a.batch_heads);
     constexpr size_t smem = f32_smem_bytes<D>(2);
     constexpr int threads = F32Layout<D, 16>::kThreads;
-    if ((err = allow_smem(flash_dkv_f32_kernel<D>, smem)) != cudaSuccess) return err;
+    const cudaError_t err = allow_smem(flash_dkv_f32_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
     flash_dkv_f32_kernel<D><<<grid, threads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse, delta,
         static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.seq, a.causal,
         a.scale_log2, a.scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <bool kDq, bool kBf16>

@@ -6,19 +6,34 @@
 // masked, O written in the input dtype and the per-row log-sum-exp in
 // float32. Fully-masked rows get a finite lse, as in K1.
 //
-// Design. One thread block per (64-row query tile, batch*head). The TPU
-// grid's sequential k axis and its VMEM scratch become a loop inside the
-// block over K/V tiles of 64 keys staged through shared memory; the running
-// max and sum and the output accumulator stay in float32 registers. Scores
-// are kept in base 2 (log2(e) folded into the scale) so the exponentials
-// are exp2f; the lse is converted back to base e. Two kernels:
+// Design. The TPU grid's sequential k axis and its VMEM scratch become a
+// loop inside one block over K/V tiles; the running max and sum and the
+// output accumulator stay in float32 registers. Scores are kept in base 2
+// (log2(e) folded into the scale) so the exponentials are exp2; the lse is
+// converted back to base e. Two kernels:
 //
-// - bfloat16: both products on the tensor cores with mma.sync m16n8k16
-//   (bf16 in, f32 accumulate). Four warps each own 16 query rows; Q, K and
-//   V fragments come from shared memory with ldmatrix (rows padded by 16
-//   bytes so the 8-row reads do not conflict), the softmax runs on the
-//   score fragments with quad shuffles for the row max, and P is rounded to
-//   bf16 as the A operand of P V.
+// - bfloat16, built for Hopper (sm90.cuh). One block per (192 query rows,
+//   batch*head), four warpgroups. Warp 0 is the producer: it loads the
+//   block's Q tile once and streams K and V tiles (128 keys at D = 32 and
+//   64, 64 at D = 128) by TMA into a ring of 3 stages, each with its own
+//   full barriers for K and for V and an empty barrier the consumers
+//   release. TMA's 3-D boxes (D, rows, 1) never cross into the next head
+//   and fill rows past the sequence with zeros. Three consumer warpgroups
+//   own 64 query rows each (three rather than two, so more warpgroups'
+//   products hide each one's softmax; their registers still fit in 160
+//   a thread): S = Q K^T and O += P V are wgmma products (Q and K
+//   K-major from shared memory; P from registers; V read MN-major through
+//   the descriptor's transpose bit). The softmax runs on the accumulator
+//   registers: row max by quad shuffles, p = exp2(s*c - m) as one FFMA
+//   and one MUFU.EX2, P rounded to bf16 straight into the A-operand
+//   layout. Masks run only on tiles that need them (the causal diagonal
+//   and a ragged last tile). The exponentials overlap the tensor cores
+//   inside each warpgroup: tile j's Q K^T and tile j-1's P V are issued
+//   together, and tile j's softmax runs while P V is in flight (no
+//   ping-pong between the warpgroups, so no named barriers). Blocks are
+//   handed out longest first (causal), so the last wave holds the
+//   shortest q tiles. setmaxnreg moves registers from the producer
+//   warpgroup (24 a thread) to the consumers (160).
 // - float32: float32 FMAs, one thread per query row, so results keep full
 //   float32 precision (TF32 tensor cores would not). Scores are taken 16
 //   keys at a time so one accumulator rescale serves 16 keys; every K/V
@@ -26,135 +41,234 @@
 //
 // Bound. Causal work is 2*B*H*S^2*D FLOPs (K1's CostEstimate) and the
 // traffic is 4*B*H*S*D*itemsize bytes plus the lse, so at the LM's shape
-// (8, 8, 2048, 32) both kernels are bound by operations. Neither uses
-// wgmma or TMA yet (later work), and neither overlaps tile loads with
-// compute beyond what other resident blocks provide.
+// (8, 8, 2048, 32) both kernels are bound by operations. In bf16 the
+// exponentials (one per valid score, 16 per clock per SM) are a floor of
+// their own, above the tensor cores' at D = 32.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using namespace flash;
+using bf16 = __nv_bfloat16;
 
-constexpr int kBlockQ = kTile;  // query rows per block
-constexpr int kBlockK = kTile;  // keys per shared-memory tile
+constexpr int kBlockQ = kTile;  // float32: query rows per block
+constexpr int kBlockK = kTile;  // float32: keys per shared-memory tile
 
 // ---------------------------------------------------------------- bf16
 
+namespace hopper {
+
+using namespace flash::sm90;
+
+constexpr int kConsumers = 3;                 // consumer warpgroups, 64 query rows each
+constexpr int kRows = 64 * kConsumers;        // query rows per block
+constexpr int kStages = 3;                    // K/V ring depth
+constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
+constexpr int kConsumerWarps = 4 * kConsumers;
+constexpr int kConsumerRegs = 160;  // after setmaxnreg: 128 * 24 + 384 * 160 <= 65536
+
 template <int D>
-constexpr size_t bf16_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kBlockQ + 2 * kBlockK) * (D + 8);
+constexpr int keys_per_tile() { return D == 128 ? 64 : 128; }
+
+// Shared memory: the Q tile, kStages K tiles, kStages V tiles (each on a
+// 1024-byte boundary), then the barriers; plus slack to align the base.
+template <int D>
+struct Smem {
+  static constexpr int kN = keys_per_tile<D>();
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kK = align1k(kQ + tile_bytes<D>(kRows));
+  static constexpr size_t kV = kK + kStages * align1k(tile_bytes<D>(kN));
+  static constexpr size_t kBar = kV + kStages * align1k(tile_bytes<D>(kN));
+  static constexpr size_t kStage = align1k(tile_bytes<D>(kN));
+  static constexpr size_t kBytes = kBar + (1 + 3 * kStages) * sizeof(uint64_t) + 1024;
+};
+
+// Softmax of one score tile in place (s becomes p = exp2(s*c - m)),
+// masked where `mask`, updating this thread's running max m (base 2) and
+// its share l of the row sums; returns the factors that rescale O.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], bool mask, int k0,
+                                             const int (&rows)[2], int seq, int causal,
+                                             float scale_log2) {
+  const int t = threadIdx.x % 4;
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int col = k0 + (i / 4) * 8 + 2 * t + (i & 1);
+      const int row = rows[(i / 2) & 1];
+      if (col >= seq || (causal && col > row)) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s[i]);
+  float shift[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    shift[r] = isfinite(m_new) ? m_new : 0.f;
+    corr[r] = isfinite(m[r]) ? exp2_approx(m[r] - shift[r]) : 0.f;
+    m[r] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int r = (i / 2) & 1;
+    s[i] = exp2_approx(fmaf(s[i], scale_log2, -shift[r]));
+    sum[r] += s[i];
+  }
+  l[0] = l[0] * corr[0] + sum[0];
+  l[1] = l[1] * corr[1] + sum[1];
+}
+
+// P (64 x N, f32 accumulator layout) rounded to bf16 A operands, 16 keys each.
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[N / 16][4], const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  }
+}
+
+// S = Q K^T for one warpgroup's 64 query rows (from row q_row0 of the Q
+// tile) against a tile of N keys, committed as one wgmma group.
+template <int D, int N>
+__device__ __forceinline__ void issue_qk(float (&s)[N / 2], const uint8_t* q_s, int q_row0,
+                                         const uint8_t* k_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss<N>(s, desc_k_major<D>(q_s, kRows, q_row0, kk), desc_k_major<D>(k_s, N, 0, kk),
+                kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V over a tile of N keys, committed as one wgmma group.
+template <int D, int N>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p)[N / 16][4],
+                                         const uint8_t* v_s) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) wgmma_rs<D>(acc, p[kk], desc_mn_major<D>(v_s, N, kk), 1);
+  wgmma_commit();
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int seq, int causal, float scale_log2) {
-  constexpr int DS = D + 8;  // padded row stride (elements)
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* k_s = q_s + kBlockQ * DS;
-  __nv_bfloat16* v_s = k_s + kBlockK * DS;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                      float* __restrict__ lse, int seq, int causal, float scale_log2) {
+  using S = Smem<D>;
+  constexpr int N = S::kN;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint8_t* q_s = smem + S::kQ;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + kStages;
+  uint64_t* empty = bars + 1 + 2 * kStages;
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
-  const int q0 = blockIdx.x * kBlockQ;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + kRows) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  const int warpgroup = threadIdx.x / 128;
 
-  load_tile<__nv_bfloat16, D, 8, kMmaThreads>(q_s, q + base, q0, seq);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];  // this warp's 16 query rows as A fragments
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<DS>(qf[kk], q_s, warp * 16, kk * 16);
+
+  if (warpgroup == 0) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, tile_bytes<D>(kRows));
+      load_tile_tma<D>(q_s, &q_map, q_full, kRows, q0, bh);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&k_full[s], tile_bytes<D>(N));
+        load_tile_tma<D>(smem + S::kK + s * S::kStage, &k_map, &k_full[s], N, j * N, bh);
+        mbar_arrive_expect_tx(&v_full[s], tile_bytes<D>(N));
+        load_tile_tma<D>(smem + S::kV + s * S::kStage, &v_map, &v_full[s], N, j * N, bh);
+      }
+    }
+    return;
   }
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max per row, base 2
-  float l[2] = {0.f, 0.f};              // this thread's share of the row sums
+  // Consumers: this warpgroup's 64 rows start at r0.
+  setmaxnreg_inc<kConsumerRegs>();
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int r0 = q0 + (warpgroup - 1) * 64;
+  const int rows[2] = {r0 + warp * 16 + lane / 4, r0 + warp * 16 + lane / 4 + 8};
+  const int q_row0 = (warpgroup - 1) * 64;  // within the Q tile
 
-  const int kv_end = causal ? min(seq, q0 + kBlockQ) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<__nv_bfloat16, D, 8, kMmaThreads>(k_s, k + base, k0, seq);
-    load_tile<__nv_bfloat16, D, 8, kMmaThreads>(v_s, v + base, k0, seq);
-    __syncthreads();
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[N / 2];
+  uint32_t p[N / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
 
-    // S = Q K^T for 16 rows x 64 keys: 8 fragments of 16x8.
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < kBlockK / 16; ++jp) {
-        uint32_t b[4];
-        load_b<DS>(b, k_s, jp * 16, kk * 16);
-        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
-      }
-    }
+  const auto k_tile = [&](int j) { return smem + S::kK + (j % kStages) * S::kStage; };
+  const auto v_tile = [&](int j) { return smem + S::kV + (j % kStages) * S::kStage; };
+  const auto needs_mask = [&](int j) {  // the causal diagonal or a ragged last tile
+    return (causal && j * N + N - 1 > r0) || j * N + N > seq;
+  };
 
-    // Scale, mask, and the tile's row max (fragment: c0,c1 row g; c2,c3 row g+8).
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = k0 + j * 8 + 2 * t + (c & 1);
-        const bool valid = col < seq && (!causal || col <= rows[c / 2]);
-        s[j][c] = valid ? s[j][c] * scale_log2 : -INFINITY;
-        mx[c / 2] = fmaxf(mx[c / 2], s[j][c]);
-      }
-    }
-    float shift[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      shift[r] = isfinite(m_new) ? m_new : 0.f;
-      const float corr = isfinite(m[r]) ? exp2f(m[r] - shift[r]) : 0.f;
-      m[r] = m_new;
-      l[r] *= corr;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][2 * r] *= corr;
-        acc[n][2 * r + 1] *= corr;
-      }
-    }
+  mbar_wait(q_full, 0);
+  mbar_wait(&k_full[0], 0);
+  wgmma_fence();
+  issue_qk<D, N>(s, q_s, q_row0, k_tile(0));
+  wgmma_wait<0>();
+  fence_operand(s);
+  softmax_tile<N>(s, m, l, corr, needs_mask(0), 0, rows, seq, causal, scale_log2);
+  pack_p<N>(p, s);
 
-    // O += P V, 16 keys at a time: two score fragments make one A operand.
+  for (int j = 1; j < tiles; ++j) {
+    // Tile j's S = Q K^T and tile j-1's O += P V in flight together; tile
+    // j's softmax runs while P V is still on the tensor cores.
+    mbar_wait(&k_full[j % kStages], (j / kStages) & 1);
+    fence_operand(acc);
+    wgmma_fence();
+    issue_qk<D, N>(s, q_s, q_row0, k_tile(j));
+    mbar_wait(&v_full[(j - 1) % kStages], ((j - 1) / kStages) & 1);
+    wgmma_fence();
+    issue_pv<D, N>(acc, p, v_tile(j - 1));
+    wgmma_wait<1>();
+    fence_operand(s);
+    softmax_tile<N>(s, m, l, corr, needs_mask(j), j * N, rows, seq, causal, scale_log2);
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (lane == 0) mbar_arrive(&empty[(j - 1) % kStages]);
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      float p[8];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        p[c] = exp2f(s[2 * kk][c] - shift[c / 2]);
-        p[4 + c] = exp2f(s[2 * kk + 1][c] - shift[c / 2]);
-      }
-      l[0] += p[0] + p[1] + p[4] + p[5];
-      l[1] += p[2] + p[3] + p[6] + p[7];
-      const uint32_t a[4] = {pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]),
-                             pack_bf16(p[4], p[5]), pack_bf16(p[6], p[7])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        load_b_trans<DS>(b, v_s, kk * 16, np * 16);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) & 1];
+    pack_p<N>(p, s);
   }
+  mbar_wait(&v_full[(tiles - 1) % kStages], ((tiles - 1) / kStages) & 1);
+  fence_operand(acc);
+  wgmma_fence();
+  issue_pv<D, N>(acc, p, v_tile(tiles - 1));
+  wgmma_wait<0>();
+  fence_operand(acc);
+  if (lane == 0) mbar_arrive(&empty[(tiles - 1) % kStages]);
 
+  const int t = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -163,16 +277,38 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     if (rows[r] >= seq) continue;
     if (t == 0) {
       const float shift = isfinite(m[r]) ? m[r] : 0.f;
-      lse[static_cast<int64_t>(blockIdx.y) * seq + rows[r]] = (shift + log2f(denom)) * kLn2;
+      lse[static_cast<int64_t>(bh) * seq + rows[r]] = (shift + log2f(denom)) * kLn2;
     }
-    __nv_bfloat16* out = o + base + static_cast<int64_t>(rows[r]) * D + 2 * t;
+    bf16* out = o + (static_cast<int64_t>(bh) * seq + rows[r]) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+          __floats2bfloat162_rn(acc[4 * n + 2 * r] / denom, acc[4 * n + 2 * r + 1] / denom);
     }
   }
 }
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                   int batch_heads, int seq, int causal, float scale_log2, cudaStream_t stream) {
+  constexpr int N = keys_per_tile<D>();
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err;
+  if ((err = make_tile_map<D>(&q_map, q, batch_heads, seq, kRows)) != cudaSuccess ||
+      (err = make_tile_map<D>(&k_map, k, batch_heads, seq, N)) != cudaSuccess ||
+      (err = make_tile_map<D>(&v_map, v, batch_heads, seq, N)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = Smem<D>::kBytes;
+  if ((err = allow_smem(flash_fwd_bf16_kernel<D>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + kRows - 1) / kRows);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), seq, causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
 
 // ---------------------------------------------------------------- float32
 
@@ -303,29 +439,20 @@ template <int D, bool kBf16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int batch_heads, int seq, int causal,
                    float scale_log2, cudaStream_t stream) {
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch_heads);
-  float* lse_f = static_cast<float*>(lse);
-  cudaError_t err;
-  // Above 48 KB of shared memory the kernel must opt in to the larger size.
   if constexpr (kBf16) {
-    using T = __nv_bfloat16;
-    constexpr size_t smem = bf16_smem_bytes<D>();
-    err = allow_smem(flash_fwd_bf16_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse_f, seq, causal,
-        scale_log2);
+    return hopper::launch<D>(q, k, v, o, lse, batch_heads, seq, causal, scale_log2, stream);
   } else {
+    const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch_heads);
+    // Above 48 KB of shared memory the kernel must opt in to the larger size.
     constexpr size_t smem = f32_smem_bytes<D>();
-    err = allow_smem(flash_fwd_f32_kernel<D>, smem);
+    const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     flash_fwd_f32_kernel<D><<<grid, kBlockQ, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse_f, seq,
+        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), seq,
         causal, scale_log2);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <bool kBf16>

@@ -22,8 +22,9 @@ import torch
 
 from elephas_tpu_torch.ops import attention_cuda
 
-# The CUDA kernels' tile: 64 query rows by 64 keys. The plain versions
-# default to the same tiling so both sum in the same order of tiles.
+# The float32 kernels' tile: 64 query rows by 64 keys. The plain versions
+# default to it; the bf16 kernels tile as ``attention_cuda.kernel_tiles``
+# says, and their plain versions take that tiling to sum in their order.
 BLOCK_Q = 64
 BLOCK_K = 64
 
@@ -177,11 +178,12 @@ def flash_attention(q, k, v, causal: bool = True,
                     return_lse: bool = False):
     """Blockwise attention; ``(o, lse)`` with ``return_lse=True``.
 
-    A CUDA tensor launches the hand-written kernels, which tile at
-    ``BLOCK_Q`` x ``BLOCK_K``; other block sizes raise there. A CPU
-    tensor runs ``blockwise_reference`` at the given tiling (default the
-    kernel's). q, k and v must have one shape: the kernel assumes equal
-    query and key lengths, as the JAX package's does.
+    A CUDA tensor launches the hand-written kernels, which tile as
+    ``attention_cuda.kernel_tiles`` says for the forward; other block
+    sizes raise there. A CPU tensor runs ``blockwise_reference`` at the
+    given tiling (default ``BLOCK_Q`` x ``BLOCK_K``). q, k and v must have
+    one shape: the kernel assumes equal query and key lengths, as the JAX
+    package's does.
     """
     if q.dim() != 4 or q.shape != k.shape or k.shape != v.shape:
         raise ValueError(
@@ -189,17 +191,16 @@ def flash_attention(q, k, v, causal: bool = True,
             f"head_dim) shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
             f"{tuple(v.shape)}"
         )
-    block_q = BLOCK_Q if block_q is None else block_q
-    block_k = BLOCK_K if block_k is None else block_k
     if q.device.type == "cuda":
-        if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+        tiles = attention_cuda.kernel_tiles("flash_fwd", q.dtype, q.shape[-1])
+        if (block_q or tiles[0], block_k or tiles[1]) != tiles:
             raise ValueError(
-                f"the CUDA kernel tiles at {BLOCK_Q}x{BLOCK_K}; "
+                f"the CUDA kernel tiles at {tiles[0]}x{tiles[1]} here; "
                 f"got block_q={block_q}, block_k={block_k}"
             )
         o, lse = _FlashAttentionCUDA.apply(q, k, v, causal)
     elif q.device.type == "cpu":
-        o, lse = blockwise_reference(q, k, v, causal, block_q, block_k)
+        o, lse = blockwise_reference(q, k, v, causal, block_q or BLOCK_Q, block_k or BLOCK_K)
     else:
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     return (o, lse) if return_lse else o

@@ -7,20 +7,23 @@
 
 Each source is built with ``nvcc`` for ``sm_90a`` at first use into its
 own ``elephas_tpu_torch/_build/<name>-<sha>.so`` (rebuilt when the
-source's or ``common.cuh``'s hash changes) and loaded with ``ctypes``: a
-plain C interface builds in seconds, where an extension that includes
-PyTorch's headers takes minutes. ``build_all`` runs one ``nvcc`` per
-source, all at once.
+source's or a header's hash changes: every ``csrc/*.cuh`` is in
+``HEADERS``) and loaded with ``ctypes``: a plain C interface builds in
+seconds, where an extension that includes PyTorch's headers takes
+minutes. ``build_all`` runs one ``nvcc`` per source, all at once.
 
 What bounds them on an H100: causal work is 2·B·H·S²·D FLOPs for K1,
 3·B·H·S²·D for K2 and 4·B·H·S²·D for K3 (the Pallas kernels' own
 ``CostEstimate``s) against 4–5·B·H·S·D·itemsize bytes, so at the LM's
-shape (8, 8, 2048, 32) all three are bound by operations. bf16 inputs
-run every product on the tensor cores (``mma.sync``, f32 accumulation);
-float32 inputs run float32 FMAs, so they keep full float32 precision and
-are far from any tensor-core bound. None uses ``wgmma`` or TMA yet, and
-it shows: K1 in bf16 takes about twice as long as PyTorch's fused
-attention (times in PERF.md).
+shape (8, 8, 2048, 32) all three are bound by operations; in bf16 the
+exponentials (one per valid score) are a floor of their own. bf16 K1
+and K3 are built for Hopper (``csrc/sm90.cuh``): TMA loads into an
+mbarrier ring, a producer warp and two or three consumer warpgroups of
+64 rows each on ``wgmma``.
+bf16 K2 runs ``mma.sync``. float32 inputs run float32 FMAs, so they keep
+full float32 precision and are far from any tensor-core bound (times in
+PERF.md). ``kernel_tiles`` gives each kernel's tiling, which sets the
+order of its sums.
 
 ``launches`` counts the launches of each kernel (``flash_fwd``,
 ``flash_dq``, ``flash_dkv``); a count moves where its kernel is launched
@@ -43,12 +46,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu"}
-HEADERS = (CSRC / "common.cuh",)
+HEADERS = (CSRC / "common.cuh", CSRC / "sm90.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+# (query rows, keys) of a tile: every float32 kernel and bf16 K2 tile at
+# 64 x 64; bf16 K1 takes 192 query rows against 128 keys (64 at head_dim
+# 128), bf16 K3 64 query rows against 192 keys (128 at head_dim 64 and
+# 128).
+_BF16_TILES = {"flash_fwd": {32: (192, 128), 64: (192, 128), 128: (192, 64)},
+               "flash_dkv": {32: (64, 192), 64: (64, 128), 128: (64, 128)}}
 
 # C functions of each library: name -> (library, pointer arguments).
 _FUNCTIONS = {"flash_fwd": ("flash_fwd", 5), "flash_bwd_dq": ("flash_bwd", 7),
@@ -56,6 +66,15 @@ _FUNCTIONS = {"flash_fwd": ("flash_fwd", 5), "flash_bwd_dq": ("flash_bwd", 7),
 
 _libs = {}
 _lock = threading.Lock()
+
+
+def kernel_tiles(name: str, dtype, head_dim: int) -> tuple:
+    """``(block_q, block_k)`` at which the kernel ``name`` (a key of
+    ``launches``) sums for ``dtype`` and ``head_dim``: the tiling at which
+    its plain version sums in the same order."""
+    if dtype == torch.bfloat16 and name in _BF16_TILES:
+        return _BF16_TILES[name][head_dim]
+    return (64, 64)
 
 
 def reset_launches() -> None:

@@ -8,6 +8,10 @@ selects. The CUDA kernels themselves are checked against the same plain
 versions on the card by ``chip_smoke.py``.
 """
 
+import re
+import subprocess
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,7 +66,9 @@ def _cotangent(shape):
     return np.random.default_rng(7).standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("blocks", [(16, 32), (64, 64)])
+# (64, 64): the float32 kernels' tiling; (192, 128) and (192, 64): the
+# bf16 K1's at head_dim 32/64 and 128.
+@pytest.mark.parametrize("blocks", [(16, 32), (64, 64), (192, 128), (192, 64)])
 @pytest.mark.parametrize("seq", [37, 100])
 @pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
@@ -131,7 +137,8 @@ def test_cpu_flash_attention_gradients_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("blocks", [(16, 32), (64, 64)])
+# (64, 192) and (64, 128): the bf16 K3's at head_dim 32 and 64/128.
+@pytest.mark.parametrize("blocks", [(16, 32), (64, 64), (64, 192), (64, 128)])
 @pytest.mark.parametrize("seq", [37, 100])
 @pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
@@ -196,6 +203,61 @@ def test_cuda_function_backward_wiring(monkeypatch):
     for leaf, want in zip((q, k, v), grads):
         assert torch.equal(leaf.grad, want)
     assert attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_dq", "flash_dkv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_kernel_tiles(name, dtype, head_dim):
+    """Each kernel's tiling: 64 x 64 in float32 and for bf16 K2; bf16 K1
+    takes 192 query rows (64 per consumer warpgroup) against 128 keys, 64
+    at head_dim 128; bf16 K3 64 query rows against 192 keys (64 per
+    consumer warpgroup; 128 at head_dim 64 and 128)."""
+    want = (64, 64)
+    if dtype == torch.bfloat16 and name == "flash_fwd":
+        want = (192, 64 if head_dim == 128 else 128)
+    elif dtype == torch.bfloat16 and name == "flash_dkv":
+        want = (64, 192 if head_dim == 32 else 128)
+    assert attention_cuda.kernel_tiles(name, dtype, head_dim) == want
+
+
+def test_headers_cover_every_include():
+    """Every header in csrc/ and every header a source includes is hashed
+    into the library's name."""
+    headers = set(attention_cuda.HEADERS)
+    assert set(attention_cuda.CSRC.glob("*.cuh")) <= headers
+    for source in (*attention_cuda.SOURCES.values(), *attention_cuda.HEADERS):
+        for name in re.findall(r'^#include "([^"]+)"', source.read_text(), re.M):
+            assert attention_cuda.CSRC / name in headers, f"{source.name} includes {name}"
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "sm90.cuh"])
+def test_editing_a_header_renames_the_library(tmp_path, monkeypatch, header):
+    """An edited header gives every library a new name, so no stale build
+    is reused; nvcc is stubbed, since there is none here."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in (*attention_cuda.SOURCES.values(), *attention_cuda.HEADERS):
+        (csrc / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(attention_cuda, "SOURCES",
+                        {n: csrc / p.name for n, p in attention_cuda.SOURCES.items()})
+    monkeypatch.setattr(attention_cuda, "HEADERS",
+                        tuple(csrc / p.name for p in attention_cuda.HEADERS))
+    monkeypatch.setattr(attention_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(attention_cuda, "_nvcc", lambda: "nvcc")
+
+    def fake_nvcc(cmd, **kwargs):
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(attention_cuda.subprocess, "run", fake_nvcc)
+    before = {n: attention_cuda.build(n) for n in attention_cuda.SOURCES}
+    assert all(p.exists() for p in before.values())
+    with open(csrc / header, "a") as f:
+        f.write("\n// edited\n")
+    after = {n: attention_cuda.build(n) for n in attention_cuda.SOURCES}
+    for n in attention_cuda.SOURCES:
+        assert after[n] != before[n] and after[n].exists()
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():

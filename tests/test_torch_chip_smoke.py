@@ -1,0 +1,84 @@
+"""``chip_smoke.py``'s own parsing and arithmetic, on the CPU: the SASS
+and ptxas reports it reads to show the bf16 kernels run on wgmma and TMA,
+the exponentials' floor it prints, and its refusal to run without a card.
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+HOPPER_FWD = ("_ZN45_GLOBAL__N__f79979d2_12_flash_fwd_cu_b294bfd06hopper21"
+              "flash_fwd_bf16_kernelILi64EEEv14CUtensorMap_stS2_S2_P13__nv_bfloat16Pfiif")
+F32_FWD = "_ZN45_GLOBAL__N__f79979d2_12_flash_fwd_cu_b294bfd020flash_fwd_f32_kernelILi32EEvPKfS1_S1_PfS2_iif"
+
+
+def test_sass_counts_per_instantiation(smoke, monkeypatch):
+    sass = "\n".join([
+        f"\t\tFunction : {HOPPER_FWD}",
+        "        /*0410*/                   UTMALDG.3D [UR8], [UR4] ;",
+        "        /*0420*/                   UTMALDG.3D [UR16], [UR4] ;",
+        "        /*0900*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], RZ, !UPT ;",
+        f"\t\tFunction : {F32_FWD}",
+        "        /*0100*/                   FFMA R4, R5, R6, R4 ;",
+    ])
+
+    def fake_run(cmd, **kwargs):
+        assert cmd[1:] == ["-sass", "lib.so"]
+        return subprocess.CompletedProcess(cmd, 0, sass, "")
+
+    monkeypatch.setattr(smoke.subprocess, "run", fake_run)
+    assert smoke.sass_counts("lib.so", "cuobjdump") == {
+        "flash_fwd bf16 D=64": {"HGMMA": 1, "UTMALDG": 2},
+        "flash_fwd f32 D=32": {"HGMMA": 0, "UTMALDG": 0},
+    }
+
+
+def test_ptxas_summary_names_the_hopper_kernels(smoke):
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{HOPPER_FWD}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {HOPPER_FWD}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{F32_FWD}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {F32_FWD}",
+        "    80 bytes stack frame, 128 bytes spill stores, 124 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 80 bytes cumulative stack size",
+    ])
+    assert smoke.ptxas_summary(log) == (
+        "flash_fwd bf16 D=64: 128 registers, 0 bytes spill stores; "
+        "flash_fwd f32 D=32: 255 registers, 128 bytes spill stores")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_exp_floor_counts_valid_scores(smoke, causal):
+    """One exp2 per valid score, 16 a clock per SM: the LM's causal shape
+    on 132 SMs at 1980 MHz takes 0.0321 ms; full attention about twice."""
+    shape = (8, 8, 2048, 32)
+    valid = 8 * 8 * (2048 * 2049 / 2 if causal else 2048 * 2048)
+    got = smoke.exp_floor_ms(shape, causal, 132, 1980.0)
+    assert got == pytest.approx(valid / (16 * 132 * 1980e6) * 1e3, rel=1e-12)
+    if causal:
+        assert got == pytest.approx(0.03211, abs=1e-5)
+
+
+def test_refuses_to_run_without_a_card():
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
