@@ -10,8 +10,9 @@ Phases, in order; any failed check raises and the process exits non-zero:
 2. build: ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` compiled with
    ``nvcc`` for ``sm_90a``, one ``nvcc`` each, both at once; ptxas's
    registers and spills per kernel, and from ``cuobjdump -sass`` the
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of each bf16
-   kernel: the run fails if bf16 K1 or K3 has none of either;
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of each
+   kernel instantiation: the run fails if a kernel built for Hopper (bf16
+   K1-K3, float32 K1; ``required_ops``) has none of either;
 3. kernels: the flash-attention forward (K1) against its plain PyTorch
    version (``blockwise_reference``), then the backward kernels (K2 dq,
    K3 dk/dv) against theirs (``flash_backward_reference``, on K1's o and
@@ -22,7 +23,8 @@ Phases, in order; any failed check raises and the process exits non-zero:
    (``attention_cuda.kernel_tiles``); each timed at the LM's shape beside
    its plain version and one PyTorch call
    (``F.scaled_dot_product_attention`` and its backward: the yardsticks,
-   never called by the port) and printed with its bound, the floor the
+   never called by the port) and printed with its bound (float32 K1 also
+   with the split-tf32 tensor-core bound, ``bound_tc_ms``), the floor the
    exponentials set (one per valid score, 16 a clock per SM at the card's
    maximum SM clock) and the card's clock, power draw and temperature;
 4. inference: the Transformer LM at the registry's full width
@@ -67,6 +69,7 @@ MARGIN = 1e-3                 # top-2 logit gap below which a tie may flip
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}  # (O, lse)
 # K2/K3: max |error| <= tol * max(1, max |reference|), per output.
@@ -113,6 +116,14 @@ def flash_bound(shape, dtype, causal):
                     4.0 * b * h * s * d * itemsize + 4.0 * b * h * s, dtype)
 
 
+def split_tf32_bound_ms(shape, causal):
+    """float32 K1 on tf32 tensor cores: three products for each of K1's
+    FLOPs over the tf32 peak, or its bytes over the memory rate."""
+    b, h, s, d = shape
+    ops = 3 * (2.0 if causal else 4.0) * b * h * s * s * d
+    return max(ops / PEAK_TF32, (16.0 * b * h * s * d + 4.0 * b * h * s) / PEAK_BYTES) * 1e3
+
+
 def backward_bounds(shape, dtype, causal):
     """K2: 3·B·H·S²·D FLOPs causal (6 full), K3: 4 (8), the Pallas kernels'
     CostEstimates; both read q, k, v, dO, lse and delta, K2 writes dq and
@@ -157,6 +168,15 @@ def sass_counts(lib, cuobjdump):
             for op in counts[name]:
                 counts[name][op] += line.count(op)
     return counts
+
+
+def required_ops(instance):
+    """SASS instructions the instantiation ``instance`` (``"flash_fwd f32
+    D=32"``) must hold: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) for
+    each kernel built for Hopper (bf16 K1-K3, float32 K1); none for
+    float32 K2 and K3, which run on FMAs."""
+    name, dtype, _ = instance.split()
+    return ("HGMMA", "UTMALDG") if dtype == "bf16" or name == "flash_fwd" else ()
 
 
 def ptxas_summary(log):
@@ -302,6 +322,8 @@ def kernel_phase(attention_cuda):
                 "bound_by": fwd_by,
                 "exp_floor_ms": exp_floor,
             }
+            if dtype == torch.float32:
+                timing["flash_fwd"][dtype]["bound_tc_ms"] = split_tf32_bound_ms(shape, causal)
             # The plain version and SDPA's backward each compute dq, dk and
             # dv together; SDPA's forward runs once, outside the timing.
             plain_ms = cuda_ms(lambda: flash_backward_reference(
@@ -637,10 +659,11 @@ def main():
         counts = sass_counts(lib, cuobjdump)
         print(f"sass {lib.name}: {json.dumps(counts)}", flush=True)
         for name in instances[source]:
-            if name.startswith(("flash_fwd bf16", "flash_dkv bf16")):
-                ops = counts.get(name, {})
-                check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0,
-                      f"{name} has {ops} in its SASS: no wgmma or no TMA load")
+            need, ops = required_ops(name), counts.get(name, {})
+            print(f"sass {name}: requires {' and '.join(need) or 'nothing'}, has {ops}",
+                  flush=True)
+            check(all(ops.get(op, 0) > 0 for op in need),
+                  f"{name} has {ops} in its SASS: it needs {need}")
 
     errors, timing = kernel_phase(attention_cuda)
     launches = {}

@@ -14,9 +14,11 @@
 // Design. The TPU grid's sequential axis and its VMEM accumulators become
 // a loop inside one block, as in the forward:
 //
-// - K2: one block per (64-row query tile, batch*head). Q, dO, lse and delta
-//   stay put; K/V tiles of 64 keys stream through shared memory up to the
-//   diagonal (causal) or the end.
+// - K2: one block per (query-row tile, batch*head). Q, dO, lse and delta
+//   stay put; K/V tiles stream through shared memory up to the diagonal
+//   (causal) or the end. float32: 64-row tiles against 64-key tiles; bf16:
+//   128 rows against 128 keys at D = 32, 192 against 64 at D = 64, 128
+//   against 64 at D = 128.
 // - K3: one block per (key tile, batch*head): 64 keys in float32; in bf16
 //   192 at D = 32 and 128 at D = 64 and 128. K and V stay put; Q/dO tiles
 //   of 64 rows stream from the one
@@ -26,10 +28,23 @@
 // Two kernels per dtype, no atomics, so the sums are deterministic and in
 // the reference's order. Keys and rows at or past `seq` contribute nothing.
 //
-// - bfloat16 K2: every product on the tensor cores with mma.sync m16n8k16
-//   (bf16 in, f32 accumulate), four warps of 16 query rows, 16 keys at a
-//   time so only two score fragments are live; K in dS K is read with
-//   ldmatrix .trans.
+// - bfloat16 K2, built for Hopper (sm90.cuh), in bf16 K1's shape: warp 0
+//   is the producer. It loads the block's Q and dO tiles once by TMA and
+//   streams K and V tiles (128 keys at D = 32, 64 at D = 64 and 128)
+//   through a 3-stage ring with full/empty mbarriers. Consumer warpgroups
+//   own 64 query rows each, their lse (base 2) and delta in registers: two
+//   at D = 32 and 128 (240 registers a thread), three at D = 64 (160), as
+//   S and dP (N / 2 accumulators each), the packed dS (N / 4) and dQ
+//   (D / 2) are live together. Per tile: S = Q K^T
+//   and dP = dO V^T as one wgmma group with Q, dO, K and V K-major from
+//   shared memory; dS = exp2(S c - lse) (dP - delta) in registers (one
+//   FFMA and one MUFU.EX2 a score), masked only on the causal diagonal and
+//   a ragged last tile, rounded to bf16 straight into the register
+//   A-operand layout; dQ += dS K with K read MN-major through the
+//   descriptor's transpose bit. Tile j's S and dP are issued with tile
+//   j-1's dS K, and tile j's dS is computed while dS K is in flight. A
+//   warpgroup stops at its own diagonal and releases the tiles it skips.
+//   Blocks go longest first (causal).
 // - bfloat16 K3, built for Hopper (sm90.cuh): warp 0 is the producer. It
 //   loads the block's K and V tiles once by TMA and streams Q and dO tiles
 //   through a 3-stage ring with full/empty mbarriers, its lanes storing the
@@ -45,11 +60,11 @@
 //   with P^T and dS^T as bf16 register A operands and the same dO and Q
 //   tiles read MN-major. Keys being the rows (wgmma's 64-row M) is what
 //   puts P^T and dS^T in A-operand layout without a transpose.
-// - In both bf16 kernels P and dS are rounded to bf16 before their
-//   products, which is where the error against the plain version comes
-//   from.
-// - float32: float32 FMAs (no TF32, to keep full precision). A row (K2) or
-//   key (K3) is split over neighbouring threads that each own 32 (K2) or 16
+// - In the bf16 kernels dS (K2, K3) and P (K3) are rounded to bf16 before
+//   their products, which is where the error against the plain version
+//   comes from.
+// - float32: float32 FMAs. A row (K2) or key (K3) is split over
+//   neighbouring threads that each own 32 (K2) or 16
 //   (K3, which keeps two accumulators) of its columns, so the accumulators
 //   take 32 registers at every head_dim; the partial dot products meet by
 //   warp shuffles. A thread's columns are interleaved 16 bytes at a time
@@ -77,112 +92,265 @@ using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------- bf16
 
-template <int D>
-constexpr size_t bf16_smem_bytes() {
-  return sizeof(bf16) * 4 * kTile * (D + 8);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dq, int seq, int causal, float scale_log2,
-                     float scale) {
-  constexpr int DS = D + 8;  // padded row stride (elements)
-  extern __shared__ float4 smem4[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem4);
-  bf16* do_s = q_s + kTile * DS;
-  bf16* k_s = do_s + kTile * DS;
-  bf16* v_s = k_s + kTile * DS;
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
-  const int q0 = blockIdx.x * kTile;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse2[2], dlt[2];  // lse in base 2, delta, of this thread's two rows
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int64_t i = static_cast<int64_t>(blockIdx.y) * seq + rows[r];
-    lse2[r] = rows[r] < seq ? lse[i] * kLog2e : 0.f;
-    dlt[r] = rows[r] < seq ? delta[i] : 0.f;
-  }
-
-  load_tile<bf16, D, 8, kMmaThreads>(q_s, q + base, q0, seq);
-  load_tile<bf16, D, 8, kMmaThreads>(do_s, dout + base, q0, seq);
-  __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];  // this warp's rows as A fragments
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<DS>(qf[kk], q_s, warp * 16, kk * 16);
-    load_a<DS>(dof[kk], do_s, warp * 16, kk * 16);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<bf16, D, 8, kMmaThreads>(k_s, k + base, k0, seq);
-    load_tile<bf16, D, 8, kMmaThreads>(v_s, v + base, k0, seq);
-    __syncthreads();
-
-#pragma unroll
-    for (int kc = 0; kc < kTile; kc += 16) {  // 16 keys at a time
-      float s[2][4] = {}, dp[2][4] = {};      // S = Q K^T, dP = dO V^T
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
-        load_b<DS>(b, k_s, kc, kk * 16);
-        mma_bf16(s[0], qf[kk], b[0], b[1]);
-        mma_bf16(s[1], qf[kk], b[2], b[3]);
-        load_b<DS>(b, v_s, kc, kk * 16);
-        mma_bf16(dp[0], dof[kk], b[0], b[1]);
-        mma_bf16(dp[1], dof[kk], b[2], b[3]);
-      }
-      // dS = P (dP - delta) (fragment: c0,c1 row g; c2,c3 row g+8).
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = k0 + kc + j * 8 + 2 * t + (c & 1);
-          const bool valid = col < seq && (!causal || col <= rows[c / 2]);
-          const float p = valid ? exp2f(s[j][c] * scale_log2 - lse2[c / 2]) : 0.f;
-          s[j][c] = p * (dp[j][c] - dlt[c / 2]);
-        }
-      }
-      uint32_t a[4];
-      pack_a(a, s);
-      // dQ += dS K over these 16 keys.
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        load_b_trans<DS>(b, k_s, kc, np * 16);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= seq) continue;
-    bf16* out = dq + base + static_cast<int64_t>(rows[r]) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
-          __floats2bfloat162_rn(scale * acc[n][2 * r], scale * acc[n][2 * r + 1]);
-    }
-  }
-}
-
-// K3 in bf16, built for Hopper (sm90.cuh).
+// K2 and K3 in bf16, built for Hopper (sm90.cuh).
 namespace hopper {
 
 using namespace flash::sm90;
+
+// ----------------------------------------------------------- bf16 K2
+
+// Consumer warpgroups own 64 query rows each and take K/V tiles of kN
+// keys. S, dP (kN / 2 f32 accumulators each), the packed dS (kN / 4) and
+// dQ (D / 2) are live together. At D = 32 tiles of 128 keys with two
+// warpgroups at 240 registers a thread beat 64 keys with three at 160
+// (PERF.md); at D = 64 the 128-key tiles spill, so 64 keys and three
+// warpgroups; at D = 128 dQ alone takes 64 registers: 64 keys and two.
+template <int D>
+struct DqShape {
+  static constexpr int kN = D == 32 ? 128 : 64;  // keys per K/V tile
+  static constexpr int kConsumers = D == 64 ? 3 : 2;
+  static constexpr int kRows = 64 * kConsumers;  // query rows per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;  // after setmaxnreg
+  static constexpr int kStages = 3;  // K/V ring depth
+};
+
+// Shared memory: the Q and dO tiles, then per stage a K and a V tile (each
+// on a 1024-byte boundary), then the barriers; plus slack to align the base.
+template <int D>
+struct DqSmem {
+  using Sh = DqShape<D>;
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kDo = align1k(tile_bytes<D>(Sh::kRows));
+  static constexpr size_t kKV = align1k(tile_bytes<D>(Sh::kN));
+  static constexpr size_t kStage0 = 2 * kDo;
+  static constexpr size_t kStage = 2 * kKV;  // K, then V
+  static constexpr size_t kBar = kStage0 + Sh::kStages * kStage;
+  static constexpr size_t kBytes = kBar + (1 + 2 * Sh::kStages) * sizeof(uint64_t) + 1024;
+};
+
+// S = Q K^T and dP = dO V^T for one warpgroup's 64 query rows (from row
+// q_row0 of the Q and dO tiles) against a K/V stage, committed as one
+// wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_sdp_dq(float (&s)[DqShape<D>::kN / 2],
+                                             float (&dp)[DqShape<D>::kN / 2], const uint8_t* q_s,
+                                             const uint8_t* do_s, int q_row0, const uint8_t* st) {
+  constexpr int N = DqShape<D>::kN, kRows = DqShape<D>::kRows;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss<N>(s, desc_k_major<D>(q_s, kRows, q_row0, kk), desc_k_major<D>(st, N, 0, kk), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss<N>(dp, desc_k_major<D>(do_s, kRows, q_row0, kk),
+                desc_k_major<D>(st + DqSmem<D>::kKV, N, 0, kk), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// dS = P (dP - delta) in place of S, P = exp2(S c - lse) (base 2); masked
+// (P = 0) where `mask` says the tile holds keys past `seq` or above the
+// causal diagonal.
+template <int N>
+__device__ __forceinline__ void ds_tile(float (&s)[N / 2], const float (&dp)[N / 2], bool mask,
+                                        int k0, const int (&rows)[2], const float (&lse2)[2],
+                                        const float (&dlt)[2], int seq, int causal,
+                                        float scale_log2) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int r = (i / 2) & 1;
+    float p = exp2_approx(fmaf(s[i], scale_log2, -lse2[r]));
+    if (mask) {
+      const int col = k0 + (i / 4) * 8 + 2 * t + (i & 1);
+      if (col >= seq || (causal && col > rows[r])) p = 0.f;
+    }
+    s[i] = p * (dp[i] - dlt[r]);
+  }
+}
+
+// dS (64 x N, f32 accumulator layout) rounded to bf16 A operands, 16 keys each.
+template <int N>
+__device__ __forceinline__ void pack_ds(uint32_t (&a)[N / 16][4], const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  }
+}
+
+// dQ += dS K over a stage's N keys, K read MN-major; one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_dq(float (&acc)[D / 2],
+                                         const uint32_t (&a)[DqShape<D>::kN / 16][4],
+                                         const uint8_t* st) {
+  constexpr int N = DqShape<D>::kN;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) wgmma_rs<D>(acc, a[kk], desc_mn_major<D>(st, N, kk), 1);
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqShape<D>::kThreads, 1)
+flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq, int seq, int causal,
+                     float scale_log2, float scale) {
+  using Sh = DqShape<D>;
+  using S = DqSmem<D>;
+  constexpr int N = Sh::kN, kRows = Sh::kRows, kStages = Sh::kStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* q_full = bars;
+  uint64_t* kv_full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + kRows) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  const int warpgroup = threadIdx.x / 128;
+  const auto stage = [&](int j) { return smem + S::kStage0 + (j % kStages) * S::kStage; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&empty[s], Sh::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * tile_bytes<D>(kRows));
+      load_tile_tma<D>(smem + S::kQ, &q_map, q_full, kRows, q0, bh);
+      load_tile_tma<D>(smem + S::kDo, &do_map, q_full, kRows, q0, bh);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kv_full[s], 2 * tile_bytes<D>(N));
+        load_tile_tma<D>(stage(j), &k_map, &kv_full[s], N, j * N, bh);
+        load_tile_tma<D>(stage(j) + S::kKV, &v_map, &kv_full[s], N, j * N, bh);
+      }
+    }
+    return;
+  }
+
+  // Consumers: this warpgroup's 64 rows start at r0.
+  setmaxnreg_inc<Sh::kConsumerRegs>();
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int r0 = q0 + (warpgroup - 1) * 64;
+  const int rows[2] = {r0 + warp * 16 + lane / 4, r0 + warp * 16 + lane / 4 + 8};
+  const int q_row0 = (warpgroup - 1) * 64;  // within the Q and dO tiles
+  float lse2[2], dlt[2];  // lse in base 2 and delta of this thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t i = static_cast<int64_t>(bh) * seq + rows[r];
+    lse2[r] = rows[r] < seq ? lse[i] * kLog2e : 0.f;
+    dlt[r] = rows[r] < seq ? delta[i] : 0.f;
+  }
+  // Causal: this warpgroup's rows see no key past its own last row, so it
+  // stops there; rows wholly past `seq` need no tile.
+  const int own_end = causal ? min(seq, r0 + 64) : seq;
+  const int mine = r0 < seq ? (own_end + N - 1) / N : 0;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[N / 2], dp[N / 2];
+  uint32_t ds[N / 16][4];
+  const auto needs_mask = [&](int j) {  // the causal diagonal or a ragged last tile
+    return (causal && j * N + N - 1 > r0) || j * N + N > seq;
+  };
+
+  if (mine > 0) {
+    mbar_wait(q_full, 0);
+    mbar_wait(&kv_full[0], 0);
+    wgmma_fence();
+    issue_sdp_dq<D>(s, dp, smem + S::kQ, smem + S::kDo, q_row0, stage(0));
+    wgmma_wait<0>();
+    fence_operand(s);
+    fence_operand(dp);
+    ds_tile<N>(s, dp, needs_mask(0), 0, rows, lse2, dlt, seq, causal, scale_log2);
+    pack_ds<N>(ds, s);
+    for (int j = 1; j < mine; ++j) {
+      // Tile j's S and dP and tile j-1's dQ += dS K in flight together;
+      // tile j's dS is computed while dS K is still on the tensor cores.
+      mbar_wait(&kv_full[j % kStages], (j / kStages) & 1);
+      fence_operand(acc);
+      wgmma_fence();
+      issue_sdp_dq<D>(s, dp, smem + S::kQ, smem + S::kDo, q_row0, stage(j));
+      wgmma_fence();
+      issue_dq<D>(acc, ds, stage(j - 1));
+      wgmma_wait<1>();
+      fence_operand(s);
+      fence_operand(dp);
+      ds_tile<N>(s, dp, needs_mask(j), j * N, rows, lse2, dlt, seq, causal, scale_log2);
+      wgmma_wait<0>();
+      fence_operand(acc);
+      if (lane == 0) mbar_arrive(&empty[(j - 1) % kStages]);
+      pack_ds<N>(ds, s);
+    }
+    fence_operand(acc);
+    wgmma_fence();
+    issue_dq<D>(acc, ds, stage(mine - 1));
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (lane == 0) mbar_arrive(&empty[(mine - 1) % kStages]);
+  }
+  // Tiles this warpgroup skips are released once they have arrived, so the
+  // ring keeps turning for the others.
+  for (int j = mine; j < tiles; ++j) {
+    if (lane == 0) {
+      mbar_wait(&kv_full[j % kStages], (j / kStages) & 1);
+      mbar_arrive(&empty[j % kStages]);
+    }
+  }
+
+  const int t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= seq) continue;
+    bf16* out = dq + (static_cast<int64_t>(bh) * seq + rows[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+          __floats2bfloat162_rn(scale * acc[4 * n + 2 * r], scale * acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dq, int batch_heads, int seq,
+                      int causal, float scale_log2, float scale, cudaStream_t stream) {
+  using Sh = DqShape<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err;
+  if ((err = make_tile_map<D>(&q_map, q, batch_heads, seq, Sh::kRows)) != cudaSuccess ||
+      (err = make_tile_map<D>(&k_map, k, batch_heads, seq, Sh::kN)) != cudaSuccess ||
+      (err = make_tile_map<D>(&v_map, v, batch_heads, seq, Sh::kN)) != cudaSuccess ||
+      (err = make_tile_map<D>(&do_map, dout, batch_heads, seq, Sh::kRows)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = DqSmem<D>::kBytes;
+  if ((err = allow_smem(flash_dq_bf16_kernel<D>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + Sh::kRows - 1) / Sh::kRows);
+  flash_dq_bf16_kernel<D><<<grid, Sh::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dq), seq, causal, scale_log2,
+      scale);
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------- bf16 K3
 
 constexpr int kQRows = 64;  // query rows per streamed tile
 constexpr int kStages = 3;  // Q/dO ring depth
@@ -659,27 +827,23 @@ struct Args {
 
 template <int D, bool kBf16>
 cudaError_t launch_dq(const Args& a) {
-  const dim3 grid((a.seq + kTile - 1) / kTile, a.batch_heads);
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t err;
   if constexpr (kBf16) {
-    constexpr size_t smem = bf16_smem_bytes<D>();
-    if ((err = allow_smem(flash_dq_bf16_kernel<D>, smem)) != cudaSuccess) return err;
-    flash_dq_bf16_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), lse, delta,
-        static_cast<bf16*>(a.out0), a.seq, a.causal, a.scale_log2, a.scale);
+    return hopper::launch_dq<D>(a.q, a.k, a.v, a.dout, lse, delta, a.out0, a.batch_heads, a.seq,
+                                a.causal, a.scale_log2, a.scale, a.stream);
   } else {
+    const dim3 grid((a.seq + kTile - 1) / kTile, a.batch_heads);
     constexpr size_t smem = f32_smem_bytes<D>(4);
     constexpr int threads = F32Layout<D, 32>::kThreads;
-    if ((err = allow_smem(flash_dq_f32_kernel<D>, smem)) != cudaSuccess) return err;
+    const cudaError_t err = allow_smem(flash_dq_f32_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
     flash_dq_f32_kernel<D><<<grid, threads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse, delta,
         static_cast<float*>(a.out0), a.seq, a.causal, a.scale_log2, a.scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <int D, bool kBf16>

@@ -10,40 +10,48 @@
 // loop inside one block over K/V tiles; the running max and sum and the
 // output accumulator stay in float32 registers. Scores are kept in base 2
 // (log2(e) folded into the scale) so the exponentials are exp2; the lse is
-// converted back to base e. Two kernels:
+// converted back to base e. Both dtypes are built for Hopper (sm90.cuh)
+// in one shape: warp 0 is the producer, which loads the block's Q tile once
+// and streams K and V tiles by TMA into a ring of stages with full barriers
+// and empty barriers the consumers release; TMA's 3-D boxes (D, rows, 1)
+// never cross into the next head and fill rows past the sequence with
+// zeros. Consumer warpgroups own 64 query rows each: S = Q K^T and O += P V
+// are wgmma products, the softmax runs on the accumulator registers (row
+// max by quad shuffles, p = exp2(s*c - m) as one FFMA and one MUFU.EX2),
+// masks run only on tiles that need them (the causal diagonal and a ragged
+// last tile), and tile j's Q K^T and tile j-1's P V are issued together so
+// tile j's softmax runs while P V is in flight (no ping-pong between the
+// warpgroups). Blocks are handed out longest first (causal), so the last
+// wave holds the shortest q tiles. setmaxnreg moves registers from the
+// producer warpgroup (24 a thread) to the consumers.
 //
-// - bfloat16, built for Hopper (sm90.cuh). One block per (192 query rows,
-//   batch*head), four warpgroups. Warp 0 is the producer: it loads the
-//   block's Q tile once and streams K and V tiles (128 keys at D = 32 and
-//   64, 64 at D = 128) by TMA into a ring of 3 stages, each with its own
-//   full barriers for K and for V and an empty barrier the consumers
-//   release. TMA's 3-D boxes (D, rows, 1) never cross into the next head
-//   and fill rows past the sequence with zeros. Three consumer warpgroups
-//   own 64 query rows each (three rather than two, so more warpgroups'
-//   products hide each one's softmax; their registers still fit in 160
-//   a thread): S = Q K^T and O += P V are wgmma products (Q and K
-//   K-major from shared memory; P from registers; V read MN-major through
-//   the descriptor's transpose bit). The softmax runs on the accumulator
-//   registers: row max by quad shuffles, p = exp2(s*c - m) as one FFMA
-//   and one MUFU.EX2, P rounded to bf16 straight into the A-operand
-//   layout. Masks run only on tiles that need them (the causal diagonal
-//   and a ragged last tile). The exponentials overlap the tensor cores
-//   inside each warpgroup: tile j's Q K^T and tile j-1's P V are issued
-//   together, and tile j's softmax runs while P V is in flight (no
-//   ping-pong between the warpgroups, so no named barriers). Blocks are
-//   handed out longest first (causal), so the last wave holds the
-//   shortest q tiles. setmaxnreg moves registers from the producer
-//   warpgroup (24 a thread) to the consumers (160).
-// - float32: float32 FMAs, one thread per query row, so results keep full
-//   float32 precision (TF32 tensor cores would not). Scores are taken 16
-//   keys at a time so one accumulator rescale serves 16 keys; every K/V
-//   read from shared memory is a 16-byte broadcast.
+// - bfloat16: 192 query rows per block (three consumer warpgroups at 160
+//   registers, so more warpgroups' products hide each one's softmax), K/V
+//   tiles of 128 keys (64 at D = 128) in 3 stages. Q and K are K-major
+//   operands from shared memory; P is rounded to bf16 straight into the
+//   register A-operand layout; V is read MN-major through the descriptor's
+//   transpose bit.
+// - float32, in split tf32 so results keep float32 accuracy: each product
+//   a b is a_lo b + a b_lo + a b on tf32 tensor cores (m64nNk8), the
+//   tensor cores reading the top 19 bits of a float32 and a_lo = a minus a
+//   with its low 13 bits cleared, accumulated in f32; what is left out is
+//   about 2^-21 of |a b|. tf32 operands in shared memory are K-major only,
+//   so the consumers write, per arriving tile, K_lo and a transposed V^T
+//   and V^T_lo (keys permuted within groups of 8 so that P's accumulator
+//   registers are its A fragment as they are), and Q_lo once; a named
+//   barrier over the consumers and a proxy fence publish them to wgmma.
+//   Per D, three / two / one consumer warpgroups, tiles of 64 / 64 / 32
+//   keys and 3 / 2 / 2 stages fit the registers (S, P_hi and P_lo, N / 2
+//   each, and O, D / 2) and the shared memory (Q, Q_lo and five tiles a
+//   stage).
 //
 // Bound. Causal work is 2*B*H*S^2*D FLOPs (K1's CostEstimate) and the
 // traffic is 4*B*H*S*D*itemsize bytes plus the lse, so at the LM's shape
 // (8, 8, 2048, 32) both kernels are bound by operations. In bf16 the
 // exponentials (one per valid score, 16 per clock per SM) are a floor of
-// their own, above the tensor cores' at D = 32.
+// their own, above the tensor cores' at D = 32. In float32 the split
+// takes three tf32 products per product, 6*B*H*S^2*D FLOPs at 495 TFLOP/s,
+// against the float32 FMA bound of 2*B*H*S^2*D at 67 TFLOP/s.
 
 #include <math.h>
 
@@ -54,9 +62,6 @@ namespace {
 
 using namespace flash;
 using bf16 = __nv_bfloat16;
-
-constexpr int kBlockQ = kTile;  // float32: query rows per block
-constexpr int kBlockK = kTile;  // float32: keys per shared-memory tile
 
 // ---------------------------------------------------------------- bf16
 
@@ -308,130 +313,317 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   return cudaGetLastError();
 }
 
-}  // namespace hopper
-
 // ---------------------------------------------------------------- float32
 
-constexpr int kChunk = 16;  // keys per online-softmax update
-
+// float32 on the tensor cores in split tf32. Each product a b is taken as
+// a_hi b_hi + a_hi b_lo + a_lo b_hi, accumulated in f32: a_hi is the f32
+// value itself (the tensor cores read its top 19 bits) and a_lo = a minus
+// a with its low 13 bits cleared, formed explicitly; what is left out,
+// a_lo b_lo and the low bits of a_lo, is about 2^-21 of |a b|.
+//
+// Consumer warpgroups own 64 query rows; per D, the count, the keys per
+// tile and the ring depth are what fit the registers (S, P_hi, P_lo: N / 2
+// each, O: D / 2) and the shared memory (Q, Q_lo, and per stage K, V, K_lo,
+// V^T, V^T_lo).
 template <int D>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (kBlockQ * (D + 4) + 2 * kBlockK * D);
+struct F32Shape {
+  static constexpr int kConsumers = D == 32 ? 3 : (D == 64 ? 2 : 1);
+  static constexpr int kN = D == 128 ? 32 : 64;  // keys per K/V tile
+  static constexpr int kStages = D == 32 ? 3 : 2;
+  static constexpr int kRows = 64 * kConsumers;  // query rows per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
+  static constexpr int kConsumerThreads = 128 * kConsumers;
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;  // after setmaxnreg
+};
+
+// Shared memory: Q and Q_lo, then per stage K and V (by TMA), K_lo, V^T
+// and V^T_lo (written by the consumers), each on a 1024-byte boundary,
+// then the barriers; plus slack to align the base.
+template <int D>
+struct F32Smem {
+  using Sh = F32Shape<D>;
+  static constexpr size_t kBuf = align1k(tile_bytes<D, float>(Sh::kN));  // one stage buffer
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kQlo = align1k(tile_bytes<D, float>(Sh::kRows));
+  static constexpr size_t kStage0 = 2 * kQlo;
+  static constexpr size_t kK = 0, kV = kBuf, kKlo = 2 * kBuf, kVt = 3 * kBuf, kVtlo = 4 * kBuf;
+  static constexpr size_t kStage = 5 * kBuf;
+  static constexpr size_t kBar = kStage0 + Sh::kStages * kStage;
+  static constexpr size_t kBytes = kBar + (1 + 2 * Sh::kStages) * sizeof(uint64_t) + 1024;
+};
+
+__device__ __forceinline__ float tf32_lo(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+__device__ __forceinline__ float4 tf32_lo(float4 x) {
+  return make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+}
+
+// Q_lo of one warpgroup's 64 rows (from row q_row0): elementwise, so it
+// keeps Q's swizzled layout.
+template <int D>
+__device__ __forceinline__ void write_q_lo(uint8_t* smem, int q_row0) {
+  using S = F32Smem<D>;
+  using L = TileLayout<D, float>;
+  for (int c = 0; c < L::kBlocks; ++c) {
+    const size_t base = c * L::block_bytes(F32Shape<D>::kRows) + q_row0 * L::kSwizzle;
+    for (int i = threadIdx.x % 128; i < 64 * L::kSwizzle / 16; i += 128) {
+      const size_t off = base + i * 16;
+      *reinterpret_cast<float4*>(smem + S::kQlo + off) =
+          tf32_lo(*reinterpret_cast<const float4*>(smem + S::kQ + off));
+    }
+  }
+}
+
+// K_lo, V^T and V^T_lo of a stage, shared among the consumer threads. V^T
+// is the K-major B operand of P V (rows: D, columns: keys, 128-byte
+// swizzle), its keys permuted within each group of 8: column c holds key
+// 2c for c < 4 and key 2(c - 4) + 1 for c >= 4. That puts the two keys a
+// thread holds in P's accumulator layout (columns 2t, 2t+1) where the tf32
+// A fragment reads them (columns t, t+4), so P needs no shuffle.
+template <int D>
+__device__ __forceinline__ void split_stage(uint8_t* st) {
+  using Sh = F32Shape<D>;
+  using S = F32Smem<D>;
+  constexpr int N = Sh::kN;
+  const int tid = threadIdx.x - 128;
+  for (int i = tid; i < N * D / 4; i += Sh::kConsumerThreads) {
+    *reinterpret_cast<float4*>(st + S::kKlo + i * 16) =
+        tf32_lo(*reinterpret_cast<const float4*>(st + S::kK + i * 16));
+  }
+  for (int i = tid; i < N * D / 4; i += Sh::kConsumerThreads) {
+    const int r = i % N, c = (i / N) * 4;  // key, first of 4 columns
+    const float4 x = *reinterpret_cast<const float4*>(st + S::kV + (c / 32) * (N * 128) +
+                                                      swizzle128(r, (c % 32) * 4));
+    const int pos = (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+    const int block = (pos / 32) * (D * 128), col = (pos % 32) * 4;
+    const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int off = block + swizzle128(c + e, col);
+      *reinterpret_cast<float*>(st + S::kVt + off) = v[e];
+      *reinterpret_cast<float*>(st + S::kVtlo + off) = tf32_lo(v[e]);
+    }
+  }
+}
+
+// P (64 x N, f32 accumulator layout) as tf32 A operands of 8 keys each,
+// hi (low 13 bits cleared) and lo, in V^T's key order.
+template <int N>
+__device__ __forceinline__ void split_p(uint32_t (&hi)[N / 8][4], uint32_t (&lo)[N / 8][4],
+                                        const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    const float x[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3]};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      hi[kk][r] = __float_as_uint(x[r]) & 0xffffe000u;
+      lo[kk][r] = __float_as_uint(x[r] - __uint_as_float(hi[kk][r]));
+    }
+  }
+}
+
+// S = Q_lo K^T + Q K_lo^T + Q K^T for one warpgroup's 64 query rows
+// against a stage, committed as one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_qk_f32(float (&s)[F32Shape<D>::kN / 2], const uint8_t* smem,
+                                             int q_row0, const uint8_t* st) {
+  using S = F32Smem<D>;
+  constexpr int N = F32Shape<D>::kN, kRows = F32Shape<D>::kRows;
+  const auto q = [&](size_t at, int kk) {
+    return desc_k_major<D, float>(smem + at, kRows, q_row0, kk);
+  };
+  const auto k = [&](size_t at, int kk) { return desc_k_major<D, float>(st + at, N, 0, kk); };
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<N>(s, q(S::kQlo, kk), k(S::kK, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<N>(s, q(S::kQ, kk), k(S::kKlo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<N>(s, q(S::kQ, kk), k(S::kK, kk), 1);
+  wgmma_commit();
+}
+
+// O += P_lo V^T + P_hi V^T_lo + P_hi V^T over a stage, one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_pv_f32(float (&acc)[D / 2],
+                                             const uint32_t (&hi)[F32Shape<D>::kN / 8][4],
+                                             const uint32_t (&lo)[F32Shape<D>::kN / 8][4],
+                                             const uint8_t* st) {
+  using S = F32Smem<D>;
+  constexpr int N = F32Shape<D>::kN;
+  const auto vt = [&](size_t at, int kk) { return desc_k_major<N, float>(st + at, D, 0, kk); };
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) wgmma_rs_tf32<D>(acc, lo[kk], vt(S::kVt, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) wgmma_rs_tf32<D>(acc, hi[kk], vt(S::kVtlo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) wgmma_rs_tf32<D>(acc, hi[kk], vt(S::kVt, kk), 1);
+  wgmma_commit();
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBlockQ)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int seq, int causal,
-                     float scale_log2) {
-  constexpr int QS = D + 4;  // padded query-row stride, 16-byte aligned
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + kBlockQ * QS;
-  float* v_s = k_s + kBlockK * D;
+__global__ void __launch_bounds__(F32Shape<D>::kThreads, 1)
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
+                     float* __restrict__ lse, int seq, int causal, float scale_log2) {
+  using Sh = F32Shape<D>;
+  using S = F32Smem<D>;
+  constexpr int N = Sh::kN, kRows = Sh::kRows, kStages = Sh::kStages;
+  // With three stages, tile j+1 is split while tile j's products run; with
+  // two, its stage is tile j-1's, so only after that is released.
+  constexpr bool kEarly = kStages >= 3;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* q_full = bars;
+  uint64_t* kv_full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
-  const int tid = threadIdx.x;  // one thread per query row
-  const int q0 = blockIdx.x * kBlockQ;
-  const int row = q0 + tid;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + kRows) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  const int warpgroup = threadIdx.x / 128;
+  const auto stage = [&](int j) { return smem + S::kStage0 + (j % kStages) * S::kStage; };
 
-  // Query tile, scaled in float32 (by scale * log2(e)); rows past the end are 0.
-  for (int i = tid; i < kBlockQ * D; i += kBlockQ) {
-    const int r = i / D, c = i % D;
-    q_s[r * QS + c] =
-        q0 + r < seq ? q[base + static_cast<int64_t>(q0 + r) * D + c] * scale_log2 : 0.f;
-  }
-
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = -INFINITY;  // running max, base 2
-  float l = 0.f;        // running sum
-
-  // Causal: tiles starting past this block's last row contribute nothing.
-  const int kv_end = causal ? min(seq, q0 + kBlockQ) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed (and q_s is written)
-    for (int i = tid; i < kBlockK * D; i += kBlockQ) {
-      const int kr = k0 + i / D;
-      const int64_t off = base + static_cast<int64_t>(kr) * D + i % D;
-      k_s[i] = kr < seq ? k[off] : 0.f;
-      v_s[i] = kr < seq ? v[off] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&empty[s], Sh::kConsumerWarps);
     }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int j0 = 0; j0 < kBlockK; j0 += kChunk) {
-      float s[kChunk];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) s[j] = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_s + tid * QS + d);
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          const float4 kv = *reinterpret_cast<const float4*>(k_s + (j0 + j) * D + d);
-          s[j] = fmaf(qv.x, kv.x, s[j]);
-          s[j] = fmaf(qv.y, kv.y, s[j]);
-          s[j] = fmaf(qv.z, kv.z, s[j]);
-          s[j] = fmaf(qv.w, kv.w, s[j]);
-        }
-      }
-      float chunk_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int kpos = k0 + j0 + j;
-        const bool valid = kpos < seq && (!causal || kpos <= row);
-        s[j] = valid ? s[j] : -INFINITY;
-        chunk_max = fmaxf(chunk_max, s[j]);
-      }
-      const float m_new = fmaxf(m, chunk_max);
-      const float shift = isfinite(m_new) ? m_new : 0.f;
-      const float corr = isfinite(m) ? exp2f(m - shift) : 0.f;
-      float p_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        s[j] = exp2f(s[j] - shift);
-        p_sum += s[j];
-      }
-      l = l * corr + p_sum;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-#pragma unroll
-        for (int d = 0; d < D; d += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(v_s + (j0 + j) * D + d);
-          acc[d] = fmaf(s[j], vv.x, acc[d]);
-          acc[d + 1] = fmaf(s[j], vv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(s[j], vv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(s[j], vv.w, acc[d + 3]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  const float denom = fmaxf(l, 1e-30f);
-  if (row < seq) {
-    const float shift = isfinite(m) ? m : 0.f;
-    lse[static_cast<int64_t>(blockIdx.y) * seq + row] = (shift + log2f(denom)) * kLn2;
-  }
-  // Stage the normalised row in this thread's own q_s row, then store the
-  // tile row-major so consecutive threads write consecutive addresses.
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    *reinterpret_cast<float4*>(q_s + tid * QS + d) =
-        make_float4(acc[d] / denom, acc[d + 1] / denom, acc[d + 2] / denom,
-                    acc[d + 3] / denom);
+    fence_barrier_init();
   }
   __syncthreads();
-  for (int i = tid; i < kBlockQ * D; i += kBlockQ) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < seq) o[base + static_cast<int64_t>(q0 + r) * D + c] = q_s[r * QS + c];
+
+  if (warpgroup == 0) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, tile_bytes<D, float>(kRows));
+      load_tile_tma<D, float>(smem + S::kQ, &q_map, q_full, kRows, q0, bh);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kv_full[s], 2 * tile_bytes<D, float>(N));
+        load_tile_tma<D, float>(stage(j) + S::kK, &k_map, &kv_full[s], N, j * N, bh);
+        load_tile_tma<D, float>(stage(j) + S::kV, &v_map, &kv_full[s], N, j * N, bh);
+      }
+    }
+    return;
+  }
+
+  // Consumers: this warpgroup's 64 rows start at r0.
+  setmaxnreg_inc<Sh::kConsumerRegs>();
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int r0 = q0 + (warpgroup - 1) * 64;
+  const int rows[2] = {r0 + warp * 16 + lane / 4, r0 + warp * 16 + lane / 4 + 8};
+  const int q_row0 = (warpgroup - 1) * 64;  // within the Q tile
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[N / 2];
+  uint32_t p_hi[N / 8][4], p_lo[N / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+
+  const auto needs_mask = [&](int j) {  // the causal diagonal or a ragged last tile
+    return (causal && j * N + N - 1 > r0) || j * N + N > seq;
+  };
+  // Tile j's lo parts and V^T, made visible to wgmma; a consumer barrier
+  // follows before any warpgroup reads them.
+  const auto split = [&](int j) {
+    mbar_wait(&kv_full[j % kStages], (j / kStages) & 1);
+    split_stage<D>(stage(j));
+    fence_proxy_async();
+  };
+  const auto consumers_sync = [&] { named_barrier_sync(1, Sh::kConsumerThreads); };
+
+  mbar_wait(q_full, 0);
+  write_q_lo<D>(smem, q_row0);
+  split(0);
+  consumers_sync();
+  wgmma_fence();
+  issue_qk_f32<D>(s, smem, q_row0, stage(0));
+  if (tiles > 1) split(1);
+  wgmma_wait<0>();
+  fence_operand(s);
+  softmax_tile<N>(s, m, l, corr, needs_mask(0), 0, rows, seq, causal, scale_log2);
+  if (tiles > 1) consumers_sync();
+  split_p<N>(p_hi, p_lo, s);
+
+  for (int j = 1; j < tiles; ++j) {
+    // Tile j's S and tile j-1's O += P V in flight together; tile j's
+    // softmax runs while P V is still on the tensor cores.
+    fence_operand(acc);
+    wgmma_fence();
+    issue_qk_f32<D>(s, smem, q_row0, stage(j));
+    wgmma_fence();
+    issue_pv_f32<D>(acc, p_hi, p_lo, stage(j - 1));
+    if (kEarly && j + 1 < tiles) split(j + 1);
+    wgmma_wait<1>();
+    fence_operand(s);
+    softmax_tile<N>(s, m, l, corr, needs_mask(j), j * N, rows, seq, causal, scale_log2);
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (lane == 0) mbar_arrive(&empty[(j - 1) % kStages]);
+    if (!kEarly && j + 1 < tiles) split(j + 1);
+    if (j + 1 < tiles) consumers_sync();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) & 1];
+    split_p<N>(p_hi, p_lo, s);
+  }
+  fence_operand(acc);
+  wgmma_fence();
+  issue_pv_f32<D>(acc, p_hi, p_lo, stage(tiles - 1));
+  wgmma_wait<0>();
+  fence_operand(acc);
+  if (lane == 0) mbar_arrive(&empty[(tiles - 1) % kStages]);
+
+  const int t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float denom = fmaxf(l[r], 1e-30f);
+    if (rows[r] >= seq) continue;
+    if (t == 0) {
+      const float shift = isfinite(m[r]) ? m[r] : 0.f;
+      lse[static_cast<int64_t>(bh) * seq + rows[r]] = (shift + log2f(denom)) * kLn2;
+    }
+    float* out = o + (static_cast<int64_t>(bh) * seq + rows[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2(acc[4 * n + 2 * r] / denom, acc[4 * n + 2 * r + 1] / denom);
+    }
   }
 }
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                       int batch_heads, int seq, int causal, float scale_log2,
+                       cudaStream_t stream) {
+  using Sh = F32Shape<D>;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err;
+  if ((err = make_tile_map<D, float>(&q_map, q, batch_heads, seq, Sh::kRows)) != cudaSuccess ||
+      (err = make_tile_map<D, float>(&k_map, k, batch_heads, seq, Sh::kN)) != cudaSuccess ||
+      (err = make_tile_map<D, float>(&v_map, v, batch_heads, seq, Sh::kN)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = F32Smem<D>::kBytes;
+  if ((err = allow_smem(flash_fwd_f32_kernel<D>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + Sh::kRows - 1) / Sh::kRows);
+  flash_fwd_f32_kernel<D><<<grid, Sh::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<float*>(o), static_cast<float*>(lse), seq, causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
 
 // ---------------------------------------------------------------- launch
 
@@ -442,16 +634,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if constexpr (kBf16) {
     return hopper::launch<D>(q, k, v, o, lse, batch_heads, seq, causal, scale_log2, stream);
   } else {
-    const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch_heads);
-    // Above 48 KB of shared memory the kernel must opt in to the larger size.
-    constexpr size_t smem = f32_smem_bytes<D>();
-    const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_f32_kernel<D><<<grid, kBlockQ, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), seq,
-        causal, scale_log2);
-    return cudaGetLastError();
+    return hopper::launch_f32<D>(q, k, v, o, lse, batch_heads, seq, causal, scale_log2, stream);
   }
 }
 

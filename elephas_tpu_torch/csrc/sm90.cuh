@@ -1,18 +1,23 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels:
+// Hopper (sm_90a) building blocks of the flash-attention kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma.mma_async products (bf16 in, f32 accumulate), setmaxnreg, and the
-// host-side tensor maps that feed TMA.
+// wgmma.mma_async products (bf16 or tf32 in, f32 accumulate), setmaxnreg,
+// named barriers, the proxy fence, and the host-side tensor maps that feed
+// TMA.
 //
-// Tiles in shared memory. A (rows, D) bf16 tile is stored as D / W
-// column blocks of W elements (W * 2 = the swizzle span: 64 bytes at
-// D = 32, 128 bytes at D = 64 and 128), each block `rows` rows of W
-// elements, swizzled by TMA (CU_TENSOR_MAP_SWIZZLE_64B / _128B). Every
+// Tiles in shared memory. A (rows, D) tile of element type T is stored as
+// D / W column blocks of W elements (W * sizeof(T) = the swizzle span: in
+// bf16 64 bytes at D = 32 and 128 bytes at D = 64 and 128; in float32 always
+// 128 bytes, W = 32), each block `rows` rows of W elements, swizzled by TMA
+// (CU_TENSOR_MAP_SWIZZLE_64B / _128B) or by the 128-byte swizzle that
+// `swizzle128` computes for tiles written by threads. Every
 // block starts on a 1024-byte boundary, so TMA's swizzle and wgmma's
 // agree: both XOR address bits of the absolute shared-memory address.
 // One tile serves as a K-major operand (rows = M or N, D = the reduction
 // axis: Q K^T, K Q^T, V dO^T) and as an MN-major one (rows = the
 // reduction axis, D = N: P V, P^T dO, dS^T Q), read through the
-// descriptor's transpose bit instead of a transpose in memory.
+// descriptor's transpose bit instead of a transpose in memory. That bit
+// exists only for 16-bit types: a float32 (tf32) operand is K-major, so
+// the f32 kernels write a transposed copy where they need MN-major data.
 #pragma once
 
 #include <cuda.h>
@@ -86,10 +91,10 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 }
 
 // Column-block width (elements) and swizzle span (bytes) of a D-wide tile.
-template <int D>
+template <int D, typename T = __nv_bfloat16>
 struct TileLayout {
-  static constexpr int W = D == 32 ? 32 : 64;
-  static constexpr int kSwizzle = 2 * W;  // bytes per swizzled row
+  static constexpr int W = sizeof(T) == 4 ? 32 : (D == 32 ? 32 : 64);
+  static constexpr int kSwizzle = sizeof(T) * W;  // bytes per swizzled row
   static constexpr int kBlocks = D / W;
   static constexpr int kSbo = 8 * kSwizzle;  // bytes between 8-row groups
   // Bytes of one column block of a tile of `rows` rows.
@@ -97,17 +102,24 @@ struct TileLayout {
 };
 
 // Bytes a barrier must expect for one (rows, D) tile.
-template <int D>
+template <int D, typename T = __nv_bfloat16>
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) {
-  return static_cast<uint32_t>(rows) * D * 2;
+  return static_cast<uint32_t>(rows) * D * sizeof(T);
+}
+
+// Byte offset of the 16-byte chunk at byte column `col` (a multiple of 16)
+// of row `row` in a block of 128-byte rows swizzled as TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B and wgmma's 128-byte mode store it.
+__device__ __forceinline__ int swizzle128(int row, int col) {
+  return row * 128 + (col ^ ((row & 7) << 4));
 }
 
 // Load a (rows, D) tile at sequence row `row` of head `bh`: one TMA box
 // per column block, all counted on `bar`.
-template <int D>
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void load_tile_tma(void* tile, const CUtensorMap* map, uint64_t* bar,
                                               int rows, int row, int bh) {
-  using L = TileLayout<D>;
+  using L = TileLayout<D, T>;
 #pragma unroll
   for (int c = 0; c < L::kBlocks; ++c) {
     tma_load_3d(static_cast<char*>(tile) + c * L::block_bytes(rows), map, bar, c * L::W, row, bh);
@@ -127,13 +139,13 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
 }
 
 // K-major operand: rows `row0`.. of a tile of `rows` rows, reduction step
-// `kk` (16 elements of D).
-template <int D>
+// `kk` (32 bytes of D: 16 bf16 or 8 tf32 elements).
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ uint64_t desc_k_major(const void* tile, int rows, int row0, int kk) {
-  using L = TileLayout<D>;
-  const int col = kk * 16;
+  using L = TileLayout<D, T>;
+  const int col = kk * (32 / static_cast<int>(sizeof(T)));
   const uint32_t addr = smem_addr(tile) + (col / L::W) * L::block_bytes(rows) +
-                        row0 * L::kSwizzle + (col % L::W) * 2;
+                        row0 * L::kSwizzle + (col % L::W) * static_cast<int>(sizeof(T));
   return make_desc(addr, 16, L::kSbo, L::kSwizzle);
 }
 
@@ -270,6 +282,117 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
 }
 
 
+// The same products in tf32 (k8: 8 elements, 32 bytes, of the reduction
+// axis a step). The tensor cores read the top 19 bits (sign, exponent, 10
+// mantissa bits) of each float32 operand and ignore the low 13; both
+// shared-memory operands are K-major (tf32 has no transpose bit).
+//
+// d (64 x N, f32) (+)= A (64 x 8, K-major descriptor) * B (8 x N, K-major
+// descriptor).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                              int accumulate);
+
+// d (64 x N, f32) (+)= A (64 x 8 in registers) * B (8 x N, K-major
+// descriptor). A fragment of thread (warp w, lane l): a[0] is row
+// 16w + l/4, column l%4; a[1] row + 8; a[2] column + 4; a[3] both.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's operand reads, TMA), before a barrier that orders
+// them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+
 // ------------------------------------------------------------ registers
 
 // Warp-specialised kernels hand registers from the producer warpgroup to
@@ -315,23 +438,24 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a (batch_heads, seq, D) bf16 tensor as the 3-D array
-// (D, seq, batch_heads), boxes of (W, rows, 1) swizzled as TileLayout<D>
-// says; a box never crosses into the next head, and its rows past `seq`
-// are filled with zeros.
-template <int D>
+// Tensor map of a (batch_heads, seq, D) tensor of T (bf16 or float32) as
+// the 3-D array (D, seq, batch_heads), boxes of (W, rows, 1) swizzled as
+// TileLayout<D, T> says; a box never crosses into the next head, and its
+// rows past `seq` are filled with zeros.
+template <int D, typename T = __nv_bfloat16>
 cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, int batch_heads, int seq, int rows) {
-  using L = TileLayout<D>;
+  using L = TileLayout<D, T>;
+  constexpr cuuint64_t kElem = sizeof(T);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(batch_heads)};
-  const cuuint64_t strides[2] = {D * 2, static_cast<cuuint64_t>(seq) * D * 2};  // bytes
+  const cuuint64_t strides[2] = {D * kElem, static_cast<cuuint64_t>(seq) * D * kElem};  // bytes
   const cuuint32_t box[3] = {L::W, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, kElem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+      const_cast<void*>(ptr), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       L::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -8,6 +8,7 @@ selects. The CUDA kernels themselves are checked against the same plain
 versions on the card by ``chip_smoke.py``.
 """
 
+import math
 import re
 import subprocess
 from pathlib import Path
@@ -66,9 +67,11 @@ def _cotangent(shape):
     return np.random.default_rng(7).standard_normal(shape).astype(np.float32)
 
 
-# (64, 64): the float32 kernels' tiling; (192, 128) and (192, 64): the
-# bf16 K1's at head_dim 32/64 and 128.
-@pytest.mark.parametrize("blocks", [(16, 32), (64, 64), (192, 128), (192, 64)])
+# (192, 128) and (192, 64): the bf16 K1's at head_dim 32/64 and 128;
+# (192, 64), (128, 64) and (64, 32): the float32 K1's at head_dim 32, 64
+# and 128.
+@pytest.mark.parametrize("blocks", [(16, 32), (64, 64), (192, 128), (192, 64), (128, 64),
+                                    (64, 32)])
 @pytest.mark.parametrize("seq", [37, 100])
 @pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
@@ -137,8 +140,11 @@ def test_cpu_flash_attention_gradients_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
-# (64, 192) and (64, 128): the bf16 K3's at head_dim 32 and 64/128.
-@pytest.mark.parametrize("blocks", [(16, 32), (64, 64), (64, 192), (64, 128)])
+# (64, 64): the float32 K2's and K3's; (64, 192) and (64, 128): the bf16
+# K3's at head_dim 32 and 64/128; (128, 128), (192, 64) and (128, 64): the
+# bf16 K2's at head_dim 32, 64 and 128.
+@pytest.mark.parametrize("blocks", [(16, 32), (64, 64), (64, 192), (64, 128), (128, 128),
+                                    (192, 64), (128, 64)])
 @pytest.mark.parametrize("seq", [37, 100])
 @pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
@@ -209,16 +215,93 @@ def test_cuda_function_backward_wiring(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_kernel_tiles(name, dtype, head_dim):
-    """Each kernel's tiling: 64 x 64 in float32 and for bf16 K2; bf16 K1
-    takes 192 query rows (64 per consumer warpgroup) against 128 keys, 64
-    at head_dim 128; bf16 K3 64 query rows against 192 keys (64 per
-    consumer warpgroup; 128 at head_dim 64 and 128)."""
+    """Each kernel's tiling: 64 x 64 for float32 K2 and K3; bf16 K1 takes
+    192 query rows (64 per consumer warpgroup) against 128 keys, 64 at
+    head_dim 128; bf16 K2 128 query rows against 128 keys at head_dim 32,
+    192 against 64 at 64 and 128 against 64 at 128; bf16 K3 64 query rows against 192 keys (64 per consumer
+    warpgroup; 128 at head_dim 64 and 128); float32 K1 192, 128 and 64
+    query rows against 64, 64 and 32 keys at head_dim 32, 64 and 128."""
     want = (64, 64)
     if dtype == torch.bfloat16 and name == "flash_fwd":
         want = (192, 64 if head_dim == 128 else 128)
+    elif dtype == torch.bfloat16 and name == "flash_dq":
+        want = {32: (128, 128), 64: (192, 64), 128: (128, 64)}[head_dim]
     elif dtype == torch.bfloat16 and name == "flash_dkv":
         want = (64, 192 if head_dim == 32 else 128)
+    elif dtype == torch.float32 and name == "flash_fwd":
+        want = {32: (192, 64), 64: (128, 64), 128: (64, 32)}[head_dim]
     assert attention_cuda.kernel_tiles(name, dtype, head_dim) == want
+
+
+def _tf32(x):
+    """What the tensor cores read of a float32 operand: its low 13 bits
+    cleared."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_products(a, b, split):
+    """a @ b as the float32 K1 takes it on tf32 tensor cores, accumulated
+    in float32: with ``split``, a_lo b + a b_lo + a b (a_lo = a minus
+    _tf32(a), itself read as tf32), else the one product a b."""
+    terms = [(a, b)]
+    if split:
+        terms = [(a - _tf32(a), b), (a, b - _tf32(b)), (a, b)]
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for x, y in terms:
+        # Products of two tf32 values are exact in float32.
+        acc += _tf32(x) @ _tf32(y)
+    return acc
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_split_tf32_products_keep_f32_accuracy(head_dim):
+    """The float32 K1's arithmetic on one 64-row tile: Q K^T and P V as
+    three tf32 products each hold against float64 within 1e-5 of the
+    larger of 1 and the result's max, as a float32 product does; one tf32
+    product does not. Inputs at the LM's magnitudes: unit-normal q, k, v;
+    P a row softmax of the scaled scores (entries in [0, 1])."""
+    rng = np.random.default_rng(head_dim)
+    q, k, v = (torch.from_numpy(rng.standard_normal((64, head_dim)).astype(np.float32))
+               for _ in range(3))
+    scores = q.double() @ k.double().T
+    p = torch.softmax(scores / math.sqrt(head_dim), dim=-1).float()
+    for a, b in ((q, k.T.contiguous()), (p, v)):
+        want = a.double() @ b.double()
+        tol = 1e-5 * max(1.0, want.abs().max().item())
+        split = (_tf32_products(a, b, split=True).double() - want).abs().max().item()
+        one = (_tf32_products(a, b, split=False).double() - want).abs().max().item()
+        plain = ((a @ b).double() - want).abs().max().item()
+        assert split <= tol and plain <= tol, (split, plain, tol)
+        assert one > tol, (one, tol)
+
+
+@pytest.mark.parametrize("keys", [32, 64])
+def test_tf32_fragment_key_order(keys):
+    """P's accumulator registers feed the tf32 A fragment as they are: a
+    thread holds keys 2t and 2t+1 of each group of 8 (accumulator
+    d[4j + 2i + c] = row g + 8i, key 8j + 2t + c) and passes them as
+    (d[4j], d[4j+2], d[4j+1], d[4j+3]), the fragment's (row g, column t),
+    (g + 8, t), (g, t + 4), (g + 8, t + 4); V^T's column of key r within
+    its group of 8 is (r & 7) >> 1 | (r & 1) << 2. Together they give P V."""
+    rng = np.random.default_rng(keys)
+    p = rng.standard_normal((16, keys))
+    v = rng.standard_normal((keys, 8))
+    a = np.zeros_like(p)  # the fragment's A, one warp's 16 rows
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        d = np.zeros(keys // 2)
+        for j in range(keys // 8):
+            for i in range(2):
+                for c in range(2):
+                    d[4 * j + 2 * i + c] = p[g + 8 * i, 8 * j + 2 * t + c]
+        for kk in range(keys // 8):
+            x = (d[4 * kk], d[4 * kk + 2], d[4 * kk + 1], d[4 * kk + 3])
+            a[g, 8 * kk + t], a[g + 8, 8 * kk + t] = x[0], x[1]
+            a[g, 8 * kk + t + 4], a[g + 8, 8 * kk + t + 4] = x[2], x[3]
+    b = np.zeros_like(v)  # B = (V^T)^T, row = V^T's column
+    for r in range(keys):
+        b[(r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2)] = v[r]
+    np.testing.assert_allclose(a @ b, p @ v, rtol=1e-12, atol=1e-12)
 
 
 def test_headers_cover_every_include():

@@ -1,6 +1,8 @@
 """``chip_smoke.py``'s own parsing and arithmetic, on the CPU: the SASS
-and ptxas reports it reads to show the bf16 kernels run on wgmma and TMA,
-the exponentials' floor it prints, and its refusal to run without a card.
+and ptxas reports it reads to show the kernels built for Hopper run on
+wgmma and TMA, the instructions each instantiation must hold, the bounds
+and the exponentials' floor it prints, and its refusal to run without a
+card.
 """
 
 import importlib.util
@@ -46,6 +48,29 @@ def test_sass_counts_per_instantiation(smoke, monkeypatch):
         "flash_fwd bf16 D=64": {"HGMMA": 1, "UTMALDG": 2},
         "flash_fwd f32 D=32": {"HGMMA": 0, "UTMALDG": 0},
     }
+
+
+@pytest.mark.parametrize("instance, want", [
+    ("flash_fwd bf16 D=32", ("HGMMA", "UTMALDG")),
+    ("flash_fwd f32 D=128", ("HGMMA", "UTMALDG")),
+    ("flash_dq bf16 D=64", ("HGMMA", "UTMALDG")),
+    ("flash_dkv bf16 D=128", ("HGMMA", "UTMALDG")),
+    ("flash_dq f32 D=32", ()),
+    ("flash_dkv f32 D=64", ()),
+])
+def test_required_ops_per_instantiation(smoke, instance, want):
+    """Every kernel built for Hopper (bf16 K1-K3, float32 K1) must show
+    wgmma and TMA loads in its SASS; float32 K2 and K3 run on FMAs."""
+    assert smoke.required_ops(instance) == want
+
+
+def test_split_tf32_bound(smoke):
+    """float32 K1's tensor-core bound: 3 x 2·B·H·S²·D over 495 TFLOP/s,
+    0.1041 ms at the LM's causal shape; full attention twice that."""
+    shape = (8, 8, 2048, 32)
+    assert smoke.split_tf32_bound_ms(shape, True) == pytest.approx(0.10412, abs=1e-5)
+    assert smoke.split_tf32_bound_ms(shape, False) == pytest.approx(
+        2 * smoke.split_tf32_bound_ms(shape, True), rel=1e-12)
 
 
 def test_ptxas_summary_names_the_hopper_kernels(smoke):
