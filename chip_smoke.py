@@ -11,8 +11,9 @@ Phases, in order; any failed check raises and the process exits non-zero:
    ``nvcc`` for ``sm_90a``, one ``nvcc`` each, both at once; ptxas's
    registers and spills per kernel, and from ``cuobjdump -sass`` the
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions of each
-   kernel instantiation: the run fails if a kernel built for Hopper (bf16
-   K1-K3, float32 K1; ``required_ops``) has none of either;
+   kernel instantiation: every kernel, K1-K3 in bf16 and in float32 (split
+   tf32), runs on wgmma fed by TMA, and the run fails if an instantiation
+   has none of either (``required_ops``);
 3. kernels: the flash-attention forward (K1) against its plain PyTorch
    version (``blockwise_reference``), then the backward kernels (K2 dq,
    K3 dk/dv) against theirs (``flash_backward_reference``, on K1's o and
@@ -23,8 +24,8 @@ Phases, in order; any failed check raises and the process exits non-zero:
    (``attention_cuda.kernel_tiles``); each timed at the LM's shape beside
    its plain version and one PyTorch call
    (``F.scaled_dot_product_attention`` and its backward: the yardsticks,
-   never called by the port) and printed with its bound (float32 K1 also
-   with the split-tf32 tensor-core bound, ``bound_tc_ms``), the floor the
+   never called by the port) and printed with its bound (each float32
+   kernel also with the split-tf32 tensor-core bound, ``bound_tc_ms``), the floor the
    exponentials set (one per valid score, 16 a clock per SM at the card's
    maximum SM clock) and the card's clock, power draw and temperature;
 4. inference: the Transformer LM at the registry's full width
@@ -108,32 +109,24 @@ def bound_ms(ops, nbytes, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def flash_bound(shape, dtype, causal):
-    """K1: 2·B·H·S²·D FLOPs causal (4 full); q, k, v read, o and lse written."""
+def kernel_work(shape, itemsize, causal):
+    """FLOPs and bytes of each kernel at ``shape`` (B, H, S, D), from the
+    Pallas kernels' CostEstimates: K1 2·B·H·S²·D FLOPs causal (4 full),
+    reading q, k, v and writing o and lse; K2 3 (6) and K3 4 (8), both
+    reading q, k, v, dO, lse and delta, K2 writing dq and K3 dk and dv."""
     b, h, s, d = shape
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    return bound_ms((2.0 if causal else 4.0) * b * h * s * s * d,
-                    4.0 * b * h * s * d * itemsize + 4.0 * b * h * s, dtype)
+    flops = (1.0 if causal else 2.0) * b * h * s * s * d
+    tensor, rows = b * h * s * d * itemsize, 4.0 * b * h * s
+    return {"flash_fwd": (2 * flops, 4 * tensor + rows),
+            "flash_dq": (3 * flops, 5 * tensor + 2 * rows),
+            "flash_dkv": (4 * flops, 6 * tensor + 2 * rows)}
 
 
-def split_tf32_bound_ms(shape, causal):
-    """float32 K1 on tf32 tensor cores: three products for each of K1's
-    FLOPs over the tf32 peak, or its bytes over the memory rate."""
-    b, h, s, d = shape
-    ops = 3 * (2.0 if causal else 4.0) * b * h * s * s * d
-    return max(ops / PEAK_TF32, (16.0 * b * h * s * d + 4.0 * b * h * s) / PEAK_BYTES) * 1e3
-
-
-def backward_bounds(shape, dtype, causal):
-    """K2: 3·B·H·S²·D FLOPs causal (6 full), K3: 4 (8), the Pallas kernels'
-    CostEstimates; both read q, k, v, dO, lse and delta, K2 writes dq and
-    K3 writes dk and dv."""
-    b, h, s, d = shape
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    tensor, rows = b * h * s * d * itemsize, 2.0 * 4 * b * h * s
-    half = 0.5 if causal else 1.0
-    return {"flash_dq": bound_ms(6.0 * half * b * h * s * s * d, 5 * tensor + rows, dtype),
-            "flash_dkv": bound_ms(8.0 * half * b * h * s * s * d, 6 * tensor + rows, dtype)}
+def split_tf32_bound_ms(flops, nbytes):
+    """A float32 kernel on tf32 tensor cores in split tf32: three products
+    for each of its FLOPs over the tf32 peak, or its bytes over the memory
+    rate."""
+    return max(3 * flops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
 
 
 def exp_floor_ms(shape, causal, sms, clock_mhz):
@@ -172,11 +165,12 @@ def sass_counts(lib, cuobjdump):
 
 def required_ops(instance):
     """SASS instructions the instantiation ``instance`` (``"flash_fwd f32
-    D=32"``) must hold: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) for
-    each kernel built for Hopper (bf16 K1-K3, float32 K1); none for
-    float32 K2 and K3, which run on FMAs."""
+    D=32"``) must hold: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load), as
+    every kernel, K1-K3 in bf16 and in float32, is built for Hopper."""
     name, dtype, _ = instance.split()
-    return ("HGMMA", "UTMALDG") if dtype == "bf16" or name == "flash_fwd" else ()
+    if name not in ("flash_fwd", "flash_dq", "flash_dkv") or dtype not in ("bf16", "f32"):
+        raise ValueError(f"unknown kernel instantiation {instance!r}")
+    return ("HGMMA", "UTMALDG")
 
 
 def ptxas_summary(log):
@@ -310,7 +304,8 @@ def kernel_phase(attention_cuda):
               + f" (norm limit {TOL_BWD_NORM[dtype]})", flush=True)
 
         if shape[2] == SEQ:
-            fwd_bound, fwd_by = flash_bound(shape, dtype, causal)
+            work = kernel_work(shape, q.element_size(), causal)
+            bounds = {name: bound_ms(*work[name], dtype) for name in KERNELS}
             exp_floor = exp_floor_ms(shape, causal, sms, max_clock)
             timing["flash_fwd"][dtype] = {
                 "ms": cuda_ms(lambda: attention_cuda.flash_fwd(q, k, v, causal), 20),
@@ -318,12 +313,7 @@ def kernel_phase(attention_cuda):
                     q, k, v, causal, *tiles["flash_fwd"]), 3, 1),
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal), 20),
-                "bound_ms": fwd_bound,
-                "bound_by": fwd_by,
-                "exp_floor_ms": exp_floor,
             }
-            if dtype == torch.float32:
-                timing["flash_fwd"][dtype]["bound_tc_ms"] = split_tf32_bound_ms(shape, causal)
             # The plain version and SDPA's backward each compute dq, dk and
             # dv together; SDPA's forward runs once, outside the timing.
             plain_ms = cuda_ms(lambda: flash_backward_reference(
@@ -338,11 +328,14 @@ def kernel_phase(attention_cuda):
                 "flash_dkv": lambda: attention_cuda.flash_bwd_dkv(
                     q, k, v, do, lse, delta, causal),
             }
-            for name, (bound, by) in backward_bounds(shape, dtype, causal).items():
-                timing[name][dtype] = {"ms": cuda_ms(launch[name], 20),
-                                       "plain_ms": plain_ms, "library_ms": library_ms,
-                                       "bound_ms": bound, "bound_by": by,
-                                       "exp_floor_ms": exp_floor}
+            for name, fn in launch.items():
+                timing[name][dtype] = {"ms": cuda_ms(fn, 20), "plain_ms": plain_ms,
+                                       "library_ms": library_ms}
+            for name in KERNELS:
+                bound, by = bounds[name]
+                timing[name][dtype].update(bound_ms=bound, bound_by=by, exp_floor_ms=exp_floor)
+                if dtype == torch.float32:
+                    timing[name][dtype]["bound_tc_ms"] = split_tf32_bound_ms(*work[name])
             print(f"card during the timings ({dtype}): "
                   f"{smi('clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu')} "
                   "(clocks.sm, clocks.max.sm, power.draw, power.limit, temperature.gpu)",

@@ -9,21 +9,24 @@
 //   K3: dv_j = sum_i p_ij dO_i,   dk_j = scale * sum_i ds_ij q_i
 //
 // where ds_ij = p_ij (dO_i.v_j - delta_i). Sums run in float32 over tiles
-// of 64 in increasing order and are cast to the input dtype at the end.
+// in increasing order and are cast to the input dtype at the end.
 //
 // Design. The TPU grid's sequential axis and its VMEM accumulators become
 // a loop inside one block, as in the forward:
 //
 // - K2: one block per (query-row tile, batch*head). Q, dO, lse and delta
 //   stay put; K/V tiles stream through shared memory up to the diagonal
-//   (causal) or the end. float32: 64-row tiles against 64-key tiles; bf16:
-//   128 rows against 128 keys at D = 32, 192 against 64 at D = 64, 128
-//   against 64 at D = 128.
-// - K3: one block per (key tile, batch*head): 64 keys in float32; in bf16
-//   192 at D = 32 and 128 at D = 64 and 128. K and V stay put; Q/dO tiles
-//   of 64 rows stream from the one
-//   holding the tile's first key (causal) or from the start, with lse and
-//   delta staged beside them. dk and dv accumulate in float32 registers.
+//   (causal) or the end. bf16: 128 rows against 128 keys at D = 32, 192
+//   against 64 at D = 64, 128 against 64 at D = 128; float32: 128 rows
+//   against 64 keys at D = 32 and 32 at D = 64, 64 rows against 16 at
+//   D = 128.
+// - K3: one block per (key tile, batch*head): in bf16 192 keys at D = 32
+//   and 128 at D = 64 and 128, against query tiles of 64 rows; in float32
+//   128 keys against 64-row query tiles at D = 32, 64 keys against 32 and
+//   16 rows at D = 64 and 128. K and V stay put; Q/dO tiles stream from
+//   the one holding the block's first key (causal) or from the start, with
+//   lse and delta staged beside them. dk and dv accumulate in float32
+//   registers.
 //
 // Two kernels per dtype, no atomics, so the sums are deterministic and in
 // the reference's order. Keys and rows at or past `seq` contribute nothing.
@@ -63,27 +66,47 @@
 // - In the bf16 kernels dS (K2, K3) and P (K3) are rounded to bf16 before
 //   their products, which is where the error against the plain version
 //   comes from.
-// - float32: float32 FMAs. A row (K2) or key (K3) is split over
-//   neighbouring threads that each own 32 (K2) or 16
-//   (K3, which keeps two accumulators) of its columns, so the accumulators
-//   take 32 registers at every head_dim; the partial dot products meet by
-//   warp shuffles. A thread's columns are interleaved 16 bytes at a time
-//   with its neighbours', so the threads of one row read neighbouring banks.
-//   K2 takes 16 keys per step. K3 takes one query row per step, its key's
-//   K and V columns held in registers, the row's Q and dO columns feeding
-//   both the dot products and the updates (per-step arrays of scores made
-//   ptxas spill up to 6 KB a thread).
-//
+// - float32 K2 and K3, in split tf32 (tf32.cuh): each product a b as
+//   a_lo b + a b_lo + a b on tf32 wgmma (m64nNk8), accumulated in f32,
+//   which keeps float32 accuracy. tf32 operands in shared memory are
+//   K-major only, so the consumers write derived tiles beside the TMA ones
+//   (lo parts, and transposed copies where a product reduces over a tile's
+//   rows, that index permuted within groups of 8 so that an accumulator's
+//   registers are the A fragment as they are), publish them with
+//   fence.proxy.async and a named barrier over the consumer warpgroups,
+//   and keep 240 registers a thread (setmaxnreg). Shared memory, f32 tiles
+//   of rows x D x 4 bytes, each on a 1024-byte boundary, limit 227 KB:
+//   - K2 in float32 K1's shape: Q, dO, Q_lo, dO_lo once; per stage K, V
+//     (TMA), K_lo, V_lo, K^T, K^T_lo. D = 32: two warpgroups (128 rows),
+//     64 keys, 3 stages: 64 + 3 x 48 = 208 KB, tile j+1 split while tile
+//     j's products run. D = 64: two warpgroups, 32 keys, 2 stages: 128 +
+//     2 x 48 = 224 KB. D = 128: one warpgroup, 16 keys, 2 stages: 128 + 2 x
+//     48 = 224 KB. With 2 stages tile j+1 is split once tile j-1's stage is
+//     free. Tile j+1's S and dP are issued with tile j's dS K, as in bf16.
+//   - K3 in bf16 K3's shape: K, V, K_lo, V_lo once; a ring of Q, dO (TMA),
+//     lse and delta; the six derived tiles of a query tile (Q_lo, dO_lo,
+//     Q^T, Q^T_lo, dO^T, dO^T_lo) in separate buffers. D = 32: two
+//     warpgroups (128 keys), 64 query rows, 3 stages of 17 KB, 2 buffers of
+//     48 KB: 64 + 51 + 96 = 211 KB. D = 64: one warpgroup, 32 rows, the same
+//     211 KB. D = 128: one warpgroup, 16 rows (the transposed copies of
+//     64-byte rows), 2 stages, 1 buffer: 128 + 34 + 48 = 210 KB. With two
+//     buffers tile i+1 is split while tile i's S^T and dP^T run; with one,
+//     after tile i's products.
+
 // Bound. Causal work is 3*B*H*S^2*D FLOPs for K2 and 4*B*H*S^2*D for K3
 // (the Pallas kernels' CostEstimates) against 5*B*H*S*D*itemsize bytes, so
 // at the LM's shape (8, 8, 2048, 32) both are bound by operations. In bf16
 // the exponentials (one per valid score, 16 per clock per SM) are a floor
-// of their own, about equal to K3's tensor-core bound at D = 32.
+// of their own, about equal to K3's tensor-core bound at D = 32. In float32
+// the split takes three tf32 products per product: 9 (K2) and 12 (K3)
+// *B*H*S^2*D FLOPs at 495 TFLOP/s, against the float32 FMA bound of 3 and
+// 4 *B*H*S^2*D at 67 TFLOP/s.
 
 #include <math.h>
 
 #include "common.cuh"
 #include "sm90.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -587,233 +610,567 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-}  // namespace hopper
+// ----------------------------------------------------------- float32 K2
 
-// ---------------------------------------------------------------- float32
-
-constexpr int kChunk = 16;  // K2: keys per inner step
-
-// A row (K2) or key (K3) of a tile is split over kSplit = D / kCols
-// neighbouring threads, each owning kCols of its columns in float4 groups
-// that interleave with its neighbours'. K2 owns 32 columns (one 32-float
-// accumulator), K3 16 (two 16-float accumulators), so each kernel keeps
-// 32 accumulator registers at every head_dim.
-template <int D, int kCols>
-struct F32Layout {
-  static constexpr int kSplit = D / kCols;
-  static constexpr int kThreads = kTile * kSplit;
-  static constexpr int kOwn = kCols / 4;  // float4 groups per thread
-  static constexpr int RS = D + 4;        // padded row stride (floats)
-
-  // Column of this thread's i-th float4 group.
-  __device__ static __forceinline__ int col(int part, int i) { return 4 * (part + kSplit * i); }
-
-  // Sum of a value over the kSplit threads that share one row.
-  __device__ static __forceinline__ float row_sum(float x) {
-#pragma unroll
-    for (int o = 1; o < kSplit; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-  }
+// float32 K2 in split tf32 (tf32.cuh), in float32 K1's shape: consumer
+// warpgroups own 64 query rows each; Q and dO stay put with their lo
+// parts, and K/V tiles of kN keys stream through a ring of kStages stages,
+// each also holding the tile's four derived tiles (K_lo, V_lo, and the
+// transposed K^T and K^T_lo that dQ += dS K reads as its K-major B
+// operand), written by the consumers. With three stages tile j+1 is split
+// while tile j's products run; with two, after tile j-1's stage is free.
+template <int D>
+struct DqF32Shape {
+  static constexpr int kConsumers = D == 128 ? 1 : 2;
+  static constexpr int kN = D == 32 ? 64 : (D == 64 ? 32 : 16);  // keys per K/V tile
+  static constexpr int kStages = D == 32 ? 3 : 2;
+  static constexpr int kRows = 64 * kConsumers;            // query rows per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
+  static constexpr int kConsumerThreads = 128 * kConsumers;
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static constexpr int kConsumerRegs = 240;  // after setmaxnreg
 };
 
+// Shared memory: Q, dO, Q_lo and dO_lo, then per stage K and V (by TMA),
+// K_lo, V_lo, K^T and K^T_lo, each on a 1024-byte boundary, then the
+// barriers; plus slack to align the base.
 template <int D>
-constexpr size_t f32_smem_bytes(int tiles) {
-  return sizeof(float) * tiles * kTile * (D + 4);
+struct DqF32Smem {
+  using Sh = DqF32Shape<D>;
+  static constexpr size_t kFixed = align1k(tile_bytes<D, float>(Sh::kRows));
+  static constexpr size_t kQ = 0, kDo = kFixed, kQlo = 2 * kFixed, kDolo = 3 * kFixed;
+  static constexpr size_t kBuf = align1k(tile_bytes<D, float>(Sh::kN));  // one stage tile
+  static constexpr size_t kStage0 = 4 * kFixed;
+  static constexpr size_t kK = 0, kV = kBuf, kKlo = 2 * kBuf, kVlo = 3 * kBuf;
+  static constexpr size_t kKt = 4 * kBuf, kKtlo = 5 * kBuf;  // within a stage
+  static constexpr size_t kStage = 6 * kBuf;
+  static constexpr size_t kBar = kStage0 + Sh::kStages * kStage;
+  static constexpr size_t kBytes = kBar + (1 + 2 * Sh::kStages) * sizeof(uint64_t) + 1024;
+};
+
+// S = Q K^T and dP = dO V^T, each as three tf32 products, for one
+// warpgroup's 64 query rows (from row q_row0 of the Q and dO tiles)
+// against stage `st`; one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_sdp_dq_f32(float (&s)[DqF32Shape<D>::kN / 2],
+                                                 float (&dp)[DqF32Shape<D>::kN / 2],
+                                                 const uint8_t* smem, int q_row0,
+                                                 const uint8_t* st) {
+  using S = DqF32Smem<D>;
+  constexpr int N = DqF32Shape<D>::kN, kRows = DqF32Shape<D>::kRows;
+  const auto a = [&](size_t at, int kk) {
+    return desc_k_major<D, float>(smem + at, kRows, q_row0, kk);
+  };
+  const auto b = [&](size_t at, int kk) { return desc_k_major<D, float>(st + at, N, 0, kk); };
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<N>(s, a(S::kQlo, kk), b(S::kK, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<N>(s, a(S::kQ, kk), b(S::kKlo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<N>(s, a(S::kQ, kk), b(S::kK, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<N>(dp, a(S::kDolo, kk), b(S::kV, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<N>(dp, a(S::kDo, kk), b(S::kVlo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<N>(dp, a(S::kDo, kk), b(S::kV, kk), 1);
+  wgmma_commit();
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+// dQ += dS_lo K + dS_hi K_lo + dS_hi K over stage `st`, dS from registers
+// and K read as K^T; one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_dq_f32(float (&acc)[D / 2],
+                                             const uint32_t (&hi)[DqF32Shape<D>::kN / 8][4],
+                                             const uint32_t (&lo)[DqF32Shape<D>::kN / 8][4],
+                                             const uint8_t* st) {
+  using S = DqF32Smem<D>;
+  constexpr int N = DqF32Shape<D>::kN;
+  const auto kt = [&](size_t at, int kk) { return desc_k_major<N, float>(st + at, D, 0, kk); };
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) wgmma_rs_tf32<D>(acc, lo[kk], kt(S::kKt, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) wgmma_rs_tf32<D>(acc, hi[kk], kt(S::kKtlo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) wgmma_rs_tf32<D>(acc, hi[kk], kt(S::kKt, kk), 1);
+  wgmma_commit();
 }
 
-__device__ __forceinline__ void axpy4(float* acc, float s, float4 x) {
-  acc[0] = fmaf(s, x.x, acc[0]);
-  acc[1] = fmaf(s, x.y, acc[1]);
-  acc[2] = fmaf(s, x.z, acc[2]);
-  acc[3] = fmaf(s, x.w, acc[3]);
-}
+template <int D>
+__global__ void __launch_bounds__(DqF32Shape<D>::kThreads, 1)
+flash_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq, int seq, int causal,
+                    float scale_log2, float scale) {
+  using Sh = DqF32Shape<D>;
+  using S = DqF32Smem<D>;
+  constexpr int N = Sh::kN, kRows = Sh::kRows, kStages = Sh::kStages;
+  // With three stages, tile j+1 is split while tile j's products run; with
+  // two, its stage is tile j-1's, so only after that is released.
+  constexpr bool kEarly = kStages >= 3;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* q_full = bars;
+  uint64_t* kv_full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
-// Write a [64][D + 4] shared tile's first rows (up to `seq`) to `dst`.
-template <int D, int kThreads>
-__device__ __forceinline__ void store_tile_f32(float* dst, const float* tile, int row0,
-                                               int seq) {
-  for (int i = threadIdx.x; i < kTile * D / 4; i += kThreads) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    if (row0 + r < seq) {
-      *reinterpret_cast<float4*>(dst + static_cast<int64_t>(row0 + r) * D + c) =
-          *reinterpret_cast<const float4*>(tile + r * (D + 4) + c);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + kRows) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  const int warpgroup = threadIdx.x / 128;
+  const auto stage = [&](int j) { return smem + S::kStage0 + (j % kStages) * S::kStage; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&empty[s], Sh::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * tile_bytes<D, float>(kRows));
+      load_tile_tma<D, float>(smem + S::kQ, &q_map, q_full, kRows, q0, bh);
+      load_tile_tma<D, float>(smem + S::kDo, &do_map, q_full, kRows, q0, bh);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kv_full[s], 2 * tile_bytes<D, float>(N));
+        load_tile_tma<D, float>(stage(j) + S::kK, &k_map, &kv_full[s], N, j * N, bh);
+        load_tile_tma<D, float>(stage(j) + S::kV, &v_map, &kv_full[s], N, j * N, bh);
+      }
+    }
+    return;
+  }
+
+  // Consumers: this warpgroup's 64 rows start at r0.
+  setmaxnreg_inc<Sh::kConsumerRegs>();
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int r0 = q0 + (warpgroup - 1) * 64;
+  const int rows[2] = {r0 + warp * 16 + lane / 4, r0 + warp * 16 + lane / 4 + 8};
+  const int q_row0 = (warpgroup - 1) * 64;  // within the Q and dO tiles
+  float lse2[2], dlt[2];  // lse in base 2 and delta of this thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t i = static_cast<int64_t>(bh) * seq + rows[r];
+    lse2[r] = rows[r] < seq ? lse[i] * kLog2e : 0.f;
+    dlt[r] = rows[r] < seq ? delta[i] : 0.f;
+  }
+  // Every warpgroup takes every tile of the block, a tile past its own
+  // diagonal masked to 0: a wgmma issued under a per-warpgroup condition
+  // makes ptxas serialize all of them (C7518/C7520). So does float32 K3.
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[N / 2], dp[N / 2];  // S and dP, then dS in place of S
+  uint32_t ds_hi[N / 8][4], ds_lo[N / 8][4];
+  const auto needs_mask = [&](int j) {  // the causal diagonal or a ragged last tile
+    return (causal && j * N + N - 1 > r0) || j * N + N > seq;
+  };
+  // Tile j's derived tiles, made visible to wgmma; a consumer barrier
+  // follows before any warpgroup reads them.
+  const auto split = [&](int j) {
+    mbar_wait(&kv_full[j % kStages], (j / kStages) & 1);
+    uint8_t* st = stage(j);
+    const int tid = threadIdx.x - 128;
+    tf32::write_lo(st + S::kKlo, st + S::kK, N * D * 4, tid, Sh::kConsumerThreads);
+    tf32::write_lo(st + S::kVlo, st + S::kV, N * D * 4, tid, Sh::kConsumerThreads);
+    tf32::write_transposed<N, D>(st + S::kKt, st + S::kKtlo, st + S::kK, tid,
+                                 Sh::kConsumerThreads);
+    fence_proxy_async();
+  };
+  const auto consumers_sync = [&] { named_barrier_sync(1, Sh::kConsumerThreads); };
+
+  mbar_wait(q_full, 0);
+  tf32::write_lo_rows<D>(smem + S::kQlo, smem + S::kQ, kRows, q_row0, 64, threadIdx.x % 128, 128);
+  tf32::write_lo_rows<D>(smem + S::kDolo, smem + S::kDo, kRows, q_row0, 64, threadIdx.x % 128,
+                         128);
+  split(0);
+  consumers_sync();
+  wgmma_fence();
+  issue_sdp_dq_f32<D>(s, dp, smem, q_row0, stage(0));
+  if (tiles > 1) split(1);
+  wgmma_wait<0>();
+  fence_operand(s);
+  fence_operand(dp);
+  ds_tile<N>(s, dp, needs_mask(0), 0, rows, lse2, dlt, seq, causal, scale_log2);
+  if (tiles > 1) consumers_sync();
+  tf32::split_fragments<N>(ds_hi, ds_lo, s);
+
+  for (int j = 1; j < tiles; ++j) {
+    // Tile j's S and dP and tile j-1's dQ += dS K in flight together; tile
+    // j's dS is computed while dS K is still on the tensor cores.
+    fence_operand(acc);
+    wgmma_fence();
+    issue_sdp_dq_f32<D>(s, dp, smem, q_row0, stage(j));
+    wgmma_fence();
+    issue_dq_f32<D>(acc, ds_hi, ds_lo, stage(j - 1));
+    if (kEarly && j + 1 < tiles) split(j + 1);
+    wgmma_wait<1>();
+    fence_operand(s);
+    fence_operand(dp);
+    ds_tile<N>(s, dp, needs_mask(j), j * N, rows, lse2, dlt, seq, causal, scale_log2);
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (lane == 0) mbar_arrive(&empty[(j - 1) % kStages]);
+    if (!kEarly && j + 1 < tiles) split(j + 1);
+    if (j + 1 < tiles) consumers_sync();
+    tf32::split_fragments<N>(ds_hi, ds_lo, s);
+  }
+  fence_operand(acc);
+  wgmma_fence();
+  issue_dq_f32<D>(acc, ds_hi, ds_lo, stage(tiles - 1));
+  wgmma_wait<0>();
+  fence_operand(acc);
+  if (lane == 0) mbar_arrive(&empty[(tiles - 1) % kStages]);
+
+  const int t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= seq) continue;
+    float* out = dq + (static_cast<int64_t>(bh) * seq + rows[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2(scale * acc[4 * n + 2 * r], scale * acc[4 * n + 2 * r + 1]);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(F32Layout<D, 32>::kThreads)
-flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int seq, int causal, float scale_log2,
-                    float scale) {
-  using L = F32Layout<D, 32>;
-  constexpr int RS = L::RS, kThreads = L::kThreads;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* do_s = q_s + kTile * RS;
-  float* k_s = do_s + kTile * RS;
-  float* v_s = k_s + kTile * RS;
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dq, int batch_heads, int seq,
+                          int causal, float scale_log2, float scale, cudaStream_t stream) {
+  using Sh = DqF32Shape<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err;
+  if ((err = make_tile_map<D, float>(&q_map, q, batch_heads, seq, Sh::kRows)) != cudaSuccess ||
+      (err = make_tile_map<D, float>(&k_map, k, batch_heads, seq, Sh::kN)) != cudaSuccess ||
+      (err = make_tile_map<D, float>(&v_map, v, batch_heads, seq, Sh::kN)) != cudaSuccess ||
+      (err = make_tile_map<D, float>(&do_map, dout, batch_heads, seq, Sh::kRows)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = DqF32Smem<D>::kBytes;
+  static_assert(smem <= 232448, "float32 K2 needs more shared memory than a block has");
+  if ((err = allow_smem(flash_dq_f32_kernel<D>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + Sh::kRows - 1) / Sh::kRows);
+  flash_dq_f32_kernel<D><<<grid, Sh::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<float*>(dq), seq, causal, scale_log2,
+      scale);
+  return cudaGetLastError();
+}
 
-  const int r = threadIdx.x / L::kSplit, part = threadIdx.x % L::kSplit;
-  const int q0 = blockIdx.x * kTile, row = q0 + r;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
-  const int64_t i_row = static_cast<int64_t>(blockIdx.y) * seq + row;
-  const float lse2 = row < seq ? lse[i_row] * kLog2e : 0.f;
-  const float dlt = row < seq ? delta[i_row] : 0.f;
+// ----------------------------------------------------------- float32 K3
 
-  load_tile<float, D, 4, kThreads>(q_s, q + base, q0, seq);
-  load_tile<float, D, 4, kThreads>(do_s, dout + base, q0, seq);
-  float acc[4 * L::kOwn];
-#pragma unroll
-  for (int i = 0; i < 4 * L::kOwn; ++i) acc[i] = 0.f;
+// float32 K3 in split tf32 (tf32.cuh), in bf16 K3's shape: consumer
+// warpgroups own 64 keys each, K and V stay put with their lo parts, and
+// query tiles of kQ rows stream through a ring of kStages stages (Q and dO
+// by TMA, lse and delta by the producer warp's lanes). The consumers write
+// each tile's six derived tiles (Q_lo, dO_lo, and the transposed Q^T,
+// Q^T_lo, dO^T, dO^T_lo that dK += dS^T Q and dV += P^T dO read as K-major
+// B operands) into one of kDerived buffers: with two, tile i+1 is split
+// while tile i's S^T and dP^T run; with one, after tile i's products.
+template <int D>
+struct DkvF32Shape {
+  static constexpr int kConsumers = D == 32 ? 2 : 1;
+  static constexpr int kKeys = 64 * kConsumers;                  // keys per block
+  static constexpr int kQ = D == 32 ? 64 : (D == 64 ? 32 : 16);  // query rows per tile
+  static constexpr int kStages = D == 128 ? 2 : 3;               // Q/dO ring depth
+  static constexpr int kDerived = D == 128 ? 1 : 2;              // derived-tile buffers
+  static constexpr int kThreads = 128 * (1 + kConsumers);        // and the producer warpgroup
+  static constexpr int kConsumerThreads = 128 * kConsumers;
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static constexpr int kConsumerRegs = 240;  // after setmaxnreg
+};
 
-  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and q_s, do_s written)
-    load_tile<float, D, 4, kThreads>(k_s, k + base, k0, seq);
-    load_tile<float, D, 4, kThreads>(v_s, v + base, k0, seq);
-    __syncthreads();
+// Shared memory: K, V, K_lo and V_lo; the ring (per stage Q, dO, lse in
+// base 2 and delta); the derived buffers (per buffer Q_lo, dO_lo, Q^T,
+// Q^T_lo, dO^T, dO^T_lo), each tile on a 1024-byte boundary; then the
+// barriers, plus slack to align the base.
+template <int D>
+struct DkvF32Smem {
+  using Sh = DkvF32Shape<D>;
+  static constexpr size_t kFixed = align1k(tile_bytes<D, float>(Sh::kKeys));
+  static constexpr size_t kK = 0, kV = kFixed, kKlo = 2 * kFixed, kVlo = 3 * kFixed;
+  static constexpr size_t kTile = align1k(tile_bytes<D, float>(Sh::kQ));
+  static constexpr size_t kRing0 = 4 * kFixed;
+  static constexpr size_t kDo = kTile, kLse = 2 * kTile;  // within a stage
+  static constexpr size_t kDlt = kLse + Sh::kQ * sizeof(float);
+  static constexpr size_t kStage = align1k(2 * kTile + 2 * Sh::kQ * sizeof(float));
+  static constexpr size_t kDerived0 = kRing0 + Sh::kStages * kStage;
+  static constexpr size_t kQlo = 0, kDolo = kTile, kQt = 2 * kTile, kQtlo = 3 * kTile;
+  static constexpr size_t kDot = 4 * kTile, kDotlo = 5 * kTile;  // within a buffer
+  static constexpr size_t kBuf = 6 * kTile;
+  static constexpr size_t kBar = kDerived0 + Sh::kDerived * kBuf;
+  static constexpr size_t kBytes = kBar + (1 + 2 * Sh::kStages) * sizeof(uint64_t) + 1024;
+};
 
-#pragma unroll 1
-    for (int j0 = 0; j0 < kTile; j0 += kChunk) {
-      float ds[kChunk], dp[kChunk];  // S and dP, then dS
+// S^T = K Q^T and dP^T = V dO^T, each as three tf32 products, for one
+// warpgroup's 64 keys (from row k_row0 of the K and V tiles) against ring
+// stage `st` and derived buffer `dr`; one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_sdp_f32(float (&s)[DkvF32Shape<D>::kQ / 2],
+                                              float (&dp)[DkvF32Shape<D>::kQ / 2],
+                                              const uint8_t* smem, int k_row0, const uint8_t* st,
+                                              const uint8_t* dr) {
+  using S = DkvF32Smem<D>;
+  constexpr int kQ = DkvF32Shape<D>::kQ, kKeys = DkvF32Shape<D>::kKeys;
+  const auto a = [&](size_t at, int kk) {
+    return desc_k_major<D, float>(smem + at, kKeys, k_row0, kk);
+  };
+  const auto b = [&](const uint8_t* tile, int kk) { return desc_k_major<D, float>(tile, kQ, 0, kk); };
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) ds[j] = dp[j] = 0.f;
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<kQ>(s, a(S::kKlo, kk), b(st, kk), kk > 0);
 #pragma unroll
-      for (int i = 0; i < L::kOwn; ++i) {
-        const int c = L::col(part, i);
-        const float4 qv = *reinterpret_cast<const float4*>(q_s + r * RS + c);
-        const float4 dov = *reinterpret_cast<const float4*>(do_s + r * RS + c);
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<kQ>(s, a(S::kK, kk), b(dr + S::kQlo, kk), 1);
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          ds[j] = dot4(qv, *reinterpret_cast<const float4*>(k_s + (j0 + j) * RS + c), ds[j]);
-          dp[j] = dot4(dov, *reinterpret_cast<const float4*>(v_s + (j0 + j) * RS + c), dp[j]);
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<kQ>(s, a(S::kK, kk), b(st, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    wgmma_ss_tf32<kQ>(dp, a(S::kVlo, kk), b(st + S::kDo, kk), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<kQ>(dp, a(S::kV, kk), b(dr + S::kDolo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) wgmma_ss_tf32<kQ>(dp, a(S::kV, kk), b(st + S::kDo, kk), 1);
+  wgmma_commit();
+}
+
+// dV += P^T dO and dK += dS^T Q, each as three tf32 products, P^T and dS^T
+// from registers and dO^T, Q^T from derived buffer `dr`; one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_dkv_f32(float (&dv)[D / 2], float (&dk)[D / 2],
+                                              const uint32_t (&p_hi)[DkvF32Shape<D>::kQ / 8][4],
+                                              const uint32_t (&p_lo)[DkvF32Shape<D>::kQ / 8][4],
+                                              const uint32_t (&ds_hi)[DkvF32Shape<D>::kQ / 8][4],
+                                              const uint32_t (&ds_lo)[DkvF32Shape<D>::kQ / 8][4],
+                                              const uint8_t* dr) {
+  using S = DkvF32Smem<D>;
+  constexpr int kQ = DkvF32Shape<D>::kQ;
+  const auto bt = [&](size_t at, int kk) { return desc_k_major<kQ, float>(dr + at, D, 0, kk); };
+#pragma unroll
+  for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<D>(dv, p_lo[kk], bt(S::kDot, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<D>(dv, p_hi[kk], bt(S::kDotlo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<D>(dv, p_hi[kk], bt(S::kDot, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<D>(dk, ds_lo[kk], bt(S::kQt, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<D>(dk, ds_hi[kk], bt(S::kQtlo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<D>(dk, ds_hi[kk], bt(S::kQt, kk), 1);
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvF32Shape<D>::kThreads, 1)
+flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int seq, int causal, float scale_log2, float scale) {
+  using Sh = DkvF32Shape<D>;
+  using S = DkvF32Smem<D>;
+  constexpr int kQ = Sh::kQ, kKeys = Sh::kKeys, kStages = Sh::kStages;
+  constexpr int kRowVals = (kQ + 31) / 32;  // lse/delta values per producer lane
+  constexpr bool kEarly = Sh::kDerived >= 2;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kKeys;  // causal: the longest (first) key tiles first
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = (seq - q_begin + kQ - 1) / kQ;
+  const int warpgroup = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const auto ring = [&](int i) { return smem + S::kRing0 + (i % kStages) * S::kStage; };
+  const auto derived = [&](int i) { return smem + S::kDerived0 + (i % Sh::kDerived) * S::kBuf; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes: their lse/delta stores
+      mbar_init(&empty[s], Sh::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {  // producer: warp 0
+    setmaxnreg_dec<24>();
+    if (threadIdx.x >= 32) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * tile_bytes<D, float>(kKeys));
+      load_tile_tma<D, float>(smem + S::kK, &k_map, kv_full, kKeys, k0, bh);
+      load_tile_tma<D, float>(smem + S::kV, &v_map, kv_full, kKeys, k0, bh);
+    }
+    const int64_t row_base = static_cast<int64_t>(bh) * seq;
+    for (int i = 0; i < tiles; ++i) {
+      const int q0 = q_begin + i * kQ;
+      uint8_t* st = ring(i);
+      // This lane's lse (base 2) and delta rows, read before the stage is free.
+      float lse_r[kRowVals], dlt_r[kRowVals];
+#pragma unroll
+      for (int c = 0; c < kRowVals; ++c) {
+        const int r = q0 + lane + 32 * c;
+        lse_r[c] = r < seq ? lse[row_base + r] * kLog2e : 0.f;
+        dlt_r[c] = r < seq ? delta[row_base + r] : 0.f;
+      }
+      mbar_wait(&empty[i % kStages], ((i / kStages) & 1) ^ 1);
+#pragma unroll
+      for (int c = 0; c < kRowVals; ++c) {
+        if (lane + 32 * c < kQ) {
+          reinterpret_cast<float*>(st + S::kLse)[lane + 32 * c] = lse_r[c];
+          reinterpret_cast<float*>(st + S::kDlt)[lane + 32 * c] = dlt_r[c];
         }
       }
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float s = L::row_sum(ds[j]);
-        const float dpj = L::row_sum(dp[j]);
-        const int col = k0 + j0 + j;
-        const bool valid = col < seq && (!causal || col <= row);
-        const float p = valid ? exp2f(s * scale_log2 - lse2) : 0.f;
-        ds[j] = p * (dpj - dlt);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[i % kStages], 2 * tile_bytes<D, float>(kQ));
+        load_tile_tma<D, float>(st, &q_map, &full[i % kStages], kQ, q0, bh);
+        load_tile_tma<D, float>(st + S::kDo, &do_map, &full[i % kStages], kQ, q0, bh);
+      } else {
+        mbar_arrive(&full[i % kStages]);
       }
+    }
+    return;
+  }
+
+  // Consumers: this warpgroup's 64 keys start at kw0.
+  setmaxnreg_inc<Sh::kConsumerRegs>();
+  const int warp = (threadIdx.x / 32) % 4, t = lane % 4;
+  const int k_row0 = (warpgroup - 1) * 64;  // within the K and V tiles
+  const int kw0 = k0 + k_row0;
+  const int keys[2] = {kw0 + warp * 16 + lane / 4, kw0 + warp * 16 + lane / 4 + 8};
+  const int ctid = threadIdx.x - 128;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float s[kQ / 2], dp[kQ / 2];  // S^T = K Q^T and dP^T = V dO^T
+  uint32_t p_hi[kQ / 8][4], p_lo[kQ / 8][4], ds_hi[kQ / 8][4], ds_lo[kQ / 8][4];
+
+  // Tile i's derived tiles, shared among the consumers and made visible to
+  // wgmma; a consumer barrier follows before any warpgroup reads them.
+  const auto split = [&](int i) {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    const uint8_t* st = ring(i);
+    uint8_t* dr = derived(i);
+    tf32::write_lo(dr + S::kQlo, st, kQ * D * 4, ctid, Sh::kConsumerThreads);
+    tf32::write_lo(dr + S::kDolo, st + S::kDo, kQ * D * 4, ctid, Sh::kConsumerThreads);
+    tf32::write_transposed<kQ, D>(dr + S::kQt, dr + S::kQtlo, st, ctid, Sh::kConsumerThreads);
+    tf32::write_transposed<kQ, D>(dr + S::kDot, dr + S::kDotlo, st + S::kDo, ctid,
+                                  Sh::kConsumerThreads);
+    fence_proxy_async();
+  };
+  const auto consumers_sync = [&] { named_barrier_sync(1, Sh::kConsumerThreads); };
+
+  mbar_wait(kv_full, 0);
+  tf32::write_lo_rows<D>(smem + S::kKlo, smem + S::kK, kKeys, k_row0, 64, threadIdx.x % 128, 128);
+  tf32::write_lo_rows<D>(smem + S::kVlo, smem + S::kV, kKeys, k_row0, 64, threadIdx.x % 128, 128);
+  split(0);
+  consumers_sync();
+  for (int i = 0; i < tiles; ++i) {
+    const int q0 = q_begin + i * kQ;
+    const uint8_t* st = ring(i);
+    const uint8_t* dr = derived(i);
+    wgmma_fence();
+    issue_sdp_f32<D>(s, dp, smem, k_row0, st, dr);
+    if (kEarly && i + 1 < tiles) split(i + 1);
+    wgmma_wait<0>();
+    fence_operand(s);
+    fence_operand(dp);
+    // P^T = exp2(S^T c - lse) and dS^T = P^T (dP^T - delta); rows are
+    // keys, columns query rows. Masks only on the causal diagonal (which
+    // includes a tile wholly before this warpgroup's keys) and a ragged
+    // last tile.
+    const bool mask = (causal && q0 < kw0 + 63) || q0 + kQ > seq;
+    const float* lse_s = reinterpret_cast<const float*>(st + S::kLse);
+    const float* dlt_s = reinterpret_cast<const float*>(st + S::kDlt);
 #pragma unroll
-        for (int i = 0; i < L::kOwn; ++i) {
-          axpy4(acc + 4 * i, ds[j],
-                *reinterpret_cast<const float4*>(k_s + (j0 + j) * RS + L::col(part, i)));
-        }
+    for (int j = 0; j < kQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(dlt_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 4 * j; e < 4 * j + 4; ++e) {
+        const int qi = q0 + 8 * j + 2 * t + (e & 1);
+        float p = exp2_approx(fmaf(s[e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+        if (mask && (qi >= seq || (causal && keys[(e / 2) & 1] > qi))) p = 0.f;
+        s[e] = p;
+        dp[e] = p * (dp[e] - ((e & 1) ? dl.y : dl.x));
       }
+    }
+    tf32::split_fragments<kQ>(p_hi, p_lo, s);
+    tf32::split_fragments<kQ>(ds_hi, ds_lo, dp);
+    fence_operand(dk_acc);
+    fence_operand(dv_acc);
+    wgmma_fence();
+    issue_dkv_f32<D>(dv_acc, dk_acc, p_hi, p_lo, ds_hi, ds_lo, dr);
+    wgmma_wait<0>();
+    fence_operand(dk_acc);
+    fence_operand(dv_acc);
+    if (lane == 0) mbar_arrive(&empty[i % kStages]);
+    if (i + 1 < tiles) {
+      if (!kEarly) {  // every warpgroup is done with the one buffer
+        consumers_sync();
+        split(i + 1);
+      }
+      consumers_sync();
     }
   }
 
-  // Stage scale * dq in this thread's own slots of q_s, then store the tile
-  // row-major so consecutive threads write consecutive addresses.
-  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < L::kOwn; ++i) {
-    *reinterpret_cast<float4*>(q_s + r * RS + L::col(part, i)) =
-        make_float4(scale * acc[4 * i], scale * acc[4 * i + 1], scale * acc[4 * i + 2],
-                    scale * acc[4 * i + 3]);
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= seq) continue;
+    const int64_t off = (static_cast<int64_t>(bh) * seq + keys[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dk + off + n * 8) =
+          make_float2(scale * dk_acc[4 * n + 2 * r], scale * dk_acc[4 * n + 2 * r + 1]);
+      *reinterpret_cast<float2*>(dv + off + n * 8) =
+          make_float2(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+    }
   }
-  __syncthreads();
-  store_tile_f32<D, kThreads>(dq + base, q_s, q0, seq);
 }
 
 template <int D>
-__global__ void __launch_bounds__(F32Layout<D, 16>::kThreads)
-flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int seq, int causal,
-                     float scale_log2, float scale) {
-  using L = F32Layout<D, 16>;
-  constexpr int RS = L::RS, kThreads = L::kThreads;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* do_s = q_s + kTile * RS;
-  __shared__ float lse_s[kTile], dlt_s[kTile];  // lse in base 2, delta
-
-  const int r = threadIdx.x / L::kSplit, part = threadIdx.x % L::kSplit;
-  const int k0 = blockIdx.x * kTile, key = k0 + r;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * seq * D;
-  const int64_t row_base = static_cast<int64_t>(blockIdx.y) * seq;
-
-  // This thread's columns of its key's K and V rows stay in registers.
-  float4 kr[L::kOwn], vr[L::kOwn];
-#pragma unroll
-  for (int i = 0; i < L::kOwn; ++i) {
-    const int64_t off = base + static_cast<int64_t>(key) * D + L::col(part, i);
-    kr[i] = key < seq ? *reinterpret_cast<const float4*>(k + off) : make_float4(0, 0, 0, 0);
-    vr[i] = key < seq ? *reinterpret_cast<const float4*>(v + off) : make_float4(0, 0, 0, 0);
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dk, void* dv,
+                           int batch_heads, int seq, int causal, float scale_log2, float scale,
+                           cudaStream_t stream) {
+  using Sh = DkvF32Shape<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err;
+  if ((err = make_tile_map<D, float>(&q_map, q, batch_heads, seq, Sh::kQ)) != cudaSuccess ||
+      (err = make_tile_map<D, float>(&k_map, k, batch_heads, seq, Sh::kKeys)) != cudaSuccess ||
+      (err = make_tile_map<D, float>(&v_map, v, batch_heads, seq, Sh::kKeys)) != cudaSuccess ||
+      (err = make_tile_map<D, float>(&do_map, dout, batch_heads, seq, Sh::kQ)) != cudaSuccess) {
+    return err;
   }
-  float dk_acc[4 * L::kOwn], dv_acc[4 * L::kOwn];
-#pragma unroll
-  for (int i = 0; i < 4 * L::kOwn; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-
-  for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<float, D, 4, kThreads>(q_s, q + base, q0, seq);
-    load_tile<float, D, 4, kThreads>(do_s, dout + base, q0, seq);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool in = q0 + i < seq;
-      lse_s[i] = in ? lse[row_base + q0 + i] * kLog2e : 0.f;
-      dlt_s[i] = in ? delta[row_base + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // One query row at a time: its Q and dO columns feed both the dot
-    // products and, from the same registers, the dK and dV updates.
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float4 qj[L::kOwn], dj[L::kOwn];
-      float s = 0.f, dp = 0.f;  // S^T and dP^T for (key, q0 + j)
-#pragma unroll
-      for (int i = 0; i < L::kOwn; ++i) {
-        qj[i] = *reinterpret_cast<const float4*>(q_s + j * RS + L::col(part, i));
-        dj[i] = *reinterpret_cast<const float4*>(do_s + j * RS + L::col(part, i));
-        s = dot4(kr[i], qj[i], s);
-        dp = dot4(vr[i], dj[i], dp);
-      }
-      s = L::row_sum(s);
-      dp = L::row_sum(dp);
-      const int qpos = q0 + j;
-      const bool valid = key < seq && qpos < seq && (!causal || key <= qpos);
-      const float p = valid ? exp2f(s * scale_log2 - lse_s[j]) : 0.f;
-      const float ds = p * (dp - dlt_s[j]);
-#pragma unroll
-      for (int i = 0; i < L::kOwn; ++i) {
-        axpy4(dv_acc + 4 * i, p, dj[i]);
-        axpy4(dk_acc + 4 * i, ds, qj[i]);
-      }
-    }
-  }
-
-  // Stage scale * dk and dv in this thread's own slots of q_s and do_s,
-  // then store both tiles row-major.
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < L::kOwn; ++i) {
-    const int c = L::col(part, i);
-    *reinterpret_cast<float4*>(q_s + r * RS + c) =
-        make_float4(scale * dk_acc[4 * i], scale * dk_acc[4 * i + 1],
-                    scale * dk_acc[4 * i + 2], scale * dk_acc[4 * i + 3]);
-    *reinterpret_cast<float4*>(do_s + r * RS + c) =
-        make_float4(dv_acc[4 * i], dv_acc[4 * i + 1], dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
-  }
-  __syncthreads();
-  store_tile_f32<D, kThreads>(dk + base, q_s, k0, seq);
-  store_tile_f32<D, kThreads>(dv + base, do_s, k0, seq);
+  constexpr size_t smem = DkvF32Smem<D>::kBytes;
+  static_assert(smem <= 232448, "float32 K3 needs more shared memory than a block has");
+  if ((err = allow_smem(flash_dkv_f32_kernel<D>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + Sh::kKeys - 1) / Sh::kKeys);
+  flash_dkv_f32_kernel<D><<<grid, Sh::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
+      seq, causal, scale_log2, scale);
+  return cudaGetLastError();
 }
+
+}  // namespace hopper
 
 // ---------------------------------------------------------------- launch
 
@@ -833,16 +1190,8 @@ cudaError_t launch_dq(const Args& a) {
     return hopper::launch_dq<D>(a.q, a.k, a.v, a.dout, lse, delta, a.out0, a.batch_heads, a.seq,
                                 a.causal, a.scale_log2, a.scale, a.stream);
   } else {
-    const dim3 grid((a.seq + kTile - 1) / kTile, a.batch_heads);
-    constexpr size_t smem = f32_smem_bytes<D>(4);
-    constexpr int threads = F32Layout<D, 32>::kThreads;
-    const cudaError_t err = allow_smem(flash_dq_f32_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_dq_f32_kernel<D><<<grid, threads, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse, delta,
-        static_cast<float*>(a.out0), a.seq, a.causal, a.scale_log2, a.scale);
-    return cudaGetLastError();
+    return hopper::launch_dq_f32<D>(a.q, a.k, a.v, a.dout, lse, delta, a.out0, a.batch_heads,
+                                    a.seq, a.causal, a.scale_log2, a.scale, a.stream);
   }
 }
 
@@ -855,17 +1204,9 @@ cudaError_t launch_dkv(const Args& a) {
                                  a.batch_heads, a.seq, a.causal, a.scale_log2, a.scale,
                                  a.stream);
   } else {
-    const dim3 grid((a.seq + kTile - 1) / kTile, a.batch_heads);
-    constexpr size_t smem = f32_smem_bytes<D>(2);
-    constexpr int threads = F32Layout<D, 16>::kThreads;
-    const cudaError_t err = allow_smem(flash_dkv_f32_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_dkv_f32_kernel<D><<<grid, threads, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse, delta,
-        static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.seq, a.causal,
-        a.scale_log2, a.scale);
-    return cudaGetLastError();
+    return hopper::launch_dkv_f32<D>(a.q, a.k, a.v, a.dout, lse, delta, a.out0, a.out1,
+                                     a.batch_heads, a.seq, a.causal, a.scale_log2, a.scale,
+                                     a.stream);
   }
 }
 

@@ -31,7 +31,8 @@
 //   operands from shared memory; P is rounded to bf16 straight into the
 //   register A-operand layout; V is read MN-major through the descriptor's
 //   transpose bit.
-// - float32, in split tf32 so results keep float32 accuracy: each product
+// - float32, in split tf32 (tf32.cuh, shared with the float32 backward) so
+//   results keep float32 accuracy: each product
 //   a b is a_lo b + a b_lo + a b on tf32 tensor cores (m64nNk8), the
 //   tensor cores reading the top 19 bits of a float32 and a_lo = a minus a
 //   with its low 13 bits cleared, accumulated in f32; what is left out is
@@ -57,6 +58,7 @@
 
 #include "common.cuh"
 #include "sm90.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -315,11 +317,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 
 // ---------------------------------------------------------------- float32
 
-// float32 on the tensor cores in split tf32. Each product a b is taken as
-// a_hi b_hi + a_hi b_lo + a_lo b_hi, accumulated in f32: a_hi is the f32
-// value itself (the tensor cores read its top 19 bits) and a_lo = a minus
-// a with its low 13 bits cleared, formed explicitly; what is left out,
-// a_lo b_lo and the low bits of a_lo, is about 2^-21 of |a b|.
+// float32 on the tensor cores in split tf32 (tf32.cuh).
 //
 // Consumer warpgroups own 64 query rows; per D, the count, the keys per
 // tile and the ring depth are what fit the registers (S, P_hi, P_lo: N / 2
@@ -353,76 +351,18 @@ struct F32Smem {
   static constexpr size_t kBytes = kBar + (1 + 2 * Sh::kStages) * sizeof(uint64_t) + 1024;
 };
 
-__device__ __forceinline__ float tf32_lo(float x) {
-  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-
-__device__ __forceinline__ float4 tf32_lo(float4 x) {
-  return make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
-}
-
-// Q_lo of one warpgroup's 64 rows (from row q_row0): elementwise, so it
-// keeps Q's swizzled layout.
-template <int D>
-__device__ __forceinline__ void write_q_lo(uint8_t* smem, int q_row0) {
-  using S = F32Smem<D>;
-  using L = TileLayout<D, float>;
-  for (int c = 0; c < L::kBlocks; ++c) {
-    const size_t base = c * L::block_bytes(F32Shape<D>::kRows) + q_row0 * L::kSwizzle;
-    for (int i = threadIdx.x % 128; i < 64 * L::kSwizzle / 16; i += 128) {
-      const size_t off = base + i * 16;
-      *reinterpret_cast<float4*>(smem + S::kQlo + off) =
-          tf32_lo(*reinterpret_cast<const float4*>(smem + S::kQ + off));
-    }
-  }
-}
-
 // K_lo, V^T and V^T_lo of a stage, shared among the consumer threads. V^T
-// is the K-major B operand of P V (rows: D, columns: keys, 128-byte
-// swizzle), its keys permuted within each group of 8: column c holds key
-// 2c for c < 4 and key 2(c - 4) + 1 for c >= 4. That puts the two keys a
-// thread holds in P's accumulator layout (columns 2t, 2t+1) where the tf32
-// A fragment reads them (columns t, t+4), so P needs no shuffle.
+// is the K-major B operand of P V (rows: D, columns: keys), its keys in
+// tf32::fragment_pos order, so that P's accumulator registers are its A
+// fragment as they are.
 template <int D>
 __device__ __forceinline__ void split_stage(uint8_t* st) {
   using Sh = F32Shape<D>;
   using S = F32Smem<D>;
   constexpr int N = Sh::kN;
   const int tid = threadIdx.x - 128;
-  for (int i = tid; i < N * D / 4; i += Sh::kConsumerThreads) {
-    *reinterpret_cast<float4*>(st + S::kKlo + i * 16) =
-        tf32_lo(*reinterpret_cast<const float4*>(st + S::kK + i * 16));
-  }
-  for (int i = tid; i < N * D / 4; i += Sh::kConsumerThreads) {
-    const int r = i % N, c = (i / N) * 4;  // key, first of 4 columns
-    const float4 x = *reinterpret_cast<const float4*>(st + S::kV + (c / 32) * (N * 128) +
-                                                      swizzle128(r, (c % 32) * 4));
-    const int pos = (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
-    const int block = (pos / 32) * (D * 128), col = (pos % 32) * 4;
-    const float v[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int off = block + swizzle128(c + e, col);
-      *reinterpret_cast<float*>(st + S::kVt + off) = v[e];
-      *reinterpret_cast<float*>(st + S::kVtlo + off) = tf32_lo(v[e]);
-    }
-  }
-}
-
-// P (64 x N, f32 accumulator layout) as tf32 A operands of 8 keys each,
-// hi (low 13 bits cleared) and lo, in V^T's key order.
-template <int N>
-__device__ __forceinline__ void split_p(uint32_t (&hi)[N / 8][4], uint32_t (&lo)[N / 8][4],
-                                        const float (&s)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 8; ++kk) {
-    const float x[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3]};
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      hi[kk][r] = __float_as_uint(x[r]) & 0xffffe000u;
-      lo[kk][r] = __float_as_uint(x[r] - __uint_as_float(hi[kk][r]));
-    }
-  }
+  tf32::write_lo(st + S::kKlo, st + S::kK, N * D * 4, tid, Sh::kConsumerThreads);
+  tf32::write_transposed<N, D>(st + S::kVt, st + S::kVtlo, st + S::kV, tid, Sh::kConsumerThreads);
 }
 
 // S = Q_lo K^T + Q K_lo^T + Q K^T for one warpgroup's 64 query rows
@@ -542,7 +482,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
   const auto consumers_sync = [&] { named_barrier_sync(1, Sh::kConsumerThreads); };
 
   mbar_wait(q_full, 0);
-  write_q_lo<D>(smem, q_row0);
+  tf32::write_lo_rows<D>(smem + S::kQlo, smem + S::kQ, kRows, q_row0, 64, threadIdx.x % 128, 128);
   split(0);
   consumers_sync();
   wgmma_fence();
@@ -552,7 +492,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
   fence_operand(s);
   softmax_tile<N>(s, m, l, corr, needs_mask(0), 0, rows, seq, causal, scale_log2);
   if (tiles > 1) consumers_sync();
-  split_p<N>(p_hi, p_lo, s);
+  tf32::split_fragments<N>(p_hi, p_lo, s);
 
   for (int j = 1; j < tiles; ++j) {
     // Tile j's S and tile j-1's O += P V in flight together; tile j's
@@ -573,7 +513,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
     if (j + 1 < tiles) consumers_sync();
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) & 1];
-    split_p<N>(p_hi, p_lo, s);
+    tf32::split_fragments<N>(p_hi, p_lo, s);
   }
   fence_operand(acc);
   wgmma_fence();

@@ -6,10 +6,11 @@
 //
 // Tiles in shared memory. A (rows, D) tile of element type T is stored as
 // D / W column blocks of W elements (W * sizeof(T) = the swizzle span: in
-// bf16 64 bytes at D = 32 and 128 bytes at D = 64 and 128; in float32 always
-// 128 bytes, W = 32), each block `rows` rows of W elements, swizzled by TMA
-// (CU_TENSOR_MAP_SWIZZLE_64B / _128B) or by the 128-byte swizzle that
-// `swizzle128` computes for tiles written by threads. Every
+// bf16 64 bytes at D = 32 and 128 bytes at D = 64 and 128; in float32 128
+// bytes, W = 32, except 64 bytes, W = 16, for the 16-wide transposed copies
+// the float32 backward writes at head_dim 128), each block `rows` rows of W
+// elements, swizzled by TMA (CU_TENSOR_MAP_SWIZZLE_64B / _128B) or, for
+// tiles written by threads, as `TileLayout::offset` computes. Every
 // block starts on a 1024-byte boundary, so TMA's swizzle and wgmma's
 // agree: both XOR address bits of the absolute shared-memory address.
 // One tile serves as a K-major operand (rows = M or N, D = the reduction
@@ -93,25 +94,24 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 // Column-block width (elements) and swizzle span (bytes) of a D-wide tile.
 template <int D, typename T = __nv_bfloat16>
 struct TileLayout {
-  static constexpr int W = sizeof(T) == 4 ? 32 : (D == 32 ? 32 : 64);
+  static constexpr int W = sizeof(T) == 4 ? (D == 16 ? 16 : 32) : (D == 32 ? 32 : 64);
   static constexpr int kSwizzle = sizeof(T) * W;  // bytes per swizzled row
   static constexpr int kBlocks = D / W;
   static constexpr int kSbo = 8 * kSwizzle;  // bytes between 8-row groups
   // Bytes of one column block of a tile of `rows` rows.
   __host__ __device__ static constexpr int block_bytes(int rows) { return rows * kSwizzle; }
+  // Byte offset, within a column block, of byte column `col` of row `row`
+  // as the swizzle stores it: the 16-byte chunk index XORed with address
+  // bits 7-9 (128-byte rows) or 7-8 (64-byte rows).
+  __host__ __device__ static constexpr int offset(int row, int col) {
+    return row * kSwizzle + (col ^ ((((row * kSwizzle) >> 7) & (kSwizzle / 16 - 1)) << 4));
+  }
 };
 
 // Bytes a barrier must expect for one (rows, D) tile.
 template <int D, typename T = __nv_bfloat16>
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) {
   return static_cast<uint32_t>(rows) * D * sizeof(T);
-}
-
-// Byte offset of the 16-byte chunk at byte column `col` (a multiple of 16)
-// of row `row` in a block of 128-byte rows swizzled as TMA's
-// CU_TENSOR_MAP_SWIZZLE_128B and wgmma's 128-byte mode store it.
-__device__ __forceinline__ int swizzle128(int row, int col) {
-  return row * 128 + (col ^ ((row & 7) << 4));
 }
 
 // Load a (rows, D) tile at sequence row `row` of head `bh`: one TMA box
@@ -299,6 +299,18 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t a, uin
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
                                               uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<16>(float (&d)[8], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss_tf32<32>(float (&d)[16], uint64_t a, uint64_t b,

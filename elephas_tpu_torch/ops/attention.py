@@ -22,9 +22,9 @@ import torch
 
 from elephas_tpu_torch.ops import attention_cuda
 
-# The float32 kernels' tile: 64 query rows by 64 keys. The plain versions
-# default to it; the bf16 kernels tile as ``attention_cuda.kernel_tiles``
-# says, and their plain versions take that tiling to sum in their order.
+# The plain versions' default tile: 64 query rows by 64 keys. The CUDA
+# kernels tile as ``attention_cuda.kernel_tiles`` says, and their plain
+# versions take that tiling to sum in their order.
 BLOCK_Q = 64
 BLOCK_K = 64
 

@@ -215,13 +215,14 @@ def test_cuda_function_backward_wiring(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_kernel_tiles(name, dtype, head_dim):
-    """Each kernel's tiling: 64 x 64 for float32 K2 and K3; bf16 K1 takes
-    192 query rows (64 per consumer warpgroup) against 128 keys, 64 at
-    head_dim 128; bf16 K2 128 query rows against 128 keys at head_dim 32,
-    192 against 64 at 64 and 128 against 64 at 128; bf16 K3 64 query rows against 192 keys (64 per consumer
-    warpgroup; 128 at head_dim 64 and 128); float32 K1 192, 128 and 64
-    query rows against 64, 64 and 32 keys at head_dim 32, 64 and 128."""
-    want = (64, 64)
+    """Each kernel's tiling: bf16 K1 takes 192 query rows (64 per consumer
+    warpgroup) against 128 keys, 64 at head_dim 128; bf16 K2 128 query
+    rows against 128 keys at head_dim 32, 192 against 64 at 64 and 128
+    against 64 at 128; bf16 K3 64 query rows against 192 keys (64 per
+    consumer warpgroup; 128 at head_dim 64 and 128); float32 K1 192, 128
+    and 64 query rows against 64, 64 and 32 keys at head_dim 32, 64 and
+    128; float32 K2 128, 128 and 64 query rows against 64, 32 and 16 keys;
+    float32 K3 64, 32 and 16 query rows against 128, 64 and 64 keys."""
     if dtype == torch.bfloat16 and name == "flash_fwd":
         want = (192, 64 if head_dim == 128 else 128)
     elif dtype == torch.bfloat16 and name == "flash_dq":
@@ -230,7 +231,13 @@ def test_kernel_tiles(name, dtype, head_dim):
         want = (64, 192 if head_dim == 32 else 128)
     elif dtype == torch.float32 and name == "flash_fwd":
         want = {32: (192, 64), 64: (128, 64), 128: (64, 32)}[head_dim]
+    elif dtype == torch.float32 and name == "flash_dq":
+        want = {32: (128, 64), 64: (128, 32), 128: (64, 16)}[head_dim]
+    else:
+        want = {32: (64, 128), 64: (32, 64), 128: (16, 64)}[head_dim]
     assert attention_cuda.kernel_tiles(name, dtype, head_dim) == want
+    with pytest.raises(ValueError, match="no flash_dq kernel"):
+        attention_cuda.kernel_tiles("flash_dq", dtype, 48)
 
 
 def _tf32(x):
@@ -240,7 +247,7 @@ def _tf32(x):
 
 
 def _tf32_products(a, b, split):
-    """a @ b as the float32 K1 takes it on tf32 tensor cores, accumulated
+    """a @ b as the float32 kernels take it on tf32 tensor cores, accumulated
     in float32: with ``split``, a_lo b + a b_lo + a b (a_lo = a minus
     _tf32(a), itself read as tf32), else the one product a b."""
     terms = [(a, b)]
@@ -255,53 +262,85 @@ def _tf32_products(a, b, split):
 
 @pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_split_tf32_products_keep_f32_accuracy(head_dim):
-    """The float32 K1's arithmetic on one 64-row tile: Q K^T and P V as
-    three tf32 products each hold against float64 within 1e-5 of the
-    larger of 1 and the result's max, as a float32 product does; one tf32
-    product does not. Inputs at the LM's magnitudes: unit-normal q, k, v;
-    P a row softmax of the scaled scores (entries in [0, 1])."""
+    """The float32 kernels' arithmetic on one 64-row tile: K1's Q K^T and
+    P V, and the backward's dS K (K2), P^T dO and dS^T Q (K3), each as three
+    tf32 products, hold against float64 within 1e-5 of the larger of 1 and
+    the result's max, as a float32 product does; one tf32 product does not.
+    Inputs at the LM's magnitudes: unit-normal q, k, v and dO; P a row
+    softmax of the scaled scores (entries in [0, 1]); dS = P (dO V^T -
+    delta), delta = rowsum(dO * P V), as the softmax backward gives it."""
     rng = np.random.default_rng(head_dim)
-    q, k, v = (torch.from_numpy(rng.standard_normal((64, head_dim)).astype(np.float32))
-               for _ in range(3))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((64, head_dim)).astype(np.float32))
+                   for _ in range(4))
     scores = q.double() @ k.double().T
-    p = torch.softmax(scores / math.sqrt(head_dim), dim=-1).float()
-    for a, b in ((q, k.T.contiguous()), (p, v)):
+    p64 = torch.softmax(scores / math.sqrt(head_dim), dim=-1)
+    delta = (do.double() * (p64 @ v.double())).sum(-1, keepdim=True)
+    ds = (p64 * (do.double() @ v.double().T - delta)).float()
+    p = p64.float()
+    products = {"Q K^T": (q, k.T.contiguous()), "P V": (p, v), "dS K": (ds, k),
+                "P^T dO": (p.T.contiguous(), do), "dS^T Q": (ds.T.contiguous(), q)}
+    for what, (a, b) in products.items():
         want = a.double() @ b.double()
         tol = 1e-5 * max(1.0, want.abs().max().item())
         split = (_tf32_products(a, b, split=True).double() - want).abs().max().item()
         one = (_tf32_products(a, b, split=False).double() - want).abs().max().item()
         plain = ((a @ b).double() - want).abs().max().item()
-        assert split <= tol and plain <= tol, (split, plain, tol)
-        assert one > tol, (one, tol)
+        assert split <= tol and plain <= tol, (what, split, plain, tol)
+        assert one > tol, (what, one, tol)
 
 
-@pytest.mark.parametrize("keys", [32, 64])
-def test_tf32_fragment_key_order(keys):
-    """P's accumulator registers feed the tf32 A fragment as they are: a
-    thread holds keys 2t and 2t+1 of each group of 8 (accumulator
-    d[4j + 2i + c] = row g + 8i, key 8j + 2t + c) and passes them as
-    (d[4j], d[4j+2], d[4j+1], d[4j+3]), the fragment's (row g, column t),
-    (g + 8, t), (g, t + 4), (g + 8, t + 4); V^T's column of key r within
-    its group of 8 is (r & 7) >> 1 | (r & 1) << 2. Together they give P V."""
-    rng = np.random.default_rng(keys)
-    p = rng.standard_normal((16, keys))
-    v = rng.standard_normal((keys, 8))
-    a = np.zeros_like(p)  # the fragment's A, one warp's 16 rows
+def _fragment_pos(r):
+    """tf32.cuh's fragment_pos: within its group of 8, reduction index 2c
+    goes to column c and 2c + 1 to column c + 4."""
+    return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2)
+
+
+def _transposed_copy(src):
+    """What tf32.cuh's write_transposed writes for an (R, C) tile: C rows
+    of R columns, source row r at column fragment_pos(r)."""
+    rows, cols = src.shape
+    copy = np.zeros((cols, rows))
+    for r in range(rows):
+        copy[:, _fragment_pos(r)] = src[r]
+    return copy
+
+
+def _fragment_operand(acc):
+    """The tf32 A operand that one warp's 16 accumulator rows give, taken
+    from registers as split_fragments passes them: a thread holds columns
+    2t and 2t+1 of each group of 8 (d[4j + 2i + c] = row g + 8i, column
+    8j + 2t + c) and passes (d[4j], d[4j+2], d[4j+1], d[4j+3]) as the
+    fragment's (row g, column t), (g + 8, t), (g, t + 4), (g + 8, t + 4)."""
+    cols = acc.shape[1]
+    a = np.zeros_like(acc)
     for lane in range(32):
         g, t = lane // 4, lane % 4
-        d = np.zeros(keys // 2)
-        for j in range(keys // 8):
+        d = np.zeros(cols // 2)
+        for j in range(cols // 8):
             for i in range(2):
                 for c in range(2):
-                    d[4 * j + 2 * i + c] = p[g + 8 * i, 8 * j + 2 * t + c]
-        for kk in range(keys // 8):
+                    d[4 * j + 2 * i + c] = acc[g + 8 * i, 8 * j + 2 * t + c]
+        for kk in range(cols // 8):
             x = (d[4 * kk], d[4 * kk + 2], d[4 * kk + 1], d[4 * kk + 3])
             a[g, 8 * kk + t], a[g + 8, 8 * kk + t] = x[0], x[1]
             a[g, 8 * kk + t + 4], a[g + 8, 8 * kk + t + 4] = x[2], x[3]
-    b = np.zeros_like(v)  # B = (V^T)^T, row = V^T's column
-    for r in range(keys):
-        b[(r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2)] = v[r]
-    np.testing.assert_allclose(a @ b, p @ v, rtol=1e-12, atol=1e-12)
+    return a
+
+
+@pytest.mark.parametrize("keys", [16, 32, 64])
+def test_tf32_fragment_key_order(keys):
+    """An accumulator's registers feed the tf32 A fragment as they are,
+    because the B operand is a transposed copy with its reduction index in
+    fragment_pos order: K1's P V (V^T, keys permuted), K2's dS K (K^T,
+    keys permuted) and K3's P^T dO and dS^T Q (dO^T and Q^T, query rows
+    permuted). ``keys`` is the reduction length: 16 to 64, as the tiles."""
+    rng = np.random.default_rng(keys)
+    for width in (8, 32):  # the product's N: head_dim columns
+        acc = rng.standard_normal((16, keys))  # P, dS, P^T or dS^T
+        src = rng.standard_normal((keys, width))  # V, K, dO or Q
+        b = _transposed_copy(src).T  # B as the K-major copy gives it
+        np.testing.assert_allclose(_fragment_operand(acc) @ b, acc @ src,
+                                   rtol=1e-12, atol=1e-12)
 
 
 def test_headers_cover_every_include():
@@ -314,7 +353,7 @@ def test_headers_cover_every_include():
             assert attention_cuda.CSRC / name in headers, f"{source.name} includes {name}"
 
 
-@pytest.mark.parametrize("header", ["common.cuh", "sm90.cuh"])
+@pytest.mark.parametrize("header", ["common.cuh", "sm90.cuh", "tf32.cuh"])
 def test_editing_a_header_renames_the_library(tmp_path, monkeypatch, header):
     """An edited header gives every library a new name, so no stale build
     is reused; nvcc is stubbed, since there is none here."""

@@ -1,8 +1,8 @@
 """``chip_smoke.py``'s own parsing and arithmetic, on the CPU: the SASS
 and ptxas reports it reads to show the kernels built for Hopper run on
-wgmma and TMA, the instructions each instantiation must hold, the bounds
-and the exponentials' floor it prints, and its refusal to run without a
-card.
+wgmma and TMA, the instructions each instantiation must hold, the work
+and bounds it prints for each kernel, the exponentials' floor, and its
+refusal to run without a card.
 """
 
 import importlib.util
@@ -55,22 +55,47 @@ def test_sass_counts_per_instantiation(smoke, monkeypatch):
     ("flash_fwd f32 D=128", ("HGMMA", "UTMALDG")),
     ("flash_dq bf16 D=64", ("HGMMA", "UTMALDG")),
     ("flash_dkv bf16 D=128", ("HGMMA", "UTMALDG")),
-    ("flash_dq f32 D=32", ()),
-    ("flash_dkv f32 D=64", ()),
+    ("flash_dq f32 D=32", ("HGMMA", "UTMALDG")),
+    ("flash_dkv f32 D=64", ("HGMMA", "UTMALDG")),
+    ("flash_dq f32 D=128", ("HGMMA", "UTMALDG")),
+    ("flash_dkv f32 D=128", ("HGMMA", "UTMALDG")),
 ])
 def test_required_ops_per_instantiation(smoke, instance, want):
-    """Every kernel built for Hopper (bf16 K1-K3, float32 K1) must show
-    wgmma and TMA loads in its SASS; float32 K2 and K3 run on FMAs."""
+    """Every kernel, K1-K3 in bf16 and in float32 (split tf32), is built
+    for Hopper and must show wgmma and TMA loads in its SASS; a name that
+    is no kernel instantiation raises."""
     assert smoke.required_ops(instance) == want
+    with pytest.raises(ValueError, match="unknown"):
+        smoke.required_ops(instance.replace("flash_", "flush_"))
 
 
 def test_split_tf32_bound(smoke):
-    """float32 K1's tensor-core bound: 3 x 2·B·H·S²·D over 495 TFLOP/s,
-    0.1041 ms at the LM's causal shape; full attention twice that."""
+    """The float32 kernels' tensor-core bound, three tf32 products for each
+    FLOP over 495 TFLOP/s, at the LM's causal shape: K1 (2·B·H·S²·D FLOPs)
+    0.1041 ms, K2 (3·B·H·S²·D) 0.1562 ms, K3 (4·B·H·S²·D) 0.2082 ms; full
+    attention twice each."""
     shape = (8, 8, 2048, 32)
-    assert smoke.split_tf32_bound_ms(shape, True) == pytest.approx(0.10412, abs=1e-5)
-    assert smoke.split_tf32_bound_ms(shape, False) == pytest.approx(
-        2 * smoke.split_tf32_bound_ms(shape, True), rel=1e-12)
+    causal = smoke.kernel_work(shape, 4, True)
+    full = smoke.kernel_work(shape, 4, False)
+    for name, want in (("flash_fwd", 0.10412), ("flash_dq", 0.15618),
+                       ("flash_dkv", 0.20824)):
+        flops, nbytes = causal[name]
+        assert flops == {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[name] * 8 * 8 * 2048**2 * 32
+        assert smoke.split_tf32_bound_ms(flops, nbytes) == pytest.approx(want, abs=1e-5)
+        assert smoke.split_tf32_bound_ms(*full[name]) == pytest.approx(
+            2 * smoke.split_tf32_bound_ms(flops, nbytes), rel=1e-12)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_kernel_work_counts_each_tensor_once(smoke, itemsize):
+    """Bytes: K1 reads q, k, v and writes o (each B·H·S·D elements) and the
+    float32 lse; K2 reads q, k, v, dO and writes dq, K3 writes dk and dv,
+    both reading the float32 lse and delta."""
+    shape = (2, 3, 100, 64)
+    tensor, rows = 2 * 3 * 100 * 64 * itemsize, 4 * 2 * 3 * 100
+    work = smoke.kernel_work(shape, itemsize, True)
+    assert [work[n][1] for n in ("flash_fwd", "flash_dq", "flash_dkv")] == [
+        4 * tensor + rows, 5 * tensor + 2 * rows, 6 * tensor + 2 * rows]
 
 
 def test_ptxas_summary_names_the_hopper_kernels(smoke):
