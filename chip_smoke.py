@@ -41,9 +41,22 @@ Phases, in order; any failed check raises and the process exits non-zero:
    and in bf16 (loss falls, stays finite, exactly 4 launches of each
    kernel per step), train tokens/s, MFU and a kernel breakdown of one
    step per dtype;
-6. a JSON line with each kernel's launches on the paths, errors, times
+6. the ResNet phase (``resnet_phase``), the paper's main path: the
+   CIFAR-10 ResNet-18 at full width, one train step on the card in
+   float64, float32 and bf16 against the port's CPU path, the bf16
+   train-step throughput over a batch sweep and f32 at the best batch
+   (samples/s, MFU, a kernel breakdown), then
+   ``SparkModel(mode="synchronous").fit``, ``evaluate`` and ``predict``
+   on the synthetic CIFAR-10 set, launching no flash kernel;
+7. the repair checks (``repair_phase``): ``flash_attention`` runs the
+   kernels on every CUDA input, each held against the plain version: a
+   head_dim 16 LM trained against the dense one (K1-K3 at head_dim 32
+   on zero-padded columns), head_dim 16 and 80, float16 and float64
+   (the float32 kernels), a strided view, 65600 (batch, head) pairs and
+   a caller's block sizes; head_dim 16 timed against SDPA;
+8. a JSON line with each kernel's launches on the paths, errors, times
    and bound;
-7. the last line: ``{"ok": true, "device": {...}}``.
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device, ``nvcc`` and this repository; exits non-zero without
 them. Imports nothing of JAX.
@@ -85,6 +98,55 @@ GRAD_RTOL = 1e-3                   # flash vs dense f32 grads, relative to each 
 LOSS_ATOL = 1e-4                   # flash vs dense f32 loss
 BF16_GRAD_RTOL = 5e-2              # flash vs dense bf16 grads, by norm, per parameter
 BF16_LOSS_ATOL = 1e-2              # flash vs dense bf16 loss
+
+# ResNet phase (CIFAR-10 ResNet-18 at full width, width 64, 10 classes).
+RESNET_CPU_BATCH = 64              # the card's step against the port's CPU path
+RESNET_SWEEP = (256, 512, 1024, 2048)
+RESNET_WARMUP, RESNET_STEPS = 5, 20
+FIT_TRAIN, FIT_TEST, FIT_EPOCHS = 16384, 2048, 3
+FIT_MIN_VAL_ACC = 0.2
+# The checked fit takes the sweep's fastest batch of those that give at
+# least this many steps an epoch. At batch 2048 (8 steps an epoch, 24 in
+# all, at lr 0.1) the eval-mode accuracy stays near chance in float32 as
+# in bf16 (scripts/torch_fit_witness.py: held-out accuracy 0.10-0.29
+# over 3 seeds each, the loss rising in 3 of the 6 fits) while the same
+# weights score 0.88 with batch statistics and 0.86-0.89 once the
+# running statistics are recalibrated: they lag the weights, and bf16 is
+# not the cause. At 1024 every fit of the 6 trained (held-out accuracy
+# 0.53-0.84). The fastest batch's fit still runs, and its history and
+# rate are printed, not held.
+FIT_MIN_STEPS = 16
+# One train step on the card against the same step on the CPU, same
+# weights and batch: loss relative; logits and running statistics by max
+# |error| over max(1, max |reference|); gradients and the parameters'
+# change by ||error|| / ||reference|| per tensor ("grads", "update") and
+# over all tensors ("grads_all", "update_all"). These limits were written
+# before the first run; they hold the float64 step on the card against the
+# CPU's whole, and the float32 steps' loss, logits and statistics.
+RESNET_F32_LIMITS = {"loss": 1e-4, "logits": 1e-3, "stats": 1e-5, "grads": 1e-3,
+                     "grads_all": 1e-3, "update": 1e-3, "update_all": 1e-3}
+# The float32 gradients at initialisation are ill-conditioned: sums over
+# 64 x H x W positions that nearly cancel (a BatchNorm's bias gradient
+# above all) leave the CPU's own float32 step 4e-3 from its float64 one
+# over all tensors, so two float32 steps cannot agree to 1e-3 (the first
+# run's card read 3.3e-3 against the CPU). Each float32 step, the card's
+# and the CPU's, is held against the float64 step instead, at limits set
+# after that run (PERF.md, PR 6).
+RESNET_F32_GRAD_LIMITS = {"grads": 5e-2, "grads_all": 2e-2, "update": 5e-2,
+                          "update_all": 2e-2}
+# One bf16 step on the card against that f32 CPU step. bf16 activations
+# move a ResNet's gradients at initialisation by about a third of their
+# norm (0.32 over all tensors at this batch with the port's bf16 on the
+# CPU; the JAX package's bf16 step sits as far from its f32 one), and a
+# small tensor's (a norm's bias) by more than its norm, so the gradients
+# and the update are held over all tensors only.
+RESNET_BF16_LIMITS = {"loss": 1e-2, "logits": 1e-1, "stats": 1e-2, "grads_all": 0.6,
+                      "update_all": 0.6}
+REPAIR_LOSS_ATOL, REPAIR_GRAD_RTOL = 1e-4, 1e-3  # head_dim 16 LM, flash vs dense f32
+# float16 inputs run the float32 kernels and round their results to
+# float16, as the plain version does: one float16 rounding (2^-11 of the
+# value) either side, relative to max(1, max |reference|).
+REPAIR_F16_LIMITS = {"o": 2e-3, "grads": 2e-3}
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -618,6 +680,429 @@ def train_phase(attention_cuda):
     return dict(attention_cuda.launches), report
 
 
+def resnet_flops_per_sample(width=64, num_classes=10, size=32, stages=(2, 2, 2, 2)):
+    """Forward FLOPs of one CIFAR ResNet image, from the conv and dense
+    shapes: 2·k²·C_in·C_out·H_out·W_out per conv (SAME padding, so H_out =
+    ceil(H / stride)), 2·in·out for the head. Norms, ReLUs, adds and the
+    pool are left out, as model FLOPs leave them out."""
+    flops = 2 * 9 * 3 * width * size * size  # 3x3 stem
+    channels = width
+    for stage, blocks in enumerate(stages):
+        out = width * 2 ** stage
+        for block in range(blocks):
+            stride = 2 if stage > 0 and block == 0 else 1
+            size = -(-size // stride)
+            flops += 2 * 9 * channels * out * size * size  # conv1
+            flops += 2 * 9 * out * out * size * size  # conv2
+            if stride != 1 or channels != out:
+                flops += 2 * channels * out * size * size  # 1x1 shortcut
+            channels = out
+    return flops + 2 * channels * num_classes
+
+
+def step_record(compiled, x, y):
+    """One train step (forward, backward, optimizer update) of
+    ``compiled`` on (x, y), through ``make_loss_fn`` so the logits are
+    kept: loss, logits, gradients, float buffers and the parameters'
+    change, all on the CPU."""
+    from elephas_tpu_torch.engine.step import init_train_state, make_loss_fn
+
+    state = init_train_state(compiled)
+    before = {n: p.detach().clone() for n, p in compiled.module.named_parameters()}
+    loss, logits = make_loss_fn(compiled)(x, y)
+    loss.backward()
+    state.optimizer.step()
+    module = compiled.module
+    return {
+        "loss": loss.item(),
+        "logits": logits.detach().float().cpu(),
+        "grads": {n: p.grad.detach().cpu() for n, p in module.named_parameters()},
+        "stats": {n: b.detach().cpu() for n, b in module.named_buffers() if b.is_floating_point()},
+        "update": {n: (p.detach() - before[n]).cpu() for n, p in module.named_parameters()},
+    }
+
+
+def step_errors(got, ref):
+    """What ``RESNET_*_LIMITS`` bound, of step record ``got`` against
+    ``ref``; each per-tensor entry names its worst tensor."""
+
+    def scaled_max(a, b):
+        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    def by_norm(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+    errors = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+              "logits": scaled_max(got["logits"], ref["logits"])}
+    stats = {n: scaled_max(got["stats"][n], b) for n, b in ref["stats"].items()}
+    errors["stats"] = max(stats.values()) if stats else 0.0
+    errors["stats_worst"] = max(stats, key=stats.get) if stats else None
+    for key in ("grads", "update"):
+        per = {n: by_norm(got[key][n], t) for n, t in ref[key].items()}
+        errors[key] = max(per.values())
+        errors[f"{key}_worst"] = max(per, key=per.get)
+        diff = sum(((got[key][n].double() - t.double()) ** 2).sum() for n, t in ref[key].items())
+        total = sum((t.double() ** 2).sum() for t in ref[key].values())
+        errors[f"{key}_all"] = (diff / total).sqrt().item()
+    return errors
+
+
+def breaches(errors, limits):
+    """The names of ``limits`` whose measured error is above its limit
+    (or missing, or not a number)."""
+    return [k for k, limit in limits.items()
+            if not (isinstance(errors.get(k), float) and errors[k] <= limit)]
+
+
+def resnet_phase(attention_cuda):
+    """The paper's main path on the card: the CIFAR-10 ResNet-18 at full
+    width (width 64, 10 classes, ~11.2 M parameters, seeded weights),
+    momentum lr 0.1, categorical cross-entropy, accuracy. (1) one float64,
+    float32 and bf16 train step against the port's CPU path; (2)
+    train-step throughput, a bf16 batch sweep and f32 at the best batch,
+    with MFU and a device breakdown; (3) ``SparkModel(mode="synchronous")
+    .fit`` on the synthetic CIFAR-10, then ``evaluate`` and ``predict``,
+    which must launch no flash kernel. Returns the launch counts of (3)
+    and a report."""
+    from elephas_tpu_torch import SparkModel, compile_model, to_simple_rdd
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.data.datasets import one_hot, synthetic_cifar10
+    from elephas_tpu_torch.engine.step import init_train_state, make_train_step
+    from elephas_tpu_torch.metrics import mfu
+    from elephas_tpu_torch.models import get_model
+
+    momentum = {"name": "momentum", "learning_rate": 0.1}
+
+    def compiled(dtype, device=None, params=None):
+        return CompiledModel(get_model("resnet18", dtype=dtype, device=device), params,
+                             optimizer=momentum, loss="categorical_crossentropy",
+                             metrics=["acc"], input_shape=(32, 32, 3), seed=SEED)
+
+    report = {}
+    fps = 3 * resnet_flops_per_sample()  # training: forward and backward
+    cpu_model = compiled("float32", device="cpu")
+    weights = cpu_model.get_weights()
+    print(f"resnet18: {cpu_model.count_params()} parameters, {fps / 3:.4e} forward FLOPs "
+          f"a 32x32 image, {fps:.4e} a trained one", flush=True)
+
+    # (1) The card's steps against the CPU's: float64 against float64, then
+    # float32 and bf16 against the CPU's float32 step, each float32 step's
+    # gradients also against the float64 one.
+    rng = np.random.default_rng(SEED)
+    x = torch.as_tensor(rng.random((RESNET_CPU_BATCH, 32, 32, 3), dtype=np.float32))
+    y = torch.as_tensor(one_hot(rng.integers(0, 10, RESNET_CPU_BATCH), 10))
+
+    def wide(device):
+        model = compiled("float64", device=device, params=weights)
+        model.module.double()
+        return model
+
+    exact = step_record(wide("cpu"), x.double(), y.double())
+    reference = step_record(cpu_model, x, y)
+    steps = {"float64": step_record(wide("cuda"), x.cuda().double(), y.cuda().double()),
+             "float32": step_record(compiled("float32", params=weights), x.cuda(), y.cuda()),
+             "bfloat16": step_record(compiled("bfloat16", params=weights), x.cuda(), y.cuda())}
+    held = {
+        "card float64 vs cpu float64": (steps["float64"], exact, RESNET_F32_LIMITS),
+        "card float32 vs cpu float32": (steps["float32"], reference, {
+            k: RESNET_F32_LIMITS[k] for k in ("loss", "logits", "stats")}),
+        "card float32 vs cpu float64": (steps["float32"], exact, RESNET_F32_GRAD_LIMITS),
+        "cpu float32 vs cpu float64": (reference, exact, RESNET_F32_GRAD_LIMITS),
+        "card bfloat16 vs cpu float32": (steps["bfloat16"], reference, RESNET_BF16_LIMITS),
+    }
+    for what, (got, ref, limits) in held.items():
+        errors = step_errors(got, ref)
+        report[what.replace(" ", "_")] = errors
+        print(f"resnet step, {what} (batch {RESNET_CPU_BATCH}; cudnn.benchmark="
+              f"{torch.backends.cudnn.benchmark}, TF32 off): {json.dumps(errors)} "
+              f"limits {json.dumps(limits)}", flush=True)
+        check(not breaches(errors, limits),
+              f"resnet step, {what}: breaches {breaches(errors, limits)}")
+    del exact, reference, steps, held
+
+    # (2) Throughput of make_train_step, bf16 sweep then f32 at the best batch.
+    torch.backends.cudnn.benchmark = True
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def throughput(dtype, batch):
+        model = compiled(dtype, params=weights)
+        step, state = make_train_step(model), init_train_state(model)
+        bx = torch.rand((batch, 32, 32, 3), generator=gen, device="cuda")
+        by = F.one_hot(torch.randint(0, 10, (batch,), generator=gen, device="cuda"),
+                       10).float()
+        for _ in range(RESNET_WARMUP):
+            state, metrics = step(state, bx, by)
+        float(metrics["loss"])
+        t0 = time.perf_counter()
+        for _ in range(RESNET_STEPS):
+            state, metrics = step(state, bx, by)
+        loss = float(metrics["loss"])
+        elapsed = time.perf_counter() - t0
+        rate = batch * RESNET_STEPS / elapsed
+        out = {"dtype": dtype, "batch": batch, "step_ms": elapsed / RESNET_STEPS * 1e3,
+               "samples_per_s": rate, "mfu_vs_bf16_peak": mfu(rate, fps, PEAK_OPS[torch.bfloat16]),
+               "share_of_dtype_peak": rate * fps / PEAK_OPS[getattr(torch, dtype)],
+               "loss": loss, "cudnn_benchmark": torch.backends.cudnn.benchmark}
+        check(np.isfinite(loss), f"resnet {dtype} loss not finite at batch {batch}")
+        print(f"resnet throughput: {json.dumps(out)}", flush=True)
+        return out, (lambda: step(state, bx, by))
+
+    sweep = [throughput("bfloat16", b) for b in RESNET_SWEEP]
+    report["sweep_bf16"] = [r for r, _ in sweep]
+    best_rate, best_step = max(sweep, key=lambda r: r[0]["samples_per_s"])
+    best = best_rate["batch"]
+    f32_rate, f32_step = throughput("float32", best)
+    report["f32_at_best_batch"] = f32_rate
+    for dtype, step_fn in (("bfloat16", best_step), ("float32", f32_step)):
+        report[f"profile_{dtype}"] = device_breakdown(step_fn)
+        print(f"resnet profile {dtype} batch {best}: "
+              f"{json.dumps(report[f'profile_{dtype}'])}", flush=True)
+    del sweep, best_step, f32_step
+
+    # (3) The main path: SparkModel.fit on the synthetic CIFAR-10 set, at
+    # the fastest batch with FIT_MIN_STEPS steps an epoch (checked), then
+    # at the sweep's fastest batch where that is another.
+    (x_train, y_train), (x_test, y_test) = synthetic_cifar10(n_train=FIT_TRAIN, n_test=FIT_TEST)
+    x_train, x_test = x_train.astype(np.float32) / 255.0, x_test.astype(np.float32) / 255.0
+    y_train, y_test = one_hot(y_train, 10), one_hot(y_test, 10)
+    rates = {r["batch"]: r["samples_per_s"] for r in report["sweep_bf16"]}
+    checked = max((b for b in rates if FIT_TRAIN // b >= FIT_MIN_STEPS), key=rates.get)
+    attention_cuda.reset_launches()
+    for batch in dict.fromkeys((checked, best)):
+        net = compile_model(get_model("resnet18", dtype="bfloat16"), optimizer=momentum,
+                            loss="categorical_crossentropy", metrics=["acc"],
+                            input_shape=(32, 32, 3), seed=SEED)
+        model = SparkModel(net, mode="synchronous", frequency="batch")
+        ends = []
+        t0 = time.perf_counter()
+        history = model.fit(to_simple_rdd(None, x_train, y_train), epochs=FIT_EPOCHS,
+                            batch_size=batch, validation_data=(x_test, y_test),
+                            callbacks=[lambda e, state, m: ends.append(time.perf_counter())])
+        fit_s = time.perf_counter() - t0
+        evaluation = model.evaluate(x_test, y_test)
+        predictions = model.predict(x_test)
+        rows = (FIT_TRAIN // batch) * batch
+        key = "fit" if batch == checked else "fit_fastest_batch"
+        report[key] = {
+            "history": history, "evaluate": evaluation, "batch": batch,
+            "steps_per_epoch": FIT_TRAIN // batch, "fit_s": fit_s,
+            "epoch_s": np.diff([t0, *ends]).tolist(),
+            "samples_per_s_epochs_2_3": 2 * rows / (ends[2] - ends[0]),
+            "cudnn_benchmark": torch.backends.cudnn.benchmark,
+        }
+        print(f"resnet {key} (SparkModel synchronous, batch frequency, bf16, batch {batch}, "
+              f"{FIT_TRAIN} synthetic CIFAR-10 rows, {FIT_EPOCHS} epochs): "
+              f"{json.dumps(report[key])}", flush=True)
+        loss = history["loss"]
+        check(all(np.isfinite(loss)), f"fit loss not finite: {loss}")
+        check(predictions.shape == (FIT_TEST, 10) and np.isfinite(predictions).all(),
+              f"predict gave {predictions.shape}, expected ({FIT_TEST}, 10), finite")
+        check(np.isfinite(list(evaluation.values())).all(), f"evaluate gave {evaluation}")
+        if batch == checked:  # the fastest batch's convergence is measured, not held
+            check(loss[-1] < loss[0], f"fit loss did not fall: {loss}")
+            check(history["val_acc"][-1] > FIT_MIN_VAL_ACC,
+                  f"val_acc {history['val_acc'][-1]:.4f} not above {FIT_MIN_VAL_ACC}")
+    launches = dict(attention_cuda.launches)
+    check(launches == {k: 0 for k in KERNELS},
+          f"the ResNet path launched flash kernels: {launches}")
+    return launches, report
+
+
+def repair_phase(attention_cuda):
+    """The dispatch of ``flash_attention`` on the card: every CUDA input
+    runs the kernels. A head_dim 16 LM trains under ``attention="flash"``
+    as the dense one does, through K1-K3 at head_dim 32 (zero columns);
+    head_dim 16, float16 and float64 inputs (the float32 kernels), a
+    strided (b, s, h, d) view, more than 65535 (batch, head) pairs and a
+    caller's block sizes each launch the kernels and agree with the plain
+    version; a head_dim 32 LM step still launches 4 of each. Returns the
+    phase's launch counts and a report."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.engine.step import init_train_state, make_loss_fn, make_train_step
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.ops.attention import (
+        blockwise_reference,
+        flash_attention,
+        kernel_layout,
+    )
+
+    report = {}
+    attention_cuda.reset_launches()
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, 32000, (2, 257)), device="cuda")
+    x, y = tokens[:, :-1], tokens[:, 1:]
+
+    def lm(**kw):
+        return CompiledModel(get_model("transformer_lm", **kw),
+                             optimizer={"name": "adam", "learning_rate": 1e-3},
+                             loss="sparse_categorical_crossentropy", metrics=["acc"], seed=SEED)
+
+    def counted(fn):
+        before = dict(attention_cuda.launches)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: attention_cuda.launches[k] - before[k] for k in KERNELS}
+
+    # head_dim 16 (256 / 16 heads): flash against dense, f32, 4 of each.
+    losses, grads = {}, {}
+    for attention in ("flash", "dense"):
+        model = lm(num_heads=16, attention=attention)
+
+        def loss_and_grads():
+            loss, _ = make_loss_fn(model)(x, y)
+            loss.backward()
+            return loss.item()
+
+        losses[attention], launched = counted(loss_and_grads)
+        want = {k: 4 if attention == "flash" else 0 for k in KERNELS}
+        check(launched == want, f"head_dim 16 {attention} launched {launched}, expected {want}")
+        grads[attention] = {}
+        for n, p in model.module.named_parameters():
+            g = p.grad
+            if n.endswith("attn.qkv.bias"):  # the key third's exact gradient is 0
+                third = len(g) // 3
+                g = torch.cat([g[:third], g[2 * third:]])
+            grads[attention][n] = g
+    worst = max(((grads["flash"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                for n, g in grads["dense"].items())
+    dloss = abs(losses["flash"] - losses["dense"])
+    report["head_dim_16_lm"] = {"loss_abs_err": dloss, "grad_rel_err": worst}
+    print(f"repair: head_dim 16 LM (2 x 256, f32) flash vs dense: |dloss| {dloss:.2e} "
+          f"(atol {REPAIR_LOSS_ATOL}), worst gradient max|d| / max|g| {worst:.2e} "
+          f"(rtol {REPAIR_GRAD_RTOL}), 4 launches of each kernel", flush=True)
+    check(dloss <= REPAIR_LOSS_ATOL and worst <= REPAIR_GRAD_RTOL,
+          "head_dim 16 flash and dense disagree")
+    del grads
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def held(what, shape, dtype, limits, view=None, blocks=(None, None)):
+        """flash_attention and its gradients against blockwise_reference
+        under autograd, at the tiling of the kernel that computes the
+        input; each a 1-launch forward and a 1 + 1 launch backward. The
+        inputs are (b, s, h, d) tensors viewed as (b, h, s, d) where
+        ``view`` is set. Returns the errors, max|d| / max(1, max|ref|)."""
+        make = (lambda: torch.randn(shape, device="cuda", generator=gen).to(dtype))
+        tensors = [make() for _ in range(4)]
+        if view:
+            tensors = [t.transpose(1, 2) for t in tensors]
+        head_dim, kernel_dtype = kernel_layout(shape[-1], dtype)
+        tiles = attention_cuda.kernel_tiles("flash_fwd", kernel_dtype, head_dim)
+        results = []
+        for kernels in (True, False):
+            leaves = [t.detach().clone().requires_grad_() for t in tensors[:3]]
+            if kernels:
+                out, fwd = counted(lambda: flash_attention(*leaves, True, *blocks))
+                got, bwd = counted(lambda: torch.autograd.grad(out, leaves, tensors[3]))
+            else:
+                out = blockwise_reference(*leaves, True, *tiles)[0]
+                got = torch.autograd.grad(out, leaves, tensors[3])
+            results.append((out.detach(), got))
+        (out, got), (ref_out, ref) = results
+
+        def err(a, b):
+            return ((a.double() - b.double()).abs().max() / max(1.0, b.abs().max().item())).item()
+
+        errors = {"o": err(out, ref_out), "grads": max(err(a, b) for a, b in zip(got, ref))}
+        report[what] = {**errors, "launches": [fwd, bwd], "shape": list(shape),
+                        "dtype": str(dtype)}
+        print(f"repair: {what} {tuple(shape)} {dtype}: {json.dumps(errors)} limits "
+              f"{json.dumps(limits)}; launches {fwd} then {bwd}", flush=True)
+        check(fwd == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
+              and bwd == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1},
+              f"{what} launched {fwd} then {bwd}")
+        check(not breaches(errors, limits), f"{what}: breaches {breaches(errors, limits)}")
+        return [t.detach() for t in tensors[:3]], out
+
+    f32 = {"o": TOL[torch.float32][0], "grads": TOL_BWD[torch.float32]}
+    bf16 = {"o": TOL[torch.bfloat16][0], "grads": TOL_BWD[torch.bfloat16]}
+    held("transposed view", (2, 256, 8, 32), torch.float32, f32, view=True)
+    held("head_dim 16", (2, 16, 256, 16), torch.float32, f32)
+    held("head_dim 16", (2, 16, 256, 16), torch.bfloat16, bf16)
+    held("head_dim 80", (2, 4, 256, 80), torch.float32, f32)
+    held("float16", (2, 256, 8, 32), torch.float16, REPAIR_F16_LIMITS, view=True)
+    held("float64", (2, 8, 256, 32), torch.float64, f32)
+    held("batch*heads 65600", (1025, 64, 40, 32), torch.bfloat16, bf16)
+    inputs, own = held("caller blocks", (2, 8, 256, 32), torch.float32, f32, blocks=(16, 16))
+    check(torch.equal(own, flash_attention(*inputs, True)),
+          "the kernels' output moved with the caller's block sizes")
+
+    # head_dim 16 at the LM's scoring shape: the kernels (at head_dim 32)
+    # against the yardstick, SDPA, forward and forward + backward.
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn((BATCH, 16, SEQ, 16), device="cuda", generator=gen,
+                                   dtype=dtype) for _ in range(4))
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(*leaves), leaves, do)
+
+        sdpa = (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True))
+        flash = (lambda a, b, c: flash_attention(a, b, c, True))
+        # The kernels alone on the padded inputs: what is left of
+        # flash_attention's time is the padding, casts and autograd.
+        padded = [F.pad(t.detach(), (0, 16)) for t in (q, k, v, do)]
+        o, lse = attention_cuda.flash_fwd(*padded[:3], True, 0.25)
+        delta = (padded[3].float() * o.float()).sum(-1)
+        bwd_args = (*padded, lse, delta, True, 0.25)
+        times[str(dtype)] = {
+            "flash_fwd_ms": cuda_ms(lambda: flash(*leaves), 10),
+            "sdpa_fwd_ms": cuda_ms(lambda: sdpa(*leaves), 10),
+            "flash_fwd_bwd_ms": cuda_ms(fwd_bwd(flash), 10),
+            "sdpa_fwd_bwd_ms": cuda_ms(fwd_bwd(sdpa), 10),
+            "k1_ms": cuda_ms(lambda: attention_cuda.flash_fwd(*padded[:3], True, 0.25), 10),
+            "k2_ms": cuda_ms(lambda: attention_cuda.flash_bwd_dq(*bwd_args), 10),
+            "k3_ms": cuda_ms(lambda: attention_cuda.flash_bwd_dkv(*bwd_args), 10),
+        }
+    report["head_dim_16_times"] = {"shape": [BATCH, 16, SEQ, 16], **times}
+    print(f"repair: head_dim 16 at ({BATCH}, 16, {SEQ}, 16), causal, flash_attention (its "
+          f"zero-padding included) vs SDPA, and K1-K3 alone at head_dim 32: "
+          f"{json.dumps(times)}", flush=True)
+
+    # head_dim 32: one LM train step still launches 4 of each kernel.
+    model = lm(attention="flash")
+    step, state = make_train_step(model), init_train_state(model)
+    (_, metrics), launched = counted(lambda: step(state, x, y))
+    check(launched == {k: 4 for k in KERNELS}, f"a head_dim 32 LM step launched {launched}")
+    check(np.isfinite(float(metrics["loss"])), "head_dim 32 LM loss not finite")
+    report["head_dim_32_step_launches"] = launched
+    print(f"repair: head_dim 32 LM train step launches {launched}", flush=True)
+    return dict(attention_cuda.launches), report
+
+
+def kernel_entries(timing, errors, launches):
+    """The ``{"kernels": [...]}`` line's entries: each kernel's source,
+    the TPU kernel it replaces, its launches on the main path (the LM
+    train run) and on every path, its errors and its f32 (and bf16)
+    times and bounds."""
+    sources = {
+        "flash_fwd": ("elephas_tpu_torch/csrc/flash_fwd.cu",
+                      "elephas_tpu/ops/attention_pallas.py:36"),
+        "flash_dq": ("elephas_tpu_torch/csrc/flash_bwd.cu",
+                     "elephas_tpu/ops/attention_pallas.py:248"),
+        "flash_dkv": ("elephas_tpu_torch/csrc/flash_bwd.cu",
+                      "elephas_tpu/ops/attention_pallas.py:307"),
+    }
+    entries = []
+    for name in KERNELS:
+        f32, bf16 = timing[name][torch.float32], timing[name][torch.bfloat16]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": launches["train"][name],
+            "launches_by_path": {path: counts[name] for path, counts in launches.items()},
+            "max_abs_err": errors[name][torch.float32],
+            "max_err_f32": errors[name][torch.float32],
+            "max_err_bf16": errors[name][torch.bfloat16],
+            **f32,
+            "bf16": bf16,
+        })
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -664,32 +1149,12 @@ def main():
     print(f"inference: {json.dumps(report)}", flush=True)
     launches["train"], report = train_phase(attention_cuda)
     print(f"train: {json.dumps(report)}", flush=True)
+    launches["resnet"], report = resnet_phase(attention_cuda)
+    print(f"resnet: {json.dumps(report)}", flush=True)
+    launches["repair"], report = repair_phase(attention_cuda)
+    print(f"repair: {json.dumps(report)}", flush=True)
 
-    sources = {
-        "flash_fwd": ("elephas_tpu_torch/csrc/flash_fwd.cu",
-                      "elephas_tpu/ops/attention_pallas.py:36"),
-        "flash_dq": ("elephas_tpu_torch/csrc/flash_bwd.cu",
-                     "elephas_tpu/ops/attention_pallas.py:248"),
-        "flash_dkv": ("elephas_tpu_torch/csrc/flash_bwd.cu",
-                      "elephas_tpu/ops/attention_pallas.py:307"),
-    }
-    entries = []
-    for name in KERNELS:
-        f32, bf16 = timing[name][torch.float32], timing[name][torch.bfloat16]
-        entries.append({
-            "name": name,
-            "route": "cuda",
-            "source": sources[name][0],
-            "replaces": sources[name][1],
-            "launches": launches["train"][name],
-            "launches_by_path": {path: counts[name] for path, counts in launches.items()},
-            "max_abs_err": errors[name][torch.float32],
-            "max_err_f32": errors[name][torch.float32],
-            "max_err_bf16": errors[name][torch.bfloat16],
-            **f32,
-            "bf16": bf16,
-        })
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": kernel_entries(timing, errors, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.nn.parameter import is_lazy
 
 from elephas_tpu_torch.api import optim
 from elephas_tpu_torch.engine.losses import resolve_loss, resolve_metric
@@ -93,24 +94,41 @@ def resolve_optimizer(optimizer) -> Tuple[Callable, Optional[dict]]:
 
 def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for ``module`` drawn with NumPy from ``seed``, so
-    one seed gives the same weights on every device: Linear weights
-    N(0, 1/fan_in) and zero biases, LayerNorms at identity, embeddings
-    and other bare parameters N(0, 0.02²)."""
+    one seed gives the same weights on every device: Linear and Conv2d
+    weights N(0, 1/fan_in) (lecun_normal's variance) and zero biases,
+    LayerNorms at identity, BatchNorms at identity with running mean 0
+    and variance 1, embeddings and other bare parameters N(0, 0.02²)."""
     rng = np.random.default_rng(seed)
     state = {}
     for name, param in module.state_dict().items():
         owner = module.get_submodule(name.rpartition(".")[0]) if "." in name else module
         leaf = name.rpartition(".")[2]
-        if isinstance(owner, nn.LayerNorm):
-            value = np.ones(param.shape) if leaf == "weight" else np.zeros(param.shape)
-        elif isinstance(owner, nn.Linear) and leaf == "weight":
-            value = rng.normal(0.0, 1.0 / np.sqrt(param.shape[1]), param.shape)
-        elif isinstance(owner, nn.Linear):
+        if isinstance(owner, (nn.LayerNorm, nn.BatchNorm2d)):
+            ones = leaf in ("weight", "running_var")
+            value = np.ones(param.shape) if ones else np.zeros(param.shape)
+        elif isinstance(owner, (nn.Linear, nn.Conv2d)) and leaf == "weight":
+            fan_in = int(np.prod(param.shape[1:]))
+            value = rng.normal(0.0, 1.0 / np.sqrt(fan_in), param.shape)
+        elif isinstance(owner, (nn.Linear, nn.Conv2d)):
             value = np.zeros(param.shape)
         else:
             value = rng.normal(0.0, 0.02, param.shape)
         state[name] = torch.as_tensor(value, dtype=param.dtype).to(param.device)
     return state
+
+
+def _materialize(module: nn.Module, input_shape, input_dtype) -> None:
+    """Give the lazy layers of ``module`` (a model's first layer infers
+    its input width, as flax's does) their shapes from one example of
+    ``input_shape``."""
+    if not any(is_lazy(p) for p in module.parameters()):
+        return
+    if input_shape is None:
+        raise ValueError("need either params or input_shape to initialize")
+    device = next(module.parameters()).device
+    module.eval()
+    with torch.no_grad():
+        module(torch.zeros((1, *input_shape), dtype=input_dtype, device=device))
 
 
 class CompiledModel:
@@ -124,6 +142,9 @@ class CompiledModel:
         ``None``, weights are drawn from ``seed`` (``seeded_state``).
     optimizer: builder | name | ``{"name": ..., **kw}`` (``resolve_optimizer``).
     loss / metrics: Keras-style names or callables (``engine.losses``).
+    input_shape: per-example shape (no batch dim) that gives lazy layers
+        their shapes when ``params`` is None.
+    input_dtype: dtype of that example (e.g. ``torch.int64`` for tokens).
     model_config: ``{"name": ..., "kwargs": ...}`` when the module came
         from the registry.
     """
@@ -136,6 +157,8 @@ class CompiledModel:
         optimizer="sgd",
         loss="categorical_crossentropy",
         metrics: Sequence = ("acc",),
+        input_shape: Optional[Tuple[int, ...]] = None,
+        input_dtype=torch.float32,
         seed: int = 0,
         model_config: Optional[dict] = None,
     ):
@@ -150,7 +173,12 @@ class CompiledModel:
         self.metric_fns = [resolve_metric(m) for m in metrics]
         self.optimizer, self.optimizer_config = resolve_optimizer(optimizer)
         self.model_config = model_config or getattr(module, "_elephas_config", None)
-        self.set_weights(params if params is not None else seeded_state(module, seed))
+        self.input_shape = tuple(input_shape) if input_shape is not None else None
+        self.input_dtype = input_dtype
+        if params is None:
+            _materialize(module, self.input_shape, input_dtype)
+            params = seeded_state(module, seed)
+        self.set_weights(params)
 
     def apply_train(self, x):
         """Training-mode forward, with autograd."""
@@ -187,6 +215,8 @@ class CompiledModel:
             optimizer=self.optimizer_config or self.optimizer,
             loss=self.loss_spec,
             metrics=list(self.metric_specs),
+            input_shape=self.input_shape,
+            input_dtype=self.input_dtype,
             model_config=self.model_config,
         )
 

@@ -1,9 +1,9 @@
 """Model registry (counterpart of ``elephas_tpu/models/__init__.py``).
 
 Architectures serialize by name: ``get_model`` tags each module with the
-name and keyword arguments it was built from. Only ``transformer_lm`` is
-registered so far; the other models of the JAX package arrive with their
-slices of the port.
+name and keyword arguments it was built from. Registered so far: ``mlp``,
+``resnet18`` and ``transformer_lm``; the other models of the JAX package
+arrive with their slices of the port.
 """
 
 from __future__ import annotations
@@ -37,7 +37,9 @@ def registered_models():
 
 
 # Import for side effect: populate the registry.
-from elephas_tpu_torch.models import transformer  # noqa: E402,F401
+from elephas_tpu_torch.models import mlp, resnet, transformer  # noqa: E402,F401
+from elephas_tpu_torch.models.mlp import MLP  # noqa: E402,F401
+from elephas_tpu_torch.models.resnet import ResNet, ResNet18  # noqa: E402,F401
 from elephas_tpu_torch.models.transformer import (  # noqa: E402,F401
     TransformerLM,
     generate,

@@ -2,12 +2,14 @@
 
 ``flash_attention(q, k, v, causal)`` computes softmax attention in tiles
 so the (seq × seq) score matrix never exists in device memory, forward
-or backward. The device decides the implementation: a CUDA tensor
-launches the hand-written kernels (``ops/attention_cuda.py``; K1
-forward, K2 and K3 backward) or raises; a CPU tensor runs
-``blockwise_reference``, K1's plain PyTorch version with the same
-numerics, and autograd differentiates it. ``flash_backward_reference``
-is the plain version of K2 and K3.
+or backward. Every CUDA input runs the hand-written kernels
+(``ops/attention_cuda.py``; K1 forward, K2 and K3 backward), as every
+TPU input runs the JAX package's Pallas kernels: ``kernel_layout`` says
+at which head_dim and dtype they compute it, and raises where no kernel
+can. Inputs on any other device run ``blockwise_reference``, K1's plain
+PyTorch version with the same numerics, and autograd differentiates it:
+the JAX package's own path off the TPU. ``flash_backward_reference`` is
+the plain version of K2 and K3.
 
 Shapes: q, k, v are (batch, heads, seq, head_dim); the output is the
 same, and the optional lse is (batch, heads, seq) float32.
@@ -19,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from elephas_tpu_torch.ops import attention_cuda
 
@@ -30,7 +33,7 @@ BLOCK_K = 64
 
 
 def blockwise_reference(q, k, v, causal: bool = True, block_q: int = BLOCK_Q,
-                        block_k: int = BLOCK_K):
+                        block_k: int = BLOCK_K, scale: Optional[float] = None):
     """Plain PyTorch version of the flash forward, returning ``(o, lse)``.
 
     Follows the numerics of ``attention_pallas.py::_flash_fwd_kernel``:
@@ -39,11 +42,12 @@ def blockwise_reference(q, k, v, causal: bool = True, block_q: int = BLOCK_Q,
     0 weights and a finite lse instead of NaN), the output is
     ``acc / max(l, 1e-30)`` cast to the input dtype and the lse is
     ``shift + log(max(l, 1e-30))`` in float32. Causal k-tiles that lie
-    wholly above the diagonal are skipped, as the kernel skips them.
+    wholly above the diagonal are skipped, as the kernel skips them. The
+    scores' scale is ``1 / sqrt(head_dim)`` unless ``scale`` is given.
     """
     b, h, s, d = q.shape
     sk = k.shape[2]
-    qf = q.float() * (1.0 / math.sqrt(d))
+    qf = q.float() * (1.0 / math.sqrt(d) if scale is None else scale)
     kf, vf = k.float(), v.float()
     outs, lses = [], []
     for q0 in range(0, s, block_q):
@@ -112,7 +116,8 @@ def cache_attention_mask(max_len, seq, idx, pad_offset=None, device=None):
 
 
 def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
-                             block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+                             block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+                             scale: Optional[float] = None):
     """Plain PyTorch version of the flash backward (K2 and K3), returning
     ``(dq, dk, dv)`` in the input dtypes.
 
@@ -122,10 +127,12 @@ def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
     is 0 where the key is masked; ``ds = p * (dO.v - delta)``; ``dq =
     scale * sum ds k``, ``dv = sum p^T dO`` and ``dk = scale * sum ds^T q``
     accumulate in float32 over tiles in increasing order. Causal tiles
-    wholly above the diagonal are skipped, as the kernels skip them.
+    wholly above the diagonal are skipped, as the kernels skip them. The
+    scale is ``1 / sqrt(head_dim)`` unless ``scale`` is given.
     """
     s, d = q.shape[2], q.shape[3]
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     lse = lse.float()
     delta = (dof * o.float()).sum(-1)
@@ -149,27 +156,104 @@ def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
     return (scale * dq).to(q.dtype), (scale * dk).to(k.dtype), dv.to(v.dtype)
 
 
+def kernel_layout(head_dim: int, dtype) -> tuple:
+    """``(head_dim, dtype)`` at which the kernels compute inputs of
+    ``head_dim`` and ``dtype``.
+
+    The head_dim is the smallest of ``attention_cuda.HEAD_DIMS`` that
+    holds it: zero columns added to q, k and v change no score, add zero
+    columns to o and the gradients, and the scale stays ``1 /
+    sqrt(head_dim)`` of the caller's. The dtype is the caller's where the
+    kernels are built for it, else float32 for float16 and float64: the
+    Pallas kernels compute every tile in float32 and cast the results to
+    the inputs' dtype, and so does ``blockwise_reference``. Raises where
+    no kernel computes the input (a head_dim above the largest, a dtype
+    that is not floating point)."""
+    if dtype in attention_cuda.DTYPES:
+        kernel_dtype = dtype
+    elif dtype in (torch.float16, torch.float64):
+        kernel_dtype = torch.float32
+    else:
+        raise TypeError(f"no flash-attention kernel computes {dtype} inputs")
+    fits = [d for d in attention_cuda.HEAD_DIMS if d >= head_dim]
+    if head_dim < 1 or not fits:
+        raise ValueError(
+            f"no flash-attention kernel takes head_dim {head_dim}: the kernels "
+            f"are built for head_dim up to {attention_cuda.HEAD_DIMS[-1]}"
+        )
+    return fits[0], kernel_dtype
+
+
+def _aligned(t):
+    """``t`` contiguous with a 16-byte aligned start, as the kernels read
+    it; a contiguous view that starts off alignment is cloned."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _to_kernel(t, head_dim, dtype):
+    """``t`` in the kernels' ``kernel_layout``: cast, padded with zero
+    columns up to ``head_dim``, contiguous and aligned."""
+    t = t.to(dtype)
+    if t.shape[-1] < head_dim:
+        t = F.pad(t, (0, head_dim - t.shape[-1]))
+    return _aligned(t)
+
+
+def _from_kernel(t, head_dim, dtype):
+    """A kernel's output back in the caller's head_dim and dtype."""
+    if t.shape[-1] > head_dim:
+        t = t[..., :head_dim].contiguous()
+    return t.to(dtype)
+
+
 class _FlashAttentionCUDA(torch.autograd.Function):
     """The CUDA kernels under autograd: K1 forward, K2 and K3 backward,
-    as the JAX package's ``custom_vjp`` pairs the Pallas kernels."""
+    as the JAX package's ``custom_vjp`` pairs the Pallas kernels, at the
+    head_dim and dtype of ``kernel_layout``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = attention_cuda.flash_fwd(q, k, v, causal)
+        caller = (q.shape[-1], q.dtype)
+        layout = kernel_layout(*caller)
+        # A (b, s, h, d) tensor viewed as (b, h, s, d), or a slice of one,
+        # reaches here strided or off alignment.
+        q, k, v = (_to_kernel(t, *layout) for t in (q, k, v))
+        scale = 1.0 / math.sqrt(caller[0])
+        o, lse = attention_cuda.flash_fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.scale, ctx.layout, ctx.caller = causal, scale, layout, caller
         ctx.mark_non_differentiable(lse)
-        return o, lse
+        return _from_kernel(o, *caller), lse
 
     @staticmethod
     def backward(ctx, grad_o, grad_lse):
         q, k, v, o, lse = ctx.saved_tensors
         # The model's head merge hands the gradient back as a strided view.
-        do = grad_o.contiguous()
+        do = _to_kernel(grad_o, *ctx.layout)
         delta = (do.float() * o.float()).sum(-1)
-        dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
-        dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
-        return dq, dk, dv, None
+        dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
+                                              ctx.scale)
+        return (*(_from_kernel(g, *ctx.caller) for g in (dq, dk, dv)), None)
+
+
+def use_kernels(q, k, v) -> bool:
+    """Whether ``flash_attention`` runs the CUDA kernels on q, k and v:
+    always on CUDA inputs, never on others, as the JAX package's
+    ``_use_pallas`` takes Pallas on the TPU and only there (the port has
+    no sequence-length threshold: the kernels take every length). Layout,
+    head_dim and dtype do not count: the launch makes the inputs
+    contiguous, aligned and of the kernels' ``kernel_layout``, or raises.
+    CUDA inputs must share one device and dtype."""
+    if q.device.type != "cuda":
+        return False
+    if not k.device == v.device == q.device or not k.dtype == v.dtype == q.dtype:
+        raise ValueError(
+            "flash_attention needs CUDA q, k, v on one device and of one dtype, "
+            f"got {[(str(t.device), t.dtype) for t in (q, k, v)]}"
+        )
+    return True
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -178,12 +262,13 @@ def flash_attention(q, k, v, causal: bool = True,
                     return_lse: bool = False):
     """Blockwise attention; ``(o, lse)`` with ``return_lse=True``.
 
-    A CUDA tensor launches the hand-written kernels, which tile as
-    ``attention_cuda.kernel_tiles`` says for the forward; other block
-    sizes raise there. A CPU tensor runs ``blockwise_reference`` at the
-    given tiling (default ``BLOCK_Q`` x ``BLOCK_K``). q, k and v must have
-    one shape: the kernel assumes equal query and key lengths, as the JAX
-    package's does.
+    CUDA inputs run the hand-written kernels at their own tiling
+    (``attention_cuda.kernel_tiles``), whatever ``block_q`` and
+    ``block_k`` say: the tiling sets the order of the sums, not what they
+    sum. Inputs on any other device run ``blockwise_reference`` under
+    autograd at the given tiling (default ``BLOCK_Q`` x ``BLOCK_K``). q, k
+    and v must have one shape: the kernel assumes equal query and key
+    lengths, as the JAX package's does.
     """
     if q.dim() != 4 or q.shape != k.shape or k.shape != v.shape:
         raise ValueError(
@@ -191,16 +276,8 @@ def flash_attention(q, k, v, causal: bool = True,
             f"head_dim) shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
             f"{tuple(v.shape)}"
         )
-    if q.device.type == "cuda":
-        tiles = attention_cuda.kernel_tiles("flash_fwd", q.dtype, q.shape[-1])
-        if (block_q or tiles[0], block_k or tiles[1]) != tiles:
-            raise ValueError(
-                f"the CUDA kernel tiles at {tiles[0]}x{tiles[1]} here; "
-                f"got block_q={block_q}, block_k={block_k}"
-            )
+    if use_kernels(q, k, v):
         o, lse = _FlashAttentionCUDA.apply(q, k, v, causal)
-    elif q.device.type == "cpu":
-        o, lse = blockwise_reference(q, k, v, causal, block_q or BLOCK_Q, block_k or BLOCK_K)
     else:
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+        o, lse = blockwise_reference(q, k, v, causal, block_q or BLOCK_Q, block_k or BLOCK_K)
     return (o, lse) if return_lse else o

@@ -41,6 +41,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -50,6 +51,8 @@ HEADERS = (CSRC / "common.cuh", CSRC / "sm90.cuh", CSRC / "tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# Each kernel's grid is (batch·heads, tiles of seq): CUDA's x-dimension limit.
+MAX_GRID_X = 2**31 - 1
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
@@ -180,9 +183,9 @@ def _check(name, q, *others):
     batch, heads, seq, head_dim = q.shape
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {head_dim}")
-    if not 0 < batch * heads <= 65535 or seq < 1:
+    if not 0 < batch * heads <= MAX_GRID_X or seq < 1:
         raise ValueError(
-            f"batch*heads must be in [1, 65535] and seq >= 1, got {tuple(q.shape)}"
+            f"batch*heads must be in [1, {MAX_GRID_X}] and seq >= 1, got {tuple(q.shape)}"
         )
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError(f"{name} needs contiguous, 16-byte aligned inputs")
@@ -201,48 +204,54 @@ def _check_rows(name, q, *rows):
             )
 
 
-def _call(fn_name, counter, q, tensors, causal):
+def _call(fn_name, counter, q, tensors, causal, scale):
     """Call the C function ``fn_name`` on q's current stream, raise on a
-    refused launch, and count the launch under ``counter``."""
+    refused launch, and count the launch under ``counter``. The scores'
+    scale is ``1 / sqrt(head_dim)`` unless ``scale`` is given."""
     fn = _function(fn_name)
     batch, heads, seq, head_dim = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(t.data_ptr() for t in tensors), batch * heads, seq, head_dim,
-                 int(q.dtype == torch.bfloat16), int(bool(causal)),
-                 1.0 / math.sqrt(head_dim), stream)
+                 int(q.dtype == torch.bfloat16), int(bool(causal)), scale, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
     launches[counter] += 1
 
 
-def flash_fwd(q, k, v, causal: bool = True):
+def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """Launch K1 on CUDA tensors q, k, v of one (batch, heads, seq,
     head_dim) shape; returns ``(o, lse)``, o in the input dtype and lse
-    (batch, heads, seq) float32. Raises on what the kernel does not take
+    (batch, heads, seq) float32. The scores are ``scale * q.k``, ``1 /
+    sqrt(head_dim)`` by default. Raises on what the kernel does not take
     and when the launch is refused."""
     _check("flash_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _call("flash_fwd", "flash_fwd", q, (q, k, v, o, lse), causal)
+    _call("flash_fwd", "flash_fwd", q, (q, k, v, o, lse), causal, scale)
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                 scale: Optional[float] = None):
     """Launch K2: dq (q's shape and dtype) from q, k, v, the output's
     gradient ``do``, K1's ``lse`` and ``delta = rowsum(do * o)`` (both
-    float32 (batch, heads, seq))."""
+    float32 (batch, heads, seq)) and the forward's ``scale``."""
     _check("flash_bwd_dq", q, k, v, do)
     _check_rows("flash_bwd_dq", q, lse, delta)
     dq = torch.empty_like(q)
-    _call("flash_bwd_dq", "flash_dq", q, (q, k, v, do, lse, delta, dq), causal)
+    _call("flash_bwd_dq", "flash_dq", q, (q, k, v, do, lse, delta, dq), causal, scale)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                  scale: Optional[float] = None):
     """Launch K3: ``(dk, dv)`` from the inputs of ``flash_bwd_dq``."""
     _check("flash_bwd_dkv", q, k, v, do)
     _check_rows("flash_bwd_dkv", q, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call("flash_bwd_dkv", "flash_dkv", q, (q, k, v, do, lse, delta, dk, dv), causal)
+    _call("flash_bwd_dkv", "flash_dkv", q, (q, k, v, do, lse, delta, dk, dv), causal,
+          scale)
     return dk, dv

@@ -177,16 +177,16 @@ def test_cuda_function_backward_wiring(monkeypatch):
     lse = torch.from_numpy(rng.standard_normal((1, 2, 8)).astype(np.float32))
     grads = [torch.full_like(q, float(i)) for i in (1, 2, 3)]
 
-    def fake_fwd(q_, k_, v_, causal):
-        calls.append(("fwd", causal))
+    def fake_fwd(q_, k_, v_, causal, scale):
+        calls.append(("fwd", causal, scale))
         return q_ * 2.0, lse
 
-    def fake_dq(q_, k_, v_, do, lse_, delta, causal):
-        calls.append(("dq", causal, do, lse_, delta))
+    def fake_dq(q_, k_, v_, do, lse_, delta, causal, scale):
+        calls.append(("dq", causal, do, lse_, delta, scale))
         return grads[0]
 
-    def fake_dkv(q_, k_, v_, do, lse_, delta, causal):
-        calls.append(("dkv", causal, do, lse_, delta))
+    def fake_dkv(q_, k_, v_, do, lse_, delta, causal, scale):
+        calls.append(("dkv", causal, do, lse_, delta, scale))
         return grads[1], grads[2]
 
     monkeypatch.setattr(attention_cuda, "flash_fwd", fake_fwd)
@@ -201,8 +201,10 @@ def test_cuda_function_backward_wiring(monkeypatch):
     (merged * cot).sum().backward()
     want_do = cot.reshape(1, 8, 2, 32).transpose(1, 2)
     assert [c[0] for c in calls] == ["fwd", "dq", "dkv"]
-    for name, causal, do, lse_, delta in calls[1:]:
+    assert calls[0][1:] == (True, 1 / math.sqrt(32))
+    for name, causal, do, lse_, delta, scale in calls[1:]:
         assert causal is True and do.is_contiguous() and lse_ is lse
+        assert scale == 1 / math.sqrt(32)
         torch.testing.assert_close(do, want_do, rtol=0, atol=0)
         assert delta.dtype == torch.float32
         torch.testing.assert_close(delta, (want_do * (q.detach() * 2.0)).sum(-1))
@@ -391,3 +393,233 @@ def test_cuda_wrapper_rejects_cpu_tensors():
         attention_cuda.flash_bwd_dq(q, q, q, q, rows, rows)
     with pytest.raises(ValueError, match="CUDA"):
         attention_cuda.flash_bwd_dkv(q, q, q, q, rows, rows)
+
+
+class _Inputs:
+    """What ``use_kernels`` reads of a tensor, without a card."""
+
+    def __init__(self, shape, dtype=torch.float32, device="cuda"):
+        self.shape, self.dtype, self.device = torch.Size(shape), dtype, torch.device(device)
+
+
+# (head_dim, dtype, the kernels' (head_dim, dtype) or the error raised).
+@pytest.mark.parametrize("head_dim, dtype, want", [
+    (32, torch.float32, (32, torch.float32)),
+    (64, torch.bfloat16, (64, torch.bfloat16)),
+    (128, torch.float32, (128, torch.float32)),
+    (16, torch.float32, (32, torch.float32)),
+    (1, torch.bfloat16, (32, torch.bfloat16)),
+    (48, torch.bfloat16, (64, torch.bfloat16)),
+    (80, torch.float32, (128, torch.float32)),
+    (100, torch.float16, (128, torch.float32)),
+    (32, torch.float16, (32, torch.float32)),
+    (32, torch.float64, (32, torch.float32)),
+    (129, torch.float32, ValueError),
+    (256, torch.bfloat16, ValueError),
+    (0, torch.float32, ValueError),
+    (32, torch.int32, TypeError),
+    (32, torch.complex64, TypeError),
+])
+def test_kernel_layout_rules(head_dim, dtype, want):
+    """The head_dim and dtype at which the kernels compute an input: the
+    smallest built head_dim that holds it (zero columns), the input's
+    dtype where a kernel is built for it, float32 for float16 and
+    float64 (the Pallas kernels' tile dtype); an error where no kernel
+    computes it."""
+    if isinstance(want, type):
+        with pytest.raises(want):
+            ops.kernel_layout(head_dim, dtype)
+    else:
+        assert ops.kernel_layout(head_dim, dtype) == want
+
+
+@pytest.mark.parametrize("shape, dtype", [
+    ((2, 8, 128, 32), torch.float32),
+    ((2, 8, 128, 16), torch.float32),
+    ((2, 8, 128, 32), torch.float16),
+    ((256, 256, 64, 32), torch.bfloat16),
+    ((2, 8, 1, 32), torch.float32),
+])
+def test_use_kernels_takes_every_cuda_input(shape, dtype):
+    """Every CUDA input runs the kernels, whatever its head_dim, dtype,
+    batch·heads or length (no sequence-length threshold), as every TPU
+    input runs Pallas in the JAX package; no other device does."""
+    assert ops.use_kernels(*[_Inputs(shape, dtype)] * 3)
+    assert not ops.use_kernels(*[_Inputs(shape, dtype, device="cpu")] * 3)
+
+
+def test_use_kernels_needs_one_cuda_device_and_dtype():
+    q = _Inputs((2, 8, 64, 32))
+    with pytest.raises(ValueError, match="one device"):
+        ops.use_kernels(q, _Inputs((2, 8, 64, 32), device="cuda:1"), q)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.use_kernels(q, q, _Inputs((2, 8, 64, 32), torch.bfloat16))
+    real = torch.zeros(2, 8, 64, 32)
+    assert not ops.use_kernels(real, real, real.double())
+
+
+@pytest.mark.parametrize("kernels", [True, False])
+def test_flash_attention_routes_by_use_kernels(monkeypatch, kernels):
+    """Where ``use_kernels`` says so, the kernels' autograd Function runs
+    (stood in for here) at its own tiling, whatever block sizes the caller
+    gives; elsewhere ``blockwise_reference`` at the caller's blocks, the
+    JAX package's own path off the TPU."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(16, 37))
+    calls = []
+    monkeypatch.setattr(ops, "use_kernels", lambda *a: kernels)
+    monkeypatch.setattr(ops._FlashAttentionCUDA, "apply",
+                        lambda *a: calls.append(a) or ops.blockwise_reference(*a[:4]))
+    reference = ops.blockwise_reference
+
+    def plain(*args):
+        calls.append(("plain", args[4:]))
+        return reference(*args)
+
+    monkeypatch.setattr(ops, "blockwise_reference", plain)
+    out = ops.flash_attention(q, k, v, causal=True, block_q=16, block_k=32)
+    assert out.shape == q.shape
+    if kernels:
+        assert len(calls) == 2 and len(calls[0]) == 4 and calls[0][3] is True
+        assert calls[1] == ("plain", ())
+    else:
+        assert calls == [("plain", (16, 32))]
+
+
+def _plain_kernels(monkeypatch, seen):
+    """Stand K1-K3 in by their plain versions at the scale they are given,
+    recording the inputs' shapes, dtypes and layout."""
+
+    def note(*tensors):
+        seen.append([(tuple(t.shape), t.dtype, t.is_contiguous(), t.data_ptr() % 16)
+                     for t in tensors])
+
+    def fwd(q, k, v, causal, scale):
+        note(q, k, v)
+        return ops.blockwise_reference(q, k, v, causal, scale=scale)
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        note(do)
+        o = ops.blockwise_reference(q, k, v, causal, scale=scale)[0]
+        return ops.flash_backward_reference(q, k, v, o, lse, do, causal, scale=scale)[0]
+
+    def dkv(q, k, v, do, lse, delta, causal, scale):
+        o = ops.blockwise_reference(q, k, v, causal, scale=scale)[0]
+        return ops.flash_backward_reference(q, k, v, o, lse, do, causal, scale=scale)[1:]
+
+    monkeypatch.setattr(attention_cuda, "flash_fwd", fwd)
+    monkeypatch.setattr(attention_cuda, "flash_bwd_dq", dq)
+    monkeypatch.setattr(attention_cuda, "flash_bwd_dkv", dkv)
+
+
+# (head_dim, dtype, atol): inputs the kernels compute at another head_dim
+# or dtype. float16 results are rounded once to float16 on both sides.
+@pytest.mark.parametrize("head_dim, dtype, atol", [
+    (16, torch.float32, 1e-5),
+    (20, torch.float32, 1e-5),
+    (80, torch.float32, 1e-5),
+    (16, torch.bfloat16, 1e-2),
+    (32, torch.float16, 2e-3),
+    (16, torch.float64, 1e-5),
+])
+def test_kernel_function_pads_and_casts(monkeypatch, head_dim, dtype, atol):
+    """``_FlashAttentionCUDA`` hands the kernels q, k, v and dO padded
+    with zero columns to ``kernel_layout``'s head_dim and cast to its
+    dtype, at the caller's scale, and returns o and the gradients in the
+    caller's head_dim and dtype: the plain version's results on the
+    caller's inputs. The kernels are stood in by their plain versions."""
+    seen = []
+    _plain_kernels(monkeypatch, seen)
+    want_dim, want_dtype = ops.kernel_layout(head_dim, dtype)
+    rng = np.random.default_rng(head_dim)
+    arrays = [rng.standard_normal((1, 2, 45, head_dim)) for _ in range(4)]
+    leaves = [torch.tensor(a, dtype=dtype, requires_grad=True) for a in arrays[:3]]
+    do = torch.tensor(arrays[3], dtype=dtype)
+    before = dict(attention_cuda.launches)
+    o, lse = ops._FlashAttentionCUDA.apply(*leaves, True)
+    got = torch.autograd.grad(o, leaves, do)
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    ref_o, ref_lse = ops.blockwise_reference(*plain, True)
+    ref = torch.autograd.grad(ref_o, plain, do)
+    assert seen == [[((1, 2, 45, want_dim), want_dtype, True, 0)] * 3,
+                    [((1, 2, 45, want_dim), want_dtype, True, 0)]]
+    assert o.shape == ref_o.shape and o.dtype == dtype
+    torch.testing.assert_close(o, ref_o, rtol=0, atol=atol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=0, atol=atol * max(1.0, r.abs().max().item()))
+    assert attention_cuda.launches == before
+
+
+def test_kernel_function_raises_where_no_kernel_computes(monkeypatch):
+    """head_dim above the largest kernel's, or a dtype no kernel takes,
+    raises on the way to the kernels: no plain version runs instead."""
+    _plain_kernels(monkeypatch, [])
+    with pytest.raises(ValueError, match="head_dim 160"):
+        ops._FlashAttentionCUDA.apply(*[torch.zeros(1, 1, 8, 160)] * 3, True)
+    with pytest.raises(TypeError, match="int32"):
+        ops._FlashAttentionCUDA.apply(*[torch.zeros(1, 1, 8, 32, dtype=torch.int32)] * 3,
+                                      True)
+
+
+def test_kernel_function_takes_strided_and_unaligned_inputs(monkeypatch):
+    """The launch gets q, k and v contiguous and 16-byte aligned: a (b, s,
+    h, d) tensor viewed as (b, h, s, d) is made contiguous, a contiguous
+    view that starts off alignment is cloned, and gradients still reach
+    the caller's tensors."""
+    seen = []
+
+    def fake_fwd(q, k, v, causal, scale):
+        seen.append([(t.is_contiguous(), t.data_ptr() % 16) for t in (q, k, v)])
+        return ops.blockwise_reference(q, k, v, causal)
+
+    def fake_dq(q, k, v, do, lse, delta, causal, scale):
+        seen.append([(do.is_contiguous(), do.data_ptr() % 16)])
+        return torch.ones_like(q)
+
+    monkeypatch.setattr(attention_cuda, "flash_fwd", fake_fwd)
+    monkeypatch.setattr(attention_cuda, "flash_bwd_dq", fake_dq)
+    monkeypatch.setattr(attention_cuda, "flash_bwd_dkv",
+                        lambda q, k, v, *rest: (2 * torch.ones_like(k), 3 * torch.ones_like(v)))
+    rng = np.random.default_rng(4)
+    bshd = torch.tensor(rng.standard_normal((1, 8, 2, 32)), dtype=torch.float32,
+                        requires_grad=True)
+    flat = torch.tensor(rng.standard_normal(1 + 1 * 2 * 8 * 32), dtype=torch.float32,
+                        requires_grad=True)
+    q = bshd.transpose(1, 2)
+    k = flat[1:].view(1, 2, 8, 32)
+    assert not q.is_contiguous() and k.data_ptr() % 16 != 0
+    v = torch.zeros(1, 2, 8, 32, requires_grad=True)
+    o, _ = ops._FlashAttentionCUDA.apply(q, k, v, True)
+    torch.testing.assert_close(o, ops.blockwise_reference(q, k, v, True)[0])
+    o.transpose(1, 2).sum().backward()
+    assert seen == [[(True, 0)] * 3, [(True, 0)]]
+    assert torch.equal(bshd.grad, torch.ones_like(bshd))
+    assert torch.equal(flat.grad[1:], torch.full((512,), 2.0)) and flat.grad[0] == 0
+    assert torch.equal(v.grad, torch.full_like(v, 3.0))
+
+
+def test_head_dim_16_lm_flash_matches_dense():
+    """The registry LM with head_dim 16 (which the kernels compute at
+    head_dim 32) trains under ``attention='flash'`` on the CPU through the
+    plain path: logits and every gradient as the dense model's."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.engine.step import make_loss_fn
+    from elephas_tpu_torch.models import get_model
+
+    tokens = torch.as_tensor(np.random.default_rng(6).integers(0, 97, (2, 41)))
+    results = {}
+    for attention in ("flash", "dense"):
+        model = CompiledModel(get_model("transformer_lm", device="cpu", vocab_size=97,
+                                        d_model=32, num_heads=2, num_layers=2,
+                                        max_seq_len=64, attention=attention),
+                              loss="sparse_categorical_crossentropy", seed=1)
+        loss, logits = make_loss_fn(model)(tokens[:, :-1], tokens[:, 1:])
+        loss.backward()
+        results[attention] = (logits.detach(), loss.item(),
+                              {n: p.grad for n, p in model.module.named_parameters()})
+    (lf, ll, gf), (ld, ldense, gd) = results["flash"], results["dense"]
+    torch.testing.assert_close(lf, ld, rtol=0, atol=1e-5)
+    assert abs(ll - ldense) <= 1e-6
+    for name, g in gd.items():
+        assert (gf[name] - g).abs().max() <= 1e-4 * g.abs().max().clamp_min(1e-30), name

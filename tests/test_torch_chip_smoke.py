@@ -132,3 +132,85 @@ def test_refuses_to_run_without_a_card():
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_resnet_flops_per_sample_hand_count(smoke):
+    """Width 8, 32x32: stem 2·9·3·8·1024 = 442,368; stage 0 four 3x3 convs
+    8→8 at 32x32, 4 × 1,179,648; stages 1-3 each 589,824 (the stride-2
+    conv) + 65,536 (its 1x1 shortcut) + 3 × 1,179,648; head 2·64·10.
+    It equals 2·k²·C_in·C_out·H_out·W_out summed over the port model's
+    own convs."""
+    assert smoke.resnet_flops_per_sample(width=8) == 17_745_152
+    # Width 64: the 3x3 convs scale as width², the stem as width, the head
+    # as the last stage's width: 1.1108 GFLOPs a forward image.
+    assert smoke.resnet_flops_per_sample() == (64 * (17_745_152 - 442_368 - 1280)
+                                               + 8 * 442_368 + 2 * 512 * 10) == 1_110_845_440
+
+    import torch
+    from elephas_tpu_torch.models import get_model
+
+    model = get_model("resnet18", width=8, device="cpu")
+    model.eval()
+    counted = []
+
+    def hook(module, args, out):
+        w = module.conv.weight
+        counted.append(2 * w.shape[1] * w.shape[2] * w.shape[3] * w.shape[0]
+                       * out.shape[2] * out.shape[3])
+
+    for module in model.modules():
+        if type(module).__name__ == "Conv":
+            module.register_forward_hook(hook)
+    model(torch.zeros(1, 32, 32, 3))
+    assert sum(counted) + 2 * 64 * 10 == smoke.resnet_flops_per_sample(width=8)
+
+
+def test_step_errors_and_breaches(smoke):
+    import torch
+
+    ref = {"loss": 2.0, "logits": torch.tensor([[1.0, -3.0]]),
+           "grads": {"a": torch.tensor([3.0, 4.0]), "b": torch.tensor([0.0, 1.0])},
+           "stats": {"m": torch.tensor([0.5, 2.0])},
+           "update": {"a": torch.tensor([0.3, 0.4]), "b": torch.tensor([0.0, 0.1])}}
+    got = {"loss": 2.002, "logits": torch.tensor([[1.0, -3.3]]),
+           "grads": {"a": torch.tensor([3.0, 4.5]), "b": torch.tensor([0.0, 1.0])},
+           "stats": {"m": torch.tensor([0.5, 2.2])},
+           "update": {"a": torch.tensor([0.3, 0.4]), "b": torch.tensor([0.0, 0.2])}}
+    errors = smoke.step_errors(got, ref)
+    assert errors["loss"] == pytest.approx(1e-3)
+    assert errors["logits"] == pytest.approx(0.1)  # 0.3 over max(1, 3)
+    assert errors["stats"] == pytest.approx(0.1) and errors["stats_worst"] == "m"
+    assert errors["grads"] == pytest.approx(0.1) and errors["grads_worst"] == "a"
+    assert errors["grads_all"] == pytest.approx(0.5 / 26 ** 0.5)
+    assert errors["update"] == pytest.approx(1.0) and errors["update_worst"] == "b"
+    limits = {"loss": 1e-2, "logits": 0.05, "grads": 0.2}
+    assert smoke.breaches(errors, limits) == ["logits"]
+    assert smoke.breaches({**errors, "loss": float("nan")}, limits) == ["loss", "logits"]
+    assert smoke.breaches({}, {"grads": 1.0}) == ["grads"]
+    for limits in (smoke.RESNET_F32_LIMITS, smoke.RESNET_F32_GRAD_LIMITS,
+                   smoke.RESNET_BF16_LIMITS):
+        assert set(limits) <= set(errors)
+
+
+def test_kernel_line_carries_every_path(smoke):
+    """Each kernel's entry holds its launches on the LM train run (the
+    main path of the kernels) and on every path, the ResNet's and the
+    repair checks' included."""
+    import torch
+
+    timing = {name: {torch.float32: {"ms": 1.0, "bound_ms": 0.5},
+                     torch.bfloat16: {"ms": 0.5}} for name in smoke.KERNELS}
+    errors = {name: {torch.float32: 1e-6, torch.bfloat16: 1e-3} for name in smoke.KERNELS}
+    launches = {"inference": {"flash_fwd": 56, "flash_dq": 0, "flash_dkv": 0},
+                "train": {k: 176 for k in smoke.KERNELS},
+                "resnet": {k: 0 for k in smoke.KERNELS},
+                "repair": {k: 12 for k in smoke.KERNELS}}
+    entries = smoke.kernel_entries(timing, errors, launches)
+    assert [e["name"] for e in entries] == list(smoke.KERNELS)
+    for e in entries:
+        assert e["launches"] == 176 and e["launches_by_path"]["resnet"] == 0
+        assert e["launches_by_path"]["repair"] == 12
+        assert e["route"] == "cuda"
+        assert e["replaces"].startswith("elephas_tpu/ops/attention_pallas.py:")
+        assert e["ms"] == 1.0 and e["bf16"] == {"ms": 0.5}
+    assert entries[0]["launches_by_path"]["inference"] == 56

@@ -1,6 +1,6 @@
-"""Parity of the port's loss/metric tables and FLOPs accounting
-(``elephas_tpu_torch.engine.losses``, ``elephas_tpu_torch.metrics.flops``)
-with the JAX package's, on the same NumPy inputs."""
+"""Parity of the port's loss/metric tables, FLOPs accounting and metrics
+logging (``elephas_tpu_torch.engine.losses``, ``metrics.flops``,
+``metrics.logging``) with the JAX package's, on the same NumPy inputs."""
 
 import numpy as np
 import pytest
@@ -64,3 +64,42 @@ def test_peak_flops_keeps_the_nvidia_rows():
     assert flops.peak_flops("NVIDIA A100-SXM4-40GB") == 312e12
     assert flops.peak_flops("TPU v5 lite") is None
     assert flops.mfu(1e6, 1e9, 0) is None
+
+
+def test_logging_records_as_the_jax_package(tmp_path):
+    """``metrics.logging``: the JSONL sink writes the JAX package's record
+    (step, time, floats; what JSON cannot carry as a string) from rank 0,
+    the one process here; the logger is rank 0's; the throughput meter
+    counts samples over its wall; ``trace`` leaves a Chrome trace."""
+    import json
+    import time
+
+    from elephas_tpu.metrics.logging import JsonlSink as JaxJsonlSink
+    from elephas_tpu_torch.metrics import logging as port_logging
+
+    rows = []
+    for sink_type, name in ((port_logging.JsonlSink, "port"), (JaxJsonlSink, "jax")):
+        path = tmp_path / f"{name}.jsonl"
+        with sink_type(str(path)) as sink:
+            sink.log(3, loss=np.float32(0.5), acc=torch.tensor(0.25), tag="x",
+                     blob=object())
+        rows.append(json.loads(path.read_text().splitlines()[0]))
+    for row in rows:
+        assert row.pop("time") > 0 and row.pop("blob").startswith("<object")
+    assert rows[0] == rows[1] == {"step": 3, "loss": 0.5, "acc": 0.25, "tag": "x"}
+
+    logger = port_logging.host0_logger("elephas_tpu_torch.test")
+    assert logger.propagate and not logger.handlers
+
+    meter = port_logging.Throughput()
+    with pytest.raises(RuntimeError, match="start"):
+        meter.elapsed()
+    meter.start(wall=torch.zeros(1))
+    meter.add(64)
+    meter.add(64)
+    time.sleep(0.01)
+    assert 0 < meter.rate(wall={"loss": torch.zeros(())}) < 128 / 0.01
+
+    with port_logging.trace(str(tmp_path / "trace")):
+        torch.ones(8).sum()
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0

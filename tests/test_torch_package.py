@@ -69,9 +69,9 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 
 def test_registry():
-    assert registered_models() == ["transformer_lm"]
+    assert registered_models() == ["mlp", "resnet18", "transformer_lm"]
     with pytest.raises(ValueError, match="unknown model"):
-        get_model("resnet18", device="cpu")
+        get_model("simple_cnn", device="cpu")
     with pytest.raises(ValueError, match="attention"):
         get_model("transformer_lm", attention="sparse", device="cpu")
     assert elephas_tpu_torch.__version__
