@@ -54,9 +54,24 @@ Phases, in order; any failed check raises and the process exits non-zero:
    on zero-padded columns), head_dim 16 and 80, float16 and float64
    (the float32 kernels), a strided view, 65600 (batch, head) pairs and
    a caller's block sizes; head_dim 16 timed against SDPA;
-8. a JSON line with each kernel's launches on the paths, errors, times
+8. the serving phase (``serving_phase``): ``InferenceEngine`` serving
+   the full-width LM in float32 from the default paged pool (64-column
+   blocks, prefix cache, 128-token prefill chunks at 2 a step, the
+   pipelined scheduler, the decode step one captured CUDA graph) to 48
+   seeded requests, a quarter sharing a 256-token system prompt: the
+   greedy streams against the contiguous pool, the sync scheduler and
+   one-shot prefill, sampled streams (temperature 0.8, top-k 40) across
+   paged/contiguous and pipelined/sync and inside the teacher-forced
+   top-40, three requests against the port's CPU engine, one build of
+   each program, the pool's invariants and addresses, no flash launch,
+   no blocking read outside ``serving/host_sync.py`` and a staged read
+   that waits for its own launch only; then requests/s,
+   new tokens/s, TTFT and ITL at p50 and p99, the decode step's time as a
+   graph replay and eagerly, its kernels, and a kernel breakdown of 50
+   serving steps with the card's busy share;
+9. a JSON line with each kernel's launches on the paths, errors, times
    and bound;
-9. the last line: ``{"ok": true, "device": {...}}``.
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device, ``nvcc`` and this repository; exits non-zero without
 them. Imports nothing of JAX.
@@ -147,6 +162,25 @@ REPAIR_LOSS_ATOL, REPAIR_GRAD_RTOL = 1e-4, 1e-3  # head_dim 16 LM, flash vs dens
 # float16, as the plain version does: one float16 rounding (2^-11 of the
 # value) either side, relative to max(1, max |reference|).
 REPAIR_F16_LIMITS = {"o": 2e-3, "grads": 2e-3}
+
+# Serving phase: the registry's full-width LM behind InferenceEngine.
+# The KV pool is 16 slots x 1024 columns x 4 layers x (K, V) x 8 heads x
+# 32 x 4 B = 134 MB.
+SERVE_ENGINE = {"max_slots": 16, "max_prompt_len": 512, "max_len": 1024,
+                "queue_depth": 64, "kv_block_size": 64, "prefill_chunk": 128,
+                "prefill_chunks_per_step": 2, "prefix_cache": True}
+SERVE_REQUESTS = 48
+SERVE_PROMPT_LENS = (64, 512)      # inclusive
+SERVE_NEW_TOKENS = (64, 128)       # inclusive
+SERVE_PREFIX = 256                 # system prompt of every 4th request
+SERVE_SAMPLING = {"temperature": 0.8, "top_k": 40, "seed": 5}
+SERVE_CPU_REQUESTS = (1, 2, 3)     # served again by the CPU engine, 2 slots
+SERVE_STEPS = 50                   # decode steps timed and profiled
+SERVE_SLEEP_CYCLES = 200_000_000   # ~0.1 s of a spinning kernel at 1.98 GHz
+# A sampled token's teacher-forced logit may sit this far under the 40th
+# largest: the teacher-forced full forward and the cache path differ in
+# the last bits.
+SERVE_TOP_K_SLACK = 1e-4
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -1071,6 +1105,265 @@ def repair_phase(attention_cuda):
     return dict(attention_cuda.launches), report
 
 
+def serving_traffic(seed=SEED):
+    """The serving phase's requests, ``[(prompt, max_new_tokens)]``: 48,
+    prompt lengths and budgets drawn from ``seed``, every 4th prompt
+    starting with the same ``SERVE_PREFIX``-token system prompt."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, 32000, SERVE_PREFIX).tolist()
+    traffic = []
+    for i in range(SERVE_REQUESTS):
+        new = int(rng.integers(SERVE_NEW_TOKENS[0], SERVE_NEW_TOKENS[1] + 1))
+        if i % 4 == 0:
+            n = int(rng.integers(SERVE_PREFIX + 1, SERVE_PROMPT_LENS[1] + 1))
+            prompt = prefix + rng.integers(1, 32000, n - SERVE_PREFIX).tolist()
+        else:
+            n = int(rng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1))
+            prompt = rng.integers(1, 32000, n).tolist()
+        traffic.append((prompt, new))
+    return traffic
+
+
+def first_difference(a, b):
+    """Index of the first token where streams ``a`` and ``b`` differ, or
+    None when they are equal; streams of different lengths whose shorter
+    one is a prefix of the other are not allowed."""
+    k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    check(k is not None or len(a) == len(b),
+          f"streams of {len(a)} and {len(b)} tokens, one a prefix of the other")
+    return k
+
+
+def compare_streams(ref, got, gap_at, margin=MARGIN):
+    """Hold the streams ``got`` to ``ref`` request by request: equal, or
+    equal up to a token where the reference run's top-2 gap,
+    ``gap_at(request, token)``, is below ``margin`` (a near-tie that
+    rounding may break either way). Raises at any other difference;
+    returns the count of equal streams and each near-tie as
+    ``[request, token, gap]``."""
+    check(len(ref) == len(got), f"{len(got)} streams against {len(ref)}")
+    identical, ties = 0, []
+    for i, (a, b) in enumerate(zip(ref, got)):
+        k = first_difference(a, b)
+        if k is None:
+            identical += 1
+            continue
+        gap = gap_at(i, k)
+        check(gap < margin, f"request {i}: streams differ at token {k}, where the "
+                            f"reference's top-2 gap is {gap:.3e} (not below {margin})")
+        ties.append([i, k, gap])
+    return {"identical": identical, "near_ties": ties}
+
+
+def serve(engine, traffic):
+    """Submit every request at once, run the engine until drained, and
+    return the token streams and the wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [engine.submit(prompt, max_new_tokens=new) for prompt, new in traffic]
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    results = [engine.result(i) for i in ids]
+    check(all(r.status == "completed" for r in results), "a request did not complete")
+    check([len(r.tokens) for r in results] == [new for _, new in traffic],
+          "a stream is not its budget long")
+    return [r.tokens for r in results], elapsed
+
+
+def serving_phase(attention_cuda):
+    """``InferenceEngine`` on the full-width LM: the port's serving path,
+    which runs dense cache attention and launches no flash kernel."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.models.transformer import sampling_scores
+    from elephas_tpu_torch.serving import InferenceEngine, host_sync
+
+    blocking = host_sync.blocking_reads()
+    check(blocking == [], f"blocking reads outside serving/host_sync.py: {blocking}")
+    # A staged read waits for the launch that made the value, not for work
+    # queued after it (the pipelined scheduler reads step N behind N+1).
+    staged = host_sync.stage(torch.arange(16, device="cuda"))
+    torch.cuda._sleep(SERVE_SLEEP_CYCLES)  # stands in for step N+1
+    t0 = time.perf_counter()
+    check(host_sync.fetch(staged).tolist() == list(range(16)), "staged read is wrong")
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    check(fetch_ms < queued_ms, f"the staged read waited {fetch_ms:.2f} ms, for the work "
+                                f"queued after it ({queued_ms:.2f} ms more)")
+    model = CompiledModel(get_model("transformer_lm"), loss="sparse_categorical_crossentropy",
+                          metrics=[], seed=SEED).module
+    traffic = serving_traffic()
+    report = {"requests": len(traffic),
+              "prompt_tokens": sum(len(p) for p, _ in traffic),
+              "new_tokens": sum(n for _, n in traffic),
+              "staged_fetch_ms": fetch_ms, "queued_after_ms": queued_ms}
+
+    def engine(**kw):
+        return InferenceEngine(model, **{**SERVE_ENGINE, **kw})
+
+    def last_logits(prompt, stream, k):
+        with torch.no_grad():
+            context = torch.as_tensor([prompt + stream[:k]], device="cuda")
+            return model(context)[0, -1:]
+
+    def greedy_gap(ref):
+        def gap_at(i, k):
+            top2 = torch.topk(last_logits(traffic[i][0], ref[i], k), 2).values[0]
+            return float(top2[0] - top2[1])
+        return gap_at
+
+    def sampled_gap(ref):
+        def gap_at(i, k):
+            position = torch.tensor([len(traffic[i][0]) + k], device="cuda")
+            scores = sampling_scores(last_logits(traffic[i][0], ref[i], k),
+                                     SERVE_SAMPLING["seed"], position,
+                                     SERVE_SAMPLING["top_k"], SERVE_SAMPLING["temperature"])
+            top2 = torch.topk(scores, 2).values[0]
+            return float(top2[0] - top2[1])
+        return gap_at
+
+    # The main path: the paged engine, pipelined, its decode step a graph.
+    paged = engine()
+    addresses = [t.data_ptr() for t in paged.pool.tensors()]
+    attention_cuda.reset_launches()
+    greedy, elapsed = serve(paged, traffic)
+    launches = dict(attention_cuda.launches)
+    check(launches == {name: 0 for name in KERNELS},
+          f"the serving path launched flash kernels: {launches}")
+    stats = paged.stats()
+    check(stats["decode_traces"] == 1 and stats["prefill_traces"] == 1,
+          f"decode built {stats['decode_traces']} times, prefill {stats['prefill_traces']}")
+    check(isinstance(getattr(paged, "_graph", None), torch.cuda.CUDAGraph),
+          "the paged decode step is not a captured CUDA graph")
+    check(stats["prefix_hits"] > 0, "no prefix hit on the shared system prompt")
+    paged.pool.assert_block_invariants()
+    check(paged.pool.free_count == paged.pool.max_slots, "a slot was not released")
+    check([t.data_ptr() for t in paged.pool.tensors()] == addresses,
+          "a pool tensor moved: a step copied the pool")
+    summary = paged.metrics.summary()
+    report["paged"] = {
+        "s": elapsed, "requests_per_s": len(traffic) / elapsed,
+        "new_tokens_per_s": report["new_tokens"] / elapsed,
+        **{k: summary[k] for k in ("ttft_s_p50", "ttft_s_p99", "itl_s_p50", "itl_s_p99",
+                                   "steps", "max_concurrent")},
+        "prefix_hit_rate": stats["prefix_hit_rate"],
+        "prefix_tokens_saved": stats["prefix_tokens_saved"],
+        "kv_blocks_in_use": paged.pool.blocks_in_use,
+        "kv_blocks_total": paged.pool.num_blocks,
+    }
+    print(f"serving paged: {json.dumps(report['paged'])}", flush=True)
+
+    # The oracles, greedy: contiguous pool, sync scheduler, one-shot prefill.
+    contiguous, report["contiguous_s"] = serve(engine(
+        paged=False, kv_block_size=None, prefill_chunk=None, prefill_chunks_per_step=None),
+        traffic)
+    report["paged_vs_contiguous"] = compare_streams(contiguous, greedy, greedy_gap(contiguous))
+    sync, report["sync_s"] = serve(engine(pipeline=False), traffic)
+    check(sync == greedy, "the sync scheduler's greedy streams differ from the pipelined")
+    one_shot, report["one_shot_s"] = serve(engine(prefill_chunk=SERVE_ENGINE["max_prompt_len"],
+                                                  prefill_chunks_per_step=None), traffic)
+    report["chunked_vs_one_shot"] = compare_streams(one_shot, greedy, greedy_gap(one_shot))
+    print(f"serving greedy oracles: paged vs contiguous "
+          f"{json.dumps(report['paged_vs_contiguous'])}, pipelined vs sync identical, "
+          f"chunked vs one-shot {json.dumps(report['chunked_vs_one_shot'])}", flush=True)
+
+    # Sampled: position-keyed, so every path draws the same numbers.
+    sampled, _ = serve(engine(**SERVE_SAMPLING), traffic)
+    sampled_sync, _ = serve(engine(pipeline=False, **SERVE_SAMPLING), traffic)
+    check(sampled_sync == sampled, "sampled streams differ between pipelined and sync")
+    sampled_contiguous, _ = serve(engine(
+        paged=False, kv_block_size=None, prefill_chunk=None, prefill_chunks_per_step=None,
+        **SERVE_SAMPLING), traffic)
+    report["sampled_paged_vs_contiguous"] = compare_streams(
+        sampled_contiguous, sampled, sampled_gap(sampled_contiguous))
+    check(sampled != greedy, "sampled streams equal the greedy ones")
+    outside = []
+    with torch.no_grad():
+        for i, ((prompt, _), stream) in enumerate(zip(traffic, sampled)):
+            logits = model(torch.as_tensor([prompt + stream[:-1]], device="cuda"))[0]
+            rows = logits[len(prompt) - 1:]
+            kth = torch.topk(rows, SERVE_SAMPLING["top_k"], dim=-1).values[:, -1]
+            got = rows.gather(1, torch.as_tensor(stream, device="cuda")[:, None])[:, 0]
+            rank = (rows > got[:, None]).sum(-1)
+            for k in torch.nonzero(got < kth - SERVE_TOP_K_SLACK)[:, 0].tolist():
+                outside.append([i, k, int(rank[k]), float(kth[k] - got[k])])
+    check(outside == [], f"{len(outside)} sampled tokens lie outside the teacher-forced "
+                         f"top-40 ([request, token, rank, under the 40th]): {outside[:12]}")
+    print(f"serving sampled: pipelined vs sync identical, paged vs contiguous "
+          f"{json.dumps(report['sampled_paged_vs_contiguous'])}, every token in the "
+          f"teacher-forced top-{SERVE_SAMPLING['top_k']}", flush=True)
+
+    # Three requests through the port's CPU engine, same weights: the CPU's
+    # stream up to its first near-tie, and teacher-forced on the card's
+    # stream, the CPU's argmax wherever its top-2 gap is at least MARGIN.
+    cpu_model = get_model("transformer_lm", device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_traffic = [traffic[i] for i in SERVE_CPU_REQUESTS]
+    cpu_engine = InferenceEngine(cpu_model, **{**SERVE_ENGINE, "max_slots": 2})
+    cpu_ids = [cpu_engine.submit(p, max_new_tokens=n) for p, n in cpu_traffic]
+    cpu_engine.run_until_drained()
+    compared, forced = [], []
+    for i, rid, (prompt, new) in zip(SERVE_CPU_REQUESTS, cpu_ids, cpu_traffic):
+        cpu_stream, gpu_stream = cpu_engine.result(rid).tokens, greedy[i]
+
+        def cpu_steps(stream):
+            with torch.no_grad():
+                logits = cpu_model(torch.as_tensor([prompt + stream[:-1]]))[0, len(prompt) - 1:]
+            top2 = torch.topk(logits, 2, dim=-1)
+            return (top2.indices[:, 0].numpy(),
+                    (top2.values[:, 0] - top2.values[:, 1]).numpy())
+
+        _, gaps = cpu_steps(cpu_stream)
+        n = int(np.argmax(gaps < MARGIN)) if (gaps < MARGIN).any() else new
+        check(cpu_stream[:n] == gpu_stream[:n],
+              f"request {i}: the card's stream differs from the CPU's within {n} steps")
+        best, gaps = cpu_steps(gpu_stream)
+        clear = gaps >= MARGIN
+        check((best[clear] == np.asarray(gpu_stream)[clear]).all(),
+              f"request {i}: a token of the card is not the CPU's argmax on its stream")
+        compared.append(n)
+        forced.append(int(clear.sum()))
+    report["cpu"] = {"requests": list(SERVE_CPU_REQUESTS), "stream_steps": compared,
+                     "forced_steps": forced,
+                     "decode_traces": cpu_engine.stats()["decode_traces"]}
+    print(f"serving cpu: {json.dumps(report['cpu'])}", flush=True)
+
+    # The decode step, as replayed and called eagerly (a measurement, not a
+    # path): with every lane inactive it does the same fixed-shape work and
+    # writes nothing.
+    from torch.profiler import ProfilerActivity, profile
+
+    paged._inputs.zero_()
+    report["decode_step_graph_ms"] = cuda_ms(paged._decode_step, SERVE_STEPS)
+    report["decode_step_eager_ms"] = cuda_ms(paged._decode_body, SERVE_STEPS)
+    for name, fn in (("eager", paged._decode_body), ("graph", paged._decode_step)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        report[f"kernels_per_decode_step_{name}"] = sum(
+            e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    # 50 steps of the live loop, 16 lanes decoding.
+    live = [paged.submit(p[:64], max_new_tokens=SERVE_STEPS + 20) for p, _ in traffic[:16]]
+    while paged.scheduler._prefilling or len(paged.queue) or \
+            paged.scheduler.active_count < len(live):
+        paged.step()
+    report["serving_breakdown"] = device_breakdown(
+        lambda: [paged.step() for _ in range(SERVE_STEPS)])
+    paged.run_until_drained()
+    check(paged.stats()["decode_traces"] == 1, "the decode step was rebuilt")
+    check(dict(attention_cuda.launches) == launches, "the serving phase launched a flash kernel")
+    print(f"serving decode step: graph {report['decode_step_graph_ms']:.4f} ms, eager "
+          f"{report['decode_step_eager_ms']:.4f} ms; kernels "
+          f"{report['kernels_per_decode_step_eager']} eager, "
+          f"{report['kernels_per_decode_step_graph']} replayed; 50 live steps: "
+          f"{json.dumps(report['serving_breakdown'])}", flush=True)
+    return launches, report
+
+
 def kernel_entries(timing, errors, launches):
     """The ``{"kernels": [...]}`` line's entries: each kernel's source,
     the TPU kernel it replaces, its launches on the main path (the LM
@@ -1153,6 +1446,8 @@ def main():
     print(f"resnet: {json.dumps(report)}", flush=True)
     launches["repair"], report = repair_phase(attention_cuda)
     print(f"repair: {json.dumps(report)}", flush=True)
+    launches["serving"], report = serving_phase(attention_cuda)
+    print(f"serving: {json.dumps(report)}", flush=True)
 
     print(json.dumps({"kernels": kernel_entries(timing, errors, launches)}))
     print(json.dumps({"ok": True, "device": {

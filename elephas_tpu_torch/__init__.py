@@ -2,7 +2,7 @@
 
 The package mirrors the JAX package module for module (``models/``,
 ``ops/``, ``api/``, ``engine/``, ``data/``, ``parallel/``, ``native/``,
-``metrics/``, ``utils/``) so each file has one obvious reference, and
+``metrics/``, ``serving/``, ``obs/``, ``utils/``) so each file has one obvious reference, and
 imports nothing of JAX or of ``elephas_tpu``. Plain tensor code is
 PyTorch; the Pallas kernels of the JAX package are hand-written CUDA
 kernels under ``csrc/``, built with ``nvcc`` at first use
@@ -10,9 +10,9 @@ kernels under ``csrc/``, built with ``nvcc`` at first use
 
 Entry points (``models.get_model``, ``api.CompiledModel``,
 ``models.transformer.generate``, ``engine.step.make_train_step``,
-``SparkModel``) run on ``cuda`` unless the caller passes
-``device="cpu"`` to ``get_model``; without a GPU and without that
-argument they raise.
+``SparkModel``, ``serving.InferenceEngine``) run on ``cuda`` unless the
+caller passes ``device="cpu"`` to ``get_model``; without a GPU and
+without that argument they raise.
 
 Importing the package builds and loads nothing: a kernel library (or the
 host-ops library, ``native/``) is built and loaded where one of its

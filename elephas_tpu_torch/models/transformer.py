@@ -19,7 +19,10 @@ code, which promotes bf16 scores to float32).
 Sampling (``generate``) runs the KV-cache decode path: one batched
 prefill forward over the (left-padded) prompt, then one single-token
 forward per new token, with the cache held as explicit tensors
-(``DecodeCache``) and updated in place.
+(``DecodeCache``) and updated in place. The serving engine drives the
+same path with per-row cache columns, an ``active`` lane mask, a paged
+block pool (``make_paged_decode_cache``) and position-keyed sampling
+(``sample_tokens_at``).
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ class DecodeCache:
     the JAX model (whose per-layer ``cache_index`` and module-level
     ``pos_index`` always advance together), the position counter: an int
     when every row writes the same column (``generate``), or a (batch,)
-    tensor of per-row columns."""
+    tensor of per-row columns (the serving pool, where each slot decodes
+    at its own depth)."""
 
     keys: List[torch.Tensor]
     values: List[torch.Tensor]
@@ -111,18 +115,25 @@ class SelfAttention(nn.Module):
         place), then each query attends every cached column up to its
         own, minus its row's left-pad columns. Queries at pad columns
         have no valid key; their output is zeroed so the pad columns'
-        residual stream stays finite."""
+        residual stream stays finite.
+
+        A per-row write starts at ``index`` clamped to ``[0, max_len -
+        seq]``, as the JAX model's ``dynamic_update_slice`` clamps it: a
+        free serving slot whose frozen column sits at ``max_len`` writes
+        its garbage into the last column instead of out of range."""
         cached_k, cached_v = kv
         b, _, s, _ = q.shape
+        offsets = torch.arange(s, device=q.device)
         if isinstance(index, int):
             cached_k[:, :, index:index + s] = k.to(cached_k.dtype)
             cached_v[:, :, index:index + s] = v.to(cached_v.dtype)
-            qcols = index + torch.arange(s, device=q.device)
+            qcols = index + offsets
         else:
-            qcols = index[:, None] + torch.arange(s, device=q.device)[None, :]
+            qcols = index[:, None] + offsets[None, :]
+            wcols = index.clamp(0, cached_k.shape[2] - s)[:, None] + offsets[None, :]
             rows = torch.arange(b, device=q.device)[:, None]
-            cached_k.transpose(1, 2)[rows, qcols] = k.transpose(1, 2).to(cached_k.dtype)
-            cached_v.transpose(1, 2)[rows, qcols] = v.transpose(1, 2).to(cached_v.dtype)
+            cached_k.transpose(1, 2)[rows, wcols] = k.transpose(1, 2).to(cached_k.dtype)
+            cached_v.transpose(1, 2)[rows, wcols] = v.transpose(1, 2).to(cached_v.dtype)
         valid = cache_attention_mask(cached_k.shape[2], s, index, pad_offset,
                                      device=q.device)
         out = _masked_softmax_attend(q, cached_k, cached_v, valid)
@@ -189,7 +200,8 @@ class TransformerLM(nn.Module):
         return self.pos_embed.device
 
     def forward(self, tokens, train: bool = False,
-                cache: Optional[DecodeCache] = None, pad_offset=None):
+                cache: Optional[DecodeCache] = None, pad_offset=None,
+                active=None):
         """Next-token logits (batch, seq, vocab) in float32.
 
         ``train`` is the flax model's flag; the LM has no dropout or
@@ -202,24 +214,35 @@ class TransformerLM(nn.Module):
         cache at ``cache.index`` and ``cache.index`` advances by the
         block length. ``pad_offset`` (batch,) masks each row's leading
         left-pad columns and counts positions from the row's first real
-        token; it is taken only on the decode path."""
+        token; it is taken only on the decode path. ``active`` (batch,)
+        bool — serving only — advances only the active rows' columns: free
+        pool slots ride along in the fixed-shape decode batch, and their
+        columns freeze instead of marching past ``max_len``. It needs
+        per-row (tensor) cache columns."""
         seq = tokens.shape[1]
         x = self.tok_embed(tokens.long())
         if cache is None:
-            if pad_offset is not None:
+            if pad_offset is not None or active is not None:
                 raise ValueError(
-                    "pad_offset (ragged left-padded batches) is only supported "
-                    "on the decode path"
+                    "pad_offset / active (ragged left-padded serving batches) "
+                    "are only supported on the decode path"
                 )
             x = (x + self.pos_embed[:seq]).to(self.dtype)
             for block in self.blocks:
                 x = block(x)
         else:
             index = cache.index
+            if active is not None and not torch.is_tensor(index):
+                raise ValueError(
+                    "active masks require per-row (batch,) cache indices (the "
+                    "serving pool layout); generate()'s shared index never "
+                    "passes active"
+                )
             x = (x + self._decode_positions(index, seq, pad_offset)).to(self.dtype)
             for block, ck, cv in zip(self.blocks, cache.keys, cache.values):
                 x = block(x, kv=(ck, cv), index=index, pad_offset=pad_offset)
-            cache.index = index + seq
+            cache.index = (index + seq if active is None
+                           else torch.where(active, index + seq, index))
         x = self.ln_f(x.float())
         return self.lm_head(x)
 
@@ -251,6 +274,26 @@ def make_decode_cache(module: TransformerLM, batch: int, total_len: int) -> Deco
     )
 
 
+def make_paged_decode_cache(module: TransformerLM, max_slots: int,
+                            num_blocks: int, block_size: int) -> DecodeCache:
+    """Zeroed PAGED decode cache: per layer, K and V as physical blocks
+    ``(num_blocks, heads, block_size, head_dim)`` instead of one
+    contiguous row per slot, and ``index`` a (max_slots,) int vector of
+    per-slot columns. A host-side block table maps ``slot -> block ids``;
+    slots share blocks by holding the same id."""
+    shape = (num_blocks, module.num_heads, block_size,
+             module.d_model // module.num_heads)
+
+    def zeros():
+        return torch.zeros(shape, dtype=module.dtype, device=module.device)
+
+    return DecodeCache(
+        keys=[zeros() for _ in range(module.num_layers)],
+        values=[zeros() for _ in range(module.num_layers)],
+        index=torch.zeros((max_slots,), dtype=torch.int64, device=module.device),
+    )
+
+
 def sample_tokens(logits, generator, greedy, top_k, temperature):
     """Greedy argmax, or a top-k-truncated categorical draw at
     ``temperature`` (Gumbel-max with exponential noise from
@@ -264,6 +307,76 @@ def sample_tokens(logits, generator, greedy, top_k, temperature):
         generator=generator
     )
     return torch.argmax(logits / temperature - torch.log(noise), dim=-1)
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c`` modulo 2**32 for int64 ``x`` in [0, 2**32), in 16-bit
+    halves so no int64 product overflows."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _MASK32
+
+
+def _mix32(x):
+    """A 32-bit integer hash (lowbias32: xorshift-multiply rounds) on
+    int64 lanes holding values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def sample_tokens_at(logits, seed: int, positions, greedy: bool, top_k: int,
+                     temperature: float):
+    """Position-keyed sampling: greedy argmax, or a top-k-truncated
+    categorical draw whose random numbers depend only on ``(seed,
+    positions[row], vocab id)``.
+
+    The reference folds the position into a threefry key
+    (``jax.random.fold_in``), which torch cannot reproduce; the port keeps
+    the same invariant with its own counter-based draw. Each (row, vocab
+    id) lane hashes ``(seed, position, id)`` with integer tensor ops into
+    a uniform number, and the token is the Gumbel-max ``argmax(logits /
+    temperature + gumbel)`` over the top-k. So the n-th token of a stream
+    draws the same numbers whichever program samples it (chunked or
+    one-shot prefill, paged or contiguous decode, pipelined or not), no
+    ``torch.Generator`` state is consumed, the draw is the same on the
+    CPU and the GPU up to float rounding, and it can be captured in a
+    CUDA graph.
+
+    ``logits``: (N, vocab); ``positions``: (N,) int tensor (the pad-free
+    position of the token being sampled). Returns (N,) int64."""
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    return torch.argmax(sampling_scores(logits, seed, positions, top_k, temperature),
+                        dim=-1)
+
+
+def sampling_scores(logits, seed: int, positions, top_k: int, temperature: float):
+    """The scores ``sample_tokens_at`` takes the argmax of when sampling:
+    the top-k logits over ``temperature`` plus each lane's Gumbel noise
+    (the rest at ``-inf``), in float32."""
+    if top_k:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits >= kth, logits, torch.finfo(logits.dtype).min)
+    vocab = torch.arange(logits.shape[-1], device=logits.device, dtype=torch.int64)
+    key = _mix32(torch.full_like(positions, seed & _MASK32, dtype=torch.int64))
+    key = _mix32(key ^ (positions.to(torch.int64) & _MASK32))
+    bits = _mix32((key[:, None] + _mul32(vocab, 0x9E3779B9)[None, :]) & _MASK32)
+    gumbel = -torch.log(-torch.log(_open_uniform(bits)))
+    return logits.float() / temperature + gumbel
+
+
+def _open_uniform(bits):
+    """32-bit lanes to float32 uniforms strictly inside (0, 1), from their
+    top 23 bits: k + 0.5 is exact in float32 for every k < 2**23, so the
+    result lies in [2**-24, 1 - 2**-24]. (From 24 bits, 2**24 - 0.5 rounds
+    to 2**24: a uniform of 1 gives an infinite Gumbel, and on a masked
+    lane -inf + inf is a NaN, which argmax takes.)"""
+    return ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
 
 
 def left_pad_prompts(prompts, pad_token: int = 0):
@@ -311,6 +424,7 @@ def generate(
     temperature: float = 0.0,
     top_k: int = 0,
     seed: int = 0,
+    params=None,
     prompt_lengths=None,
     stop_token: Optional[int] = None,
     pad_token: int = 0,
@@ -325,8 +439,10 @@ def generate(
     that emits it keeps emitting it while the rest decode on. Greedy at
     ``temperature=0`` (default), else categorical from a
     ``torch.Generator`` seeded with ``seed``, truncated to the ``top_k``
-    most likely tokens when ``top_k > 0``. Returns the (batch,
-    prompt_len + max_new_tokens) int32 tokens, prompt included.
+    most likely tokens when ``top_k > 0``. ``params``: a ``state_dict``
+    to sample with in place of the module's own parameters (the module is
+    left untouched). Returns the (batch, prompt_len + max_new_tokens)
+    int32 tokens, prompt included.
     """
     module = compiled.module
     if not isinstance(module, TransformerLM):
@@ -375,9 +491,15 @@ def generate(
         )
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
+
+    def run(*args, **kwargs):
+        if params is None:
+            return module(*args, **kwargs)
+        return torch.func.functional_call(module, dict(params), args, kwargs)
+
     with torch.no_grad():
         out = _generate_loop(
-            module, torch.as_tensor(prompt, device=device),
+            run, torch.as_tensor(prompt, device=device),
             make_decode_cache(module, b, total), generator, max_new_tokens,
             float(temperature) <= 0.0, int(top_k), float(temperature),
             pad_offset, stop_token,

@@ -115,6 +115,104 @@ def cache_attention_mask(max_len, seq, idx, pad_offset=None, device=None):
     return valid[:, None]  # broadcast over heads
 
 
+# -- paged KV-cache gather/scatter ------------------------------------------
+#
+# The serving pool's paged layout stores K/V as physical blocks
+# (num_blocks, heads, block_size, head_dim) shared across slots through a
+# (max_slots, blocks_per_slot) block table. These helpers bridge that
+# layout and the contiguous (slots, heads, len, head_dim) view the dense
+# cache-attention path consumes (reference
+# ``elephas_tpu/ops/attention.py:124-181``). Unallocated table entries
+# carry the OUT-OF-RANGE id ``num_blocks``. XLA clamps it in a gather and
+# drops it in a ``mode="drop"`` scatter; torch would raise on the CPU and
+# assert on the GPU, so the gathers clamp the ids first and the scatters
+# turn each dropped write into a copy of a kept one (``_scatter_kept``).
+# Every op is a fixed-shape tensor op with no host read, so the decode
+# step that runs them can be captured in a CUDA graph.
+
+
+def _scatter_kept(pool_leaf, blocks, cols, values, keep):
+    """``pool_leaf[blocks[i], :, cols[i]] = values[i]`` in place for the
+    rows where ``keep`` is set; the other rows write nothing.
+
+    A boolean selection of the kept rows would give a shape that depends
+    on the data (a host sync). Instead each dropped row repeats the first
+    kept row's write — the same value to the same place, so the order of
+    the duplicates cannot matter — or, when no row is kept, writes back
+    the value already at ``pool_leaf[0, :, 0]`` (read before the write).
+    ``values``: (N, heads, head_dim)."""
+    # A (1,) index: indexing with a 0-d tensor would read it on the host.
+    first = torch.argmax(keep.to(torch.int32)).view(1)
+    kept = keep[first]
+    zero = torch.zeros_like(blocks[first])
+    fb_block = torch.where(kept, blocks[first], zero)
+    fb_col = torch.where(kept, cols[first], zero)
+    fb_value = torch.where(kept[:, None, None], values[first], pool_leaf[0, :, 0][None])
+    blocks = torch.where(keep, blocks, fb_block)
+    cols = torch.where(keep, cols, fb_col)
+    values = torch.where(keep[:, None, None], values, fb_value)
+    pool_leaf[blocks, :, cols] = values.to(pool_leaf.dtype)
+    return pool_leaf
+
+
+def paged_to_contiguous(leaf, table):
+    """Gather a paged K/V leaf into per-slot contiguous rows.
+
+    ``leaf``: (num_blocks, heads, block_size, head_dim) physical blocks;
+    ``table``: (max_slots, blocks_per_slot) int block ids (out-of-range
+    ids clamp to the last block). Returns a new (max_slots, heads,
+    blocks_per_slot * block_size, head_dim) tensor."""
+    slots, bps = table.shape
+    num_blocks, heads, bs, head_dim = leaf.shape
+    gathered = leaf[table.clamp(max=num_blocks - 1)]  # (slots, bps, heads, bs, hd)
+    return gathered.permute(0, 2, 1, 3, 4).reshape(slots, heads, bps * bs, head_dim)
+
+
+def slot_row_to_contiguous(leaf, row_table):
+    """Gather ONE slot's blocks as a batch-1 contiguous cache row.
+
+    ``row_table``: (blocks_per_slot,) int block ids for the slot.
+    Returns (1, heads, blocks_per_slot * block_size, head_dim)."""
+    num_blocks, heads, bs, head_dim = leaf.shape
+    gathered = leaf[row_table.clamp(max=num_blocks - 1)]  # (bps, heads, bs, hd)
+    return gathered.permute(1, 0, 2, 3).reshape(heads, -1, head_dim)[None]
+
+
+def scatter_decode_columns(pool_leaf, contiguous, table, idx, active):
+    """Write each slot's just-decoded column back into its physical block,
+    in place.
+
+    ``contiguous`` is the (max_slots, heads, L, head_dim) view AFTER the
+    apply wrote column ``idx[s]`` for every slot s (``idx`` is the
+    PRE-advance per-slot column vector). Inactive lanes, and lanes whose
+    column is unallocated or past the row, write nothing — their computed
+    column is garbage by contract."""
+    num_blocks, _, bs, _ = pool_leaf.shape
+    slots, bps = table.shape
+    length = contiguous.shape[2]
+    lanes = torch.arange(slots, device=idx.device)
+    written = contiguous[lanes, :, idx.clamp(max=length - 1)]  # (slots, heads, hd)
+    blk = table[lanes, (idx // bs).clamp(max=bps - 1)]
+    # A column past the row (a frozen lane at its end) is out of range in
+    # the reference's take_along_axis too, and its write drops.
+    return _scatter_kept(pool_leaf, blk, idx % bs, written,
+                         active & (blk < num_blocks) & (idx < length))
+
+
+def scatter_prefill_columns(pool_leaf, row_table, start, chunk):
+    """Write one prefill chunk's columns ``[start, start + C)`` of ONE
+    slot into its physical blocks, in place.
+
+    ``chunk``: (heads, C, head_dim) — the freshly-computed K or V
+    columns. Columns landing in unallocated blocks (right-pad garbage
+    past the slot's allocation) write nothing."""
+    num_blocks, _, bs, _ = pool_leaf.shape
+    cols = start + torch.arange(chunk.shape[1], device=row_table.device)
+    target = row_table[(cols // bs).clamp(max=row_table.shape[0] - 1)]
+    return _scatter_kept(pool_leaf, target, cols % bs, chunk.transpose(0, 1),
+                         target < num_blocks)
+
+
 def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
                              block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
                              scale: Optional[float] = None):

@@ -1,0 +1,50 @@
+"""Online inference over the KV-cache decode path (counterpart of
+``elephas_tpu/serving``).
+
+- ``KVCachePool``      — a fixed-shape slot pool of per-layer KV caches
+                         (``serving.kv_pool``), the oracle layout;
+- ``PagedKVPool``      — its block/paged successor (the default):
+                         reference-counted fixed-size KV blocks behind a
+                         ``BlockTable``, a ``PrefixCache`` that admits
+                         resident prompt prefixes by refcount instead of
+                         re-prefilling, LRU prefix eviction under
+                         pressure, copy-on-write at shared boundaries;
+- ``ContinuousBatchingScheduler`` — bounded request queue, chunked
+                         prefill/decode interleaving, deadline eviction,
+                         backpressure, one-step-lookahead pipelining
+                         (``serving.scheduler``);
+- ``InferenceEngine``  — the frontend: ``submit()`` / ``result()`` /
+                         ``serve_forever()``; on the GPU its paged decode
+                         step is one captured CUDA graph
+                         (``serving.engine``);
+- ``ServingMetrics``   — TTFT / inter-token latency / queue depth /
+                         tokens-per-sec / dispatch→fetch overlap through
+                         ``metrics.logging.JsonlSink``
+                         (``serving.metrics``);
+- ``host_sync``        — the ONE sanctioned device→host sync point.
+
+Not ported yet (ROADMAP.md, queue 1): speculative decode
+(``serving/spec.py``), tensor-parallel serving, the disaggregated KV
+handoff, the ops endpoint and the replicated fleet.
+"""
+
+from elephas_tpu_torch.serving import host_sync  # noqa: F401
+from elephas_tpu_torch.serving.kv_pool import (  # noqa: F401
+    BlockTable,
+    DonatedBufferError,
+    KVCachePool,
+    PagedKVPool,
+    PrefixCache,
+)
+from elephas_tpu_torch.serving.scheduler import (  # noqa: F401
+    ContinuousBatchingScheduler,
+    GenerationResult,
+    QueueFull,
+    Request,
+    RequestQueue,
+)
+from elephas_tpu_torch.serving.engine import (  # noqa: F401
+    InferenceEngine,
+    shard_serving,
+)
+from elephas_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401

@@ -1,0 +1,699 @@
+"""Slot-based KV-cache pools for continuous batching (counterpart of
+``elephas_tpu/serving/kv_pool.py``).
+
+``KVCachePool`` owns ONE decode cache of fixed shape — per layer,
+keys/values of (max_slots, heads, max_len, head_dim), plus the per-slot
+``index`` (max_slots,) column vector and the per-slot left-pad vector
+``pad`` — so the decode step's operand shapes never change as sequences
+come and go. Admission copies a finished prefill's batch-1 cache into a
+free slot's row; eviction just returns the slot id to the free list,
+since the next admission overwrites the row wholesale.
+
+Per-slot state the model consumes each step:
+
+- ``index`` — the column the slot's next token writes (advanced by the
+  apply itself, per row, ONLY for rows the decode step's ``active``
+  mask marks occupied: free slots' columns freeze so they cannot march
+  past ``max_len`` between admissions);
+- ``pad`` — the slot's left-pad column count (contiguous prompts are
+  left-padded to the engine's fixed prefill width; the pad columns stay
+  masked out of attention for the sequence's whole lifetime).
+
+``PagedKVPool`` is the block/paged successor — the vLLM layout: fixed-
+size physical KV blocks shared across slots through a reference-counted
+``BlockTable``, a ``PrefixCache`` that admits already-resident prompt
+prefixes by bumping refcounts instead of re-prefilling, LRU eviction of
+unreferenced prefixes under allocation pressure, and copy-on-write at
+any shared boundary a fork creates. The contiguous pool stays as the
+oracle the paged path is tested token-identical against (and the
+``paged=False`` engine mode).
+
+Donation: the reference donates the pool to every program that
+rewrites it, and reading a donated (stale) tree raises
+``DonatedBufferError``. Torch has no donation: the programs here write
+the pool's tensors IN PLACE, every tensor keeps its address for the
+pool's lifetime (which is also what lets the paged decode step be
+captured once in a CUDA graph), and ``swap`` only rebinds.
+``DonatedBufferError`` stays exported for callers written against the
+reference.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from elephas_tpu_torch.serving import host_sync
+
+
+class DonatedBufferError(RuntimeError):
+    """A pool cache reference was read after its buffers were donated.
+
+    Kept for callers written against the reference: the port writes the
+    pool in place, so nothing raises it."""
+
+
+class KVCachePool:
+    """Fixed-shape KV cache + slot bookkeeping for the serving engine.
+
+    ``decode_module``: the port's ``TransformerLM``.
+    ``max_slots``: decode batch width (concurrent sequences).
+    ``max_len``: cache columns per slot — an admitted sequence may run
+    to ``prefill_len + generated <= max_len``.
+
+    The live cache is ``cache`` (a ``models.transformer.DecodeCache``
+    whose ``index`` is the per-slot column vector); ``swap`` rebinds it
+    after a program returns it (the same object: programs write in
+    place).
+    """
+
+    def __init__(self, decode_module, max_slots: int, max_len: int):
+        from elephas_tpu_torch.models.transformer import make_decode_cache
+
+        if max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.device = decode_module.device
+        self.cache = make_decode_cache(decode_module, max_slots, max_len)
+        self.cache.index = torch.zeros((max_slots,), dtype=torch.int64,
+                                       device=self.device)
+        self.pad = torch.zeros((max_slots,), dtype=torch.int64,
+                               device=self.device)
+        self._free: List[int] = list(range(max_slots))
+        self.admitted_total = 0  # lifetime admissions (slot reuse visible)
+
+    def swap(self, new_cache, new_pad=None) -> None:
+        """Install the cache (and optionally pad) a program returned."""
+        self.cache = new_cache
+        if new_pad is not None:
+            self.pad = new_pad
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every device tensor the pool holds (keys, values, the column
+        and pad vectors, and a paged pool's block table): their addresses
+        are constant for the pool's lifetime."""
+        return [*self.cache.keys, *self.cache.values, self.cache.index,
+                self.pad]
+
+    # -- slot bookkeeping --------------------------------------------------
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_count(self) -> int:
+        return self.max_slots - len(self._free)
+
+    def active_slots(self) -> List[int]:
+        """Occupied slot ids, ascending (the decode step's active mask)."""
+        free = set(self._free)
+        return [s for s in range(self.max_slots) if s not in free]
+
+    def acquire(self) -> Optional[int]:
+        """Claim a free slot id, or None when the pool is saturated."""
+        if not self._free:
+            return None
+        return self._free.pop()
+
+    def admit(self, slot: int, prefill_cache, pad_offset: int) -> None:
+        """Copy a finished batch-1 prefill into ``slot`` (in place) and
+        record its left-pad count. The prefill cache's index carries the
+        write position (= prefill length) into the slot's column."""
+        with torch.no_grad():
+            for pool_leaf, pre_leaf in zip(
+                    self.cache.keys + self.cache.values,
+                    prefill_cache.keys + prefill_cache.values):
+                pool_leaf[slot].copy_(pre_leaf[0])
+            self.cache.index[slot] = prefill_cache.index
+            self.pad[slot] = pad_offset
+        self.admitted_total += 1
+
+    def release(self, slot: int) -> None:
+        """Return ``slot`` to the free list. No device work: in THIS
+        contiguous layout the slot exclusively owns its cache row, so
+        the stale contents are simply overwritten by the next admit.
+        (``PagedKVPool.release`` is the refcount-aware version.)
+        Double-release raises."""
+        if slot in self._free:
+            raise ValueError(f"slot {slot} is already free")
+        if not 0 <= slot < self.max_slots:
+            raise ValueError(f"slot {slot} out of range [0, {self.max_slots})")
+        self._free.append(slot)
+
+
+# -- paged layout ------------------------------------------------------------
+
+
+class BlockTable:
+    """Host-side ``slot -> physical block ids`` map with a device mirror.
+
+    Rows are ``-1`` where unallocated. The device mirror substitutes the
+    OUT-OF-RANGE id ``num_blocks`` for ``-1`` (gathers clamp it, scatters
+    drop it: ``ops.attention``'s paged helpers), lives in ONE device
+    tensor for the table's lifetime, and is re-uploaded into that tensor
+    only when a row changed (the dirty flag) — a CUDA graph that reads it
+    keeps reading the current table."""
+
+    def __init__(self, max_slots: int, blocks_per_slot: int,
+                 num_blocks: int, device: torch.device):
+        self.num_blocks = num_blocks
+        self.rows = np.full((max_slots, blocks_per_slot), -1, np.int64)
+        self.buffer = torch.full((max_slots, blocks_per_slot), num_blocks,
+                                 dtype=torch.int64, device=device)
+        self._dirty = False
+
+    def set(self, slot: int, index: int, block: int) -> None:
+        self.rows[slot, index] = block
+        self._dirty = True
+
+    def clear_row(self, slot: int) -> None:
+        self.rows[slot, :] = -1
+        self._dirty = True
+
+    def invalidate(self) -> None:
+        self._dirty = True
+
+    def device(self) -> torch.Tensor:
+        if self._dirty:
+            host = np.where(self.rows < 0, self.num_blocks, self.rows)
+            host_sync.upload(host, self.buffer.device, out=self.buffer)
+            self._dirty = False
+        return self.buffer
+
+
+class _PrefixEntry:
+    __slots__ = ("tokens", "blocks", "recency")
+
+    def __init__(self, tokens, blocks, recency):
+        self.tokens = tokens
+        self.blocks = blocks
+        self.recency = recency
+
+
+class PrefixCache:
+    """Resident-prefix index: token chains → the physical blocks that
+    already hold their K/V.
+
+    Entries are keyed by the exact token tuple of a FULL-block prefix
+    (tuple equality keeps collisions impossible, so a hit can never
+    silently serve the wrong prefix). Every full-block prefix of an
+    inserted chain gets its own entry — a new prompt can resume from ANY
+    block boundary of an old conversation. Each entry holds one reference
+    on each of its blocks (the pool's refcounts), so resident prefixes
+    pin their blocks until evicted.
+
+    Eviction is LRU over entries, triggered by the pool on allocation
+    pressure; ``match`` is capped one token short of the prompt so at
+    least one suffix token always prefills.
+    """
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        self._entries: Dict[Tuple[int, ...], _PrefixEntry] = {}
+        self._tick = 0
+        self.hits_total = 0
+        self.lookups_total = 0
+        self.tokens_saved_total = 0
+        self.evictions_total = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def hit_rate(self) -> Optional[float]:
+        if not self.lookups_total:
+            return None
+        return self.hits_total / self.lookups_total
+
+    def match(self, prompt: Sequence[int]) -> Tuple[int, List[int]]:
+        """Longest resident full-block prefix STRICTLY shorter than the
+        prompt; returns ``(matched_token_count, block_ids)`` (0, [] on a
+        miss). Bumps recency and the hit counters."""
+        self.lookups_total += 1
+        bs = self.block_size
+        prompt = tuple(prompt)
+        for k in range((len(prompt) - 1) // bs, 0, -1):
+            entry = self._entries.get(prompt[:k * bs])
+            if entry is not None:
+                self._tick += 1
+                entry.recency = self._tick
+                self.hits_total += 1
+                self.tokens_saved_total += k * bs
+                return k * bs, list(entry.blocks)
+        return 0, []
+
+    def insert(self, chain: Sequence[int], blocks: Sequence[int],
+               incref) -> int:
+        """Register every full-block prefix of ``chain`` (``blocks[i]``
+        holds tokens ``[i*bs, (i+1)*bs)``), taking one reference per
+        entry per block via ``incref``. Token chains already resident
+        keep their existing entry. Returns the number of entries added."""
+        bs = self.block_size
+        chain = tuple(chain)
+        added = 0
+        for k in range(1, min(len(chain) // bs, len(blocks)) + 1):
+            key = chain[:k * bs]
+            if key in self._entries:
+                continue
+            held = tuple(blocks[:k])
+            for b in held:
+                incref(b)
+            self._tick += 1
+            self._entries[key] = _PrefixEntry(key, held, self._tick)
+            added += 1
+        return added
+
+    def evict_lru(self, decref) -> Optional[_PrefixEntry]:
+        """Drop the least-recently-used entry, releasing its block
+        references through ``decref``. Returns it (None when empty)."""
+        if not self._entries:
+            return None
+        key = min(self._entries, key=lambda k: self._entries[k].recency)
+        entry = self._entries.pop(key)
+        for b in entry.blocks:
+            decref(b)
+        self.evictions_total += 1
+        return entry
+
+
+class PagedKVPool(KVCachePool):
+    """Block/paged KV pool: fixed-size physical blocks shared across
+    slots through a ``BlockTable``, reference-counted, with a
+    ``PrefixCache`` so prompts whose prefix is already resident admit by
+    bumping refcounts instead of re-prefilling.
+
+    Layout: every K/V tensor is ``(num_blocks, heads, block_size,
+    head_dim)``; a slot's logical cache row is the concatenation of its
+    table row's blocks — a VIRTUAL length ``blocks_per_slot * block_size
+    >= max_len`` (ceil, so ``block_size`` need not divide ``max_len``).
+    The engine's decode and chunk-prefill programs gather through the
+    table, run the same dense cache-attention forward as the contiguous
+    pool (token identity by construction), and scatter back exactly the
+    columns they wrote (``ops.attention`` paged helpers).
+
+    Invariants the allocator maintains (and tests pin):
+
+    - a block is in the free list iff its refcount is 0;
+    - a slot's row references each of its blocks exactly once, a prefix
+      cache entry once per entry containing it;
+    - ``release`` decrefs, never abandons — double-releasing a block
+      raises ``RuntimeError`` loudly;
+    - allocation under pressure evicts prefix entries LRU-first (flight
+      kind ``prefix_evict``), and with the default ``num_blocks =
+      max_slots * blocks_per_slot`` sizing can never dead-end.
+
+    Writes never touch a shared block in normal serving: prefix matches
+    cover full blocks only and prefill resumes at the block-aligned
+    boundary. ``ensure_writable`` is the copy-on-write safety net for
+    explicit ``fork_slot`` aliases.
+    """
+
+    def __init__(self, decode_module, max_slots: int, max_len: int,
+                 block_size: int, num_blocks: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 virtual_len: Optional[int] = None):
+        from elephas_tpu_torch.models.transformer import make_paged_decode_cache
+
+        if max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.block_size = block_size
+        self.device = decode_module.device
+        # Virtual row length: enough blocks for max_len columns AND for
+        # the widest prefill-chunk write window (a chunk starting at the
+        # last prompt column must slice/scatter without clamping).
+        need = max(max_len, virtual_len or 0)
+        self.blocks_per_slot = -(-need // block_size)
+        self.virtual_len = self.blocks_per_slot * block_size
+        self.num_blocks = (
+            num_blocks if num_blocks is not None
+            else max_slots * self.blocks_per_slot
+        )
+        if self.num_blocks < self.blocks_per_slot:
+            raise ValueError(
+                f"num_blocks ({self.num_blocks}) cannot back even one "
+                f"slot ({self.blocks_per_slot} blocks per slot)"
+            )
+        self.cache = make_paged_decode_cache(
+            decode_module, max_slots, self.num_blocks, block_size
+        )
+        # Paged prompts are never left-padded (shared prefixes must land
+        # at identical cache columns in every slot); the zero pad vector
+        # keeps the decode signature identical to the contiguous pool.
+        self.pad = torch.zeros((max_slots,), dtype=torch.int64,
+                               device=self.device)
+        self._free: List[int] = list(range(max_slots))
+        self.admitted_total = 0
+        self.table = BlockTable(max_slots, self.blocks_per_slot,
+                                self.num_blocks, self.device)
+        self._ref = np.zeros((self.num_blocks,), np.int64)
+        self._free_blocks: List[int] = list(range(self.num_blocks))
+        self.prefix = PrefixCache(block_size) if prefix_cache else None
+        # Lazy process-registry mirror (the fleet aggregator federates
+        # these from /metrics scrapes).
+        self._mirror = None
+        self._pushed_hits = 0
+        self._pushed_lookups = 0
+        # Per-tenant cost attribution (obs/tenancy.py): the scheduler
+        # names each slot's owning tenant before binding any blocks, and
+        # the pool integrates block-seconds (elapsed seconds x resident
+        # block count) into the attached CostLedger at every block-count
+        # change and at release.
+        self._costs = None
+        self._cost_clock = None
+        self._owner: Dict[int, Optional[str]] = {}
+        self._billed_at: Dict[int, float] = {}
+
+    def tensors(self) -> List[torch.Tensor]:
+        return super().tensors() + [self.table.buffer]
+
+    # -- block accounting ----------------------------------------------------
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free_blocks)
+
+    @property
+    def blocks_in_use(self) -> int:
+        return self.num_blocks - len(self._free_blocks)
+
+    def _incref(self, block: int) -> None:
+        self._ref[block] += 1
+
+    def _decref(self, block: int) -> None:
+        if self._ref[block] <= 0:
+            raise RuntimeError(
+                f"KV block {block} double-released: refcount is already 0 "
+                "(a slot row or prefix entry decref'd a block it did not "
+                "hold — allocator bookkeeping is corrupt)"
+            )
+        self._ref[block] -= 1
+        if self._ref[block] == 0:
+            self._free_blocks.append(block)
+
+    def _alloc_block(self) -> int:
+        """Claim a free block (refcount 1). Under pressure, evict
+        least-recently-used prefix-cache entries until one frees — with
+        default sizing this always terminates before the cache empties."""
+        from elephas_tpu_torch import obs
+
+        while not self._free_blocks:
+            entry = (self.prefix.evict_lru(self._decref)
+                     if self.prefix is not None else None)
+            if entry is None:
+                raise RuntimeError(
+                    f"out of KV blocks ({self.num_blocks} total, "
+                    f"{self.max_slots} slots x {self.blocks_per_slot} "
+                    "blocks/slot needed worst-case) and no evictable "
+                    "prefix entries — num_blocks is undersized"
+                )
+            obs.default_flight_recorder().note(
+                "prefix_evict", "info", blocks=len(entry.blocks),
+                tokens=len(entry.tokens),
+                resident=len(self.prefix),
+            )
+        block = self._free_blocks.pop()
+        self._incref(block)
+        return block
+
+    # -- per-tenant occupancy billing ----------------------------------------
+
+    def attach_cost_ledger(self, ledger, clock=None) -> None:
+        """Wire a ``CostLedger`` so slot block occupancy bills to each
+        slot's owning tenant as KV block-seconds. ``clock`` defaults to
+        the ledger's own clock."""
+        self._costs = ledger
+        self._cost_clock = clock if clock is not None else ledger.clock
+
+    def set_slot_owner(self, slot: int, tenant: Optional[str]) -> None:
+        """Name the tenant billed for ``slot``'s block occupancy from
+        this instant on (called BEFORE ``admit_prefix`` so prefix-bound
+        blocks bill from their first resident moment)."""
+        self._owner[slot] = tenant
+        if self._cost_clock is not None:
+            self._billed_at[slot] = self._cost_clock()
+
+    def _bill_slot(self, slot: int, *, cow: bool = False) -> None:
+        """Integrate ``slot``'s occupancy since its last bill into the
+        attached ledger: elapsed seconds x blocks currently resident.
+        ``cow=True`` additionally counts a copy-on-write block copy."""
+        if self._costs is None:
+            return
+        last = self._billed_at.get(slot)
+        if last is None:
+            return  # slot never owned: nothing to attribute
+        now = self._cost_clock()
+        blocks = int((self.table.rows[slot] >= 0).sum())
+        seconds = (now - last) * blocks
+        self._billed_at[slot] = now
+        if seconds > 0.0 or cow:
+            self._costs.record_block_seconds(
+                self._owner.get(slot), seconds, cow=cow)
+
+    def assert_block_invariants(self) -> None:
+        """Free-list/refcount conservation — every block is either free
+        (refcount 0) or accounted for by exactly its refcount many
+        holders (slot rows + prefix entries). NOT on the hot path."""
+        free = set(self._free_blocks)
+        assert len(free) == len(self._free_blocks), "free list has dupes"
+        holders = np.zeros((self.num_blocks,), np.int64)
+        for row in self.table.rows:
+            for b in row:
+                if b >= 0:
+                    holders[b] += 1
+        if self.prefix is not None:
+            for entry in self.prefix._entries.values():
+                for b in entry.blocks:
+                    holders[b] += 1
+        for b in range(self.num_blocks):
+            assert (b in free) == (self._ref[b] == 0), (
+                f"block {b}: ref={self._ref[b]} vs free={b in free}")
+            assert self._ref[b] == holders[b], (
+                f"block {b}: ref={self._ref[b]} != holders={holders[b]}")
+
+    # -- slot lifecycle ------------------------------------------------------
+
+    def admit(self, slot, prefill_cache, pad_offset) -> None:
+        raise RuntimeError(
+            "PagedKVPool has no wholesale admit: prefill writes through "
+            "the block table (the engine's chunked-prefill program), "
+            "then the scheduler activates the slot"
+        )
+
+    def admit_prefix(self, slot: int, prompt: Sequence[int]) -> int:
+        """Bind the longest resident prefix of ``prompt`` to ``slot``
+        (bump refcounts, no device work, no prefill compute). Returns
+        the matched token count — prefill resumes at that column."""
+        if self.prefix is None:
+            return 0
+        self._bill_slot(slot)  # close the zero-block window pre-bind
+        matched, blocks = self.prefix.match(prompt)
+        for i, b in enumerate(blocks):
+            self._incref(b)
+            self.table.set(slot, i, b)
+        self._mirror_push()
+        return matched
+
+    def commit_prefix(self, slot: int, prompt: Sequence[int]) -> None:
+        """Publish ``slot``'s freshly-prefilled prompt to the prefix
+        cache (full blocks only) so requests arriving DURING this
+        conversation can share it — not just after release."""
+        if self.prefix is None:
+            return
+        row = self.table.rows[slot]
+        nfull = len(prompt) // self.block_size
+        blocks = [int(row[i]) for i in range(nfull)]
+        assert all(b >= 0 for b in blocks), (
+            f"slot {slot}: prompt columns not fully backed at commit")
+        self.prefix.insert(tuple(prompt)[:nfull * self.block_size],
+                           blocks, self._incref)
+        self._mirror_push()
+
+    def ensure_cols(self, slot: int, upto: int) -> None:
+        """Back columns ``[0, upto)`` of ``slot`` with physical blocks
+        (prefix-shared blocks already in the row count as backed)."""
+        if upto > self.virtual_len:
+            raise ValueError(
+                f"slot {slot} needs column {upto - 1} but rows are "
+                f"{self.virtual_len} columns"
+            )
+        self._bill_slot(slot)  # per-decode-step occupancy integration
+        row = self.table.rows[slot]
+        for i in range(-(-upto // self.block_size)):
+            if row[i] < 0:
+                self.table.set(slot, i, self._alloc_block())
+        self._mirror_push()
+
+    def ensure_decode_col(self, slot: int, col: int) -> None:
+        """Back (and exclusively own) the single column the next decode
+        step writes for ``slot``."""
+        self.ensure_cols(slot, col + 1)
+        self.ensure_writable(slot, col)
+
+    def ensure_writable(self, slot: int, col: int) -> int:
+        """Copy-on-write guard: make the block backing ``col``
+        exclusively owned by ``slot`` before a write. Normal serving
+        never triggers the copy; ``fork_slot`` aliases do. Returns the
+        (possibly fresh) physical block id."""
+        i = col // self.block_size
+        block = int(self.table.rows[slot, i])
+        if block < 0:
+            raise ValueError(f"slot {slot} column {col} is unallocated")
+        if self._ref[block] == 1:
+            return block
+        self._bill_slot(slot, cow=True)
+        fresh = self._alloc_block()
+        with torch.no_grad():
+            for leaf in self.cache.keys + self.cache.values:
+                leaf[fresh].copy_(leaf[block])
+        self.table.set(slot, i, fresh)
+        self._decref(block)
+        self._mirror_push()
+        return fresh
+
+    def fork_slot(self, parent: int) -> Optional[int]:
+        """Alias a fresh slot over ``parent``'s blocks (refcounts bumped,
+        zero device copies) — both slots read the same physical K/V until
+        one writes, at which point ``ensure_writable`` copies just the
+        written block. Returns the child slot id, or None when the pool
+        is out of slots."""
+        if parent in self._free:
+            raise ValueError(f"slot {parent} is free; nothing to fork")
+        child = self.acquire()
+        if child is None:
+            return None
+        for i, b in enumerate(self.table.rows[parent]):
+            if b >= 0:
+                self._incref(int(b))
+                self.table.set(child, i, int(b))
+        if parent in self._owner:
+            self.set_slot_owner(child, self._owner[parent])
+        return child
+
+    def release(self, slot: int,
+                tokens: Optional[Sequence[int]] = None) -> None:
+        """Refcount-aware release: ``slot`` returns to the free list and
+        DROPS one reference on each of its blocks — shared blocks
+        survive for their other holders. ``tokens`` — the slot's full
+        token chain, prompt + generated — lets the prefix cache adopt
+        the full-block prefixes before the references drop. Double-
+        releasing the slot raises ``ValueError``; a corrupt row that
+        decrefs a free block raises ``RuntimeError``."""
+        if slot in self._free:
+            raise ValueError(f"slot {slot} is already free")
+        if not 0 <= slot < self.max_slots:
+            raise ValueError(f"slot {slot} out of range [0, {self.max_slots})")
+        self._bill_slot(slot)  # closing bill: occupancy up to release
+        self._owner.pop(slot, None)
+        self._billed_at.pop(slot, None)
+        row = self.table.rows[slot]
+        if tokens is not None and self.prefix is not None:
+            backed = int((row >= 0).sum())
+            nfull = min(len(tokens) // self.block_size, backed)
+            if nfull > 0:
+                self.prefix.insert(
+                    tuple(tokens)[:nfull * self.block_size],
+                    [int(row[i]) for i in range(nfull)],
+                    self._incref,
+                )
+        for b in row:
+            if b >= 0:
+                self._decref(int(b))
+        self.table.clear_row(slot)
+        self._free.append(slot)
+        self._mirror_push()
+
+    # -- cross-tier KV handoff -----------------------------------------------
+
+    def export_blocks(self, slot: int) -> Dict:
+        raise NotImplementedError(
+            "KV-block export for the disaggregated prefill/decode handoff "
+            "is not ported yet (ROADMAP.md, queue 1, item 7)"
+        )
+
+    def import_blocks(self, slot: int, tokens: Sequence[int], arrays,
+                      leaf_names=None) -> int:
+        raise NotImplementedError(
+            "KV-block import for the disaggregated prefill/decode handoff "
+            "is not ported yet (ROADMAP.md, queue 1, item 7)"
+        )
+
+    # -- program operands ----------------------------------------------------
+
+    def device_table(self) -> torch.Tensor:
+        """The (max_slots, blocks_per_slot) device block table the
+        gather/scatter programs read (unallocated = the out-of-range id
+        ``num_blocks``), brought up to date with the host rows. Always
+        the same tensor."""
+        return self.table.device()
+
+    # -- saturation-plane signals --------------------------------------------
+
+    def load_signals(self) -> dict:
+        """Block-granular KV pressure for the load tracker."""
+        return {
+            "kv_blocks_free": len(self._free_blocks),
+            "kv_blocks_total": self.num_blocks,
+            "prefix_hit_rate": (
+                self.prefix.hit_rate if self.prefix is not None else None
+            ),
+        }
+
+    def prefix_stats(self) -> dict:
+        if self.prefix is None:
+            return {"prefix_hits": 0, "prefix_lookups": 0,
+                    "prefix_hit_rate": None, "prefix_tokens_saved": 0,
+                    "prefix_evictions": 0, "prefix_resident": 0}
+        return {
+            "prefix_hits": self.prefix.hits_total,
+            "prefix_lookups": self.prefix.lookups_total,
+            "prefix_hit_rate": self.prefix.hit_rate,
+            "prefix_tokens_saved": self.prefix.tokens_saved_total,
+            "prefix_evictions": self.prefix.evictions_total,
+            "prefix_resident": len(self.prefix),
+        }
+
+    def _mirror_push(self) -> None:
+        mirror = self._mirror
+        if mirror is None:
+            try:
+                from elephas_tpu_torch import obs
+
+                reg = obs.default_registry()
+                mirror = (
+                    reg.gauge("serving_kv_blocks_free",
+                              help="unreferenced KV blocks in the paged "
+                                   "pool"),
+                    reg.counter("serving_prefix_cache_hit_total",
+                                help="prompt admissions that reused a "
+                                     "resident prefix"),
+                    reg.counter("serving_prefix_cache_lookup_total",
+                                help="prompt admissions that consulted "
+                                     "the prefix cache"),
+                    reg.gauge("serving_prefix_cache_hit_rate",
+                              help="lifetime prefix-cache hit rate"),
+                )
+            except Exception:
+                mirror = False
+            self._mirror = mirror
+        if not mirror:
+            return
+        gauge_free, hit_counter, lookup_counter, rate_gauge = mirror
+        gauge_free.set(len(self._free_blocks))
+        if self.prefix is not None:
+            hit_counter.inc(self.prefix.hits_total - self._pushed_hits)
+            lookup_counter.inc(
+                self.prefix.lookups_total - self._pushed_lookups
+            )
+            self._pushed_hits = self.prefix.hits_total
+            self._pushed_lookups = self.prefix.lookups_total
+            rate = self.prefix.hit_rate
+            if rate is not None:
+                rate_gauge.set(rate)

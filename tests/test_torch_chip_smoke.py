@@ -204,13 +204,60 @@ def test_kernel_line_carries_every_path(smoke):
     launches = {"inference": {"flash_fwd": 56, "flash_dq": 0, "flash_dkv": 0},
                 "train": {k: 176 for k in smoke.KERNELS},
                 "resnet": {k: 0 for k in smoke.KERNELS},
-                "repair": {k: 12 for k in smoke.KERNELS}}
+                "repair": {k: 12 for k in smoke.KERNELS},
+                "serving": {k: 0 for k in smoke.KERNELS}}
     entries = smoke.kernel_entries(timing, errors, launches)
     assert [e["name"] for e in entries] == list(smoke.KERNELS)
     for e in entries:
         assert e["launches"] == 176 and e["launches_by_path"]["resnet"] == 0
         assert e["launches_by_path"]["repair"] == 12
+        assert e["launches_by_path"]["serving"] == 0
         assert e["route"] == "cuda"
         assert e["replaces"].startswith("elephas_tpu/ops/attention_pallas.py:")
         assert e["ms"] == 1.0 and e["bf16"] == {"ms": 0.5}
     assert entries[0]["launches_by_path"]["inference"] == 56
+
+
+def test_serving_config_is_the_full_width_deployment(smoke):
+    """16 slots of 1024 columns in 64-column blocks, 512-token prompts in
+    128-token chunks at 2 a step, a 64-deep queue: a KV pool of 134 MB at
+    the registry LM's width (4 layers, K and V, 8 heads of 32, f32)."""
+    cfg = smoke.SERVE_ENGINE
+    assert cfg == {"max_slots": 16, "max_prompt_len": 512, "max_len": 1024,
+                   "queue_depth": 64, "kv_block_size": 64, "prefill_chunk": 128,
+                   "prefill_chunks_per_step": 2, "prefix_cache": True}
+    pool_bytes = cfg["max_slots"] * cfg["max_len"] * 4 * 2 * 8 * 32 * 4
+    assert pool_bytes == 134_217_728
+    assert smoke.SERVE_SAMPLING["temperature"] == 0.8 and smoke.SERVE_SAMPLING["top_k"] == 40
+    assert len(smoke.SERVE_CPU_REQUESTS) == 3 and smoke.SERVE_STEPS == 50
+
+
+def test_serving_traffic_is_seeded_and_shaped(smoke):
+    traffic = smoke.serving_traffic()
+    assert traffic == smoke.serving_traffic()  # same seed, same requests
+    assert traffic != smoke.serving_traffic(seed=1)
+    assert len(traffic) == smoke.SERVE_REQUESTS == 48
+    lens = [len(p) for p, _ in traffic]
+    assert min(lens) >= 64 and max(lens) <= smoke.SERVE_ENGINE["max_prompt_len"]
+    assert all(64 <= n <= 128 for _, n in traffic)
+    prefix = traffic[0][0][:smoke.SERVE_PREFIX]
+    shared = [i for i, (p, _) in enumerate(traffic) if p[:smoke.SERVE_PREFIX] == prefix]
+    assert shared == list(range(0, 48, 4))  # a quarter carry the system prompt
+    assert all(len(traffic[i][0]) > smoke.SERVE_PREFIX for i in shared)
+    assert all(0 < t < 32000 for p, _ in traffic for t in p)
+
+
+def test_compare_streams_accepts_near_ties_and_rejects_the_rest(smoke):
+    ref = [[1, 2, 3, 4], [5, 6, 7, 8], [9, 9, 9, 9]]
+    got = [[1, 2, 3, 4], [5, 6, 0, 0], [9, 9, 9, 9]]
+    gaps = {(1, 2): 4e-4}
+    out = smoke.compare_streams(ref, got, lambda i, k: gaps[(i, k)])
+    assert out == {"identical": 2, "near_ties": [[1, 2, 4e-4]]}
+    with pytest.raises(AssertionError, match="top-2 gap"):
+        smoke.compare_streams(ref, got, lambda i, k: 2e-3)  # a clear argmax differs
+    with pytest.raises(AssertionError, match="prefix"):
+        smoke.compare_streams([[1, 2, 3]], [[1, 2]], lambda i, k: 0.0)
+    with pytest.raises(AssertionError, match="streams against"):
+        smoke.compare_streams(ref, got[:2], lambda i, k: 0.0)
+    assert smoke.first_difference([3, 4], [3, 4]) is None
+    assert smoke.first_difference([3, 4], [3, 5]) == 1
