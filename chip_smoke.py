@@ -69,9 +69,21 @@ Phases, in order; any failed check raises and the process exits non-zero:
    new tokens/s, TTFT and ITL at p50 and p99, the decode step's time as a
    graph replay and eagerly, its kernels, and a kernel breakdown of 50
    serving steps with the card's busy share;
-9. a JSON line with each kernel's launches on the paths, errors, times
+9. the async phase (``async_phase``): ``SparkModel(mode="asynchronous")``
+   and ``"hogwild"`` — Downpour SGD against the parameter server, a
+   ``ParameterBuffer`` on the card, with several worker threads on
+   cuda:0, each on its own stream: the MNIST CNN (4 workers, local
+   server; loss, per-epoch validation, every locked push applied,
+   evaluate and predict), one worker on the card against the CPU, the
+   socket and HTTP servers (socket against local to the bit, and the local
+   comms pipeline on against off), the
+   full-width ResNet-18 hogwild in both granularities with the applied
+   share, samples/s with 1 and 4 workers beside the synchronous fit at
+   the same global batch, pull and push ms from the ``async/*`` spans, a
+   kernel breakdown of one epoch, and no flash launch;
+10. a JSON line with each kernel's launches on the paths, errors, times
    and bound;
-10. the last line: ``{"ok": true, "device": {...}}``.
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device, ``nvcc`` and this repository; exits non-zero without
 them. Imports nothing of JAX.
@@ -81,6 +93,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -181,6 +194,45 @@ SERVE_SLEEP_CYCLES = 200_000_000   # ~0.1 s of a spinning kernel at 1.98 GHz
 # largest: the teacher-forced full forward and the cache path differ in
 # the last bits.
 SERVE_TOP_K_SLACK = 1e-4
+
+# Async phase: Downpour SGD against the parameter server on the card,
+# several workers on cuda:0, each on its own stream.
+ASYNC_WORKERS = 4
+ASYNC_CNN_ROWS = (8192, 2048)      # synthetic_mnist train, test (BASELINE config 2)
+ASYNC_CNN_EPOCHS, ASYNC_CNN_BATCH = 3, 64
+# 4 workers each pushing a whole epoch of Adam steps overshoot: on the
+# CPU this config ended at val_acc 0.16-0.70 over 5 port runs and
+# 0.61-0.79 over 5 JAX-package runs (chance 0.10). Held above this, set
+# before the first card run.
+ASYNC_MIN_VAL_ACC = 0.15
+# The locked server's final weights against the start minus the float64
+# sum of the 12 pushed deltas, by norm over all tensors: 12 float32
+# subtractions round to a few 1e-8 of the weights.
+ASYNC_SUM_LIMIT = 1e-6
+# One worker, batch frequency, 1 epoch of this many rows (16 pushes), on
+# the card and on the CPU from the same weights and row order. On the
+# CPU a 1e-7 relative perturbation of the start moved the final weights
+# by 2-5e-6 of their norm over 1-16 pushes (and by 0.11 over 64, where
+# Adam's near-sign updates go chaotic), so 16. Limits (set before the
+# first card run, f32, TF32 off): the final weights by ||card - cpu|| /
+# ||cpu|| over all tensors, the epoch's loss relative.
+ASYNC_CPU_ROWS = 1024
+ASYNC_CPU_LIMITS = {"weights_all": 1e-3, "loss": 1e-4}
+# Transports: 2 workers, batch frequency, 1 epoch over the 8192 rows.
+# The CPU runs ended at evaluate acc 0.37-0.84 (6 runs); held above
+# this and under the untrained loss ln 10.
+ASYNC_WIRE_WORKERS, ASYNC_WIRE_MIN_ACC, ASYNC_WIRE_MAX_LOSS = 2, 0.2, float(np.log(10.0))
+ASYNC_BITWISE_ROWS = 1024          # socket vs local, 1 worker, unpipelined
+# ResNet-18 hogwild (BASELINE config 4): full width, bf16, batch 256 per
+# worker, plain SGD at lr 0.05. The reference config's momentum 0.9 at lr
+# 0.05 (parity.py) diverges with 4 workers at batch frequency (on the
+# H100, val_acc 0.10-0.16 after 2 epochs, in 'tree' and 'leaf'): each
+# worker pushes lr times its own momentum trace while the others' pushes
+# land in between, so staleness adds momentum on top of momentum. SGD at
+# the same lr reached 0.86 and momentum at lr / 4 0.88 (PERF.md §6).
+HOGWILD_ROWS = (16384, 2048)       # synthetic_cifar10 train, test
+HOGWILD_EPOCHS, HOGWILD_BATCH = 2, 256
+HOGWILD_OPTIMIZER = {"name": "sgd", "learning_rate": 0.05}
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -1364,6 +1416,273 @@ def serving_phase(attention_cuda):
     return launches, report
 
 
+def span_ms(events, names):
+    """Mean, total and count of each named span's wall milliseconds."""
+    out = {}
+    for name in names:
+        ms = [(e.end_s - e.begin_s) * 1e3 for e in events if e.name == name]
+        out[name] = {"mean_ms": float(np.mean(ms)) if ms else None,
+                     "total_ms": float(np.sum(ms)), "count": len(ms)}
+    return out
+
+
+def epoch_rate(ends, rows):
+    """Samples/s over epochs 2 and later from the epochs' end times (None
+    for a fit of one epoch)."""
+    return rows * (len(ends) - 1) / (ends[-1] - ends[0]) if len(ends) > 1 else None
+
+
+def async_phase(attention_cuda):
+    """Asynchronous and hogwild training on the card: Downpour SGD
+    against the parameter server (a ``ParameterBuffer`` on cuda:0), the
+    workers threads on cuda:0, each on its own stream. (1) The MNIST CNN
+    (BASELINE config 2), 4 workers over the local server: loss falls,
+    one val entry per epoch above ``ASYNC_MIN_VAL_ACC``, every locked
+    push applied (the server ends at the start minus the sum of the
+    pushed deltas), evaluate and predict; (2) one worker on the card against
+    the port's CPU path, same weights and row order; (3) 2 workers over
+    the socket and the HTTP servers, and with 1 worker socket against
+    local to the bit, and the local server's comms pipeline on against
+    off; (4) the ResNet-18 (BASELINE config 4) hogwild in
+    'tree' and 'leaf' granularity, 4 workers, SGD (``HOGWILD_OPTIMIZER``);
+    (5) samples/s with 1 and 4
+    workers beside the synchronous fit at the same global batch, pull and
+    push ms from the ``async/*`` spans, a kernel breakdown of one epoch.
+    No flash kernel may launch. Returns the launch counts and a report."""
+    from elephas_tpu_torch import SparkModel, compile_model, obs, to_simple_rdd
+    from elephas_tpu_torch.data.datasets import one_hot, synthetic_cifar10, synthetic_mnist
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parameter.client import LocalClient
+
+    attention_cuda.reset_launches()
+    report = {}
+    registry = obs.default_registry()
+
+    def counter(name, **labels):
+        family = registry.counter(name, labelnames=tuple(labels))
+        return family.labels(**labels).value if labels else family.value
+
+    def images(pair):
+        x, y = pair
+        x = x.astype(np.float32) / 255.0
+        return (x[..., None] if x.ndim == 3 else x), one_hot(y, 10)  # NHWC, one-hot
+
+    train, test = synthetic_mnist(*ASYNC_CNN_ROWS)
+    (x, y), (xv, yv) = images(train), images(test)
+
+    def cnn(device=None):
+        return compile_model(get_model("cnn", device=device),
+                             optimizer={"name": "adam", "learning_rate": 1e-3},
+                             loss="categorical_crossentropy", metrics=["acc"],
+                             input_shape=(28, 28, 1), seed=SEED)
+
+    # (1) The CNN, asynchronous, 4 workers on one card. Each push's delta
+    # is also copied to the host on its pusher's stream and summed in
+    # float64: with the lock every push lands, so the server must end at
+    # the start minus that sum (a delta read before its stream wrote it
+    # would not).
+    sums, summed, sum_lock = {}, [0], threading.Lock()
+    real_push = LocalClient.update_parameters
+
+    def summing_push(client, delta):
+        host = {n: t.double().cpu().numpy() for g in delta for n, t in delta[g].items()}
+        with sum_lock:
+            for name, value in host.items():
+                sums[name] = sums.get(name, 0.0) + value
+            summed[0] += 1
+        real_push(client, delta)
+
+    pushes0 = counter("ps_push_total", transport="local")
+    net = cnn()
+    start = net.get_weights()
+    model = SparkModel(net, mode="asynchronous", frequency="epoch",
+                       parameter_server_mode="local", mesh=["cuda:0"] * ASYNC_WORKERS)
+    LocalClient.update_parameters = summing_push
+    try:
+        t0 = time.perf_counter()
+        history = model.fit(to_simple_rdd(None, x, y), epochs=ASYNC_CNN_EPOCHS,
+                            batch_size=ASYNC_CNN_BATCH, validation_data=(xv, yv))
+        fit_s = time.perf_counter() - t0
+    finally:
+        LocalClient.update_parameters = real_push
+    final = model.get_weights()
+    diff = sum(float(np.sum((final[n].double().numpy() - (start[n].double().numpy()
+                                                          - sums[n])) ** 2)) for n in sums)
+    norm = sum(float(np.sum(start[n].double().numpy() ** 2)) for n in sums)
+    sum_error = (diff / norm) ** 0.5
+    pushes = counter("ps_push_total", transport="local") - pushes0
+    version = model.async_trainer.server.buffer.version
+    evaluation, predictions = model.evaluate(xv, yv), model.predict(xv)
+    report["cnn_async"] = {"history": history, "fit_s": fit_s, "pushes": pushes,
+                           "version": version, "evaluate": evaluation,
+                           "summed_pushes": summed[0], "start_minus_sum_error": sum_error,
+                           "epoch_end_s": np.diff([t0, *model.last_epoch_end_times]).tolist()}
+    print(f"async cnn (SparkModel asynchronous, epoch frequency, local PS, "
+          f"{ASYNC_WORKERS} workers on cuda:0, batch {ASYNC_CNN_BATCH}): "
+          f"{json.dumps(report['cnn_async'])}", flush=True)
+    loss = history["loss"]
+    check(all(np.isfinite(loss)) and loss[-1] < loss[0], f"cnn async loss did not fall: {loss}")
+    check(len(history["val_acc"]) == ASYNC_CNN_EPOCHS, f"val entries: {history['val_acc']}")
+    check(history["val_acc"][-1] > ASYNC_MIN_VAL_ACC,
+          f"cnn async val_acc {history['val_acc'][-1]:.4f} not above {ASYNC_MIN_VAL_ACC}")
+    check(version == pushes == summed[0] == ASYNC_WORKERS * ASYNC_CNN_EPOCHS,
+          f"buffer version {version}, pushes {pushes}: every locked push must apply")
+    check(sum_error <= ASYNC_SUM_LIMIT,
+          f"the server's weights are {sum_error:.3e} (by norm) from the start minus the "
+          f"pushed deltas; limit {ASYNC_SUM_LIMIT}")
+    check(abs(evaluation["loss"] - history["val_loss"][-1])
+          <= 1e-4 * max(1.0, abs(evaluation["loss"])),
+          f"evaluate after the fit {evaluation} is not the last epoch's validation")
+    check(predictions.shape == (len(xv), 10) and np.isfinite(predictions).all(),
+          f"predict gave {predictions.shape}")
+
+    # (2) One worker on the card against the CPU, same weights and rows,
+    # and (3b) below, with cuDNN's deterministic algorithms: benchmark
+    # mode may pick a different algorithm in each fit, and some conv
+    # backward algorithms sum with atomics, neither of which a comparison
+    # of two fits should see.
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    for device in ("cuda:0", "cpu"):
+        net = cnn(device="cpu" if device == "cpu" else None)
+        m = SparkModel(net, mode="asynchronous", frequency="batch", mesh=[device])
+        h = m.fit(to_simple_rdd(None, x[:ASYNC_CPU_ROWS], y[:ASYNC_CPU_ROWS]), epochs=1,
+                  batch_size=ASYNC_CNN_BATCH)
+        runs[device] = (h, m.get_weights())
+    (h_card, w_card), (h_cpu, w_cpu) = runs["cuda:0"], runs["cpu"]
+    diff = sum(float((w_card[k].double() - w_cpu[k].double()).norm() ** 2) for k in w_cpu)
+    ref = sum(float(w_cpu[k].double().norm() ** 2) for k in w_cpu)
+    errors = {"weights_all": (diff / ref) ** 0.5,
+              "loss": abs(h_card["loss"][0] - h_cpu["loss"][0]) / abs(h_cpu["loss"][0])}
+    report["card_vs_cpu"] = {"errors": errors, "limits": ASYNC_CPU_LIMITS,
+                             "loss_card": h_card["loss"], "loss_cpu": h_cpu["loss"]}
+    print(f"async card vs cpu (1 worker, batch frequency, {ASYNC_CPU_ROWS} rows): "
+          f"{json.dumps(report['card_vs_cpu'])}", flush=True)
+    check(not breaches(errors, ASYNC_CPU_LIMITS),
+          f"async card vs cpu: breaches {breaches(errors, ASYNC_CPU_LIMITS)}")
+
+    # (3) The wire transports: 2 workers each, then 1 worker (deterministic
+    # cuDNN) socket against local to the bit.
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    for mode in ("socket", "http"):
+        hits0 = counter("ps_cache_hit_total")
+        m = SparkModel(cnn(), mode="asynchronous", frequency="batch",
+                       parameter_server_mode=mode, port=0,
+                       mesh=["cuda:0"] * ASYNC_WIRE_WORKERS)
+        t0 = time.perf_counter()
+        h = m.fit(to_simple_rdd(None, x, y), epochs=1, batch_size=ASYNC_CNN_BATCH)
+        ev = m.evaluate(xv, yv)
+        report[f"cnn_{mode}"] = {"history": h, "evaluate": ev, "fit_s": time.perf_counter() - t0,
+                                 "not_modified": counter("ps_cache_hit_total") - hits0,
+                                 "version": m.async_trainer.server.buffer.version}
+        print(f"async cnn over {mode} ({ASYNC_WIRE_WORKERS} workers, batch frequency, "
+              f"1 epoch): {json.dumps(report[f'cnn_{mode}'])}", flush=True)
+        check(ev["acc"] > ASYNC_WIRE_MIN_ACC and ev["loss"] < ASYNC_WIRE_MAX_LOSS,
+              f"{mode}: evaluate {ev} not above acc {ASYNC_WIRE_MIN_ACC} and under "
+              f"loss {ASYNC_WIRE_MAX_LOSS:.4f}")
+    # The same pair at epoch frequency with the local server's comms
+    # pipeline on (the delta crosses to the comms thread behind an event,
+    # the pull comes back from it), against it off: with one worker the
+    # epoch's pull follows its own push either way.
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    weights = {}
+    for key, mode, frequency, pipelined in (("local", "local", "batch", False),
+                                            ("socket", "socket", "batch", False),
+                                            ("local_epoch", "local", "epoch", False),
+                                            ("local_epoch_pipelined", "local", "epoch", True)):
+        m = SparkModel(cnn(), mode="asynchronous", frequency=frequency,
+                       parameter_server_mode=mode, port=0, mesh=["cuda:0"],
+                       pipelined_comms=pipelined)
+        m.fit(to_simple_rdd(None, x[:ASYNC_BITWISE_ROWS], y[:ASYNC_BITWISE_ROWS]), epochs=2,
+              batch_size=ASYNC_CNN_BATCH)
+        weights[key] = m.get_weights()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+
+    def same(a, b):
+        return all(torch.equal(weights[a][k], weights[b][k]) for k in weights[a])
+
+    report["socket_equals_local"] = same("local", "socket")
+    report["pipelined_equals_unpipelined"] = same("local_epoch", "local_epoch_pipelined")
+    print(f"async, 1 worker, {ASYNC_BITWISE_ROWS} rows, 2 epochs: socket vs local (batch "
+          f"frequency, unpipelined) identical {report['socket_equals_local']}; local "
+          f"pipelined vs unpipelined (epoch frequency) identical "
+          f"{report['pipelined_equals_unpipelined']}", flush=True)
+    check(report["socket_equals_local"], "socket and local gave different weights, 1 worker")
+    check(report["pipelined_equals_unpipelined"],
+          "the local comms pipeline changed the weights of an epoch-frequency fit, 1 worker")
+
+    # (4) The ResNet-18, hogwild, 4 workers, both granularities; then
+    # (5) 1 worker, and the synchronous fit at the same global batch.
+    train, test = synthetic_cifar10(*HOGWILD_ROWS)
+    (x, y), (xv, yv) = images(train), images(test)
+    def resnet():
+        return compile_model(get_model("resnet18", dtype="bfloat16"), optimizer=HOGWILD_OPTIMIZER,
+                             loss="categorical_crossentropy", metrics=["acc"],
+                             input_shape=(32, 32, 3), seed=SEED)
+
+    def hogwild(workers, granularity, epochs=HOGWILD_EPOCHS):
+        m = SparkModel(resnet(), mode="hogwild", frequency="batch",
+                       hogwild_granularity=granularity, mesh=["cuda:0"] * workers)
+        t0 = time.perf_counter()
+        h = m.fit(to_simple_rdd(None, x, y), epochs=epochs, batch_size=HOGWILD_BATCH,
+                  validation_data=(xv, yv))
+        fit_s = time.perf_counter() - t0
+        rows = workers * (len(x) // workers // HOGWILD_BATCH) * HOGWILD_BATCH
+        return m, h, {"history": h, "fit_s": fit_s, "workers": workers,
+                      "granularity": granularity, "global_batch": workers * HOGWILD_BATCH,
+                      "samples_per_s_epochs_2_on": epoch_rate(m.last_epoch_end_times, rows)}
+
+    tracer = obs.enable_tracing(annotate_device=False)
+    for granularity in ("tree", "leaf"):
+        tracer.clear()
+        m, h, rec = hogwild(ASYNC_WORKERS, granularity)
+        buffer = m.async_trainer.server.buffer
+        ev = m.evaluate(xv, yv)
+        finite = all(bool(torch.isfinite(t).all()) for t in m.get_weights().values()
+                     if t.is_floating_point())
+        rec.update({"version": buffer.version, "applied_share": buffer.applied_share(),
+                    "evaluate": ev, "weights_finite": finite,
+                    "spans": span_ms(tracer.events(), ("async/unit", "async/pull",
+                                                       "async/train", "async/push",
+                                                       "ps/pull", "ps/push"))})
+        report[f"resnet_hogwild_{granularity}"] = rec
+        print(f"async resnet18 hogwild ({granularity}; batch frequency, bf16, "
+              f"{ASYNC_WORKERS} workers on cuda:0, batch {HOGWILD_BATCH} each): "
+              f"{json.dumps(rec)}", flush=True)
+        check(all(np.isfinite(h["loss"])) and h["loss"][-1] < h["loss"][0],
+              f"hogwild {granularity} loss not finite or not falling: {h['loss']}")
+        check(finite and np.isfinite(list(ev.values())).all(),
+              f"hogwild {granularity}: weights finite {finite}, evaluate {ev}")
+    obs.disable_tracing()
+    _, _, report["resnet_hogwild_1_worker"] = hogwild(1, "tree")
+    print(f"async resnet18 hogwild, 1 worker: "
+          f"{json.dumps(report['resnet_hogwild_1_worker'])}", flush=True)
+    net = resnet()
+    ends = []
+    t0 = time.perf_counter()
+    h = SparkModel(net, mode="synchronous", frequency="batch").fit(
+        to_simple_rdd(None, x, y), epochs=HOGWILD_EPOCHS,
+        batch_size=ASYNC_WORKERS * HOGWILD_BATCH, validation_data=(xv, yv),
+        callbacks=[lambda e, state, metrics: ends.append(time.perf_counter())])
+    rows = (len(x) // (ASYNC_WORKERS * HOGWILD_BATCH)) * ASYNC_WORKERS * HOGWILD_BATCH
+    report["resnet_sync_same_global_batch"] = {
+        "history": h, "fit_s": time.perf_counter() - t0,
+        "batch": ASYNC_WORKERS * HOGWILD_BATCH, "samples_per_s_epochs_2_on": epoch_rate(ends, rows)}
+    print(f"resnet18 synchronous fit at the same global batch: "
+          f"{json.dumps(report['resnet_sync_same_global_batch'])}", flush=True)
+    report["profile_hogwild_epoch"] = device_breakdown(
+        lambda: hogwild(ASYNC_WORKERS, "tree", epochs=1), top=8)
+    print(f"async resnet18 hogwild, one epoch with {ASYNC_WORKERS} workers (fit set-up "
+          f"included; kernels on all streams summed): "
+          f"{json.dumps(report['profile_hogwild_epoch'])}", flush=True)
+
+    launches = dict(attention_cuda.launches)
+    check(launches == {k: 0 for k in KERNELS},
+          f"the async path launched flash kernels: {launches}")
+    return launches, report
+
+
 def kernel_entries(timing, errors, launches):
     """The ``{"kernels": [...]}`` line's entries: each kernel's source,
     the TPU kernel it replaces, its launches on the main path (the LM
@@ -1448,6 +1767,8 @@ def main():
     print(f"repair: {json.dumps(report)}", flush=True)
     launches["serving"], report = serving_phase(attention_cuda)
     print(f"serving: {json.dumps(report)}", flush=True)
+    launches["async"], report = async_phase(attention_cuda)
+    print(f"async: {json.dumps(report)}", flush=True)
 
     print(json.dumps({"kernels": kernel_entries(timing, errors, launches)}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 The package mirrors the JAX package module for module (``models/``,
 ``ops/``, ``api/``, ``engine/``, ``data/``, ``parallel/``, ``native/``,
-``metrics/``, ``serving/``, ``obs/``, ``utils/``) so each file has one obvious reference, and
+``metrics/``, ``serving/``, ``obs/``, ``parameter/``, ``resilience/``,
+``utils/``) so each file has one obvious reference, and
 imports nothing of JAX or of ``elephas_tpu``. Plain tensor code is
 PyTorch; the Pallas kernels of the JAX package are hand-written CUDA
 kernels under ``csrc/``, built with ``nvcc`` at first use
@@ -10,9 +11,11 @@ kernels under ``csrc/``, built with ``nvcc`` at first use
 
 Entry points (``models.get_model``, ``api.CompiledModel``,
 ``models.transformer.generate``, ``engine.step.make_train_step``,
-``SparkModel``, ``serving.InferenceEngine``) run on ``cuda`` unless the
-caller passes ``device="cpu"`` to ``get_model``; without a GPU and
-without that argument they raise.
+``SparkModel`` in every mode, ``AsyncTrainer``, the parameter servers,
+``serving.InferenceEngine``) run on ``cuda`` unless the caller passes
+``device="cpu"`` to ``get_model`` (a parameter server: to its
+constructor; the async workers: ``mesh=["cpu"] * n``); without a GPU
+and without that argument they raise.
 
 Importing the package builds and loads nothing: a kernel library (or the
 host-ops library, ``native/``) is built and loaded where one of its
@@ -28,3 +31,6 @@ from elephas_tpu_torch.api.spark_model import (  # noqa: E402,F401
     load_spark_model,
 )
 from elephas_tpu_torch.data.rdd import ShardedDataset, to_simple_rdd  # noqa: E402,F401
+from elephas_tpu_torch.engine.async_engine import AsyncTrainer  # noqa: E402,F401
+from elephas_tpu_torch.models.cnn import SimpleCNN  # noqa: E402,F401
+from elephas_tpu_torch import parameter  # noqa: E402,F401

@@ -3,14 +3,19 @@
 Reference: ``elephas/spark_model.py::SparkModel``
 (SURVEY.md §2.1, §3.1, §3.5). The constructor signature, the
 mode/frequency semantics and the fit/predict/evaluate surface are the
-JAX package's. Spark executors become the processes of a
-``torch.distributed`` group, one per device (``parallel/mesh.py``); one
-process with no group is a group of one.
+JAX package's.
 
-Ported: ``mode="synchronous"`` (``engine/sync.py``). Not ported yet, and
-raising where asked for: ``"asynchronous"`` and ``"hogwild"``,
-``save``/``load_spark_model``, Keras models and ``model_to_dict``
-payloads (ROADMAP.md, queue 1).
+- ``mode="synchronous"`` (``engine/sync.py``): Spark executors become the
+  processes of a ``torch.distributed`` group, one per device
+  (``parallel/mesh.py``); one process with no group is a group of one.
+- ``mode="asynchronous"`` (the default) and ``"hogwild"``
+  (``engine/async_engine.py``): Downpour SGD, one worker thread per
+  device of the worker list against a parameter server on the card
+  (``parameter/``), locked or lock-free.
+
+Not ported yet, and raising where asked for: ``save``/``load_spark_model``,
+Keras models and ``model_to_dict`` payloads, ``autotune`` and
+``stream_batches`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import numpy as np
 
 from elephas_tpu_torch.api.compile import CompiledModel
 from elephas_tpu_torch.data.rdd import ShardedDataset
+from elephas_tpu_torch.engine.async_engine import AsyncTrainer, default_worker_devices
 from elephas_tpu_torch.engine.step import init_train_state
 from elephas_tpu_torch.engine.sync import SyncTrainer
 from elephas_tpu_torch.parallel.mesh import build_mesh, world
+from elephas_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -42,18 +49,31 @@ class TpuModel:
 
     Parameters mirror the reference constructor and the JAX package's:
 
-    mode: 'synchronous' (ported) | 'asynchronous' | 'hogwild' (raise).
+    mode: 'synchronous' | 'asynchronous' (Downpour SGD, locked parameter
+        server) | 'hogwild' (lock-free).
     frequency: 'batch' | 'epoch' | 'fit' — the averaging granularity of
-        synchronous training (``engine/sync.py``).
-    parameter_server_mode, port, hogwild_granularity, max_failures,
-        pipelined_comms: the asynchronous modes' settings. They are
-        validated as the JAX package validates them and then dropped:
-        synchronous training, the one mode ported, reads none of them.
-    num_workers: data-group size; defaults to the world size (one process
-        per device) and is capped to it with a warning.
+        synchronous training (``engine/sync.py``); 'batch' | 'epoch' — the
+        pull/train/push unit of the asynchronous modes.
+    parameter_server_mode: 'local' | 'http' | 'socket' (asynchronous
+        modes): the transport between the workers and the parameter
+        server (``parameter/``); ``port`` its port (0: a free one).
+    hogwild_granularity: 'tree' | 'leaf', the hogwild apply isolation
+        (``parameter.buffer.ParameterBuffer``).
+    max_failures: attempts per asynchronous unit before a worker fault
+        fails the fit (Spark's ``spark.task.maxFailures``).
+    pipelined_comms: asynchronous modes: each worker's parameter-server
+        traffic on a background thread (default: on for the wire
+        transports).
+    num_workers: synchronous: the data-group size, defaulting to the
+        world size (one process per device). Asynchronous: the number of
+        worker threads, defaulting to the length of the worker device
+        list. Either is capped with a warning.
     custom_objects: kept for deserialization.
     batch_size: default per-worker batch size for ``fit``.
-    mesh: an optional pre-built ``parallel.mesh.Mesh``.
+    mesh: synchronous: an optional pre-built ``parallel.mesh.Mesh``.
+        Asynchronous: the workers' devices, a list in which a device may
+        repeat (several workers on one card, each on its own stream);
+        default one per visible card of the model's device type.
     autotune: compile-option A/B; not ported (raises when True).
     """
 
@@ -83,8 +103,6 @@ class TpuModel:
             )
         if max_failures < 1:
             raise ValueError(f"max_failures must be >= 1, got {max_failures}")
-        if mode != "synchronous":
-            raise _not_ported(f"mode={mode!r}", "async and hogwild training")
         if autotune:
             raise _not_ported("autotune (a torch.compile mode A/B)",
                               "the sync fit slice's left-outs")
@@ -100,10 +118,23 @@ class TpuModel:
         self._master = model
         self.mode = mode
         self.frequency = frequency
+        self.parameter_server_mode = parameter_server_mode
+        self.port = port
+        self.hogwild_granularity = hogwild_granularity
+        self.max_failures = max_failures
+        self.pipelined_comms = pipelined_comms
         self.custom_objects = custom_objects or {}
         self.batch_size = batch_size
+        self.last_epoch_end_times = None
+        self.async_trainer = None  # the last asynchronous fit's trainer
 
-        n_devices = world()[0]
+        self._worker_devices = None
+        if mode == "synchronous":
+            n_devices = world()[0]
+        else:
+            devices = (default_worker_devices(next(model.module.parameters()).device)
+                       if mesh is None else [resolve_device(d) for d in mesh])
+            n_devices = len(devices)
         if num_workers is None:
             num_workers = n_devices
         if num_workers > n_devices:
@@ -114,7 +145,11 @@ class TpuModel:
             )
             num_workers = n_devices
         self.num_workers = num_workers
-        self._mesh = mesh
+        if mode == "synchronous":
+            self._mesh = mesh
+        else:
+            self._worker_devices = devices[:num_workers]
+            self._mesh = None
         self._state = None  # latest TrainState (post-fit)
         self._sync_trainer = None
         self.training_histories: List[Dict[str, List[float]]] = []
@@ -140,8 +175,11 @@ class TpuModel:
 
     @property
     def mesh(self):
+        """The synchronous data group; the asynchronous modes evaluate and
+        predict on the process group (one process)."""
         if self._mesh is None:
-            self._mesh = build_mesh(num_data=self.num_workers)
+            self._mesh = build_mesh(num_data=self.num_workers if self.mode == "synchronous"
+                                    else None)
         return self._mesh
 
     def _as_dataset(self, data) -> ShardedDataset:
@@ -175,6 +213,12 @@ class TpuModel:
         every epoch, and its ``on_fit_end()`` (where it has one) after the
         fit. ``initial_state``: a ``TrainState`` to resume from.
         ``stream_batches`` is not ported yet and raises.
+
+        In the asynchronous modes the parameter server's final weights are
+        folded back into the master network, and ``last_epoch_end_times``
+        holds the wall time at which the slowest worker finished each
+        epoch (the training cadence; callbacks run on a drainer thread
+        that lags it).
         """
         if stream_batches is not None:
             raise _not_ported("stream_batches (streamed epochs)",
@@ -194,23 +238,50 @@ class TpuModel:
                 dataset = ShardedDataset(dataset.features[:-n_val], dataset.labels[:-n_val],
                                          dataset.num_partitions)
 
-        trainer = SyncTrainer(self._master, self.mesh, frequency=self.frequency)
-        state, history = trainer.fit(
-            dataset,
-            epochs=epochs,
-            batch_size=batch_size,
-            validation_data=validation_data,
-            verbose=verbose,
-            callbacks=callbacks,
-            initial_state=initial_state,
-        )
-        self._sync_trainer = trainer
+        if self.mode == "synchronous":
+            trainer = SyncTrainer(self._master, self.mesh, frequency=self.frequency)
+            state, history = trainer.fit(
+                dataset,
+                epochs=epochs,
+                batch_size=batch_size,
+                validation_data=validation_data,
+                verbose=verbose,
+                callbacks=callbacks,
+                initial_state=initial_state,
+            )
+            self._sync_trainer = trainer
+        else:
+            trainer = AsyncTrainer(
+                self._master,
+                self._worker_devices,
+                frequency=self.frequency,
+                lock=(self.mode == "asynchronous"),
+                parameter_server_mode=self.parameter_server_mode,
+                port=self.port,
+                granularity=(self.hogwild_granularity if self.mode == "hogwild"
+                             else "tree"),
+                max_failures=self.max_failures,
+                pipelined_comms=self.pipelined_comms,
+            )
+            state, history = trainer.fit(
+                dataset,
+                epochs=epochs,
+                batch_size=batch_size,
+                validation_data=validation_data,
+                verbose=verbose,
+                callbacks=callbacks,
+                initial_step=int(initial_state.step) if initial_state is not None else 0,
+            )
+            self._sync_trainer = None
+            self.async_trainer = trainer
+            self.last_epoch_end_times = trainer.epoch_end_times
         for cb in callbacks:
             hook = getattr(cb, "on_fit_end", None)
             if hook is not None:
                 hook()
         # The master network's module holds the trained weights already:
-        # training updates them in place.
+        # synchronous training updates them in place, the asynchronous
+        # trainer copies the parameter server's final weights into it.
         self._state = state
         self.training_histories.append(history)
         return history

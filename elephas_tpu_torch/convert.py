@@ -24,14 +24,17 @@ Layouts (``TransformerLM``):
 - every other Dense kernel is (in, out) -> ``Linear.weight`` (out, in);
 - ``LayerNorm_k/{scale, bias}`` -> ``weight``, ``bias``.
 
-Layouts (``ResNet``, ``MLP``):
+Layouts (``ResNet``, ``MLP``, ``SimpleCNN``):
 
-- ``Conv_k/kernel`` HWIO -> ``Conv2d.weight`` OIHW;
+- ``Conv_k/kernel`` HWIO -> ``Conv2d.weight`` OIHW (and the CNN's
+  ``Conv_k/bias`` -> ``bias``);
 - ``BatchNorm_k/{scale, bias}`` -> ``weight``, ``bias``, and the
   ``batch_stats`` ``BatchNorm_k/{mean, var}`` -> ``running_mean``,
   ``running_var``; ``num_batches_tracked`` is set to 0 on the way in and
   has no flax leaf on the way out;
-- ``Dense_k`` as above.
+- ``Dense_k`` as above. The CNN's first dense layer takes the feature
+  map flattened in flax's (H, W, C) order, so its kernel maps as any
+  other.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 from torch.nn.parameter import is_lazy
 
+from elephas_tpu_torch.models.cnn import SimpleCNN
 from elephas_tpu_torch.models.mlp import MLP
 from elephas_tpu_torch.models.resnet import ResNet
 from elephas_tpu_torch.models.transformer import TransformerLM
@@ -147,7 +151,19 @@ def _mlp_rows(module: MLP):
     return rows + _dense(f"Dense_{len(module.hidden)}", "out")
 
 
-_LAYOUTS = ((TransformerLM, _transformer_lm_rows), (ResNet, _resnet_rows), (MLP, _mlp_rows))
+def _cnn_rows(module: SimpleCNN):
+    """The convs (HWIO kernel and bias), then the two denses; the port's
+    CNN flattens its feature map in flax's (H, W, C) order, so the first
+    dense kernel's rows need no permutation."""
+    rows = []
+    for i in range(len(module.convs)):
+        rows += _conv(f"Conv_{i}", f"convs.{i}")
+        rows.append(("params", f"Conv_{i}/bias", f"convs.{i}.bias", _same, _same))
+    return rows + _dense("Dense_0", "dense") + _dense("Dense_1", "out")
+
+
+_LAYOUTS = ((TransformerLM, _transformer_lm_rows), (ResNet, _resnet_rows), (MLP, _mlp_rows),
+            (SimpleCNN, _cnn_rows))
 
 
 def _rows(module, collections=_COLLECTIONS):

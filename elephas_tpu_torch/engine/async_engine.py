@@ -1,0 +1,954 @@
+"""Asynchronous / hogwild trainer: Downpour SGD against the parameter
+server (counterpart of ``elephas_tpu/engine/async_engine.py``).
+
+Reference semantics (SURVEY.md §3.2): each ``AsynchronousSparkWorker``
+loops pull -> train one ``frequency`` unit ('epoch' or 'batch') -> push
+delta against the driver's parameter server; ``asynchronous`` locks the
+server state, ``hogwild`` doesn't.
+
+Each worker is a host thread driving its own copy of the model on its
+device, and the parameter server is a ``ParameterBuffer`` on the card:
+with the ``local`` transport a pull hands out the buffer's tensors and a
+push subtracts on the card; the ``http``/``socket`` transports carry the
+same loop over the JAX package's wire frames.
+
+What the port does where the JAX package leaned on XLA and pure
+functions:
+
+- **One module per worker.** The module holds the weights and training
+  updates them in place, so each worker trains a ``CompiledModel.clone()``
+  with its own optimizer, which Downpour keeps across rounds (only
+  weights flow through the server, as in the reference), and its own
+  ``torch.Generator`` for dropout, seeded from (977, worker, step,
+  attempt) as the JAX package folds its key. A pull copies the pulled
+  weights into the worker's module; the delta is ``pulled - trained``
+  over the parameters and the buffers (BatchNorm statistics travel in
+  ``batch_stats``), and the server computes ``weights -= delta``.
+- **Streams.** On the card each worker issues its work on a stream of
+  its own, and the buffer on another. The buffer orders its work after
+  the pusher's stream and hands snapshots over to the reader's stream
+  (``ParameterBuffer.hand_over``); a delta crossing to the comms thread
+  travels with an event recorded on the worker's stream (``_Handoff``),
+  copied to pinned host memory first for a wire push.
+- **Threads on one card take turns launching.** Workers on one card
+  hold the card's dispatch lock while they launch a train step (the
+  pull and the push stay outside it, so hogwild's applies still race).
+  Eager PyTorch launches a step as hundreds of GIL-releasing calls, and
+  four threads interleaving them ran at half the speed of one thread
+  launching alone on the H100 (``scripts/torch_async_threads.py``); the
+  card runs the queued steps of all workers' streams either way. Off the
+  card a step's launches are its compute, so CPU workers take no lock.
+- **The shuffle.** Each worker permutes its partition on the device
+  every epoch, from a ``torch.Generator`` seeded by (worker, epoch,
+  attempt) (``worker_permutation``); torch cannot reproduce the JAX
+  package's threefry keys, so the orders differ from its orders.
+
+A retried unit starts again from a fresh pull (weights) and a re-seeded
+stream; the worker's optimizer state keeps whatever the failed attempt
+did to it (the JAX package's functional state rolls it back).
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
+item): the elastic pool with fault plans and batch-range units, the
+sharded PS group with standbys, the PS write-ahead log, the ops
+endpoint, compile autotuning, streamed partitions, and a world of more
+than one process.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import threading
+import time
+from collections import deque
+from contextlib import nullcontext
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from elephas_tpu_torch import obs
+from elephas_tpu_torch.engine.state import TrainState
+from elephas_tpu_torch.engine.step import (
+    DeviceEvalCache,
+    init_train_state,
+    make_epoch_scanner,
+    make_eval_step,
+    make_train_step,
+    weighted_mean_over_chunks,
+)
+from elephas_tpu_torch.parameter.client import (
+    HostCopy,
+    ParameterServerUnavailable,
+    StaleDeltaRejected,
+)
+from elephas_tpu_torch.parameter.server import make_server
+from elephas_tpu_torch.utils.device import resolve_device
+from elephas_tpu_torch.utils.functional_utils import tree_map
+
+_FREQUENCIES = ("batch", "epoch")
+
+logger = logging.getLogger(__name__)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; it arrives with {item} "
+                               "(ROADMAP.md, queue 1)")
+
+
+def _seed(*words: int) -> int:
+    """A 63-bit generator seed from a sequence of ints."""
+    key = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
+    return int(key) & 0x7FFFFFFFFFFFFFFF
+
+
+def worker_permutation(index: int, epoch: int, attempt: int, n: int) -> torch.Tensor:
+    """The order of worker ``index``'s ``n`` rows in ``epoch``: a CPU
+    ``torch.Generator`` permutation seeded from (1234, worker, 7, epoch),
+    and 10000 + attempt on a retry (the words the JAX package folds into
+    its shuffle key)."""
+    words = [1234, index, 7, epoch] + ([10_000 + attempt] if attempt else [])
+    return torch.randperm(n, generator=torch.Generator().manual_seed(_seed(*words)))
+
+
+def dropout_seed(index: int, step: int, attempt: int) -> int:
+    """Seed of worker ``index``'s dropout generator at ``step``: (977,
+    worker, step), and 10000 + attempt on a retry."""
+    return _seed(977, index, step, *([10_000 + attempt] if attempt else []))
+
+
+class _Handoff:
+    """A delta passed from a worker thread to its comms thread. A wire
+    push starts the copy to pinned host memory on the worker's stream
+    (``HostCopy``); a local push records an event there that the comms
+    thread's stream waits for before the buffer takes the delta."""
+
+    __slots__ = ("tree", "event", "device")
+
+    def __init__(self, tree, to_host: bool):
+        self.tree, self.event, self.device = tree, None, None
+        if to_host:
+            self.tree = HostCopy.start(tree)
+            return
+        for leaf in _tensors(tree):
+            if leaf.device.type == "cuda":
+                self.device, self.event = leaf.device, torch.cuda.Event()
+                self.event.record(torch.cuda.current_stream(leaf.device))
+                break
+
+    def resolve(self):
+        if self.event is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.event)
+        return self.tree
+
+
+def _tensors(tree):
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+class _PullBox:
+    """One in-flight prefetched pull: the comms thread fills exactly one
+    of value/error, then sets the event."""
+
+    __slots__ = ("event", "value", "error")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.value = None
+        self.error = None
+
+
+class _CommsPipeline:
+    """Per-worker background comms thread: pushes become bounded
+    fire-and-forget, pulls become prefetches.
+
+    One FIFO queue, one thread — deltas are applied in the order the
+    worker produced them, and a prefetched pull is ordered exactly where
+    the worker enqueued it. The queue is bounded (``maxsize=3``): a
+    worker outrunning the wire blocks in ``push()``.
+
+    Failure contract: ``ParameterServerUnavailable`` is recorded as fatal
+    and re-raised by the worker's next pipeline op, never retried; a
+    transient push failure retries the SAME delta up to
+    ``max_push_attempts`` (at-least-once, as ``run_unit``); pull failures
+    surface to the waiting worker; ``StaleDeltaRejected`` drops the
+    delta, forces the next pull onto fresh parameters and halves the
+    units-per-push interval. After a fatal the thread drains the queue
+    without wire ops, so ``flush``/``close`` never deadlock.
+
+    Adaptive sync interval (AIMD): ``push()`` coalesces deltas (a tree
+    sum) and enqueues one wire push per ``round(interval)`` units; a
+    rejection halves the interval (floor 1.0), each accepted push adds
+    0.25 back up to the baseline. The live value is the
+    ``worker_sync_interval`` gauge and is stamped onto the client.
+
+    ``to_host``: deltas cross to the comms thread as pinned host copies
+    (the wire transports) or as device tensors behind an event (local).
+    """
+
+    _PUSH_RETRY_DELAYS = (0.05, 0.1, 0.2)
+
+    def __init__(self, client, worker_index: int, max_push_attempts: int,
+                 sleep=time.sleep, sync_interval: float = 1.0, to_host: bool = True):
+        if sync_interval < 1.0:
+            raise ValueError(f"sync_interval must be >= 1.0, got {sync_interval}")
+        self._client = client
+        self._sleep = sleep
+        self._to_host = to_host
+        self._max_push_attempts = max(1, max_push_attempts)
+        self._worker_label = f"w{worker_index}"
+        self._queue: queue.Queue = queue.Queue(maxsize=3)
+        self._fatal: Optional[BaseException] = None
+        self._pending: Optional[_PullBox] = None
+        self._push_cond = threading.Condition()
+        self._pushes_enqueued = 0
+        self._pushes_done = 0
+        self._baseline = float(sync_interval)
+        self._interval = float(sync_interval)
+        self._acc = None
+        self._acc_units = 0
+        self._repull = threading.Event()
+        self.rejections = 0
+        self._set_interval(self._interval)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=f"worker{worker_index}-comms")
+        self._thread.start()
+
+    @property
+    def sync_interval(self) -> float:
+        """The live train-units-per-push interval (AIMD-adjusted)."""
+        return self._interval
+
+    def _set_interval(self, value: float) -> None:
+        value = float(value)
+        self._interval = value
+        try:
+            self._client.sync_interval = value
+        except Exception:
+            pass  # a client that refuses the stamp just goes unlabeled
+        obs.default_registry().gauge(
+            "worker_sync_interval",
+            help="adaptive train-units-per-push interval (AIMD: halved "
+                 "on a stale-delta rejection, +0.25 per accept up to "
+                 "the configured baseline)",
+            labelnames=("worker",),
+        ).labels(worker=self._worker_label).set(value)
+
+    # -- worker-side API ------------------------------------------------
+
+    def prefetch(self) -> None:
+        """Schedule the next pull now so it rides the wire while the
+        worker trains; no-op if one is pending or the pipeline is dead."""
+        if self._fatal is not None or self._pending is not None:
+            return
+        box = _PullBox()
+        self._pending = box
+        self._put(self._item("pull", box))
+
+    def pull(self):
+        """Consume the pending prefetch (or pull now), blocking until the
+        parameters arrive; after a rejection a pending prefetch is
+        discarded for a fresh pull."""
+        self._raise_if_fatal()
+        box, self._pending = self._pending, None
+        if box is not None and self._repull.is_set():
+            box.event.wait()
+            box = None
+        if box is None:
+            self._repull.clear()
+            box = _PullBox()
+            self._put(self._item("pull", box))
+        box.event.wait()
+        if box.error is not None:
+            raise box.error
+        return box.value
+
+    def push(self, delta) -> None:
+        """Record one unit's delta; enqueues a wire push once
+        ``round(interval)`` units have coalesced."""
+        self._raise_if_fatal()
+        self._acc = delta if self._acc is None else tree_map(torch.add, self._acc, delta)
+        self._acc_units += 1
+        if self._acc_units >= max(1, int(round(self._interval))):
+            self._enqueue_acc()
+
+    def _enqueue_acc(self) -> None:
+        delta, self._acc = self._acc, None
+        self._acc_units = 0
+        with self._push_cond:
+            self._pushes_enqueued += 1
+        self._put(self._item("push", _Handoff(delta, self._to_host)))
+
+    def flush(self) -> None:
+        """Push any coalesced remainder, then wait for every enqueued
+        push to complete (not for a pending prefetch)."""
+        if self._acc is not None:
+            self._enqueue_acc()
+        with self._push_cond:
+            while self._pushes_done < self._pushes_enqueued:
+                self._push_cond.wait(0.05)
+        self._raise_if_fatal()
+
+    def close(self) -> None:
+        """Stop and join the comms thread (idempotent)."""
+        if self._thread is None:
+            return
+        self._put(("stop", None, None, None))
+        self._thread.join()
+        self._thread = None
+
+    # -- comms thread ---------------------------------------------------
+
+    @staticmethod
+    def _item(kind, payload):
+        # Contextvars don't cross the queue hop: carry the worker's trace
+        # context and the enqueue time with the item.
+        tracer = obs.default_tracer()
+        return (kind, payload, obs.current_context(),
+                tracer.clock() if tracer.enabled else None)
+
+    def _raise_if_fatal(self) -> None:
+        if self._fatal is not None:
+            raise self._fatal
+
+    def _put(self, item) -> None:
+        while True:
+            try:
+                self._queue.put(item, timeout=0.05)
+                return
+            except queue.Full:
+                continue
+
+    def _loop(self) -> None:
+        while True:
+            kind, payload, ctx, enqueue_t = self._queue.get()
+            if kind == "stop":
+                return
+            with obs.activate(ctx):
+                tracer = obs.default_tracer()
+                if enqueue_t is not None and tracer.enabled:
+                    tracer.record("comms/queued", enqueue_t, tracer.clock(),
+                                  op=kind, worker=self._worker_label)
+                if kind == "pull":
+                    self._pull(payload)
+                else:
+                    try:
+                        if self._fatal is None:
+                            self._push_with_retry(payload.resolve())
+                    finally:
+                        with self._push_cond:
+                            self._pushes_done += 1
+                            self._push_cond.notify_all()
+
+    def _pull(self, box: _PullBox) -> None:
+        if self._fatal is not None:
+            box.error = self._fatal
+        else:
+            try:
+                box.value = self._client.get_parameters()
+            except BaseException as exc:
+                box.error = exc
+                if isinstance(exc, ParameterServerUnavailable):
+                    self._fatal = exc
+        box.event.set()
+
+    def _push_with_retry(self, delta) -> None:
+        for attempt in range(self._max_push_attempts):
+            try:
+                self._client.update_parameters(delta)
+                if self._interval < self._baseline:
+                    self._set_interval(min(self._baseline, self._interval + 0.25))
+                return
+            except ParameterServerUnavailable as exc:
+                self._fatal = exc  # fail-fast contract: never retried
+                return
+            except StaleDeltaRejected:
+                self.rejections += 1
+                self._repull.set()
+                self._set_interval(max(1.0, self._interval / 2.0))
+                return
+            except Exception as exc:
+                if attempt + 1 >= self._max_push_attempts:
+                    self._fatal = exc
+                    return
+                obs.default_registry().counter(
+                    "ps_push_retry_total",
+                    help="background same-delta push retries (pipelined comms)",
+                    labelnames=("worker",),
+                ).labels(worker=self._worker_label).inc()
+                self._sleep(self._PUSH_RETRY_DELAYS[
+                    min(attempt, len(self._PUSH_RETRY_DELAYS) - 1)])
+
+
+def default_worker_devices(device: torch.device) -> List[torch.device]:
+    """One worker per visible card (the master's device type); one on
+    the CPU for a model on the CPU."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _taking_turns(step, lock):
+    """``step`` run under ``lock`` (None: as it is)."""
+    if lock is None:
+        return step
+
+    def locked(state, x, y):
+        with lock:
+            return step(state, x, y)
+
+    return locked
+
+
+class _WorkerModel:
+    """One worker's copy of the model: the module, its optimizer (kept
+    across rounds), the train step and epoch scanner over it (the step
+    under the card's dispatch lock, where there is one), its dropout
+    generator, and the flat (sorted-name) lists of the tensors a pull
+    fills and a push differences."""
+
+    def __init__(self, compiled, device: torch.device, dispatch_lock=None):
+        self.model = compiled.clone()
+        self.model.module.to(device)
+        self.device = device
+        self.generator = torch.Generator(device=device)
+        if hasattr(self.model.module, "dropout_generator"):
+            self.model.module.dropout_generator = self.generator
+        self.state = TrainState.create(optimizer=self.model.init_opt_state(),
+                                       rng=self.generator)
+        self.train_step = _taking_turns(make_train_step(self.model), dispatch_lock)
+        self.epoch_fn = make_epoch_scanner(self.train_step)
+        params, buffers = store_of(self.model.module)
+        self.names = (list(params), list(buffers))
+        self.tensors = [*params.values(), *buffers.values()]
+
+    def flat(self, tree) -> List[torch.Tensor]:
+        return ([tree["params"][n] for n in self.names[0]]
+                + [tree["batch_stats"][n] for n in self.names[1]])
+
+    def tree(self, flat) -> Dict[str, Dict[str, torch.Tensor]]:
+        k = len(self.names[0])
+        return {"params": dict(zip(self.names[0], flat[:k])),
+                "batch_stats": dict(zip(self.names[1], flat[k:]))}
+
+    def load(self, pulled) -> List[torch.Tensor]:
+        """Copy a pulled tree into the module; returns the pulled tensors
+        on this device (the ``before`` of the delta: never written)."""
+        before = [t.to(self.device, non_blocking=True) for t in self.flat(pulled)]
+        with torch.no_grad():
+            torch._foreach_copy_(self.tensors, before)
+        return before
+
+    def delta(self, before) -> List[torch.Tensor]:
+        """``before - trained`` over every tensor, out of place."""
+        with torch.no_grad():
+            return torch._foreach_sub(before, [t.detach() for t in self.tensors])
+
+
+def store_of(module) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """A module's ``(params, batch_stats)``: its parameters and its
+    buffers (the BatchNorm statistics), each by sorted name."""
+    params = dict(module.named_parameters())
+    buffers = dict(module.named_buffers())
+    return ({n: params[n].detach() for n in sorted(params)},
+            {n: buffers[n] for n in sorted(buffers)})
+
+
+def load_store(module, tree) -> None:
+    """Copy a ``{"params", "batch_stats"}`` tree into ``module``."""
+    params, buffers = store_of(module)
+    dst = [*params.values(), *buffers.values()]
+    src = [tree["params"][n] for n in params] + [tree["batch_stats"][n] for n in buffers]
+    with torch.no_grad():
+        torch._foreach_copy_(dst, [s.to(d.device) for s, d in zip(src, dst)])
+
+
+class AsyncTrainer:
+    def __init__(
+        self,
+        compiled,
+        mesh=None,
+        frequency: str = "epoch",
+        lock: bool = True,
+        parameter_server_mode: str = "local",
+        port: int = 4000,
+        granularity: str = "tree",
+        max_failures: int = 4,
+        autotune: bool = False,
+        stream_batches: Optional[int] = None,
+        pipelined_comms: Optional[bool] = None,
+        elastic: bool = False,
+        fault_plan=None,
+        ps_wal_dir: Optional[str] = None,
+        ps_ops_port: Optional[int] = None,
+        ps_shards: Optional[int] = None,
+        standby: Optional[int] = None,
+        sync_interval: float = 1.0,
+        batches_per_unit: Optional[int] = None,
+    ):
+        """``mesh``: the workers' devices, a list in which a device may
+        repeat (several workers on one card, each on its own stream) —
+        the port's counterpart of the JAX mesh's data axis. Default: one
+        worker per visible card. The parameter server's buffer lives on
+        the master model's device.
+
+        ``pipelined_comms``: run each worker's PS traffic on a background
+        comms thread (``_CommsPipeline``): pushes become bounded
+        fire-and-forget and the next pull prefetches while the unit
+        trains ('batch'; 'epoch' prefetches after the push). Default: on
+        for the wire transports, off for 'local'. At 'batch' frequency a
+        prefetched pull can miss the worker's own just-pushed delta.
+
+        ``granularity`` ('tree'|'leaf'): hogwild apply isolation
+        (``ParameterBuffer``). ``max_failures``: attempts per
+        frequency-unit before a worker fault fails the fit (Spark's
+        ``spark.task.maxFailures``); ``ParameterServerUnavailable`` is
+        never retried. ``sync_interval``: baseline train-units-per-push
+        of the pipelined comms ratchet (>= 1.0)."""
+        if frequency not in _FREQUENCIES:
+            raise ValueError(
+                f"async frequency must be batch|epoch, got {frequency!r} "
+                "(the reference's AsynchronousSparkWorker supports the same two)"
+            )
+        if max_failures < 1:
+            raise ValueError(f"max_failures must be >= 1, got {max_failures}")
+        if sync_interval < 1.0:
+            raise ValueError(f"sync_interval must be >= 1.0, got {sync_interval}")
+        if ps_shards is None:
+            ps_shards = int(os.environ.get("ELEPHAS_PS_SHARDS", "0")) or None
+        if standby is None:
+            standby = int(os.environ.get("ELEPHAS_PS_STANDBY", "0")) or None
+        left_out = (
+            (elastic, "elastic=True (the self-healing worker pool)", "item 4, resilience"),
+            (fault_plan is not None, "fault_plan (seeded chaos)", "item 4, resilience"),
+            (batches_per_unit is not None, "batches_per_unit (elastic batch ranges)",
+             "item 4, resilience"),
+            (ps_shards is not None, "ps_shards (the sharded PS group)",
+             "item 4, parameter/group.py"),
+            (standby, "standby (the shard group's hot spares)", "item 4, parameter/group.py"),
+            (ps_wal_dir is not None, "ps_wal_dir (the PS write-ahead log)",
+             "item 4, the resilience WAL"),
+            (ps_ops_port is not None, "ps_ops_port (the PS ops endpoint)",
+             "item 7, obs/opsd.py"),
+            (autotune, "autotune (a torch.compile mode A/B)", "item 2"),
+            (stream_batches is not None, "stream_batches (streamed partitions)", "item 2"),
+        )
+        for asked, what, item in left_out:
+            if asked:
+                raise _not_ported(what, item)
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            raise _not_ported("async/hogwild training across processes",
+                              "item 6, parallel/distributed.py")
+        self.compiled = compiled
+        self.frequency = frequency
+        self.lock = lock
+        self.parameter_server_mode = parameter_server_mode
+        self.port = port
+        self.granularity = granularity
+        self.max_failures = max_failures
+        self.pipelined_comms = pipelined_comms
+        self.sync_interval = float(sync_interval)
+        self.ps_device = next(compiled.module.parameters()).device
+        devices = default_worker_devices(self.ps_device) if mesh is None else mesh
+        self.devices = [resolve_device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("AsyncTrainer needs at least one worker device")
+        self.workers = list(enumerate(self.devices))
+        # One dispatch lock per card (see the module note).
+        self._dispatch_locks = {d: threading.Lock() for d in self.devices if d.type == "cuda"}
+        self.n_workers = len(self.workers)
+        self.epoch_end_times: List[float] = []
+        self._eval_model = None
+        self._val_cache = DeviceEvalCache()
+        self.server = None  # the last fit's parameter server (stopped), for inspection
+
+    def mount_ops(self, port: int = 0, host: Optional[str] = None, store_dir=None):
+        raise _not_ported("AsyncTrainer.mount_ops (the worker ops endpoint)",
+                          "item 7, obs/opsd.py")
+
+    # -- evaluation ------------------------------------------------------------
+
+    def _local_evaluate(self, snapshot, features, labels,
+                        batch_size: int = 2048) -> Dict[str, float]:
+        """Exact weighted-mean evaluation of a PS snapshot on the buffer's
+        device, in chunks of ``batch_size``; a set within the
+        ``DeviceEvalCache`` bound is uploaded once per fit."""
+        if self._eval_model is None:
+            self._eval_model = self.compiled.clone()
+            self._eval_step = make_eval_step(self._eval_model)
+        load_store(self._eval_model.module, snapshot)
+        features, labels = np.asarray(features), np.asarray(labels)
+        device = self.ps_device
+        cached = self._val_cache.get(
+            (features, labels), features.nbytes + labels.nbytes,
+            lambda: (torch.as_tensor(features).to(device), torch.as_tensor(labels).to(device)))
+        n = len(features)
+        usable = (n // batch_size) * batch_size
+        spans = [(s, s + batch_size) for s in range(0, usable, batch_size)]
+        if usable < n:
+            spans.append((usable, n))
+        device_metrics = []
+        for start, stop in spans:
+            if cached is not None:
+                x, y = cached[0][start:stop], cached[1][start:stop]
+            else:
+                x = torch.as_tensor(features[start:stop]).to(device)
+                y = torch.as_tensor(labels[start:stop]).to(device)
+            metrics = self._eval_step(None, x, y)
+            device_metrics.append((list(metrics), torch.stack(list(metrics.values()))))
+        # One read back for all chunks.
+        values = torch.stack([v for _, v in device_metrics]).tolist()
+        names = device_metrics[0][0]
+        means = weighted_mean_over_chunks(
+            [(s, e, i) for i, (s, e) in enumerate(spans)],
+            lambda start, stop, i: dict(zip(names, values[i])), n)
+        return dict(sorted(means.items()))  # the JAX package's key order
+
+    # -- fit -------------------------------------------------------------------
+
+    def fit(
+        self,
+        dataset,
+        epochs: int = 10,
+        batch_size: int = 32,
+        validation_data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        verbose: int = 0,
+        rng: Optional[torch.Generator] = None,
+        callbacks=(),
+        initial_step: int = 0,
+    ) -> Tuple[TrainState, Dict[str, List[float]]]:
+        """Train with one worker thread per device of ``mesh`` against a
+        parameter server started for this fit; returns the master's state
+        (its module holding the server's final weights) and the history:
+        each epoch's metrics averaged over the workers, ``worker_retries``
+        where a unit was retried, and one ``val_*`` entry per epoch
+        (``val_stale`` says whether it sampled the epoch boundary).
+        ``initial_step``: the step of a restored state this fit resumes."""
+        compiled = self.compiled
+        params, buffers = store_of(compiled.module)
+        store0 = {"params": params, "batch_stats": buffers}
+        env_key = os.environ.get("ELEPHAS_PS_AUTH_KEY")
+        server = make_server(
+            self.parameter_server_mode, store0, lock=self.lock, port=self.port,
+            device=self.ps_device, granularity=self.granularity,
+            auth_key=bytes.fromhex(env_key) if env_key else None,
+        )
+        server.start()
+        self.server = server
+
+        per_worker_metrics: List[Optional[List[Dict[str, float]]]] = [None] * self.n_workers
+        errors: List[BaseException] = []
+        self.epoch_end_times = []
+        do_val = validation_data is not None
+        run_callbacks = tuple(callbacks)
+        epoch_done_counts = [0] * epochs
+        epochs_fired = 0
+        fire_cond = threading.Condition()
+        fire_queue: deque = deque()
+        fire_stop = [False]
+        fire_errors: List[BaseException] = []
+        saturated_warned = [False]
+        val_records: List[Optional[Dict[str, float]]] = [None] * epochs
+
+        def do_fire(fire: int, snapshot=None) -> None:
+            stale = snapshot is None
+            if stale:
+                # The drainer fell behind: this epoch's boundary snapshot
+                # was never pinned, so it samples the PS as of NOW.
+                snapshot = server.get_parameters()
+            else:
+                server.buffer.hand_over(snapshot)
+            if do_val:
+                rec = dict(self._local_evaluate(snapshot, *validation_data))
+                rec["stale"] = 1.0 if stale else 0.0
+                val_records[fire] = rec
+            if run_callbacks:
+                snap_state = init_train_state(compiled)
+                snap_state.step = initial_step + fire + 1
+                load_store(compiled.module, snapshot)
+                for cb in run_callbacks:
+                    cb(fire, snap_state, {})
+
+        def on_epoch_done(epoch: int) -> None:
+            # Every epoch's end time is recorded (the JAX package records
+            # them only where a fire runs); the fire itself only with
+            # callbacks or validation.
+            nonlocal epochs_fired
+            firing = bool(run_callbacks or do_val)
+            if fire_errors:
+                raise RuntimeError("epoch-barrier work failed; aborting fit") from fire_errors[0]
+            with fire_cond:
+                epoch_done_counts[epoch] += 1
+                while (epochs_fired < epochs
+                       and epoch_done_counts[epochs_fired] == self.n_workers):
+                    self.epoch_end_times.append(time.perf_counter())
+                    if firing:
+                        # Snapshot AT THE EPOCH BOUNDARY (the buffer's
+                        # tensors are never written, so holding them is
+                        # the snapshot); past 3 queued fires stop pinning
+                        # and mark them stale.
+                        saturated = len(fire_queue) >= 3
+                        if saturated and not saturated_warned[0]:
+                            saturated_warned[0] = True
+                            logger.warning(
+                                "epoch-fire queue saturated at epoch %d (slow "
+                                "callback/validation?): snapshots are no longer "
+                                "pinned at epoch boundaries — affected epochs' "
+                                "validations sample a LATER parameter-server "
+                                "state and are marked val_stale=1 in history",
+                                epochs_fired,
+                            )
+                        snapshot = None if saturated else server.get_parameters()
+                        fire_queue.append((epochs_fired, snapshot))
+                    epochs_fired += 1
+                fire_cond.notify_all()
+
+        def fire_drainer() -> None:
+            # One epoch's barrier work at a time, in epoch order, off the
+            # worker threads: it overlaps the next epoch's training.
+            while True:
+                with fire_cond:
+                    while not fire_queue and not fire_stop[0]:
+                        fire_cond.wait()
+                    if not fire_queue:
+                        return
+                    fire, snapshot = fire_queue.popleft()
+                try:
+                    do_fire(fire, snapshot)
+                except BaseException as exc:  # checked at epoch boundaries
+                    fire_errors.append(exc)
+                    return
+
+        drainer = None
+        if run_callbacks or do_val:
+            if do_val:
+                # Build the evaluator and upload the validation set before
+                # training starts, so the first fire does not stall.
+                self._local_evaluate(server.get_parameters(), *validation_data)
+            drainer = threading.Thread(target=fire_drainer, daemon=True)
+            drainer.start()
+
+        def worker(slot: int, index: int, device: torch.device) -> None:
+            try:
+                stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+                with torch.cuda.stream(stream) if stream is not None else nullcontext():
+                    client = server.client()
+                    if hasattr(client, "worker_id"):
+                        client.worker_id = f"w{index}"
+                    per_worker_metrics[slot] = self._run_worker(
+                        index, device, client, dataset, epochs, batch_size,
+                        on_epoch_done=on_epoch_done)
+                    if stream is not None:
+                        stream.synchronize()
+            except BaseException as exc:  # surfaced after join
+                errors.append(exc)
+
+        threads = [threading.Thread(target=worker, args=(slot, g, dev), daemon=True)
+                   for slot, (g, dev) in enumerate(self.workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if drainer is not None:
+            with fire_cond:
+                fire_stop[0] = True
+                fire_cond.notify_all()
+            drainer.join()
+
+        if errors or fire_errors:
+            server.stop()
+            raise (fire_errors or errors)[0]
+
+        # The server's final weights folded back into the master.
+        load_store(compiled.module, server.get_parameters())
+        if self.ps_device.type == "cuda":
+            torch.cuda.synchronize(self.ps_device)
+        server.stop()
+        state = init_train_state(compiled, rng=rng)
+        state.step = initial_step + epochs
+
+        keys = sorted(per_worker_metrics[0][0].keys())
+        means = np.array([[np.mean([m[e][k] for m in per_worker_metrics]) for k in keys]
+                          for e in range(epochs)], dtype=np.float64)
+        history: Dict[str, List[float]] = {
+            k: [float(means[e, i]) for e in range(epochs)] for i, k in enumerate(keys)}
+        if "_retries" in history:
+            history["worker_retries"] = [int(round(v * self.n_workers))
+                                         for v in history.pop("_retries")]
+        if do_val:
+            fallback = None
+            for epoch, val in enumerate(val_records):
+                if val is None:  # defensive: evaluate the final state once
+                    if fallback is None:
+                        fallback = dict(self._local_evaluate(
+                            {"params": params, "batch_stats": buffers}, *validation_data))
+                        fallback["stale"] = 1.0
+                    val = fallback
+                for k, v in val.items():
+                    history.setdefault(f"val_{k}", []).append(v)
+        if verbose:
+            last = {k: round(v[-1], 4) for k, v in history.items()}
+            print(f"[{'async' if self.lock else 'hogwild'}] done: {last}")
+        return state, history
+
+    # -- the worker ------------------------------------------------------------
+
+    def _run_worker(self, index: int, device: torch.device, client, dataset, epochs: int,
+                    batch_size: int, on_epoch_done=None) -> List[Dict[str, float]]:
+        """``index`` is the worker's slot: it selects the dataset partition
+        and seeds the worker's streams."""
+        x, y = dataset.partition(index)
+        nb = len(x) // batch_size
+        if nb == 0:
+            raise ValueError(
+                f"worker {index}: partition of {len(x)} rows < batch_size {batch_size}")
+        usable = nb * batch_size
+        pipelined = (self.pipelined_comms if self.pipelined_comms is not None
+                     else self.parameter_server_mode != "local")
+        comms = _CommsPipeline(
+            client, index, self.max_failures, sync_interval=self.sync_interval,
+            to_host=self.parameter_server_mode != "local") if pipelined else None
+        try:
+            return self._run_worker_units(index, device, client, comms,
+                                          np.asarray(x[:usable]), np.asarray(y[:usable]),
+                                          nb, epochs, batch_size, on_epoch_done)
+        finally:
+            if comms is not None:
+                comms.close()
+
+    def _run_worker_units(self, index: int, device: torch.device, client, comms, x, y,
+                          nb: int, epochs: int, batch_size: int,
+                          on_epoch_done=None) -> List[Dict[str, float]]:
+        wm = _WorkerModel(self.compiled, device, self._dispatch_locks.get(device))
+        epoch_metrics: List[Dict[str, float]] = []
+        tracer = obs.default_tracer()
+        usable = nb * batch_size
+
+        def pull_state(step: int, attempt: int = 0):
+            """A fresh pull into the worker's module; returns the state and
+            the pulled tensors (the delta's ``before``)."""
+            with tracer.span("async/pull", worker=index, step=step):
+                pulled = comms.pull() if comms is not None else client.get_parameters()
+                if comms is not None:
+                    if self.frequency == "batch":
+                        comms.prefetch()  # the next unit's pull rides the wire now
+                    if hasattr(client, "hand_over"):  # pulled on the comms thread
+                        client.hand_over(pulled)
+                before = wm.load(pulled)
+                wm.generator.manual_seed(dropout_seed(index, step, attempt))
+                wm.state.step = step
+                return wm.state, before
+
+        def push_delta(before) -> None:
+            with tracer.span("async/push", worker=index) as psp:
+                delta = wm.tree(wm.delta(before))
+                if self.frequency == "epoch":
+                    # Dynamics at epoch granularity only: the norms read
+                    # the device once.
+                    obs.record_unit_dynamics(
+                        obs.default_registry(), f"w{index}",
+                        delta_norm=obs.tree_norm(delta["params"]),
+                        param_norm=obs.tree_norm(wm.tree(before)["params"]),
+                        span=psp)
+                if comms is None:
+                    client.update_parameters(delta)
+                    return
+                comms.push(delta)  # fire-and-forget, bounded backpressure
+                if self.frequency == "epoch":
+                    # Epoch pulls prefetch AFTER the push, so the next
+                    # epoch's base includes this worker's own epoch.
+                    comms.prefetch()
+
+        epoch_retries = 0
+
+        def run_unit(unit, **unit_args):
+            """Spark's ``spark.task.maxFailures`` analogue: ``unit(attempt)``
+            runs one frequency-unit from a fresh pull; a transient
+            exception retries it (re-seeded) up to ``max_failures``
+            attempts. PS death propagates at once. At-least-once: a unit
+            that fails after its push landed pushes again on the retry
+            (one more small SGD step)."""
+            nonlocal epoch_retries
+            for attempt in range(self.max_failures):
+                try:
+                    ctx = obs.new_context() if tracer.enabled else None
+                    with obs.activate(ctx), tracer.span(
+                            "async/unit", worker=index, attempt=attempt, **unit_args):
+                        return unit(attempt)
+                except ParameterServerUnavailable:
+                    raise
+                except Exception:
+                    if attempt + 1 >= self.max_failures:
+                        raise
+                    epoch_retries += 1
+                    obs.default_registry().counter(
+                        "worker_retry_total",
+                        help="frequency-unit retries across all workers",
+                    ).inc()
+
+        # The partition is uploaded to the worker's device ONCE and
+        # shuffled there each epoch.
+        x_d = torch.as_tensor(x).to(device)
+        y_d = torch.as_tensor(y).to(device)
+        global_step = 0
+        for epoch in range(epochs):
+            epoch_retries = 0
+            if self.frequency == "epoch":
+
+                def epoch_unit(attempt, epoch=epoch):
+                    perm = worker_permutation(index, epoch, attempt, usable).to(device)
+                    ex = x_d[perm].reshape(nb, batch_size, *x_d.shape[1:])
+                    ey = y_d[perm].reshape(nb, batch_size, *y_d.shape[1:])
+                    state, before = pull_state(global_step, attempt)
+                    with tracer.span("async/train", worker=index, epoch=epoch):
+                        state, metrics = wm.epoch_fn(state, ex, ey)
+                        # Reading the metrics waits for the whole epoch, so
+                        # a device fault raises HERE (retryable), before a
+                        # poisoned delta could reach the server.
+                        fetched = dict(zip(metrics, torch.stack(
+                            list(metrics.values())).tolist()))
+                    push_delta(before)
+                    return fetched
+
+                entry = run_unit(epoch_unit, epoch=epoch, partition=index)
+                global_step += nb
+            else:  # 'batch': pull/push every step (the reference's cadence)
+                perm = worker_permutation(index, epoch, 0, usable).to(device)
+                device_metrics = []
+                for b in range(nb):
+
+                    def batch_unit(attempt, b=b):
+                        idx = perm[b * batch_size:(b + 1) * batch_size]
+                        xb, yb = x_d[idx], y_d[idx]
+                        state, before = pull_state(global_step, attempt)
+                        state, metrics = wm.train_step(state, xb, yb)
+                        push_delta(before)
+                        return metrics
+
+                    device_metrics.append(run_unit(batch_unit, epoch=epoch, partition=index,
+                                                   step=global_step))
+                    global_step += 1
+                # Metrics stay on the device per step; one read per epoch.
+                names = list(device_metrics[0])
+                table = torch.stack([torch.stack([m[k] for k in names])
+                                     for m in device_metrics]).double().mean(0).tolist()
+                entry = dict(zip(names, table))
+            if comms is not None:
+                # Every push of this epoch is server-side before the
+                # barrier counts the epoch done.
+                comms.flush()
+            obs.record_unit_dynamics(obs.default_registry(), f"w{index}",
+                                     loss=entry.get("loss"))
+            entry["_retries"] = float(epoch_retries)
+            epoch_metrics.append(entry)
+            if on_epoch_done is not None:
+                on_epoch_done(epoch)
+        if comms is not None:
+            comms.close()  # before the client: a stray prefetch must not race it
+        if hasattr(client, "close"):
+            client.close()
+        return epoch_metrics

@@ -4,19 +4,32 @@ A Dense stack with ReLU and optional dropout, logits out (the losses
 take logits). The first layer infers its input width at the first call,
 as flax's ``nn.Dense`` does (``nn.LazyLinear``); ``CompiledModel``'s
 ``input_shape`` or a ``state_dict`` fixes it. Dropout draws from torch's
-generator, so a model with ``dropout_rate > 0`` trains like the JAX one
-only in distribution.
+generators, not JAX's keys, so a model with ``dropout_rate > 0`` trains
+like the JAX one only in distribution; ``dropout_generator`` (the async
+trainer gives each worker its own) draws the masks where it is set.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from elephas_tpu_torch.models import register_model
 from elephas_tpu_torch.utils.device import resolve_device
+
+
+def dropout(x, rate: float, training: bool, generator=None):
+    """Inverted dropout; masks from ``generator`` where one is given
+    (``F.dropout`` takes none), else from torch's default generator."""
+    if rate <= 0 or not training:
+        return x
+    if generator is None:
+        return F.dropout(x, rate, training=True)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep / (1.0 - rate)
 
 
 class MLP(nn.Module):
@@ -32,13 +45,13 @@ class MLP(nn.Module):
         self.out = (nn.Linear(widths[-1], num_classes, device=device) if widths
                     else nn.LazyLinear(num_classes, device=device))
         self.dropout_rate = dropout_rate
+        self.dropout_generator = None
 
     def forward(self, x, train: bool = False):
         x = x.reshape(x.shape[0], -1).float()
         for layer in self.hidden:
-            x = F.relu(layer(x))
-            if self.dropout_rate > 0:
-                x = F.dropout(x, self.dropout_rate, training=self.training)
+            x = dropout(F.relu(layer(x)), self.dropout_rate, self.training,
+                        self.dropout_generator)
         return self.out(x)
 
 

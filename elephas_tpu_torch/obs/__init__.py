@@ -21,8 +21,9 @@ Process-global defaults back cross-cutting instrumentation:
   card) on the same counter, marker and anomaly.
 
 Ported so far: the tracer, the registry, the flight recorder, the
-history ring, the alert engine, the load tracker, the goodput ledger
-and the cost ledger. The ops endpoint, the sampler behind it, the
+history ring, the alert engine, the load tracker, the goodput ledger,
+the cost ledger and the training-health accounting (``health.py``: the
+parameter server's staleness ledger, the trainers' unit dynamics). The ops endpoint, the sampler behind it, the
 device profiler, the telemetry store, the fleet aggregator, the canary
 and the incident builder arrive with ROADMAP queue 1, item 7.
 """
@@ -55,6 +56,12 @@ from elephas_tpu_torch.obs.flight import (  # noqa: F401
     NULL_FLIGHT_RECORDER,
     FlightEvent,
     FlightRecorder,
+)
+from elephas_tpu_torch.obs.health import (  # noqa: F401
+    StalenessLedger,
+    record_staleness,
+    record_unit_dynamics,
+    tree_norm,
 )
 from elephas_tpu_torch.obs.alerts import (  # noqa: F401
     RULE_NAMES,

@@ -1,0 +1,786 @@
+"""Parameter servers: in-process (local), HTTP, and raw-socket transports
+(counterpart of ``elephas_tpu/parameter/server.py``).
+
+Reference: ``elephas/parameter/server.py::{HttpServer, SocketServer}``
+(SURVEY.md §2.1): a Flask app with ``GET /parameters`` / ``POST /update``
+or a threaded TCP server speaking ``'g'``/``'u'`` framed pickle messages,
+locking iff mode is ``asynchronous``.
+
+All three servers share one ``ParameterBuffer`` (the store on the card
+plus the lock discipline); the HTTP/socket ones add a wire transport.
+Flask is replaced by the stdlib ``ThreadingHTTPServer`` — same protocol,
+no dependency. The wire protocol is the JAX package's, frame for frame:
+either package's clients talk to either package's servers.
+
+Wire data path:
+
+- Pulls serve from a **version-gated snapshot cache** (``_SnapshotCache``):
+  the tree is snapshotted under the buffer's read lock, copied to the
+  host and encoded AFTER the lock is released, once per buffer version —
+  N workers pulling an unchanged model cost ONE host copy and ONE
+  encoding.
+- Clients that advertise their last-seen ``(boot, version)`` get a
+  12-byte **not-modified** frame when the buffer has not moved.
+- Pushes are packed frames (or legacy pickle, told apart by magic), run
+  through the bounded-staleness ``AdmissionPolicy`` and applied on the
+  card.
+
+Not carried over (each raises ``NotImplementedError`` naming its ROADMAP
+item): the write-ahead log (``wal_dir``, and with it version-pinned
+pulls and ``kill``'s crash semantics), the shard-group handshake
+(``shard_info``), the ops endpoint (``ops_port``) and a telemetry store
+directory (``store_dir`` other than ``None``/``"auto"``).
+"""
+
+from __future__ import annotations
+
+import hmac
+import json
+import os
+import socket
+import socketserver
+import threading
+import warnings
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import torch
+
+from elephas_tpu_torch import obs
+from elephas_tpu_torch.obs.health import record_staleness
+from elephas_tpu_torch.parameter import wire
+from elephas_tpu_torch.parameter.base import BaseParameterServer
+from elephas_tpu_torch.parameter.buffer import ParameterBuffer
+from elephas_tpu_torch.resilience.liveness import FailureDetector
+from elephas_tpu_torch.utils import locksan
+from elephas_tpu_torch.utils import sockets as socket_utils
+from elephas_tpu_torch.utils.functional_utils import tree_map
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; it arrives with {item} "
+                               "(ROADMAP.md, queue 1)")
+
+
+def _check_left_out(wal_dir=None, shard_info=None, ops_port=None,
+                    store_dir="auto") -> None:
+    if wal_dir is not None:
+        raise _not_ported("wal_dir (the parameter server's write-ahead log)",
+                          "item 4, the resilience WAL")
+    if shard_info is not None:
+        raise _not_ported("shard_info (the shard-group handshake)",
+                          "item 4, parameter/group.py")
+    if ops_port is not None:
+        raise _not_ported("ops_port (the ops endpoint)", "item 7, obs/opsd.py")
+    if store_dir not in (None, "auto"):
+        raise _not_ported("store_dir (the telemetry store)", "item 7, obs/store.py")
+
+
+def _ps_counters(transport: str):
+    """(cache_hit, bytes_tx, bytes_rx) server-side data-path counters; the
+    transport is a label of one family per direction."""
+    reg = obs.default_registry()
+    return (
+        reg.counter("ps_cache_hit_total",
+                    "pulls answered with a not-modified frame"),
+        reg.counter("ps_bytes_tx_total",
+                    "payload bytes sent by the PS servers",
+                    labelnames=("transport",)).labels(transport=transport),
+        reg.counter("ps_bytes_rx_total",
+                    "payload bytes received by the PS servers",
+                    labelnames=("transport",)).labels(transport=transport),
+    )
+
+
+def _lag_of(buffer, seen_version) -> Optional[int]:
+    """One push's version lag (live version minus the version the worker
+    trained against, clamped at 0); None for unstamped frames."""
+    if seen_version is None:
+        return None
+    try:
+        return max(0, int(buffer.version) - int(seen_version))
+    except (TypeError, ValueError):
+        return None
+
+
+def _note_staleness(ledger, worker, lag, seen_version, nbytes,
+                    sync_interval=None) -> None:
+    """Feed one APPLIED push into the ledger and the labeled histogram
+    (rejected pushes never reach here: ``_admit`` records those)."""
+    record_staleness(ledger, worker, lag, nbytes=nbytes, version=seen_version,
+                     registry=obs.default_registry(), sync_interval=sync_interval)
+
+
+def _parse_trace_header(raw: Optional[str]):
+    """``X-Elephas-Trace: <trace_id>-<span_id>`` → TraceContext | None;
+    malformed values are dropped, never fatal."""
+    if not raw:
+        return None
+    trace_id, sep, span_id = raw.partition("-")
+    if not sep or not trace_id or not span_id:
+        return None
+    return obs.TraceContext(trace_id, span_id)
+
+
+def _as_trace_ctx(tc):
+    """A wire-carried ``(trace_id, span_id)`` pair → TraceContext | None."""
+    if (isinstance(tc, (tuple, list)) and len(tc) == 2
+            and all(isinstance(x, str) for x in tc)):
+        return obs.TraceContext(tc[0], tc[1])
+    return None
+
+
+def _new_boot_id() -> str:
+    """Per-server-instance boot id: version-gated pulls are keyed on
+    ``(boot, version)``, so a restarted server never aliases a client's
+    cached version."""
+    return os.urandom(6).hex()
+
+
+def _heartbeat_timeout(explicit: Optional[float] = None) -> float:
+    """Suspect threshold for the failure detector, seconds: explicit >
+    ``ELEPHAS_HEARTBEAT_TIMEOUT`` > 5.0 (a malformed env value warns)."""
+    if explicit is not None:
+        return float(explicit)
+    raw = os.environ.get("ELEPHAS_HEARTBEAT_TIMEOUT", "5")
+    try:
+        return float(raw)
+    except ValueError:
+        warnings.warn(
+            f"ELEPHAS_HEARTBEAT_TIMEOUT={raw!r} is not a number; "
+            "using the 5.0s default",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+        return 5.0
+
+
+def _staleness_bound(explicit, env_var: str) -> Optional[int]:
+    """Optional staleness bound, versions: explicit > env var > None
+    (a malformed env value warns and disables the bound)."""
+    if explicit is not None:
+        return int(explicit)
+    raw = os.environ.get(env_var)
+    if raw is None or raw == "":
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        warnings.warn(
+            f"{env_var}={raw!r} is not an integer; staleness bound "
+            "disabled",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+        return None
+
+
+class AdmissionPolicy:
+    """Accept / damp / reject one stamped delta by its version lag.
+
+    - ``lag <= soft`` (or no bounds set): **accept** at full weight;
+    - ``soft < lag <= max_staleness``: **damp** — applied scaled by
+      ``1 / (1 + lag - soft)`` (DeepSpark's staleness decay);
+    - ``lag > max_staleness``: **reject** — not applied; the pusher gets
+      a typed ``wire.encode_rejected`` frame.
+
+    Unstamped pushes (``lag=None``) are always accepted. Bounds resolve
+    as explicit argument > ``ELEPHAS_MAX_STALENESS`` /
+    ``ELEPHAS_STALENESS_SOFT`` > None.
+    """
+
+    def __init__(self, max_staleness: Optional[int] = None,
+                 soft: Optional[int] = None):
+        self.max_staleness = _staleness_bound(
+            max_staleness, "ELEPHAS_MAX_STALENESS")
+        self.soft = _staleness_bound(soft, "ELEPHAS_STALENESS_SOFT")
+
+    def decide(self, lag: Optional[int]):
+        """``(verdict, weight)``: ``("accept", 1.0)``, ``("damp", w<1)``,
+        or ``("reject", 0.0)``."""
+        if lag is None:
+            return "accept", 1.0
+        if self.max_staleness is not None and lag > self.max_staleness:
+            return "reject", 0.0
+        if self.soft is not None and lag > self.soft:
+            return "damp", 1.0 / (1.0 + (lag - self.soft))
+        return "accept", 1.0
+
+    def __repr__(self):
+        return (f"AdmissionPolicy(max_staleness={self.max_staleness}, "
+                f"soft={self.soft})")
+
+
+def _scale_tree(tree, weight: float):
+    """Scale a delta's float leaves by the damping weight; other leaves
+    (counters) pass through unscaled."""
+    def scale(leaf):
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            return leaf * weight
+        return leaf
+
+    return tree_map(scale, tree)
+
+
+def _admit(policy, ledger, worker, lag, tree, transport: str, hsp=None):
+    """Run one stamped push through the admission policy: ``(verdict,
+    tree)``, the tree scaled for a damp and ``None`` for a reject. Every
+    non-accept decision lands in the counters, the ledger and (rejects)
+    the flight recorder."""
+    verdict, weight = policy.decide(lag)
+    if verdict == "accept":
+        return verdict, tree
+    reg = obs.default_registry()
+    if verdict == "damp":
+        reg.counter("ps_delta_damped_total",
+                    "stamped deltas applied at reduced weight by the "
+                    "staleness admission policy").inc()
+        ledger.record_damped(worker)
+        if hsp:
+            hsp.note(admission="damp", weight=round(weight, 4))
+        return verdict, _scale_tree(tree, weight)
+    reg.counter("ps_delta_rejected_total",
+                "stamped deltas refused by the staleness admission policy",
+                labelnames=("reason",)).labels(reason="max_staleness").inc()
+    ledger.record_rejected(worker)
+    obs.default_flight_recorder().note(
+        "delta_rejected", "warn", worker=worker, lag=lag,
+        max_staleness=policy.max_staleness, transport=transport,
+    )
+    if hsp:
+        hsp.note(admission="reject", lag=lag)
+    return verdict, None
+
+
+def _make_detector(heartbeat_timeout: Optional[float]):
+    return FailureDetector(suspect_after=_heartbeat_timeout(heartbeat_timeout))
+
+
+class _SnapshotCache:
+    """Serialize once per ``ParameterBuffer.version``, outside the lock.
+
+    ``frames(codec)`` returns ``(version, payload)``: a reusable
+    ``wire.Frames`` (packed) or ``bytes`` (legacy pickle). The snapshot
+    is taken under the buffer's read lock; the copy to the host and the
+    encoding run after its release, single-flighted by a private lock.
+    """
+
+    def __init__(self, buffer: ParameterBuffer, boot: Optional[str] = None):
+        self._buffer = buffer
+        self._boot = boot
+        self._encode_lock = locksan.make_lock("_SnapshotCache._encode_lock")
+        self._entries: dict = {}  # codec -> (version, frames|bytes)
+
+    def frames(self, codec: str):
+        entry = self._entries.get(codec)
+        if entry is not None and entry[0] == self._buffer.version:
+            return entry
+        with self._encode_lock:
+            entry = self._entries.get(codec)
+            if entry is not None and entry[0] == self._buffer.version:
+                return entry
+            version, snap = self._buffer.get_host_with_version()
+            if codec == "packed":
+                payload = wire.encode_tree(snap, version=version, boot=self._boot)
+            else:
+                payload = wire.encode_pickle(snap)
+            entry = (version, payload)
+            self._entries[codec] = entry
+            return entry
+
+
+def _default_bind_host() -> str:
+    """Loopback unless ``ELEPHAS_PS_BIND`` says otherwise: the wire
+    servers speak pickle, so exposure beyond the host is opt-in."""
+    return os.environ.get("ELEPHAS_PS_BIND", "127.0.0.1")
+
+
+def _dial_host(bind_host: str) -> str:
+    """Address a same-host client dials for a server bound to ``bind_host``."""
+    if bind_host in ("", "0.0.0.0", "::", "*"):
+        return "127.0.0.1"
+    return bind_host
+
+
+class LocalServer(BaseParameterServer):
+    """In-process server: workers share the buffer on the card directly;
+    a pull hands out device tensors (no host copy), a push subtracts on
+    the card."""
+
+    def __init__(self, params, lock: bool = True, device=None,
+                 granularity: str = "tree",
+                 heartbeat_timeout: Optional[float] = None):
+        self.buffer = ParameterBuffer(params, lock=lock, device=device,
+                                      granularity=granularity)
+        self.detector = _make_detector(heartbeat_timeout)
+
+    def start(self) -> None:
+        pass
+
+    def stop(self) -> None:
+        pass
+
+    def get_parameters(self):
+        return self.buffer.get()
+
+    def client(self):
+        from elephas_tpu_torch.parameter.client import LocalClient
+
+        return LocalClient(self.buffer, detector=self.detector)
+
+
+class _BarrierBook:
+    """Named arrival counters — the PS doubles as a cross-host control
+    plane (a host "arrives" at a tag; peers poll the count)."""
+
+    def __init__(self):
+        self._counts: dict = {}
+        self._lock = threading.Lock()
+
+    def arrive(self, tag: str) -> int:
+        with self._lock:
+            self._counts[tag] = self._counts.get(tag, 0) + 1
+            return self._counts[tag]
+
+    def count(self, tag: str) -> int:
+        with self._lock:
+            return self._counts.get(tag, 0)
+
+
+def _read_exact(stream, length: int) -> bytearray:
+    """``length`` bytes of ``stream`` into one writable buffer (decoded
+    leaves view it without a copy)."""
+    buf = bytearray(length)
+    view, pos = memoryview(buf), 0
+    while pos < length:
+        got = stream.readinto(view[pos:])
+        if not got:
+            raise ConnectionError("stream closed mid-body")
+        pos += got
+    return buf
+
+
+class _WireServer(BaseParameterServer):
+    """What the HTTP and socket servers share: the buffer, auth, the
+    barrier book, the boot id, the failure detector, the staleness
+    ledger, the alert engine and the admission policy."""
+
+    def __init__(self, params, lock: bool = True, port: int = 4000, device=None,
+                 host: Optional[str] = None, granularity: str = "tree",
+                 auth_key: Optional[bytes] = None, heartbeat_timeout: Optional[float] = None,
+                 tracer=None, max_staleness: Optional[int] = None,
+                 staleness_soft: Optional[int] = None, wal_dir: Optional[str] = None,
+                 shard_info: Optional[dict] = None, ops_port: Optional[int] = None,
+                 store_dir: Optional[str] = "auto"):
+        _check_left_out(wal_dir, shard_info, ops_port, store_dir)
+        self.buffer = ParameterBuffer(params, lock=lock, device=device,
+                                      granularity=granularity)
+        self.host = host if host is not None else _default_bind_host()
+        self.port = port
+        self.auth_key = auth_key
+        self.replay_guard = socket_utils.ReplayGuard() if auth_key else None
+        self.barriers = _BarrierBook()
+        self.boot = _new_boot_id()
+        self.detector = _make_detector(heartbeat_timeout)
+        self.tracer = tracer
+        self.ledger = obs.StalenessLedger()
+        self.alerts = obs.AlertEngine()
+        self.admission = AdmissionPolicy(max_staleness, staleness_soft)
+        self._server = None
+        self._thread = None
+
+    def _tracer(self):
+        # Resolved per use: an enable_tracing() after start() is seen.
+        return self.tracer if self.tracer is not None else obs.default_tracer()
+
+    def _serve(self, server) -> None:
+        self._server = server
+        if self.port == 0:  # ephemeral port (tests)
+            self.port = server.server_address[1]
+        self._thread = threading.Thread(target=server.serve_forever, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+
+    def get_parameters(self):
+        return self.buffer.get()
+
+    @property
+    def master_url(self) -> str:
+        return socket_utils.determine_master(self.port)
+
+    def _address(self) -> str:
+        return f"{_dial_host(self.host)}:{self.port}"
+
+
+class HttpServer(_WireServer):
+    """HTTP transport over a ParameterBuffer (reference ``HttpServer``).
+
+    ``GET /parameters`` returns the weights (packed when the client says
+    ``X-Elephas-Codec: packed``, else pickle), ``POST /update`` applies a
+    delta of either codec. Control plane: ``POST /barrier/<tag>`` and
+    ``GET /barrier/<tag>``, ``POST /heartbeat/<id>``,
+    ``POST /deregister/<id>``, ``GET /membership``; ``GET /health`` is
+    open. Runs in a daemon thread.
+
+    ``auth_key``: shared HMAC-SHA256 secret; every request must carry
+    ``X-Elephas-Auth`` = hexmac(method + path + nonce + ts + body) with
+    fresh ``X-Elephas-Nonce``/``X-Elephas-TS`` headers (checked BEFORE the
+    body is decoded; a bad tag or a replayed nonce is a 403), and every
+    response is signed bound to the request's nonce.
+    ``max_staleness``/``staleness_soft``: the admission knobs
+    (``AdmissionPolicy``). ``tracer``: span recorder for the handle spans
+    (default: the process tracer, resolved per request).
+    """
+
+    def start(self) -> None:
+        buffer = self.buffer
+        barriers = self.barriers
+        auth_key = self.auth_key
+        replay_guard = self.replay_guard
+        boot = self.boot
+        detector = self.detector
+        cache = self._cache = _SnapshotCache(buffer, boot=boot)
+        cache_hits, bytes_tx, bytes_rx = _ps_counters("http")
+        tracer_of = self._tracer
+        ledger = self.ledger
+        admission = self.admission
+
+        class Handler(BaseHTTPRequestHandler):
+            # Small replies (not-modified frames, acks) must not stall
+            # behind Nagle + delayed-ACK coalescing.
+            disable_nagle_algorithm = True
+
+            def log_message(self, *args):  # silence per-request stderr spam
+                pass
+
+            def _authed(self, body: bytes = b"") -> bool:
+                if auth_key is None:
+                    return True
+                claim = self.headers.get("X-Elephas-Auth", "")
+                nonce_hex = self.headers.get("X-Elephas-Nonce", "")
+                ts_str = self.headers.get("X-Elephas-TS", "")
+                try:
+                    nonce = bytes.fromhex(nonce_hex)
+                    ts = float(ts_str)
+                except ValueError:
+                    nonce, ts = b"", 0.0
+                want = socket_utils.chunks_mac(
+                    auth_key,
+                    [self.command.encode(), self.path.encode(), nonce,
+                     ts_str.encode(), body],
+                ).hex()
+                if nonce and hmac.compare_digest(claim, want):
+                    try:
+                        replay_guard.check(nonce, ts)
+                        self._req_nonce = nonce
+                        return True
+                    except ConnectionError:
+                        pass
+                self.send_error(403, "authentication failed")
+                return False
+
+            def _reply(self, body, content_type: Optional[str] = None,
+                       version: Optional[int] = None) -> None:
+                # body: bytes OR wire.Frames — frames go out chunk by chunk.
+                raw = isinstance(body, socket_utils.RawPayload)
+                chunks = body.chunks if raw else [body]
+                nbytes = body.nbytes if raw else len(body)
+                self.send_response(200)
+                if content_type:
+                    self.send_header("Content-Type", content_type)
+                if version is not None:
+                    self.send_header("X-Elephas-Version", str(version))
+                if auth_key is not None:
+                    self.send_header(
+                        "X-Elephas-Auth",
+                        socket_utils.chunks_mac(
+                            auth_key, [getattr(self, "_req_nonce", b""), *chunks]).hex(),
+                    )
+                self.send_header("Content-Length", str(nbytes))
+                self.end_headers()
+                for chunk in chunks:
+                    self.wfile.write(chunk)
+
+            def _pull(self):
+                if self.headers.get("X-Elephas-Pinned") is not None:
+                    # Version-pinned pulls read the write-ahead log, which
+                    # the port does not keep: the "cannot serve it" answer.
+                    self.send_error(404, "pinned version unavailable")
+                    return
+                codec = "packed" if self.headers.get(
+                    "X-Elephas-Codec") == "packed" else "pickle"
+                known = self.headers.get("X-Elephas-Version")
+                known_boot = self.headers.get("X-Elephas-Boot")
+                version, payload = cache.frames(codec)
+                # Not-modified needs the BOOT to match too (_new_boot_id).
+                if codec == "packed" and known is not None \
+                        and known == str(version) and known_boot == boot:
+                    payload = wire.encode_not_modified(version)
+                    cache_hits.inc()
+                bytes_tx.inc(payload.nbytes if isinstance(
+                    payload, socket_utils.RawPayload) else len(payload))
+                self._reply(payload, content_type="application/octet-stream",
+                            version=version)
+
+            def do_GET(self):  # noqa: N802
+                path = self.path.rstrip("/")
+                if path == "/health":
+                    self._reply(b"ok")  # open: liveness probe, no pickles
+                    return
+                if not self._authed():
+                    return
+                if path == "/parameters":
+                    ctx = _parse_trace_header(self.headers.get("X-Elephas-Trace"))
+                    with obs.activate(ctx), tracer_of().span(
+                            "ps/handle_pull", boot=boot, transport="http"):
+                        self._pull()
+                elif path == "/membership":
+                    self._reply(json.dumps(detector.membership()).encode(),
+                                content_type="application/json")
+                elif path.startswith("/barrier/"):
+                    self._reply(str(barriers.count(path[len("/barrier/"):])).encode())
+                else:
+                    self.send_error(404)
+
+            def _header_int(self, name, kind):
+                raw = self.headers.get(name)
+                try:
+                    return None if raw is None else kind(raw)
+                except ValueError:
+                    return None
+
+            def _push(self, body):
+                bytes_rx.inc(len(body))
+                tree, body_tc, seen, worker, syncint = wire.decode_push(body)
+                # Pickle bodies carry their staleness stamps as headers.
+                if seen is None:
+                    seen = self._header_int("X-Elephas-Seen-Version", int)
+                if worker is None:
+                    worker = self.headers.get("X-Elephas-Worker")
+                if syncint is None:
+                    syncint = self._header_int("X-Elephas-Sync-Interval", float)
+                ctx = (_parse_trace_header(self.headers.get("X-Elephas-Trace"))
+                       or _as_trace_ctx(body_tc))
+                tracer = tracer_of()
+                with obs.activate(ctx), tracer.span(
+                        "ps/handle_push", boot=boot, transport="http") as hsp:
+                    lag = _lag_of(buffer, seen)
+                    if hsp and lag is not None:
+                        hsp.note(staleness=lag, worker=worker)
+                    verdict, tree = _admit(admission, ledger, worker, lag, tree,
+                                           "http", hsp)
+                    if verdict == "reject":
+                        frame = wire.encode_rejected(buffer.version, lag,
+                                                     admission.max_staleness)
+                        bytes_tx.inc(frame.nbytes)
+                        self._reply(frame, content_type="application/octet-stream")
+                        return
+                    _note_staleness(ledger, worker, lag, seen, len(body),
+                                    sync_interval=syncint)
+                    with tracer.span("ps/apply", boot=boot):
+                        buffer.apply_delta(tree)
+                self._reply(b"")
+
+            def do_POST(self):  # noqa: N802
+                path = self.path.rstrip("/")
+                body = _read_exact(self.rfile, int(self.headers.get("Content-Length", 0)))
+                if not self._authed(body):
+                    return
+                if path == "/update":
+                    self._push(body)
+                elif path.startswith("/heartbeat/"):
+                    detector.beat(path[len("/heartbeat/"):])
+                    self._reply(b"ok")
+                elif path.startswith("/deregister/"):
+                    detector.deregister(path[len("/deregister/"):])
+                    self._reply(b"ok")
+                elif path.startswith("/barrier/"):
+                    self._reply(str(barriers.arrive(path[len("/barrier/"):])).encode())
+                else:
+                    self.send_error(404)
+
+        self._serve(_ThreadingHTTPServer((self.host, self.port), Handler))
+
+    def client(self):
+        from elephas_tpu_torch.parameter.client import HttpClient
+
+        return HttpClient(self._address(), auth_key=self.auth_key)
+
+
+class _SocketHandler(socketserver.BaseRequestHandler):
+    def handle(self):
+        # Strict request/reply: Nagle + delayed-ACK would stall small frames.
+        self.request.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        ps = self.server.ps  # type: ignore[attr-defined]
+        cache = self.server.cache  # type: ignore[attr-defined]
+        cache_hits, bytes_tx, bytes_rx = _ps_counters("socket")
+        try:
+            while True:
+                # With a key, receive() verifies the frame's HMAC and
+                # freshness BEFORE any decode; replies are MAC-bound to
+                # the request's nonce.
+                obj, req_nonce = socket_utils.receive(
+                    self.request, key=ps.auth_key, replay_guard=ps.replay_guard,
+                    return_nonce=True)
+
+                def reply(obj):
+                    if isinstance(obj, socket_utils.RawPayload):
+                        bytes_tx.inc(obj.nbytes)
+                    socket_utils.send(self.request, obj, key=ps.auth_key, bind=req_nonce)
+
+                # A raw (non-pickled) payload is a packed-codec PUSH.
+                if isinstance(obj, (bytes, bytearray, memoryview)):
+                    mv = memoryview(obj)
+                    bytes_rx.inc(mv.nbytes)
+                    reply(self._push(ps, mv))
+                    continue
+                # (kind, payload) from legacy peers, (kind, payload,
+                # trace_ctx) from tracing ones.
+                kind, payload, *rest = obj
+                ctx = _as_trace_ctx(rest[0]) if rest else None
+                if kind in ("g", "G"):
+                    with obs.activate(ctx), ps._tracer().span(
+                            "ps/handle_pull", boot=ps.boot, transport="socket"):
+                        reply(self._pull(ps, cache, cache_hits, kind, payload))
+                elif kind == "u":
+                    tracer = ps._tracer()
+                    with obs.activate(ctx), tracer.span(
+                            "ps/handle_push", boot=ps.boot, transport="socket"):
+                        # Legacy pickle frame: unstamped coverage.
+                        _note_staleness(ps.ledger, None, None, None, 0)
+                        with tracer.span("ps/apply", boot=ps.boot):
+                            ps.buffer.apply_delta(payload)
+                    reply(b"ok")
+                elif kind == "h":  # heartbeat: payload = worker id
+                    ps.detector.beat(str(payload))
+                    reply(b"ok")
+                elif kind == "m":  # membership table (sweeps first)
+                    reply(ps.detector.membership())
+                elif kind == "d":  # deregister: payload = worker id
+                    ps.detector.deregister(str(payload))
+                    reply(b"ok")
+                elif kind == "b":  # barrier arrive(tag) -> count
+                    reply(ps.barriers.arrive(payload))
+                elif kind == "c":  # barrier count(tag)
+                    reply(ps.barriers.count(payload))
+                elif kind in ("i", "V"):  # not a group member; no pinned versions (no WAL)
+                    reply(None)
+                else:
+                    break
+        except (ConnectionError, OSError):
+            pass
+
+    @staticmethod
+    def _pull(ps, cache, cache_hits, kind, payload):
+        if kind == "g":  # legacy pull → cached pickle snapshot
+            return socket_utils.RawPayload([cache.frames("pickle")[1]])
+        # Packed pull; payload is the client's (boot, version) position
+        # (a bare int from pre-boot-id peers never earns a not-modified).
+        version, frames = cache.frames("packed")
+        if (isinstance(payload, (tuple, list)) and len(payload) == 2
+                and payload[0] == ps.boot and payload[1] == version):
+            cache_hits.inc()
+            return wire.encode_not_modified(version)
+        return frames
+
+    @staticmethod
+    def _push(ps, mv):
+        tree, tc, seen, worker, syncint = wire.decode_push(mv)
+        tracer = ps._tracer()
+        with obs.activate(_as_trace_ctx(tc)), tracer.span(
+                "ps/handle_push", boot=ps.boot, transport="socket") as hsp:
+            lag = _lag_of(ps.buffer, seen)
+            if hsp and lag is not None:
+                hsp.note(staleness=lag, worker=worker)
+            verdict, tree = _admit(ps.admission, ps.ledger, worker, lag, tree,
+                                   "socket", hsp)
+            if verdict == "reject":
+                # Typed refusal (only ever sent to stamped peers).
+                return wire.encode_rejected(ps.buffer.version, lag,
+                                            ps.admission.max_staleness)
+            _note_staleness(ps.ledger, worker, lag, seen, mv.nbytes,
+                            sync_interval=syncint)
+            with tracer.span("ps/apply", boot=ps.boot):
+                ps.buffer.apply_delta(tree)
+        return b"ok"
+
+
+class _ThreadingHTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+
+
+class _ThreadingTCPServer(socketserver.ThreadingTCPServer):
+    allow_reuse_address = True
+    daemon_threads = True
+
+
+class SocketServer(_WireServer):
+    """Raw-TCP transport (reference ``SocketServer``): persistent
+    connections carrying ``('G', (boot, version))`` packed pulls, raw
+    packed-frame pushes, and the legacy ``('g', None)`` / ``('u', delta)``
+    pickle frames. Knobs as ``HttpServer``'s; a rejected push is answered
+    with the raw ``EPRJ`` frame in place of the ``b"ok"`` ack."""
+
+    def start(self) -> None:
+        server = _ThreadingTCPServer((self.host, self.port), _SocketHandler)
+        server.ps = self  # type: ignore[attr-defined]
+        server.cache = _SnapshotCache(self.buffer, boot=self.boot)  # type: ignore[attr-defined]
+        self._serve(server)
+
+    def client(self):
+        from elephas_tpu_torch.parameter.client import SocketClient
+
+        return SocketClient(self._address(), auth_key=self.auth_key)
+
+
+def make_server(
+    mode: str,
+    params,
+    lock: bool = True,
+    port: int = 4000,
+    device=None,
+    host: Optional[str] = None,
+    granularity: str = "tree",
+    auth_key: Optional[bytes] = None,
+    wal_dir: Optional[str] = None,
+    heartbeat_timeout: Optional[float] = None,
+    tracer=None,
+    ops_port: Optional[int] = None,
+    shard_info: Optional[dict] = None,
+    max_staleness: Optional[int] = None,
+    staleness_soft: Optional[int] = None,
+    store_dir: Optional[str] = "auto",
+) -> BaseParameterServer:
+    """Factory keyed on the reference's ``parameter_server_mode``
+    (``local``/``http``/``socket``). ``device``: where the buffer lives
+    (the card unless ``"cpu"`` is passed). ``granularity`` ('tree'|'leaf')
+    sets the hogwild apply isolation; ``auth_key`` turns on HMAC wire
+    authentication; ``max_staleness``/``staleness_soft`` bounded-staleness
+    admission (wire transports only — a local push applies under the
+    buffer lock and is never stale)."""
+    if mode == "local":
+        _check_left_out(wal_dir, shard_info, ops_port, store_dir)
+        if max_staleness is not None or staleness_soft is not None:
+            raise ValueError(
+                "staleness admission requires a wire transport "
+                "(http|socket): local pushes apply under the buffer lock "
+                "and are never stale"
+            )
+        return LocalServer(params, lock=lock, device=device, granularity=granularity,
+                           heartbeat_timeout=heartbeat_timeout)
+    kwargs = dict(lock=lock, port=port, device=device, host=host,
+                  granularity=granularity, auth_key=auth_key,
+                  heartbeat_timeout=heartbeat_timeout, tracer=tracer,
+                  max_staleness=max_staleness, staleness_soft=staleness_soft,
+                  wal_dir=wal_dir, shard_info=shard_info, ops_port=ops_port,
+                  store_dir=store_dir)
+    if mode == "http":
+        return HttpServer(params, **kwargs)
+    if mode == "socket":
+        return SocketServer(params, **kwargs)
+    raise ValueError(f"parameter_server_mode must be local|http|socket, got {mode!r}")

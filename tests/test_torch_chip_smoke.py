@@ -205,13 +205,15 @@ def test_kernel_line_carries_every_path(smoke):
                 "train": {k: 176 for k in smoke.KERNELS},
                 "resnet": {k: 0 for k in smoke.KERNELS},
                 "repair": {k: 12 for k in smoke.KERNELS},
-                "serving": {k: 0 for k in smoke.KERNELS}}
+                "serving": {k: 0 for k in smoke.KERNELS},
+                "async": {k: 0 for k in smoke.KERNELS}}
     entries = smoke.kernel_entries(timing, errors, launches)
     assert [e["name"] for e in entries] == list(smoke.KERNELS)
     for e in entries:
         assert e["launches"] == 176 and e["launches_by_path"]["resnet"] == 0
         assert e["launches_by_path"]["repair"] == 12
         assert e["launches_by_path"]["serving"] == 0
+        assert e["launches_by_path"]["async"] == 0
         assert e["route"] == "cuda"
         assert e["replaces"].startswith("elephas_tpu/ops/attention_pallas.py:")
         assert e["ms"] == 1.0 and e["bf16"] == {"ms": 0.5}
@@ -261,3 +263,38 @@ def test_compare_streams_accepts_near_ties_and_rejects_the_rest(smoke):
         smoke.compare_streams(ref, got[:2], lambda i, k: 0.0)
     assert smoke.first_difference([3, 4], [3, 4]) is None
     assert smoke.first_difference([3, 4], [3, 5]) == 1
+
+
+def test_async_config_is_the_baseline_configs(smoke):
+    """BASELINE config 2 (the MNIST CNN, 4 asynchronous workers, 3 epochs
+    at batch 64 on 8192 synthetic rows) and config 4 (the ResNet-18,
+    hogwild, 4 workers at batch 256: a global batch of 1024, on 16384
+    synthetic rows), the limits stated before the first card run."""
+    assert smoke.ASYNC_WORKERS == 4
+    assert smoke.ASYNC_CNN_ROWS == (8192, 2048)
+    assert (smoke.ASYNC_CNN_EPOCHS, smoke.ASYNC_CNN_BATCH) == (3, 64)
+    assert smoke.HOGWILD_ROWS == (16384, 2048)
+    assert smoke.ASYNC_WORKERS * smoke.HOGWILD_BATCH == 1024
+    assert smoke.ASYNC_CPU_ROWS // smoke.ASYNC_CNN_BATCH == 16
+    assert smoke.ASYNC_CPU_LIMITS == {"weights_all": 1e-3, "loss": 1e-4}
+    assert smoke.ASYNC_SUM_LIMIT == 1e-6
+    assert smoke.HOGWILD_OPTIMIZER == {"name": "sgd", "learning_rate": 0.05}
+    assert 0.1 < smoke.ASYNC_MIN_VAL_ACC < 0.2 and 0.1 < smoke.ASYNC_WIRE_MIN_ACC
+    assert abs(smoke.ASYNC_WIRE_MAX_LOSS - 2.302585) < 1e-6  # the untrained loss, ln 10
+
+
+def test_span_ms_and_epoch_rate(smoke):
+    class Event:
+        def __init__(self, name, begin, end):
+            self.name, self.begin_s, self.end_s = name, begin, end
+
+    events = [Event("async/pull", 0.0, 0.002), Event("async/pull", 1.0, 1.004),
+              Event("async/push", 2.0, 2.001)]
+    out = smoke.span_ms(events, ("async/pull", "async/push", "async/train"))
+    assert out["async/pull"]["count"] == 2
+    assert abs(out["async/pull"]["mean_ms"] - 3.0) < 1e-9
+    assert abs(out["async/pull"]["total_ms"] - 6.0) < 1e-9
+    assert abs(out["async/push"]["mean_ms"] - 1.0) < 1e-9
+    assert out["async/train"] == {"mean_ms": None, "total_ms": 0.0, "count": 0}
+    assert smoke.epoch_rate([10.0, 12.0, 14.0], 1000) == 500.0
+    assert smoke.epoch_rate([10.0], 1000) is None

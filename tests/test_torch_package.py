@@ -18,7 +18,7 @@ from elephas_tpu_torch.utils.device import resolve_device
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "elephas_tpu_torch"
 PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "elephas_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "elephas_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -69,9 +69,11 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 
 def test_registry():
-    assert registered_models() == ["mlp", "resnet18", "transformer_lm"]
+    assert registered_models() == ["cnn", "mlp", "resnet18", "transformer_lm"]
     with pytest.raises(ValueError, match="unknown model"):
         get_model("simple_cnn", device="cpu")
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model("lstm", device="cpu")
     with pytest.raises(ValueError, match="attention"):
         get_model("transformer_lm", attention="sparse", device="cpu")
     assert elephas_tpu_torch.__version__
