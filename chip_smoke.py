@@ -81,9 +81,19 @@ Phases, in order; any failed check raises and the process exits non-zero:
    share, samples/s with 1 and 4 workers beside the synchronous fit at
    the same global batch, pull and push ms from the ``async/*`` spans, a
    kernel breakdown of one epoch, and no flash launch;
-10. a JSON line with each kernel's launches on the paths, errors, times
+10. the estimator phase (``estimator_phase``), BASELINE config 3: the
+   registry's full-width LSTM (2,691,842 parameters), one f32 Adam step
+   on the card against the CPU, then ``ElephasEstimator.fit`` on the
+   synthetic IMDB DataFrame (8192 rows of 200 tokens, 3 epochs at batch
+   32) and ``transform`` of 2048 held-out rows (accuracy above 0.7), one
+   epoch in the default asynchronous mode, the transformer, the
+   ``SparkModel`` and the estimator saved and loaded (the card's payload
+   also on the CPU), a fit resumed from its epoch-1 checkpoint against
+   the uninterrupted one, the bare train step's samples/s at batch 32,
+   256 and 1024 and a kernel breakdown; no flash launch;
+11. a JSON line with each kernel's launches on the paths, errors, times
    and bound;
-11. the last line: ``{"ok": true, "device": {...}}``.
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device, ``nvcc`` and this repository; exits non-zero without
 them. Imports nothing of JAX.
@@ -233,6 +243,27 @@ ASYNC_BITWISE_ROWS = 1024          # socket vs local, 1 worker, unpipelined
 HOGWILD_ROWS = (16384, 2048)       # synthetic_cifar10 train, test
 HOGWILD_EPOCHS, HOGWILD_BATCH = 2, 256
 HOGWILD_OPTIMIZER = {"name": "sgd", "learning_rate": 0.05}
+
+# Estimator phase (BASELINE config 3): the registry's full-width LSTM
+# (2,691,842 parameters) on synthetic IMDB, through ElephasEstimator at
+# parity.py's settings, then serialization and a checkpoint resume.
+IMDB_ROWS, IMDB_MAXLEN = (8192, 2048), 200
+LSTM_WIDTH = {"vocab_size": 20000, "embed_dim": 128, "hidden_dim": 128, "num_classes": 2}
+LSTM_PARAMS = 2_691_842
+IMDB_BATCH, IMDB_EPOCHS = 32, 3
+IMDB_ADAM = {"name": "adam", "learning_rate": 1e-3}
+IMDB_MIN_ACC = 0.7                  # examples/imdb_lstm_estimator.py's bar
+# One f32 Adam step on the card against the CPU port, same seeded weights
+# and batch, TF32 off (set before the first card run): logits max |error|,
+# loss relative, each gradient and each parameter after the step by
+# ||error|| / ||cpu|| (the worst tensor).
+LSTM_CPU_LIMITS = {"logits": 1e-4, "loss": 1e-5, "grads": 1e-3, "params": 1e-4}
+LSTM_SWEEP = (32, 256, 1024)        # the bare train step's batches
+LSTM_WARMUP, LSTM_STEPS = 5, 30
+IMDB_CPU_ROWS = 512                 # the card's payload predicted on the CPU
+IMDB_PAYLOAD_LIMIT = 1e-4           # card vs CPU outputs, absolute
+IMDB_RELOAD_LIMIT = 1e-6            # reloaded on the card, deterministic cuDNN
+IMDB_RESUME_LIMIT = 1e-6            # resumed vs uninterrupted, by norm over all tensors
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -1683,6 +1714,230 @@ def async_phase(attention_cuda):
     return launches, report
 
 
+def lstm_step_errors(got, ref):
+    """The card's LSTM step record against the CPU's (``step_record``):
+    logits max |error|, loss relative, and for the gradients and the
+    parameters after the step the worst tensor's ||error|| / ||ref||."""
+    def by_norm(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+    errors = {"logits": (got["logits"] - ref["logits"]).abs().max().item(),
+              "loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"])}
+    for key in ("grads", "params"):
+        per = {n: by_norm(got[key][n], t) for n, t in ref[key].items()}
+        errors[key], errors[f"{key}_worst"] = max(per.values()), max(per, key=per.get)
+    return errors
+
+
+def estimator_phase(attention_cuda):
+    """BASELINE config 3 on the card: the IMDB LSTM through the ML
+    pipeline, at the registry's full width. (1) One f32 Adam step on the
+    card against the port's CPU path (``LSTM_CPU_LIMITS``; both also
+    against a float64 CPU step, reported); (2) ``ElephasEstimator.fit``
+    (synchronous, epoch frequency, Adam 1e-3, batch 32, 3 epochs) on the
+    synthetic IMDB DataFrame, ``transform`` of the test frame (held-out
+    accuracy above ``IMDB_MIN_ACC``), and one epoch in the default mode
+    (asynchronous, local server, one worker) whose loss is finite and
+    below the untrained model's; (3) with deterministic cuDNN: the
+    transformer saved and reloaded predicts the same, ``SparkModel.save``/
+    ``load_spark_model`` evaluates the same loss, the card's payload
+    predicts on the CPU within ``IMDB_PAYLOAD_LIMIT``, the estimator's
+    params survive save/load; (4) a fit resumed from its epoch-1
+    checkpoint ends where the uninterrupted fit ends; (5) the bare train
+    step's samples/s over ``LSTM_SWEEP`` and a kernel breakdown at batch
+    32. No flash kernel may launch. Returns the launch counts and a
+    report."""
+    import tempfile
+
+    from elephas_tpu_torch import (ElephasEstimator, SparkModel, compile_model,
+                                   load_spark_model, to_simple_rdd)
+    from elephas_tpu_torch.checkpoint import CheckpointManager
+    from elephas_tpu_torch.data.dataframe import to_data_frame
+    from elephas_tpu_torch.data.datasets import synthetic_imdb
+    from elephas_tpu_torch.engine.step import init_train_state, make_train_step
+    from elephas_tpu_torch.ml import load_ml_estimator, load_ml_transformer
+    from elephas_tpu_torch.models import get_model
+
+    attention_cuda.reset_launches()
+    report = {"cudnn_benchmark": torch.backends.cudnn.benchmark}
+
+    def lstm(device=None, seed=SEED):
+        return compile_model(get_model("lstm", device=device, **LSTM_WIDTH),
+                             optimizer=IMDB_ADAM, loss="sparse_categorical_crossentropy",
+                             metrics=["acc"], input_shape=(IMDB_MAXLEN,),
+                             input_dtype=torch.int32, seed=seed)
+
+    (xtr, ytr), (xte, yte) = synthetic_imdb(*IMDB_ROWS, num_words=LSTM_WIDTH["vocab_size"],
+                                            maxlen=IMDB_MAXLEN)
+    card_model = lstm()
+    card = next(card_model.module.parameters()).device
+    check(card_model.count_params() == LSTM_PARAMS,
+          f"lstm has {card_model.count_params()} parameters, not {LSTM_PARAMS}")
+
+    # (1) One step on the card against the CPU, same seeded weights.
+    x = torch.as_tensor(xtr[:IMDB_BATCH])
+    y = torch.as_tensor(ytr[:IMDB_BATCH])
+
+    def record(model, device):
+        rec = step_record(model, x.to(device), y.to(device))
+        rec["params"] = {n: p.detach().cpu() for n, p in model.module.named_parameters()}
+        return rec
+
+    cpu_model = lstm(device="cpu")
+    wide = lstm(device="cpu")
+    wide.module.double()
+    got, ref, exact = record(card_model, card), record(cpu_model, "cpu"), record(wide, "cpu")
+    errors = lstm_step_errors(got, ref)
+    report["card_vs_cpu"] = {"errors": errors, "limits": LSTM_CPU_LIMITS,
+                             "card_vs_cpu_float64": lstm_step_errors(got, exact),
+                             "cpu_vs_cpu_float64": lstm_step_errors(ref, exact)}
+    print(f"lstm step, card vs cpu (f32, batch {IMDB_BATCH} x {IMDB_MAXLEN}, Adam, TF32 off): "
+          f"{json.dumps(report['card_vs_cpu'])}", flush=True)
+    check(not breaches(errors, LSTM_CPU_LIMITS),
+          f"lstm step, card vs cpu: breaches {breaches(errors, LSTM_CPU_LIMITS)}")
+    del cpu_model, wide, got, ref, exact
+
+    # (2) The pipeline: DataFrame -> ElephasEstimator.fit -> transform.
+    df = to_data_frame(None, xtr.astype(np.float32), ytr.astype(np.float32))
+    test_df = to_data_frame(None, xte.astype(np.float32), yte.astype(np.float32))
+    config = {"name": "lstm", "kwargs": LSTM_WIDTH, "input_shape": [IMDB_MAXLEN],
+              "input_dtype": "int32"}
+    stage = dict(keras_model_config=config, optimizer_config=IMDB_ADAM,
+                 loss="sparse_categorical_crossentropy", metrics=["acc"], batch_size=IMDB_BATCH,
+                 num_workers=1, categorical=False, nb_classes=2)
+    ends = []
+    estimator = ElephasEstimator(mode="synchronous", frequency="epoch", epochs=IMDB_EPOCHS,
+                                 callbacks=[lambda e, state, m: ends.append(time.perf_counter())],
+                                 **stage)
+    t0 = time.perf_counter()
+    transformer = estimator.fit(df)
+    fit_s = time.perf_counter() - t0
+    outputs = transformer.transform(test_df)["prediction"]
+    acc = float(np.mean(outputs.argmax(-1) == yte))
+    rows = (IMDB_ROWS[0] // IMDB_BATCH) * IMDB_BATCH
+    report["estimator"] = {"history": transformer.history, "fit_s": fit_s,
+                           "epoch_s": np.diff([t0, *ends]).tolist(), "heldout_acc": acc,
+                           "samples_per_s_epochs_2_3": epoch_rate(ends, rows)}
+    print(f"imdb lstm estimator (synchronous, epoch frequency, batch {IMDB_BATCH}, "
+          f"{IMDB_EPOCHS} epochs, {IMDB_ROWS[0]} synthetic rows): "
+          f"{json.dumps(report['estimator'])}", flush=True)
+    check(outputs.shape == (IMDB_ROWS[1], 2) and np.isfinite(outputs).all(),
+          f"transform gave {outputs.shape}, expected ({IMDB_ROWS[1]}, 2), finite")
+    check(all(np.isfinite(transformer.history["loss"])), "estimator loss not finite")
+    check(acc > IMDB_MIN_ACC, f"held-out accuracy {acc:.4f} not above {IMDB_MIN_ACC}")
+
+    untrained = SparkModel(lstm(), mode="synchronous").evaluate(xte, yte)["loss"]
+    t0 = time.perf_counter()
+    async_transformer = ElephasEstimator(epochs=1, **stage).fit(df)
+    async_s = time.perf_counter() - t0
+    async_loss = SparkModel(async_transformer.get_model(), mode="synchronous").evaluate(
+        xte, yte)["loss"]
+    report["estimator_async"] = {"history": async_transformer.history, "fit_s": async_s,
+                                 "untrained_test_loss": untrained, "test_loss": async_loss}
+    print(f"imdb lstm estimator, default mode (asynchronous, local server, 1 worker, "
+          f"1 epoch): {json.dumps(report['estimator_async'])}", flush=True)
+    check(np.isfinite(async_transformer.history["loss"]).all() and async_loss < untrained,
+          f"async epoch: loss {async_transformer.history['loss']}, test loss {async_loss} "
+          f"against {untrained} untrained")
+
+    # (3) Serialization on the card, with cuDNN's deterministic algorithms.
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        path = Path(tmp.name)
+        before = transformer.transform(test_df)["prediction"]
+        transformer.save(path / "transformer.pkl")
+        after = load_ml_transformer(path / "transformer.pkl").transform(test_df)["prediction"]
+        model = SparkModel(transformer.get_model(), mode="synchronous")
+        loss_before = model.evaluate(xte, yte)["loss"]
+        model.save(path / "model.pkl")
+        loss_after = load_spark_model(path / "model.pkl").evaluate(xte, yte)["loss"]
+        small = to_data_frame(None, xte[:IMDB_CPU_ROWS].astype(np.float32),
+                              yte[:IMDB_CPU_ROWS].astype(np.float32))
+        on_cpu = load_ml_transformer(path / "transformer.pkl", device="cpu").transform(small)
+        estimator.save(path / "estimator.pkl")
+        params_equal = load_ml_estimator(path / "estimator.pkl").param_map() == \
+            estimator.param_map()
+
+        # (4) Checkpoint resume against an uninterrupted fit.
+        rdd = to_simple_rdd(None, xtr.astype(np.float32), ytr.astype(np.float32))
+        fit = dict(epochs=IMDB_EPOCHS, batch_size=IMDB_BATCH)
+        whole = SparkModel(lstm(), mode="synchronous", frequency="epoch")
+        whole.fit(rdd, **fit)
+        manager = CheckpointManager(str(path / "ckpt"), keep=2)
+        SparkModel(lstm(), mode="synchronous", frequency="epoch").fit(
+            rdd, **{**fit, "epochs": 1}, callbacks=[manager.callback()])
+        resumed_model = lstm(seed=SEED + 1)
+        state = manager.restore(init_train_state(resumed_model))
+        resumed = SparkModel(resumed_model, mode="synchronous", frequency="epoch")
+        resumed.fit(rdd, **{**fit, "epochs": IMDB_EPOCHS - 1}, initial_state=state)
+        manager.close()
+    finally:
+        tmp.cleanup()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    a, b = resumed.get_weights(), whole.get_weights()
+    resume_error = (sum(float((a[k].double() - b[k].double()).norm() ** 2) for k in b)
+                    / sum(float(b[k].double().norm() ** 2) for k in b)) ** 0.5
+    report["serialization"] = {
+        "transformer_reload_max_abs": float(np.abs(after - before).max()),
+        "transformer_reload_argmax_equal": bool((after.argmax(-1) == before.argmax(-1)).all()),
+        "spark_model_loss": [loss_before, loss_after],
+        "card_payload_on_cpu_max_abs": float(np.abs(on_cpu["prediction"]
+                                                    - before[:IMDB_CPU_ROWS]).max()),
+        "estimator_params_equal": params_equal,
+        "resume_vs_uninterrupted_by_norm": resume_error, "resumed_step": state.step,
+        "resumed_epoch": state.epoch}
+    print(f"imdb lstm serialization and resume (deterministic cuDNN): "
+          f"{json.dumps(report['serialization'])}", flush=True)
+    ser = report["serialization"]
+    check(ser["transformer_reload_argmax_equal"]
+          and ser["transformer_reload_max_abs"] <= IMDB_RELOAD_LIMIT,
+          f"reloaded transformer: {ser['transformer_reload_max_abs']} (limit "
+          f"{IMDB_RELOAD_LIMIT}), argmax equal {ser['transformer_reload_argmax_equal']}")
+    check(loss_after == loss_before, f"load_spark_model evaluates {loss_after}, "
+                                     f"the saved model {loss_before}")
+    check(ser["card_payload_on_cpu_max_abs"] <= IMDB_PAYLOAD_LIMIT,
+          f"the card's payload on the CPU is {ser['card_payload_on_cpu_max_abs']} off")
+    check(params_equal, "load_ml_estimator changed the estimator's params")
+    check(resume_error <= IMDB_RESUME_LIMIT,
+          f"the resumed fit ends {resume_error:.3e} (by norm) from the uninterrupted one")
+
+    # (5) The bare f32 train step over batches, and its kernels at 32.
+    gen = torch.Generator(device=card).manual_seed(SEED)
+    sweep, step_at = [], {}
+    for batch in LSTM_SWEEP:
+        model = lstm()
+        step, state = make_train_step(model), init_train_state(model)
+        bx = torch.randint(1, LSTM_WIDTH["vocab_size"], (batch, IMDB_MAXLEN), generator=gen,
+                           device=card)
+        by = torch.randint(0, 2, (batch,), generator=gen, device=card)
+        for _ in range(LSTM_WARMUP):
+            state, metrics = step(state, bx, by)
+        float(metrics["loss"])
+        t0 = time.perf_counter()
+        for _ in range(LSTM_STEPS):
+            state, metrics = step(state, bx, by)
+        loss = float(metrics["loss"])
+        elapsed = time.perf_counter() - t0
+        sweep.append({"batch": batch, "step_ms": elapsed / LSTM_STEPS * 1e3,
+                      "samples_per_s": batch * LSTM_STEPS / elapsed, "loss": loss})
+        check(np.isfinite(loss), f"lstm step loss not finite at batch {batch}")
+        step_at[batch] = (step, state, bx, by)
+    report["step_sweep_f32"] = sweep
+    print(f"lstm train step (f32, Adam, seq {IMDB_MAXLEN}): {json.dumps(sweep)}", flush=True)
+    step, state, bx, by = step_at[LSTM_SWEEP[0]]
+    report["profile_batch_32"] = device_breakdown(
+        lambda: [step(state, bx, by) for _ in range(10)], top=8)
+    print(f"lstm profile, 10 steps at batch {LSTM_SWEEP[0]}: "
+          f"{json.dumps(report['profile_batch_32'])}", flush=True)
+
+    launches = dict(attention_cuda.launches)
+    check(launches == {k: 0 for k in KERNELS},
+          f"the estimator path launched flash kernels: {launches}")
+    return launches, report
+
+
 def kernel_entries(timing, errors, launches):
     """The ``{"kernels": [...]}`` line's entries: each kernel's source,
     the TPU kernel it replaces, its launches on the main path (the LM
@@ -1769,6 +2024,8 @@ def main():
     print(f"serving: {json.dumps(report)}", flush=True)
     launches["async"], report = async_phase(attention_cuda)
     print(f"async: {json.dumps(report)}", flush=True)
+    launches["estimator"], report = estimator_phase(attention_cuda)
+    print(f"estimator: {json.dumps(report)}", flush=True)
 
     print(json.dumps({"kernels": kernel_entries(timing, errors, launches)}))
     print(json.dumps({"ok": True, "device": {

@@ -69,8 +69,16 @@ class OptaxRule(torch.optim.Optimizer):
         raise NotImplementedError
 
     def _states(self, params, key, fill):
-        """``state[key]`` of each parameter, created full of ``fill``."""
-        return [self.state[p].setdefault(key, torch.full_like(p, fill)) for p in params]
+        """``state[key]`` of each parameter, created full of ``fill`` at
+        its first use (only then: a fill per step is a launch and a
+        parameter-sized write per tensor)."""
+        out = []
+        for p in params:
+            state = self.state[p]
+            if key not in state:
+                state[key] = torch.full_like(p, fill)
+            out.append(state[key])
+        return out
 
     def _moment(self, params, key, g, decay, fill=0.0):
         """optax's ``(1 - decay) * g + decay * t``, in place on ``state[key]``."""

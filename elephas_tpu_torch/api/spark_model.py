@@ -13,24 +13,29 @@ JAX package's.
   device of the worker list against a parameter server on the card
   (``parameter/``), locked or lock-free.
 
-Not ported yet, and raising where asked for: ``save``/``load_spark_model``,
-Keras models and ``model_to_dict`` payloads, ``autotune`` and
+``save`` writes the JAX package's pickled dict around a
+``model_to_dict`` payload and ``load_spark_model`` reads it back; the
+constructor takes such a payload as well as a ``CompiledModel``.
+``SparkMLlibModel`` trains on LabeledPoints. Not ported yet, and raising
+where asked for: Keras models (the Keras bridge), ``autotune`` and
 ``stream_batches`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 import logging
+import pickle
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from elephas_tpu_torch.api.compile import CompiledModel
-from elephas_tpu_torch.data.rdd import ShardedDataset
+from elephas_tpu_torch.data.rdd import ShardedDataset, lp_to_simple_rdd
 from elephas_tpu_torch.engine.async_engine import AsyncTrainer, default_worker_devices
 from elephas_tpu_torch.engine.step import init_train_state
 from elephas_tpu_torch.engine.sync import SyncTrainer
 from elephas_tpu_torch.parallel.mesh import build_mesh, world
+from elephas_tpu_torch.serialize.serialization import dict_to_model, model_to_dict
 from elephas_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -68,7 +73,9 @@ class TpuModel:
         world size (one process per device). Asynchronous: the number of
         worker threads, defaulting to the length of the worker device
         list. Either is capped with a warning.
-    custom_objects: kept for deserialization.
+    custom_objects: builders by registry name, used where ``model`` is a
+        ``model_to_dict`` payload (``serialize.dict_to_model``).
+    device: where a payload's model is built (None: ``cuda``).
     batch_size: default per-worker batch size for ``fit``.
     mesh: synchronous: an optional pre-built ``parallel.mesh.Mesh``.
         Asynchronous: the workers' devices, a list in which a device may
@@ -79,7 +86,7 @@ class TpuModel:
 
     def __init__(
         self,
-        model: CompiledModel,
+        model,
         mode: str = "asynchronous",
         frequency: str = "epoch",
         parameter_server_mode: str = "local",
@@ -92,6 +99,7 @@ class TpuModel:
         max_failures: int = 4,
         autotune: bool = False,
         pipelined_comms: Optional[bool] = None,
+        device=None,
     ):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -107,10 +115,11 @@ class TpuModel:
             raise _not_ported("autotune (a torch.compile mode A/B)",
                               "the sync fit slice's left-outs")
         if isinstance(model, dict):
-            raise _not_ported("a model_to_dict payload", "serialization")
+            model = dict_to_model(model, custom_objects, device=device)
         if not isinstance(model, CompiledModel):
             if type(model).__module__.split(".")[0] == "keras":
-                raise _not_ported("a Keras model", "serialization (the Keras bridge)")
+                raise _not_ported("a Keras model", "item 3's Keras bridge "
+                                  "(serialize/keras_bridge.py)")
             raise TypeError(
                 "model must be a CompiledModel; wrap modules with "
                 "elephas_tpu_torch.compile_model"
@@ -211,8 +220,10 @@ class TpuModel:
         is evaluated after every epoch (``val_*`` keys of the history), and
         each callback is called as ``cb(epoch, state, metrics)`` after
         every epoch, and its ``on_fit_end()`` (where it has one) after the
-        fit. ``initial_state``: a ``TrainState`` to resume from.
-        ``stream_batches`` is not ported yet and raises.
+        fit. ``initial_state``: a ``TrainState`` to resume from, restored
+        into this model's module (``checkpoint.CheckpointManager.restore(
+        init_train_state(model.master_network))``). ``stream_batches`` is
+        not ported yet and raises.
 
         In the asynchronous modes the parameter server's final weights are
         folded back into the master network, and ``last_epoch_end_times``
@@ -223,6 +234,9 @@ class TpuModel:
         if stream_batches is not None:
             raise _not_ported("stream_batches (streamed epochs)",
                               "the sync fit slice's left-outs")
+        if initial_state is not None and initial_state.module not in (None, self._master.module):
+            raise ValueError("initial_state trains another module: restore it into this "
+                             "model's (init_train_state(model.master_network))")
         batch_size = batch_size or self.batch_size
         dataset = self._as_dataset(rdd)
         if dataset.labels is None:
@@ -315,13 +329,69 @@ class TpuModel:
                                                    batch_size=batch_size)
 
     def save(self, path: str) -> None:
-        raise _not_ported("SparkModel.save", "serialization")
+        """Persist the master network (architecture, weights, optimizer
+        config) and the constructor's settings: the JAX package's pickled
+        dict around a ``model_to_dict`` payload. ``checkpoint/`` keeps
+        mid-training snapshots with optimizer state."""
+        payload = {
+            "model": model_to_dict(self._master),
+            "mode": self.mode,
+            "frequency": self.frequency,
+            "parameter_server_mode": self.parameter_server_mode,
+            "num_workers": self.num_workers,
+            "batch_size": self.batch_size,
+            "port": self.port,
+            "hogwild_granularity": self.hogwild_granularity,
+            "max_failures": self.max_failures,
+        }
+        with open(path, "wb") as f:
+            pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
 # Reference alias: user code says ``SparkModel``.
 SparkModel = TpuModel
 
 
-def load_spark_model(path: str, custom_objects: Optional[dict] = None) -> TpuModel:
-    """Inverse of ``SparkModel.save`` — not ported yet."""
-    raise _not_ported("load_spark_model", "serialization")
+def load_spark_model(path: str, custom_objects: Optional[dict] = None,
+                     device=None) -> TpuModel:
+    """Inverse of ``SparkModel.save``, the model built on ``device``
+    (None: ``cuda``). Reads files of either package whose model is a
+    registry model. Unpickles the file: load only files this program
+    or one you trust wrote."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    model = dict_to_model(payload["model"], custom_objects, device=device)
+    return TpuModel(
+        model,
+        mode=payload["mode"],
+        frequency=payload["frequency"],
+        parameter_server_mode=payload["parameter_server_mode"],
+        num_workers=payload["num_workers"],
+        batch_size=payload["batch_size"],
+        port=payload["port"],
+        hogwild_granularity=payload.get("hogwild_granularity", "tree"),
+        max_failures=payload.get("max_failures", 4),
+    )
+
+
+class SparkMLlibModel(TpuModel):
+    """LabeledPoint façade (reference ``SparkMLlibModel``): ``fit`` takes
+    a list of ``LabeledPoint`` (``data.rdd.to_labeled_point``)."""
+
+    def fit(
+        self,
+        labeled_points,
+        epochs: int = 10,
+        batch_size: Optional[int] = None,
+        verbose: int = 0,
+        validation_split: float = 0.0,
+        categorical: bool = False,
+        nb_classes: Optional[int] = None,
+        validation_data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        callbacks=(),
+    ):
+        dataset = lp_to_simple_rdd(labeled_points, categorical=categorical,
+                                   nb_classes=nb_classes, num_partitions=self.num_workers)
+        return super().fit(dataset, epochs=epochs, batch_size=batch_size, verbose=verbose,
+                           validation_split=validation_split,
+                           validation_data=validation_data, callbacks=callbacks)

@@ -13,6 +13,12 @@ inverse, so weights trained in the port go back to the JAX package.
 state (``jax.device_get`` of a JAX ``TrainState.opt_state``) into the
 port's optimizer, so a JAX run resumes in the port.
 
+Layouts (``LSTMClassifier``): ``Embed_0/embedding`` -> ``embed.weight``;
+``OptimizedLSTMCell_0/{ii,if,ig,io}/kernel`` (in, out) ->
+``cell.i*.weight`` (out, in); ``OptimizedLSTMCell_0/{hi,hf,hg,ho}/{kernel,
+bias}`` -> ``cell.h*.{weight, bias}``; ``Dense_0`` -> ``out``. The port
+keeps flax's leaves one for one, so each is a plain transpose.
+
 Layouts (``TransformerLM``):
 
 - ``tok_embed/embedding`` (V, d) -> ``tok_embed.weight``; ``pos_embed``
@@ -46,12 +52,14 @@ import torch
 from torch.nn.parameter import is_lazy
 
 from elephas_tpu_torch.models.cnn import SimpleCNN
+from elephas_tpu_torch.models.lstm import GATES, LSTMClassifier
 from elephas_tpu_torch.models.mlp import MLP
 from elephas_tpu_torch.models.resnet import ResNet
 from elephas_tpu_torch.models.transformer import TransformerLM
 
-# Optimizers whose optax state ``from_optax_state`` carries across.
-_STATE_OPTIMIZERS = ("sgd", "momentum", "adam", "adamw")
+# The optax state fields that hold one tensor per parameter (the port's
+# optimizers keep them in ``optimizer.state[p]`` under the same names).
+_PER_PARAM = ("trace", "mu", "nu", "sum_of_squares")
 _COLLECTIONS = ("params", "batch_stats")
 
 
@@ -162,8 +170,24 @@ def _cnn_rows(module: SimpleCNN):
     return rows + _dense("Dense_0", "dense") + _dense("Dense_1", "out")
 
 
+def _transpose(a):
+    return a.T
+
+
+def _lstm_rows(module: LSTMClassifier):
+    """The embedding, flax's 12 cell leaves (input kernels without
+    bias, hidden kernels with one), then the dense head."""
+    cell = "OptimizedLSTMCell_0"
+    rows = [("params", "Embed_0/embedding", "embed.weight", _same, _same)]
+    rows += [("params", f"{cell}/i{g}/kernel", f"cell.i{g}.weight", _transpose, _transpose)
+             for g in GATES]
+    for g in GATES:
+        rows += _dense(f"{cell}/h{g}", f"cell.h{g}")
+    return rows + _dense("Dense_0", "out")
+
+
 _LAYOUTS = ((TransformerLM, _transformer_lm_rows), (ResNet, _resnet_rows), (MLP, _mlp_rows),
-            (SimpleCNN, _cnn_rows))
+            (SimpleCNN, _cnn_rows), (LSTMClassifier, _lstm_rows))
 
 
 def _rows(module, collections=_COLLECTIONS):
@@ -241,41 +265,55 @@ def to_flax_batch_stats(state_dict: Mapping[str, torch.Tensor],
     return _to_flax(state_dict, module, "batch_stats")
 
 
-def _optax_leaves(state):
-    """(field name, value) of every named-tuple field in an optax state."""
+def _optax_fields(state):
+    """(field name, value) of every named-tuple field in an optax state,
+    those of the states it wraps included: an injected state's
+    ``inner_state`` and its schedules' ``hyperparams_states``."""
     if hasattr(state, "_fields"):
         for name in state._fields:
-            yield name, getattr(state, name)
+            value = getattr(state, name)
+            if name == "inner_state":
+                yield from _optax_fields(value)
+            elif name == "hyperparams_states":
+                for wrapped in value.values():
+                    yield from _optax_fields(wrapped)
+            else:
+                yield name, value
     elif isinstance(state, (tuple, list)):
         for item in state:
-            yield from _optax_leaves(item)
+            yield from _optax_fields(item)
 
 
 def from_optax_state(opt_state, compiled) -> torch.optim.Optimizer:
     """A fresh optimizer over ``compiled``'s module holding the optax
-    ``opt_state`` of the same optimizer: ``trace`` (sgd with momentum),
-    ``mu``, ``nu`` and ``count`` (adam, adamw), and the update count that
-    drives a schedule. Other optimizers' states raise. Only parameters
-    have optimizer state, so BatchNorm statistics take no part."""
+    ``opt_state`` of the same optimizer: ``trace`` (sgd with momentum,
+    rmsprop with momentum), ``mu`` and ``nu`` (adam, adamw, lamb; a
+    centered rmsprop's ``mu``), ``nu`` (rmsprop), ``sum_of_squares``
+    (adagrad), and the update count that drives bias corrections and
+    schedules. An injected state (``optax.inject_hyperparams``) also
+    hands over its hyperparameters, the learning rate as ``lr``. Only
+    parameters have optimizer state, so BatchNorm statistics take no
+    part."""
     name = (compiled.optimizer_config or {}).get("name")
-    if name not in _STATE_OPTIMIZERS or (compiled.optimizer_config or {}).get("injected"):
-        raise NotImplementedError(
-            f"carrying optax state across is ported for {_STATE_OPTIMIZERS} "
-            f"(not injected), not {compiled.optimizer_config!r}; the rest arrives "
-            "with serialization (ROADMAP.md, queue 1)"
-        )
+    if name is None:
+        raise ValueError("from_optax_state needs a model compiled from an optimizer "
+                         "config (a name or {'name': ...})")
     optimizer = compiled.init_opt_state()
     params = dict(compiled.module.named_parameters())
-    count = 0
-    for field, value in _optax_leaves(opt_state):
-        if field in ("trace", "mu", "nu"):
+    count, hyper = 0, {}
+    for field, value in _optax_fields(opt_state):
+        if field in _PER_PARAM:
             for torch_name, tensor in _from_flax({"params": value}, compiled.module,
                                                  params).items():
                 optimizer.state[params[torch_name]][field] = tensor
         elif field == "count":
             count = int(np.asarray(value))
+        elif field == "hyperparams":
+            hyper = {("lr" if k == "learning_rate" else k): float(np.asarray(v))
+                     for k, v in value.items()}
         else:
             raise ValueError(f"unexpected optax state field {field!r} for {name}")
     for group in optimizer.param_groups:
         group["count"] = count
+        group.update({k: v for k, v in hyper.items() if isinstance(group.get(k), float)})
     return optimizer

@@ -1,6 +1,6 @@
-"""Data layer (counterpart of ``elephas_tpu/data/``): sharded datasets and
-the benchmark datasets. The DataFrame and MLlib adapters arrive with the
-ML façade (ROADMAP.md, queue 1)."""
+"""Data layer (counterpart of ``elephas_tpu/data/``): sharded datasets, the
+columnar DataFrame of the ML pipeline, the MLlib adapters and the
+benchmark datasets."""
 
 from elephas_tpu_torch.data.rdd import (  # noqa: F401
     LabeledPoint,
@@ -11,4 +11,5 @@ from elephas_tpu_torch.data.rdd import (  # noqa: F401
     to_labeled_point,
     to_simple_rdd,
 )
+from elephas_tpu_torch.data.dataframe import DataFrame  # noqa: F401
 from elephas_tpu_torch.data import datasets  # noqa: F401

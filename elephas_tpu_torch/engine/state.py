@@ -5,7 +5,11 @@ batch statistics, optimizer state, step counter and PRNG key. In the
 port the parameters are the module's own tensors, updated in place by
 the optimizer, so the state holds what is left: the step, the optimizer
 (whose ``state`` is optax's ``opt_state``), a ``torch.Generator`` in the
-PRNG key's place, and the batch statistics (empty for the LM).
+PRNG key's place, and the batch statistics (empty for the LM). It also
+names the ``module`` whose tensors it trains (``checkpoint/`` saves
+them) and counts the ``epoch``s the synchronous trainer has run, so a
+fit resumed from a checkpoint draws the row orders the uninterrupted
+fit would have drawn.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     rng: torch.Generator
     batch_stats: dict = field(default_factory=dict)
+    module: Optional[torch.nn.Module] = None
+    epoch: int = 0
 
     @property
     def opt_state(self):
@@ -30,8 +36,10 @@ class TrainState:
 
     @classmethod
     def create(cls, optimizer, batch_stats=None, rng: Optional[torch.Generator] = None,
-               step: int = 0) -> "TrainState":
+               step: int = 0, module: Optional[torch.nn.Module] = None,
+               epoch: int = 0) -> "TrainState":
         if rng is None:
             rng = torch.Generator().manual_seed(0)
         return cls(step=step, optimizer=optimizer, rng=rng,
-                   batch_stats=batch_stats if batch_stats is not None else {})
+                   batch_stats=batch_stats if batch_stats is not None else {},
+                   module=module, epoch=epoch)

@@ -188,4 +188,5 @@ def make_epoch_scanner(train_step: Callable) -> Callable:
 
 def init_train_state(compiled, rng: Optional[torch.Generator] = None) -> TrainState:
     """Fresh TrainState over a CompiledModel's current weights."""
-    return TrainState.create(optimizer=compiled.init_opt_state(), rng=rng)
+    return TrainState.create(optimizer=compiled.init_opt_state(), rng=rng,
+                             module=compiled.module)

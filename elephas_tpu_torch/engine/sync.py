@@ -18,7 +18,9 @@ collectives:
 
 In every frequency the BatchNorm statistics are each rank's own and are
 averaged at the end of the epoch (at the end of the fit for ``'fit'``).
-Each rank reshuffles its rows every epoch (``shard_permutation``).
+Each rank reshuffles its rows every epoch (``shard_permutation``), by
+the state's epoch count, so a fit resumed from a checkpoint draws the
+orders the uninterrupted fit would have drawn.
 Evaluation and prediction split the rows across the ranks and give the
 exact weighted mean, and every prediction, on every rank.
 
@@ -192,7 +194,8 @@ class SyncTrainer:
 
         history: Dict[str, List[float]] = {}
         for epoch in range(epochs):
-            state, metrics = self._local_epoch(state, xs, ys, seed, epoch)
+            state, metrics = self._local_epoch(state, xs, ys, seed, state.epoch)
+            state.epoch += 1
             if self.frequency == _PER_EPOCH:
                 self._average_state(state, params=True)
                 values = torch.stack(list(metrics.values()))
@@ -217,8 +220,9 @@ class SyncTrainer:
     def _fit_parity(self, state, xs, ys, seed, epochs, validation_data, verbose):
         """frequency='fit': independent local training, one final average."""
         per_epoch = []
-        for epoch in range(epochs):
-            state, metrics = self._local_epoch(state, xs, ys, seed, epoch)
+        for _ in range(epochs):
+            state, metrics = self._local_epoch(state, xs, ys, seed, state.epoch)
+            state.epoch += 1
             per_epoch.append(torch.stack(list(metrics.values())))
         self._average_state(state, params=True)
         table = torch.stack(per_epoch)

@@ -1,9 +1,10 @@
 """Model registry (counterpart of ``elephas_tpu/models/__init__.py``).
 
 Architectures serialize by name: ``get_model`` tags each module with the
-name and keyword arguments it was built from. Registered so far: ``cnn``,
-``mlp``, ``resnet18`` and ``transformer_lm``; the other models of the JAX
-package arrive with their slices of the port.
+name and keyword arguments it was built from (``device`` among them;
+``serialize.model_to_dict`` leaves it out of a payload). Registered so
+far: ``cnn``, ``lstm``, ``mlp``, ``resnet18`` and ``transformer_lm``;
+``mlp_masked`` arrives with the search slice (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ def registered_models():
 
 
 # Import for side effect: populate the registry.
-from elephas_tpu_torch.models import cnn, mlp, resnet, transformer  # noqa: E402,F401
+from elephas_tpu_torch.models import cnn, lstm, mlp, resnet, transformer  # noqa: E402,F401
 from elephas_tpu_torch.models.cnn import SimpleCNN  # noqa: E402,F401
+from elephas_tpu_torch.models.lstm import LSTMClassifier  # noqa: E402,F401
 from elephas_tpu_torch.models.mlp import MLP  # noqa: E402,F401
 from elephas_tpu_torch.models.resnet import ResNet, ResNet18  # noqa: E402,F401
 from elephas_tpu_torch.models.transformer import (  # noqa: E402,F401

@@ -206,7 +206,8 @@ def test_kernel_line_carries_every_path(smoke):
                 "resnet": {k: 0 for k in smoke.KERNELS},
                 "repair": {k: 12 for k in smoke.KERNELS},
                 "serving": {k: 0 for k in smoke.KERNELS},
-                "async": {k: 0 for k in smoke.KERNELS}}
+                "async": {k: 0 for k in smoke.KERNELS},
+                "estimator": {k: 0 for k in smoke.KERNELS}}
     entries = smoke.kernel_entries(timing, errors, launches)
     assert [e["name"] for e in entries] == list(smoke.KERNELS)
     for e in entries:
@@ -214,6 +215,7 @@ def test_kernel_line_carries_every_path(smoke):
         assert e["launches_by_path"]["repair"] == 12
         assert e["launches_by_path"]["serving"] == 0
         assert e["launches_by_path"]["async"] == 0
+        assert e["launches_by_path"]["estimator"] == 0
         assert e["route"] == "cuda"
         assert e["replaces"].startswith("elephas_tpu/ops/attention_pallas.py:")
         assert e["ms"] == 1.0 and e["bf16"] == {"ms": 0.5}
@@ -298,3 +300,59 @@ def test_span_ms_and_epoch_rate(smoke):
     assert out["async/train"] == {"mean_ms": None, "total_ms": 0.0, "count": 0}
     assert smoke.epoch_rate([10.0, 12.0, 14.0], 1000) == 500.0
     assert smoke.epoch_rate([10.0], 1000) is None
+
+
+def test_main_runs_and_reports_the_estimator_phase():
+    """``main`` drives ``estimator_phase`` after ``async_phase``, keeps its
+    launches under ``"estimator"`` and prints its report line, before the
+    kernel line and the last line."""
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    source = ast.unparse(main)
+    phases = [n.func.id for n in ast.walk(main) if isinstance(n, ast.Call)
+              and isinstance(n.func, ast.Name) and n.func.id.endswith("_phase")]
+    assert phases[-2:] == ["async_phase", "estimator_phase"]
+    assert "launches['estimator'], report = estimator_phase(attention_cuda)" in source
+    assert source.index("estimator: ") < source.index("'kernels'") < source.index("'ok': True")
+
+
+def test_estimator_config_is_baseline_config_3(smoke):
+    """The registry's full-width LSTM (2,691,842 parameters) on 8192
+    synthetic IMDB rows of 200 tokens, 2048 held out, batch 32, 3
+    epochs, Adam 1e-3 (parity.py's settings), the limits set before the
+    first card run."""
+    from elephas_tpu_torch.models import get_model
+
+    assert smoke.LSTM_WIDTH == {"vocab_size": 20000, "embed_dim": 128, "hidden_dim": 128,
+                                "num_classes": 2}
+    module = get_model("lstm", device="cpu", **smoke.LSTM_WIDTH)
+    assert sum(p.numel() for p in module.parameters()) == smoke.LSTM_PARAMS == 2_691_842
+    assert smoke.IMDB_ROWS == (8192, 2048) and smoke.IMDB_MAXLEN == 200
+    assert (smoke.IMDB_BATCH, smoke.IMDB_EPOCHS) == (32, 3)
+    assert smoke.IMDB_ADAM == {"name": "adam", "learning_rate": 1e-3}
+    assert smoke.IMDB_MIN_ACC == 0.7
+    assert smoke.LSTM_CPU_LIMITS == {"logits": 1e-4, "loss": 1e-5, "grads": 1e-3,
+                                     "params": 1e-4}
+    assert smoke.LSTM_SWEEP == (32, 256, 1024)
+    assert smoke.IMDB_RELOAD_LIMIT == smoke.IMDB_RESUME_LIMIT == 1e-6
+    assert smoke.IMDB_PAYLOAD_LIMIT == 1e-4
+
+
+def test_lstm_step_errors(smoke):
+    import torch
+
+    ref = {"loss": 0.5, "logits": torch.tensor([[0.1, -0.2]]),
+           "grads": {"a": torch.tensor([3.0, 4.0]), "b": torch.tensor([1.0, 0.0])},
+           "params": {"a": torch.tensor([6.0, 8.0]), "b": torch.tensor([1.0, 1.0])}}
+    got = {"loss": 0.5005, "logits": torch.tensor([[0.1, -0.2003]]),
+           "grads": {"a": torch.tensor([3.0, 4.5]), "b": torch.tensor([1.0, 0.0])},
+           "params": {"a": torch.tensor([6.0, 8.0]), "b": torch.tensor([1.0, 1.2])}}
+    errors = smoke.lstm_step_errors(got, ref)
+    assert errors["loss"] == pytest.approx(1e-3)
+    assert errors["logits"] == pytest.approx(3e-4, rel=1e-3)  # absolute
+    assert errors["grads"] == pytest.approx(0.1) and errors["grads_worst"] == "a"
+    assert errors["params"] == pytest.approx(0.2 / 2 ** 0.5) and errors["params_worst"] == "b"
+    assert smoke.breaches(errors, smoke.LSTM_CPU_LIMITS) == ["logits", "loss", "grads",
+                                                            "params"]

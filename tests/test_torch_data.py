@@ -116,6 +116,57 @@ def test_loaders_read_the_local_cache_as_jax(tmp_path, monkeypatch):
     assert train[0].tobytes() == jax_datasets.synthetic_mnist()[0][0].tobytes()
 
 
+@pytest.mark.parametrize("kw", [{}, {"num_words": 500, "maxlen": 50, "seed": 3}])
+def test_synthetic_imdb_is_byte_identical(kw):
+    """The IMDB stand-in equals the JAX package's arrays for the seed:
+    int32 token rows pre-padded with zeros (the last column a token),
+    int64 binary labels."""
+    ours = datasets.synthetic_imdb(96, 24, **kw)
+    theirs = jax_datasets.synthetic_imdb(96, 24, **kw)
+    for (a, b), (c, d) in zip(ours, theirs):
+        assert a.dtype == c.dtype == np.int32 and b.dtype == d.dtype == np.int64
+        assert a.tobytes() == c.tobytes() and b.tobytes() == d.tobytes()
+    (x, y), _ = ours
+    assert x.shape == (96, kw.get("maxlen", 200)) and x.max() < kw.get("num_words", 20000)
+    assert (x[:, -1] > 0).all() and set(np.unique(y)) == {0, 1}
+
+
+def test_pad_sequences_pre_pads_and_pre_truncates():
+    seqs = [[5, 6, 7], [1, 2, 3, 4, 5, 6], [], [9]]
+    got = datasets._pad_sequences(seqs, 4)
+    np.testing.assert_array_equal(got, [[0, 5, 6, 7], [3, 4, 5, 6], [0, 0, 0, 0],
+                                        [0, 0, 0, 9]])
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, jax_datasets._pad_sequences(seqs, 4))
+
+
+def test_load_imdb_reads_the_cache_as_jax(tmp_path, monkeypatch):
+    """A cached ``imdb.npz`` of ragged sequences is clipped to the vocab
+    and padded as the JAX package does; without it the synthetic set."""
+    monkeypatch.setenv("ELEPHAS_DATA_DIR", str(tmp_path))
+    rng = np.random.default_rng(0)
+
+    def ragged(n):
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            out[i] = list(rng.integers(1, 900, rng.integers(1, 30)))
+        return out
+
+    np.savez(tmp_path / "imdb.npz", x_train=ragged(6), y_train=rng.integers(0, 2, 6),
+             x_test=ragged(3), y_test=rng.integers(0, 2, 3))
+    got = datasets.load_imdb(num_words=500, maxlen=20)
+    want = jax_datasets.load_imdb(num_words=500, maxlen=20)
+    assert got[2] is want[2] is True
+    for (a, b), (c, d) in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+        assert a.shape[1] == 20 and a.max() <= 499 and b.dtype == np.int64
+    monkeypatch.setenv("ELEPHAS_DATA_DIR", str(tmp_path / "missing"))
+    (x, _), _, real = datasets.load_imdb(num_words=300, maxlen=16)
+    assert real is False
+    assert x.tobytes() == jax_datasets.synthetic_imdb(num_words=300, maxlen=16)[0][0].tobytes()
+
+
 @pytest.mark.parametrize("native_path", [True, False])
 def test_host_ops_match_numpy(monkeypatch, native_path):
     """``gather_rows`` (threaded and not, with and without labels, any

@@ -264,7 +264,7 @@ def _mlp_compiled():
                             optimizer=ADAM, loss="categorical_crossentropy", metrics=["acc"])
 
 
-def test_constructor_validates_like_jax(caplog):
+def test_constructor_validates_like_jax(caplog, tmp_path):
     net = _mlp_compiled()
     for kwargs in ({"mode": "bogus"}, {"frequency": "step"},
                    {"hogwild_granularity": "row"}, {"max_failures": 0}):
@@ -274,8 +274,9 @@ def test_constructor_validates_like_jax(caplog):
         et.SparkModel(net, mode="synchronous", autotune=True)
     for mode in ("asynchronous", "hogwild"):  # ported: they construct
         assert et.SparkModel(net, mode=mode).mode == mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        et.SparkModel({"model": "payload"}, mode="synchronous")
+    # A model_to_dict payload constructs (serialization, ported).
+    from_payload = et.SparkModel(et.model_to_dict(net), mode="synchronous", device="cpu")
+    assert from_payload.master_network.count_params() == net.count_params()
     with pytest.raises(TypeError, match="CompiledModel"):
         et.SparkModel(object(), mode="synchronous")
     with caplog.at_level(logging.WARNING):
@@ -284,10 +285,9 @@ def test_constructor_validates_like_jax(caplog):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.fit((np.zeros((8, 20), np.float32), np.zeros((8, 4), np.float32)),
                   stream_batches=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.save("unused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        et.load_spark_model("unused")
+    model.save(tmp_path / "model.pkl")  # ported: save and load round-trip
+    loaded = et.load_spark_model(tmp_path / "model.pkl", device="cpu")
+    assert (loaded.mode, loaded.num_workers) == ("synchronous", 1)
 
 
 def test_fit_validation_split_and_callbacks():

@@ -66,14 +66,23 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
     module = get_model("transformer_lm", device="cpu", vocab_size=50, d_model=16,
                        num_heads=2, num_layers=1, max_seq_len=8)
     assert module.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("lstm")
+    lstm = get_model("lstm", device="cpu", vocab_size=50, embed_dim=8, hidden_dim=8)
+    assert {p.device for p in lstm.parameters()} == {torch.device("cpu")}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elephas_tpu_torch.ElephasTransformer(model_payload={}).get_model()
 
 
 def test_registry():
-    assert registered_models() == ["cnn", "mlp", "resnet18", "transformer_lm"]
+    assert registered_models() == ["cnn", "lstm", "mlp", "resnet18", "transformer_lm"]
     with pytest.raises(ValueError, match="unknown model"):
         get_model("simple_cnn", device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
-        get_model("lstm", device="cpu")
+        get_model("mlp_masked", device="cpu")
+    lstm = get_model("lstm", device="cpu", vocab_size=50, embed_dim=8, hidden_dim=8)
+    assert lstm._elephas_config == {"name": "lstm", "kwargs": {
+        "device": "cpu", "vocab_size": 50, "embed_dim": 8, "hidden_dim": 8}}
     with pytest.raises(ValueError, match="attention"):
         get_model("transformer_lm", attention="sparse", device="cpu")
     assert elephas_tpu_torch.__version__

@@ -177,10 +177,22 @@ def test_resume_jax_run_in_port(flax_params, optimizer):
 
 
 def test_from_optax_state_rejects_other_optimizers(flax_params):
+    """Every named optimizer's state carries across (rmsprop, adagrad,
+    lamb and injected states: ``tests/test_torch_convert.py``); a model
+    compiled from a bare optimizer builder names no optax optimizer, and
+    a state field the port does not know raises."""
     jm = _jax("dense", "rmsprop", flax_params)
+    module = get_model("transformer_lm", device="cpu", **SMALL)
+    builder = CompiledModel(module, from_flax_params(flax_params, module),
+                            optimizer=lambda params: torch.optim.SGD(params, lr=0.1),
+                            loss="sparse_categorical_crossentropy")
+    with pytest.raises(ValueError, match="optimizer config"):
+        from_optax_state(jax.device_get(jm.init_opt_state()), builder)
     pm = _port(flax_params, "dense", "rmsprop")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_optax_state(jax.device_get(jm.init_opt_state()), pm)
+    from_optax_state(jax.device_get(jm.init_opt_state()), pm)
+    Odd = __import__("collections").namedtuple("Odd", ["velocity"])
+    with pytest.raises(ValueError, match="velocity"):
+        from_optax_state((Odd(velocity=0),), pm)
 
 
 def test_to_flax_params_round_trips(flax_params):
