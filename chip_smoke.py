@@ -91,15 +91,28 @@ Phases, in order; any failed check raises and the process exits non-zero:
    also on the CPU), a fit resumed from its epoch-1 checkpoint against
    the uninterrupted one, the bare train step's samples/s at batch 32,
    256 and 1024 and a kernel breakdown; no flash launch;
-11. a JSON line with each kernel's launches on the paths, errors, times
+11. the search phase (``search_phase``), BASELINE config 5: the masked
+   MLP (``mlp_masked``, width 100 in bucket 128) against the plain one at
+   width 100 (logits, loss, live gradients; padded entries exactly still
+   under Adam and under hogwild), then ``HyperParamModel.minimize`` at
+   parity.py's full size (16 TPE trials of ``mlp_masked`` at buckets 128
+   and 256 on 4096 synthetic MNIST rows, 2 epochs at batch 64; every
+   sample equal to TPE replayed on the card's losses; steady-state
+   trials/s and samples/s, first against steady trial seconds, the busy
+   share of one trial), then the elastic ASHA tuner (``run_search``, 9
+   trials through ``SparkModel(mode="asynchronous")``, 2 pool workers on
+   cuda:0) clean and with a worker killed over a ``GroupVault``: no
+   trial lost, the budget saved, equal digests; no flash launch;
+12. a JSON line with each kernel's launches on the paths, errors, times
    and bound;
-12. the last line: ``{"ok": true, "device": {...}}``.
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device, ``nvcc`` and this repository; exits non-zero without
 them. Imports nothing of JAX.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -107,9 +120,14 @@ import threading
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# cuBLAS is deterministic across streams only with a fixed workspace; the
+# search phase's ASHA runs need it (torch.use_deterministic_algorithms)
+# and it must be set before CUDA starts. ":4096:8" is Hopper's default size.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 SEED = 0
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
@@ -264,6 +282,25 @@ IMDB_CPU_ROWS = 512                 # the card's payload predicted on the CPU
 IMDB_PAYLOAD_LIMIT = 1e-4           # card vs CPU outputs, absolute
 IMDB_RELOAD_LIMIT = 1e-6            # reloaded on the card, deterministic cuDNN
 IMDB_RESUME_LIMIT = 1e-6            # resumed vs uninterrupted, by norm over all tensors
+
+# Search phase (BASELINE config 5, parity.py's hyperparam_search at full
+# size): mlp_masked trials on synthetic MNIST through HyperParamModel, then
+# the elastic ASHA tuner (examples/asha_search.py's setup) clean and under
+# a worker kill. Limits set before the first card run.
+SEARCH_ROWS = (4096, 1024)          # load_mnist train rows, held-out rows
+SEARCH_BUCKETS = (128, 256)
+SEARCH_WIDTHS = (64, 128, 256)
+SEARCH_LR = (1e-4, 1e-2)            # hp.loguniform(log lo, log hi)
+SEARCH_EPOCHS, SEARCH_BATCH = 2, 64
+SEARCH_EVALS = 16                   # max_evals, TPE, seed 0
+SEARCH_MIN_VAL_ACC = 0.6            # chance (0.1) plus the margin of PERF.md §6
+MASKED_CHECK = (128, 100)           # (bucket, active): held against mlp at width 100
+MASKED_LIMIT = 1e-5                 # logits, loss, live gradients, by norm
+ASHA_SPACE = {"lr": (1e-4, 1e-1), "width": (32, 64, 128), "batch_size": (32, 64)}
+ASHA_BUCKETS = (128,)               # one bucket: every trial's state has one shape
+ASHA_TRIALS, ASHA_ETA, ASHA_RUNGS, ASHA_R0, ASHA_WORKERS = 9, 3, 3, 1, 2
+ASHA_KILL = {"w1": 1}               # w1 dies at its second unit
+ASHA_MIN_SAVED = 0.4                # examples/asha_search.py's bar
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -1938,6 +1975,343 @@ def estimator_phase(attention_cuda):
     return launches, report
 
 
+def search_space():
+    """Config 5's space (parity.py): Adam's lr log-uniform, the width a
+    choice over ``SEARCH_WIDTHS``."""
+    from elephas_tpu_torch.hyperparam import hp
+
+    return {"lr": hp.loguniform(np.log(SEARCH_LR[0]), np.log(SEARCH_LR[1])),
+            "width": hp.choice(list(SEARCH_WIDTHS))}
+
+
+def asha_space():
+    """``examples/asha_search.py``'s space."""
+    from elephas_tpu_torch.hyperparam import hp
+
+    lo, hi = ASHA_SPACE["lr"]
+    return {"lr": hp.loguniform(np.log(lo), np.log(hi)),
+            "width": hp.choice(list(ASHA_SPACE["width"])),
+            "batch_size": hp.choice(list(ASHA_SPACE["batch_size"]))}
+
+
+def asha_data():
+    """``examples/asha_search.py``'s blobs: 4 classes in 20 dimensions,
+    1536 training rows and 512 held out."""
+    rng = np.random.default_rng(0)
+    centers = rng.normal(scale=3.0, size=(4, 20))
+    labels = rng.integers(0, 4, size=2048)
+    x = (centers[labels] + rng.normal(size=(2048, 20))).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[labels]
+    return x[:1536], y[:1536], x[1536:], y[1536:]
+
+
+def steady_trials(trials, buckets):
+    """parity.py's steady window: each worker's trials in order, split into
+    its first trial of each width bucket (the first model of that shape)
+    and the rest."""
+    from elephas_tpu_torch.hyperparam import width_bucket
+
+    seen, first, steady = set(), [], []
+    for t in sorted(trials, key=lambda t: (t["worker"], t["trial"])):
+        key = (t["worker"], width_bucket(int(t["sample"]["width"]), buckets))
+        (steady if key in seen else first).append(t)
+        seen.add(key)
+    return first, steady
+
+
+def replay_tpe(trials, space, seed):
+    """Each worker's TPE draws replayed on the CPU, fed the recorded
+    losses: ``(worker, trial, sample)`` rows to equal the recorded ones."""
+    from elephas_tpu_torch.hyperparam import _TPESampler
+
+    rows = []
+    for g in sorted({t["worker"] for t in trials}):
+        sampler = _TPESampler(space, np.random.default_rng([seed, g]))
+        for t in sorted((t for t in trials if t["worker"] == g), key=lambda t: t["trial"]):
+            values, sample = sampler.suggest()
+            rows.append((g, t["trial"], sample))
+            sampler.observe(values, float(t["loss"]))
+    return rows
+
+
+def masked_vs_plain(masked, plain, active):
+    """A one-hidden-layer masked model's ``step_record`` against the plain
+    MLP's at the active width: logits and loss, and the live slice of each
+    gradient and update, by ||error|| / ||plain|| (the worst tensor); and
+    the largest |gradient| and |update| over the padded entries."""
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    live = {"hidden.0.weight": (slice(0, active),), "hidden.0.bias": (slice(0, active),),
+            "out.weight": (slice(None), slice(0, active)), "out.bias": (slice(None),)}
+    pad = {"hidden.0.weight": (slice(active, None),), "hidden.0.bias": (slice(active, None),),
+           "out.weight": (slice(None), slice(active, None))}
+    out = {"logits": rel(masked["logits"], plain["logits"]),
+           "loss": abs(masked["loss"] - plain["loss"]) / abs(plain["loss"])}
+    for part in ("grads", "update"):
+        errs = {n: rel(masked[part][n][idx], plain[part][n]) for n, idx in live.items()}
+        out[part] = max(errs.values())
+        out[f"{part}_worst"] = max(errs, key=errs.get)
+        out[f"padded_{part}_max"] = max(float(masked[part][n][idx].abs().max())
+                                        for n, idx in pad.items())
+    return out
+
+
+def search_phase(attention_cuda):
+    """BASELINE config 5 on the card (parity.py's hyperparam_search at full
+    size). (1) ``mlp_masked`` at width 100 in bucket 128 against the plain
+    ``mlp`` at width 100 on its sliced weights: logits, loss and the live
+    gradients within ``MASKED_LIMIT`` by norm, padded entries exactly zero
+    gradient and unchanged by one Adam step; and under hogwild with two
+    workers the mask and the padded entries unchanged to the bit. (2)
+    ``HyperParamModel(None).minimize``: ``SEARCH_EVALS`` TPE trials, each a
+    ``SyncTrainer`` fit of ``mlp_masked`` (buckets ``SEARCH_BUCKETS``,
+    Adam injected) on ``current_trial_device()``: exactly that many
+    trials, every sample equal to a CPU replay of TPE fed the card's
+    losses, the best held-out accuracy above ``SEARCH_MIN_VAL_ACC``;
+    steady-state trials/s and samples/s (each worker's first trial per
+    bucket left out), first against steady trial seconds, and the card's
+    busy share over one steady trial. (3) ``run_search`` on
+    ``examples/asha_search.py``'s setup, every trial an ``mlp_masked``
+    through ``SparkModel(mode="asynchronous")`` on the card, 2 pool
+    workers on cuda:0 with a ``MemoryVault``, once more with one worker
+    (its wall time against the two workers'), then again with w1 killed
+    at its second unit and a ``GroupVault`` over a ``local`` server on the
+    card, both under deterministic algorithms: no lost trial, more than
+    ``ASHA_MIN_SAVED`` of the full budget saved, equal winner and search
+    digests, the mask unchanged by every asynchronous fit. No flash
+    kernel may launch. Returns the launch counts and a report."""
+    from elephas_tpu_torch import SparkModel, compile_model, to_simple_rdd
+    from elephas_tpu_torch.data.datasets import load_mnist, one_hot
+    from elephas_tpu_torch.data.rdd import ShardedDataset
+    from elephas_tpu_torch.engine.sync import SyncTrainer
+    from elephas_tpu_torch.hyperparam import (HyperParamModel, current_trial_device,
+                                              width_bucket)
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parallel.mesh import build_mesh
+    from elephas_tpu_torch.parameter.server import make_server
+    from elephas_tpu_torch.resilience import FaultInjector, FaultPlan
+    from elephas_tpu_torch.tune import GroupVault, MemoryVault, run_search, sample_trials
+
+    attention_cuda.reset_launches()
+    t_phase = time.perf_counter()
+    report = {}
+    (xtr, ytr), (xte, yte), real = load_mnist()
+    n, n_val = SEARCH_ROWS
+    x = xtr[:n].reshape(n, -1).astype(np.float32) / 255.0
+    y = one_hot(ytr[:n], 10)
+    xv = xte[:n_val].reshape(n_val, -1).astype(np.float32) / 255.0
+    yv = one_hot(yte[:n_val], 10)
+    data = (x, y, xv, yv)
+    card = torch.device("cuda", 0)
+
+    # (1) The masked MLP against the plain one at the active width.
+    bucket, active = MASKED_CHECK
+    adam = {"name": "adam", "learning_rate": 1e-3, "injected": True}
+
+    def masked_model():
+        return compile_model(get_model("mlp_masked", features=(bucket,), active=(active,),
+                                       num_classes=10, device=card),
+                             optimizer=adam, loss="categorical_crossentropy", metrics=["acc"],
+                             input_shape=(x.shape[1],), seed=SEED)
+
+    masked = masked_model()
+    w = masked.get_weights()
+    sliced = {"hidden.0.weight": w["hidden.0.weight"][:active],
+              "hidden.0.bias": w["hidden.0.bias"][:active],
+              "out.weight": w["out.weight"][:, :active], "out.bias": w["out.bias"]}
+    plain = compile_model(get_model("mlp", features=(active,), num_classes=10, device=card),
+                          params=sliced, optimizer=adam, loss="categorical_crossentropy",
+                          metrics=["acc"])
+    bx = torch.as_tensor(x[:SEARCH_BATCH]).to(card)
+    by = torch.as_tensor(y[:SEARCH_BATCH]).to(card)
+    errors = masked_vs_plain(step_record(masked, bx, by), step_record(plain, bx, by), active)
+    hog = masked_model()
+    before = hog.get_weights()
+    SparkModel(hog, mode="hogwild", frequency="batch", mesh=[card, card]).fit(
+        to_simple_rdd(None, x[:1024], y[:1024]), epochs=1, batch_size=SEARCH_BATCH)
+    after = hog.get_weights()
+    errors["hogwild_mask_equal"] = torch.equal(after["mask_0"], before["mask_0"])
+    errors["hogwild_padded_equal"] = (
+        torch.equal(after["hidden.0.weight"][active:], before["hidden.0.weight"][active:])
+        and torch.equal(after["out.weight"][:, active:], before["out.weight"][:, active:]))
+    errors["hogwild_live_moved"] = not torch.equal(after["out.weight"][:, :active],
+                                                   before["out.weight"][:, :active])
+    report["masked_mlp"] = {"bucket": bucket, "active": active, "limit": MASKED_LIMIT, **errors}
+    print(f"masked mlp on the card (width {active} in bucket {bucket} vs mlp at {active}, "
+          f"Adam, TF32 off): {json.dumps(report['masked_mlp'])}", flush=True)
+    for key in ("logits", "loss", "grads"):
+        check(errors[key] <= MASKED_LIMIT,
+              f"masked mlp {key} {errors[key]:.3e} from the plain mlp (limit {MASKED_LIMIT})")
+    check(errors["padded_grads_max"] == 0.0 and errors["padded_update_max"] == 0.0,
+          f"padded entries moved: gradient {errors['padded_grads_max']}, "
+          f"update {errors['padded_update_max']}")
+    check(errors["hogwild_mask_equal"] and errors["hogwild_padded_equal"]
+          and errors["hogwild_live_moved"],
+          f"hogwild over the masked mlp: {json.dumps(errors)}")
+
+    # (2) HyperParamModel: config 5 at full size.
+    def objective(sample, data):
+        xs, ys, xvs, yvs = data
+        width = int(sample["width"])
+        net = compile_model(
+            get_model("mlp_masked", features=(width_bucket(width, SEARCH_BUCKETS),),
+                      active=(width,), num_classes=10, device=current_trial_device()),
+            optimizer={"name": "adam", "learning_rate": sample["lr"], "injected": True},
+            loss="categorical_crossentropy", metrics=["acc"], input_shape=xs.shape[1:])
+        trainer = SyncTrainer(net, build_mesh(num_data=1), frequency="batch")
+        state, _ = trainer.fit(ShardedDataset(xs, ys, 1), epochs=SEARCH_EPOCHS,
+                               batch_size=SEARCH_BATCH)
+        val = trainer.evaluate_state(state, xvs, yvs)
+        return {"loss": float(val["loss"]), "val_acc": float(val["acc"])}
+
+    search = HyperParamModel(None)
+    t0 = time.perf_counter()
+    best = search.minimize(objective, lambda: data, max_evals=SEARCH_EVALS, space=search_space(),
+                           seed=SEED, algo="tpe")
+    search_s = time.perf_counter() - t0
+    trials = search.trials
+    recorded = [(t["worker"], t["trial"], t["sample"]) for t in
+                sorted(trials, key=lambda t: (t["worker"], t["trial"]))]
+    replay_equal = replay_tpe(trials, search_space(), SEED) == recorded
+    first, steady = steady_trials(trials, SEARCH_BUCKETS)
+    span = max(t["t_end"] for t in steady) - min(t["t_start"] for t in steady)
+    rows = n * SEARCH_EPOCHS
+    report["search"] = {
+        "data_real": real, "workers": search.num_workers, "trials": len(trials),
+        "best": {k: best[k] for k in ("loss", "val_acc", "sample", "worker", "trial")},
+        "search_s": search_s, "tpe_replay_equal": replay_equal,
+        "steady_trials": len(steady), "warmup_trials": len(first),
+        "trials_per_s_steady": len(steady) / span,
+        "samples_per_s_steady": rows * len(steady) / span,
+        "first_trial_s": [t["secs"] for t in first],
+        "steady_trial_s_mean": float(np.mean([t["secs"] for t in steady])),
+        "per_trial": [[t["worker"], t["trial"], int(t["sample"]["width"]),
+                       float(t["sample"]["lr"]), t["loss"], t["val_acc"], t["secs"]]
+                      for t in sorted(trials, key=lambda t: (t["worker"], t["trial"]))],
+    }
+    steady_sample = steady[0]["sample"]
+    with torch.cuda.device(card):
+        report["search"]["profile_steady_trial"] = device_breakdown(
+            lambda: objective(steady_sample, data), top=8)
+    print(f"hyperparam search (config 5: mlp_masked buckets {SEARCH_BUCKETS}, {n} synthetic "
+          f"MNIST rows, {SEARCH_EPOCHS} epochs at batch {SEARCH_BATCH}, TPE seed {SEED}, "
+          f"{SEARCH_EVALS} trials): {json.dumps(report['search'])}", flush=True)
+    check(len(trials) == SEARCH_EVALS, f"{len(trials)} trials ran, not {SEARCH_EVALS}")
+    check(replay_equal, "the card's samples differ from TPE replayed on its losses")
+    check(all(np.isfinite([t["loss"] for t in trials])), "a trial's loss is not finite")
+    check(best["val_acc"] > SEARCH_MIN_VAL_ACC,
+          f"best val_acc {best['val_acc']:.4f} not above {SEARCH_MIN_VAL_ACC}")
+
+    # (3) The elastic ASHA tuner, clean and with w1 killed.
+    ax, ay, axv, ayv = asha_data()
+    masks_equal = []
+
+    def trial_fn(config, state, epochs, seed, rung):
+        width = int(config["width"])
+        net = compile_model(
+            get_model("mlp_masked", features=(width_bucket(width, ASHA_BUCKETS),),
+                      active=(width,), num_classes=4, device=card),
+            optimizer={"name": "adam", "learning_rate": config["lr"], "injected": True},
+            loss="categorical_crossentropy", metrics=["acc"], input_shape=(ax.shape[1],),
+            seed=seed)
+        if state is not None:
+            net.set_weights(state)
+        mask = net.get_weights()["mask_0"]
+        model = SparkModel(net, mode="asynchronous", frequency="epoch",
+                           parameter_server_mode="local", num_workers=1)
+        model.fit(to_simple_rdd(None, ax, ay, 1), epochs=int(epochs),
+                  batch_size=int(config["batch_size"]))
+        val = model.evaluate(axv, ayv)
+        weights = net.get_weights()
+        masks_equal.append(torch.equal(weights["mask_0"], mask))
+        return {"loss": float(val["loss"]), "state": weights, "val_acc": float(val["acc"])}
+
+    search_args = dict(num_trials=ASHA_TRIALS, seed=SEED, eta=ASHA_ETA, rungs=ASHA_RUNGS,
+                       r0=ASHA_R0, workers=ASHA_WORKERS)
+
+    def summary(doc, secs):
+        return {"winner_digest": doc["winner_digest"], "search_digest": doc["search_digest"],
+                "best_loss": doc["best_loss"], "winner_config": doc["winner"]["config"],
+                "epochs_spent": doc["epochs_spent"],
+                "full_budget_epochs": doc["full_budget_epochs"],
+                "saved": 1.0 - doc["epochs_spent"] / doc["full_budget_epochs"],
+                "lost_trials": doc["lost_trials"], "counts": doc["counts"],
+                "pool": doc["pool"], "secs": secs}
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        clean = run_search(trial_fn, asha_space(), vault=MemoryVault(), **search_args)
+        clean_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single = run_search(trial_fn, asha_space(), vault=MemoryVault(),
+                            **{**search_args, "workers": 1})
+        single_s = time.perf_counter() - t0
+        specs = sample_trials(asha_space(), ASHA_TRIALS, SEED)
+        template = compile_model(get_model("mlp_masked", features=ASHA_BUCKETS,
+                                           num_classes=4, device="cpu"),
+                                 input_shape=(ax.shape[1],)).get_weights()
+        server = make_server("local", GroupVault.build_store(
+            [spec.trial_id for spec in specs], template), device=card)
+        server.start()
+        try:
+            vault = GroupVault(server.client())
+            plan = FaultPlan(seed=SEED, kill_worker_at=ASHA_KILL)
+            t0 = time.perf_counter()
+            killed = run_search(trial_fn, asha_space(), vault=vault,
+                                injector=FaultInjector(plan), **search_args)
+            killed_s = time.perf_counter() - t0
+            store = server.client().get_parameters()
+            winner_ckpt = vault.load(killed["winner"]["trial"])
+        finally:
+            server.stop()
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    slot = store[GroupVault.key(killed["winner"]["trial"])]
+    report["asha"] = {
+        "clean": summary(clean, clean_s), "one_worker": summary(single, single_s),
+        "killed": summary(killed, killed_s),
+        "kill_plan": ASHA_KILL, "plan_trace_digest": plan.trace_digest(),
+        "asynchronous_fits": len(masks_equal), "masks_unchanged": all(masks_equal),
+        "vault_leaves": {"rung": [str(slot["rung"].dtype), str(slot["rung"].device)],
+                         "loss": [str(slot["loss"].dtype), str(slot["loss"].device)]},
+        "winner_checkpoint": [winner_ckpt.rung, winner_ckpt.loss],
+    }
+    print(f"asha search (examples/asha_search.py's setup: {ASHA_TRIALS} mlp_masked trials "
+          f"through SparkModel(mode='asynchronous'), eta {ASHA_ETA}, {ASHA_RUNGS} rungs, "
+          f"r0 {ASHA_R0}, {ASHA_WORKERS} pool workers on cuda:0, deterministic algorithms; "
+          f"clean with a MemoryVault, again with one worker, killed {ASHA_KILL} with a "
+          f"GroupVault on a local server): {json.dumps(report['asha'])}", flush=True)
+    print(f"asha wall time: {ASHA_WORKERS} workers {clean_s:.3f} s, one worker "
+          f"{single_s:.3f} s, on one card", flush=True)
+    for name, doc in (("clean", clean), ("one_worker", single), ("killed", killed)):
+        saved = 1.0 - doc["epochs_spent"] / doc["full_budget_epochs"]
+        check(doc["lost_trials"] == 0, f"asha {name}: {doc['lost_trials']} trials lost")
+        check(saved > ASHA_MIN_SAVED, f"asha {name}: saved {saved:.3f}, not above "
+                                      f"{ASHA_MIN_SAVED}")
+    check(killed["pool"]["worker_deaths"] == 1,
+          f"the kill plan killed {killed['pool']['worker_deaths']} workers, not 1")
+    check(killed["winner_digest"] == clean["winner_digest"]
+          and killed["search_digest"] == clean["search_digest"],
+          f"killed run's digests {killed['winner_digest']}/{killed['search_digest']} differ "
+          f"from the clean run's {clean['winner_digest']}/{clean['search_digest']}")
+    check(all(masks_equal), "an asynchronous fit changed a mask")
+    check(slot["rung"].dtype == torch.float64 and slot["loss"].dtype == torch.float64
+          and slot["rung"].device.type == "cuda", f"vault leaves {report['asha']['vault_leaves']}")
+    check(winner_ckpt.rung == killed["winner"]["top_rung"]
+          and winner_ckpt.loss == killed["best_loss"],
+          f"the winner's vault checkpoint {winner_ckpt[1:]} is not its top rung's "
+          f"({killed['winner']['top_rung']}, {killed['best_loss']})")
+
+    report["phase_s"] = time.perf_counter() - t_phase
+    launches = dict(attention_cuda.launches)
+    check(launches == {k: 0 for k in KERNELS},
+          f"the search path launched flash kernels: {launches}")
+    return launches, report
+
+
 def kernel_entries(timing, errors, launches):
     """The ``{"kernels": [...]}`` line's entries: each kernel's source,
     the TPU kernel it replaces, its launches on the main path (the LM
@@ -2026,6 +2400,8 @@ def main():
     print(f"async: {json.dumps(report)}", flush=True)
     launches["estimator"], report = estimator_phase(attention_cuda)
     print(f"estimator: {json.dumps(report)}", flush=True)
+    launches["search"], report = search_phase(attention_cuda)
+    print(f"search: {json.dumps(report)}", flush=True)
 
     print(json.dumps({"kernels": kernel_entries(timing, errors, launches)}))
     print(json.dumps({"ok": True, "device": {

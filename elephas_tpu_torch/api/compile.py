@@ -97,17 +97,23 @@ def seeded_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     one seed gives the same weights on every device: Linear and Conv2d
     weights N(0, 1/fan_in) (lecun_normal's variance) and zero biases,
     LayerNorms at identity, BatchNorms at identity with running mean 0
-    and variance 1, embeddings and other bare parameters N(0, 0.02²)."""
+    and variance 1, embeddings and other bare parameters N(0, 0.02²). A
+    layer fed by a masked one (``MaskedMLP``) draws at its live fan-in
+    (``live_fan_in``), and other buffers (its masks) keep their values."""
     rng = np.random.default_rng(seed)
     state = {}
+    buffers = dict(module.named_buffers())
     for name, param in module.state_dict().items():
         owner = module.get_submodule(name.rpartition(".")[0]) if "." in name else module
         leaf = name.rpartition(".")[2]
         if isinstance(owner, (nn.LayerNorm, nn.BatchNorm2d)):
             ones = leaf in ("weight", "running_var")
             value = np.ones(param.shape) if ones else np.zeros(param.shape)
+        elif name in buffers:
+            state[name] = param.detach().clone()
+            continue
         elif isinstance(owner, (nn.Linear, nn.Conv2d)) and leaf == "weight":
-            fan_in = int(np.prod(param.shape[1:]))
+            fan_in = getattr(owner, "live_fan_in", None) or int(np.prod(param.shape[1:]))
             value = rng.normal(0.0, 1.0 / np.sqrt(fan_in), param.shape)
         elif isinstance(owner, (nn.Linear, nn.Conv2d)):
             value = np.zeros(param.shape)

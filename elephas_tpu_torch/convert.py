@@ -30,7 +30,7 @@ Layouts (``TransformerLM``):
 - every other Dense kernel is (in, out) -> ``Linear.weight`` (out, in);
 - ``LayerNorm_k/{scale, bias}`` -> ``weight``, ``bias``.
 
-Layouts (``ResNet``, ``MLP``, ``SimpleCNN``):
+Layouts (``ResNet``, ``MLP``, ``MaskedMLP``, ``SimpleCNN``):
 
 - ``Conv_k/kernel`` HWIO -> ``Conv2d.weight`` OIHW (and the CNN's
   ``Conv_k/bias`` -> ``bias``);
@@ -38,7 +38,8 @@ Layouts (``ResNet``, ``MLP``, ``SimpleCNN``):
   ``batch_stats`` ``BatchNorm_k/{mean, var}`` -> ``running_mean``,
   ``running_var``; ``num_batches_tracked`` is set to 0 on the way in and
   has no flax leaf on the way out;
-- ``Dense_k`` as above. The CNN's first dense layer takes the feature
+- ``Dense_k`` as above; ``MaskedMLP``'s ``batch_stats/mask_{i}`` ->
+  the buffer ``mask_{i}``. The CNN's first dense layer takes the feature
   map flattened in flax's (H, W, C) order, so its kernel maps as any
   other.
 """
@@ -53,7 +54,7 @@ from torch.nn.parameter import is_lazy
 
 from elephas_tpu_torch.models.cnn import SimpleCNN
 from elephas_tpu_torch.models.lstm import GATES, LSTMClassifier
-from elephas_tpu_torch.models.mlp import MLP
+from elephas_tpu_torch.models.mlp import MLP, MaskedMLP
 from elephas_tpu_torch.models.resnet import ResNet
 from elephas_tpu_torch.models.transformer import TransformerLM
 
@@ -159,6 +160,13 @@ def _mlp_rows(module: MLP):
     return rows + _dense(f"Dense_{len(module.hidden)}", "out")
 
 
+def _masked_mlp_rows(module: MaskedMLP):
+    """The MLP's dense layers, then each hidden layer's mask: flax's
+    ``batch_stats/mask_{i}`` is the buffer ``mask_{i}``."""
+    return _mlp_rows(module) + [("batch_stats", f"mask_{i}", f"mask_{i}", _same, _same)
+                                for i in range(len(module.hidden))]
+
+
 def _cnn_rows(module: SimpleCNN):
     """The convs (HWIO kernel and bias), then the two denses; the port's
     CNN flattens its feature map in flax's (H, W, C) order, so the first
@@ -186,8 +194,10 @@ def _lstm_rows(module: LSTMClassifier):
     return rows + _dense("Dense_0", "out")
 
 
-_LAYOUTS = ((TransformerLM, _transformer_lm_rows), (ResNet, _resnet_rows), (MLP, _mlp_rows),
-            (SimpleCNN, _cnn_rows), (LSTMClassifier, _lstm_rows))
+# A subclass comes before its base (``MaskedMLP`` before ``MLP``).
+_LAYOUTS = ((TransformerLM, _transformer_lm_rows), (ResNet, _resnet_rows),
+            (MaskedMLP, _masked_mlp_rows), (MLP, _mlp_rows), (SimpleCNN, _cnn_rows),
+            (LSTMClassifier, _lstm_rows))
 
 
 def _rows(module, collections=_COLLECTIONS):

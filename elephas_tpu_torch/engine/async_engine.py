@@ -48,7 +48,9 @@ stream; the worker's optimizer state keeps whatever the failed attempt
 did to it (the JAX package's functional state rolls it back).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the elastic pool with fault plans and batch-range units, the
+item): the elastic fit (``elastic=True``, ``fault_plan``,
+``batches_per_unit``: the pool and the plans are ported, in
+``resilience/``, the trainer's wiring onto them is not), the
 sharded PS group with standbys, the PS write-ahead log, the ops
 endpoint, compile autotuning, streamed partitions, and a world of more
 than one process.
@@ -523,10 +525,12 @@ class AsyncTrainer:
         if standby is None:
             standby = int(os.environ.get("ELEPHAS_PS_STANDBY", "0")) or None
         left_out = (
-            (elastic, "elastic=True (the self-healing worker pool)", "item 4, resilience"),
-            (fault_plan is not None, "fault_plan (seeded chaos)", "item 4, resilience"),
+            (elastic, "elastic=True (the trainer's elastic fit on the worker pool)",
+             "item 4, AsyncTrainer's elastic wiring"),
+            (fault_plan is not None, "fault_plan (the trainer's seeded chaos)",
+             "item 4, AsyncTrainer's elastic wiring"),
             (batches_per_unit is not None, "batches_per_unit (elastic batch ranges)",
-             "item 4, resilience"),
+             "item 4, AsyncTrainer's elastic wiring"),
             (ps_shards is not None, "ps_shards (the sharded PS group)",
              "item 4, parameter/group.py"),
             (standby, "standby (the shard group's hot spares)", "item 4, parameter/group.py"),

@@ -2,9 +2,9 @@
 
 Architectures serialize by name: ``get_model`` tags each module with the
 name and keyword arguments it was built from (``device`` among them;
-``serialize.model_to_dict`` leaves it out of a payload). Registered so
-far: ``cnn``, ``lstm``, ``mlp``, ``resnet18`` and ``transformer_lm``;
-``mlp_masked`` arrives with the search slice (ROADMAP.md, queue 1).
+``serialize.model_to_dict`` leaves it out of a payload). Registered:
+``cnn``, ``lstm``, ``mlp``, ``mlp_masked``, ``resnet18`` and
+``transformer_lm``.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def registered_models():
 from elephas_tpu_torch.models import cnn, lstm, mlp, resnet, transformer  # noqa: E402,F401
 from elephas_tpu_torch.models.cnn import SimpleCNN  # noqa: E402,F401
 from elephas_tpu_torch.models.lstm import LSTMClassifier  # noqa: E402,F401
-from elephas_tpu_torch.models.mlp import MLP  # noqa: E402,F401
+from elephas_tpu_torch.models.mlp import MLP, MaskedMLP  # noqa: E402,F401
 from elephas_tpu_torch.models.resnet import ResNet, ResNet18  # noqa: E402,F401
 from elephas_tpu_torch.models.transformer import (  # noqa: E402,F401
     TransformerLM,

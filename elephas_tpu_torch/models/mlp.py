@@ -1,4 +1,6 @@
-"""MLP classifier (counterpart of ``elephas_tpu/models/mlp.py``).
+"""MLP classifiers (counterpart of ``elephas_tpu/models/mlp.py``):
+``MLP`` (``mlp``) and the width-bucketed ``MaskedMLP`` (``mlp_masked``)
+the hyperparameter search trains.
 
 A Dense stack with ReLU and optional dropout, logits out (the losses
 take logits). The first layer infers its input width at the first call,
@@ -59,3 +61,73 @@ class MLP(nn.Module):
 def build_mlp(features=(128, 128), num_classes=10, dropout_rate=0.0, device=None):
     return MLP(features=tuple(features), num_classes=num_classes, dropout_rate=dropout_rate,
                device=resolve_device(device))
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's ``lecun_normal`` in place: a normal truncated at two standard
+    deviations, rescaled so that its variance is ``1 / fan_in``."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+class MaskedMLP(MLP):
+    """Width-bucketed MLP (counterpart of the JAX package's ``MaskedMLP``):
+    layers are built at the ``features`` (bucket) widths, and only the
+    first ``active[i]`` units of hidden layer ``i`` are live.
+
+    Each hidden layer's 0/1 mask is a buffer, ``mask_{i}`` (flax's
+    ``batch_stats/mask_{i}``): it is no parameter, so no optimizer sees
+    it, and the trainers carry it as they carry BatchNorm statistics
+    (synchronous averaging of equal masks, asynchronous deltas of zero
+    leave it exact). ``relu(x) * mask`` zeroes the padded units forward,
+    so they take no gradient and stay at their init: the network is the
+    ``active``-width one at the bucket's cost. Keeping the width out of
+    the shapes is what lets one captured step serve every width of a
+    bucket (the JAX package shares one XLA executable across them).
+
+    Init matches flax's in distribution: a layer fed by a masked layer
+    draws ``lecun_normal`` at the live fan-in (``live_fan_in``), i.e. the
+    bucket fan-in scaled by ``sqrt(bucket / active)``, with a zero bias.
+    The first layer is lazy; ``CompiledModel``'s seeded init draws it at
+    its true fan-in and reads ``live_fan_in`` for the others.
+    """
+
+    def __init__(self, features: Sequence[int] = (128,), active=None, num_classes=10,
+                 dropout_rate=0.0, device=None):
+        features = tuple(int(w) for w in features)
+        active = features if active is None else tuple(int(w) for w in active)
+        if len(active) != len(features):
+            raise ValueError(f"active widths {active} must match bucket layout "
+                             f"{features} layer-for-layer")
+        for i, (bucket, live) in enumerate(zip(features, active)):
+            if not 0 < live <= bucket:
+                raise ValueError(f"layer {i}: active width {live} outside (0, {bucket}]")
+        super().__init__(features, num_classes, dropout_rate, device)
+        self.features, self.active = features, active
+        for i, (bucket, live) in enumerate(zip(features, active)):
+            self.register_buffer(f"mask_{i}",
+                                 (torch.arange(bucket, device=device) < live).float())
+        fed = [*list(self.hidden)[1:], self.out] if features else []
+        for layer, live in zip(fed, active):
+            layer.live_fan_in = live
+            lecun_normal_(layer.weight, live)
+        for layer in [*self.hidden, self.out]:
+            if not isinstance(layer, nn.LazyLinear):
+                nn.init.zeros_(layer.bias)
+
+    def forward(self, x, train: bool = False):
+        x = x.reshape(x.shape[0], -1).float()
+        for i, layer in enumerate(self.hidden):
+            x = F.relu(layer(x)) * self.get_buffer(f"mask_{i}")
+            x = dropout(x, self.dropout_rate, self.training, self.dropout_generator)
+        return self.out(x)
+
+
+@register_model("mlp_masked")
+def build_masked_mlp(features=(128,), active=None, num_classes=10, dropout_rate=0.0,
+                     device=None):
+    return MaskedMLP(features=tuple(features),
+                     active=tuple(active) if active is not None else None,
+                     num_classes=num_classes, dropout_rate=dropout_rate,
+                     device=resolve_device(device))

@@ -68,7 +68,12 @@ def build_mesh(num_data: Optional[int] = None) -> Mesh:
     ``num_data`` (the JAX package's data-axis size) defaults to the world
     size and must equal it: each process drives one device, and a group
     smaller than the world would leave processes out of every
-    collective."""
+    collective. The one exception is ``num_data=1``: this process alone,
+    which runs no collective, as a trial of a search does (the JAX
+    package's ``build_mesh(num_data=1, devices=[current_trial_device()])``)
+    while other processes run trials of their own."""
+    if num_data == 1:
+        return Mesh()
     size, rank = world()
     if num_data is not None and num_data != size:
         raise ValueError(

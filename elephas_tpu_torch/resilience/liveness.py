@@ -9,10 +9,8 @@ stops pushing simply goes quiet. This module is the server-side half of
 the resilience story: workers send heartbeat frames (``("h", id)`` on
 the socket transport, ``POST /heartbeat/<id>`` on HTTP), the parameter
 server feeds them into a ``FailureDetector``, and the trainer reads the
-resulting membership table to drive re-queueing (the JAX package's
-``resilience.elastic``; in the port, with the rest of the resilience
-layer, ROADMAP.md queue 1, item 4, as is the trainer-side
-``MembershipView``).
+resulting membership table to drive re-queueing (``resilience.elastic``
+publishes it into a ``MembershipView``).
 
 Detector model: timeout + suspect (the simple two-threshold cousin of
 phi-accrual). A worker is
@@ -168,3 +166,32 @@ class FailureDetector:
     def state(self, worker_id: str) -> Optional[str]:
         """One worker's state, or None if it never beat."""
         return self.membership().get(str(worker_id), {}).get("state")
+
+
+class MembershipView:
+    """Trainer-side cache of the PS membership table.
+
+    The elastic pool's monitor polls the PS (``client.membership()``)
+    and publishes the table here; worker threads read it lock-cheap to
+    check their own fencing state (a worker that was declared dead while
+    stalled must not keep completing units)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._table: Dict[str, Dict] = {}
+
+    def publish(self, table: Dict[str, Dict]) -> None:
+        with self._lock:
+            self._table = dict(table)
+
+    def snapshot(self) -> Dict[str, Dict]:
+        with self._lock:
+            return dict(self._table)
+
+    def state(self, worker_id: str) -> Optional[str]:
+        with self._lock:
+            entry = self._table.get(str(worker_id))
+        return entry.get("state") if entry else None
+
+    def is_dead(self, worker_id: str) -> bool:
+        return self.state(worker_id) == DEAD

@@ -17,9 +17,9 @@ verifies the tag BEFORE unpickling and treats a mismatch as a connection
 error. Keyless framing matches the reference's same-trusted-job model
 and stays the single-host loopback default.
 
-Not carried over: the JAX package's wire fault injector (its
-``resilience.faults`` chaos plans), which arrives with the resilience
-layer (ROADMAP.md queue 1, item 4).
+A process-wide fault injector (``set_fault_injector``; a
+``resilience.faults.FaultInjector``) is consulted once per frame in
+``send``/``receive``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,6 +50,25 @@ MAGIC_KV = b"EPKV"  # KV-block handoff frame (the serving handoff, not ported ye
 _PACKED_MAGICS = (MAGIC_TREE, MAGIC_NOTMOD, MAGIC_REJECT, MAGIC_KV)
 
 _SEND_CHUNK = 1 << 20  # slice large buffers so no send stages a huge copy
+
+# -- deterministic fault injection (resilience.faults) ------------------------
+#
+# A process-wide injector consulted once per frame in send()/receive().
+# None (the default) costs a single attribute check; chaos tests install
+# a resilience.faults.FaultInjector whose FaultPlan decides — purely
+# from (seed, label, frame_seq) — whether this frame is dropped (raises
+# ConnectionError at the injection site, the wire model of a lost
+# frame/partition), delayed, or duplicated (the frame bytes are sent
+# twice; with auth the peer's ReplayGuard rejects the copy, without it
+# the duplicate double-applies — both are behaviors worth testing).
+_fault_injector = None
+
+
+def set_fault_injector(injector) -> None:
+    """Install/clear (None) the process-wide wire fault injector."""
+    global _fault_injector
+    _fault_injector = injector
+
 
 class RawPayload:
     """A pre-encoded wire payload as scatter-gather ``chunks``.
@@ -193,6 +212,12 @@ def send(
     out as memoryview slices after the small length/MAC/nonce prefix —
     the payload is never copied into a contiguous frame, and the MAC is
     computed incrementally over the same chunks."""
+    action = "pass"
+    if _fault_injector is not None:
+        # May raise ConnectionError (planned drop/partition) or sleep
+        # (planned delay) BEFORE anything hits the wire — the peer never
+        # sees a dropped frame, exactly like a lost packet.
+        action = _fault_injector.on_send(sock)
     if isinstance(obj, RawPayload):
         chunks, payload_len = obj.chunks, obj.nbytes
     else:
@@ -204,8 +229,12 @@ def send(
         mac = chunks_mac(key, [bind, auth_hdr, *chunks])
         prefix = _LEN.pack(payload_len + _AUTH_HDR_LEN + _MAC_LEN) + mac + auth_hdr
         _sendall_chunks(sock, [prefix, *chunks])
+        if action == "dup":  # byte-identical duplicate (same nonce):
+            _sendall_chunks(sock, [prefix, *chunks])
         return nonce
     _sendall_chunks(sock, [_LEN.pack(payload_len), *chunks])
+    if action == "dup":
+        _sendall_chunks(sock, [_LEN.pack(payload_len), *chunks])
     return b""
 
 
@@ -254,6 +283,10 @@ def receive(
     Packed-codec payloads (``MAGIC_TREE``/``MAGIC_NOTMOD``) are returned
     as raw bytes-like views for ``parameter.wire`` to decode zero-copy;
     everything else unpickles as before."""
+    if _fault_injector is not None:
+        # A planned recv drop models the reply lost in flight: raise
+        # before reading so the caller's connection-error path runs.
+        _fault_injector.on_recv(sock)
     (length,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
     data = _recv_exact(sock, length)
     if key is not None:

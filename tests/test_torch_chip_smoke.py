@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -207,7 +208,8 @@ def test_kernel_line_carries_every_path(smoke):
                 "repair": {k: 12 for k in smoke.KERNELS},
                 "serving": {k: 0 for k in smoke.KERNELS},
                 "async": {k: 0 for k in smoke.KERNELS},
-                "estimator": {k: 0 for k in smoke.KERNELS}}
+                "estimator": {k: 0 for k in smoke.KERNELS},
+                "search": {k: 0 for k in smoke.KERNELS}}
     entries = smoke.kernel_entries(timing, errors, launches)
     assert [e["name"] for e in entries] == list(smoke.KERNELS)
     for e in entries:
@@ -216,6 +218,7 @@ def test_kernel_line_carries_every_path(smoke):
         assert e["launches_by_path"]["serving"] == 0
         assert e["launches_by_path"]["async"] == 0
         assert e["launches_by_path"]["estimator"] == 0
+        assert e["launches_by_path"]["search"] == 0
         assert e["route"] == "cuda"
         assert e["replaces"].startswith("elephas_tpu/ops/attention_pallas.py:")
         assert e["ms"] == 1.0 and e["bf16"] == {"ms": 0.5}
@@ -302,20 +305,113 @@ def test_span_ms_and_epoch_rate(smoke):
     assert smoke.epoch_rate([10.0], 1000) is None
 
 
-def test_main_runs_and_reports_the_estimator_phase():
-    """``main`` drives ``estimator_phase`` after ``async_phase``, keeps its
-    launches under ``"estimator"`` and prints its report line, before the
-    kernel line and the last line."""
+def _main_source():
     import ast
 
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
-    source = ast.unparse(main)
     phases = [n.func.id for n in ast.walk(main) if isinstance(n, ast.Call)
               and isinstance(n.func, ast.Name) and n.func.id.endswith("_phase")]
-    assert phases[-2:] == ["async_phase", "estimator_phase"]
+    return ast.unparse(main), phases
+
+
+def test_main_runs_and_reports_the_estimator_phase():
+    """``main`` drives ``estimator_phase`` after ``async_phase``, keeps its
+    launches under ``"estimator"`` and prints its report line, before the
+    kernel line and the last line."""
+    source, phases = _main_source()
+    assert phases[-3:-1] == ["async_phase", "estimator_phase"]
     assert "launches['estimator'], report = estimator_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("'kernels'") < source.index("'ok': True")
+
+
+def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
+    """Phase 12, ``search_phase``, runs after every earlier phase, keeps its
+    launches under ``"search"`` and prints its report before the kernel
+    line; the last line is still the ``{"ok": true, "device": ...}``
+    object with the card's name and count."""
+    source, phases = _main_source()
+    assert phases == ["kernel_phase", "inference_phase", "train_phase", "resnet_phase",
+                      "repair_phase", "serving_phase", "async_phase", "estimator_phase",
+                      "search_phase"]
+    assert "launches['search'], report = search_phase(attention_cuda)" in source
+    assert source.index("estimator: ") < source.index("search: ") < source.index("'kernels'")
+    last = source[source.index("'ok': True"):]
+    for key in ("'platform': 'gpu'", "'kind': torch.cuda.get_device_name(0)",
+                "'count': torch.cuda.device_count()"):
+        assert key in last
+
+
+def test_search_config_is_baseline_config_5(smoke):
+    """parity.py's hyperparam_search at full size: 4096 synthetic MNIST
+    rows and 1024 held out, mlp_masked at buckets (128, 256) over widths
+    64/128/256, Adam's lr log-uniform in [1e-4, 1e-2], 2 epochs at batch
+    64, 16 TPE trials; the ASHA run of examples/asha_search.py (9 trials,
+    eta 3, 3 rungs, r0 1, 2 workers, w1 killed at its second unit); the
+    limits set before the first card run."""
+    assert smoke.SEARCH_ROWS == (4096, 1024)
+    assert smoke.SEARCH_BUCKETS == (128, 256) and smoke.SEARCH_WIDTHS == (64, 128, 256)
+    assert smoke.SEARCH_LR == (1e-4, 1e-2)
+    assert (smoke.SEARCH_EPOCHS, smoke.SEARCH_BATCH, smoke.SEARCH_EVALS) == (2, 64, 16)
+    assert smoke.SEARCH_MIN_VAL_ACC == 0.6 and smoke.MASKED_LIMIT == 1e-5
+    assert smoke.MASKED_CHECK == (128, 100)
+    assert (smoke.ASHA_TRIALS, smoke.ASHA_ETA, smoke.ASHA_RUNGS, smoke.ASHA_R0,
+            smoke.ASHA_WORKERS) == (9, 3, 3, 1, 2)
+    assert smoke.ASHA_KILL == {"w1": 1} and smoke.ASHA_MIN_SAVED == 0.4
+    assert smoke.ASHA_BUCKETS == (128,) and max(smoke.ASHA_SPACE["width"]) <= 128
+    space = smoke.search_space()
+    assert space["width"].options == [64, 128, 256]
+    assert np.exp(space["lr"].low) == pytest.approx(1e-4)
+    x, y, xv, yv = smoke.asha_data()
+    assert x.shape == (1536, 20) and xv.shape == (512, 20) and y.shape == (1536, 4)
+
+
+def test_steady_trials_leave_out_each_workers_first_per_bucket(smoke):
+    trials = [{"worker": w, "trial": t, "sample": {"width": width}}
+              for w, widths in ((0, [64, 256, 128, 256]), (1, [256, 64]))
+              for t, width in enumerate(widths)]
+    first, steady = smoke.steady_trials(trials, (128, 256))
+    assert [(t["worker"], t["trial"]) for t in first] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert [(t["worker"], t["trial"]) for t in steady] == [(0, 2), (0, 3)]
+
+
+def test_replay_tpe_reproduces_the_search_and_catches_a_change(smoke):
+    from elephas_tpu_torch.hyperparam import HyperParamModel
+
+    space = smoke.search_space()
+    search = HyperParamModel(None, num_workers=2, device="cpu")
+    search.minimize(lambda s, d: {"loss": abs(np.log(s["lr"]) + 6.0) + s["width"] / 1e3},
+                    lambda: None, max_evals=14, space=space, seed=0, algo="tpe")
+    recorded = [(t["worker"], t["trial"], t["sample"]) for t in
+                sorted(search.trials, key=lambda t: (t["worker"], t["trial"]))]
+    assert smoke.replay_tpe(search.trials, space, 0) == recorded
+    search.trials[-1]["loss"] = -1.0  # a loss the samplers never saw
+    search.trials[5]["loss"] = 99.0
+    assert smoke.replay_tpe(search.trials, space, 0) != recorded
+
+
+def test_masked_vs_plain_reads_live_and_padded_entries(smoke):
+    import torch
+
+    active = 3
+    plain = {"loss": 2.0, "logits": torch.tensor([[1.0, 2.0]]),
+             "grads": {"hidden.0.weight": torch.ones(3, 2), "hidden.0.bias": torch.ones(3),
+                       "out.weight": torch.ones(2, 3), "out.bias": torch.ones(2)}}
+    plain["update"] = plain["grads"]
+    grads = {"hidden.0.weight": torch.ones(5, 2), "hidden.0.bias": torch.ones(5),
+             "out.weight": torch.ones(2, 5), "out.bias": torch.ones(2)}
+    grads["hidden.0.weight"][3:] = 0.0
+    grads["hidden.0.bias"][3:] = 0.0
+    grads["out.weight"][:, 3:] = 0.0
+    grads["out.weight"][0, 0] = 1.5  # a live error
+    update = {k: v.clone() for k, v in grads.items()}
+    update["out.weight"][1, 4] = 0.25  # a padded entry that moved
+    masked = {"loss": 2.0, "logits": torch.tensor([[1.0, 2.0]]), "grads": grads,
+              "update": update}
+    out = smoke.masked_vs_plain(masked, plain, active)
+    assert out["logits"] == 0.0 and out["loss"] == 0.0
+    assert out["grads"] == pytest.approx(0.5 / 6 ** 0.5) and out["grads_worst"] == "out.weight"
+    assert out["padded_grads_max"] == 0.0 and out["padded_update_max"] == 0.25
 
 
 def test_estimator_config_is_baseline_config_3(smoke):

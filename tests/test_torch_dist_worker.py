@@ -1,13 +1,19 @@
-"""One rank of the port's multi-process parity runs (``test_torch_fit.py``);
-a script, not a test module: it holds no tests.
+"""One rank of the port's multi-process parity runs (``test_torch_fit.py``,
+``test_torch_hyperparam.py``); a script, not a test module: it holds no
+tests.
 
     python tests/test_torch_dist_worker.py CONFIG.json RANK
 
 Joins a gloo group on the CPU (``file://`` store, world size and rank
-from the arguments), then runs each job of the config through
+from the arguments), then runs each job of the config. A fit job runs
 ``SparkModel(mode="synchronous").fit``, ``evaluate`` and ``predict`` and,
 on rank 0, saves the history, the final weights, and the evaluation and
-predictions on all rows but the last two, with ``torch.save``. Imports the port only, no JAX.
+predictions on all rows but the last two, with ``torch.save``. A search
+job (``"kind": "search"``) runs ``HyperParamModel(device="cpu",
+num_workers=...).minimize`` with ``search_objective``, a ``SyncTrainer``
+fit per trial, and saves, from every rank, its trials, the winner it
+returns and the winner's weights.
+Imports the port only, no JAX.
 """
 
 import json
@@ -46,6 +52,70 @@ def _run(job, rank):
         torch.save(result, job["out"])
 
 
+SEARCH_SPACE = {"lr": ("loguniform", 1e-4, 1e-1), "width": ("choice", [4, 8, 16])}
+
+
+def search_space():
+    from elephas_tpu_torch.hyperparam import hp
+
+    _, lo, hi = SEARCH_SPACE["lr"]
+    return {"lr": hp.loguniform(np.log(lo), np.log(hi)),
+            "width": hp.choice(SEARCH_SPACE["width"][1])}
+
+
+def search_data():
+    """Seeded Gaussian blobs, 3 classes in 4 dimensions: 128 training
+    rows and 32 held out."""
+    rng = np.random.default_rng(5)
+    centers = rng.normal(scale=3.0, size=(3, 4))
+    labels = rng.integers(0, 3, size=160)
+    x = (centers[labels] + rng.normal(size=(160, 4))).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[labels]
+    return x[:128], y[:128], x[128:], y[128:]
+
+
+def search_objective(sample, data):
+    """A seeded ``mlp_masked`` on the trial's device, trained one epoch
+    by a ``SyncTrainer`` on this process's own mesh; the loss is the
+    held-out loss, and the winner carries the trained model for the
+    ranks that did not hold it to rebuild."""
+    import elephas_tpu_torch as et
+    from elephas_tpu_torch.data.rdd import ShardedDataset
+    from elephas_tpu_torch.engine.sync import SyncTrainer
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parallel.mesh import build_mesh
+
+    x, y, xv, yv = data
+    width = int(sample["width"])
+    model = et.compile_model(
+        get_model("mlp_masked", features=(16,), active=(width,), num_classes=3,
+                  device=et.current_trial_device()),
+        optimizer={"name": "adam", "learning_rate": sample["lr"], "injected": True},
+        loss="categorical_crossentropy", metrics=["acc"], input_shape=(4,),
+        seed=int(1e6 * sample["lr"]))
+    trainer = SyncTrainer(model, build_mesh(num_data=1), frequency="batch")
+    state, _ = trainer.fit(ShardedDataset(x, y, 1), epochs=1, batch_size=32)
+    val = trainer.evaluate_state(state, xv, yv)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return {"loss": float(val["loss"]), "model": model, "built_by_rank": rank}
+
+
+def _search(job, rank):
+    from elephas_tpu_torch.hyperparam import HyperParamModel
+
+    search = HyperParamModel(None, num_workers=job["workers"], device="cpu")
+    best = search.minimize(search_objective, search_data, max_evals=job["max_evals"],
+                           space=search_space(), seed=job["seed"], algo=job["algo"])
+    torch.save({"rank": rank,
+                "trials": [(t["worker"], t["trial"], t["sample"], t["loss"])
+                           for t in search.trials],
+                "best": {k: v for k, v in best.items() if k != "model"},
+                "best_weights": best["model"].get_weights(),
+                "best_model_is_live": best["model"] is search.best_model()
+                and best["built_by_rank"] == rank},
+               f"{job['out']}.rank{rank}")
+
+
 def main(config_path, rank):
     with open(config_path) as f:
         config = json.load(f)
@@ -53,7 +123,7 @@ def main(config_path, rank):
                             world_size=config["world"], rank=rank)
     try:
         for job in config["jobs"]:
-            _run(job, rank)
+            (_search if job.get("kind") == "search" else _run)(job, rank)
     finally:
         dist.destroy_process_group()
 

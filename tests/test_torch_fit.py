@@ -257,6 +257,7 @@ def test_mesh_without_a_group_is_one_process():
     with pytest.raises(ValueError, match="world of 4"):
         build_mesh(num_data=4)
     assert Mesh().size == 1
+    assert build_mesh(num_data=1) == Mesh()
 
 
 def _mlp_compiled():

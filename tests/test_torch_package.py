@@ -72,17 +72,43 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
     assert {p.device for p in lstm.parameters()} == {torch.device("cpu")}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         elephas_tpu_torch.ElephasTransformer(model_payload={}).get_model()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("mlp_masked")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elephas_tpu_torch.HyperParamModel()
 
 
 def test_registry():
-    assert registered_models() == ["cnn", "lstm", "mlp", "resnet18", "transformer_lm"]
+    assert registered_models() == ["cnn", "lstm", "mlp", "mlp_masked", "resnet18",
+                                   "transformer_lm"]
     with pytest.raises(ValueError, match="unknown model"):
         get_model("simple_cnn", device="cpu")
-    with pytest.raises(ValueError, match="unknown model"):
-        get_model("mlp_masked", device="cpu")
+    masked = get_model("mlp_masked", device="cpu", features=(16,), active=(4,))
+    assert masked._elephas_config == {"name": "mlp_masked", "kwargs": {
+        "device": "cpu", "features": (16,), "active": (4,)}}
     lstm = get_model("lstm", device="cpu", vocab_size=50, embed_dim=8, hidden_dim=8)
     assert lstm._elephas_config == {"name": "lstm", "kwargs": {
         "device": "cpu", "vocab_size": 50, "embed_dim": 8, "hidden_dim": 8}}
     with pytest.raises(ValueError, match="attention"):
         get_model("transformer_lm", attention="sparse", device="cpu")
     assert elephas_tpu_torch.__version__
+
+
+SEARCH_MODULES = ["hyperparam", "tune", "tune.trial", "tune.search", "tune.scheduler",
+                  "tune.vault", "tune.runner", "tune.cli", "resilience.elastic",
+                  "resilience.faults", "resilience.liveness"]
+
+
+def test_search_modules_are_the_ports_own():
+    """The search slice's modules load in a process holding no JAX, and
+    keep their own copies of the JAX package's NumPy code."""
+    code = (f"import importlib, json, sys\n"
+            f"for name in {SEARCH_MODULES!r}:\n"
+            f"    importlib.import_module('elephas_tpu_torch.' + name)\n"
+            f"print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{list(FORBIDDEN)!r})))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=ROOT, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -38,6 +38,8 @@ REGISTRY = {
              "sparse_categorical_crossentropy"),
     "mlp": ({"features": (16,), "num_classes": 3}, (8,), "float32",
             "categorical_crossentropy"),
+    "mlp_masked": ({"features": (16,), "active": (5,), "num_classes": 3}, (8,), "float32",
+                   "categorical_crossentropy"),
     "resnet18": ({"width": 8, "num_classes": 3}, (16, 16, 3), "float32",
                  "categorical_crossentropy"),
     "transformer_lm": ({"vocab_size": 50, "d_model": 16, "num_heads": 2, "num_layers": 1,
