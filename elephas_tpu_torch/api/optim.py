@@ -28,10 +28,21 @@ a whole param group with ``torch._foreach_*`` ops. The per-param
 state carries optax's names (``trace``; ``mu``, ``nu``; ``sum_of_squares``).
 
 Schedules are plain functions of the update count, returning floats.
+
+A step is two parts: ``advance`` (on the host: the schedule, the count,
+and the step's scalars, the learning rate and the bias corrections) and
+the update kernels, which read those scalars. ``capturable()`` puts
+the scalars in device tensors that ``advance`` fills in place, so one
+captured CUDA graph of the kernels (``engine.step.CapturedStep``) serves
+every later count, learning rate and schedule value instead of replaying
+the values it was captured with; with the same scalars it computes what
+the plain mode computes, to the bit. ``count`` stays a Python int and
+stays authoritative (checkpoints, the trainers' averaging).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
@@ -40,15 +51,63 @@ import torch
 
 class OptaxRule(torch.optim.Optimizer):
     """Base of the optax rules: subclasses define ``updates``, the change
-    of every parameter of a group (learning rate included) at update
-    ``count`` (1-based). Each rule works on the whole group at once with
-    ``torch._foreach_*`` ops, so a step launches a few multi-tensor
-    kernels per operation, not one per parameter."""
+    of every parameter of a group (learning rate included), from the
+    scalars ``scalars`` gives for update ``count`` (1-based). Each rule
+    works on the whole group at once with ``torch._foreach_*`` ops, so a
+    step launches a few multi-tensor kernels per operation, not one per
+    parameter."""
 
     def __init__(self, params, learning_rate, **hyper):
         schedule = learning_rate if callable(learning_rate) else None
         lr = float(schedule(0) if schedule is not None else learning_rate)
         super().__init__(params, dict(lr=lr, schedule=schedule, count=0, **hyper))
+        self._capturable = False
+        self._in_graph = False
+        self._device_scalars: list = []  # per group: {name: 0-d tensor}, capturable only
+        self._step_scalars: list = []    # per group: the scalars of the current update
+
+    def capturable(self) -> "OptaxRule":
+        """Switch the step's scalars to device tensors, for good."""
+        self._capturable = True
+        return self
+
+    def advance(self) -> None:
+        """The host part of a step: each group's schedule and count, and
+        its scalars, written in place into their device tensors when
+        capturable (a fill each, on the current stream)."""
+        self._step_scalars = []
+        for i, group in enumerate(self.param_groups):
+            if group["schedule"] is not None:
+                group["lr"] = float(group["schedule"](group["count"]))
+            group["count"] += 1
+            values = self.scalars(group, group["count"])
+            if self._capturable:
+                if len(self._device_scalars) <= i:
+                    p = group["params"][0]
+                    dtype = torch.promote_types(p.dtype, torch.float32)
+                    self._device_scalars.append({k: torch.empty((), dtype=dtype, device=p.device)
+                                                 for k in values})
+                device = self._device_scalars[i]
+                for k, v in values.items():
+                    scalar = device[k]
+                    if k in _DIVISORS and scalar.is_cuda:  # see ``_divide``
+                        one = torch.ones((), dtype=scalar.dtype)
+                        v = float(torch.div(one, torch.tensor(v, dtype=scalar.dtype)))
+                    scalar.fill_(v)
+                values = device
+            self._step_scalars.append(values)
+
+    @contextlib.contextmanager
+    def in_graph(self):
+        """While a graph captures a step: ``step`` launches the kernels
+        only; the caller runs ``advance`` before each replay."""
+        if not self._capturable:
+            raise RuntimeError("capture a step only of a capturable optimizer")
+        self._in_graph = True
+        try:
+            yield
+        finally:
+            self._in_graph = False
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -56,16 +115,22 @@ class OptaxRule(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for group in self.param_groups:
-            if group["schedule"] is not None:
-                group["lr"] = float(group["schedule"](group["count"]))
-            group["count"] += 1
+        if not self._in_graph:
+            self.advance()
+        for group, scalars in zip(self.param_groups, self._step_scalars):
             params = group["params"]
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-            torch._foreach_add_(params, self.updates(group, params, grads, group["count"]))
+            torch._foreach_add_(params, self.updates(group, params, grads, scalars))
         return loss
 
-    def updates(self, group, params, grads, count):
+    def scalars(self, group, count) -> dict:
+        """The scalars of update ``count`` (1-based): ``lr`` is the
+        learning rate's negative."""
+        return {"lr": -group["lr"]}
+
+    def updates(self, group, params, grads, s):
+        """The change of every parameter of ``group``, from the scalars
+        ``s`` (Python floats, or device tensors when capturable)."""
         raise NotImplementedError
 
     def _states(self, params, key, fill):
@@ -95,6 +160,22 @@ class OptaxRule(torch.optim.Optimizer):
         return torch._foreach_add(u, t, alpha=decay) if nesterov else t
 
 
+#: The scalars that ``updates`` divides by (``_divide``).
+_DIVISORS = frozenset({"debias", "debias1", "debias2", "debias1_next"})
+
+
+def _divide(tensors, divisor):
+    """``tensors / divisor`` as the plain step computes it on their
+    device. On CUDA, ``_foreach_div`` by a Python scalar multiplies by the
+    scalar's reciprocal (in the tensors' compute type), while by a device
+    tensor it divides; a capturable optimizer's CUDA divisor therefore
+    holds that reciprocal (``advance``) and multiplies, and the captured
+    step rounds as the eager one does. Elsewhere both divide."""
+    if torch.is_tensor(divisor) and divisor.is_cuda:
+        return torch._foreach_mul(tensors, divisor)
+    return torch._foreach_div(tensors, divisor)
+
+
 def _debias(decay, count):
     """optax's bias correction ``1 - decay ** count``, taken in float32 as
     optax takes it; a Python float that a float32 tensor divides by
@@ -109,10 +190,10 @@ class SGD(OptaxRule):
                  nesterov: bool = False):
         super().__init__(params, learning_rate, momentum=momentum, nesterov=nesterov)
 
-    def updates(self, group, params, grads, count):
+    def updates(self, group, params, grads, s):
         if group["momentum"] is not None:
             grads = self._trace(params, grads, group["momentum"], group["nesterov"])
-        return torch._foreach_mul(grads, -group["lr"])
+        return torch._foreach_mul(grads, s["lr"])
 
 
 class AdamFamily(OptaxRule):
@@ -127,20 +208,26 @@ class AdamFamily(OptaxRule):
                          weight_decay=weight_decay, trust_ratio=trust_ratio,
                          nesterov=nesterov)
 
-    def updates(self, group, params, grads, count):
+    def scalars(self, group, count):
+        out = {"lr": -group["lr"], "debias1": _debias(group["b1"], count),
+               "debias2": _debias(group["b2"], count)}
+        if group["nesterov"]:
+            out["debias1_next"] = _debias(group["b1"], count + 1)
+        return out
+
+    def updates(self, group, params, grads, s):
         b1, b2 = group["b1"], group["b2"]
         mu = self._moment(params, "mu", grads, b1)
         nu = self._states(params, "nu", 0.0)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
         if group["nesterov"]:
-            u = torch._foreach_div(mu, _debias(b1, count + 1))
+            u = _divide(mu, s["debias1_next"])
             torch._foreach_mul_(u, b1)
-            torch._foreach_add_(u, torch._foreach_div(grads, _debias(b1, count)),
-                                alpha=1 - b1)
+            torch._foreach_add_(u, _divide(grads, s["debias1"]), alpha=1 - b1)
         else:
-            u = torch._foreach_div(mu, _debias(b1, count))
-        den = torch._foreach_div(nu, _debias(b2, count))
+            u = _divide(mu, s["debias1"])
+        den = _divide(nu, s["debias2"])
         if group["eps_root"]:
             torch._foreach_add_(den, group["eps_root"])
         torch._foreach_sqrt_(den)
@@ -153,7 +240,7 @@ class AdamFamily(OptaxRule):
             u_norm = torch.stack(torch._foreach_norm(u))
             ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
             torch._foreach_mul_(u, list(ratio.unbind()))
-        torch._foreach_mul_(u, -group["lr"])
+        torch._foreach_mul_(u, s["lr"])
         return u
 
 
@@ -170,14 +257,20 @@ class RMSprop(OptaxRule):
                          centered=centered, momentum=momentum, nesterov=nesterov,
                          bias_correction=bias_correction)
 
-    def updates(self, group, params, grads, count):
+    def scalars(self, group, count):
+        out = {"lr": -group["lr"]}
+        if group["bias_correction"]:
+            out["debias"] = _debias(group["decay"], count)
+        return out
+
+    def updates(self, group, params, grads, s):
         decay = group["decay"]
         nu = self._moment(params, "nu", torch._foreach_mul(grads, grads), decay,
                           group["initial_scale"])
         mu = self._moment(params, "mu", grads, decay) if group["centered"] else None
         if group["bias_correction"]:
-            nu = torch._foreach_div(nu, _debias(decay, count))
-            mu = torch._foreach_div(mu, _debias(decay, count)) if mu is not None else None
+            nu = _divide(nu, s["debias"])
+            mu = _divide(mu, s["debias"]) if mu is not None else None
         var = torch._foreach_addcmul(nu, mu, mu, value=-1) if mu is not None else nu
         if group["eps_in_sqrt"]:
             scaling = torch._foreach_add(var, group["eps"])
@@ -187,7 +280,7 @@ class RMSprop(OptaxRule):
             torch._foreach_add_(scaling, group["eps"])
             torch._foreach_reciprocal_(scaling)
         u = torch._foreach_mul(scaling, grads)
-        torch._foreach_mul_(u, -group["lr"])
+        torch._foreach_mul_(u, s["lr"])
         if group["momentum"] is not None:
             u = self._trace(params, u, group["momentum"], group["nesterov"])
         return u
@@ -200,14 +293,14 @@ class Adagrad(OptaxRule):
         super().__init__(params, learning_rate,
                          initial_accumulator_value=initial_accumulator_value, eps=eps)
 
-    def updates(self, group, params, grads, count):
+    def updates(self, group, params, grads, s):
         total = self._states(params, "sum_of_squares", group["initial_accumulator_value"])
         torch._foreach_addcmul_(total, grads, grads)
         inv = torch._foreach_add(total, group["eps"])
         torch._foreach_rsqrt_(inv)
         inv = [torch.where(t > 0, i, 0.0) for t, i in zip(total, inv)]
         u = torch._foreach_mul(inv, grads)
-        torch._foreach_mul_(u, -group["lr"])
+        torch._foreach_mul_(u, s["lr"])
         return u
 
 

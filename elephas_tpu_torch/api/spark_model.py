@@ -16,9 +16,12 @@ JAX package's.
 ``save`` writes the JAX package's pickled dict around a
 ``model_to_dict`` payload and ``load_spark_model`` reads it back; the
 constructor takes such a payload as well as a ``CompiledModel``.
-``SparkMLlibModel`` trains on LabeledPoints. Not ported yet, and raising
-where asked for: Keras models (the Keras bridge), ``autotune`` and
-``stream_batches`` (ROADMAP.md, queue 1).
+``SparkMLlibModel`` trains on LabeledPoints. ``autotune`` times the
+eager step against the step captured as a CUDA graph at the start of a
+fit and trains with the faster (``utils/compiler.py``); ``fit(...,
+stream_batches=N)`` streams the data to the device in chunks of N
+batches instead of uploading it once. Not ported yet, and raising where
+asked for: Keras models (the Keras bridge; ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -81,7 +84,14 @@ class TpuModel:
         Asynchronous: the workers' devices, a list in which a device may
         repeat (several workers on one card, each on its own stream);
         default one per visible card of the model's device type.
-    autotune: compile-option A/B; not ported (raises when True).
+    autotune: at the start of each fit, time the eager train step
+        against the same step captured as one CUDA graph (on a card;
+        elsewhere there is one candidate) on 2 batches of real rows, and
+        train with the faster; ``last_autotune`` and the history's
+        ``compile_autotune`` record the winner ('default', 'cuda_graph',
+        or 'skipped' where the fit cannot use it). A synchronous fit of
+        several ranks on cards times only the eager step, and
+        ``compile_autotune_note`` says why.
     """
 
     def __init__(
@@ -111,9 +121,6 @@ class TpuModel:
             )
         if max_failures < 1:
             raise ValueError(f"max_failures must be >= 1, got {max_failures}")
-        if autotune:
-            raise _not_ported("autotune (a torch.compile mode A/B)",
-                              "the sync fit slice's left-outs")
         if isinstance(model, dict):
             model = dict_to_model(model, custom_objects, device=device)
         if not isinstance(model, CompiledModel):
@@ -132,6 +139,8 @@ class TpuModel:
         self.hogwild_granularity = hogwild_granularity
         self.max_failures = max_failures
         self.pipelined_comms = pipelined_comms
+        self.autotune = autotune
+        self.last_autotune = None
         self.custom_objects = custom_objects or {}
         self.batch_size = batch_size
         self.last_epoch_end_times = None
@@ -222,8 +231,11 @@ class TpuModel:
         every epoch, and its ``on_fit_end()`` (where it has one) after the
         fit. ``initial_state``: a ``TrainState`` to resume from, restored
         into this model's module (``checkpoint.CheckpointManager.restore(
-        init_train_state(model.master_network))``). ``stream_batches`` is
-        not ported yet and raises.
+        init_train_state(model.master_network))``). ``stream_batches``:
+        hold at most about three chunks of that many batches of the data
+        on the device (a double-buffered host-to-device pipeline) instead
+        of all of it: each process of the synchronous group streams its
+        partition, each asynchronous worker its own.
 
         In the asynchronous modes the parameter server's final weights are
         folded back into the master network, and ``last_epoch_end_times``
@@ -231,9 +243,6 @@ class TpuModel:
         epoch (the training cadence; callbacks run on a drainer thread
         that lags it).
         """
-        if stream_batches is not None:
-            raise _not_ported("stream_batches (streamed epochs)",
-                              "the sync fit slice's left-outs")
         if initial_state is not None and initial_state.module not in (None, self._master.module):
             raise ValueError("initial_state trains another module: restore it into this "
                              "model's (init_train_state(model.master_network))")
@@ -253,7 +262,8 @@ class TpuModel:
                                          dataset.num_partitions)
 
         if self.mode == "synchronous":
-            trainer = SyncTrainer(self._master, self.mesh, frequency=self.frequency)
+            trainer = SyncTrainer(self._master, self.mesh, frequency=self.frequency,
+                                  autotune=self.autotune)
             state, history = trainer.fit(
                 dataset,
                 epochs=epochs,
@@ -262,6 +272,7 @@ class TpuModel:
                 verbose=verbose,
                 callbacks=callbacks,
                 initial_state=initial_state,
+                stream_batches=stream_batches,
             )
             self._sync_trainer = trainer
         else:
@@ -275,6 +286,8 @@ class TpuModel:
                 granularity=(self.hogwild_granularity if self.mode == "hogwild"
                              else "tree"),
                 max_failures=self.max_failures,
+                autotune=self.autotune,
+                stream_batches=stream_batches,
                 pipelined_comms=self.pipelined_comms,
             )
             state, history = trainer.fit(
@@ -289,6 +302,12 @@ class TpuModel:
             self._sync_trainer = None
             self.async_trainer = trainer
             self.last_epoch_end_times = trainer.epoch_end_times
+        # Which step trained, on the model and in the history.
+        self.last_autotune = trainer.autotune_choice
+        if self.last_autotune is not None:
+            history["compile_autotune"] = self.last_autotune["winner"]
+            if "note" in self.last_autotune:
+                history["compile_autotune_note"] = self.last_autotune["note"]
         for cb in callbacks:
             hook = getattr(cb, "on_fit_end", None)
             if hook is not None:

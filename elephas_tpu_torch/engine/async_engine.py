@@ -47,13 +47,23 @@ A retried unit starts again from a fresh pull (weights) and a re-seeded
 stream; the worker's optimizer state keeps whatever the failed attempt
 did to it (the JAX package's functional state rolls it back).
 
+- **Autotune** (``autotune=True``): before the workers start, the
+  eager step is timed against the same step captured as a CUDA graph
+  on a 2-batch scan of worker 0's rows (``utils/compiler.py``), and the
+  winner is every worker's step: a captured step replays as one launch
+  under the card's dispatch lock, on the worker's stream, with the
+  worker's dropout generator registered with its graph.
+- **Streamed partitions** (``stream_batches=N``): a worker streams its
+  partition in chunks of N batches through a double-buffered pipeline
+  (``engine.sync.ChunkStream``) in the JAX package's NumPy row order;
+  chunk i-1's metrics are read before a third chunk enters flight.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): the elastic fit (``elastic=True``, ``fault_plan``,
 ``batches_per_unit``: the pool and the plans are ported, in
 ``resilience/``, the trainer's wiring onto them is not), the
 sharded PS group with standbys, the PS write-ahead log, the ops
-endpoint, compile autotuning, streamed partitions, and a world of more
-than one process.
+endpoint, and a world of more than one process.
 """
 
 from __future__ import annotations
@@ -74,19 +84,23 @@ import torch.distributed as dist
 from elephas_tpu_torch import obs
 from elephas_tpu_torch.engine.state import TrainState
 from elephas_tpu_torch.engine.step import (
+    CAPTURE_WARMUP_STEPS,
+    CapturedStep,
     DeviceEvalCache,
+    build_train_step,
     init_train_state,
     make_epoch_scanner,
     make_eval_step,
-    make_train_step,
     weighted_mean_over_chunks,
 )
+from elephas_tpu_torch.engine.sync import _AUTOTUNE_SKIPPED, ChunkStream, decide_autotune
 from elephas_tpu_torch.parameter.client import (
     HostCopy,
     ParameterServerUnavailable,
     StaleDeltaRejected,
 )
 from elephas_tpu_torch.parameter.server import make_server
+from elephas_tpu_torch.utils.compiler import autotune_candidates, autotune_compile_options
 from elephas_tpu_torch.utils.device import resolve_device
 from elephas_tpu_torch.utils.functional_utils import tree_map
 
@@ -408,12 +422,14 @@ def _taking_turns(step, lock):
 
 class _WorkerModel:
     """One worker's copy of the model: the module, its optimizer (kept
-    across rounds), the train step and epoch scanner over it (the step
-    under the card's dispatch lock, where there is one), its dropout
-    generator, and the flat (sorted-name) lists of the tensors a pull
-    fills and a push differences."""
+    across rounds), the train step (eager, or with ``capture`` captured
+    as a CUDA graph) and epoch scanner over it (the step under the card's
+    dispatch lock, where there is one), its dropout generator, and the
+    flat (sorted-name) lists of the tensors a pull fills and a push
+    differences."""
 
-    def __init__(self, compiled, device: torch.device, dispatch_lock=None):
+    def __init__(self, compiled, device: torch.device, dispatch_lock=None,
+                 capture: bool = False):
         self.model = compiled.clone()
         self.model.module.to(device)
         self.device = device
@@ -422,7 +438,8 @@ class _WorkerModel:
             self.model.module.dropout_generator = self.generator
         self.state = TrainState.create(optimizer=self.model.init_opt_state(),
                                        rng=self.generator)
-        self.train_step = _taking_turns(make_train_step(self.model), dispatch_lock)
+        self.step = build_train_step(self.model, capture)
+        self.train_step = _taking_turns(self.step, dispatch_lock)
         self.epoch_fn = make_epoch_scanner(self.train_step)
         params, buffers = store_of(self.model.module)
         self.names = (list(params), list(buffers))
@@ -538,12 +555,12 @@ class AsyncTrainer:
              "item 4, the resilience WAL"),
             (ps_ops_port is not None, "ps_ops_port (the PS ops endpoint)",
              "item 7, obs/opsd.py"),
-            (autotune, "autotune (a torch.compile mode A/B)", "item 2"),
-            (stream_batches is not None, "stream_batches (streamed partitions)", "item 2"),
         )
         for asked, what, item in left_out:
             if asked:
                 raise _not_ported(what, item)
+        if stream_batches is not None and stream_batches < 1:
+            raise ValueError(f"stream_batches must be >= 1, got {stream_batches}")
         if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
             raise _not_ported("async/hogwild training across processes",
                               "item 6, parallel/distributed.py")
@@ -556,6 +573,10 @@ class AsyncTrainer:
         self.max_failures = max_failures
         self.pipelined_comms = pipelined_comms
         self.sync_interval = float(sync_interval)
+        self.autotune = autotune
+        self.autotune_choice = None
+        self.stream_batches = stream_batches
+        self._capture = False  # the workers' step: autotune's winner
         self.ps_device = next(compiled.module.parameters()).device
         devices = default_worker_devices(self.ps_device) if mesh is None else mesh
         self.devices = [resolve_device(d) for d in devices]
@@ -573,6 +594,52 @@ class AsyncTrainer:
     def mount_ops(self, port: int = 0, host: Optional[str] = None, store_dir=None):
         raise _not_ported("AsyncTrainer.mount_ops (the worker ops endpoint)",
                           "item 7, obs/opsd.py")
+
+    # -- autotune --------------------------------------------------------------
+
+    def _run_autotune(self, dataset, batch_size: int) -> None:
+        """The A/B of ``autotune_candidates`` on a 2-batch epoch scan of
+        worker 0's first rows, on its device, from a fresh clone of the
+        model (the fit keeps no trace of it); the winner becomes every
+        worker's step. A partition smaller than 2 batches cannot be timed:
+        'skipped', with a warning."""
+        local = None
+        index, device = self.workers[0]
+        x, y = dataset.partition(index)
+        nb = 2
+        if len(x) >= nb * batch_size:
+            usable = nb * batch_size
+            xs = torch.as_tensor(np.asarray(x[:usable])).to(device).reshape(
+                nb, batch_size, *np.shape(x)[1:])
+            ys = torch.as_tensor(np.asarray(y[:usable])).to(device).reshape(
+                nb, batch_size, *np.shape(y)[1:])
+            lock = self._dispatch_locks.get(device)
+            stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+            def build(options):
+                wm = _WorkerModel(self.compiled, device, lock, options)
+                if isinstance(wm.step, CapturedStep):  # its warm-up and capture, untimed
+                    for _ in range(CAPTURE_WARMUP_STEPS + 1):
+                        wm.train_step(wm.state, xs[0], ys[0])
+                return wm
+
+            def run(wm):
+                return wm.epoch_fn(wm.state, xs, ys)[1]
+
+            with torch.cuda.stream(stream) if stream is not None else nullcontext():
+                local = autotune_compile_options(build, run, lambda m: float(m["loss"]),
+                                                 candidates=autotune_candidates(device))
+        decided = decide_autotune(local)
+        if decided is None:
+            self.autotune_choice = dict(_AUTOTUNE_SKIPPED)
+            logger.warning("autotune=True could not time this workload (partition smaller "
+                           "than 2 batches); training with the eager step "
+                           "(compile_autotune='skipped')")
+            return
+        winner, options, table = decided
+        self.autotune_choice = {"winner": winner, "ms_per_2batch": table}
+        if table:  # more than one candidate was timed
+            self._capture = options
 
     # -- evaluation ------------------------------------------------------------
 
@@ -633,6 +700,8 @@ class AsyncTrainer:
         (``val_stale`` says whether it sampled the epoch boundary).
         ``initial_step``: the step of a restored state this fit resumes."""
         compiled = self.compiled
+        if self.autotune and self.autotune_choice is None:
+            self._run_autotune(dataset, batch_size)
         params, buffers = store_of(compiled.module)
         store0 = {"params": params, "batch_stats": buffers}
         env_key = os.environ.get("ELEPHAS_PS_AUTH_KEY")
@@ -827,7 +896,8 @@ class AsyncTrainer:
     def _run_worker_units(self, index: int, device: torch.device, client, comms, x, y,
                           nb: int, epochs: int, batch_size: int,
                           on_epoch_done=None) -> List[Dict[str, float]]:
-        wm = _WorkerModel(self.compiled, device, self._dispatch_locks.get(device))
+        wm = _WorkerModel(self.compiled, device, self._dispatch_locks.get(device),
+                          self._capture)
         epoch_metrics: List[Dict[str, float]] = []
         tracer = obs.default_tracer()
         usable = nb * batch_size
@@ -894,13 +964,38 @@ class AsyncTrainer:
                         help="frequency-unit retries across all workers",
                     ).inc()
 
+        def finish_epoch(entry, epoch: int) -> None:
+            nonlocal epoch_retries
+            if comms is not None:
+                # Every push of this epoch is server-side before the
+                # barrier counts the epoch done.
+                comms.flush()
+            obs.record_unit_dynamics(obs.default_registry(), f"w{index}",
+                                     loss=entry.get("loss"))
+            entry["_retries"] = float(epoch_retries)
+            epoch_retries = 0
+            epoch_metrics.append(entry)
+            if on_epoch_done is not None:
+                on_epoch_done(epoch)
+
+        def finish_worker() -> List[Dict[str, float]]:
+            if comms is not None:
+                comms.close()  # before the client: a stray prefetch must not race it
+            if hasattr(client, "close"):
+                client.close()
+            return epoch_metrics
+
+        if self.stream_batches is not None:
+            self._stream_units(index, device, x, y, nb, epochs, batch_size, wm, pull_state,
+                               push_delta, run_unit, finish_epoch)
+            return finish_worker()
+
         # The partition is uploaded to the worker's device ONCE and
         # shuffled there each epoch.
         x_d = torch.as_tensor(x).to(device)
         y_d = torch.as_tensor(y).to(device)
         global_step = 0
         for epoch in range(epochs):
-            epoch_retries = 0
             if self.frequency == "epoch":
 
                 def epoch_unit(attempt, epoch=epoch):
@@ -937,22 +1032,96 @@ class AsyncTrainer:
                                                    step=global_step))
                     global_step += 1
                 # Metrics stay on the device per step; one read per epoch.
-                names = list(device_metrics[0])
-                table = torch.stack([torch.stack([m[k] for k in names])
-                                     for m in device_metrics]).double().mean(0).tolist()
-                entry = dict(zip(names, table))
-            if comms is not None:
-                # Every push of this epoch is server-side before the
-                # barrier counts the epoch done.
-                comms.flush()
-            obs.record_unit_dynamics(obs.default_registry(), f"w{index}",
-                                     loss=entry.get("loss"))
-            entry["_retries"] = float(epoch_retries)
-            epoch_metrics.append(entry)
-            if on_epoch_done is not None:
-                on_epoch_done(epoch)
-        if comms is not None:
-            comms.close()  # before the client: a stray prefetch must not race it
-        if hasattr(client, "close"):
-            client.close()
-        return epoch_metrics
+                entry = _mean_of_steps(device_metrics)
+            finish_epoch(entry, epoch)
+        return finish_worker()
+
+    def _stream_units(self, index, device, x, y, nb, epochs, batch_size, wm, pull_state,
+                      push_delta, run_unit, finish_epoch) -> None:
+        """The worker's epochs over its streamed partition: chunks of
+        ``stream_batches`` batches (the last may be short) through a
+        ``ChunkStream``, in the JAX package's NumPy orders, keyed as the
+        resident shuffle (``[1234, worker, 7, epoch]``, and 10000 +
+        attempt on a retried epoch unit). Before a third chunk enters
+        flight the metrics of chunk i-1 are read, so its steps have run
+        and its memory can go. An 'epoch' unit streams the whole
+        partition from one pull (a retry re-streams it in a re-seeded
+        order); a 'batch' unit is one step on a batch of the chunk."""
+        usable = nb * batch_size
+        chunk_rows = min(self.stream_batches, nb) * batch_size
+        spans = [(s, min(s + chunk_rows, usable)) for s in range(0, usable, chunk_rows)]
+        stream = ChunkStream(x, y, chunk_rows, device)
+        tracer = obs.default_tracer()
+
+        def order(epoch: int, attempt: int) -> np.ndarray:
+            words = [1234, index, 7, epoch] + ([10_000 + attempt] if attempt else [])
+            return np.random.default_rng(words).permutation(usable)
+
+        global_step = 0
+        for epoch in range(epochs):
+            if self.frequency == "epoch":
+
+                def epoch_unit(attempt, epoch=epoch):
+                    perm = order(epoch, attempt)
+                    state, before = pull_state(global_step, attempt)
+                    chunk_metrics = []
+                    with tracer.span("async/train", worker=index, epoch=epoch):
+                        nxt = stream.put(perm[slice(*spans[0])])
+                        for ci in range(len(spans)):
+                            if ci >= 1:  # backpressure: chunk ci-1 has run
+                                chunk_metrics[ci - 1] = chunk_metrics[ci - 1].tolist()
+                            cur = nxt
+                            if ci + 1 < len(spans):
+                                nxt = stream.put(perm[slice(*spans[ci + 1])])
+                            cx, cy = cur.arrays(batch_size)
+                            state, metrics = wm.epoch_fn(state, cx, cy)
+                            chunk_metrics.append(torch.stack(list(metrics.values())))
+                            del cur, cx, cy
+                        # Reading every chunk's metrics waits for the epoch:
+                        # a device fault raises here (retryable), before the
+                        # delta could reach the server.
+                        fetched = [m if isinstance(m, list) else m.tolist()
+                                   for m in chunk_metrics]
+                    out = weighted_mean_over_chunks(
+                        [(s, e, i) for i, (s, e) in enumerate(spans)],
+                        lambda start, stop, i: dict(zip(metrics, fetched[i])), usable)
+                    push_delta(before)
+                    return out
+
+                entry = run_unit(epoch_unit, epoch=epoch, partition=index)
+                global_step += nb
+            else:
+                perm = order(epoch, 0)
+                device_metrics = []
+                last_of_chunk = None
+                nxt = stream.put(perm[slice(*spans[0])])
+                for ci in range(len(spans)):
+                    cur = nxt
+                    if ci + 1 < len(spans):
+                        if last_of_chunk is not None:  # backpressure: chunk ci-1 has run
+                            float(device_metrics[last_of_chunk]["loss"])
+                        nxt = stream.put(perm[slice(*spans[ci + 1])])
+                    cxb, cyb = cur.arrays(batch_size)
+                    for b in range(len(cxb)):
+
+                        def batch_unit(attempt, xb=cxb[b], yb=cyb[b]):
+                            state, before = pull_state(global_step, attempt)
+                            state, metrics = wm.train_step(state, xb, yb)
+                            push_delta(before)
+                            return metrics
+
+                        device_metrics.append(run_unit(batch_unit, epoch=epoch,
+                                                       partition=index, step=global_step))
+                        global_step += 1
+                    last_of_chunk = len(device_metrics) - 1
+                    del cur, cxb, cyb
+                entry = _mean_of_steps(device_metrics)
+            finish_epoch(entry, epoch)
+
+
+def _mean_of_steps(device_metrics) -> Dict[str, float]:
+    """The mean of each metric over an epoch's steps, read back once."""
+    names = list(device_metrics[0])
+    table = torch.stack([torch.stack([m[k] for k in names])
+                         for m in device_metrics]).double().mean(0).tolist()
+    return dict(zip(names, table))

@@ -9,7 +9,8 @@ Losses are computed in float32 on the outputs, whatever the compute
 dtype, and per-example losses are meaned. Metrics come back as 0-d
 tensors on the model's device: reading them (``float``) synchronises
 with the device, so a training loop reads them when it needs them, not
-every step.
+every step. On a card a step may instead be captured once as a CUDA
+graph and replayed (``CapturedStep``, chosen by the trainers' autotune).
 """
 
 from __future__ import annotations
@@ -80,6 +81,107 @@ def make_train_step(compiled, pmean_axis=None) -> Callable:
         return state, metrics
 
     return train_step
+
+
+#: Eager steps a captured step runs (on a side stream) before it captures.
+CAPTURE_WARMUP_STEPS = 3
+
+
+class CapturedStep:
+    """``make_train_step``'s step, captured once as one CUDA graph:
+    ``step(state, x, y) -> (state, metrics)`` with the same signature and
+    results, one launch a step after the capture.
+
+    - The first ``CAPTURE_WARMUP_STEPS`` calls run ``train_step`` eagerly on a
+      side stream: the capture's warm-up (cuDNN and cuBLAS choose and
+      allocate there, and the optimizer creates its state). They are
+      real steps of the caller's loop, so a captured loop takes the eager
+      loop's steps.
+    - The next call copies its batch into static inputs, switches the
+      optimizer to capturable mode (``api.optim``), clears the gradients
+      (the captured backward then allocates them once, in the graph's
+      pool, and every replay writes them there), captures the step,
+      which executes nothing, and replays it.
+    - Every later call copies its batch in, runs the optimizer's host
+      part (``advance``: count, schedule, learning rate and bias
+      corrections written in place) and replays.
+
+    The parameters, buffers and optimizer state are the graph's operands
+    and must keep their addresses: load weights in place
+    (``load_state_dict``, ``torch._foreach_copy_``), never rebind them.
+    The module's ``dropout_generator``, where it is a CUDA generator, is
+    registered with the graph, so a replay after ``manual_seed`` draws
+    the masks the eager step would (the default CUDA generator is
+    registered by PyTorch). The metrics come back as fresh tensors (one
+    copy a step), so the caller may keep them across steps. A step that
+    fails to capture raises; it is never run eagerly in the graph's
+    place. Only the first state given may be stepped, and only batches
+    of the captured shape.
+    """
+
+    def __init__(self, compiled, train_step: Callable):
+        device = next(compiled.module.parameters()).device
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph captures a step on a card; the model is on {device}")
+        self.compiled, self.train_step, self.device = compiled, train_step, device
+        self.captures = 0
+        self._side = torch.cuda.Stream(device)
+        self._calls = 0
+        self._graph = self._optimizer = self._x = self._y = None
+
+    def _warmup(self, state, x, y):
+        current = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(current)
+        with torch.cuda.stream(self._side):
+            state, metrics = self.train_step(state, x, y)
+        current.wait_stream(self._side)
+        return state, metrics
+
+    def _capture(self, state, x, y):
+        optimizer = state.optimizer.capturable()
+        self._optimizer = optimizer
+        self._x, self._y = x.detach().clone(), y.detach().clone()
+        graph = torch.cuda.CUDAGraph()
+        generator = getattr(self.compiled.module, "dropout_generator", None)
+        if isinstance(generator, torch.Generator) and generator.device.type == "cuda":
+            graph.register_generator_state(generator)
+        optimizer.zero_grad(set_to_none=True)
+        optimizer.advance()
+        with optimizer.in_graph(), torch.cuda.graph(graph, stream=self._side,
+                                                    capture_error_mode="thread_local"):
+            state, metrics = self.train_step(state, self._x, self._y)
+            self._names = list(metrics)
+            self._packed = torch.stack([v.reshape(()) for v in metrics.values()])
+        self._graph = graph
+        self.captures += 1
+
+    def __call__(self, state, x, y):
+        self._calls += 1
+        if self._calls <= CAPTURE_WARMUP_STEPS:
+            return self._warmup(state, x, y)
+        if self._graph is None:
+            self._capture(state, x, y)  # advances the step (state.step) once
+        else:
+            if state.optimizer is not self._optimizer:
+                raise ValueError("a captured step trains the state it was captured with")
+            if x.shape != self._x.shape or y.shape != self._y.shape:
+                raise ValueError(f"a captured step takes batches of {tuple(self._x.shape)} "
+                                 f"and {tuple(self._y.shape)}, got {tuple(x.shape)} and "
+                                 f"{tuple(y.shape)}")
+            self._x.copy_(x)
+            self._y.copy_(y)
+            self._optimizer.advance()
+            state.step += 1
+        self._graph.replay()
+        return state, dict(zip(self._names, self._packed.clone().unbind()))
+
+
+def build_train_step(compiled, capture: bool = False, pmean_axis=None) -> Callable:
+    """The train step an autotune candidate names (``utils.compiler``):
+    the eager ``make_train_step``, or with ``capture`` that step captured
+    (``CapturedStep``)."""
+    step = make_train_step(compiled, pmean_axis=pmean_axis)
+    return CapturedStep(compiled, step) if capture else step
 
 
 def make_eval_step(compiled) -> Callable:

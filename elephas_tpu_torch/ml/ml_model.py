@@ -72,7 +72,7 @@ class ElephasEstimator(
     either package) or a registry config ``{"name": ..., "kwargs": ...,
     "input_shape": ..., "input_dtype": ...}``. ``callbacks`` (``(epoch,
     state, metrics)`` callables) are run-time only and not persisted.
-    ``autotune=True`` raises at ``fit``, as ``SparkModel``'s does.
+    ``autotune=True`` reaches ``SparkModel``'s autotune.
     """
 
     def __init__(self, **kwargs):

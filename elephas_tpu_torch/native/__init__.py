@@ -86,23 +86,39 @@ def available() -> bool:
 
 
 def gather_rows(
-    x: np.ndarray, y: Optional[np.ndarray], perm: np.ndarray, n_threads: int = 0
+    x: np.ndarray, y: Optional[np.ndarray], perm: np.ndarray, n_threads: int = 0,
+    out: Optional[Tuple[np.ndarray, Optional[np.ndarray]]] = None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Return ``(x[perm], y[perm])`` via the native threaded gather.
 
-    Falls back to numpy fancy indexing if the native library is missing.
+    ``out``: C-contiguous ``(x_dst, y_dst)`` of the result's shapes and
+    dtypes to write into (a pinned staging buffer), else new arrays.
+    Falls back to numpy indexing if the native library is missing.
     """
+    n = len(perm)
+    if out is not None:
+        for dst, src in zip(out, (x, y)):
+            if src is None:
+                continue
+            if (dst.shape != (n, *src.shape[1:]) or dst.dtype != src.dtype
+                    or not dst.flags.c_contiguous):
+                raise ValueError(f"out {dst.shape} {dst.dtype} cannot hold "
+                                 f"{(n, *src.shape[1:])} {src.dtype} contiguously")
     lib = get_lib()
     if lib is None:
-        return x[perm], (None if y is None else y[perm])
+        if out is None:
+            return x[perm], (None if y is None else y[perm])
+        np.take(x, perm, axis=0, out=out[0])
+        if y is not None:
+            np.take(y, perm, axis=0, out=out[1])
+        return out[0], (None if y is None else out[1])
     x = np.ascontiguousarray(x)
     perm = np.ascontiguousarray(perm, dtype=np.int64)
-    n = len(perm)
-    x_dst = np.empty((n, *x.shape[1:]), dtype=x.dtype)
+    x_dst = np.empty((n, *x.shape[1:]), dtype=x.dtype) if out is None else out[0]
     x_row = x.dtype.itemsize * int(np.prod(x.shape[1:], dtype=np.int64))
     if y is not None:
         y = np.ascontiguousarray(y)
-        y_dst = np.empty((n, *y.shape[1:]), dtype=y.dtype)
+        y_dst = np.empty((n, *y.shape[1:]), dtype=y.dtype) if out is None else out[1]
         y_row = y.dtype.itemsize * int(np.prod(y.shape[1:], dtype=np.int64))
         y_src_p, y_dst_p = y.ctypes.data, y_dst.ctypes.data
     else:

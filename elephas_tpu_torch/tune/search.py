@@ -281,8 +281,12 @@ class HyperParamModel:
 
     ``device``: None gives one worker thread per local CUDA device (at
     most ``num_workers``), each pinned to its card with
-    ``torch.cuda.device``, raising without a GPU; a CUDA device gives one
-    worker on it (threads on one card take turns launching, so it is not
+    ``torch.cuda.device``, raising without a GPU; inside a process group,
+    whose ranks each drive one card, None gives one worker on the rank's
+    current card (``torch.cuda.current_device()``), so the group takes
+    each card once, as the JAX package's hosts take each chip once; a
+    CUDA device gives one worker on it (threads on one card take turns
+    launching, so it is not
     oversubscribed); ``"cpu"`` gives ``num_workers`` (default 1) threads
     on the CPU, the counterpart of the JAX package's virtual CPU devices.
     """
@@ -291,7 +295,11 @@ class HyperParamModel:
         del sc
         if device is None:
             resolve_device(None)
-            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if dist.is_available() and dist.is_initialized():
+                # One process per card (parallel/mesh.py): the rank's own.
+                devices = [torch.device("cuda", torch.cuda.current_device())]
+            else:
+                devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         else:
             device = resolve_device(device)
             if device.type == "cpu":

@@ -163,13 +163,18 @@ class GroupVault:
         self._client.update_parameters(delta)
 
     def save(self, trial_id: int, rung: int, loss: float, state) -> None:
+        """Two pushes. The first clears the slot to "no checkpoint" (state
+        and loss to 0, rung to -1: ``x - x = 0``, ``r - (r + 1) = -1``),
+        the second writes the new values (``0 - (-y) = y``, ``-1 - (-1 -
+        rung) = rung``), all exact, so a load from another vault between
+        them returns None, never a mix of the two checkpoints."""
         key = self.key(trial_id)
         with self._lock:
             current = self._client.get_parameters()
             slot = current[key]
-            # slot - slot == 0 exactly, then 0 - (-new) == new exactly.
-            self._push_slot(current, key, slot)
-            negated = _tree_map(_negated_like, {"state": state, "rung": rung, "loss": loss},
+            self._push_slot(current, key, {**slot, "rung": slot["rung"] + 1})
+            negated = _tree_map(_negated_like,
+                                {"state": state, "rung": rung + 1, "loss": loss},
                                 {k: slot[k] for k in ("state", "rung", "loss")})
             self._push_slot(current, key, negated)
             self._kinds[int(trial_id)] = _tree_map(_kind, state)

@@ -351,8 +351,6 @@ def test_comms_pipeline_retries_then_fails_fast():
     ({"standby": 1}, "item 4"),
     ({"ps_wal_dir": "unused"}, "item 4"),
     ({"ps_ops_port": 0}, "item 7"),
-    ({"autotune": True}, "item 2"),
-    ({"stream_batches": 2}, "item 2"),
 ])
 def test_left_out_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -360,12 +358,14 @@ def test_left_out_options_raise(kwargs, item):
 
 
 def test_left_out_spark_model_options_raise(data, monkeypatch):
+    """What is still left out raises; ``stream_batches`` and ``autotune``
+    are ported and train."""
     x, y = data
     model = et.SparkModel(_port_mlp(), mode="hogwild", mesh=["cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit(et.to_simple_rdd(None, x, y), epochs=1, stream_batches=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        et.SparkModel(_port_mlp(), mode="asynchronous", autotune=True)
+    history = model.fit(et.to_simple_rdd(None, x, y), epochs=1, stream_batches=2)
+    assert len(history["loss"]) == 1 and np.isfinite(history["loss"][0])
+    tuned = et.SparkModel(_port_mlp(), mode="asynchronous", autotune=True, mesh=["cpu"])
+    assert tuned.fit(et.to_simple_rdd(None, x, y), epochs=1)["compile_autotune"] == "default"
     with pytest.raises(NotImplementedError, match="item 7"):
         AsyncTrainer(_port_mlp(), ["cpu"]).mount_ops()
     monkeypatch.setenv("ELEPHAS_PS_SHARDS", "2")

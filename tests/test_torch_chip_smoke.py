@@ -209,7 +209,8 @@ def test_kernel_line_carries_every_path(smoke):
                 "serving": {k: 0 for k in smoke.KERNELS},
                 "async": {k: 0 for k in smoke.KERNELS},
                 "estimator": {k: 0 for k in smoke.KERNELS},
-                "search": {k: 0 for k in smoke.KERNELS}}
+                "search": {k: 0 for k in smoke.KERNELS},
+                "fit_slice": {k: 0 for k in smoke.KERNELS}}
     entries = smoke.kernel_entries(timing, errors, launches)
     assert [e["name"] for e in entries] == list(smoke.KERNELS)
     for e in entries:
@@ -219,6 +220,7 @@ def test_kernel_line_carries_every_path(smoke):
         assert e["launches_by_path"]["async"] == 0
         assert e["launches_by_path"]["estimator"] == 0
         assert e["launches_by_path"]["search"] == 0
+        assert e["launches_by_path"]["fit_slice"] == 0
         assert e["route"] == "cuda"
         assert e["replaces"].startswith("elephas_tpu/ops/attention_pallas.py:")
         assert e["ms"] == 1.0 and e["bf16"] == {"ms": 0.5}
@@ -320,26 +322,58 @@ def test_main_runs_and_reports_the_estimator_phase():
     launches under ``"estimator"`` and prints its report line, before the
     kernel line and the last line."""
     source, phases = _main_source()
-    assert phases[-3:-1] == ["async_phase", "estimator_phase"]
+    assert phases[phases.index("estimator_phase") - 1] == "async_phase"
     assert "launches['estimator'], report = estimator_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("'kernels'") < source.index("'ok': True")
 
 
 def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
-    """Phase 12, ``search_phase``, runs after every earlier phase, keeps its
-    launches under ``"search"`` and prints its report before the kernel
-    line; the last line is still the ``{"ok": true, "device": ...}``
-    object with the card's name and count."""
+    """Phase 11, ``search_phase``, runs after every earlier phase (only
+    the fit-slice phase follows it), keeps its launches under
+    ``"search"`` and prints its report before the kernel line; the last
+    line is still the ``{"ok": true, "device": ...}`` object with the
+    card's name and count."""
     source, phases = _main_source()
     assert phases == ["kernel_phase", "inference_phase", "train_phase", "resnet_phase",
                       "repair_phase", "serving_phase", "async_phase", "estimator_phase",
-                      "search_phase"]
+                      "search_phase", "fit_slice_phase"]
     assert "launches['search'], report = search_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("search: ") < source.index("'kernels'")
     last = source[source.index("'ok': True"):]
     for key in ("'platform': 'gpu'", "'kind': torch.cuda.get_device_name(0)",
                 "'count': torch.cuda.device_count()"):
         assert key in last
+
+
+def test_main_runs_the_fit_slice_phase_after_the_search(smoke):
+    """Phase 12, ``fit_slice_phase``, runs last of the phases, keeps its
+    launches under ``"fit_slice"`` and prints one ``fit_slice: {...}``
+    line before the kernel line."""
+    source, phases = _main_source()
+    assert phases[-2:] == ["search_phase", "fit_slice_phase"]
+    assert "launches['fit_slice'], report = fit_slice_phase(attention_cuda)" in source
+    assert source.index("search: ") < source.index("fit_slice: ") < source.index("'kernels'")
+
+
+def test_fit_slice_config(smoke):
+    """The streamed fit is CIFAR-10's training size at the ResNet fit's
+    batch; its data bound is 3 chunks of 4 batches of 12,328-byte rows
+    (151 MB); the capture check runs past its 3 warm-up steps."""
+    assert (smoke.STREAM_ROWS, smoke.STREAM_BATCH, smoke.STREAM_CHUNK) == (50_000, 1024, 4)
+    assert smoke.STREAM_RESIDENCY_LIMIT == 3 * 4 * 1024 * 12_328 == 151_486_464
+    assert smoke.CAPTURE_STEPS > 3 + 1 and smoke.CAPTURE_BATCH == 256
+    assert smoke.AB_RESNET_BATCHES == (256, 2048)
+    assert smoke.CAPTURE_MASKED == (128, (100, 64))
+
+
+def test_bitwise_equal_names_each_differing_tensor(smoke):
+    import torch
+
+    a = {"w": torch.ones(3), "b": torch.zeros(2), "m": torch.ones(2, dtype=torch.bfloat16)}
+    b = {"w": torch.ones(3), "b": torch.tensor([0.0, 1e-30]), "m": torch.ones(2)}
+    assert smoke.bitwise_equal(a, a) == []
+    assert smoke.bitwise_equal(a, b) == ["b", "m"]  # a value, and a dtype
+    assert smoke.bitwise_equal({"z": torch.tensor([0.0])}, {"z": torch.tensor([-0.0])}) == []
 
 
 def test_search_config_is_baseline_config_5(smoke):
@@ -452,3 +486,39 @@ def test_lstm_step_errors(smoke):
     assert errors["params"] == pytest.approx(0.2 / 2 ** 0.5) and errors["params_worst"] == "b"
     assert smoke.breaches(errors, smoke.LSTM_CPU_LIMITS) == ["logits", "loss", "grads",
                                                             "params"]
+
+
+def test_asha_runs_are_held_to_their_replayed_arrivals(smoke, monkeypatch):
+    """The search phase's ASHA checks on a toy objective: a two-worker
+    run's outcome is the scheduler's fed its own arrivals serially, and a
+    unit's loss is one across runs; a changed loss shows in both."""
+    from elephas_tpu_torch.tune import MemoryVault, cli, run_search
+    from elephas_tpu_torch.tune.scheduler import AshaScheduler
+
+    arrivals = []
+    on_result = AshaScheduler.on_result
+
+    def record(self, trial_id, rung, loss, delta_norm=None):
+        arrivals.append((trial_id, rung, loss, delta_norm))
+        return on_result(self, trial_id, rung, loss, delta_norm)
+
+    monkeypatch.setattr(AshaScheduler, "on_result", record)
+    docs, runs = [], []
+    for workers in (2, 1):
+        arrivals.clear()
+        docs.append(run_search(cli.synthetic_trial_fn, smoke.asha_space(),
+                               num_trials=smoke.ASHA_TRIALS, seed=smoke.SEED,
+                               eta=smoke.ASHA_ETA, rungs=smoke.ASHA_RUNGS, r0=smoke.ASHA_R0,
+                               workers=workers, vault=MemoryVault()))
+        runs.append(list(arrivals))
+    monkeypatch.setattr(AshaScheduler, "on_result", on_result)
+    for doc, sequence in zip(docs, runs):
+        want = smoke.replay_asha(sequence)
+        assert {k: doc[k] for k in want} == want
+    assert smoke.unequal_units(runs) == []
+    winner = docs[0]["winner"]["trial"]
+    top = max(rung for tid, rung, _, _ in runs[0] if tid == winner)
+    changed = [(tid, rung, loss + 1.0 if (tid, rung) == (winner, top) else loss, dn)
+               for tid, rung, loss, dn in runs[0]]
+    assert smoke.unequal_units([changed, runs[1]]) == [(winner, top)]
+    assert smoke.replay_asha(changed)["search_digest"] != docs[0]["search_digest"]

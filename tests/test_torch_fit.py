@@ -271,8 +271,8 @@ def test_constructor_validates_like_jax(caplog, tmp_path):
                    {"hogwild_granularity": "row"}, {"max_failures": 0}):
         with pytest.raises(ValueError):
             et.SparkModel(net, **{"mode": "synchronous", **kwargs})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        et.SparkModel(net, mode="synchronous", autotune=True)
+    tuned = et.SparkModel(net, mode="synchronous", autotune=True)  # ported: constructs
+    assert tuned.autotune and tuned.last_autotune is None
     for mode in ("asynchronous", "hogwild"):  # ported: they construct
         assert et.SparkModel(net, mode=mode).mode == mode
     # A model_to_dict payload constructs (serialization, ported).
@@ -283,9 +283,12 @@ def test_constructor_validates_like_jax(caplog, tmp_path):
     with caplog.at_level(logging.WARNING):
         model = et.SparkModel(net, mode="synchronous", num_workers=4)
     assert model.num_workers == 1 and "capping" in caplog.text
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit((np.zeros((8, 20), np.float32), np.zeros((8, 4), np.float32)),
-                  stream_batches=2)
+    # Ported: a streamed fit trains, and a chunk size below 1 is refused.
+    x, y = make_blobs(n=64)
+    history = model.fit((x, y), epochs=2, batch_size=8, stream_batches=3)
+    assert len(history["loss"]) == 2 and history["loss"][-1] < history["loss"][0]
+    with pytest.raises(ValueError, match="stream_batches"):
+        model.fit((x, y), stream_batches=0)
     model.save(tmp_path / "model.pkl")  # ported: save and load round-trip
     loaded = et.load_spark_model(tmp_path / "model.pkl", device="cpu")
     assert (loaded.mode, loaded.num_workers) == ("synchronous", 1)

@@ -496,6 +496,20 @@ def _spawn(tmp_path, world, jobs, timeout=240):
                                   for r in range(world)]
 
 
+def test_no_device_takes_the_ranks_own_card_in_a_group(tmp_path):
+    """Two ranks on a host of two cards, each rank driving its own
+    (``current_device``): each takes one worker on its card, so the group
+    has 2 slots, as the JAX package's two hosts of one chip each (one
+    worker per local device); 5 trials split 3 and 2."""
+    job = {"kind": "search_devices", "cards": 2, "max_evals": 5,
+           "out": str(tmp_path / "devices.pt")}
+    _spawn(tmp_path, 2, [job])
+    ranks = [torch.load(f"{job['out']}.rank{r}", weights_only=False) for r in range(2)]
+    assert [r["devices"] for r in ranks] == [[torch.device("cuda", 0)],
+                                             [torch.device("cuda", 1)]]
+    assert [r["slots"] for r in ranks] == [[0, 0, 0], [1, 1]]
+
+
 def test_two_ranks_of_two_workers_equal_one_process_of_four(tmp_path):
     sys.path.insert(0, str(WORKER.parent))
     from test_torch_dist_worker import search_data, search_objective, search_space

@@ -157,12 +157,14 @@ def test_regression_transform_single_row(df):
 
 
 def test_estimator_autotune_param_raises(df):
-    """The stage keeps the reference's autotune param; the compile-option
-    A/B is not ported, so a fit with it raises naming its item."""
+    """The stage keeps the reference's autotune param and passes it to
+    ``SparkModel``, whose A/B is ported (one candidate on the CPU): the
+    fit trains and the transformer transforms every row."""
     est = make_estimator().set_autotune(True)
     assert est.autotune is True and "autotune" in est.param_map()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.fit(df)
+    transformer = est.fit(df)
+    out = transformer.transform(df)
+    assert out[transformer.output_col].shape[0] == len(df)
 
 
 def test_wrong_kind_load_raises(tmp_path):

@@ -274,6 +274,73 @@ def test_group_vault_on_a_port_server(vault_server):
     np.testing.assert_array_equal(fresh.state["a"]["x"], numpy_tree["x"])
 
 
+class _Interleaved:
+    """A client whose first ``update_parameters`` runs ``between()`` right
+    after it lands: a load from another vault between a save's pushes."""
+
+    def __init__(self, client, between):
+        self._client, self._between, self.seen = client, between, []
+
+    def get_parameters(self):
+        return self._client.get_parameters()
+
+    def update_parameters(self, delta):
+        self._client.update_parameters(delta)
+        if self._between is not None:
+            between, self._between = self._between, None
+            self.seen.append(between())
+
+
+def test_group_vault_load_during_a_save_sees_old_new_or_none(vault_server):
+    """Another vault loading between a save's two pushes gets "no
+    checkpoint", never rung 0 with loss 0.0 and zeroed state, nor a mix;
+    before and after, the old and the new checkpoint, bitwise."""
+    server, _ = vault_server
+    numpy_tree, tensor_tree = _trees()
+    old = {"a": numpy_tree, "b": tensor_tree}
+    new = {"a": {k: (v * 2 + 1).astype(v.dtype) for k, v in numpy_tree.items()},
+           "b": {k: v * 3 - 1 for k, v in tensor_tree.items()}}
+    reader = GroupVault(server.client())
+    for trial, before in ((0, None), (1, (0, 0.5))):
+        if before is not None:
+            GroupVault(server.client()).save(trial, *before, old)
+            assert (reader.load(trial).rung, reader.load(trial).loss) == before
+        client = _Interleaved(server.client(), lambda trial=trial: reader.load(trial))
+        writer = GroupVault(client)
+        writer.save(trial, 2, 1.25, new)
+        assert client.seen == [None]
+        after = writer.load(trial)
+        assert (after.rung, after.loss) == (2, 1.25)
+        _assert_same_tree(after.state["a"], new["a"])
+        _assert_same_tree(after.state["b"], new["b"])
+
+
+def test_runner_trains_a_rung_whose_save_is_in_flight():
+    """A zombie re-saving trial 0 while the runner leases its rung 0: the
+    runner's load sees no checkpoint and trains the rung (with the old
+    two-push save it read rung 0, loss 0.0 and reused it untrained)."""
+    template = {"steps": torch.tensor(0.0, dtype=torch.float64)}
+    server = make_server("local", GroupVault.build_store(range(6), template), device="cpu")
+    server.start()
+    trained = []
+
+    def recording(config, state, epochs, seed, rung):
+        trained.append((config["tid"], rung))
+        return _staircase(config, state, epochs, seed, rung)
+
+    try:
+        runner, _ = _runner(recording, vault=GroupVault(server.client()))
+        zombie = GroupVault(_Interleaved(server.client(), runner.run))
+        zombie.save(0, 0, 9.0, {"steps": torch.tensor(7.0, dtype=torch.float64)})
+        doc = zombie._client.seen[0]
+    finally:
+        server.stop()
+    assert (0, 0) in trained
+    clean = _runner(_staircase)[0].run()
+    assert (doc["winner_digest"], doc["best_loss"]) == (clean["winner_digest"],
+                                                        clean["best_loss"])
+
+
 def test_group_vault_store_matches_jax_layout():
     numpy_tree, _ = _trees()
     port = GroupVault.build_store([0, 4], numpy_tree)
