@@ -58,12 +58,25 @@ did to it (the JAX package's functional state rolls it back).
   (``engine.sync.ChunkStream``) in the JAX package's NumPy row order;
   chunk i-1's metrics are read before a third chunk enters flight.
 
+- **The elastic fit** (``elastic=True``): the units of the fit are
+  ``(epoch, partition)`` entries of a ``resilience.UnitLedger`` (or batch
+  ranges of them, ``batches_per_unit``) leased by an
+  ``ElasticWorkerPool`` to whichever worker thread is alive; a dead
+  worker's units are re-queued to survivors, and a parameter-server crash
+  is ridden out for ``ps_recovery_grace`` seconds against a warm restart
+  (``ps_wal_dir``) or a standby's promotion (``ps_shards``, ``standby``).
+  Each worker id keeps one model clone, one stream and one optimizer
+  state on its device; a unit's shuffle is the JAX package's NumPy
+  permutation keyed on (partition, epoch), and its dropout generator is
+  seeded from (partition, epoch) and a batch range's start, never from
+  the worker, so a survivor re-running a dead worker's unit trains the
+  same rows in the same order. A unit reads its metrics back (waiting
+  for its steps) before it pushes, so a device fault kills the unit,
+  which is re-queued, and never reaches the server.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the elastic fit (``elastic=True``, ``fault_plan``,
-``batches_per_unit``: the pool and the plans are ported, in
-``resilience/``, the trainer's wiring onto them is not), the
-sharded PS group with standbys, the PS write-ahead log, the ops
-endpoint, and a world of more than one process.
+item): the ops endpoint (``ps_ops_port``, ``mount_ops``) and a world of
+more than one process.
 """
 
 from __future__ import annotations
@@ -98,8 +111,11 @@ from elephas_tpu_torch.parameter.client import (
     HostCopy,
     ParameterServerUnavailable,
     StaleDeltaRejected,
+    make_client,
 )
-from elephas_tpu_torch.parameter.server import make_server
+from elephas_tpu_torch.parameter.group import ShardGroup
+from elephas_tpu_torch.parameter.server import _dial_host, make_server
+from elephas_tpu_torch.resilience import ElasticWorkerPool, FaultInjector, UnitLedger, install
 from elephas_tpu_torch.utils.compiler import autotune_candidates, autotune_compile_options
 from elephas_tpu_torch.utils.device import resolve_device
 from elephas_tpu_torch.utils.functional_utils import tree_map
@@ -133,6 +149,18 @@ def dropout_seed(index: int, step: int, attempt: int) -> int:
     """Seed of worker ``index``'s dropout generator at ``step``: (977,
     worker, step), and 10000 + attempt on a retry."""
     return _seed(977, index, step, *([10_000 + attempt] if attempt else []))
+
+
+def unit_permutation(part: int, epoch: int, n: int) -> np.ndarray:
+    """An elastic unit's row order: the JAX package's NumPy permutation
+    keyed on (1234, partition, epoch), whichever worker runs it."""
+    return np.random.default_rng([1234, part, epoch]).permutation(n)
+
+
+def unit_dropout_seed(part: int, epoch: int, lo: Optional[int] = None) -> int:
+    """Seed of an elastic unit's dropout generator: (977, partition,
+    epoch), and a batch range's start ``lo``; never the worker."""
+    return _seed(977, part, epoch, *([lo] if lo is not None else []))
 
 
 class _Handoff:
@@ -503,6 +531,8 @@ class AsyncTrainer:
         elastic: bool = False,
         fault_plan=None,
         ps_wal_dir: Optional[str] = None,
+        wal_every: int = 1,
+        ps_recovery_grace: float = 15.0,
         ps_ops_port: Optional[int] = None,
         ps_shards: Optional[int] = None,
         standby: Optional[int] = None,
@@ -527,7 +557,26 @@ class AsyncTrainer:
         frequency-unit before a worker fault fails the fit (Spark's
         ``spark.task.maxFailures``); ``ParameterServerUnavailable`` is
         never retried. ``sync_interval``: baseline train-units-per-push
-        of the pipelined comms ratchet (>= 1.0)."""
+        of the pipelined comms ratchet (>= 1.0).
+
+        ``elastic``: run ``fit`` on the resilience layer's self-healing
+        pool (see the module note); ``frequency='epoch'`` only.
+        ``fault_plan``: a ``resilience.FaultPlan`` (seeded drops, delays
+        and duplicates of wire frames, worker kills and stalls) installed
+        for the elastic fit. ``batches_per_unit``: cut each elastic unit
+        into batch ranges of this many batches, so a death mid-epoch
+        re-leases only the unfinished ranges. ``ps_recovery_grace``:
+        seconds an elastic fit waits for a crashed server to come back.
+
+        ``ps_wal_dir``/``wal_every``: the wire server's write-ahead log:
+        accepted pushes are durable before their ack (at most
+        ``wal_every - 1`` versions behind), and a server built over the
+        same directory warm-restarts from it. ``ps_shards``: shard the
+        tree across K wire servers (``parameter.group.ShardGroup``);
+        default ``$ELEPHAS_PS_SHARDS`` or unsharded. ``standby``: with
+        ``ps_shards`` and ``ps_wal_dir``, one WAL-streamed warm spare a
+        shard, promoted when its primary dies; default
+        ``$ELEPHAS_PS_STANDBY`` or 0."""
         if frequency not in _FREQUENCIES:
             raise ValueError(
                 f"async frequency must be batch|epoch, got {frequency!r} "
@@ -537,28 +586,44 @@ class AsyncTrainer:
             raise ValueError(f"max_failures must be >= 1, got {max_failures}")
         if sync_interval < 1.0:
             raise ValueError(f"sync_interval must be >= 1.0, got {sync_interval}")
+        if elastic and frequency != "epoch":
+            raise ValueError(
+                "elastic=True schedules (epoch, partition) ledger units, "
+                "which are epoch-granular — use frequency='epoch'"
+            )
+        if batches_per_unit is not None:
+            if batches_per_unit < 1:
+                raise ValueError(f"batches_per_unit must be >= 1, got {batches_per_unit}")
+            if not elastic:
+                raise ValueError(
+                    "batches_per_unit cuts ELASTIC ledger units into "
+                    "batch ranges — set elastic=True to use it"
+                )
         if ps_shards is None:
             ps_shards = int(os.environ.get("ELEPHAS_PS_SHARDS", "0")) or None
         if standby is None:
-            standby = int(os.environ.get("ELEPHAS_PS_STANDBY", "0")) or None
-        left_out = (
-            (elastic, "elastic=True (the trainer's elastic fit on the worker pool)",
-             "item 4, AsyncTrainer's elastic wiring"),
-            (fault_plan is not None, "fault_plan (the trainer's seeded chaos)",
-             "item 4, AsyncTrainer's elastic wiring"),
-            (batches_per_unit is not None, "batches_per_unit (elastic batch ranges)",
-             "item 4, AsyncTrainer's elastic wiring"),
-            (ps_shards is not None, "ps_shards (the sharded PS group)",
-             "item 4, parameter/group.py"),
-            (standby, "standby (the shard group's hot spares)", "item 4, parameter/group.py"),
-            (ps_wal_dir is not None, "ps_wal_dir (the PS write-ahead log)",
-             "item 4, the resilience WAL"),
-            (ps_ops_port is not None, "ps_ops_port (the PS ops endpoint)",
-             "item 7, obs/opsd.py"),
-        )
-        for asked, what, item in left_out:
-            if asked:
-                raise _not_ported(what, item)
+            standby = int(os.environ.get("ELEPHAS_PS_STANDBY", "0"))
+        if ps_shards is not None:
+            if ps_shards < 1:
+                raise ValueError(f"ps_shards must be >= 1, got {ps_shards}")
+            if parameter_server_mode == "local":
+                raise ValueError(
+                    "ps_shards requires a wire transport (http|socket): "
+                    "shards are separate server processes"
+                )
+        if standby:
+            if not ps_shards:
+                raise ValueError(
+                    "standby is the shard group's hot-spare tier — set "
+                    "ps_shards (ps_shards=1 shards trivially) to use it"
+                )
+            if ps_wal_dir is None:
+                raise ValueError(
+                    "standby streams each shard's WAL to its spare — "
+                    "set ps_wal_dir"
+                )
+        if ps_ops_port is not None:
+            raise _not_ported("ps_ops_port (the PS ops endpoint)", "item 7, obs/opsd.py")
         if stream_batches is not None and stream_batches < 1:
             raise ValueError(f"stream_batches must be >= 1, got {stream_batches}")
         if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
@@ -576,6 +641,20 @@ class AsyncTrainer:
         self.autotune = autotune
         self.autotune_choice = None
         self.stream_batches = stream_batches
+        self.elastic = elastic
+        self.fault_plan = fault_plan
+        self.batches_per_unit = batches_per_unit
+        self.ps_wal_dir = ps_wal_dir
+        self.wal_every = wal_every
+        self.ps_recovery_grace = ps_recovery_grace
+        self.ps_shards = ps_shards
+        self.standby = standby
+        # The elastic fit's chaos surface: the live server (a harness may
+        # kill it and put a warm-restarted one here), the group, the pool.
+        self._elastic_server = None
+        self._elastic_group = None
+        self._elastic_pool = None
+        self.elastic_stats = None
         self._capture = False  # the workers' step: autotune's winner
         self.ps_device = next(compiled.module.parameters()).device
         devices = default_worker_devices(self.ps_device) if mesh is None else mesh
@@ -679,6 +758,29 @@ class AsyncTrainer:
             lambda start, stop, i: dict(zip(names, values[i])), n)
         return dict(sorted(means.items()))  # the JAX package's key order
 
+    # -- the parameter server ----------------------------------------------------
+
+    def _start_server(self, store0, auth_key):
+        """This fit's parameter server, started: a ``ShardGroup`` with
+        ``ps_shards`` (its monitor running where it has spares), else one
+        server with the write-ahead log where ``ps_wal_dir`` asks."""
+        if self.ps_shards:
+            group = ShardGroup(
+                store0, self.ps_shards, mode=self.parameter_server_mode,
+                standby=self.standby, wal_root=self.ps_wal_dir, lock=self.lock,
+                device=self.ps_device, granularity=self.granularity,
+                auth_key=auth_key, wal_every=self.wal_every)
+            group.start()
+            if self.standby:
+                group.start_monitor()
+            return group
+        server = make_server(
+            self.parameter_server_mode, store0, lock=self.lock, port=self.port,
+            device=self.ps_device, granularity=self.granularity, auth_key=auth_key,
+            wal_dir=self.ps_wal_dir, wal_every=self.wal_every)
+        server.start()
+        return server
+
     # -- fit -------------------------------------------------------------------
 
     def fit(
@@ -698,20 +800,20 @@ class AsyncTrainer:
         each epoch's metrics averaged over the workers, ``worker_retries``
         where a unit was retried, and one ``val_*`` entry per epoch
         (``val_stale`` says whether it sampled the epoch boundary).
-        ``initial_step``: the step of a restored state this fit resumes."""
+        ``initial_step``: the step of a restored state this fit resumes.
+        With ``elastic`` the fit runs on the pool (``_fit_elastic``)."""
         compiled = self.compiled
         if self.autotune and self.autotune_choice is None:
             self._run_autotune(dataset, batch_size)
+        if self.elastic:
+            return self._fit_elastic(dataset, epochs, batch_size, validation_data,
+                                     verbose, rng, callbacks, initial_step)
         params, buffers = store_of(compiled.module)
         store0 = {"params": params, "batch_stats": buffers}
         env_key = os.environ.get("ELEPHAS_PS_AUTH_KEY")
-        server = make_server(
-            self.parameter_server_mode, store0, lock=self.lock, port=self.port,
-            device=self.ps_device, granularity=self.granularity,
-            auth_key=bytes.fromhex(env_key) if env_key else None,
-        )
-        server.start()
+        server = self._start_server(store0, bytes.fromhex(env_key) if env_key else None)
         self.server = server
+        hand_over = getattr(server, "hand_over", None) or server.buffer.hand_over
 
         per_worker_metrics: List[Optional[List[Dict[str, float]]]] = [None] * self.n_workers
         errors: List[BaseException] = []
@@ -734,7 +836,7 @@ class AsyncTrainer:
                 # was never pinned, so it samples the PS as of NOW.
                 snapshot = server.get_parameters()
             else:
-                server.buffer.hand_over(snapshot)
+                hand_over(snapshot)
             if do_val:
                 rec = dict(self._local_evaluate(snapshot, *validation_data))
                 rec["stale"] = 1.0 if stale else 0.0
@@ -866,6 +968,258 @@ class AsyncTrainer:
         if verbose:
             last = {k: round(v[-1], 4) for k, v in history.items()}
             print(f"[{'async' if self.lock else 'hogwild'}] done: {last}")
+        return state, history
+
+    # -- the elastic fit ---------------------------------------------------------
+
+    def _fit_elastic(self, dataset, epochs: int, batch_size: int, validation_data,
+                     verbose: int, rng, callbacks, initial_step: int):
+        """The elastic fit: every ``(epoch, partition)`` unit — or every
+        ``(epoch, partition, (lo, hi))`` batch range with
+        ``batches_per_unit`` — is leased from a ``UnitLedger`` to
+        whichever worker thread is alive; a dead worker's units go to
+        survivors, the epoch fire runs when the ledger says the epoch is
+        complete, and a PS crash is ridden out against a warm restart on
+        the same address (or a standby's promotion in a group).
+
+        Chaos surface: ``self._elastic_server`` (kill it, warm-restart on
+        the same port and WAL directory, put the new server here),
+        ``self._elastic_group`` and ``self._elastic_pool``
+        (``join_worker``). ``self.elastic_stats`` holds the pool's stats
+        after the fit; the history is each epoch's metrics averaged over
+        the partitions."""
+        compiled = self.compiled
+        params, buffers = store_of(compiled.module)
+        store0 = {"params": params, "batch_stats": buffers}
+        env_key = os.environ.get("ELEPHAS_PS_AUTH_KEY")
+        auth_key = bytes.fromhex(env_key) if env_key else None
+        server = self._start_server(store0, auth_key)
+        self._elastic_server = self.server = server
+        if self.ps_shards:
+            self._elastic_group = server
+
+        mode = self.parameter_server_mode
+        if self.ps_shards:
+            def client_factory(worker_id):
+                # The group directory is the re-resolution point: after a
+                # failover the generation bump re-dials the promoted spare.
+                client = self._elastic_group.client()
+                client.worker_id = str(worker_id)
+                return client
+        elif mode == "local":
+            def client_factory(worker_id):
+                # In-process: the buffer cannot restart, so the live handle.
+                return self._elastic_server.client()
+        else:
+            # Dial the ADDRESS, not the server object: after a kill and a
+            # warm restart a NEW server owns the same port.
+            address = f"{_dial_host(server.host)}:{server.port}"
+
+            def client_factory(worker_id):
+                client = make_client(mode, address, auth_key=auth_key)
+                client.worker_id = str(worker_id)
+                return client
+
+        injector = None
+        if self.fault_plan is not None:
+            injector = FaultInjector(self.fault_plan)
+            install(injector)
+
+        partitions = list(range(self.n_workers))
+        devices = self.devices
+
+        def device_for(worker_id: str) -> torch.device:
+            # Late joiners share the device list round-robin.
+            try:
+                i = int(str(worker_id).lstrip("w"))
+            except ValueError:
+                i = abs(hash(worker_id))
+            return devices[i % len(devices)]
+
+        data_lock = threading.Lock()
+        host_rows: Dict[int, tuple] = {}      # partition -> (x, y, nb, usable)
+        device_rows: Dict[tuple, tuple] = {}  # (worker, partition) -> tensors
+        workers: Dict[str, tuple] = {}        # worker -> (_WorkerModel, stream)
+
+        def partition_rows(part: int):
+            with data_lock:
+                if part not in host_rows:
+                    x, y = dataset.partition(part)
+                    nb = len(x) // batch_size
+                    if nb == 0:
+                        raise ValueError(
+                            f"partition {part}: {len(x)} rows < batch_size {batch_size}")
+                    usable = nb * batch_size
+                    host_rows[part] = (np.asarray(x[:usable]), np.asarray(y[:usable]),
+                                       nb, usable)
+                return host_rows[part]
+
+        def worker_model(worker_id: str):
+            """The worker's clone, optimizer and stream, built at its
+            first unit (a late joiner's too) and kept across units."""
+            with data_lock:
+                if worker_id not in workers:
+                    device = device_for(worker_id)
+                    stream = None
+                    if device.type == "cuda":
+                        # The clone is made on the worker's stream, after
+                        # the work that wrote the master's weights.
+                        stream = torch.cuda.Stream(device)
+                        stream.wait_stream(torch.cuda.current_stream(device))
+                    with torch.cuda.stream(stream) if stream is not None else nullcontext():
+                        wm = _WorkerModel(compiled, device, self._dispatch_locks.get(device),
+                                          self._capture)
+                    workers[worker_id] = (wm, stream)
+                return workers[worker_id]
+
+        if self.batches_per_unit is not None:
+            ledger = UnitLedger(epochs, partitions,
+                                n_batches={p: partition_rows(p)[2] for p in partitions},
+                                batches_per_unit=self.batches_per_unit)
+        else:
+            ledger = UnitLedger(epochs, partitions)
+        tracer = obs.default_tracer()
+
+        def run_unit(worker_id: str, client, unit):
+            # Each unit roots its own trace: pull, train, push and the
+            # server's apply (across a warm restart too) are one tree.
+            span_args = {"batches": f"{unit[2][0]}:{unit[2][1]}"} if len(unit) > 2 else {}
+            ctx = obs.new_context() if tracer.enabled else None
+            with obs.activate(ctx), tracer.span(
+                    "async/unit", epoch=unit[0], partition=unit[1], worker=worker_id,
+                    **span_args) as usp:
+                wm, stream = worker_model(worker_id)
+                with torch.cuda.stream(stream) if stream is not None else nullcontext():
+                    return unit_body(worker_id, wm, client, unit, usp)
+
+        def unit_body(worker_id: str, wm, client, unit, usp):
+            epoch, part = unit[0], unit[1]
+            batch_range = unit[2] if len(unit) > 2 else None
+            x, y, nb, usable = partition_rows(part)
+            key = (worker_id, part)
+            if key not in device_rows:
+                device_rows[key] = (torch.as_tensor(x).to(wm.device),
+                                    torch.as_tensor(y).to(wm.device))
+            x_d, y_d = device_rows[key]
+            # Batch range [lo, hi) of the (partition, epoch)-keyed shuffle:
+            # the ranges of an epoch partition the stream a whole unit
+            # would train.
+            lo, hi = (0, nb) if batch_range is None else batch_range
+            perm = torch.as_tensor(unit_permutation(part, epoch, usable)[
+                lo * batch_size:hi * batch_size]).to(wm.device)
+            ex = x_d[perm].reshape(hi - lo, batch_size, *x_d.shape[1:])
+            ey = y_d[perm].reshape(hi - lo, batch_size, *y_d.shape[1:])
+            pulled = client.get_parameters()
+            before = wm.load(pulled)
+            wm.generator.manual_seed(unit_dropout_seed(
+                part, epoch, lo if batch_range is not None else None))
+            wm.state.step = epoch * nb + lo
+            with tracer.span("async/train", worker=worker_id, epoch=epoch):
+                _, metrics = wm.epoch_fn(wm.state, ex, ey)
+                # Read the metrics BEFORE the push: a device fault kills
+                # this unit (the pool re-queues it), never the buffer.
+                fetched = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+            delta = wm.tree(wm.delta(before))
+            try:
+                client.update_parameters(delta)
+            except StaleDeltaRejected as exc:
+                # The admission policy's definitive answer, not a fault: a
+                # re-run would push an even staler delta. The unit counts
+                # done; the next unit's pull is the re-pull it asks for.
+                if usp is not None:
+                    usp.note(admission="reject", lag=exc.lag)
+            obs.record_unit_dynamics(
+                obs.default_registry(), worker_id, loss=fetched.get("loss"),
+                delta_norm=obs.tree_norm(delta["params"]),
+                param_norm=obs.tree_norm(wm.tree(before)["params"]), span=usp)
+            return fetched
+
+        val_records: List[Optional[Dict[str, float]]] = [None] * epochs
+        run_callbacks = tuple(callbacks)
+        do_val = validation_data is not None
+
+        def on_epoch_complete(epoch: int) -> None:
+            if not run_callbacks and not do_val:
+                return
+            # A fresh client per fire: the server may have been killed
+            # and warm-restarted since the last epoch.
+            fire_client = client_factory("fire")
+            try:
+                snapshot = fire_client.get_parameters()
+            finally:
+                fire_client.close()
+            if do_val:
+                val_records[epoch] = dict(self._local_evaluate(snapshot, *validation_data))
+            if run_callbacks:
+                snap_state = init_train_state(compiled)
+                snap_state.step = initial_step + epoch + 1
+                load_store(compiled.module, snapshot)
+                for cb in run_callbacks:
+                    cb(epoch, snap_state, {})
+
+        if do_val:
+            # Build the evaluator and upload the set before the pool runs.
+            self._local_evaluate(store0, *validation_data)
+        pool = ElasticWorkerPool(
+            ledger, run_unit, client_factory, [f"w{slot}" for slot in range(self.n_workers)],
+            on_epoch_complete=on_epoch_complete, injector=injector,
+            ps_recovery_grace=self.ps_recovery_grace)
+        pool.start()
+        self._elastic_pool = pool  # published once started: join_worker may follow
+        try:
+            stats = pool.wait()
+            # The final weights through the client (the first server may
+            # be a corpse a harness replaced), riding an in-flight warm
+            # restart under the workers' grace budget.
+            deadline = time.monotonic() + self.ps_recovery_grace
+            while True:
+                final_client = client_factory("final")
+                try:
+                    final = final_client.get_parameters()
+                    load_store(compiled.module, final)
+                    break
+                except ParameterServerUnavailable:
+                    if time.monotonic() >= deadline:
+                        raise
+                    time.sleep(0.1)
+                finally:
+                    final_client.close()
+            if self.ps_device.type == "cuda":
+                torch.cuda.synchronize(self.ps_device)
+        finally:
+            if injector is not None:
+                install(None)
+            self._elastic_pool = None
+            live, self._elastic_server = self._elastic_server, None
+            self._elastic_group = None
+            if live is not None:
+                try:
+                    live.stop()  # a ShardGroup stops every member
+                except Exception:
+                    logger.exception("stopping the elastic fit's parameter server")
+
+        self.elastic_stats = stats
+        em = pool.epoch_metrics()
+        keys = sorted(next(iter(em[0].values())).keys())
+        history: Dict[str, List[float]] = {
+            k: [float(np.mean([em[e][p][k] for p in sorted(em[e])])) for e in range(epochs)]
+            for k in keys}
+        if do_val:
+            fallback = None
+            for epoch, val in enumerate(val_records):
+                if val is None:  # defensive: every completed epoch fires
+                    if fallback is None:  # store0 views the module: the final weights
+                        fallback = dict(self._local_evaluate(store0, *validation_data))
+                    val = fallback
+                for k, v in val.items():
+                    history.setdefault(f"val_{k}", []).append(v)
+        state = init_train_state(compiled, rng=rng)
+        state.step = initial_step + epochs
+        if verbose:
+            last = {k: round(v[-1], 4) for k, v in history.items()}
+            print(f"[elastic] done: {last} (requeued={stats['requeued_units']}, "
+                  f"deaths={len(stats['worker_deaths'])}, "
+                  f"late_joins={len(stats['late_joins'])})")
         return state, history
 
     # -- the worker ------------------------------------------------------------

@@ -16,8 +16,13 @@ out-of-place subtracts there). Transports are pluggable on top:
 
 Wire payloads default to the packed zero-copy codec (``wire.py``),
 byte-identical with the JAX package's, with magic-byte negotiation back
-to pickle for legacy peers. The sharded server group (``group.py``)
-arrives with ROADMAP.md queue 1, item 4.
+to pickle for legacy peers.
+
+``group.py`` scales the wire transports horizontally: a deterministic
+``ShardPlan`` partitions the tree across K servers, a
+``ShardedParameterClient`` scatters and gathers concurrently, and a
+WAL-streamed warm standby per shard turns a failover into a promotion
+(``ShardGroup``).
 """
 
 from elephas_tpu_torch.parameter import wire  # noqa: F401
@@ -32,7 +37,18 @@ from elephas_tpu_torch.parameter.client import (  # noqa: F401
     ParameterServerUnavailable,
     SocketClient,
     StaleDeltaRejected,
+    VersionUnavailable,
     make_client,
+)
+from elephas_tpu_torch.parameter.group import (  # noqa: F401
+    FencedPrimaryError,
+    GroupDirectory,
+    ShardedParameterClient,
+    ShardGroup,
+    ShardGroupError,
+    ShardMapMismatch,
+    ShardPlan,
+    WalStreamer,
 )
 from elephas_tpu_torch.parameter.server import (  # noqa: F401
     AdmissionPolicy,

@@ -133,7 +133,7 @@ class ParameterBuffer:
                     t.record_stream(current)
         return tree
 
-    def _publish(self, params) -> None:
+    def _publish(self, params, applied: int = 0) -> None:
         if self._granularity == "leaf":
             # Per-leaf SLOTS of (tensor, deltas it holds): a dict-item
             # assignment is atomic under the GIL, so a racing apply
@@ -142,10 +142,10 @@ class ParameterBuffer:
             # attribute.
             flat = tree_leaves_with_path(params)
             self._leaf_state = (params, [p for p, _ in flat],
-                                {p: (t, 0) for p, t in flat})
+                                {p: (t, applied) for p, t in flat})
             self._head = None
         else:
-            self._head = (params, 0)  # (tree, deltas it holds), one attribute
+            self._head = (params, applied)  # (tree, deltas it holds), one attribute
 
     # -- reads -----------------------------------------------------------------
 
@@ -236,3 +236,19 @@ class ParameterBuffer:
         for path, leaf_delta in tree_leaves_with_path(delta):
             tensor, applied = store[path]
             store[path] = (tensor - leaf_delta, applied + 1)
+
+    def set(self, params, version: Optional[int] = None) -> None:
+        """Replace the stored tree, uploaded on the buffer's stream and
+        published as one attribute ('leaf' too). ``version`` (a warm
+        restart, a standby's catch-up): resume the counter at a WAL
+        snapshot's durable version instead of bumping it. The applied
+        counts restart at the new version (the set tree stands for every
+        update before it), so ``applied_share`` counts what is lost from
+        here on. Stale caches do not rest on the number alone:
+        version-gated pulls are keyed on the server's boot id too."""
+        params = self._upload(params, copy=True)
+        with self._lock.writing():
+            # Moves inside the write lock, as apply_delta's does.
+            with self._version_guard:
+                self._version = int(version) if version is not None else self._version + 1
+                self._publish(params, applied=self._version)

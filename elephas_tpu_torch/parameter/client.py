@@ -191,6 +191,30 @@ class ParameterServerUnavailable(ConnectionError):
     """The parameter server could not be reached after retries."""
 
 
+class VersionUnavailable(RuntimeError):
+    """A pinned pull asked for a version the server can no longer serve:
+    not the live buffer and outside its WAL window. A definitive answer —
+    re-sending cannot succeed, so the caller picks another pin."""
+
+    def __init__(self, address: str, version: int):
+        self.address = address
+        self.version = int(version)
+        super().__init__(
+            f"parameter server at {address} cannot serve pinned version "
+            f"{version} (not the live buffer and outside its WAL window)"
+        )
+
+
+def _pinned_tree(reply, version: int):
+    """The tree of a pinned pull's frame, checked to be that version."""
+    out = wire.decode(reply)
+    if not isinstance(out, wire.DecodedTree) or out.version != int(version):
+        raise RuntimeError(
+            f"pinned pull for version {version} answered with "
+            f"{getattr(out, 'version', out)!r} (protocol violation)")
+    return out.tree
+
+
 class StaleDeltaRejected(RuntimeError):
     """The PS refused a pushed delta: staler than its admission bound. A
     definitive answer, never retried; the worker drops the delta,
@@ -481,6 +505,23 @@ class HttpClient(_WireClient):
                               headers=headers or None)
             _raise_if_rejected(body, self.master_url)
 
+    def get_parameters_pinned(self, version: int):
+        """The tree at exactly ``version`` (the live buffer's or a WAL
+        frame), bypassing the pull cache: a point lookup must not move
+        the cache's position. Raises ``VersionUnavailable`` when the
+        server no longer holds that version."""
+        with _ps_span("pull", "http") as sp:
+            headers = {"X-Elephas-Codec": "packed", "X-Elephas-Pinned": str(int(version))}
+            try:
+                body = self._get("/parameters", "get_parameters_pinned", headers=headers)
+            except RuntimeError as exc:
+                if "HTTP 404" in str(exc):
+                    raise VersionUnavailable(self.master_url, version) from exc
+                raise
+            if sp:
+                sp.note(codec="packed", payload_bytes=len(body), pinned=int(version))
+            return _pinned_tree(body, version)
+
     def health(self) -> bool:
         """One non-retried probe of ``GET /health``."""
         try:
@@ -499,6 +540,14 @@ class HttpClient(_WireClient):
 
     def deregister(self, worker_id: str) -> None:
         self._post(f"/deregister/{worker_id}", b"", "deregister")
+
+    def shard_info(self) -> Optional[dict]:
+        """``{digest, shard, k, boot}`` from a shard-group member, None
+        from a standalone server (its ``/shardinfo`` is a 404)."""
+        try:
+            return json.loads(self._get("/shardinfo", "shard_info"))
+        except RuntimeError:
+            return None
 
     def barrier_arrive(self, tag: str) -> int:
         return int(self._post(f"/barrier/{tag}", b"", "barrier_arrive"))
@@ -616,6 +665,22 @@ class SocketClient(_WireClient):
             if sp:
                 sp.note(codec=codec, payload_bytes=nbytes, quantize=self.push_quantize)
 
+    def get_parameters_pinned(self, version: int):
+        """The tree at exactly ``version`` (frame kind ``"V"``); see
+        ``HttpClient.get_parameters_pinned``. A ``None`` reply is the
+        server's "not held" answer."""
+        with _ps_span("pull", "socket") as sp, self._lock:
+            reply = self._roundtrip(("V", int(version)), "get_parameters_pinned",
+                                    idempotent=True)
+            if reply is None:
+                raise VersionUnavailable(self.master_url, version)
+            if not isinstance(reply, (bytes, bytearray, memoryview)):
+                raise RuntimeError("parameter server sent a non-packed reply to a "
+                                   "pinned pull")
+            if sp:
+                sp.note(codec="packed", payload_bytes=len(reply), pinned=int(version))
+            return _pinned_tree(reply, version)
+
     def health(self) -> bool:
         """A barrier *count* on a FRESH connection: would a new worker get in?"""
         try:
@@ -642,6 +707,16 @@ class SocketClient(_WireClient):
     def deregister(self, worker_id: str) -> None:
         with self._lock:
             self._roundtrip(("d", worker_id), "deregister", idempotent=True)
+
+    def shard_info(self) -> Optional[dict]:
+        """``{digest, shard, k, boot}`` from a shard-group member, None
+        from a standalone server (or one that closes the connection on
+        the unknown frame kind)."""
+        with self._lock:
+            try:
+                return self._roundtrip(("i", None), "shard_info", idempotent=True)
+            except ParameterServerUnavailable:
+                return None
 
     def barrier_arrive(self, tag: str) -> int:
         with self._lock:

@@ -25,11 +25,26 @@ Wire data path:
   through the bounded-staleness ``AdmissionPolicy`` and applied on the
   card.
 
+Durability and crashes (wire transports):
+
+- ``wal_dir``: a write-ahead log of version-tagged snapshots
+  (``resilience/wal.py``). Construction warm-restarts the buffer from
+  the newest durable snapshot; every accepted push is made durable
+  BEFORE it is acked (at most ``wal_every - 1`` versions behind);
+  ``stop()`` syncs the log, ``kill()`` does not.
+- ``kill()`` simulates a crash: live connections are severed (the
+  servers track them), the flight recorder notes ``ps_kill`` and dumps
+  its ring next to the WAL.
+- Version-PINNED pulls serve the live snapshot when the pin is the live
+  version, else the WAL's frame at exactly that version, else the typed
+  "unavailable" answer.
+- ``shard_info``: the shard-group handshake document (``group.py``),
+  served with the live boot id merged in.
+
 Not carried over (each raises ``NotImplementedError`` naming its ROADMAP
-item): the write-ahead log (``wal_dir``, and with it version-pinned
-pulls and ``kill``'s crash semantics), the shard-group handshake
-(``shard_info``), the ops endpoint (``ops_port``) and a telemetry store
-directory (``store_dir`` other than ``None``/``"auto"``).
+item): the ops endpoint (``ops_port``) and a telemetry store directory
+(``store_dir`` other than ``None``/``"auto"``; ``"auto"`` mounts no
+store next to a WAL until ``obs/store.py`` is ported).
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ import json
 import os
 import socket
 import socketserver
+import tempfile
 import threading
 import warnings
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -47,11 +63,13 @@ from typing import Optional
 import torch
 
 from elephas_tpu_torch import obs
+from elephas_tpu_torch.checkpoint.checkpoint import NoCheckpointError
 from elephas_tpu_torch.obs.health import record_staleness
 from elephas_tpu_torch.parameter import wire
 from elephas_tpu_torch.parameter.base import BaseParameterServer
 from elephas_tpu_torch.parameter.buffer import ParameterBuffer
 from elephas_tpu_torch.resilience.liveness import FailureDetector
+from elephas_tpu_torch.resilience.wal import SnapshotWAL, WalWriter
 from elephas_tpu_torch.utils import locksan
 from elephas_tpu_torch.utils import sockets as socket_utils
 from elephas_tpu_torch.utils.functional_utils import tree_map
@@ -62,14 +80,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                "(ROADMAP.md, queue 1)")
 
 
-def _check_left_out(wal_dir=None, shard_info=None, ops_port=None,
-                    store_dir="auto") -> None:
-    if wal_dir is not None:
-        raise _not_ported("wal_dir (the parameter server's write-ahead log)",
-                          "item 4, the resilience WAL")
-    if shard_info is not None:
-        raise _not_ported("shard_info (the shard-group handshake)",
-                          "item 4, parameter/group.py")
+def _check_left_out(ops_port=None, store_dir="auto") -> None:
     if ops_port is not None:
         raise _not_ported("ops_port (the ops endpoint)", "item 7, obs/opsd.py")
     if store_dir not in (None, "auto"):
@@ -256,6 +267,25 @@ def _make_detector(heartbeat_timeout: Optional[float]):
     return FailureDetector(suspect_after=_heartbeat_timeout(heartbeat_timeout))
 
 
+def _attach_wal(buffer: ParameterBuffer, wal_dir: str, wal_every: int,
+                wal_keep: int = 3) -> WalWriter:
+    """Warm-restart ``buffer`` from the newest durable WAL snapshot and
+    return the ``WalWriter`` that keeps the log moving. Cold start (an
+    empty or wholly corrupt directory) keeps the constructor's params and
+    a fresh version line."""
+    wal = SnapshotWAL(wal_dir, keep=wal_keep)
+    try:
+        version, tree = wal.restore_latest()
+    except NoCheckpointError:
+        pass  # cold start: serve the constructor params
+    else:
+        buffer.set(tree, version=version)
+        obs.default_flight_recorder().note(
+            "wal_restore", "info", version=version, wal_dir=wal_dir,
+        )
+    return WalWriter(buffer, wal, every=wal_every)
+
+
 class _SnapshotCache:
     """Serialize once per ``ParameterBuffer.version``, outside the lock.
 
@@ -287,6 +317,36 @@ class _SnapshotCache:
             entry = (version, payload)
             self._entries[codec] = entry
             return entry
+
+
+def _pinned_payload(cache: _SnapshotCache, wal_writer, version: int):
+    """Payload of a version-PINNED pull: the live frame when the pin is
+    the buffer's current version, else the WAL's frame at exactly that
+    version, else ``None`` (the client's ``VersionUnavailable``). Pinned
+    reads skip the not-modified negotiation: the caller wants these
+    bytes whatever its cached position."""
+    live, frames = cache.frames("packed")
+    if live == version:
+        return frames
+    if wal_writer is not None:
+        raw = wal_writer.wal.read_version(version)
+        if raw is not None:
+            return socket_utils.RawPayload([raw])
+    return None
+
+
+def _dump_flight_on_kill(boot: str, wal_dir: Optional[str]) -> Optional[str]:
+    """Crash-path flight-recorder dump: next to the WAL when there is
+    one, else the temporary directory. Best effort — a full disk must
+    not mask the kill itself."""
+    recorder = obs.default_flight_recorder()
+    if not recorder.enabled:
+        return None
+    base = wal_dir if wal_dir else tempfile.gettempdir()
+    try:
+        return recorder.dump(os.path.join(base, f"flight-{boot}.json"))
+    except OSError:
+        return None
 
 
 def _default_bind_host() -> str:
@@ -363,16 +423,27 @@ def _read_exact(stream, length: int) -> bytearray:
 class _WireServer(BaseParameterServer):
     """What the HTTP and socket servers share: the buffer, auth, the
     barrier book, the boot id, the failure detector, the staleness
-    ledger, the alert engine and the admission policy."""
+    ledger, the alert engine, the admission policy, the WAL and the
+    crash path.
+
+    ``wal_dir``: write-ahead snapshot directory (``resilience/wal.py``):
+    construction warm-restarts from it, every accepted push is durable
+    before its ack, at most ``wal_every`` versions behind; the newest
+    ``wal_keep`` snapshots stay on disk (the pinned-pull window).
+    ``role``: the fleet role stamp (``ps``; ``ps/shard<i>`` and
+    ``ps/standby`` in a group). ``shard_info``: the group handshake
+    document (``{digest, shard, k}``), served with the live boot id
+    merged in; unset, sharded clients refuse this server."""
 
     def __init__(self, params, lock: bool = True, port: int = 4000, device=None,
                  host: Optional[str] = None, granularity: str = "tree",
                  auth_key: Optional[bytes] = None, heartbeat_timeout: Optional[float] = None,
                  tracer=None, max_staleness: Optional[int] = None,
                  staleness_soft: Optional[int] = None, wal_dir: Optional[str] = None,
+                 wal_every: int = 1, wal_keep: int = 3, role: str = "ps",
                  shard_info: Optional[dict] = None, ops_port: Optional[int] = None,
                  store_dir: Optional[str] = "auto"):
-        _check_left_out(wal_dir, shard_info, ops_port, store_dir)
+        _check_left_out(ops_port, store_dir)
         self.buffer = ParameterBuffer(params, lock=lock, device=device,
                                       granularity=granularity)
         self.host = host if host is not None else _default_bind_host()
@@ -386,6 +457,12 @@ class _WireServer(BaseParameterServer):
         self.ledger = obs.StalenessLedger()
         self.alerts = obs.AlertEngine()
         self.admission = AdmissionPolicy(max_staleness, staleness_soft)
+        self.wal_writer = (_attach_wal(self.buffer, wal_dir, wal_every, wal_keep)
+                           if wal_dir else None)
+        self.role = role
+        self.shard_info = shard_info
+        self.flight_dump: Optional[str] = None
+        self._wal_dir = wal_dir
         self._server = None
         self._thread = None
 
@@ -405,6 +482,31 @@ class _WireServer(BaseParameterServer):
             self._server.shutdown()
             self._server.server_close()
             self._server = None
+        if self.wal_writer is not None:
+            self.wal_writer.sync()  # a clean shutdown leaves no WAL lag
+
+    def kill(self) -> None:
+        """Simulate a crash: go dark first (sever every live connection,
+        then stop the acceptor — ``shutdown`` alone waits a poll interval
+        while handler threads keep acking), then note ``ps_kill`` with the
+        frozen version and dump the flight recorder (``flight_dump``).
+        Unlike ``stop`` the WAL is NOT synced: what survives is what
+        ``after_update`` already made durable."""
+        if self._server is None:
+            return
+        self._server.sever_all()
+        self._server.shutdown()
+        self._server.server_close()
+        self._server = None
+        obs.default_flight_recorder().note(
+            "ps_kill", "error", boot=self.boot, version=self.buffer.version,
+        )
+        self.flight_dump = _dump_flight_on_kill(self.boot, self._wal_dir)
+
+    def _durable(self) -> None:
+        """After an apply, before its ack: the push's WAL snapshot."""
+        if self.wal_writer is not None:
+            self.wal_writer.after_update()
 
     def get_parameters(self):
         return self.buffer.get()
@@ -449,6 +551,9 @@ class HttpServer(_WireServer):
         tracer_of = self._tracer
         ledger = self.ledger
         admission = self.admission
+        wal_writer = self.wal_writer
+        durable = self._durable
+        shard_info = self.shard_info
 
         class Handler(BaseHTTPRequestHandler):
             # Small replies (not-modified frames, acks) must not stall
@@ -507,10 +612,20 @@ class HttpServer(_WireServer):
                     self.wfile.write(chunk)
 
             def _pull(self):
-                if self.headers.get("X-Elephas-Pinned") is not None:
-                    # Version-pinned pulls read the write-ahead log, which
-                    # the port does not keep: the "cannot serve it" answer.
-                    self.send_error(404, "pinned version unavailable")
+                pinned = self.headers.get("X-Elephas-Pinned")
+                if pinned is not None:
+                    try:
+                        pin = int(pinned)
+                    except ValueError:
+                        self.send_error(400, "bad pinned version")
+                        return
+                    payload = _pinned_payload(cache, wal_writer, pin)
+                    if payload is None:
+                        self.send_error(404, "pinned version unavailable")
+                        return
+                    bytes_tx.inc(payload.nbytes)
+                    self._reply(payload, content_type="application/octet-stream",
+                                version=pin)
                     return
                 codec = "packed" if self.headers.get(
                     "X-Elephas-Codec") == "packed" else "pickle"
@@ -541,6 +656,14 @@ class HttpServer(_WireServer):
                         self._pull()
                 elif path == "/membership":
                     self._reply(json.dumps(detector.membership()).encode(),
+                                content_type="application/json")
+                elif path == "/shardinfo":
+                    # Group handshake: the plan identity plus the LIVE boot
+                    # id (fencing compares boots, not addresses).
+                    if shard_info is None:
+                        self.send_error(404)
+                        return
+                    self._reply(json.dumps(dict(shard_info, boot=boot)).encode(),
                                 content_type="application/json")
                 elif path.startswith("/barrier/"):
                     self._reply(str(barriers.count(path[len("/barrier/"):])).encode())
@@ -584,6 +707,7 @@ class HttpServer(_WireServer):
                                     sync_interval=syncint)
                     with tracer.span("ps/apply", boot=boot):
                         buffer.apply_delta(tree)
+                        durable()  # durability BEFORE the ack
                 self._reply(b"")
 
             def do_POST(self):  # noqa: N802
@@ -604,7 +728,7 @@ class HttpServer(_WireServer):
                 else:
                     self.send_error(404)
 
-        self._serve(_ThreadingHTTPServer((self.host, self.port), Handler))
+        self._serve(_TrackingHTTPServer((self.host, self.port), Handler))
 
     def client(self):
         from elephas_tpu_torch.parameter.client import HttpClient
@@ -655,6 +779,7 @@ class _SocketHandler(socketserver.BaseRequestHandler):
                         _note_staleness(ps.ledger, None, None, None, 0)
                         with tracer.span("ps/apply", boot=ps.boot):
                             ps.buffer.apply_delta(payload)
+                            ps._durable()  # durable before the ack
                     reply(b"ok")
                 elif kind == "h":  # heartbeat: payload = worker id
                     ps.detector.beat(str(payload))
@@ -668,8 +793,13 @@ class _SocketHandler(socketserver.BaseRequestHandler):
                     reply(ps.barriers.arrive(payload))
                 elif kind == "c":  # barrier count(tag)
                     reply(ps.barriers.count(payload))
-                elif kind in ("i", "V"):  # not a group member; no pinned versions (no WAL)
-                    reply(None)
+                elif kind == "i":  # shard-group handshake (live boot)
+                    reply(dict(ps.shard_info, boot=ps.boot)
+                          if ps.shard_info is not None else None)
+                elif kind == "V":  # version-PINNED pull
+                    with obs.activate(ctx), ps._tracer().span(
+                            "ps/handle_pull", boot=ps.boot, transport="socket"):
+                        reply(_pinned_payload(cache, ps.wal_writer, int(payload)))
                 else:
                     break
         except (ConnectionError, OSError):
@@ -707,14 +837,54 @@ class _SocketHandler(socketserver.BaseRequestHandler):
                             sync_interval=syncint)
             with tracer.span("ps/apply", boot=ps.boot):
                 ps.buffer.apply_delta(tree)
+                ps._durable()  # durable before the ack
         return b"ok"
 
 
-class _ThreadingHTTPServer(ThreadingHTTPServer):
+class _ConnectionTracker:
+    """socketserver mixin that remembers live connections, so a simulated
+    crash (``kill``) can sever them: ``shutdown`` alone stops only the
+    acceptor, and persistent client connections would go on being served
+    by their handler threads — not what a dead process looks like to a
+    worker."""
+
+    def __init__(self, *args, **kwargs):
+        self._live_conns: set = set()
+        self._conns_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def process_request(self, request, client_address):
+        with self._conns_lock:
+            self._live_conns.add(request)
+        super().process_request(request, client_address)
+
+    def close_request(self, request):
+        with self._conns_lock:
+            self._live_conns.discard(request)
+        super().close_request(request)
+
+    def sever_all(self) -> None:
+        with self._conns_lock:
+            conns = list(self._live_conns)
+            self._live_conns.clear()
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+
+# Both reuse the address: a warm restart binds the killed server's port.
+class _TrackingHTTPServer(_ConnectionTracker, ThreadingHTTPServer):
+    allow_reuse_address = True
     daemon_threads = True
 
 
-class _ThreadingTCPServer(socketserver.ThreadingTCPServer):
+class _ThreadingTCPServer(_ConnectionTracker, socketserver.ThreadingTCPServer):
     allow_reuse_address = True
     daemon_threads = True
 
@@ -748,9 +918,12 @@ def make_server(
     granularity: str = "tree",
     auth_key: Optional[bytes] = None,
     wal_dir: Optional[str] = None,
+    wal_every: int = 1,
+    wal_keep: int = 3,
     heartbeat_timeout: Optional[float] = None,
     tracer=None,
     ops_port: Optional[int] = None,
+    role: str = "ps",
     shard_info: Optional[dict] = None,
     max_staleness: Optional[int] = None,
     staleness_soft: Optional[int] = None,
@@ -762,9 +935,22 @@ def make_server(
     sets the hogwild apply isolation; ``auth_key`` turns on HMAC wire
     authentication; ``max_staleness``/``staleness_soft`` bounded-staleness
     admission (wire transports only — a local push applies under the
-    buffer lock and is never stale)."""
+    buffer lock and is never stale). ``wal_dir``/``wal_every``/``wal_keep``:
+    durable pushes and warm restart; ``role``/``shard_info``: the group's
+    stamps (``group.py``); all wire transports only — see ``_WireServer``."""
     if mode == "local":
-        _check_left_out(wal_dir, shard_info, ops_port, store_dir)
+        if wal_dir is not None:
+            raise ValueError(
+                "wal_dir requires a wire transport (http|socket): the local "
+                "server dies with the training process it would be "
+                "restarted for"
+            )
+        if shard_info is not None:
+            raise ValueError(
+                "shard_info requires a wire transport (http|socket): shard "
+                "group members are separate server processes"
+            )
+        _check_left_out(ops_port, store_dir)
         if max_staleness is not None or staleness_soft is not None:
             raise ValueError(
                 "staleness admission requires a wire transport "
@@ -777,8 +963,8 @@ def make_server(
                   granularity=granularity, auth_key=auth_key,
                   heartbeat_timeout=heartbeat_timeout, tracer=tracer,
                   max_staleness=max_staleness, staleness_soft=staleness_soft,
-                  wal_dir=wal_dir, shard_info=shard_info, ops_port=ops_port,
-                  store_dir=store_dir)
+                  wal_dir=wal_dir, wal_every=wal_every, wal_keep=wal_keep, role=role,
+                  shard_info=shard_info, ops_port=ops_port, store_dir=store_dir)
     if mode == "http":
         return HttpServer(params, **kwargs)
     if mode == "socket":

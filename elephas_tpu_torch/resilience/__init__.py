@@ -7,11 +7,14 @@
   injector hook) and kills or stalls of worker threads, so chaos replays;
 - ``elastic``  — ``UnitLedger`` + ``ElasticWorkerPool``: dead workers'
   units re-queued to survivors, late joiners admitted, accounting exact
-  under any interleaving. The elastic tuner (``tune/``) runs on it.
+  under any interleaving. The elastic tuner (``tune/``) and
+  ``AsyncTrainer(elastic=True)`` run on it;
+- ``wal``      — ``SnapshotWAL``/``WalWriter``: write-ahead
+  version-tagged snapshots of the ``ParameterBuffer`` in the packed wire
+  format; a restarted PS warm-restarts from the last durable version.
 
-Not ported yet (ROADMAP.md queue 1, item 4): the snapshot WAL
-(``wal.py``) and ``AsyncTrainer``'s elastic wiring (``elastic=True``,
-``fault_plan``, ``batches_per_unit``).
+Entry point for training: ``AsyncTrainer(..., elastic=True,
+fault_plan=..., ps_wal_dir=...)`` (``engine.async_engine``).
 """
 
 from elephas_tpu_torch.resilience.elastic import (  # noqa: F401
@@ -31,3 +34,4 @@ from elephas_tpu_torch.resilience.liveness import (  # noqa: F401
     FailureDetector,
     MembershipView,
 )
+from elephas_tpu_torch.resilience.wal import SnapshotWAL, WalWriter  # noqa: F401

@@ -4,8 +4,7 @@ and requeues in the JAX package's order, so one script gives both
 packages the same sequence).
 
 In the port the pool runs the elastic tuner's trials
-(``tune/runner.py``); wiring it into ``AsyncTrainer`` (``elastic=True``)
-is ROADMAP.md queue 1, item 4.
+(``tune/runner.py``) and ``AsyncTrainer(elastic=True)``'s units.
 
 The reference's elasticity WAS Spark: a lost executor's partitions were
 re-run by the scheduler, job-wide counters stayed exact, and a new

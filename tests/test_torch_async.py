@@ -14,9 +14,10 @@ workers on ``mesh=["cpu"] * n``.
   async over local, http and socket, hogwild over local, the batch
   frequency and the hogwild leaf granularity, with 2-4 workers.
 - One val entry per epoch, and the stale-fire surfacing.
-- The comms pipeline's contracts, retries, tracing spans, and every
-  option left out raising ``NotImplementedError`` naming its ROADMAP
-  item.
+- The comms pipeline's contracts, retries, tracing spans, the elastic,
+  WAL and group options' validation (the JAX package's ``ValueError``s)
+  and every option still left out raising ``NotImplementedError`` naming
+  its ROADMAP item.
 """
 
 import logging
@@ -344,17 +345,29 @@ def test_comms_pipeline_retries_then_fails_fast():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"elastic": True}, "item 4"),
-    ({"fault_plan": object()}, "item 4"),
-    ({"batches_per_unit": 2}, "item 4"),
-    ({"ps_shards": 2}, "item 4"),
-    ({"standby": 1}, "item 4"),
-    ({"ps_wal_dir": "unused"}, "item 4"),
+    ({"elastic": True, "frequency": "batch"}, "frequency='epoch'"),
+    ({"elastic": True, "batches_per_unit": 0}, "batches_per_unit must be >= 1"),
+    ({"batches_per_unit": 2}, "set elastic=True"),
+    ({"ps_shards": 2}, "requires a wire transport"),
+    ({"standby": 1, "parameter_server_mode": "socket"}, "set ps_shards"),
+    ({"standby": 1, "ps_shards": 2, "parameter_server_mode": "socket"}, "set ps_wal_dir"),
     ({"ps_ops_port": 0}, "item 7"),
 ])
 def test_left_out_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The ops endpoint is still left out (item 7); the elastic, WAL and
+    group options raise the JAX package's ``ValueError`` where it does,
+    for the same arguments."""
+    if item.startswith("item"):
+        with pytest.raises(NotImplementedError, match=item):
+            AsyncTrainer(_port_mlp(), ["cpu"], **kwargs)
+        return
+    with pytest.raises(ValueError, match=item):
         AsyncTrainer(_port_mlp(), ["cpu"], **kwargs)
+    from elephas_tpu.engine.async_engine import AsyncTrainer as JaxAsyncTrainer
+    from elephas_tpu.parallel.mesh import build_mesh
+
+    with pytest.raises(ValueError, match=item):
+        JaxAsyncTrainer(None, build_mesh(num_data=1), **kwargs)
 
 
 def test_left_out_spark_model_options_raise(data, monkeypatch):
@@ -369,7 +382,8 @@ def test_left_out_spark_model_options_raise(data, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 7"):
         AsyncTrainer(_port_mlp(), ["cpu"]).mount_ops()
     monkeypatch.setenv("ELEPHAS_PS_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="group.py"):
+    with pytest.raises(ValueError, match="wire transport"):  # a group over the local mode
         AsyncTrainer(_port_mlp(), ["cpu"])
+    assert AsyncTrainer(_port_mlp(), ["cpu"], parameter_server_mode="socket").ps_shards == 2
     with pytest.raises(ValueError, match="batch|epoch"):
         AsyncTrainer(_port_mlp(), ["cpu"], frequency="fit")

@@ -329,14 +329,14 @@ def test_main_runs_and_reports_the_estimator_phase():
 
 def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
     """Phase 11, ``search_phase``, runs after every earlier phase (only
-    the fit-slice phase follows it), keeps its launches under
+    the fit-slice and chaos phases follow it), keeps its launches under
     ``"search"`` and prints its report before the kernel line; the last
     line is still the ``{"ok": true, "device": ...}`` object with the
     card's name and count."""
     source, phases = _main_source()
     assert phases == ["kernel_phase", "inference_phase", "train_phase", "resnet_phase",
                       "repair_phase", "serving_phase", "async_phase", "estimator_phase",
-                      "search_phase", "fit_slice_phase"]
+                      "search_phase", "fit_slice_phase", "chaos_phase"]
     assert "launches['search'], report = search_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("search: ") < source.index("'kernels'")
     last = source[source.index("'ok': True"):]
@@ -346,11 +346,11 @@ def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
 
 
 def test_main_runs_the_fit_slice_phase_after_the_search(smoke):
-    """Phase 12, ``fit_slice_phase``, runs last of the phases, keeps its
-    launches under ``"fit_slice"`` and prints one ``fit_slice: {...}``
-    line before the kernel line."""
+    """Phase 12, ``fit_slice_phase``, runs after the search (only the
+    chaos phase follows it), keeps its launches under ``"fit_slice"`` and
+    prints one ``fit_slice: {...}`` line before the kernel line."""
     source, phases = _main_source()
-    assert phases[-2:] == ["search_phase", "fit_slice_phase"]
+    assert phases[-3:-1] == ["search_phase", "fit_slice_phase"]
     assert "launches['fit_slice'], report = fit_slice_phase(attention_cuda)" in source
     assert source.index("search: ") < source.index("fit_slice: ") < source.index("'kernels'")
 
@@ -522,3 +522,111 @@ def test_asha_runs_are_held_to_their_replayed_arrivals(smoke, monkeypatch):
                for tid, rung, loss, dn in runs[0]]
     assert smoke.unequal_units([changed, runs[1]]) == [(winner, top)]
     assert smoke.replay_asha(changed)["search_digest"] != docs[0]["search_digest"]
+
+
+# -- the chaos phase's host-side helpers --------------------------------------------
+
+
+def test_main_runs_the_chaos_phase_last(smoke):
+    """Phase 13, ``chaos_phase``, runs last of the phases, keeps its
+    launches under ``"chaos"`` (the kernel line's by-path column) and
+    prints one ``chaos: {...}`` line before the kernel line."""
+    source, phases = _main_source()
+    assert phases[-2:] == ["fit_slice_phase", "chaos_phase"]
+    assert "launches['chaos'], report = chaos_phase(attention_cuda)" in source
+    assert source.index("fit_slice: ") < source.index("chaos: ") < source.index("'kernels'")
+
+
+def test_chaos_config_is_the_baseline_configs(smoke):
+    """Config 2's CNN at the async phase's settings over 4 pool workers
+    (12 units), the JAX package's chaos plans, an outage longer than the
+    client's retry budget, config 4's ResNet-18 in 2 shards with a
+    standby each."""
+    from elephas_tpu_torch.parameter.client import _RETRY_DELAYS
+
+    assert smoke.CHAOS_WORKERS == smoke.ASYNC_WORKERS == 4
+    assert smoke.CHAOS_UNITS == 4 * smoke.ASYNC_CNN_EPOCHS == 12
+    assert smoke.CHAOS_KILL_PLAN == {"seed": 11, "kill_worker_at": {"w1": 0},
+                                     "stall_worker_at": {"w0": 0}, "stall_seconds": 0.4}
+    assert smoke.CHAOS_PARTITION_PLAN == {"seed": 23, "partition": {"*": (6, 14)}}
+    assert smoke.CHAOS_OUTAGE_S > sum(_RETRY_DELAYS)
+    assert smoke.CHAOS_GROUP == {"k": 2, "standby": 1, "suspect_after": 0.5}
+    assert smoke.RESNET_PARAMS == 11_173_962 and smoke.CHAOS_GROUP_PUSHES == 8
+    assert smoke.WAL_COST_EVERY == (1, 8) and smoke.WAL_KEEP == 3
+    assert smoke.CHAOS_LOSS_TOL == 0.02
+
+
+def test_mttr_summary(smoke):
+    assert smoke.mttr_summary([]) == {"n": 0, "min_s": None, "median_s": None, "max_s": None}
+    assert smoke.mttr_summary([4.0, None, 1.0, 2.5]) == {"n": 3, "min_s": 1.0,
+                                                          "median_s": 2.5, "max_s": 4.0}
+
+
+def test_first_success_counts_attempts_and_times_out(smoke):
+    now, calls = [0.0], []
+
+    def sleep(dt):
+        now[0] += dt
+
+    def flaky():
+        calls.append(now[0])
+        if len(calls) < 3:
+            raise ConnectionError("down")
+        return "up"
+
+    value, seconds, attempts = smoke.first_success(flaky, 10.0, errors=(ConnectionError,),
+                                                   clock=lambda: now[0], sleep=sleep,
+                                                   interval=0.5)
+    assert (value, seconds, attempts) == ("up", 1.0, 3)
+
+    def never():
+        raise ConnectionError("down")
+
+    with pytest.raises(ConnectionError):
+        smoke.first_success(never, 2.0, errors=(ConnectionError,), clock=lambda: now[0],
+                            sleep=sleep, interval=0.5)
+    with pytest.raises(KeyError):  # only the named errors are retried
+        smoke.first_success(lambda: {}["x"], 2.0, errors=(ConnectionError,))
+
+
+def test_frame_differences_reads_a_wal_frame_bitwise(smoke, tmp_path):
+    import torch
+
+    from elephas_tpu_torch.resilience import SnapshotWAL
+
+    tree = {"params": {"w": torch.arange(6.0).reshape(2, 3), "b": torch.zeros(3)},
+            "batch_stats": {"n": torch.tensor(7)}}
+    wal = SnapshotWAL(str(tmp_path))
+    wal.append(tree, version=4)
+    _, frame = wal.restore_latest()
+    assert smoke.frame_differences(frame, tree) == []
+    other = {"params": {"w": tree["params"]["w"].clone(), "b": torch.tensor([0.0, -0.0, 1e-45])},
+             "batch_stats": {"n": torch.tensor(7)}}
+    assert smoke.frame_differences(frame, other) == ["params/b"]
+    assert smoke.frame_differences(frame, {"params": tree["params"]}) == ["batch_stats/n"]
+
+
+def test_wal_cost_splits_each_durable_snapshot(smoke, tmp_path):
+    """On the CPU (the card's numbers come from the chaos phase): every
+    ``every``-th push is one durable snapshot, each split into its copy
+    to the host, its encode and its write with the fsync; the frame is
+    the tree's bytes and the WAL keeps two."""
+    import torch
+
+    from elephas_tpu_torch.resilience import SnapshotWAL
+
+    tree = {"params": {"w": torch.ones(64, 32), "b": torch.zeros(32)},
+            "batch_stats": {"n": torch.tensor(0)}}
+    for every, snapshots in ((1, 6), (2, 3), (4, 1)):
+        out = smoke.wal_cost(tree, torch.device("cpu"), every, 6, str(tmp_path / str(every)))
+        assert (out["every"], out["pushes"], out["snapshots"]) == (every, 6, snapshots)
+        assert out["frame_bytes"] > (64 * 32 + 32) * 4
+        for key in ("ms_per_push", "no_wal_ms_per_push", "d2h_ms", "encode_ms"):
+            assert out[key] is not None and out[key] >= 0.0, key
+        assert out["write_fsync_ms"] is not None  # the append less the encode
+        assert len(SnapshotWAL(str(tmp_path / str(every))).versions()) <= 2
+
+
+def test_fs_type_names_the_mount(smoke, tmp_path):
+    kind = smoke.fs_type(str(tmp_path))
+    assert kind is None or (isinstance(kind, str) and kind)

@@ -199,7 +199,8 @@ def test_pull_cache_control_plane_and_pinned_pulls(mode):
     """An unchanged server answers not-modified (the client hands back its
     cached tree); barriers, heartbeats, membership and health answer as
     the JAX servers' do; a version-pinned pull (the JAX rollout client's)
-    gets the "cannot serve it" answer, as there is no write-ahead log."""
+    of the live version gets the live tree, and of an older version, with
+    no write-ahead log to read it from, the "cannot serve it" answer."""
     server = make_server(mode, {"w": np.arange(3, dtype=np.float32)}, port=0, device="cpu")
     server.start()
     hits = obs.default_registry().counter("ps_cache_hit_total")
@@ -210,8 +211,10 @@ def test_pull_cache_control_plane_and_pinned_pulls(mode):
         client.update_parameters({"w": np.ones(3, np.float32)})
         assert torch.equal(client.get_parameters()["w"], torch.tensor([-1.0, 0.0, 1.0]))
         assert hits.value == before + 1 and client.known_version() == 1
+        jax_client = jax_make_client(mode, f"127.0.0.1:{server.port}")
+        np.testing.assert_array_equal(jax_client.get_parameters_pinned(1)["w"], [-1.0, 0.0, 1.0])
         with pytest.raises(JaxVersionUnavailable):
-            jax_make_client(mode, f"127.0.0.1:{server.port}").get_parameters_pinned(1)
+            jax_client.get_parameters_pinned(0)
         assert client.barrier_arrive("t") == 1 and client.barrier_count("t") == 1
         client.heartbeat("w0")
         assert client.membership()["w0"]["state"] == "alive"
@@ -247,15 +250,44 @@ def test_dead_server_fails_fast(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"wal_dir": "unused"}, "item 4"),
-    ({"shard_info": {"k": 2}}, "item 4"),
+    ({"wal_dir": "wal"}, "wal_dir requires a wire transport"),
+    ({"shard_info": {"digest": "d", "shard": 0, "k": 2}},
+     "shard_info requires a wire transport"),
     ({"ops_port": 0}, "item 7"),
     ({"store_dir": "unused"}, "item 7"),
 ])
 @pytest.mark.parametrize("mode", ["local", "socket", "http"])
-def test_left_out_server_options_raise(mode, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make_server(mode, {"w": np.ones(2, np.float32)}, port=0, device="cpu", **kwargs)
+def test_left_out_server_options_raise(mode, kwargs, item, tmp_path):
+    """The ops endpoint and an explicit telemetry store are still left
+    out (item 7) on every transport. ``wal_dir`` and ``shard_info`` raise
+    the JAX package's ``ValueError`` on the local server, and on the wire
+    servers they build and serve: the WAL holds every acked push, and the
+    handshake document comes back with the live boot id."""
+    if "wal_dir" in kwargs:
+        kwargs = {"wal_dir": str(tmp_path / "wal")}
+    tree = {"w": np.ones(2, np.float32)}
+    if item.startswith("item"):
+        with pytest.raises(NotImplementedError, match=item):
+            make_server(mode, tree, port=0, device="cpu", **kwargs)
+        return
+    if mode == "local":
+        with pytest.raises(ValueError, match=item):
+            make_server(mode, tree, port=0, device="cpu", **kwargs)
+        with pytest.raises(ValueError, match=item):  # the JAX package's answer
+            jax_server(mode, tree, port=0, **kwargs)
+        return
+    server = make_server(mode, tree, port=0, device="cpu", **kwargs)
+    server.start()
+    try:
+        client = server.client()
+        client.update_parameters({"w": np.ones(2, np.float32)})
+        if "wal_dir" in kwargs:
+            assert server.wal_writer.wal.versions() == [1]
+        else:
+            assert client.shard_info() == dict(kwargs["shard_info"], boot=server.boot)
+        client.close()
+    finally:
+        server.stop()
 
 
 def test_failure_detector_matches_jax():
