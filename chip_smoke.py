@@ -41,6 +41,20 @@ Phases, in order; any failed check raises and the process exits non-zero:
    and in bf16 (loss falls, stays finite, exactly 4 launches of each
    kernel per step), train tokens/s, MFU and a kernel breakdown of one
    step per dtype;
+5b. the sequence-parallel phase (``seq_parallel_phase``): the ring's hop
+   modes here at (8, 8, 512, 32) in float32 and bf16 (K1 full with the
+   lse, K2/K3 given a global lse and delta) against the plain versions,
+   timed beside their bounds and SDPA; then four ranks of this script
+   (``--seq-rank``) on cuda:0 in one gloo group (NCCL refuses two ranks
+   on one GPU; the ring's hops cross the host, counted in bytes): ring
+   and Ulysses attention at (8, 8, 2048, 32) against single-process
+   ``flash_attention``, 3 Adam steps of the full-width LM with
+   ``attention='ring'``, ``'ulysses'`` and ``'auto'`` on a seq mesh of 4
+   against the single-process flash model (losses, first gradients; 40
+   launches of each kernel a step over the ranks for the ring, 16 for
+   Ulysses), and a data 2 x seq 2 ``SeqParallelTrainer.fit`` with
+   validation (the loss falls, one ``val_loss``, one history on every
+   rank); each rank's step ms and staged bytes;
 6. the ResNet phase (``resnet_phase``), the paper's main path: the
    CIFAR-10 ResNet-18 at full width, one train step on the card in
    float64, float32 and bf16 against the port's CPU path, the bf16
@@ -354,6 +368,24 @@ CHAOS_MONITOR_S = 0.2              # ShardGroup.start_monitor's interval
 CHAOS_GROUP_PUSHES = 8
 RESNET_PARAMS = 11_173_962
 WAL_KEEP = 3                       # the servers' default: the pinned-pull window
+
+# Sequence-parallel phase: ring and Ulysses attention (K1-K3 per hop and at
+# full length) and the data x seq SeqParallelTrainer on the full-width LM,
+# in SP_RANKS processes that share cuda:0 in one gloo group: NCCL refuses
+# two ranks on one GPU, and gloo's send/recv take no CUDA tensors, so the
+# ring's hops cross the host (parallel/collectives.py, counted in bytes;
+# scripts/torch_gloo_cuda_probe.py). Its times say nothing of NCCL
+# sequence parallelism across cards.
+SP_RANKS = 4
+SP_HOP = (BATCH, 8, SEQ // SP_RANKS, 32)   # one ring hop at n = SP_RANKS
+SP_STEPS = 3                               # Adam steps per layout
+SP_LOSS_RTOL = 1e-4                        # vs the single-process flash model, each step
+# Against single-process flash_attention: max |error| <= tol * max(1, max
+# |reference|) in float32; bf16 O within an absolute 2e-2 (K1's oracle),
+# its gradients within 3e-2 * max(1, max |reference|) (K2/K3's).
+SP_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 3e-2)}  # (O, gradients)
+SP_FIT = {"rows": 32, "val_rows": 8, "batch_size": 8, "epochs": 1}  # data 2 x seq 2
+SP_TIMEOUT_S = 600
 WAL_COST_EVERY, WAL_COST_PUSHES = (1, 8), 16
 
 
@@ -3444,6 +3476,369 @@ def chaos_phase(attention_cuda):
     return launches, report
 
 
+def seq_launch_schedule(layout, ranks, layers, causal=True):
+    """Launches of each kernel (K1, K2, K3 alike) per rank for one train
+    step of a ``layers``-deep LM at ``ranks`` sequence ranks: the ring's
+    rank r runs its own hop and, causal, the r earlier owners' (1 + r),
+    full every hop (ranks); Ulysses one full-length call a layer."""
+    if layout == "ring":
+        return [layers * ((1 + r) if causal else ranks) for r in range(ranks)]
+    if layout == "ulysses":
+        return [layers] * ranks
+    raise ValueError(f"unknown layout {layout!r}")
+
+
+def hop_checks(attention_cuda):
+    """The hop modes at the ring's shape (SP_HOP) on the kernels, in this
+    process: K1 non-causal with the lse against ``blockwise_reference``,
+    and K2/K3 of an earlier owner's hop given the global lse and delta of
+    a two-hop combined softmax against ``flash_backward_reference``; each
+    timed with its bound, plain version and SDPA's time."""
+    from elephas_tpu_torch.ops.attention import (
+        blockwise_reference,
+        flash_attention_bwd,
+        flash_attention_fwd,
+        flash_backward_reference,
+    )
+    from elephas_tpu_torch.parallel.ring_attention import _combine
+
+    report = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 17)
+    for dtype in (torch.float32, torch.bfloat16):
+        tiles = {name: attention_cuda.kernel_tiles(name, dtype, SP_HOP[3]) for name in KERNELS}
+        q, ka, va, kb, vb, do = (torch.randn(SP_HOP, device="cuda", generator=gen).to(dtype)
+                                 for _ in range(6))
+        o2, l2 = flash_attention_fwd(q, kb, vb, causal=False)
+        ref_o, ref_l = blockwise_reference(q, kb, vb, False, *tiles["flash_fwd"])
+        err_o = (o2.float() - ref_o.float()).abs().max().item()
+        err_l = (l2 - ref_l).abs().max().item()
+        tol_o, tol_l = TOL[dtype]
+        check(err_o <= tol_o and err_l <= tol_l,
+              f"K1 non-causal with the lse disagrees at {SP_HOP} {dtype}: {err_o}, {err_l}")
+        # The global softmax of the own hop (causal) and one earlier hop (full).
+        o1, l1 = flash_attention_fwd(q, ka, va, causal=True)
+        of, lse = _combine(o1.float(), l1, o2.float(), l2)
+        out = of.to(dtype)
+        delta = (do.float() * out.float()).sum(-1)
+        got = dict(zip(("dq", "dk", "dv"), flash_attention_bwd(
+            q, kb, vb, out, lse, do, delta, causal=False)))
+        ref = dict(zip(("dq", "dk", "dv"), flash_backward_reference(
+            q, kb, vb, out, lse, do, False, *tiles["flash_dq"])))
+        ref["dk"], ref["dv"] = flash_backward_reference(
+            q, kb, vb, out, lse, do, False, *tiles["flash_dkv"])[1:]
+        errs = {"o": err_o, "lse": err_l}
+        for label in ("dq", "dk", "dv"):
+            err = (got[label].float() - ref[label].float()).abs().max().item()
+            allowed = TOL_BWD[dtype] * max(1.0, ref[label].float().abs().max().item())
+            whole, block = norm_errors(got[label], ref[label])
+            check(err <= allowed and max(whole, block) <= TOL_BWD_NORM[dtype],
+                  f"hop {label} with the global lse disagrees at {SP_HOP} {dtype}: "
+                  f"{err} (allowed {allowed}), norm {whole}, block {block}")
+            errs[label] = err
+            errs[f"{label}_norm"] = max(whole, block)
+        work = kernel_work(SP_HOP, q.element_size(), causal=False)
+        plain_bwd_ms = cuda_ms(lambda: flash_backward_reference(
+            q, kb, vb, out, lse, do, False, *tiles["flash_dkv"]), 3, 1)
+        leaves = [t.detach().requires_grad_() for t in (q, kb, vb)]
+        sdpa = F.scaled_dot_product_attention(*leaves)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, leaves, do,
+                                                          retain_graph=True), 20)
+        times = {
+            "flash_fwd": {
+                "ms": cuda_ms(lambda: attention_cuda.flash_fwd(q, kb, vb, False), 20),
+                "plain_ms": cuda_ms(lambda: blockwise_reference(
+                    q, kb, vb, False, *tiles["flash_fwd"]), 3, 1),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, kb, vb), 20)},
+            "flash_dq": {"ms": cuda_ms(lambda: attention_cuda.flash_bwd_dq(
+                q, kb, vb, do, lse, delta, False), 20),
+                "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms},
+            "flash_dkv": {"ms": cuda_ms(lambda: attention_cuda.flash_bwd_dkv(
+                q, kb, vb, do, lse, delta, False), 20),
+                "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms},
+        }
+        for name in KERNELS:
+            times[name]["bound_ms"], times[name]["bound_by"] = bound_ms(*work[name], dtype)
+            if dtype == torch.float32:
+                times[name]["bound_tc_ms"] = split_tf32_bound_ms(*work[name])
+            print(f"seq_parallel hop {name} {SP_HOP} full {dtype}: {json.dumps(times[name])}",
+                  flush=True)
+        print(f"seq_parallel hop errors {dtype}: {json.dumps(errs)}", flush=True)
+        report[str(dtype).split(".")[-1]] = {"errors": errs, "timing": times}
+    return report
+
+
+def seq_rank_checks(rank):
+    """The checks of one rank of the seq-parallel phase: (a) ring and
+    Ulysses attention at the LM's full shape, (b) 3 Adam steps of the
+    full-width LM per layout on a seq mesh of SP_RANKS, (c) a data 2 x seq
+    2 fit; each path's launches read with the counts set to 0 just before
+    it. Returns the rank's report; a failed check raises."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.engine.step import init_train_state, make_loss_fn, make_train_step
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.ops import attention_cuda
+    from elephas_tpu_torch.ops.attention import flash_attention
+    from elephas_tpu_torch.parallel import collectives
+    from elephas_tpu_torch.parallel.mesh import bind_mesh, build_mesh
+    from elephas_tpu_torch.parallel.ring_attention import ring_attention
+    from elephas_tpu_torch.parallel.seq_parallel import (
+        SeqParallelTrainer,
+        init_lm_state,
+        make_lm_train_step,
+        shard_lm_batch,
+    )
+    from elephas_tpu_torch.parallel.ulysses import ulysses_attention
+
+    report = {"rank": rank, "errors": {}, "launches": {}, "staged_bytes": {}, "ms": {}}
+    mesh = build_mesh(num_data=1, num_seq=SP_RANKS)
+    local = SEQ // SP_RANKS
+    rows = slice(rank * local, (rank + 1) * local)
+
+    def run_path(name, fn):
+        torch.cuda.synchronize()
+        attention_cuda.reset_launches()
+        collectives.reset_staged()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        report["ms"][name] = (time.perf_counter() - t0) * 1e3
+        report["launches"][name] = dict(attention_cuda.launches)
+        report["staged_bytes"][name] = collectives.staged_bytes
+        return out
+
+    def expect(name, counts):
+        check(report["launches"][name] == counts,
+              f"rank {rank} {name} launched {report['launches'][name]}, expected {counts}")
+
+    # (a) ring and Ulysses attention against single-process flash_attention.
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    for dtype in (torch.float32, torch.bfloat16):
+        label = str(dtype).split(".")[-1]
+        q, k, v, do = (torch.randn((BATCH, 8, SEQ, 32), device="cuda", generator=gen).to(dtype)
+                       for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_o = flash_attention(*leaves)
+        ref = [ref_o.detach()] + list(torch.autograd.grad(ref_o, leaves, do))
+        ref = [t[:, :, rows] for t in ref]
+        del leaves, ref_o
+        for layout, attend in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+            def go():
+                shards = [t[:, :, rows].clone().requires_grad_() for t in (q, k, v)]
+                with bind_mesh(mesh):
+                    out = attend(*shards)
+                return [out.detach(), *torch.autograd.grad(out, shards, do[:, :, rows])]
+
+            name = f"attention_{layout}_{label}"
+            got = run_path(name, go)
+            errs = {}
+            for i, part in enumerate(("o", "dq", "dk", "dv")):
+                err = (got[i].float() - ref[i].float()).abs().max().item()
+                scale = max(1.0, ref[i].float().abs().max().item())
+                allowed = SP_TOL[dtype][i > 0] * (
+                    1.0 if i == 0 and dtype == torch.bfloat16 else scale)
+                check(err <= allowed, f"rank {rank} {name} {part}: {err} above {allowed}")
+                errs[part] = err
+            report["errors"][name] = errs
+            per_rank = seq_launch_schedule(layout, SP_RANKS, 1)[rank]
+            expect(name, {k_: per_rank for k_ in KERNELS})
+        del q, k, v, do, ref
+
+    # (b) the full-width LM: SP_STEPS Adam steps per layout against the
+    # single-process flash model from the same weights.
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, 32000, (BATCH, SEQ + 1))
+    x_np, y_np = tokens[:, :-1], tokens[:, 1:]
+
+    def compiled(attention):
+        return CompiledModel(get_model("transformer_lm", attention=attention),
+                             optimizer={"name": "adam", "learning_rate": 1e-3},
+                             loss="sparse_categorical_crossentropy", metrics=["acc"],
+                             seed=SEED)
+
+    def grads_of(model):
+        """Each parameter's gradient, the key third of each qkv bias left
+        out (its exact gradient is 0: what is left there is rounding)."""
+        out = {}
+        for n, p in model.module.named_parameters():
+            g = p.grad
+            if n.endswith("attn.qkv.bias"):
+                third = len(g) // 3
+                g = torch.cat([g[:third], g[2 * third:]])
+            out[n] = g.clone()
+        return out
+
+    def reference():
+        x, y = (torch.as_tensor(a, device="cuda") for a in (x_np, y_np))
+        model = compiled("flash")
+        loss, _ = make_loss_fn(model)(x, y)
+        loss.backward()
+        grads = grads_of(model)
+        model.module.zero_grad(set_to_none=True)
+        step, state = make_train_step(model), init_train_state(model)
+        return [float(step(state, x, y)[1]["loss"]) for _ in range(SP_STEPS)], grads
+
+    ref_losses, ref_grads = run_path("reference", reference)
+    expect("reference", {k_: 4 * (1 + SP_STEPS) for k_ in KERNELS})
+    xl, yl = shard_lm_batch(mesh, x_np, y_np, "cuda")
+    for attention in ("ring", "ulysses", "auto"):
+        model = compiled(attention)
+        step = make_lm_train_step(model, mesh)
+        state = init_lm_state(model, mesh)
+
+        def go():
+            losses, grads, times = [], None, []
+            for i in range(SP_STEPS):
+                t0 = time.perf_counter()
+                _, metrics = step(state, xl, yl)
+                losses.append(float(metrics["loss"]))
+                times.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    grads = grads_of(model)
+            return losses, grads, times
+
+        name = f"lm_{attention}"
+        losses, grads, times = run_path(name, go)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        grad_err = max(((grads[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                       for n, g in ref_grads.items())
+        check(loss_err <= SP_LOSS_RTOL, f"rank {rank} {name} losses {losses} vs the "
+              f"single-process {ref_losses}: {loss_err} above {SP_LOSS_RTOL}")
+        check(grad_err <= GRAD_RTOL, f"rank {rank} {name} first-step gradients: worst "
+              f"max|d| / max|g| {grad_err} above {GRAD_RTOL}")
+        report["errors"][name] = {"loss_rel": loss_err, "grad_rel": grad_err,
+                                  "losses": losses, "reference_losses": ref_losses}
+        report["ms"][f"{name}_steps"] = times
+        layout = "ring" if attention == "ring" else "ulysses"  # 'auto': 8 heads over 4
+        per_step = seq_launch_schedule(layout, SP_RANKS, model.module.num_layers)[rank]
+        expect(name, {k_: per_step * SP_STEPS for k_ in KERNELS})
+        del model, step, state, grads
+    del ref_grads
+
+    # (c) a data 2 x seq 2 fit with validation.
+    mesh22 = build_mesh(num_data=2, num_seq=2)
+    fit_rng = np.random.default_rng(SEED + 7)
+    train = fit_rng.integers(0, 32000, (SP_FIT["rows"], SEQ + 1))
+    val = fit_rng.integers(0, 32000, (SP_FIT["val_rows"], SEQ + 1))
+    model = compiled("auto")
+    trainer = SeqParallelTrainer(model, mesh22)
+    bs = SP_FIT["batch_size"]
+    state0 = run_path("fit_init", lambda: init_lm_state(model, mesh22))
+    before = run_path("fit_eval_before", lambda: trainer.evaluate(state0, train, bs))["loss"]
+    state, history = run_path("fit", lambda: trainer.fit(
+        train, epochs=SP_FIT["epochs"], batch_size=bs, validation_tokens=val,
+        initial_state=state0, seed=SEED))
+    after = run_path("fit_eval_after", lambda: trainer.evaluate(state, train, bs))["loss"]
+    check(after < before, f"rank {rank}: the fit's training-set loss went {before} -> {after}")
+    check(len(history["val_loss"]) == 1 and all(np.isfinite(history["loss"])),
+          f"rank {rank}: fit history {history}")
+    steps = SP_FIT["rows"] // bs * SP_FIT["epochs"]
+    layers = model.module.num_layers
+    expect("fit", {"flash_fwd": layers * (steps + SP_FIT["val_rows"] // bs),
+                   "flash_dq": layers * steps, "flash_dkv": layers * steps})
+    for name in ("fit_eval_before", "fit_eval_after"):
+        expect(name, {"flash_fwd": layers * SP_FIT["rows"] // bs, "flash_dq": 0,
+                      "flash_dkv": 0})
+    expect("fit_init", {k_: 0 for k_ in KERNELS})
+    report["fit"] = {"history": history, "train_loss_before": before, "train_loss_after": after}
+    return report
+
+
+def seq_rank_main(config_path, rank):
+    """Entry of one rank of the seq-parallel phase (``chip_smoke.py
+    --seq-rank CONFIG RANK``): joins the gloo group through
+    ``parallel.distributed.initialize`` and writes its report as JSON."""
+    from elephas_tpu_torch.parallel import distributed
+
+    with open(config_path) as f:
+        config = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    distributed.initialize(f"file://{config['store']}", SP_RANKS, rank,
+                           heartbeat_timeout=SP_TIMEOUT_S, backend="gloo")
+    try:
+        report = seq_rank_checks(rank)
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(f"{config['out']}.rank{rank}", "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+SP_PATHS = ("attention_ring_float32", "attention_ulysses_float32", "attention_ring_bfloat16",
+            "attention_ulysses_bfloat16", "lm_ring", "lm_ulysses", "lm_auto",
+            "fit_eval_before", "fit", "fit_eval_after")
+
+
+def seq_parallel_phase(attention_cuda):
+    """The hop modes here, then SP_RANKS ranks on cuda:0 (``seq_rank_main``;
+    the kernel libraries are built before they start). Returns the
+    launches of the seq-parallel paths summed over the ranks, and the
+    report."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    report = {"hops": hop_checks(attention_cuda)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "2"}
+    with tempfile.TemporaryDirectory() as tmp:
+        config = Path(tmp) / "config.json"
+        config.write_text(json.dumps({"store": f"{tmp}/store", "out": f"{tmp}/report"}))
+        logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(SP_RANKS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seq-rank",
+                                   str(config), str(r)], env=env, stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(SP_RANKS)]
+        try:
+            deadline = time.monotonic() + SP_TIMEOUT_S
+            codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+        except subprocess.TimeoutExpired:
+            codes = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        report["ranks_s"] = time.perf_counter() - t0
+        if codes != [0] * SP_RANKS:
+            for r in range(SP_RANKS):
+                tail = (Path(tmp) / f"rank{r}.log").read_text()[-3000:]
+                print(f"seq_parallel rank {r} log (tail):\n{tail}", flush=True)
+        check(codes == [0] * SP_RANKS,
+              f"seq-parallel ranks exited {codes} (None: past {SP_TIMEOUT_S} s)")
+        ranks = [json.loads((Path(tmp) / f"report.rank{r}").read_text())
+                 for r in range(SP_RANKS)]
+    summed = {path: {k: sum(r["launches"][path][k] for r in ranks) for k in KERNELS}
+              for path in SP_PATHS}
+    for path, want in (("lm_ring", 40 * SP_STEPS), ("lm_ulysses", 16 * SP_STEPS),
+                       ("lm_auto", 16 * SP_STEPS)):
+        check(summed[path] == {k: want for k in KERNELS},
+              f"{path} launched {summed[path]} over the ranks, expected {want} of each "
+              f"({want // SP_STEPS} a step)")
+    histories = [r["fit"]["history"] for r in ranks]
+    check(all(h == histories[0] for h in histories),
+          f"the data 2 x seq 2 fit's history differs between ranks: {histories}")
+    for r in ranks:
+        print(f"seq_parallel rank {r['rank']} (four processes sharing one card over a "
+              f"host-staged gloo exchange): step ms ring {r['ms']['lm_ring_steps']}, "
+              f"ulysses {r['ms']['lm_ulysses_steps']}, auto {r['ms']['lm_auto_steps']}; "
+              f"ring-hop bytes staged by the port per path {json.dumps(r['staged_bytes'])} "
+              f"(gloo's own CUDA all_to_all and all_reduce also cross the host, uncounted); "
+              f"errors {json.dumps(r['errors'])}", flush=True)
+    report["ranks"] = [{k: r[k] for k in ("rank", "errors", "ms", "staged_bytes", "launches",
+                                          "fit")} for r in ranks]
+    report["launches_summed"] = summed
+    report["phase_s"] = time.perf_counter() - t_phase
+    total = {k: sum(summed[path][k] for path in SP_PATHS) for k in KERNELS}
+    print(f"seq_parallel launches summed over the ranks: {json.dumps(summed)}", flush=True)
+    return total, report
+
+
 def kernel_entries(timing, errors, launches):
     """The ``{"kernels": [...]}`` line's entries: each kernel's source,
     the TPU kernel it replaces, its launches on the main path (the LM
@@ -3522,6 +3917,8 @@ def main():
     print(f"inference: {json.dumps(report)}", flush=True)
     launches["train"], report = train_phase(attention_cuda)
     print(f"train: {json.dumps(report)}", flush=True)
+    launches["seq_parallel"], report = seq_parallel_phase(attention_cuda)
+    print(f"seq_parallel: {json.dumps(report)}", flush=True)
     launches["resnet"], report = resnet_phase(attention_cuda)
     print(f"resnet: {json.dumps(report)}", flush=True)
     launches["repair"], report = repair_phase(attention_cuda)
@@ -3549,4 +3946,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--seq-rank"]:
+        sys.exit(seq_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

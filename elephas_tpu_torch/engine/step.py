@@ -21,7 +21,13 @@ import numpy as np
 import torch
 
 from elephas_tpu_torch.engine.state import TrainState
-from elephas_tpu_torch.parallel.mesh import DATA_AXIS, build_mesh
+from elephas_tpu_torch.parallel.mesh import (
+    SEQ_AXIS,
+    Mesh,
+    _axis_names,
+    bound_mesh,
+    build_mesh,
+)
 
 
 def make_loss_fn(compiled) -> Callable:
@@ -42,28 +48,62 @@ def _metrics_dict(compiled, loss, outputs, y) -> Dict[str, torch.Tensor]:
     return metrics
 
 
+def _reducer(pmean_axis) -> Callable:
+    """``group()`` giving the one-axis ``Mesh`` that ``pmean_axis`` names
+    at the call, or None where nothing is averaged.
+
+    ``pmean_axis``: None; a ``parallel.mesh.Mesh`` (its data group); or an
+    axis name or tuple of names (``DATA_AXIS``, ``SEQ_AXIS``), resolved
+    at each call against the mesh bound there (``parallel.mesh.bind_mesh``,
+    as ``shard_map`` binds the JAX package's axis names). Unbound, the
+    data axis is every process of the default group, and the seq axis
+    raises ``NameError`` as ``lax.pmean`` does on an unbound axis name:
+    averaging nothing there would leave each rank training alone. The
+    model axis raises."""
+    if pmean_axis is None or isinstance(pmean_axis, Mesh):
+        fixed = pmean_axis if pmean_axis is not None and pmean_axis.size > 1 else None
+        return lambda: fixed
+    axes = tuple(_axis_names(pmean_axis))
+    default = build_mesh()
+
+    def group():
+        bound = bound_mesh()
+        if bound is None and SEQ_AXIS in axes:
+            raise NameError(f"unbound axis name: {SEQ_AXIS}; average over it inside a bound "
+                            "mesh (parallel.mesh.bind_mesh, as "
+                            "seq_parallel.make_lm_train_step binds it)")
+        mesh = (bound or default).over(axes)
+        return mesh if mesh.size > 1 else None
+
+    return group
+
+
+def _pmean_metrics(mesh, metrics):
+    if mesh is None:
+        return metrics
+    values = torch.stack(list(metrics.values()))
+    mesh.all_reduce_([values])
+    return dict(zip(metrics, values.unbind()))
+
+
 def make_train_step(compiled, pmean_axis=None) -> Callable:
     """Build ``step(state, x, y) -> (state, metrics)``.
 
-    ``pmean_axis``: None, or the data group to average over, the JAX
-    package's ``lax.pmean`` over the mesh's data axis: a
-    ``parallel.mesh.Mesh``, or ``DATA_AXIS`` for every process of the
-    default group. Every gradient is averaged across the group before the
-    optimizer step, and the metrics after it. Batch statistics stay per
-    rank, as in the JAX package. Other axes (sequence parallelism) are not
-    ported yet and raise.
+    ``pmean_axis``: None, or what to average over, the JAX package's
+    ``lax.pmean``: a ``parallel.mesh.Mesh`` (its data group), or axis
+    names, ``DATA_AXIS`` or ``(DATA_AXIS, SEQ_AXIS)``, over the group of
+    the mesh bound at the call; unbound, the data axis is every process
+    of the default group and the seq axis raises. Every gradient is averaged across the group before the
+    optimizer step, and the metrics after it: over data × seq that is
+    the global mean when every rank's shard has the same size. Batch
+    statistics stay per rank, as in the JAX package. The model axis
+    (tensor parallelism) is not ported and raises.
     """
-    if isinstance(pmean_axis, str):
-        if pmean_axis != DATA_AXIS:
-            raise NotImplementedError(
-                f"pmean_axis={pmean_axis!r}: only the data axis is ported; sequence "
-                "parallelism arrives with the LM-parallelism item of ROADMAP.md, queue 1"
-            )
-        pmean_axis = build_mesh()
+    reducer = _reducer(pmean_axis)
     loss_fn = make_loss_fn(compiled)
-    mesh = pmean_axis if pmean_axis is not None and pmean_axis.size > 1 else None
 
     def train_step(state: TrainState, x, y):
+        mesh = reducer()
         state.optimizer.zero_grad(set_to_none=True)
         loss, outputs = loss_fn(x, y)
         loss.backward()
@@ -74,11 +114,7 @@ def make_train_step(compiled, pmean_axis=None) -> Callable:
         state.step += 1
         with torch.no_grad():
             metrics = _metrics_dict(compiled, loss.detach(), outputs.detach(), y)
-        if mesh is not None:
-            values = torch.stack(list(metrics.values()))
-            mesh.all_reduce_([values])
-            metrics = dict(zip(metrics, values.unbind()))
-        return state, metrics
+        return state, _pmean_metrics(mesh, metrics)
 
     return train_step
 
@@ -184,13 +220,16 @@ def build_train_step(compiled, capture: bool = False, pmean_axis=None) -> Callab
     return CapturedStep(compiled, step) if capture else step
 
 
-def make_eval_step(compiled) -> Callable:
-    """Build ``eval_step(state, x, y) -> metrics`` (inference mode)."""
+def make_eval_step(compiled, pmean_axis=None) -> Callable:
+    """Build ``eval_step(state, x, y) -> metrics`` (inference mode), the
+    metrics averaged over ``pmean_axis`` as ``make_train_step`` averages
+    them."""
+    reducer = _reducer(pmean_axis)
 
     def eval_step(state: TrainState, x, y) -> Dict[str, torch.Tensor]:
         outputs = compiled.apply_eval(x)
         loss = compiled.loss_fn(outputs.float(), y).mean()
-        return _metrics_dict(compiled, loss, outputs, y)
+        return _pmean_metrics(reducer(), _metrics_dict(compiled, loss, outputs, y))
 
     return eval_step
 

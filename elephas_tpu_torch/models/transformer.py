@@ -5,9 +5,19 @@ The full-sequence forward picks its attention by name:
 - ``attention='dense'`` — plain softmax attention;
 - ``attention='flash'`` — ``ops.attention.flash_attention``: the
   hand-written CUDA kernel on the GPU, its plain version on the CPU;
-- ``attention='auto'`` — ``'flash'``: there is no sequence-parallel group
-  in the port yet, which is what would make ``'auto'`` pick otherwise;
-- ``'ring'`` and ``'ulysses'`` are not ported yet and raise.
+- ``attention='ring'`` — ``parallel.ring_attention``: K/V shards rotate
+  around the bound mesh's ``'seq'`` axis;
+- ``attention='ulysses'`` — ``parallel.ulysses``: all_to_all re-sharding
+  from sequence to heads, then full-length flash attention;
+- ``attention='auto'`` — resolved at call time: inside a bound mesh
+  (``parallel.mesh.bind_mesh``, as ``seq_parallel`` binds it) ``'ulysses'``
+  where the heads divide the seq-axis size, else ``'ring'``; ``'flash'``
+  outside one.
+
+``'ring'`` and ``'ulysses'`` run only inside a bound mesh, where the
+tokens are this rank's sequence shard and the positional table is read
+at global positions; outside one they raise. The parameters do not
+depend on the attention, so one state dict serves every choice.
 
 Numerics follow the flax model: LayerNorms compute in float32 with
 epsilon 1e-6, GELU is the tanh approximation, a ``bfloat16`` model runs
@@ -38,6 +48,12 @@ import torch.nn.functional as F
 
 from elephas_tpu_torch.models import register_model
 from elephas_tpu_torch.ops.attention import cache_attention_mask, flash_attention
+from elephas_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    require_seq_axis,
+    seq_axis_size_or_none,
+)
+from elephas_tpu_torch.parallel.ulysses import ulysses_attention
 from elephas_tpu_torch.utils.device import resolve_device
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch defaults to 1e-5)
@@ -101,10 +117,20 @@ class SelfAttention(nn.Module):
         # output order, so each of q, k, v comes out contiguous.
         qkv = _dense(self.qkv, x, self.dtype).view(b, s, 3, h, d // h)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        attention = self.attention
+        if attention == "auto":
+            # Resolved at call time from the bound mesh, as the JAX model
+            # resolves it at trace time from the bound 'seq' axis.
+            n = seq_axis_size_or_none()
+            attention = "flash" if n is None else ("ulysses" if h % n == 0 else "ring")
         if kv is not None:
             out = self._decode_attend(q, k, v, kv, index, pad_offset)
-        elif self.attention == "flash":
+        elif attention == "flash":
             out = flash_attention(q, k, v, causal=True)
+        elif attention == "ring":
+            out = ring_attention(q, k, v, causal=True)
+        elif attention == "ulysses":
+            out = ulysses_attention(q, k, v, causal=True)
         else:
             out = dense_causal_attention(q, k, v)
         out = out.transpose(1, 2).reshape(b, s, d)
@@ -172,20 +198,13 @@ class TransformerLM(nn.Module):
                 f"unknown attention={attention!r}; expected one of "
                 "'dense', 'flash', 'ring', 'ulysses', 'auto'"
             )
-        if attention in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention={attention!r} (sequence parallelism) is not ported "
-                "yet; it arrives with the LM-parallelism slice (ROADMAP.md, "
-                "queue 1)"
-            )
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.num_heads = num_heads
         self.num_layers = num_layers
         self.max_seq_len = max_seq_len
         self.dtype = dtype
-        # 'auto' is flash outside a sequence-parallel group, the only case here.
-        self.attention = "flash" if attention == "auto" else attention
+        self.attention = attention
         self.tok_embed = nn.Embedding(vocab_size, d_model, device=device)
         self.pos_embed = nn.Parameter(torch.zeros(max_seq_len, d_model, device=device))
         self.blocks = nn.ModuleList(
@@ -227,7 +246,7 @@ class TransformerLM(nn.Module):
                     "pad_offset / active (ragged left-padded serving batches) "
                     "are only supported on the decode path"
                 )
-            x = (x + self.pos_embed[:seq]).to(self.dtype)
+            x = (x + self._positions(seq)).to(self.dtype)
             for block in self.blocks:
                 x = block(x)
         else:
@@ -245,6 +264,19 @@ class TransformerLM(nn.Module):
                            else torch.where(active, index + seq, index))
         x = self.ln_f(x.float())
         return self.lm_head(x)
+
+    def _positions(self, seq):
+        """Positional embeddings of the full forward. Under sequence
+        parallelism the tokens are this rank's shard, so the table is read
+        from global position ``seq_rank * seq`` (clamped to the table, as
+        the JAX model's ``dynamic_slice`` clamps it)."""
+        seq_parallel = self.attention in ("ring", "ulysses") or (
+            self.attention == "auto" and seq_axis_size_or_none() is not None)
+        if not seq_parallel:
+            return self.pos_embed[:seq]
+        start = require_seq_axis(feature=f"attention='{self.attention}'") * seq
+        start = min(start, self.max_seq_len - seq)
+        return self.pos_embed[start:start + seq]
 
     def _decode_positions(self, index, seq, pad_offset):
         """Positional embeddings of the block at cache column ``index``.

@@ -330,10 +330,15 @@ class _FlashAttentionCUDA(torch.autograd.Function):
         # The model's head merge hands the gradient back as a strided view.
         do = _to_kernel(grad_o, *ctx.layout)
         delta = (do.float() * o.float()).sum(-1)
-        dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-        dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
-                                              ctx.scale)
-        return (*(_from_kernel(g, *ctx.caller) for g in (dq, dk, dv)), None)
+        grads = _launch_bwd(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        return (*(_from_kernel(g, *ctx.caller) for g in grads), None)
+
+
+def _launch_bwd(q, k, v, do, lse, delta, causal, scale):
+    """K2 then K3 on inputs in the kernels' layout: ``(dq, dk, dv)``."""
+    dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
 
 
 def use_kernels(q, k, v) -> bool:
@@ -354,6 +359,17 @@ def use_kernels(q, k, v) -> bool:
     return True
 
 
+def _check_qkv(name, q, k, v):
+    """Raise unless q, k and v have one (batch, heads, seq, head_dim)
+    shape: the kernels assume equal query and key lengths, as the JAX
+    package's do."""
+    if q.dim() != 4 or q.shape != k.shape or k.shape != v.shape:
+        raise ValueError(
+            f"{name} needs q, k, v of one (batch, heads, seq, head_dim) shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+
+
 def flash_attention(q, k, v, causal: bool = True,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
@@ -368,14 +384,56 @@ def flash_attention(q, k, v, causal: bool = True,
     and v must have one shape: the kernel assumes equal query and key
     lengths, as the JAX package's does.
     """
-    if q.dim() != 4 or q.shape != k.shape or k.shape != v.shape:
-        raise ValueError(
-            "flash_attention needs q, k, v of one (batch, heads, seq, "
-            f"head_dim) shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-            f"{tuple(v.shape)}"
-        )
+    _check_qkv("flash_attention", q, k, v)
     if use_kernels(q, k, v):
         o, lse = _FlashAttentionCUDA.apply(q, k, v, causal)
     else:
         o, lse = blockwise_reference(q, k, v, causal, block_q or BLOCK_Q, block_k or BLOCK_K)
     return (o, lse) if return_lse else o
+
+
+# -- one hop of ring attention -----------------------------------------------
+#
+# The JAX package's ring runs the Pallas kernels per hop outside their own
+# custom VJP: ``pallas_flash_attention(..., return_lse=True)`` forward and
+# ``pallas_flash_attention_bwd(q, k, v, o, lse, do)`` with the GLOBAL o and
+# lse of the combined softmax, so each hop's p is its slice of the global
+# softmax and the hops' gradients sum to the exact ones. These are the
+# port's counterparts: K1, and K2 with K3, on CUDA inputs through
+# ``kernel_layout`` (the scale stays 1/sqrt of the caller's head_dim when
+# the kernels compute on zero-padded columns), the plain versions
+# elsewhere. Neither records autograd.
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True):
+    """``(o, lse)`` of softmax attention of q over k and v (causal within
+    this block, or full): K1 on CUDA inputs, ``blockwise_reference``
+    elsewhere. o is in q's dtype, lse (batch, heads, seq) float32."""
+    _check_qkv("flash_attention_fwd", q, k, v)
+    with torch.no_grad():
+        if not use_kernels(q, k, v):
+            return blockwise_reference(q, k, v, causal)
+        caller = (q.shape[-1], q.dtype)
+        layout = kernel_layout(*caller)
+        o, lse = attention_cuda.flash_fwd(*(_to_kernel(t, *layout) for t in (q, k, v)),
+                                          causal, 1.0 / math.sqrt(caller[0]))
+        return _from_kernel(o, *caller), lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, delta, causal: bool = True):
+    """``(dq, dk, dv)`` of one block from the output ``o`` and ``lse`` of
+    the WHOLE softmax this block is a slice of, and its gradient ``do``:
+    K2 and K3 on CUDA inputs, ``flash_backward_reference`` elsewhere.
+    ``delta`` is rowsum(do * o) in float32 from that same o, computed once
+    by the caller for all its blocks (the plain version recomputes it from
+    o)."""
+    _check_qkv("flash_attention_bwd", q, k, v)
+    with torch.no_grad():
+        if not use_kernels(q, k, v):
+            return flash_backward_reference(q, k, v, o, lse, do, causal)
+        caller = (q.shape[-1], q.dtype)
+        layout = kernel_layout(*caller)
+        q, k, v, do = (_to_kernel(t, *layout) for t in (q, k, v, do))
+        grads = _launch_bwd(q, k, v, do, lse.float().contiguous(), delta.contiguous(),
+                            causal, 1.0 / math.sqrt(caller[0]))
+        return tuple(_from_kernel(g, *caller) for g in grads)

@@ -429,7 +429,7 @@ class InferenceEngine:
 
     def shard_serving(self, mesh, rules=None):
         raise NotImplementedError(
-            "tensor-parallel serving " + _NOT_PORTED.format(6))
+            "tensor-parallel serving " + _NOT_PORTED.format("6b"))
 
     def submit_prefill(self, prompt: Sequence[int], **kwargs) -> int:
         raise NotImplementedError(

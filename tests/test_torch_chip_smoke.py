@@ -334,9 +334,9 @@ def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
     line is still the ``{"ok": true, "device": ...}`` object with the
     card's name and count."""
     source, phases = _main_source()
-    assert phases == ["kernel_phase", "inference_phase", "train_phase", "resnet_phase",
-                      "repair_phase", "serving_phase", "async_phase", "estimator_phase",
-                      "search_phase", "fit_slice_phase", "chaos_phase"]
+    assert phases == ["kernel_phase", "inference_phase", "train_phase", "seq_parallel_phase",
+                      "resnet_phase", "repair_phase", "serving_phase", "async_phase",
+                      "estimator_phase", "search_phase", "fit_slice_phase", "chaos_phase"]
     assert "launches['search'], report = search_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("search: ") < source.index("'kernels'")
     last = source[source.index("'ok': True"):]
@@ -630,3 +630,42 @@ def test_wal_cost_splits_each_durable_snapshot(smoke, tmp_path):
 def test_fs_type_names_the_mount(smoke, tmp_path):
     kind = smoke.fs_type(str(tmp_path))
     assert kind is None or (isinstance(kind, str) and kind)
+
+
+# -- the seq-parallel phase --------------------------------------------------------
+
+
+def test_main_runs_the_seq_parallel_phase_after_training():
+    """``seq_parallel_phase`` follows the LM train phase, keeps its launches
+    (summed over its ranks) under ``"seq_parallel"`` and prints its report
+    before the kernel line; ``--seq-rank`` runs one rank instead of main."""
+    source, phases = _main_source()
+    assert phases[phases.index("seq_parallel_phase") - 1] == "train_phase"
+    assert "launches['seq_parallel'], report = seq_parallel_phase(attention_cuda)" in source
+    assert source.index("train: ") < source.index("seq_parallel: ") < source.index("'kernels'")
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert 'if sys.argv[1:2] == ["--seq-rank"]:' in text
+
+
+def test_seq_launch_schedule_is_the_ring_and_ulysses_hops(smoke):
+    """Per full-width train step (4 layers) at 4 ranks: the ring launches
+    40 of each kernel over the ranks (rank r: 4 * (1 + r)), Ulysses 16;
+    a full (non-causal) ring 4 * 4 a rank."""
+    ring = smoke.seq_launch_schedule("ring", 4, 4)
+    assert ring == [4, 8, 12, 16] and sum(ring) == 40
+    assert sum(smoke.seq_launch_schedule("ulysses", 4, 4)) == 16
+    assert smoke.seq_launch_schedule("ring", 4, 4, causal=False) == [16] * 4
+    with pytest.raises(ValueError):
+        smoke.seq_launch_schedule("tree", 4, 4)
+
+
+def test_seq_parallel_config(smoke):
+    """Four ranks on one card; a ring hop at the LM's full shape over 4;
+    limits no looser than the kernels' oracles and the LM's (PERF.md §2)."""
+    import torch
+
+    assert smoke.SP_RANKS == 4 and smoke.SP_HOP == (8, 8, 512, 32)
+    assert smoke.SP_TOL == {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 3e-2)}
+    assert smoke.SP_LOSS_RTOL == 1e-4 and smoke.GRAD_RTOL == 1e-3 and smoke.SP_STEPS == 3
+    assert smoke.SP_FIT == {"rows": 32, "val_rows": 8, "batch_size": 8, "epochs": 1}
+    assert set(smoke.SP_PATHS) >= {"lm_ring", "lm_ulysses", "lm_auto", "fit"}

@@ -20,7 +20,18 @@ of several cards and saves the devices and slots each rank took. A search
 job (``"kind": "search"``) runs ``HyperParamModel(device="cpu",
 num_workers=...).minimize`` with ``search_objective``, a ``SyncTrainer``
 fit per trial, and saves, from every rank, its trials, the winner it
-returns and the winner's weights.
+returns and the winner's weights. The sequence-parallel jobs
+(``test_torch_seq_parallel.py``) run on a mesh of the whole world: an
+``"seq_attention"`` job runs ring attention (dense, flash on the plain
+hop versions, and flash through stand-in kernels that count their
+launches) and Ulysses attention, causal and full, forward and backward,
+and saves the global output, this rank's shard of the gradients and the
+launches; a ``"seq_trainer"`` job fits ``SeqParallelTrainer`` on a data ×
+seq mesh with validation, a ragged evaluation three ways and a resumed
+fit, and saves the histories, evaluations and weights; a
+``"distributed"`` job (world joined through
+``parallel.distributed.initialize``) saves what the control-plane
+collectives of ``parallel/distributed.py`` return.
 Imports the port only, no JAX.
 """
 
@@ -197,15 +208,187 @@ def _search_devices(job, rank):
                f"{job['out']}.rank{rank}")
 
 
+def _shard(t, rank, n):
+    local = t.shape[2] // n
+    return t[:, :, rank * local:(rank + 1) * local]
+
+
+def fake_kernels(launches):
+    """``(owner, name, stand-in)`` patches that put K1-K3 in place on the
+    CPU: every input is taken as a kernel input, and each stand-in counts
+    its launch in ``launches`` and computes what its kernel computes, in
+    the kernels' layout (zero-padded head_dim, the caller's scale), with
+    the plain arithmetic."""
+    from elephas_tpu_torch.ops import attention as ops
+    from elephas_tpu_torch.ops import attention_cuda
+    from elephas_tpu_torch.parallel import ring_attention as ra
+
+    def fwd(q, k, v, causal, scale=None):
+        launches["flash_fwd"] += 1
+        return ops.blockwise_reference(q, k, v, causal, scale=scale)
+
+    def grads(q, k, v, do, lse, delta, causal, scale=None):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        dtype = q.dtype
+        q, k, v, do = (t.float() for t in (q, k, v, do))
+        p = torch.exp(scale * q @ k.transpose(-1, -2) - lse[..., None])
+        if causal:
+            p = p.tril()
+        ds = p * (do @ v.transpose(-1, -2) - delta[..., None])
+        return tuple(g.to(dtype) for g in (scale * ds @ k, scale * ds.transpose(-1, -2) @ q,
+                                           p.transpose(-1, -2) @ do))
+
+    def dq(*args):
+        launches["flash_dq"] += 1
+        return grads(*args)[0]
+
+    def dkv(*args):
+        launches["flash_dkv"] += 1
+        return grads(*args)[1:]
+
+    return [(attention_cuda, "flash_fwd", fwd), (attention_cuda, "flash_bwd_dq", dq),
+            (attention_cuda, "flash_bwd_dkv", dkv), (ops, "use_kernels", lambda *a: True),
+            (ra, "use_kernels", lambda *a: True)]
+
+
+def _seq_attention(job, rank):
+    """Ring and Ulysses attention on a seq mesh of the whole world, on the
+    job's global q, k, v and output gradient: each case's global output,
+    this rank's shard of dq, dk, dv, and its stand-in kernel launches."""
+    from elephas_tpu_torch.parallel import collectives
+    from elephas_tpu_torch.parallel.mesh import build_mesh
+    from elephas_tpu_torch.parallel.ring_attention import ring_self_attention
+    from elephas_tpu_torch.parallel.ulysses import ulysses_self_attention
+
+    n = dist.get_world_size()
+    mesh = build_mesh(num_data=1, num_seq=n)
+    data = np.load(job["data"])
+    q, k, v, do = (torch.from_numpy(data[name]) for name in ("q", "k", "v", "do"))
+    launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+    def run(fn):
+        before = dict(launches)
+        collectives.reset_staged()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        (out * do).sum().backward()
+        return {"out": out.detach(), "grads": [_shard(t.grad, rank, n) for t in leaves],
+                "launches": {name: launches[name] - before[name] for name in launches},
+                "staged_bytes": collectives.staged_bytes}
+
+    results = {}
+    for causal in (True, False):
+        for impl in ("dense", "flash"):
+            results[f"ring-{impl}-{causal}"] = run(
+                lambda *t: ring_self_attention(mesh, *t, causal=causal, impl=impl))
+        results[f"ulysses-plain-{causal}"] = run(
+            lambda *t: ulysses_self_attention(mesh, *t, causal=causal))
+    patches = fake_kernels(launches)
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
+    for owner, name, value in patches:
+        setattr(owner, name, value)
+    try:
+        for causal in (True, False):
+            results[f"ring-kernels-{causal}"] = run(
+                lambda *t: ring_self_attention(mesh, *t, causal=causal))
+            results[f"ulysses-kernels-{causal}"] = run(
+                lambda *t: ulysses_self_attention(mesh, *t, causal=causal))
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+    torch.save(results, f"{job['out']}.rank{rank}")
+
+
+def _seq_trainer(job, rank):
+    """``SeqParallelTrainer`` on a data x seq mesh, per attention: a fit
+    with validation, a ragged set evaluated in chunks, whole and at batch
+    1, and the same fit in two halves (the second resumed), which must
+    follow the straight fit's batch order."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parallel.mesh import build_mesh
+    from elephas_tpu_torch.parallel.seq_parallel import SeqParallelTrainer
+
+    mesh = build_mesh(num_data=job["num_data"], num_seq=job["num_seq"])
+    data = np.load(job["data"])
+    weights = torch.load(job["weights"])
+    fit = dict(batch_size=job["batch_size"], seed=job["seed"])
+    results = {"mesh": {"data": (mesh.size, mesh.rank), "seq": (mesh.seq_size, mesh.seq_rank),
+                        "seq_group": dist.get_process_group_ranks(mesh.seq_group),
+                        "data_group": dist.get_process_group_ranks(mesh.group)}}
+    for attention in job["attentions"]:
+        def compiled():
+            return CompiledModel(
+                get_model("transformer_lm", device="cpu", attention=attention,
+                          **job["kwargs"]),
+                weights, optimizer=job["optimizer"],
+                loss="sparse_categorical_crossentropy", metrics=[])
+
+        model = compiled()
+        trainer = SeqParallelTrainer(model, mesh)
+        seen = []
+        state, history = trainer.fit(data["tokens"], epochs=job["epochs"],
+                                     validation_tokens=data["val"],
+                                     val_batch_size=job["val_batch_size"],
+                                     callbacks=[lambda e, s, m: seen.append((e, m["loss"]))],
+                                     **fit)
+        ragged = {str(bs): trainer.evaluate(state, data["ragged"], batch_size=bs)
+                  for bs in (job["batch_size"], len(data["ragged"]), 1)}
+        twin = compiled()
+        halves = SeqParallelTrainer(twin, mesh)
+        mid, first = halves.fit(data["tokens"], epochs=1, validation_tokens=data["small_val"],
+                                **fit)
+        resumed, _ = halves.fit(data["tokens"], epochs=job["epochs"] - 1, initial_state=mid,
+                                **fit)
+        results[attention] = {"history": history, "step": state.step, "ragged": ragged,
+                              "callbacks": seen,
+                              "weights": model.get_weights(),
+                              "resumed_weights": twin.get_weights(),
+                              "resumed_step": resumed.step, "small_val": first}
+    torch.save(results, f"{job['out']}.rank{rank}")
+
+
+def _distributed(job, rank):
+    """What ``parallel/distributed.py`` returns in a world of processes."""
+    from elephas_tpu_torch.parallel import distributed
+
+    out = {"is_host0": distributed.is_host0(), "total_chips": distributed.total_chips(),
+           "host_count": distributed.host_count(),
+           "broadcast": distributed.broadcast_from_host0(f"host{rank}:4000"),
+           "broadcast_bytes": distributed.broadcast_bytes_from_host0(
+               bytes([rank + 1]) * (1000 + rank)),
+           "allgather": distributed.allgather_bytes(f"r{rank}".encode() * (rank + 1)),
+           "ps_address": distributed.parameter_server_address(4100)}
+    if distributed.is_host0():
+        try:  # refused before any collective: the other ranks do not join
+            distributed.broadcast_from_host0("x" * 65)
+        except ValueError as exc:
+            out["too_long"] = str(exc)
+    distributed.sync_global("elephas:test")
+    try:
+        distributed.sync_global(f"barrier-{rank}")
+    except RuntimeError as exc:
+        out["mismatch"] = str(exc)
+    torch.save(out, f"{job['out']}.rank{rank}")
+
+
 def main(config_path, rank):
     with open(config_path) as f:
         config = json.load(f)
-    dist.init_process_group("gloo", init_method=f"file://{config['store']}",
-                            world_size=config["world"], rank=rank)
+    if config.get("init") == "initialize":
+        from elephas_tpu_torch.parallel import distributed
+
+        distributed.initialize(f"file://{config['store']}", config["world"], rank,
+                               heartbeat_timeout=120, backend="gloo")
+    else:
+        dist.init_process_group("gloo", init_method=f"file://{config['store']}",
+                                world_size=config["world"], rank=rank)
     try:
         for job in config["jobs"]:
             {"search": _search, "autotune": _autotune,
-             "search_devices": _search_devices}.get(job.get("kind"), _run)(job, rank)
+             "search_devices": _search_devices, "seq_attention": _seq_attention,
+             "seq_trainer": _seq_trainer,
+             "distributed": _distributed}.get(job.get("kind"), _run)(job, rank)
     finally:
         dist.destroy_process_group()
 

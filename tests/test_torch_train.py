@@ -255,10 +255,13 @@ def test_weighted_mean_over_chunks_matches_jax():
 
 
 def test_pmean_axis_not_ported(flax_params):
-    """Only the data axis is ported (``test_torch_fit.py`` drives it); the
-    sequence axis raises until LM parallelism is ported."""
+    """The data and seq axes are ported (``test_torch_fit.py`` and
+    ``test_torch_seq_parallel.py`` drive them); the model axis (tensor
+    parallelism) raises until it is ported, and unknown axes raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_step.make_train_step(_port(flax_params), pmean_axis="seq")
+        port_step.make_train_step(_port(flax_params), pmean_axis="model")
+    with pytest.raises(ValueError, match="unknown mesh axes"):
+        port_step.make_train_step(_port(flax_params), pmean_axis="batch")
 
 
 def test_clone_copies_module_and_optimizer(flax_params):

@@ -266,7 +266,14 @@ def test_seeded_init_is_reproducible():
     assert all(torch.equal(v, b.get_weights()[k]) for k, v in a.get_weights().items())
 
 
-@pytest.mark.parametrize("attention", ["ring", "ulysses"])
-def test_sequence_parallel_attention_not_ported(attention):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("transformer_lm", attention=attention, device="cpu", **SMALL)
+def test_ring_model_outside_bound_mesh_fails_clearly(flax_params):
+    """A ring model runs only inside a bound mesh (``parallel.mesh.bind_mesh``);
+    outside one it raises the JAX package's error, naming itself
+    (``tests/test_seq_parallel.py::test_ring_model_outside_shard_map_fails_clearly``)."""
+    with pytest.raises(ValueError, match="attention='ring' requires"):
+        _port(flax_params, "ring").apply_eval(torch.zeros((1, 16), dtype=torch.int64))
+
+
+def test_ulysses_model_outside_bound_mesh_names_itself(flax_params):
+    with pytest.raises(ValueError, match="attention='ulysses' requires"):
+        _port(flax_params, "ulysses").apply_eval(torch.zeros((1, 16), dtype=torch.int64))
