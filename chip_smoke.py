@@ -55,6 +55,20 @@ Phases, in order; any failed check raises and the process exits non-zero:
    Ulysses), and a data 2 x seq 2 ``SeqParallelTrainer.fit`` with
    validation (the loss falls, one ``val_loss``, one history on every
    rank); each rank's step ms and staged bytes;
+5c. the tensor-parallel phase (``tensor_parallel_phase``): K1-K3 at the
+   shards' head counts ((8, 2, 2048, 32) and (4, 4, 2048, 32), causal,
+   float32 and bf16) against their plain versions, timed with their
+   bounds; then four ranks of this script (``--tp-rank``) on cuda:0 in one
+   gloo group: the full-width LM sharded by ``LM_RULES`` on data 1 x model
+   4 in float32 and bf16 (3 Adam steps against the single-process flash
+   model: losses, first gathered gradients; 16 launches of each kernel a
+   step over the ranks; replicated parameters equal to the bit on every
+   rank; a checkpoint restored into one process equal to the gathered
+   state), data 2 x model 2, sp x tp on data 1 x seq 2 x model 2 with the
+   ring (24 a step) and Ulysses (16) and a ``SeqParallelTrainer(rules=
+   LM_RULES).fit`` with validation, and ``shard_serving`` over model 4
+   against the single-process engine (greedy streams up to near-ties, new
+   tokens/s, ITL); each rank's step ms and tensor-parallel bytes;
 6. the ResNet phase (``resnet_phase``), the paper's main path: the
    CIFAR-10 ResNet-18 at full width, one train step on the card in
    float64, float32 and bf16 against the port's CPU path, the bf16
@@ -386,6 +400,21 @@ SP_LOSS_RTOL = 1e-4                        # vs the single-process flash model, 
 SP_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 3e-2)}  # (O, gradients)
 SP_FIT = {"rows": 32, "val_rows": 8, "batch_size": 8, "epochs": 1}  # data 2 x seq 2
 SP_TIMEOUT_S = 600
+
+# Tensor-parallel phase: the full-width LM with its parameters sharded over
+# a model axis (parallel/tensor_parallel.py, LM_RULES), in TP_RANKS
+# processes that share cuda:0 in one gloo group, as the seq-parallel phase.
+# Each rank runs K1-K3 on its own heads; the model group's all-reduces of
+# the (batch, seq, d_model) activations cross the host inside gloo. Its
+# times say nothing of NCCL tensor parallelism across cards.
+TP_RANKS = 4
+TP_STEPS = 3                               # Adam steps per layout
+TP_SHAPES = ((BATCH, 8 // TP_RANKS, SEQ, 32),       # data 1 x model 4: 2 heads a rank;
+                                                    # sp x tp Ulysses after its all_to_all
+             (BATCH // 2, 8 // 2, SEQ, 32))         # data 2 x model 2: 4 heads, 4 rows
+TP_HOP = (BATCH, 8 // 2, SEQ // 2, 32)      # sp x tp ring: a hop of 4 heads at seq 2
+TP_SERVE_REQUESTS = 16                     # of serving_traffic(), sharded over model 4
+TP_TIMEOUT_S = 600
 WAL_COST_EVERY, WAL_COST_PUSHES = (1, 8), 16
 
 
@@ -536,15 +565,112 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def kernel_phase(attention_cuda):
-    """Every kernel against its plain version at 14 cases, the plain
-    version at the kernel's own tiling; times at the LM's shape. Returns
-    per-kernel max errors and timings by dtype."""
+def kernel_case(attention_cuda, shape, causal, dtype, gen, timed=False):
+    """K1 against ``blockwise_reference`` and K2/K3 against
+    ``flash_backward_reference`` at one case, the plain versions at each
+    kernel's own tiling (a disagreement raises). Returns each kernel's max
+    error, K2's and K3's worst norm errors (whole, worst 64-row block)
+    and, ``timed``, each kernel's timing beside its plain version, SDPA
+    and its bounds."""
     from elephas_tpu_torch.ops.attention import (
         blockwise_reference,
         flash_backward_reference,
     )
 
+    tiles = {name: attention_cuda.kernel_tiles(name, dtype, shape[3]) for name in KERNELS}
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    o, lse = attention_cuda.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = blockwise_reference(q, k, v, causal, *tiles["flash_fwd"])
+    err_o = (o.float() - ref_o.float()).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    tol_o, tol_lse = TOL[dtype]
+    print(f"kernel {tuple(shape)} causal={causal} {dtype}: "
+          f"max|dO|={err_o:.3e} (atol {tol_o}) max|dlse|={err_lse:.3e} "
+          f"(atol {tol_lse})", flush=True)
+    check(err_o <= tol_o and err_lse <= tol_lse,
+          f"flash_fwd disagrees with blockwise_reference at {shape} {dtype}")
+    errors = {"flash_fwd": max(err_o, err_lse), "flash_dq": 0.0, "flash_dkv": 0.0}
+    norms = {"flash_dq": [0.0, 0.0], "flash_dkv": [0.0, 0.0]}
+
+    # K2's dq and K3's dk, dv each from the plain version at its tiling.
+    ref = dict(zip(("dq", "dk", "dv"), flash_backward_reference(
+        q, k, v, o, lse, do, causal, *tiles["flash_dq"])))
+    if tiles["flash_dkv"] != tiles["flash_dq"]:
+        ref["dk"], ref["dv"] = flash_backward_reference(
+            q, k, v, o, lse, do, causal, *tiles["flash_dkv"])[1:]
+    parts = []
+    for name, label, got in (("flash_dq", "dq", dq), ("flash_dkv", "dk", dk),
+                             ("flash_dkv", "dv", dv)):
+        err = (got.float() - ref[label].float()).abs().max().item()
+        allowed = TOL_BWD[dtype] * max(1.0, ref[label].float().abs().max().item())
+        whole, block = norm_errors(got, ref[label])
+        parts.append(f"max|d{label}|={err:.3e} (allowed {allowed:.3e}) "
+                     f"norm {whole:.2e} worst block {block:.2e}")
+        check(err <= allowed, f"{name} {label} disagrees with "
+              f"flash_backward_reference at {shape} causal={causal} {dtype}")
+        check(max(whole, block) <= TOL_BWD_NORM[dtype],
+              f"{name} {label} norm error {whole:.2e} (worst block {block:.2e}) "
+              f"above {TOL_BWD_NORM[dtype]} at {shape} causal={causal} {dtype}")
+        errors[name] = max(errors[name], err)
+        norms[name] = [max(norms[name][0], whole), max(norms[name][1], block)]
+    print(f"kernel bwd {tuple(shape)} causal={causal} {dtype}: " + "; ".join(parts)
+          + f" (norm limit {TOL_BWD_NORM[dtype]})", flush=True)
+    if not timed:
+        return errors, norms, None
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_clock = float(smi("clocks.max.sm").split()[0])
+    work = kernel_work(shape, q.element_size(), causal)
+    bounds = {name: bound_ms(*work[name], dtype) for name in KERNELS}
+    exp_floor = exp_floor_ms(shape, causal, sms, max_clock)
+    timing = {"flash_fwd": {
+        "ms": cuda_ms(lambda: attention_cuda.flash_fwd(q, k, v, causal), 20),
+        "plain_ms": cuda_ms(lambda: blockwise_reference(
+            q, k, v, causal, *tiles["flash_fwd"]), 3, 1),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), 20),
+    }}
+    # The plain version and SDPA's backward each compute dq, dk and
+    # dv together; SDPA's forward runs once, outside the timing.
+    plain_ms = cuda_ms(lambda: flash_backward_reference(
+        q, k, v, o, lse, do, causal, *tiles["flash_dkv"]), 3, 1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 20)
+    launch = {
+        "flash_dq": lambda: attention_cuda.flash_bwd_dq(
+            q, k, v, do, lse, delta, causal),
+        "flash_dkv": lambda: attention_cuda.flash_bwd_dkv(
+            q, k, v, do, lse, delta, causal),
+    }
+    for name, fn in launch.items():
+        timing[name] = {"ms": cuda_ms(fn, 20), "plain_ms": plain_ms,
+                        "library_ms": library_ms}
+    for name in KERNELS:
+        bound, by = bounds[name]
+        timing[name].update(bound_ms=bound, bound_by=by, exp_floor_ms=exp_floor)
+        if dtype == torch.float32:
+            timing[name]["bound_tc_ms"] = split_tf32_bound_ms(*work[name])
+    print(f"card during the timings ({dtype}): "
+          f"{smi('clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu')} "
+          "(clocks.sm, clocks.max.sm, power.draw, power.limit, temperature.gpu)",
+          flush=True)
+    for name in KERNELS:
+        print(f"timing {name} {tuple(shape)} {dtype}: "
+              f"{json.dumps(timing[name])}", flush=True)
+    return errors, norms, timing
+
+
+def kernel_phase(attention_cuda):
+    """Every kernel against its plain version at 14 cases, the plain
+    version at the kernel's own tiling; times at the LM's shape. Returns
+    per-kernel max errors and timings by dtype."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     cases = [((BATCH, 8, SEQ, 32), True, torch.float32),
@@ -558,93 +684,17 @@ def kernel_phase(attention_cuda):
     norm_worst = {name: {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
                   for name in KERNELS if name != "flash_fwd"}
     timing = {name: {} for name in KERNELS}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    max_clock = float(smi("clocks.max.sm").split()[0])
     for shape, causal, dtype in cases:
-        tiles = {name: attention_cuda.kernel_tiles(name, dtype, shape[3]) for name in KERNELS}
-        q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
-                       for _ in range(4))
-        o, lse = attention_cuda.flash_fwd(q, k, v, causal)
-        delta = (do.float() * o.float()).sum(-1)
-        dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, causal)
-        dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-        torch.cuda.synchronize()
-        ref_o, ref_lse = blockwise_reference(q, k, v, causal, *tiles["flash_fwd"])
-        err_o = (o.float() - ref_o.float()).abs().max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
-        tol_o, tol_lse = TOL[dtype]
-        print(f"kernel {tuple(shape)} causal={causal} {dtype}: "
-              f"max|dO|={err_o:.3e} (atol {tol_o}) max|dlse|={err_lse:.3e} "
-              f"(atol {tol_lse})", flush=True)
-        check(err_o <= tol_o and err_lse <= tol_lse,
-              f"flash_fwd disagrees with blockwise_reference at {shape} {dtype}")
-        errors["flash_fwd"][dtype] = max(errors["flash_fwd"][dtype], err_o, err_lse)
-
-        # K2's dq and K3's dk, dv each from the plain version at its tiling.
-        ref = dict(zip(("dq", "dk", "dv"), flash_backward_reference(
-            q, k, v, o, lse, do, causal, *tiles["flash_dq"])))
-        if tiles["flash_dkv"] != tiles["flash_dq"]:
-            ref["dk"], ref["dv"] = flash_backward_reference(
-                q, k, v, o, lse, do, causal, *tiles["flash_dkv"])[1:]
-        parts = []
-        for name, label, got in (("flash_dq", "dq", dq), ("flash_dkv", "dk", dk),
-                                 ("flash_dkv", "dv", dv)):
-            err = (got.float() - ref[label].float()).abs().max().item()
-            allowed = TOL_BWD[dtype] * max(1.0, ref[label].float().abs().max().item())
-            whole, block = norm_errors(got, ref[label])
-            parts.append(f"max|d{label}|={err:.3e} (allowed {allowed:.3e}) "
-                         f"norm {whole:.2e} worst block {block:.2e}")
-            check(err <= allowed, f"{name} {label} disagrees with "
-                  f"flash_backward_reference at {shape} causal={causal} {dtype}")
-            check(max(whole, block) <= TOL_BWD_NORM[dtype],
-                  f"{name} {label} norm error {whole:.2e} (worst block {block:.2e}) "
-                  f"above {TOL_BWD_NORM[dtype]} at {shape} causal={causal} {dtype}")
-            errors[name][dtype] = max(errors[name][dtype], err)
+        errs, norms, times = kernel_case(attention_cuda, shape, causal, dtype, gen,
+                                         timed=shape[2] == SEQ)
+        for name in KERNELS:
+            errors[name][dtype] = max(errors[name][dtype], errs[name])
+        for name, (whole, block) in norms.items():
             worst = norm_worst[name][dtype]
             worst[:] = max(worst[0], whole), max(worst[1], block)
-        print(f"kernel bwd {tuple(shape)} causal={causal} {dtype}: " + "; ".join(parts)
-              + f" (norm limit {TOL_BWD_NORM[dtype]})", flush=True)
-
-        if shape[2] == SEQ:
-            work = kernel_work(shape, q.element_size(), causal)
-            bounds = {name: bound_ms(*work[name], dtype) for name in KERNELS}
-            exp_floor = exp_floor_ms(shape, causal, sms, max_clock)
-            timing["flash_fwd"][dtype] = {
-                "ms": cuda_ms(lambda: attention_cuda.flash_fwd(q, k, v, causal), 20),
-                "plain_ms": cuda_ms(lambda: blockwise_reference(
-                    q, k, v, causal, *tiles["flash_fwd"]), 3, 1),
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal), 20),
-            }
-            # The plain version and SDPA's backward each compute dq, dk and
-            # dv together; SDPA's forward runs once, outside the timing.
-            plain_ms = cuda_ms(lambda: flash_backward_reference(
-                q, k, v, o, lse, do, causal, *tiles["flash_dkv"]), 3, 1)
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-            library_ms = cuda_ms(lambda: torch.autograd.grad(
-                out, leaves, do, retain_graph=True), 20)
-            launch = {
-                "flash_dq": lambda: attention_cuda.flash_bwd_dq(
-                    q, k, v, do, lse, delta, causal),
-                "flash_dkv": lambda: attention_cuda.flash_bwd_dkv(
-                    q, k, v, do, lse, delta, causal),
-            }
-            for name, fn in launch.items():
-                timing[name][dtype] = {"ms": cuda_ms(fn, 20), "plain_ms": plain_ms,
-                                       "library_ms": library_ms}
+        if times is not None:
             for name in KERNELS:
-                bound, by = bounds[name]
-                timing[name][dtype].update(bound_ms=bound, bound_by=by, exp_floor_ms=exp_floor)
-                if dtype == torch.float32:
-                    timing[name][dtype]["bound_tc_ms"] = split_tf32_bound_ms(*work[name])
-            print(f"card during the timings ({dtype}): "
-                  f"{smi('clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu')} "
-                  "(clocks.sm, clocks.max.sm, power.draw, power.limit, temperature.gpu)",
-                  flush=True)
-            for name in KERNELS:
-                print(f"timing {name} {tuple(shape)} {dtype}: "
-                      f"{json.dumps(timing[name][dtype])}", flush=True)
+                timing[name][dtype] = times[name]
     for name, by_dtype in norm_worst.items():
         for dtype, (whole, block) in by_dtype.items():
             print(f"kernel bwd {name} {dtype}: worst norm error {whole:.3e}, worst "
@@ -3488,8 +3538,8 @@ def seq_launch_schedule(layout, ranks, layers, causal=True):
     raise ValueError(f"unknown layout {layout!r}")
 
 
-def hop_checks(attention_cuda):
-    """The hop modes at the ring's shape (SP_HOP) on the kernels, in this
+def hop_checks(attention_cuda, shape=SP_HOP, phase="seq_parallel"):
+    """The hop modes at a ring's hop ``shape`` on the kernels, in this
     process: K1 non-causal with the lse against ``blockwise_reference``,
     and K2/K3 of an earlier owner's hop given the global lse and delta of
     a two-hop combined softmax against ``flash_backward_reference``; each
@@ -3506,8 +3556,8 @@ def hop_checks(attention_cuda):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 17)
     for dtype in (torch.float32, torch.bfloat16):
-        tiles = {name: attention_cuda.kernel_tiles(name, dtype, SP_HOP[3]) for name in KERNELS}
-        q, ka, va, kb, vb, do = (torch.randn(SP_HOP, device="cuda", generator=gen).to(dtype)
+        tiles = {name: attention_cuda.kernel_tiles(name, dtype, shape[3]) for name in KERNELS}
+        q, ka, va, kb, vb, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                                  for _ in range(6))
         o2, l2 = flash_attention_fwd(q, kb, vb, causal=False)
         ref_o, ref_l = blockwise_reference(q, kb, vb, False, *tiles["flash_fwd"])
@@ -3515,7 +3565,7 @@ def hop_checks(attention_cuda):
         err_l = (l2 - ref_l).abs().max().item()
         tol_o, tol_l = TOL[dtype]
         check(err_o <= tol_o and err_l <= tol_l,
-              f"K1 non-causal with the lse disagrees at {SP_HOP} {dtype}: {err_o}, {err_l}")
+              f"K1 non-causal with the lse disagrees at {shape} {dtype}: {err_o}, {err_l}")
         # The global softmax of the own hop (causal) and one earlier hop (full).
         o1, l1 = flash_attention_fwd(q, ka, va, causal=True)
         of, lse = _combine(o1.float(), l1, o2.float(), l2)
@@ -3533,11 +3583,11 @@ def hop_checks(attention_cuda):
             allowed = TOL_BWD[dtype] * max(1.0, ref[label].float().abs().max().item())
             whole, block = norm_errors(got[label], ref[label])
             check(err <= allowed and max(whole, block) <= TOL_BWD_NORM[dtype],
-                  f"hop {label} with the global lse disagrees at {SP_HOP} {dtype}: "
+                  f"hop {label} with the global lse disagrees at {shape} {dtype}: "
                   f"{err} (allowed {allowed}), norm {whole}, block {block}")
             errs[label] = err
             errs[f"{label}_norm"] = max(whole, block)
-        work = kernel_work(SP_HOP, q.element_size(), causal=False)
+        work = kernel_work(shape, q.element_size(), causal=False)
         plain_bwd_ms = cuda_ms(lambda: flash_backward_reference(
             q, kb, vb, out, lse, do, False, *tiles["flash_dkv"]), 3, 1)
         leaves = [t.detach().requires_grad_() for t in (q, kb, vb)]
@@ -3561,14 +3611,14 @@ def hop_checks(attention_cuda):
             times[name]["bound_ms"], times[name]["bound_by"] = bound_ms(*work[name], dtype)
             if dtype == torch.float32:
                 times[name]["bound_tc_ms"] = split_tf32_bound_ms(*work[name])
-            print(f"seq_parallel hop {name} {SP_HOP} full {dtype}: {json.dumps(times[name])}",
+            print(f"{phase} hop {name} {shape} full {dtype}: {json.dumps(times[name])}",
                   flush=True)
-        print(f"seq_parallel hop errors {dtype}: {json.dumps(errs)}", flush=True)
+        print(f"{phase} hop errors {dtype}: {json.dumps(errs)}", flush=True)
         report[str(dtype).split(".")[-1]] = {"errors": errs, "timing": times}
     return report
 
 
-def seq_rank_checks(rank):
+def seq_rank_checks(rank, config=None):
     """The checks of one rank of the seq-parallel phase: (a) ring and
     Ulysses attention at the LM's full shape, (b) 3 Adam steps of the
     full-width LM per layout on a seq mesh of SP_RANKS, (c) a data 2 x seq
@@ -3745,10 +3795,11 @@ def seq_rank_checks(rank):
     return report
 
 
-def seq_rank_main(config_path, rank):
-    """Entry of one rank of the seq-parallel phase (``chip_smoke.py
-    --seq-rank CONFIG RANK``): joins the gloo group through
-    ``parallel.distributed.initialize`` and writes its report as JSON."""
+def rank_main(checks, config_path, rank):
+    """Entry of one rank of a multi-process phase (``chip_smoke.py
+    --seq-rank|--tp-rank CONFIG RANK``): joins the gloo group of
+    ``config["world"]`` through ``parallel.distributed.initialize``, runs
+    ``checks(rank, config)`` and writes its report as JSON."""
     from elephas_tpu_torch.parallel import distributed
 
     with open(config_path) as f:
@@ -3756,15 +3807,54 @@ def seq_rank_main(config_path, rank):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
-    distributed.initialize(f"file://{config['store']}", SP_RANKS, rank,
-                           heartbeat_timeout=SP_TIMEOUT_S, backend="gloo")
+    distributed.initialize(f"file://{config['store']}", config["world"], rank,
+                           heartbeat_timeout=config["timeout"], backend="gloo")
     try:
-        report = seq_rank_checks(rank)
+        report = checks(rank, config)
     finally:
         torch.distributed.destroy_process_group()
     with open(f"{config['out']}.rank{rank}", "w") as f:
         json.dump(report, f)
     return 0
+
+
+def run_ranks(flag, world, timeout, label):
+    """``world`` processes of this script (``flag`` CONFIG RANK) on cuda:0
+    in one gloo group; returns their reports and the seconds they took. A
+    rank's failure prints the tail of every rank's log and raises."""
+    import tempfile
+
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "2"}
+    with tempfile.TemporaryDirectory() as tmp:
+        config = Path(tmp) / "config.json"
+        config.write_text(json.dumps({"store": f"{tmp}/store", "out": f"{tmp}/report",
+                                      "dir": tmp, "world": world, "timeout": timeout}))
+        logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag,
+                                   str(config), str(r)], env=env, stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(world)]
+        try:
+            deadline = time.monotonic() + timeout
+            codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+        except subprocess.TimeoutExpired:
+            codes = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        seconds = time.perf_counter() - t0
+        if codes != [0] * world:
+            for r in range(world):
+                tail = (Path(tmp) / f"rank{r}.log").read_text()[-3000:]
+                print(f"{label} rank {r} log (tail):\n{tail}", flush=True)
+        check(codes == [0] * world,
+              f"{label} ranks exited {codes} (None: past {timeout} s)")
+        return [json.loads((Path(tmp) / f"report.rank{r}").read_text())
+                for r in range(world)], seconds
 
 
 SP_PATHS = ("attention_ring_float32", "attention_ulysses_float32", "attention_ring_bfloat16",
@@ -3777,42 +3867,11 @@ def seq_parallel_phase(attention_cuda):
     the kernel libraries are built before they start). Returns the
     launches of the seq-parallel paths summed over the ranks, and the
     report."""
-    import tempfile
-
     t_phase = time.perf_counter()
     report = {"hops": hop_checks(attention_cuda)}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "2"}
-    with tempfile.TemporaryDirectory() as tmp:
-        config = Path(tmp) / "config.json"
-        config.write_text(json.dumps({"store": f"{tmp}/store", "out": f"{tmp}/report"}))
-        logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(SP_RANKS)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seq-rank",
-                                   str(config), str(r)], env=env, stdout=logs[r],
-                                  stderr=subprocess.STDOUT) for r in range(SP_RANKS)]
-        try:
-            deadline = time.monotonic() + SP_TIMEOUT_S
-            codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
-        except subprocess.TimeoutExpired:
-            codes = None
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs:
-                f.close()
-        report["ranks_s"] = time.perf_counter() - t0
-        if codes != [0] * SP_RANKS:
-            for r in range(SP_RANKS):
-                tail = (Path(tmp) / f"rank{r}.log").read_text()[-3000:]
-                print(f"seq_parallel rank {r} log (tail):\n{tail}", flush=True)
-        check(codes == [0] * SP_RANKS,
-              f"seq-parallel ranks exited {codes} (None: past {SP_TIMEOUT_S} s)")
-        ranks = [json.loads((Path(tmp) / f"report.rank{r}").read_text())
-                 for r in range(SP_RANKS)]
+    ranks, report["ranks_s"] = run_ranks("--seq-rank", SP_RANKS, SP_TIMEOUT_S, "seq_parallel")
     summed = {path: {k: sum(r["launches"][path][k] for r in ranks) for k in KERNELS}
               for path in SP_PATHS}
     for path, want in (("lm_ring", 40 * SP_STEPS), ("lm_ulysses", 16 * SP_STEPS),
@@ -3836,6 +3895,332 @@ def seq_parallel_phase(attention_cuda):
     report["phase_s"] = time.perf_counter() - t_phase
     total = {k: sum(summed[path][k] for path in SP_PATHS) for k in KERNELS}
     print(f"seq_parallel launches summed over the ranks: {json.dumps(summed)}", flush=True)
+    return total, report
+
+
+def tp_kernel_checks(attention_cuda):
+    """K1-K3 at every shape the tensor-parallel paths give them, in float32
+    and bf16, against their plain versions, each timed with its bounds,
+    plain version and SDPA's time: causal at the shards' head counts
+    (TP_SHAPES) and at the sp x tp ring's own hop (TP_HOP), and the ring's
+    other hop modes at TP_HOP (``hop_checks``)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    report = {}
+    for shape in (*TP_SHAPES, TP_HOP):
+        for dtype in (torch.float32, torch.bfloat16):
+            errors, norms, timing = kernel_case(attention_cuda, shape, True, dtype, gen,
+                                                timed=True)
+            report[f"{shape} {str(dtype).split('.')[-1]}"] = {
+                "errors": errors, "norms": norms, "timing": timing}
+    report["hops"] = hop_checks(attention_cuda, TP_HOP, "tensor_parallel")
+    return report
+
+
+def replicated_digest(module):
+    """A digest of the parameters a tensor-parallel module replicates:
+    equal on every rank of a model group when they are equal to the bit."""
+    import hashlib
+
+    from elephas_tpu_torch.parallel.tensor_parallel import tensor_parallel_of
+
+    layout = tensor_parallel_of(module).layout
+    digest = hashlib.sha256()
+    for name, p in module.named_parameters():
+        if name not in layout:
+            digest.update(name.encode())
+            digest.update(p.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def tp_rank_checks(rank, config):
+    """The checks of one rank of the tensor-parallel phase: (a) the
+    full-width LM on data 1 x model 4 in float32 and bf16 (TP_STEPS Adam
+    steps against the single-process flash model: losses, first gathered
+    gradients; then a checkpoint of the f32 run restored into one
+    process), (b) data 2 x model 2, (c) sp x tp on data 1 x seq 2 x model
+    2 with the ring and Ulysses, and a ``SeqParallelTrainer(rules=
+    LM_RULES).fit`` with validation, (d) ``shard_serving`` over model 4
+    against the single-process engine (rank 0 serves, the others follow).
+    Each path's launches are read with the counts set to 0 just before it.
+    Returns the rank's report; a failed check raises."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.checkpoint import CheckpointManager
+    from elephas_tpu_torch.engine.step import init_train_state, make_loss_fn, make_train_step
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.ops import attention_cuda
+    from elephas_tpu_torch.parallel import collectives
+    from elephas_tpu_torch.parallel.mesh import build_mesh
+    from elephas_tpu_torch.parallel.seq_parallel import (
+        SeqParallelTrainer,
+        init_lm_state,
+        make_lm_train_step,
+        shard_lm_batch,
+    )
+    from elephas_tpu_torch.parallel.tensor_parallel import (
+        LM_RULES,
+        init_lm_state_tp,
+        make_lm_train_step_tp,
+        tensor_parallel_of,
+    )
+    from elephas_tpu_torch.serving import InferenceEngine
+
+    report = {"rank": rank, "errors": {}, "launches": {}, "tp_bytes": {}, "ms": {},
+              "digests": {}}
+    mesh14 = build_mesh(num_data=1, num_model=TP_RANKS)
+    mesh22 = build_mesh(num_data=2, num_model=2)
+    mesh122 = build_mesh(num_data=1, num_seq=2, num_model=2)
+
+    def run_path(name, fn):
+        torch.cuda.synchronize()
+        attention_cuda.reset_launches()
+        collectives.reset_tp_bytes()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        report["ms"][name] = (time.perf_counter() - t0) * 1e3
+        report["launches"][name] = dict(attention_cuda.launches)
+        report["tp_bytes"][name] = collectives.tp_bytes
+        return out
+
+    def expect(name, per_rank_step, steps=TP_STEPS):
+        counts = {k: per_rank_step * steps for k in KERNELS}
+        check(report["launches"][name] == counts,
+              f"rank {rank} {name} launched {report['launches'][name]}, expected {counts}")
+
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, 32000, (BATCH, SEQ + 1))
+    x_np, y_np = tokens[:, :-1], tokens[:, 1:]
+
+    def compiled(attention, dtype="float32"):
+        return CompiledModel(get_model("transformer_lm", attention=attention, dtype=dtype),
+                             optimizer={"name": "adam", "learning_rate": 1e-3},
+                             loss="sparse_categorical_crossentropy", metrics=[], seed=SEED)
+
+    def without_key_bias(name, g):
+        """The key third of a qkv bias left out (its exact gradient is 0:
+        what is left there is rounding)."""
+        if name.endswith("attn.qkv.bias"):
+            third = len(g) // 3
+            return torch.cat([g[:third], g[2 * third:]])
+        return g
+
+    def reference(dtype):
+        x, y = (torch.as_tensor(a, device="cuda") for a in (x_np, y_np))
+        model = compiled("flash", dtype)
+        loss, _ = make_loss_fn(model)(x, y)
+        loss.backward()
+        grads = {n: without_key_bias(n, p.grad).clone()
+                 for n, p in model.module.named_parameters()}
+        model.module.zero_grad(set_to_none=True)
+        step, state = make_train_step(model), init_train_state(model)
+        return [float(step(state, x, y)[1]["loss"]) for _ in range(TP_STEPS)], grads
+
+    def train(model, step, state, batch, gather_grads=False):
+        losses, grads, times, moved = [], None, [], []
+        for i in range(TP_STEPS):
+            before = collectives.tp_bytes
+            t0 = time.perf_counter()
+            _, metrics = step(state, *batch)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            moved.append(collectives.tp_bytes - before)
+            if i == 0 and gather_grads:
+                info = tensor_parallel_of(model.module)
+                grads = {n: without_key_bias(n, info.gather(n, p.grad))
+                         for n, p in model.module.named_parameters()}
+        return losses, grads, times, moved
+
+    def hold(name, losses, ref_losses, grads=None, ref_grads=None, dtype=torch.float32):
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        check(loss_err <= SP_LOSS_RTOL, f"rank {rank} {name} losses {losses} vs the "
+              f"single-process {ref_losses}: {loss_err} above {SP_LOSS_RTOL}")
+        errs = {"loss_rel": loss_err, "losses": losses, "reference_losses": ref_losses}
+        if grads is not None:
+            worst = 0.0
+            for n, g in ref_grads.items():
+                err = (grads[n].float() - g.float()).abs().max().item()
+                allowed = SP_TOL[dtype][1] * max(1.0, g.float().abs().max().item())
+                check(err <= allowed, f"rank {rank} {name} gradient of {n}: {err} above "
+                      f"{allowed}")
+                worst = max(worst, err / allowed)
+            errs["grad_worst_of_limit"] = worst
+        report["errors"][name] = errs
+
+    # (a) data 1 x model 4, float32 and bf16, then a checkpoint of the f32 run.
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        refs[dtype] = run_path(f"reference_{dtype}", lambda: reference(getattr(torch, dtype)))
+        expect(f"reference_{dtype}", 4, 1 + TP_STEPS)
+        model = compiled("flash", dtype)
+        step = make_lm_train_step_tp(model, mesh14)
+        state = init_lm_state_tp(model, mesh14)
+        name = f"lm_model4_{dtype}"
+        losses, grads, times, moved = run_path(name, lambda: train(
+            model, step, state, (x_np, y_np), gather_grads=True))
+        hold(name, losses, refs[dtype][0], grads, refs[dtype][1], getattr(torch, dtype))
+        expect(name, 4)
+        report["ms"][f"{name}_steps"] = times
+        report["tp_bytes"][f"{name}_steps"] = moved
+        report["digests"][name] = replicated_digest(model.module)
+        if dtype == "float32":
+            directory = os.path.join(config["dir"], "tp_checkpoint")
+            full = {k: v.clone() for k, v in tensor_parallel_of(model.module).full_state(
+                model.module.state_dict()).items()}
+            manager = CheckpointManager(directory)
+            manager.save(state, block=True)
+            manager.close()
+            torch.distributed.barrier()  # rank 0 has written
+            if rank == 0:
+                single = compiled("flash")
+                restored = CheckpointManager(directory).restore(init_train_state(single))
+                unequal = [k for k, v in single.module.state_dict().items()
+                           if not torch.equal(v, full[k])]
+                check(restored.step == TP_STEPS and not unequal,
+                      f"the checkpoint restored into one process at step {restored.step} "
+                      f"differs from the gathered state in {unequal}")
+                report["checkpoint"] = {"step": restored.step, "tensors": len(full)}
+                del single, restored
+        del model, step, state, grads
+        torch.cuda.empty_cache()
+    ref_losses = refs["float32"][0]
+    del refs
+
+    # (b) data 2 x model 2.
+    model = compiled("flash")
+    step = make_lm_train_step_tp(model, mesh22)
+    state = init_lm_state_tp(model, mesh22)
+    losses, _, times, moved = run_path("lm_data2_model2", lambda: train(
+        model, step, state, (x_np, y_np)))
+    hold("lm_data2_model2", losses, ref_losses)
+    expect("lm_data2_model2", 4)
+    report["ms"]["lm_data2_model2_steps"] = times
+    report["tp_bytes"]["lm_data2_model2_steps"] = moved
+    report["digests"]["lm_data2_model2"] = replicated_digest(model.module)
+    del model, step, state
+
+    # (c) sp x tp: data 1 x seq 2 x model 2, the ring and Ulysses, then a fit.
+    batch = shard_lm_batch(mesh122, x_np, y_np, "cuda")
+    for attention in ("ring", "ulysses"):
+        model = compiled(attention)
+        step = make_lm_train_step(model, mesh122)
+        state = init_lm_state(model, mesh122, rules=LM_RULES)
+        name = f"lm_sptp_{attention}"
+        losses, _, times, moved = run_path(name, lambda: train(model, step, state, batch))
+        hold(name, losses, ref_losses)
+        expect(name, seq_launch_schedule(attention, 2, model.module.num_layers)[
+            mesh122.seq_rank])
+        report["ms"][f"{name}_steps"] = times
+        report["tp_bytes"][f"{name}_steps"] = moved
+        report["digests"][name] = replicated_digest(model.module)
+        del model, step, state
+    fit_rng = np.random.default_rng(SEED + 7)
+    train_rows = fit_rng.integers(0, 32000, (SP_FIT["rows"], SEQ + 1))
+    val_rows = fit_rng.integers(0, 32000, (SP_FIT["val_rows"], SEQ + 1))
+    model = compiled("auto")
+    trainer = SeqParallelTrainer(model, mesh122, rules=LM_RULES)
+    bs = SP_FIT["batch_size"]
+    _, history = run_path("fit", lambda: trainer.fit(
+        train_rows, epochs=SP_FIT["epochs"], batch_size=bs, validation_tokens=val_rows,
+        seed=SEED))
+    check(len(history["val_loss"]) == 1 and all(np.isfinite(history["loss"] +
+                                                            history["val_loss"])),
+          f"rank {rank}: the sp x tp fit's history {history}")
+    steps = SP_FIT["rows"] // bs * SP_FIT["epochs"]
+    layers = model.module.num_layers
+    check(report["launches"]["fit"] == {
+        "flash_fwd": layers * (steps + SP_FIT["val_rows"] // bs),
+        "flash_dq": layers * steps, "flash_dkv": layers * steps},
+        f"rank {rank} fit launched {report['launches']['fit']}")
+    report["fit"] = {"history": history}
+    del model, trainer
+    torch.cuda.empty_cache()
+
+    # (d) shard_serving over model 4 against the single-process engine.
+    module = CompiledModel(get_model("transformer_lm"), loss="sparse_categorical_crossentropy",
+                           metrics=[], seed=SEED).module
+    engine = InferenceEngine(module, **SERVE_ENGINE).shard_serving(mesh14)
+    if rank != 0:
+        run_path("serving", engine.follow)
+    else:
+        traffic = serving_traffic()[:TP_SERVE_REQUESTS]
+
+        def sharded():
+            try:
+                return serve(engine, traffic)
+            finally:
+                engine.close()
+
+        streams, elapsed = run_path("serving", sharded)
+        plain, plain_s = serve(InferenceEngine(module, **SERVE_ENGINE), traffic)
+
+        def gap_at(i, k):
+            with torch.no_grad():
+                context = torch.as_tensor([traffic[i][0] + plain[i][:k]], device="cuda")
+                top2 = torch.topk(module(context)[0, -1], 2).values
+            return float(top2[0] - top2[1])
+
+        summary = engine.metrics.summary()
+        new_tokens = sum(n for _, n in traffic)
+        report["serving"] = {
+            "requests": len(traffic), "new_tokens": new_tokens, "s": elapsed,
+            "new_tokens_per_s": new_tokens / elapsed, "itl_s_p50": summary["itl_s_p50"],
+            "single_process_s": plain_s,
+            "single_process_new_tokens_per_s": new_tokens / plain_s,
+            "streams": compare_streams(plain, streams, gap_at),
+            "stats": engine.stats()["tensor_parallel"]}
+    check(report["launches"]["serving"] == {k: 0 for k in KERNELS},
+          f"rank {rank}: the sharded serving path launched {report['launches']['serving']}")
+    return report
+
+
+TP_PATHS = ("lm_model4_float32", "lm_model4_bfloat16", "lm_data2_model2", "lm_sptp_ring",
+            "lm_sptp_ulysses", "fit", "serving")
+
+
+def tensor_parallel_phase(attention_cuda):
+    """K1-K3 at the shards' head counts here, then TP_RANKS ranks on cuda:0
+    (``tp_rank_checks``). Returns the launches of the tensor-parallel
+    paths summed over the ranks, and the report."""
+    t_phase = time.perf_counter()
+    report = {"kernels": tp_kernel_checks(attention_cuda)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks, report["ranks_s"] = run_ranks("--tp-rank", TP_RANKS, TP_TIMEOUT_S,
+                                         "tensor_parallel")
+    summed = {path: {k: sum(r["launches"][path][k] for r in ranks) for k in KERNELS}
+              for path in TP_PATHS}
+    ring = 2 * sum(seq_launch_schedule("ring", 2, 4))  # two model indices
+    for path, want in (("lm_model4_float32", 16), ("lm_model4_bfloat16", 16),
+                       ("lm_data2_model2", 16), ("lm_sptp_ring", ring),
+                       ("lm_sptp_ulysses", 16)):
+        check(summed[path] == {k: want * TP_STEPS for k in KERNELS},
+              f"{path} launched {summed[path]} over the ranks, expected {want} of each a step")
+    for path in ("lm_model4_float32", "lm_model4_bfloat16", "lm_data2_model2",
+                 "lm_sptp_ring", "lm_sptp_ulysses"):
+        digests = {r["digests"][path] for r in ranks}
+        check(len(digests) == 1, f"{path}: the replicated parameters differ between ranks")
+    histories = [r["fit"]["history"] for r in ranks]
+    check(all(h == histories[0] for h in histories),
+          f"the sp x tp fit's history differs between ranks: {histories}")
+    card = smi("name,power.limit")
+    for r in ranks:
+        print(f"tensor_parallel rank {r['rank']} (four processes sharing one card, {card}; "
+              f"gloo all-reduces through the host): step ms "
+              + json.dumps({k: v for k, v in r["ms"].items() if k.endswith("_steps")})
+              + "; tensor-parallel bytes a step "
+              + json.dumps({k: v for k, v in r["tp_bytes"].items() if k.endswith("_steps")})
+              + f"; errors {json.dumps(r['errors'])}", flush=True)
+    print(f"tensor_parallel serving over model {TP_RANKS} ({card}): "
+          f"{json.dumps(ranks[0]['serving'])}", flush=True)
+    report["ranks"] = [{k: r[k] for k in ("rank", "errors", "ms", "tp_bytes", "launches",
+                                          "fit")} for r in ranks]
+    report["checkpoint"] = ranks[0]["checkpoint"]
+    report["serving"] = ranks[0]["serving"]
+    report["launches_summed"] = summed
+    report["phase_s"] = time.perf_counter() - t_phase
+    total = {k: sum(summed[path][k] for path in TP_PATHS) for k in KERNELS}
+    print(f"tensor_parallel launches summed over the ranks: {json.dumps(summed)}", flush=True)
     return total, report
 
 
@@ -3919,6 +4304,8 @@ def main():
     print(f"train: {json.dumps(report)}", flush=True)
     launches["seq_parallel"], report = seq_parallel_phase(attention_cuda)
     print(f"seq_parallel: {json.dumps(report)}", flush=True)
+    launches["tensor_parallel"], report = tensor_parallel_phase(attention_cuda)
+    print(f"tensor_parallel: {json.dumps(report)}", flush=True)
     launches["resnet"], report = resnet_phase(attention_cuda)
     print(f"resnet: {json.dumps(report)}", flush=True)
     launches["repair"], report = repair_phase(attention_cuda)
@@ -3947,5 +4334,7 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--seq-rank"]:
-        sys.exit(seq_rank_main(sys.argv[2], int(sys.argv[3])))
+        sys.exit(rank_main(seq_rank_checks, sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(rank_main(tp_rank_checks, sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -186,16 +186,17 @@ class CompiledModel:
             params = seeded_state(module, seed)
         self.set_weights(params)
 
-    def apply_train(self, x):
-        """Training-mode forward, with autograd."""
+    def apply_train(self, x, **kwargs):
+        """Training-mode forward, with autograd; ``kwargs`` go to the
+        module (``local_logits`` for a tensor-parallel LM)."""
         self.module.train()
-        return self.module(x, train=True)
+        return self.module(x, train=True, **kwargs)
 
-    def apply_eval(self, x):
+    def apply_eval(self, x, **kwargs):
         """Inference-mode forward, without autograd."""
         self.module.eval()
         with torch.no_grad():
-            return self.module(x)
+            return self.module(x, **kwargs)
 
     def init_opt_state(self) -> torch.optim.Optimizer:
         """A fresh optimizer over the module's parameters."""

@@ -238,10 +238,27 @@ class AdamFamily(OptaxRule):
         if group["trust_ratio"]:
             p_norm = torch.stack(torch._foreach_norm(params))
             u_norm = torch.stack(torch._foreach_norm(u))
+            p_norm, u_norm = _whole_norms(params, p_norm, u_norm)
             ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
             torch._foreach_mul_(u, list(ratio.unbind()))
         torch._foreach_mul_(u, s["lr"])
         return u
+
+
+def _whole_norms(params, p_norm, u_norm):
+    """Norms of whole tensors where some parameters are tensor-parallel
+    shards (``p.tp_mesh``, set by ``parallel.tensor_parallel``): their
+    squared norms summed over the model group, as optax sees the
+    unsharded arrays. Unchanged where none is a shard."""
+    sharded = [i for i, p in enumerate(params) if getattr(p, "tp_mesh", None) is not None]
+    if not sharded:
+        return p_norm, u_norm
+    from elephas_tpu_torch.parallel.collectives import all_reduce_
+
+    index = torch.tensor(sharded, device=p_norm.device)
+    squares = torch.stack((p_norm[index], u_norm[index])) ** 2
+    whole = all_reduce_(squares, params[sharded[0]].tp_mesh).sqrt()
+    return p_norm.index_copy(0, index, whole[0]), u_norm.index_copy(0, index, whole[1])
 
 
 class RMSprop(OptaxRule):

@@ -14,6 +14,12 @@ always whole.
 
 Only rank 0 of a ``torch.distributed`` group writes (the ranks hold the
 same replicated state and share one host's disk); every rank may read.
+A tensor-parallel state (``parallel.tensor_parallel``) is gathered whole
+before rank 0 writes it, its parameters and their optimizer slots along
+their sharded dims, so every rank of the model group takes part in a
+save; a restore gives each rank its shard again. A snapshot is the same
+whichever layout took it: one taken under tensor parallelism restores
+into one process, and the other way round.
 """
 
 from __future__ import annotations
@@ -62,17 +68,41 @@ def _cpu(value):
     return value.detach().to("cpu", copy=True) if torch.is_tensor(value) else value
 
 
+def _param_names(module, optimizer) -> list:
+    """The parameter name of each index of ``optimizer.state_dict()``."""
+    names = {id(p): n for n, p in module.named_parameters()}
+    return [names[id(p)] for group in optimizer.param_groups for p in group["params"]]
+
+
+def _slots(opt_state: dict, names: list, module, convert) -> dict:
+    """Each optimizer slot shaped like its parameter passed through
+    ``convert(name, tensor)`` (a gather or a slice), in index order."""
+    out = {}
+    for i in sorted(opt_state):
+        shape = module.get_parameter(names[i]).shape
+        out[i] = {k: convert(names[i], v) if torch.is_tensor(v) and v.shape == shape else v
+                  for k, v in opt_state[i].items()}
+    return out
+
+
 def _snapshot(state: TrainState, step: int) -> dict:
     """A CPU copy of everything ``state`` trains, taken now (training
-    goes on changing the tensors in place)."""
+    goes on changing the tensors in place); a tensor-parallel state
+    gathered whole."""
     if state.module is None:
         raise ValueError("the TrainState names no module (make it with "
                          "engine.step.init_train_state)")
     opt = state.optimizer.state_dict()
+    module = state.module.state_dict()
+    tp = getattr(state.module, "_tensor_parallel", None)
+    if tp is not None:
+        module = tp.full_state(module)
+        opt = {**opt, "state": _slots(opt["state"], _param_names(state.module, state.optimizer),
+                                      state.module, tp.gather)}
     return {
         "step": step,
         "epoch": int(state.epoch),
-        "module": {k: _cpu(v) for k, v in state.module.state_dict().items()},
+        "module": {k: _cpu(v) for k, v in module.items()},
         "optimizer": {
             "state": {i: {k: _cpu(v) for k, v in s.items()} for i, s in opt["state"].items()},
             # A schedule is a function, not data: the target's own stays.
@@ -106,11 +136,19 @@ def _load_into(target: TrainState, directory: str, step: int) -> TrainState:
         raise ValueError("the target TrainState names no module (make it with "
                          "engine.step.init_train_state)")
     snap = torch.load(path, map_location="cpu", weights_only=True)
+    slots = snap["optimizer"]["state"]
+    tp = getattr(target.module, "_tensor_parallel", None)
+    if tp is not None:
+        full = {n: p.shape for n, p in snap["module"].items()}
+        snap["module"] = tp.local_state(snap["module"])
+        names = _param_names(target.module, target.optimizer)
+        slots = {i: {k: tp.local(names[i], v) if torch.is_tensor(v)
+                     and v.shape == full[names[i]] else v
+                     for k, v in s.items()} for i, s in slots.items()}
     target.module.load_state_dict(snap["module"])
     live = target.optimizer.state_dict()["param_groups"]
     groups = [{**mine, **saved} for mine, saved in zip(live, snap["optimizer"]["param_groups"])]
-    target.optimizer.load_state_dict({"state": snap["optimizer"]["state"],
-                                      "param_groups": groups})
+    target.optimizer.load_state_dict({"state": slots, "param_groups": groups})
     target.rng.set_state(snap["rng"])
     target.step, target.epoch = snap["step"], snap["epoch"]
     target.batch_stats = snap["batch_stats"]

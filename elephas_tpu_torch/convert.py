@@ -13,6 +13,12 @@ inverse, so weights trained in the port go back to the JAX package.
 state (``jax.device_get`` of a JAX ``TrainState.opt_state``) into the
 port's optimizer, so a JAX run resumes in the port.
 
+A tensor-parallel module (``parallel.tensor_parallel.shard_module``)
+holds shards: ``from_flax_params`` and ``from_optax_state`` give it this
+rank's shard of each full flax array, and ``to_flax_params`` gathers
+its shards whole first (a collective: every rank of the model group
+calls it).
+
 Layouts (``LSTMClassifier``): ``Embed_0/embedding`` -> ``embed.weight``;
 ``OptimizedLSTMCell_0/{ii,if,ig,io}/kernel`` (in, out) ->
 ``cell.i*.weight`` (out, in); ``OptimizedLSTMCell_0/{hi,hf,hg,ho}/{kernel,
@@ -213,11 +219,14 @@ def _from_flax(trees: Mapping, module, expected: Mapping) -> Dict[str, torch.Ten
     flax ``trees`` (collection -> tree). Raises on a leaf not consumed and
     on a target left unset."""
     flat = {c: _flatten(tree) for c, tree in trees.items()}
+    tp = getattr(module, "_tensor_parallel", None)
     state = {}
     for collection, flax_name, torch_name, transform, _ in _rows(module, tuple(trees)):
         if flax_name not in flat[collection]:
             raise KeyError(f"flax {collection} lack {flax_name!r}")
         value = transform(flat[collection].pop(flax_name))
+        if tp is not None:
+            value = tp.local(torch_name, torch.from_numpy(np.ascontiguousarray(value))).numpy()
         target = expected[torch_name]
         # A lazy layer (a model's first) takes its shape from the value.
         if not is_lazy(target) and tuple(value.shape) != tuple(target.shape):
@@ -251,6 +260,9 @@ def _to_flax(state_dict: Mapping[str, torch.Tensor], module, collection: str) ->
     missing = sorted({row[2] for row in rows} - set(state_dict))
     if missing:
         raise KeyError(f"state_dict lacks {missing}")
+    tp = getattr(module, "_tensor_parallel", None)
+    if tp is not None:
+        state_dict = tp.full_state({row[2]: state_dict[row[2]] for row in rows})
     tree: dict = {}
     for _, flax_name, torch_name, _, back in rows:
         *path, leaf = flax_name.split("/")

@@ -628,7 +628,7 @@ class AsyncTrainer:
             raise ValueError(f"stream_batches must be >= 1, got {stream_batches}")
         if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
             raise _not_ported("async/hogwild training across processes",
-                              "item 6b, on parallel/distributed.py")
+                              "item 6c, on parallel/distributed.py")
         self.compiled = compiled
         self.frequency = frequency
         self.lock = lock

@@ -3,6 +3,10 @@
 Keras-compatible string identifiers resolved to pure tensor functions.
 All take ``(logits_or_preds, targets)`` batched and return per-example
 values; reduction is the caller's, so global-batch means stay exact.
+
+``vocab_parallel_sparse_crossentropy`` is the sparse cross-entropy on
+logits sharded over the vocabulary (tensor parallelism's ``lm_head``),
+so the full logits never exist on one device.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from typing import Callable, Dict
 
 import torch
 import torch.nn.functional as F
+
+from elephas_tpu_torch.parallel.collectives import all_reduce_
 
 
 def _categorical_crossentropy(logits, targets):
@@ -21,6 +27,49 @@ def _categorical_crossentropy(logits, targets):
 def _sparse_categorical_crossentropy(logits, targets):
     log_probs = F.log_softmax(logits, dim=-1)
     return -log_probs.gather(-1, targets.long()[..., None])[..., 0]
+
+
+class _VocabParallelCrossEntropy(torch.autograd.Function):
+    """Per-position ``logsumexp(logits) - logits[target]`` over the whole
+    vocabulary, from each rank's columns: the max, then the sum of
+    exponentials and the target's shifted logit, all-reduced over the
+    model group (two all-reduces of (batch, seq) values). The backward
+    is this rank's columns of ``softmax - onehot(target)``."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, mesh):
+        width = logits.shape[-1]
+        top = all_reduce_(logits.detach().amax(-1), mesh, "max")
+        shifted = logits - top[..., None]
+        exp = shifted.exp()
+        local = targets.long() - mesh.rank * width
+        inside = (local >= 0) & (local < width)
+        index = local.clamp(0, width - 1)[..., None]
+        picked = shifted.gather(-1, index)[..., 0].masked_fill(~inside, 0.0)
+        sums = all_reduce_(torch.stack((exp.sum(-1), picked)), mesh)
+        ctx.save_for_backward(exp, sums[0], index, inside)
+        return sums[0].log() - sums[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        exp, total, index, inside = ctx.saved_tensors
+        probs = exp / total[..., None]
+        probs.scatter_add_(-1, index, -inside.to(probs.dtype)[..., None])
+        return probs * grad[..., None], None, None
+
+
+def vocab_parallel_sparse_crossentropy(logits, targets, mesh):
+    """``sparse_categorical_crossentropy`` on vocab-sharded logits: this
+    rank holds columns ``[rank * V/M, (rank + 1) * V/M)`` of ``mesh``'s
+    model group, ``targets`` are global ids. Per-position losses, the
+    same on every rank of the group."""
+    return _VocabParallelCrossEntropy.apply(logits, targets, mesh)
+
+
+#: Losses that run on vocab-sharded logits, by name (their counterparts).
+VOCAB_PARALLEL_LOSSES: Dict[str, Callable] = {
+    "sparse_categorical_crossentropy": vocab_parallel_sparse_crossentropy,
+}
 
 
 def _binary_crossentropy(logits, targets):

@@ -20,8 +20,11 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from elephas_tpu_torch.engine.losses import VOCAB_PARALLEL_LOSSES
 from elephas_tpu_torch.engine.state import TrainState
+from elephas_tpu_torch.parallel.collectives import all_gather
 from elephas_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
     SEQ_AXIS,
     Mesh,
     _axis_names,
@@ -30,19 +33,45 @@ from elephas_tpu_torch.parallel.mesh import (
 )
 
 
+def _logits_mesh(compiled):
+    """The model group over which a tensor-parallel module's outputs stay
+    vocab-sharded into the loss (``parallel.tensor_parallel``), or None:
+    a module that is not sharded so, or a loss with no vocab-parallel
+    counterpart (that one takes the gathered outputs)."""
+    tp = getattr(compiled.module, "_tensor_parallel", None)
+    if tp is None or tp.logits_mesh is None or compiled.loss_name not in VOCAB_PARALLEL_LOSSES:
+        return None
+    return tp.logits_mesh
+
+
+def _loss_and_outputs(compiled, x, y, train: bool):
+    mesh = _logits_mesh(compiled)
+    apply = compiled.apply_train if train else compiled.apply_eval
+    if mesh is None:
+        outputs = apply(x)
+        return compiled.loss_fn(outputs.float(), y).mean(), outputs
+    outputs = apply(x, local_logits=True)
+    loss = VOCAB_PARALLEL_LOSSES[compiled.loss_name](outputs.float(), y, mesh)
+    return loss.mean(), outputs
+
+
 def make_loss_fn(compiled) -> Callable:
     """``loss_fn(x, y) -> (loss, outputs)``: the training-mode forward and
-    the per-example loss's mean, with autograd."""
+    the per-example loss's mean, with autograd. A module whose logits are
+    vocab-sharded (tensor parallelism) returns this rank's columns and
+    takes the vocab-parallel loss."""
 
     def loss_fn(x, y):
-        outputs = compiled.apply_train(x)
-        return compiled.loss_fn(outputs.float(), y).mean(), outputs
+        return _loss_and_outputs(compiled, x, y, train=True)
 
     return loss_fn
 
 
 def _metrics_dict(compiled, loss, outputs, y) -> Dict[str, torch.Tensor]:
     metrics = {"loss": loss}
+    mesh = _logits_mesh(compiled)
+    if mesh is not None and compiled.metric_fns:
+        outputs = all_gather(outputs, mesh, -1)  # metrics take the full logits
     for name, fn in zip(compiled.metric_names, compiled.metric_fns):
         metrics[name] = fn(outputs.float(), y).mean()
     return metrics
@@ -53,13 +82,13 @@ def _reducer(pmean_axis) -> Callable:
     at the call, or None where nothing is averaged.
 
     ``pmean_axis``: None; a ``parallel.mesh.Mesh`` (its data group); or an
-    axis name or tuple of names (``DATA_AXIS``, ``SEQ_AXIS``), resolved
-    at each call against the mesh bound there (``parallel.mesh.bind_mesh``,
-    as ``shard_map`` binds the JAX package's axis names). Unbound, the
-    data axis is every process of the default group, and the seq axis
-    raises ``NameError`` as ``lax.pmean`` does on an unbound axis name:
-    averaging nothing there would leave each rank training alone. The
-    model axis raises."""
+    axis name or tuple of names (``DATA_AXIS``, ``SEQ_AXIS``,
+    ``MODEL_AXIS``), resolved at each call against the mesh bound there
+    (``parallel.mesh.bind_mesh``, as ``shard_map`` binds the JAX
+    package's axis names). Unbound, the data axis is every process of
+    the default group, and the seq and model axes raise ``NameError`` as
+    ``lax.pmean`` does on an unbound axis name: averaging nothing there
+    would leave each rank training alone."""
     if pmean_axis is None or isinstance(pmean_axis, Mesh):
         fixed = pmean_axis if pmean_axis is not None and pmean_axis.size > 1 else None
         return lambda: fixed
@@ -68,8 +97,9 @@ def _reducer(pmean_axis) -> Callable:
 
     def group():
         bound = bound_mesh()
-        if bound is None and SEQ_AXIS in axes:
-            raise NameError(f"unbound axis name: {SEQ_AXIS}; average over it inside a bound "
+        unbound = [a for a in (SEQ_AXIS, MODEL_AXIS) if a in axes]
+        if bound is None and unbound:
+            raise NameError(f"unbound axis name: {unbound[0]}; average over it inside a bound "
                             "mesh (parallel.mesh.bind_mesh, as "
                             "seq_parallel.make_lm_train_step binds it)")
         mesh = (bound or default).over(axes)
@@ -93,11 +123,14 @@ def make_train_step(compiled, pmean_axis=None) -> Callable:
     ``lax.pmean``: a ``parallel.mesh.Mesh`` (its data group), or axis
     names, ``DATA_AXIS`` or ``(DATA_AXIS, SEQ_AXIS)``, over the group of
     the mesh bound at the call; unbound, the data axis is every process
-    of the default group and the seq axis raises. Every gradient is averaged across the group before the
-    optimizer step, and the metrics after it: over data × seq that is
-    the global mean when every rank's shard has the same size. Batch
-    statistics stay per rank, as in the JAX package. The model axis
-    (tensor parallelism) is not ported and raises.
+    of the default group and the seq axis raises. Every gradient is
+    averaged across the group before the optimizer step, and the metrics
+    after it: over data × seq that is the global mean when every rank's
+    shard has the same size. Batch statistics stay per rank, as in the
+    JAX package. Under tensor parallelism the data (or data × seq) group
+    is that of the rank's own model index, so each shard is averaged
+    with its peers; replicated parameters get the same gradient on every
+    model rank and are not reduced over the model group.
     """
     reducer = _reducer(pmean_axis)
     loss_fn = make_loss_fn(compiled)
@@ -227,8 +260,7 @@ def make_eval_step(compiled, pmean_axis=None) -> Callable:
     reducer = _reducer(pmean_axis)
 
     def eval_step(state: TrainState, x, y) -> Dict[str, torch.Tensor]:
-        outputs = compiled.apply_eval(x)
-        loss = compiled.loss_fn(outputs.float(), y).mean()
+        loss, outputs = _loss_and_outputs(compiled, x, y, train=False)
         return _pmean_metrics(reducer(), _metrics_dict(compiled, loss, outputs, y))
 
     return eval_step

@@ -9,6 +9,11 @@ as flax's ``nn.Dense`` does (``nn.LazyLinear``); ``CompiledModel``'s
 generators, not JAX's keys, so a model with ``dropout_rate > 0`` trains
 like the JAX one only in distribution; ``dropout_generator`` (the async
 trainer gives each worker its own) draws the masks where it is set.
+
+Under tensor parallelism (``parallel.tensor_parallel``, a user's rule
+table) the sharded layers place their own collectives, and a hidden
+layer's activations are this rank's units between a column-parallel
+layer and a row-parallel one: its mask is sharded with them.
 """
 
 from __future__ import annotations

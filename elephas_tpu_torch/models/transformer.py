@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from elephas_tpu_torch.models import register_model
 from elephas_tpu_torch.ops.attention import cache_attention_mask, flash_attention
+from elephas_tpu_torch.parallel.collectives import gather_from_model
 from elephas_tpu_torch.parallel.ring_attention import (
     ring_attention,
     require_seq_axis,
@@ -62,7 +63,11 @@ _ATTENTIONS = ("dense", "flash", "ring", "ulysses", "auto")
 
 def _dense(layer: nn.Linear, x, dtype):
     """A flax Dense with ``dtype``: inputs and float32 params cast to the
-    compute dtype."""
+    compute dtype. A tensor-parallel layer (``parallel.tensor_parallel``)
+    places its own collectives around the product."""
+    parallel = getattr(layer, "parallel_dense", None)
+    if parallel is not None:
+        return parallel(x, dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
@@ -102,25 +107,32 @@ class DecodeCache:
 
 
 class SelfAttention(nn.Module):
+    """Causal self-attention. Under tensor parallelism (``qkv``
+    column-parallel over the heads) it runs on its ``local_heads`` heads,
+    and ``out`` sums the heads' products over the model group."""
+
     def __init__(self, d_model, num_heads, dtype, attention, device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.local_heads = num_heads
+        self.head_dim = d_model // num_heads
         self.dtype = dtype
         self.attention = attention
         self.qkv = nn.Linear(d_model, 3 * d_model, device=device)
         self.out = nn.Linear(d_model, d_model, device=device)
 
     def forward(self, x, kv=None, index=0, pad_offset=None):
-        b, s, d = x.shape
-        h = self.num_heads
+        b, s, _ = x.shape
+        h = self.local_heads
         # (3, batch, heads, seq, head_dim): the flax kernel's (d, 3, H, hd)
         # output order, so each of q, k, v comes out contiguous.
-        qkv = _dense(self.qkv, x, self.dtype).view(b, s, 3, h, d // h)
+        qkv = _dense(self.qkv, x, self.dtype).view(b, s, 3, h, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         attention = self.attention
         if attention == "auto":
-            # Resolved at call time from the bound mesh, as the JAX model
-            # resolves it at trace time from the bound 'seq' axis.
+            # Resolved at call time from the bound mesh and the local heads,
+            # as the JAX model resolves it at trace time from the bound
+            # 'seq' axis.
             n = seq_axis_size_or_none()
             attention = "flash" if n is None else ("ulysses" if h % n == 0 else "ring")
         if kv is not None:
@@ -133,7 +145,9 @@ class SelfAttention(nn.Module):
             out = ulysses_attention(q, k, v, causal=True)
         else:
             out = dense_causal_attention(q, k, v)
-        out = out.transpose(1, 2).reshape(b, s, d)
+        out = out.transpose(1, 2).reshape(b, s, h * self.head_dim)
+        if h != self.num_heads and not getattr(self.out, "sharded_input", False):
+            out = gather_from_model(out, self.qkv.tp_mesh, -1)
         return _dense(self.out, out, self.dtype)
 
     def _decode_attend(self, q, k, v, kv, index, pad_offset):
@@ -205,6 +219,7 @@ class TransformerLM(nn.Module):
         self.max_seq_len = max_seq_len
         self.dtype = dtype
         self.attention = attention
+        self.local_heads = num_heads  # the heads this process holds (tensor parallelism)
         self.tok_embed = nn.Embedding(vocab_size, d_model, device=device)
         self.pos_embed = nn.Parameter(torch.zeros(max_seq_len, d_model, device=device))
         self.blocks = nn.ModuleList(
@@ -220,7 +235,7 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, train: bool = False,
                 cache: Optional[DecodeCache] = None, pad_offset=None,
-                active=None):
+                active=None, local_logits: bool = False):
         """Next-token logits (batch, seq, vocab) in float32.
 
         ``train`` is the flax model's flag; the LM has no dropout or
@@ -237,7 +252,12 @@ class TransformerLM(nn.Module):
         bool — serving only — advances only the active rows' columns: free
         pool slots ride along in the fixed-shape decode batch, and their
         columns freeze instead of marching past ``max_len``. It needs
-        per-row (tensor) cache columns."""
+        per-row (tensor) cache columns.
+
+        Under tensor parallelism with a vocab-sharded ``lm_head`` the
+        logits are gathered over the model group, unless ``local_logits``
+        asks for this rank's vocabulary columns (the vocab-parallel loss
+        takes those)."""
         seq = tokens.shape[1]
         x = self.tok_embed(tokens.long())
         if cache is None:
@@ -263,6 +283,8 @@ class TransformerLM(nn.Module):
             cache.index = (index + seq if active is None
                            else torch.where(active, index + seq, index))
         x = self.ln_f(x.float())
+        if hasattr(self.lm_head, "gather_output"):  # column-parallel
+            return self.lm_head.parallel_dense(x, gather=not local_logits)
         return self.lm_head(x)
 
     def _positions(self, seq):
@@ -294,8 +316,9 @@ class TransformerLM(nn.Module):
 
 
 def make_decode_cache(module: TransformerLM, batch: int, total_len: int) -> DecodeCache:
-    """Zeroed KV caches of ``total_len`` columns on the module's device."""
-    shape = (batch, module.num_heads, total_len, module.d_model // module.num_heads)
+    """Zeroed KV caches of ``total_len`` columns on the module's device
+    (of the heads this process holds)."""
+    shape = (batch, module.local_heads, total_len, module.d_model // module.num_heads)
 
     def zeros():
         return torch.zeros(shape, dtype=module.dtype, device=module.device)
@@ -313,7 +336,7 @@ def make_paged_decode_cache(module: TransformerLM, max_slots: int,
     contiguous row per slot, and ``index`` a (max_slots,) int vector of
     per-slot columns. A host-side block table maps ``slot -> block ids``;
     slots share blocks by holding the same id."""
-    shape = (num_blocks, module.num_heads, block_size,
+    shape = (num_blocks, module.local_heads, block_size,
              module.d_model // module.num_heads)
 
     def zeros():

@@ -1,5 +1,6 @@
 """Collectives of one mesh axis, differentiable (the port's counterparts of
-``lax.ppermute`` and ``lax.all_to_all`` inside ``shard_map``).
+``lax.ppermute`` and ``lax.all_to_all`` inside ``shard_map``, and of the
+all-reduces and all-gathers GSPMD inserts for tensor parallelism).
 
 - ``ppermute(tensors, mesh)`` sends each tensor to the next rank of the
   axis and returns what the previous rank sent (``rank + 1`` and ``rank
@@ -9,6 +10,19 @@
   ``split_axis`` into one chunk per rank, sends chunk ``j`` to rank ``j``
   and concatenates what arrives along ``concat_axis`` in rank order
   (``lax.all_to_all(..., tiled=True)``; ``dist.all_to_all_single``).
+
+The tensor-parallel collectives of the model axis, as Megatron-LM pairs
+them (``tensor_parallel.py`` places them around its layers):
+
+- ``copy_to_model(x, mesh)``: identity forward, all-reduce backward (a
+  replicated activation entering a column-parallel layer);
+- ``reduce_from_model(x, mesh)``: all-reduce forward, identity backward
+  (a row-parallel layer's partial sums);
+- ``gather_from_model(x, mesh, dim)``: all_gather along ``dim`` forward,
+  this rank's slice backward; ``scatter_to_model`` the other way round.
+
+``tp_bytes`` counts what they move: each call adds the bytes of its
+result (the reduced tensor, or the gathered one).
 
 Each is an ``autograd.Function`` whose backward is the inverse exchange,
 as JAX transposes them. ``mesh`` is a one-axis ``parallel.mesh.Mesh``
@@ -38,6 +52,8 @@ import torch.distributed as dist
 
 #: Bytes that ring hops of gloo groups copied between the card and the host.
 staged_bytes = 0
+#: Bytes of the results of the tensor-parallel collectives.
+tp_bytes = 0
 
 # Messages are packed with each tensor at a multiple of this many bytes,
 # so every unpacked view starts aligned, as the kernels read it.
@@ -47,6 +63,11 @@ _ALIGN = 16
 def reset_staged() -> None:
     global staged_bytes
     staged_bytes = 0
+
+
+def reset_tp_bytes() -> None:
+    global tp_bytes
+    tp_bytes = 0
 
 
 def _pack(tensors) -> torch.Tensor:
@@ -153,3 +174,102 @@ def all_to_all(x, mesh, split_axis: int, concat_axis: int) -> torch.Tensor:
     over ``mesh``'s group, under autograd (the backward is the inverse
     all_to_all)."""
     return _AllToAll.apply(x, mesh, split_axis, concat_axis)
+
+
+# -- the model axis ---------------------------------------------------------------
+
+
+def all_reduce_(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced in place over ``mesh``'s group (``"sum"`` or
+    ``"max"``), outside autograd; counted in ``tp_bytes``."""
+    global tp_bytes
+    if mesh.size > 1:
+        reduce_op = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+        dist.all_reduce(x, op=reduce_op, group=mesh.group)
+        tp_bytes += x.numel() * x.element_size()
+    return x
+
+
+def all_gather(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order,
+    outside autograd; counted in ``tp_bytes``."""
+    global tp_bytes
+    if mesh.size == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x, group=mesh.group)
+    out = torch.cat(parts, dim=dim)
+    tp_bytes += out.numel() * out.element_size()
+    return out
+
+
+def local_chunk(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's one of ``mesh.size`` equal chunks of ``x`` along ``dim``."""
+    n = x.shape[dim] // mesh.size
+    return x.narrow(dim, mesh.rank * n, n)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce_(x.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return all_gather(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return local_chunk(grad, ctx.mesh, ctx.dim).contiguous(), None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return local_chunk(x, mesh, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.mesh, ctx.dim), None, None
+
+
+def copy_to_model(x, mesh):
+    """Identity forward; the gradient is all-reduced over ``mesh``."""
+    return x if mesh.size == 1 else _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x, mesh):
+    """All-reduce (sum) over ``mesh`` forward; identity backward."""
+    return x if mesh.size == 1 else _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x, mesh, dim: int = -1):
+    """All ranks' ``x`` along ``dim`` forward; this rank's slice of the
+    gradient backward."""
+    return x if mesh.size == 1 else _GatherFromModel.apply(x, mesh, dim % x.dim())
+
+
+def scatter_to_model(x, mesh, dim: int = -1):
+    """This rank's chunk of a replicated ``x`` along ``dim`` forward; the
+    gradient all-gathered backward."""
+    return x if mesh.size == 1 else _ScatterToModel.apply(x, mesh, dim % x.dim())

@@ -22,7 +22,7 @@ sets with ``torch.cuda.set_device``). Tensors ride the collectives of
 
 Async training across processes (a parameter server on process 0,
 workers dialling ``parameter_server_address()``) is not ported yet
-(ROADMAP.md, queue 1, item 6b).
+(ROADMAP.md, queue 1, item 6c).
 """
 
 from __future__ import annotations

@@ -19,9 +19,17 @@ has nothing to draw here.
 
 Every process calls the same functions with the same arrays (SPMD): the
 shuffles are seeded identically, so every rank follows the same
-schedule, and each takes its own block. The ``'model'`` axis (tensor
-parallelism, the JAX package's sp×tp) is not ported yet (ROADMAP.md,
-queue 1, item 6b).
+schedule, and each takes its own block.
+
+When the mesh also has a ``'model'`` axis above 1 (sp × tp, the JAX
+package's GSPMD ``'model'`` axis beside its manual ``'data'`` and
+``'seq'``), the module is sharded by tensor-parallel rules
+(``init_lm_state(..., rules=)`` or ``SeqParallelTrainer(rules=)``;
+default ``tensor_parallel.LM_RULES``): each rank's attention runs the
+ring or Ulysses exchange on its own heads, the model group carries the
+tensor-parallel collectives, and the data × seq average is that of the
+rank's own model index. The model ranks of one [d, s] block take the
+same tokens.
 """
 
 from __future__ import annotations
@@ -40,7 +48,6 @@ from elephas_tpu_torch.engine.step import (
     weighted_mean_over_chunks,
 )
 from elephas_tpu_torch.parallel.mesh import (
-    _NOT_PORTED,
     DATA_AXIS,
     SEQ_AXIS,
     bind_mesh,
@@ -49,13 +56,21 @@ from elephas_tpu_torch.parallel.mesh import (
 logger = logging.getLogger("elephas_tpu_torch")
 
 
-def _check_rules(rules) -> None:
-    if rules is not None:
-        raise NotImplementedError(f"tensor-parallel rules (rules=...) {_NOT_PORTED}")
+def _shard(compiled, mesh, rules) -> None:
+    """Shard the module over the mesh's model axis (where it is above 1)."""
+    if mesh.model_size > 1:
+        from elephas_tpu_torch.parallel.tensor_parallel import shard_module
+
+        shard_module(compiled.module, mesh, rules)
 
 
-def _bound(step_fn, mesh):
+def _bound(step_fn, compiled, mesh):
     def step(*args):
+        if mesh.model_size > 1 and getattr(compiled.module, "_tensor_parallel", None) is None:
+            raise ValueError(
+                f"a mesh with a model axis of {mesh.model_size} steps a tensor-parallel "
+                "module: shard it first (init_lm_state(..., rules=) or "
+                "tensor_parallel.shard_module)")
         with bind_mesh(mesh):
             return step_fn(*args)
 
@@ -72,7 +87,7 @@ def make_lm_train_step(compiled, mesh):
     targets: what ``compiled``'s loss expects per position (next-token
     ids for the LM losses; callers shift before sharding so shard
     boundaries stay aligned)."""
-    return _bound(make_train_step(compiled, pmean_axis=(DATA_AXIS, SEQ_AXIS)), mesh)
+    return _bound(make_train_step(compiled, pmean_axis=(DATA_AXIS, SEQ_AXIS)), compiled, mesh)
 
 
 def make_lm_eval_step(compiled, mesh):
@@ -80,7 +95,7 @@ def make_lm_eval_step(compiled, mesh):
     same data × seq sharding as the train step: metrics on the local
     block, averaged over data × seq (exact global means: the blocks have
     equal sizes)."""
-    return _bound(make_eval_step(compiled, pmean_axis=(DATA_AXIS, SEQ_AXIS)), mesh)
+    return _bound(make_eval_step(compiled, pmean_axis=(DATA_AXIS, SEQ_AXIS)), compiled, mesh)
 
 
 def shard_lm_batch(mesh, tokens: np.ndarray, targets: np.ndarray,
@@ -98,10 +113,13 @@ def shard_lm_batch(mesh, tokens: np.ndarray, targets: np.ndarray,
 
 def init_lm_state(compiled, mesh, rng=None, rules=None) -> TrainState:
     """TrainState for ``make_lm_train_step``: the parameters replicated
-    over the mesh, which every rank's own copy is when the ranks build the
-    model alike (the same seed, or the same ``state_dict``), as the JAX
-    package's replicated placement of each host's values assumes."""
-    _check_rules(rules)
+    over the data and seq axes, which every rank's own copy is when the
+    ranks build the model alike (the same seed, or the same
+    ``state_dict``), as the JAX package's replicated placement of each
+    host's values assumes; on a mesh whose model axis is above 1, the
+    module is first sharded over it by ``rules`` (default
+    ``tensor_parallel.LM_RULES``)."""
+    _shard(compiled, mesh, rules)
     return init_train_state(compiled, rng=rng)
 
 
@@ -112,14 +130,16 @@ class SeqParallelTrainer:
     step builders above.
 
     Build a ``TransformerLM`` with ``attention='ring' | 'ulysses' |
-    'auto'``, pick a mesh (``build_mesh(num_data=D, num_seq=S)``), and
+    'auto'``, pick a mesh (``build_mesh(num_data=D, num_seq=S[,
+    num_model=M])``; with M above 1 the module is sharded here by
+    ``rules``), and
     call ``fit`` on a (rows, seq+1) token array. Every process calls
     ``fit`` with the SAME arrays (SPMD: shuffles are seeded identically,
     so every rank sees the same schedule).
     """
 
     def __init__(self, compiled, mesh, rules=None):
-        _check_rules(rules)
+        _shard(compiled, mesh, rules)
         self.compiled = compiled
         self.mesh = mesh
         self.rules = rules

@@ -16,16 +16,18 @@
 - ``InferenceEngine``  — the frontend: ``submit()`` / ``result()`` /
                          ``serve_forever()``; on the GPU its paged decode
                          step is one captured CUDA graph
-                         (``serving.engine``);
+                         (``serving.engine``); ``shard_serving`` makes it
+                         tensor-parallel over a model axis (rank 0
+                         serves, the other ranks ``follow()``);
 - ``ServingMetrics``   — TTFT / inter-token latency / queue depth /
                          tokens-per-sec / dispatch→fetch overlap through
                          ``metrics.logging.JsonlSink``
                          (``serving.metrics``);
 - ``host_sync``        — the ONE sanctioned device→host sync point.
 
-Not ported yet (ROADMAP.md, queue 1): speculative decode
-(``serving/spec.py``), tensor-parallel serving, the disaggregated KV
-handoff, the ops endpoint and the replicated fleet.
+Not ported yet (ROADMAP.md, queue 1, item 7): speculative decode
+(``serving/spec.py``), the disaggregated KV handoff, the ops endpoint
+and the replicated fleet.
 """
 
 from elephas_tpu_torch.serving import host_sync  # noqa: F401

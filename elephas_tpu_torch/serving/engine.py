@@ -38,6 +38,18 @@ Admission, eviction, slot reuse and backpressure all happen HOST-side
 between calls. The only blocking device→host reads go through
 ``serving.host_sync``.
 
+Tensor-parallel serving (``shard_serving``, one process per device over
+a mesh whose model axis is the whole world): every rank holds its shard
+of the parameters (``parallel.tensor_parallel``) and its heads of the KV
+pool. Rank 0 runs the front end and the scheduler; before each program
+it broadcasts one int64 message to the model group holding the
+program's operands and the pool's column, pad and block-table tensors,
+and the other ranks, in ``follow()``, run the same program on their
+shards until ``close()``. Logits are gathered over the model group
+before sampling, so every rank samples the same token. The decode step
+runs eagerly there: its collectives are gloo's where ranks share a card,
+and a gloo collective cannot be captured in a CUDA graph.
+
 Usage::
 
     engine = InferenceEngine(compiled, max_slots=4, max_prompt_len=16,
@@ -61,6 +73,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from elephas_tpu_torch import obs
 from elephas_tpu_torch.models.transformer import (
@@ -89,6 +102,17 @@ from elephas_tpu_torch.serving.scheduler import (
 # then the error propagates.
 _RETRY_DELAYS = (0.1, 0.2, 0.4, 0.8, 1.3)
 _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, item {})"
+
+# The sharded engine's messages: a header of _HEAD ints (the op, then its
+# ints), the prompt tokens, the decode inputs, the pool's column and pad
+# vectors and, paged, its block table. "install" is followed by one
+# broadcast of each whole state_dict tensor.
+_HEAD = 6
+_OPS = {"stop": 0, "chunk_prefill": 1, "prefill": 2, "decode": 3, "admit": 4,
+        "copy_block": 5, "install": 6}
+_EAGER_WHY = ("the tensor-parallel decode step runs eagerly: its model-group collectives "
+              "are gloo's where ranks share a card, and gloo cannot be captured in a CUDA "
+              "graph")
 
 
 class InferenceEngine:
@@ -240,6 +264,10 @@ class InferenceEngine:
         self._decode_step = None  # the built step: graph replay or eager
         self._prefill_traces = 0
         self._decode_traces = 0
+        self._tp = None  # the model group once sharded (shard_serving)
+        self._tp_leader = False
+        self._tp_closed = False
+        self.mesh = None
 
         self._req_ids = itertools.count()
         self._results: Dict[int, GenerationResult] = {}
@@ -277,19 +305,24 @@ class InferenceEngine:
                 "paged engines prefill through _chunk_prefill (the "
                 "scheduler's chunked path), not the contiguous program"
             )
+        if self._tp_leader:
+            self._send("prefill", (pad_offset, prompt.shape[1]), prompt)
+        first, cache = self._prefill_body(host_sync.upload(prompt, self.device), pad_offset)
+        return host_sync.stage(first), cache
+
+    def _prefill_body(self, tokens, pad_offset: int):
         self._note_prefill_build()
         with torch.no_grad():
             cache = make_decode_cache(self.module, 1, self.pool.max_len)
-            tokens = host_sync.upload(prompt, self.device)
             pad = torch.full((1,), pad_offset, dtype=torch.int64,
                              device=self.device)
             logits = self.module(tokens, cache=cache, pad_offset=pad)
             # Position-keyed sampling: the token after a plen-token
             # prompt sits at pad-free stream position plen.
             first = self._sample(logits[:, -1], torch.full(
-                (1,), prompt.shape[1] - pad_offset, dtype=torch.int64,
+                (1,), tokens.shape[1] - pad_offset, dtype=torch.int64,
                 device=self.device))
-        return host_sync.stage(first), cache
+        return first, cache
 
     def _chunk_prefill(self, tokens, slot: int, start: int, valid: int):
         """One prompt CHUNK for one slot, through the paged pool: gather
@@ -301,6 +334,12 @@ class InferenceEngine:
         at-or-past the slot's column, stays causally invisible, and is
         overwritten by later decode steps. Returns the staged token
         sampled at the chunk's last valid position."""
+        if self._tp_leader:
+            self._send("chunk_prefill", (slot, start, valid, tokens.shape[1]), tokens)
+        return host_sync.stage(self._chunk_prefill_body(
+            host_sync.upload(tokens, self.device), slot, start, valid))
+
+    def _chunk_prefill_body(self, tokens, slot: int, start: int, valid: int):
         self._note_prefill_build()
         pool = self.pool
         width = tokens.shape[1]
@@ -310,8 +349,7 @@ class InferenceEngine:
             values = [slot_row_to_contiguous(v, row) for v in pool.cache.values]
             cache = DecodeCache(keys, values, index=torch.full(
                 (1,), start, dtype=torch.int64, device=self.device))
-            logits = self.module(host_sync.upload(tokens, self.device),
-                                 cache=cache)
+            logits = self.module(tokens, cache=cache)
             # Paged rows are never left-padded, so the sampled token's
             # pad-free position is the prefilled depth start + valid.
             first = self._sample(logits[:, valid - 1], torch.full(
@@ -326,7 +364,7 @@ class InferenceEngine:
             # This slot advances to its true prefilled depth (NOT start +
             # chunk: the right-pad tail is garbage).
             pool.cache.index[slot] = start + valid
-        return host_sync.stage(first)
+        return first
 
     def _decode_operands(self):
         ins = self._inputs
@@ -385,7 +423,7 @@ class InferenceEngine:
         raises."""
         self._decode_traces += 1
         obs.note_retrace("serving_decode", count=self._decode_traces)
-        if not (self.paged and self.device.type == "cuda"):
+        if not (self.paged and self.device.type == "cuda") or self._tp is not None:
             self._decode_step = self._decode_body
             return
         current = torch.cuda.current_stream(self.device)
@@ -422,14 +460,134 @@ class InferenceEngine:
             self._inputs[0].copy_(prev_tokens.device)
         if self.paged:
             self.pool.device_table()
+        if self._tp_leader:
+            self._send("decode")
         self._decode_step()
         return host_sync.stage(self._out), self.pool.cache
 
-    # -- not ported yet ----------------------------------------------------
+    # -- tensor-parallel serving -------------------------------------------
 
     def shard_serving(self, mesh, rules=None):
-        raise NotImplementedError(
-            "tensor-parallel serving " + _NOT_PORTED.format("6b"))
+        """Make the engine tensor-parallel over ``mesh``'s ``'model'``
+        axis: the module sharded by ``rules`` (default ``LM_RULES``;
+        ``parallel.tensor_parallel``), every K/V tensor of the pool holding
+        this rank's heads. Every rank of the mesh builds the same engine
+        and calls this; then rank 0 serves (``submit``/``result``, ...)
+        while the others run ``follow()``, until rank 0's ``close()``.
+
+        The mesh's model axis must span the world (data 1, seq 1): the
+        JAX package's data-axis copies of a serving program compute the
+        same thing again, and one process per device has nothing to give
+        them, so that layout is refused. A warm engine is refused (its
+        programs are built), and so are heads that do not divide over the
+        model axis. Returns ``self``."""
+        from elephas_tpu_torch.parallel.mesh import MODEL_AXIS, world
+        from elephas_tpu_torch.parallel.tensor_parallel import shard_module
+
+        if self._prefill_traces or self._decode_traces or self.pool.admitted_total:
+            raise RuntimeError(
+                "shard_serving must run before the first request: the engine's programs "
+                "are already built (and the paged decode step captured)")
+        tp = mesh.model_size
+        heads = self.module.num_heads
+        if heads % tp != 0:
+            raise ValueError(f"num_heads ({heads}) must divide evenly over the "
+                             f"'{MODEL_AXIS}' mesh axis ({tp}) to shard the KV pool")
+        if mesh.size != 1 or mesh.seq_size != 1:
+            raise ValueError(
+                f"shard_serving takes a mesh of data 1 x seq 1 x model M; this one has data "
+                f"{mesh.size} x seq {mesh.seq_size}: with one process per device, data-axis "
+                "copies of a serving program would compute the same tokens again")
+        if tp != world()[0]:
+            raise ValueError(f"shard_serving's model axis ({tp}) must span the world "
+                             f"({world()[0]} processes): rank 0 serves and every other "
+                             "rank follows")
+        self.mesh = mesh
+        if tp == 1:
+            return self
+        self.module = copy.deepcopy(self.module)  # the caller's model stays whole
+        shard_module(self.module, mesh, rules)
+        self._tp = mesh.over(MODEL_AXIS)
+        self.pool.shard_heads(self._tp)
+        self._tp_leader = self._tp.rank == 0
+        if self._tp_leader:
+            self.pool.mirror = self._mirror
+        table = self.pool.table.buffer.numel() if self.paged else 0
+        self._msg_len = (_HEAD + self.max_prompt_len + self._inputs.numel()
+                         + 2 * self.pool.max_slots + table)
+        return self
+
+    def _mirror(self, op: str, *ints) -> None:
+        self._send(op, ints)
+
+    def _send(self, op: str, ints=(), tokens=None) -> None:
+        """Rank 0: broadcast one message to the model group."""
+        head = np.zeros((_HEAD + self.max_prompt_len,), np.int64)
+        head[0] = _OPS[op]
+        head[1:1 + len(ints)] = ints
+        if tokens is not None:
+            flat = np.asarray(tokens, np.int64).reshape(-1)
+            head[_HEAD:_HEAD + flat.size] = flat
+        pool = self.pool
+        parts = [host_sync.upload(head, self.device), self._inputs.reshape(-1),
+                 pool.cache.index, pool.pad]
+        if self.paged:
+            parts.append(pool.device_table().reshape(-1))
+        dist.broadcast(torch.cat(parts), src=dist.get_global_rank(self._tp.group, 0),
+                       group=self._tp.group)
+
+    def follow(self) -> None:
+        """Run the programs rank 0 of a sharded engine sends, on this
+        rank's shards, until rank 0 closes the engine. Every rank but 0
+        calls it after ``shard_serving``."""
+        if self._tp is None or self._tp_leader:
+            raise RuntimeError("follow() runs on the ranks other than 0 of an engine "
+                               "sharded by shard_serving")
+        pool, slots = self.pool, self.pool.max_slots
+        src = dist.get_global_rank(self._tp.group, 0)
+        pending = None
+        while True:
+            msg = torch.empty((self._msg_len,), dtype=torch.int64, device=self.device)
+            dist.broadcast(msg, src=src, group=self._tp.group)
+            head = host_sync.fetch(host_sync.stage(msg[:_HEAD]))
+            op, ints = int(head[0]), [int(v) for v in head[1:]]
+            if op == _OPS["stop"]:
+                self._tp_closed = True
+                return
+            at = _HEAD + self.max_prompt_len
+            tokens = msg[_HEAD:at]
+            inputs = msg[at:at + self._inputs.numel()]
+            at += self._inputs.numel()
+            with torch.no_grad():
+                pool.cache.index.copy_(msg[at:at + slots])
+                pool.pad.copy_(msg[at + slots:at + 2 * slots])
+                if self.paged:
+                    pool.table.buffer.copy_(msg[at + 2 * slots:].view_as(pool.table.buffer))
+                if op == _OPS["chunk_prefill"]:
+                    slot, start, valid, width = ints[:4]
+                    self._chunk_prefill_body(tokens[:width].view(1, width), slot, start, valid)
+                elif op == _OPS["prefill"]:
+                    pad_offset, width = ints[:2]
+                    pending = self._prefill_body(tokens[:width].view(1, width), pad_offset)[1]
+                elif op == _OPS["admit"]:
+                    pool.admit(ints[0], pending, ints[1])
+                elif op == _OPS["copy_block"]:
+                    for leaf in pool.cache.keys + pool.cache.values:
+                        leaf[ints[1]].copy_(leaf[ints[0]])
+                elif op == _OPS["decode"]:
+                    self._inputs.copy_(inputs.view_as(self._inputs))
+                    self._decode_body()
+                elif op == _OPS["install"]:
+                    self._install_shards(None, ints[1] if ints[0] else None)
+
+    def close(self) -> None:
+        """Release the follower ranks of a sharded engine (rank 0; once).
+        A no-op on an engine that is not sharded."""
+        if self._tp_leader and not self._tp_closed:
+            self._tp_closed = True
+            self._send("stop")
+
+    # -- not ported yet ----------------------------------------------------
 
     def submit_prefill(self, prompt: Sequence[int], **kwargs) -> int:
         raise NotImplementedError(
@@ -597,9 +755,60 @@ class InferenceEngine:
         is copied INTO the module's parameters, whose addresses the
         captured decode step holds — so the next step computes with the
         new weights and nothing is rebuilt. Callers own the engine (no
-        step may be mid-flight). ``model_version`` takes ``version``."""
+        step may be mid-flight). ``model_version`` takes ``version``.
+
+        On an engine sharded by ``shard_serving`` rank 0 installs: it sends
+        every whole tensor of ``tree`` to the followers, and each rank
+        keeps its shard."""
+        if self._tp is None:
+            with torch.no_grad():
+                self.module.load_state_dict(tree)
+            if version is not None:
+                self.model_version = int(version)
+            return
+        if not self._tp_leader:
+            raise RuntimeError("install_weights runs on rank 0 of a sharded engine; the "
+                               "other ranks take the weights from it in follow()")
+        shapes = self._full_shapes()
+        if tree.keys() != shapes.keys():
+            raise KeyError(f"install_weights needs the module's keys: missing "
+                           f"{sorted(shapes.keys() - tree.keys())}, unexpected "
+                           f"{sorted(tree.keys() - shapes.keys())}")
+        wrong = {k: tuple(tree[k].shape) for k, (shape, _) in shapes.items()
+                 if tuple(tree[k].shape) != shape}
+        if wrong:
+            raise ValueError(f"install_weights takes the whole tensors: {wrong} differ from "
+                             f"{ {k: shapes[k][0] for k in wrong} }")
+        with self._step_lock:  # no decode message between the weights' broadcasts
+            self._send("install", (version is not None, version or 0))
+            self._install_shards(tree, version)
+
+    def _full_shapes(self) -> Dict[str, tuple]:
+        """(whole shape, dtype) of each ``state_dict`` tensor of a sharded
+        module."""
+        layout = self.module._tensor_parallel.layout
+        out = {}
+        for key, local in self.module.state_dict().items():
+            shape = list(local.shape)
+            if key in layout:
+                shape[layout[key].dim] *= self._tp.size
+            out[key] = (tuple(shape), local.dtype)
+        return out
+
+    def _install_shards(self, tree, version) -> None:
+        """Every rank of a sharded engine: each whole tensor of ``tree``
+        broadcast from rank 0 (the followers pass None), then this rank's
+        shards of them installed."""
+        src = dist.get_global_rank(self._tp.group, 0)
+        full = {}
+        for key, (shape, dtype) in self._full_shapes().items():
+            if tree is None:
+                full[key] = torch.empty(shape, dtype=dtype, device=self.device)
+            else:
+                full[key] = tree[key].to(self.device, dtype).contiguous()
+            dist.broadcast(full[key], src=src, group=self._tp.group)
         with torch.no_grad():
-            self.module.load_state_dict(tree)
+            self.module.load_state_dict(self.module._tensor_parallel.local_state(full))
         if version is not None:
             self.model_version = int(version)
 
@@ -668,6 +877,9 @@ class InferenceEngine:
             out.update(self.pool.prefix_stats())
         if len(self.costs.tenants()) > 0:
             out["tenancy"] = self.costs.snapshot()
+        if self._tp is not None:
+            out["tensor_parallel"] = {"model": self._tp.size, "decode_graph": False,
+                                      "why": _EAGER_WHY}
         return out
 
 

@@ -28,6 +28,13 @@ any shared boundary a fork creates. The contiguous pool stays as the
 oracle the paged path is tested token-identical against (and the
 ``paged=False`` engine mode).
 
+Under tensor parallelism (``InferenceEngine.shard_serving``) each rank's
+pool holds its ``heads / M`` heads of every K/V tensor, laid out as
+``parallel.tensor_parallel.decode_cache_specs`` says (``shard_heads``);
+the slot and block bookkeeping lives on rank 0, whose pool reports each
+device write it makes outside the engine's programs (an admission, a
+copy-on-write) through ``mirror`` so the other ranks repeat it.
+
 Donation: the reference donates the pool to every program that
 rewrites it, and reading a donated (stale) tree raises
 ``DonatedBufferError``. Torch has no donation: the programs here write
@@ -84,6 +91,16 @@ class KVCachePool:
                                device=self.device)
         self._free: List[int] = list(range(max_slots))
         self.admitted_total = 0  # lifetime admissions (slot reuse visible)
+        self.mirror = None  # rank 0 of a sharded engine: (op, *ints) -> None
+
+    def shard_heads(self, mesh) -> None:
+        """Keep this rank's heads of every K/V tensor (dim 1 split into
+        ``mesh.size`` chunks, ``decode_cache_specs``' layout). Only on an
+        empty pool: the tensors are new (a captured step must come after)."""
+        from elephas_tpu_torch.parallel.collectives import local_chunk
+
+        self.cache.keys = [local_chunk(k, mesh, 1).contiguous() for k in self.cache.keys]
+        self.cache.values = [local_chunk(v, mesh, 1).contiguous() for v in self.cache.values]
 
     def swap(self, new_cache, new_pad=None) -> None:
         """Install the cache (and optionally pad) a program returned."""
@@ -123,6 +140,8 @@ class KVCachePool:
         """Copy a finished batch-1 prefill into ``slot`` (in place) and
         record its left-pad count. The prefill cache's index carries the
         write position (= prefill length) into the slot's column."""
+        if self.mirror is not None:
+            self.mirror("admit", slot, pad_offset)
         with torch.no_grad():
             for pool_leaf, pre_leaf in zip(
                     self.cache.keys + self.cache.values,
@@ -370,6 +389,7 @@ class PagedKVPool(KVCachePool):
         self._cost_clock = None
         self._owner: Dict[int, Optional[str]] = {}
         self._billed_at: Dict[int, float] = {}
+        self.mirror = None
 
     def tensors(self) -> List[torch.Tensor]:
         return super().tensors() + [self.table.buffer]
@@ -550,6 +570,8 @@ class PagedKVPool(KVCachePool):
             return block
         self._bill_slot(slot, cow=True)
         fresh = self._alloc_block()
+        if self.mirror is not None:
+            self.mirror("copy_block", block, fresh)
         with torch.no_grad():
             for leaf in self.cache.keys + self.cache.values:
                 leaf[fresh].copy_(leaf[block])

@@ -335,7 +335,7 @@ def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
     card's name and count."""
     source, phases = _main_source()
     assert phases == ["kernel_phase", "inference_phase", "train_phase", "seq_parallel_phase",
-                      "resnet_phase", "repair_phase", "serving_phase", "async_phase",
+                      "tensor_parallel_phase", "resnet_phase", "repair_phase", "serving_phase", "async_phase",
                       "estimator_phase", "search_phase", "fit_slice_phase", "chaos_phase"]
     assert "launches['search'], report = search_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("search: ") < source.index("'kernels'")
@@ -669,3 +669,67 @@ def test_seq_parallel_config(smoke):
     assert smoke.SP_LOSS_RTOL == 1e-4 and smoke.GRAD_RTOL == 1e-3 and smoke.SP_STEPS == 3
     assert smoke.SP_FIT == {"rows": 32, "val_rows": 8, "batch_size": 8, "epochs": 1}
     assert set(smoke.SP_PATHS) >= {"lm_ring", "lm_ulysses", "lm_auto", "fit"}
+
+
+# -- the tensor-parallel phase -----------------------------------------------------
+
+
+def test_main_runs_the_tensor_parallel_phase_after_the_seq_parallel_phase():
+    """``tensor_parallel_phase`` follows the seq-parallel phase, keeps its
+    launches (summed over its ranks) under ``"tensor_parallel"`` and prints
+    its report before the kernel line; ``--tp-rank`` runs one rank."""
+    source, phases = _main_source()
+    assert phases[phases.index("tensor_parallel_phase") - 1] == "seq_parallel_phase"
+    assert ("launches['tensor_parallel'], report = tensor_parallel_phase(attention_cuda)"
+            in source)
+    assert source.index("seq_parallel: ") < source.index("tensor_parallel: ") < \
+        source.index("'kernels'")
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert 'if sys.argv[1:2] == ["--tp-rank"]:' in text
+
+
+def test_tensor_parallel_config(smoke):
+    """Four ranks; the shards' kernel shapes are the LM's heads over model
+    4 and over data 2 x model 2, and the sp x tp ring's hop is 4 heads over
+    half the sequence; the limits are the seq-parallel phase's."""
+    assert smoke.TP_RANKS == 4 and smoke.TP_STEPS == 3
+    assert smoke.TP_SHAPES == ((8, 2, 2048, 32), (4, 4, 2048, 32))
+    assert smoke.TP_HOP == (8, 4, 1024, 32)
+    assert 'hop_checks(attention_cuda, TP_HOP, "tensor_parallel")' in \
+        (ROOT / "chip_smoke.py").read_text()
+    assert 0 < smoke.TP_SERVE_REQUESTS <= smoke.SERVE_REQUESTS
+    assert set(smoke.TP_PATHS) >= {"lm_model4_float32", "lm_model4_bfloat16",
+                                   "lm_data2_model2", "lm_sptp_ring", "lm_sptp_ulysses",
+                                   "fit", "serving"}
+
+
+@pytest.mark.parametrize("layout,want", [("ring", 24), ("ulysses", 16)])
+def test_sptp_launches_a_step(smoke, layout, want):
+    """sp x tp on data 1 x seq 2 x model 2: each model index runs the
+    seq layout's schedule over 2 seq ranks on its own heads."""
+    assert 2 * sum(smoke.seq_launch_schedule(layout, 2, 4)) == want
+
+
+def test_replicated_digest_reads_only_replicated_parameters(smoke):
+    """Equal for modules whose replicated parameters are equal, whatever
+    their shards hold; unequal once a replicated one moves."""
+    import torch
+
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parallel.mesh import Mesh
+    from elephas_tpu_torch.parallel.tensor_parallel import shard_module
+
+    config = dict(device="cpu", vocab_size=32, d_model=16, num_heads=2, num_layers=1,
+                  max_seq_len=8)
+    a, b = (shard_module(get_model("transformer_lm", **config), Mesh(model_size=2,
+                                                                     model_rank=r))
+            for r in (0, 1))
+    b.load_state_dict({k: v for k, v in a.state_dict().items()
+                       if k in dict(b.named_parameters()) and v.shape == b.get_parameter(
+                           k).shape and k not in b._tensor_parallel.layout}, strict=False)
+    with torch.no_grad():
+        b.blocks[0].fc1.weight.add_(1.0)  # a shard: not in the digest
+    assert smoke.replicated_digest(a) == smoke.replicated_digest(b)
+    with torch.no_grad():
+        b.ln_f.weight.add_(1e-7)
+    assert smoke.replicated_digest(a) != smoke.replicated_digest(b)

@@ -31,7 +31,17 @@ seq mesh with validation, a ragged evaluation three ways and a resumed
 fit, and saves the histories, evaluations and weights; a
 ``"distributed"`` job (world joined through
 ``parallel.distributed.initialize``) saves what the control-plane
-collectives of ``parallel/distributed.py`` return.
+collectives of ``parallel/distributed.py`` return. The tensor-parallel
+jobs (``test_torch_tensor_parallel.py``, ``test_torch_serving_tp.py``):
+a ``"tp_train"`` job trains a model sharded over the mesh's model axis
+(dp x tp through ``make_train_step_tp``, or sp x tp through
+``seq_parallel``) and saves each step's metrics and stand-in kernel
+launches, the local shapes, the replicated parameters, the gathered
+state, the mesh's groups and, with a checkpoint directory, a save
+restored into a fresh sharded state and one more step of each; a
+``"tp_serving"`` job serves prompts from a sharded ``InferenceEngine``
+(rank 0 serves, the others follow) and, on rank 0, from the unsharded
+engine too.
 Imports the port only, no JAX.
 """
 
@@ -372,6 +382,146 @@ def _distributed(job, rank):
     torch.save(out, f"{job['out']}.rank{rank}")
 
 
+def _tp_rules(job):
+    from elephas_tpu_torch.parallel.tensor_parallel import P
+
+    if job.get("rules") is None:
+        return None
+    return tuple((pattern, P(*spec)) for pattern, spec in job["rules"])
+
+
+def _tp_train(job, rank):
+    """A model sharded over the model axis, trained ``steps`` steps on
+    the job's global batch: dp x tp through ``make_train_step_tp``, or sp
+    x tp (``num_seq`` above 1) through ``seq_parallel``."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.checkpoint import CheckpointManager
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parallel import collectives
+    from elephas_tpu_torch.parallel import tensor_parallel as tp
+    from elephas_tpu_torch.parallel.mesh import build_mesh
+    from elephas_tpu_torch.parallel.seq_parallel import (
+        init_lm_state,
+        make_lm_train_step,
+        shard_lm_batch,
+    )
+
+    mesh = build_mesh(num_data=job["num_data"], num_seq=job["num_seq"],
+                      num_model=job["num_model"])
+    data = np.load(job["data"])
+    weights = torch.load(job["weights"])
+    rules = _tp_rules(job)
+
+    def compiled():
+        return CompiledModel(get_model(job["model"], device="cpu", **job["kwargs"]), weights,
+                             optimizer=job["optimizer"], loss=job["loss"],
+                             metrics=job["metrics"])
+
+    def trained(model):
+        if job["num_seq"] > 1:
+            step = make_lm_train_step(model, mesh)
+            state = init_lm_state(model, mesh, rules=rules)
+            x, y = shard_lm_batch(mesh, data["x"], data["y"])
+            return state, lambda s: step(s, x, y)
+        step = tp.make_train_step_tp(model, mesh, rules)
+        state = tp.init_state_tp(model, mesh, rules=rules)
+        return state, lambda s: step(s, data["x"], data["y"])
+
+    launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    patches = fake_kernels(launches) if job.get("kernels") else []
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
+    for owner, name, value in patches:
+        setattr(owner, name, value)
+    model = compiled()
+    state, run = trained(model)
+    metrics, counts = [], []
+    collectives.reset_tp_bytes()
+    for _ in range(job["steps"]):
+        before = dict(launches)
+        state, m = run(state)
+        metrics.append({k: float(v) for k, v in m.items()})
+        counts.append({k: launches[k] - before[k] for k in launches})
+    info = tp.tensor_parallel_of(model.module)
+    local = {k: v.clone() for k, v in model.module.state_dict().items()}
+    result = {
+        "metrics": metrics, "launches": counts, "tp_bytes": collectives.tp_bytes,
+        "shapes": {k: tuple(v.shape) for k, v in local.items()},
+        "sharded": sorted(info.layout),
+        "replicated": {k: v for k, v in local.items() if k not in info.layout},
+        "full": {k: v.clone() for k, v in info.full_state(model.module.state_dict()).items()},
+        "groups": {axis: dist.get_process_group_ranks(group) if group is not None else None
+                   for axis, group in (("data", mesh.group), ("seq", mesh.seq_group),
+                                       ("model", mesh.model_group))},
+        "coords": (mesh.rank, mesh.seq_rank, mesh.model_rank),
+    }
+    if job.get("checkpoint"):
+        manager = CheckpointManager(job["checkpoint"], keep=2)
+        manager.save(state, block=True)
+        manager.close()
+        dist.barrier()  # rank 0 has written
+        twin = compiled()
+        fresh, run_twin = trained(twin)
+        restored = CheckpointManager(job["checkpoint"]).restore(fresh)
+        result["restored_step"] = restored.step
+        result["restored_equal"] = all(torch.equal(v, local[k])
+                                       for k, v in twin.module.state_dict().items())
+        _, m_on = run(state)
+        _, m_back = run_twin(restored)
+        result["resumed"] = (float(m_on["loss"]), float(m_back["loss"]))
+        result["resumed_equal"] = all(
+            torch.equal(v, twin.module.state_dict()[k])
+            for k, v in model.module.state_dict().items())
+    for owner, name, value in saved:
+        setattr(owner, name, value)
+    torch.save(result, f"{job['out']}.rank{rank}")
+
+
+def _tp_serving(job, rank):
+    """The prompts served by an engine sharded over the whole world (rank
+    0 serves, the others follow), per pool layout; rank 0 also serves them
+    from the unsharded engine. The paged engine then installs the job's
+    second weights (rank 0 sends them) and serves the prompts again."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parallel.mesh import build_mesh
+    from elephas_tpu_torch.serving import InferenceEngine
+
+    def compiled():  # a fresh model each time: an unsharded engine installs into its own
+        return CompiledModel(get_model("transformer_lm", device="cpu", **job["kwargs"]),
+                             torch.load(job["weights"]), optimizer="adam",
+                             loss="sparse_categorical_crossentropy", metrics=[])
+
+    mesh = build_mesh(num_data=1, num_model=dist.get_world_size())
+    result = {}
+    for paged in (True, False):
+        engine = InferenceEngine(compiled(), paged=paged, **job["engine"])
+        engine.shard_serving(mesh)
+        key = "paged" if paged else "contiguous"
+        result[f"{key}_kv_heads"] = [tuple(k.shape) for k in engine.pool.cache.keys]
+        if rank != 0:
+            engine.follow()
+            result[f"{key}_version"] = engine.model_version
+            continue
+
+        def serve(engine):
+            ids = [engine.submit(p, max_new_tokens=job["new_tokens"]) for p in job["prompts"]]
+            return [engine.result(i, timeout_s=240).tokens for i in ids]
+
+        result[key] = serve(engine)
+        result[f"{key}_stats"] = engine.stats()
+        if paged:
+            engine.install_weights(torch.load(job["installed"]), version=7)
+            result["installed"] = serve(engine)
+            result[f"{key}_version"] = engine.model_version
+        engine.close()
+        plain = InferenceEngine(compiled(), paged=paged, **job["engine"])
+        result[f"{key}_plain"] = serve(plain)
+        if paged:
+            plain.install_weights(torch.load(job["installed"]))
+            result["installed_plain"] = serve(plain)
+    torch.save(result, f"{job['out']}.rank{rank}")
+
+
 def main(config_path, rank):
     with open(config_path) as f:
         config = json.load(f)
@@ -387,7 +537,8 @@ def main(config_path, rank):
         for job in config["jobs"]:
             {"search": _search, "autotune": _autotune,
              "search_devices": _search_devices, "seq_attention": _seq_attention,
-             "seq_trainer": _seq_trainer,
+             "seq_trainer": _seq_trainer, "tp_train": _tp_train,
+             "tp_serving": _tp_serving,
              "distributed": _distributed}.get(job.get("kind"), _run)(job, rank)
     finally:
         dist.destroy_process_group()

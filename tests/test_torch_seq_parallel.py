@@ -305,8 +305,9 @@ def test_auto_attention_picks_the_layout_from_the_mesh(monkeypatch, heads, picke
 
 
 def test_make_train_step_averages_over_named_axes(flax_params):
-    """``pmean_axis=(DATA_AXIS, SEQ_AXIS)`` in a bound one-process mesh is
-    the plain step; the model axis is not ported."""
+    """``pmean_axis=(DATA_AXIS, SEQ_AXIS)`` or ``(DATA_AXIS, MODEL_AXIS)``
+    in a bound one-process mesh is the plain step; an axis the mesh does
+    not have raises."""
     tokens = torch.from_numpy(_lm_data()["tokens"][:2])
 
     def run(axis):
@@ -323,8 +324,12 @@ def test_make_train_step_averages_over_named_axes(flax_params):
     plain, joint = run(None), run((DATA_AXIS, SEQ_AXIS))
     assert plain[0] == joint[0]
     assert all(torch.equal(v, joint[1][k]) for k, v in plain[1].items())
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        port_step.make_train_step(None, pmean_axis=(DATA_AXIS, MODEL_AXIS))
+    # The model axis (tensor parallelism) is an axis like the others now.
+    model = run((DATA_AXIS, MODEL_AXIS))
+    assert plain[0] == model[0]
+    assert all(torch.equal(v, model[1][k]) for k, v in plain[1].items())
+    with pytest.raises(ValueError, match="unknown mesh axes"):
+        port_step.make_train_step(None, pmean_axis=("rows",))
 
 
 @pytest.mark.parametrize("make", [port_step.make_train_step, port_step.make_eval_step])
@@ -345,10 +350,17 @@ def test_seq_axis_outside_a_bound_mesh_raises(flax_params, make):
 
 
 def test_model_axis_and_rules_are_left_out():
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    """Ported since: a model axis needs a world of its size (the
+    tensor-parallel tests run it), rules on a mesh whose model axis is 1
+    shard nothing, and a model axis above 1 shards the module by them."""
+    with pytest.raises(ValueError, match="needs a world of 2"):
         build_mesh(num_data=1, num_model=2)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        SeqParallelTrainer(None, Mesh(), rules=[])
+    model = CompiledModel(get_model("transformer_lm", device="cpu", **LM),
+                          loss="sparse_categorical_crossentropy", metrics=[])
+    assert SeqParallelTrainer(model, Mesh(), rules=[]).rules == []
+    assert getattr(model.module, "_tensor_parallel", None) is None
+    with pytest.raises(ValueError, match="shard NO parameter"):
+        SeqParallelTrainer(model, Mesh(model_size=2), rules=[])
 
 
 def test_shard_lm_batch_takes_this_ranks_block():

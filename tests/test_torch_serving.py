@@ -512,8 +512,7 @@ def test_not_ported_yet_raises_naming_the_roadmap(models):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(module, speculative=True, **_kw())
     engine = InferenceEngine(module, **_kw())
-    for call in (lambda: engine.shard_serving(None),
-                 lambda: engine.submit_prefill([1, 2]),
+    for call in (lambda: engine.submit_prefill([1, 2]),
                  lambda: engine.handoff(0),
                  lambda: engine.submit_handoff(b""),
                  lambda: engine.mount_ops(),

@@ -255,11 +255,16 @@ def test_weighted_mean_over_chunks_matches_jax():
 
 
 def test_pmean_axis_not_ported(flax_params):
-    """The data and seq axes are ported (``test_torch_fit.py`` and
-    ``test_torch_seq_parallel.py`` drive them); the model axis (tensor
-    parallelism) raises until it is ported, and unknown axes raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_step.make_train_step(_port(flax_params), pmean_axis="model")
+    """Every axis is ported now (``test_torch_fit.py``,
+    ``test_torch_seq_parallel.py`` and ``test_torch_tensor_parallel.py``
+    drive them): the model axis, like the seq axis, raises outside a bound
+    mesh, as ``lax.pmean`` does on an unbound axis name; unknown axes
+    raise."""
+    pm = _port(flax_params)
+    x, y = (torch.from_numpy(a).long() for a in _batch(0))
+    with pytest.raises(NameError, match="unbound axis name: model"):
+        port_step.make_train_step(pm, pmean_axis="model")(
+            port_step.init_train_state(pm), x, y)
     with pytest.raises(ValueError, match="unknown mesh axes"):
         port_step.make_train_step(_port(flax_params), pmean_axis="batch")
 
