@@ -103,12 +103,32 @@ Phases, in order; any failed check raises and the process exits non-zero:
    cuda:0, each on its own stream: the MNIST CNN (4 workers, local
    server; loss, per-epoch validation, every locked push applied,
    evaluate and predict), one worker on the card against the CPU, the
-   socket and HTTP servers (socket against local to the bit, and the local
-   comms pipeline on against off), the
+   socket and HTTP servers with the comms pipeline off (held to the
+   accuracy bar) and on (every push applied, the server at the start
+   minus their sum; accuracy printed), socket against local to the bit,
+   and the local comms pipeline on against off, the
    full-width ResNet-18 hogwild in both granularities with the applied
    share, samples/s with 1 and 4 workers beside the synchronous fit at
    the same global batch, pull and push ms from the ``async/*`` spans, a
    kernel breakdown of one epoch, and no flash launch;
+9b. the multi-process async phase (``async_multiproc_phase``): two ranks
+   of this script (``--async-rank``) on cuda:0 in one gloo group, two
+   worker threads each, one parameter server on rank 0: the MNIST CNN
+   asynchronous over socket, hogwild over HTTP (autotuned) and hogwild
+   over HTTP streamed, 2 epochs each; the same weights, history,
+   validation, predictions and evaluation on both ranks, the server's
+   version equal to every rank's pushes and its weights the start minus
+   the deltas its tree holds (``ApplyChain``), the job-wide history, a
+   client without the job's key refused, rank 0's autotune choice on
+   both; then rank 1 killed mid-fit and rank 0's teardown barrier timing
+   out; samples/s beside the in-process 4-worker fit;
+9c. the ops phase (``ops_phase``): the PS endpoint of an async fit
+   scraped at 10 Hz (the JAX package's document keys) with the fit's
+   samples/s with and without the poller, the server killed and warm-
+   restarted and the incident rebuilt from its journal; a remote
+   ``/profile`` capture of the LM f32 train step whose trace names
+   K1-K3, and ``/profile``'s memory against ``torch.cuda.memory_stats``;
+   the serving engine's endpoint scraped while it serves;
 10. the estimator phase (``estimator_phase``), BASELINE config 3: the
    registry's full-width LSTM (2,691,842 parameters), one f32 Adam step
    on the card against the CPU, then ``ElephasEstimator.fit`` on the
@@ -287,7 +307,10 @@ ASYNC_CPU_ROWS = 1024
 ASYNC_CPU_LIMITS = {"weights_all": 1e-3, "loss": 1e-4}
 # Transports: 2 workers, batch frequency, 1 epoch over the 8192 rows.
 # The CPU runs ended at evaluate acc 0.37-0.84 (6 runs); held above
-# this and under the untrained loss ln 10.
+# this and under the untrained loss ln 10, with the comms pipeline off:
+# on the H100 (700 W) 16 such fits ended at acc 0.893-0.900, while the
+# pipelined ones spread over 0.26-0.74 and the local server's pipelined
+# ones over 0.18-0.70 (scripts/torch_async_wire_repeat.py, PERF.md §6).
 ASYNC_WIRE_WORKERS, ASYNC_WIRE_MIN_ACC, ASYNC_WIRE_MAX_LOSS = 2, 0.2, float(np.log(10.0))
 ASYNC_BITWISE_ROWS = 1024          # socket vs local, 1 worker, unpipelined
 # ResNet-18 hogwild (BASELINE config 4): full width, bf16, batch 256 per
@@ -415,6 +438,49 @@ TP_SHAPES = ((BATCH, 8 // TP_RANKS, SEQ, 32),       # data 1 x model 4: 2 heads 
 TP_HOP = (BATCH, 8 // 2, SEQ // 2, 32)      # sp x tp ring: a hop of 4 heads at seq 2
 TP_SERVE_REQUESTS = 16                     # of serving_traffic(), sharded over model 4
 TP_TIMEOUT_S = 600
+
+# async_multiproc phase: SparkModel's asynchronous and hogwild fits across
+# MP_RANKS processes of this script on cuda:0 in one gloo group, which
+# carries the control plane only (the PS address and key, the autotune
+# broadcast, the history allgather): parameters travel through the one
+# parameter server on rank 0, which every rank's MP_WORKERS worker
+# threads dial. The MNIST CNN (config 2) at epoch frequency over
+# ASYNC_CNN_ROWS, as the async phase's in-process 4-worker fit (1).
+MP_RANKS, MP_WORKERS, MP_EPOCHS = 2, 2, 2
+MP_FITS = {  # name: (mode, transport, stream_batches, autotune)
+    "async_socket": ("asynchronous", "socket", None, False),
+    "hogwild_http": ("hogwild", "http", None, True),
+    "hogwild_http_streamed": ("hogwild", "http", 4, False),
+}
+MP_PREDICT_ROWS = 512
+MP_BARRIER_TIMEOUT_S = 12          # ELEPHAS_BARRIER_TIMEOUT of the peer-death run
+MP_TIMEOUT_S = 300
+
+# ops phase: the endpoints of the PS, a trainer and the serving engine.
+# Each route's top-level document keys, as the JAX package's OpsServer
+# answers them (tests/test_torch_opsd.py and test_torch_ops_mounts.py
+# hold the port's to the JAX package's on the CPU).
+OPS_POLL_S = 0.1                   # the poller's period: 10 Hz
+OPS_PS_KEYS = {
+    "/healthz": ["membership", "status", "uptime_s"],
+    "/vars": ["boot", "ops_host", "ops_port", "pid", "ps_host", "ps_port", "transport",
+              "version"],
+    "/meta": ["boot", "ops_host", "ops_port", "pid", "role", "routes", "worker_id"],
+    "/workers": ["lag_p50", "lag_p95", "lag_p99", "total_updates", "unstamped_updates",
+                 "window_samples", "workers"],
+    "/history?window=5": ["capacity", "period_s", "series", "ticks", "window_s"],
+    "/trace": ["clockSync", "displayTimeUnit", "droppedSpans", "traceEvents"],
+    "/incidents": ["meta", "recent"],
+}
+OPS_SERVING_KEYS = {
+    "/load": ["observations", "rate_window_s", "raw", "score", "signals", "tau_s"],
+    "/slo": ["burn", "evaluated", "goodput", "goodput_ratio", "objectives", "windows"],
+    "/tenants": ["alerts", "kv_share", "tenants", "totals"],
+    "/alerts": ["active", "fired", "fired_kinds", "rules"],
+}
+OPS_PROFILE_STEPS = 3              # LM f32 train steps inside the capture
+OPS_TRACE_KERNELS = {"flash_fwd": "flash_fwd_f32", "flash_dq": "flash_dq_f32",
+                     "flash_dkv": "flash_dkv_f32"}
 WAL_COST_EVERY, WAL_COST_PUSHES = (1, 8), 16
 
 
@@ -1651,6 +1717,131 @@ def epoch_rate(ends, rows):
     return rows * (len(ends) - 1) / (ends[-1] - ends[0]) if len(ends) > 1 else None
 
 
+def summing_pushes(sums, count, classes=None):
+    """Patch the clients' push (the wire clients', or ``classes``') to
+    also sum every delta it sends in float64 on the host, by parameter
+    name, and count the pushes; returns the function that takes the patch
+    off."""
+    from elephas_tpu_torch.parameter import client as client_mod
+
+    lock, real = threading.Lock(), {}
+    for cls in classes or (client_mod.HttpClient, client_mod.SocketClient):
+        real[cls] = cls.update_parameters
+
+        def push(self, delta, _real=real[cls]):
+            host = client_mod.to_host(delta)
+            flat = {n: t.double().numpy() for g in host for n, t in host[g].items()}
+            # A pipelined push's host copy is waited for once, here.
+            _real(self, host if isinstance(delta, client_mod.HostCopy) else delta)
+            with lock:
+                for name, value in flat.items():
+                    sums[name] = sums.get(name, 0.0) + value
+                count[0] += 1
+
+        cls.update_parameters = push
+
+    def restore():
+        for cls, fn in real.items():
+            cls.update_parameters = fn
+
+    return restore
+
+
+def sum_error_by_norm(final, start, sums):
+    """||final - (start - sums)|| / ||start|| over the summed tensors;
+    ``final``/``start`` are name -> tensor, ``sums`` name -> float64."""
+    diff = sum(float(np.sum((final[n].double().numpy() - (start[n].double().numpy()
+                                                          - sums[n])) ** 2)) for n in sums)
+    norm = sum(float(np.sum(start[n].double().numpy() ** 2)) for n in sums)
+    return (diff / norm) ** 0.5
+
+
+class ApplyChain:
+    """Records the parameter server's applies (tree granularity): each
+    published tree carries the float64 sum of the deltas it holds and
+    their count, chained from the tree its apply read. Under the lock the
+    final tree holds every push; under hogwild a racing apply can drop a
+    whole delta (``parameter/buffer.py``) and the final tree holds exactly
+    the survivors. A tree is known by its first leaf, and its entry goes
+    with that tensor, so only the live ones are kept. ``received`` sums
+    every delta the server was handed. ``close()`` takes the patch off."""
+
+    def __init__(self):
+        import weakref
+
+        from elephas_tpu_torch.parameter import buffer as buffer_mod
+        from elephas_tpu_torch.utils.functional_utils import tree_leaves_with_path
+
+        self.chains, self.received, self._live = {0: ({}, 0)}, {}, {}
+        lock, seq = threading.Lock(), [0]
+        self._cls, self._real = buffer_mod.ParameterBuffer, buffer_mod.ParameterBuffer._subtract
+        self._first = lambda tree: tree_leaves_with_path(tree)[0][1]
+        real = self._real
+
+        def forget(key, n):
+            with lock:
+                if self._live.get(key) == n:
+                    del self._live[key]
+                self.chains.pop(n, None)
+
+        def subtract(params, delta):
+            out = real(params, delta)
+            flat = {p[-1]: t.detach().double().cpu().numpy()
+                    for p, t in tree_leaves_with_path(delta)}
+            leaf = self._first(out)
+            with lock:
+                seq[0] += 1
+                n = seq[0]
+                cum, count = self.chains[self._live.get(id(self._first(params)), 0)]
+                self.chains[n] = ({k: cum.get(k, 0.0) + v for k, v in flat.items()}, count + 1)
+                self._live[id(leaf)] = n
+                for k, v in flat.items():
+                    self.received[k] = self.received.get(k, 0.0) + v
+            weakref.finalize(leaf, forget, id(leaf), n)
+            return out
+
+        self._cls._subtract = staticmethod(subtract)
+
+    def final(self, buffer):
+        """(deltas summed by parameter name, their count) of the buffer's
+        published tree."""
+        return self.chains[self._live.get(id(self._first(buffer._head[0])), 0)]
+
+    def close(self):
+        self._cls._subtract = staticmethod(self._real)
+
+
+def mnist_cnn_data():
+    """BASELINE config 2's data: synthetic MNIST at ``ASYNC_CNN_ROWS``,
+    NHWC float images in [0, 1] and one-hot labels; (train, test)."""
+    from elephas_tpu_torch.data.datasets import one_hot, synthetic_mnist
+
+    return tuple((x.astype(np.float32)[..., None] / 255.0, one_hot(y, 10))
+                 for x, y in synthetic_mnist(*ASYNC_CNN_ROWS))
+
+
+def mnist_cnn(device=None):
+    """BASELINE config 2's CNN at the registry's full width, Adam, seeded."""
+    from elephas_tpu_torch import compile_model
+    from elephas_tpu_torch.models import get_model
+
+    return compile_model(get_model("cnn", device=device),
+                         optimizer={"name": "adam", "learning_rate": 1e-3},
+                         loss="categorical_crossentropy", metrics=["acc"],
+                         input_shape=(28, 28, 1), seed=SEED)
+
+
+def state_digest(module):
+    """sha256 of a module's state_dict, tensor by tensor in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in sorted(module.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def async_phase(attention_cuda):
     """Asynchronous and hogwild training on the card: Downpour SGD
     against the parameter server (a ``ParameterBuffer`` on cuda:0), the
@@ -1669,7 +1860,7 @@ def async_phase(attention_cuda):
     push ms from the ``async/*`` spans, a kernel breakdown of one epoch.
     No flash kernel may launch. Returns the launch counts and a report."""
     from elephas_tpu_torch import SparkModel, compile_model, obs, to_simple_rdd
-    from elephas_tpu_torch.data.datasets import one_hot, synthetic_cifar10, synthetic_mnist
+    from elephas_tpu_torch.data.datasets import one_hot, synthetic_cifar10
     from elephas_tpu_torch.models import get_model
     from elephas_tpu_torch.parameter.client import LocalClient
 
@@ -1686,49 +1877,29 @@ def async_phase(attention_cuda):
         x = x.astype(np.float32) / 255.0
         return (x[..., None] if x.ndim == 3 else x), one_hot(y, 10)  # NHWC, one-hot
 
-    train, test = synthetic_mnist(*ASYNC_CNN_ROWS)
-    (x, y), (xv, yv) = images(train), images(test)
-
-    def cnn(device=None):
-        return compile_model(get_model("cnn", device=device),
-                             optimizer={"name": "adam", "learning_rate": 1e-3},
-                             loss="categorical_crossentropy", metrics=["acc"],
-                             input_shape=(28, 28, 1), seed=SEED)
+    (x, y), (xv, yv) = mnist_cnn_data()
+    cnn = mnist_cnn
 
     # (1) The CNN, asynchronous, 4 workers on one card. Each push's delta
     # is also copied to the host on its pusher's stream and summed in
     # float64: with the lock every push lands, so the server must end at
     # the start minus that sum (a delta read before its stream wrote it
     # would not).
-    sums, summed, sum_lock = {}, [0], threading.Lock()
-    real_push = LocalClient.update_parameters
-
-    def summing_push(client, delta):
-        host = {n: t.double().cpu().numpy() for g in delta for n, t in delta[g].items()}
-        with sum_lock:
-            for name, value in host.items():
-                sums[name] = sums.get(name, 0.0) + value
-            summed[0] += 1
-        real_push(client, delta)
-
+    sums, summed = {}, [0]
     pushes0 = counter("ps_push_total", transport="local")
     net = cnn()
     start = net.get_weights()
     model = SparkModel(net, mode="asynchronous", frequency="epoch",
                        parameter_server_mode="local", mesh=["cuda:0"] * ASYNC_WORKERS)
-    LocalClient.update_parameters = summing_push
+    restore = summing_pushes(sums, summed, classes=(LocalClient,))
     try:
         t0 = time.perf_counter()
         history = model.fit(to_simple_rdd(None, x, y), epochs=ASYNC_CNN_EPOCHS,
                             batch_size=ASYNC_CNN_BATCH, validation_data=(xv, yv))
         fit_s = time.perf_counter() - t0
     finally:
-        LocalClient.update_parameters = real_push
-    final = model.get_weights()
-    diff = sum(float(np.sum((final[n].double().numpy() - (start[n].double().numpy()
-                                                          - sums[n])) ** 2)) for n in sums)
-    norm = sum(float(np.sum(start[n].double().numpy() ** 2)) for n in sums)
-    sum_error = (diff / norm) ** 0.5
+        restore()
+    sum_error = sum_error_by_norm(model.get_weights(), start, sums)
     pushes = counter("ps_push_total", transport="local") - pushes0
     version = model.async_trainer.server.buffer.version
     evaluation, predictions = model.evaluate(xv, yv), model.predict(xv)
@@ -1781,25 +1952,57 @@ def async_phase(attention_cuda):
     check(not breaches(errors, ASYNC_CPU_LIMITS),
           f"async card vs cpu: breaches {breaches(errors, ASYNC_CPU_LIMITS)}")
 
-    # (3) The wire transports: 2 workers each, then 1 worker (deterministic
-    # cuDNN) socket against local to the bit.
+    # (3) The wire transports: 2 workers each, with the comms pipeline off
+    # and at its default (on), then 1 worker (deterministic cuDNN) socket
+    # against local to the bit. Off, each pull follows the worker's own
+    # push: held to the accuracy bar. On, pull k+1 leaves before push k,
+    # as in the JAX package (tests/test_torch_async_pipeline_order.py), and
+    # the accuracy spreads from fit to fit (scripts/torch_async_wire_repeat.py):
+    # held to what it guarantees, every push applied and the server at the
+    # start minus their float64 sum; its accuracy is printed.
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
-    for mode in ("socket", "http"):
-        hits0 = counter("ps_cache_hit_total")
-        m = SparkModel(cnn(), mode="asynchronous", frequency="batch",
-                       parameter_server_mode=mode, port=0,
-                       mesh=["cuda:0"] * ASYNC_WIRE_WORKERS)
-        t0 = time.perf_counter()
-        h = m.fit(to_simple_rdd(None, x, y), epochs=1, batch_size=ASYNC_CNN_BATCH)
-        ev = m.evaluate(xv, yv)
-        report[f"cnn_{mode}"] = {"history": h, "evaluate": ev, "fit_s": time.perf_counter() - t0,
-                                 "not_modified": counter("ps_cache_hit_total") - hits0,
-                                 "version": m.async_trainer.server.buffer.version}
-        print(f"async cnn over {mode} ({ASYNC_WIRE_WORKERS} workers, batch frequency, "
-              f"1 epoch): {json.dumps(report[f'cnn_{mode}'])}", flush=True)
-        check(ev["acc"] > ASYNC_WIRE_MIN_ACC and ev["loss"] < ASYNC_WIRE_MAX_LOSS,
-              f"{mode}: evaluate {ev} not above acc {ASYNC_WIRE_MIN_ACC} and under "
-              f"loss {ASYNC_WIRE_MAX_LOSS:.4f}")
+    wire_sums, wire_pushes = {}, [0]
+    restore = summing_pushes(wire_sums, wire_pushes)
+    try:
+        for mode in ("socket", "http"):
+            for pipelined in (False, None):
+                wire_sums.clear()
+                wire_pushes[0] = 0
+                hits0 = counter("ps_cache_hit_total")
+                net = cnn()
+                start = net.get_weights()
+                m = SparkModel(net, mode="asynchronous", frequency="batch",
+                               parameter_server_mode=mode, port=0,
+                               mesh=["cuda:0"] * ASYNC_WIRE_WORKERS, pipelined_comms=pipelined)
+                t0 = time.perf_counter()
+                h = m.fit(to_simple_rdd(None, x, y), epochs=1, batch_size=ASYNC_CNN_BATCH)
+                fit_s = time.perf_counter() - t0
+                ev = m.evaluate(xv, yv)
+                key = f"cnn_{mode}" + ("" if pipelined is False else "_pipelined")
+                version = m.async_trainer.server.buffer.version
+                report[key] = {"history": h, "evaluate": ev, "fit_s": fit_s,
+                               "not_modified": counter("ps_cache_hit_total") - hits0,
+                               "version": version, "pushes": wire_pushes[0],
+                               "start_minus_sum_error": sum_error_by_norm(
+                                   m.get_weights(), start, wire_sums)}
+                print(f"async cnn over {mode} ({ASYNC_WIRE_WORKERS} workers, batch frequency, "
+                      f"1 epoch, comms pipeline {'off' if pipelined is False else 'on'}): "
+                      f"{json.dumps(report[key])}", flush=True)
+                if pipelined is False:
+                    check(ev["acc"] > ASYNC_WIRE_MIN_ACC and ev["loss"] < ASYNC_WIRE_MAX_LOSS,
+                          f"{mode}: evaluate {ev} not above acc {ASYNC_WIRE_MIN_ACC} and under "
+                          f"loss {ASYNC_WIRE_MAX_LOSS:.4f}")
+                    continue
+                want = ASYNC_WIRE_WORKERS * (len(x) // ASYNC_WIRE_WORKERS // ASYNC_CNN_BATCH)
+                check(version == wire_pushes[0] == want,
+                      f"{mode} pipelined: buffer version {version}, pushes {wire_pushes[0]}, "
+                      f"expected {want}: every locked push must apply")
+                check(report[key]["start_minus_sum_error"] <= ASYNC_SUM_LIMIT,
+                      f"{mode} pipelined: the server's weights are "
+                      f"{report[key]['start_minus_sum_error']:.3e} (by norm) from the start "
+                      f"minus the pushed deltas; limit {ASYNC_SUM_LIMIT}")
+    finally:
+        restore()
     # The same pair at epoch frequency with the local server's comms
     # pipeline on (the delta crosses to the comms thread behind an event,
     # the pull comes back from it), against it off: with one worker the
@@ -3818,17 +4021,22 @@ def rank_main(checks, config_path, rank):
     return 0
 
 
-def run_ranks(flag, world, timeout, label):
+def run_ranks(flag, world, timeout, label, extra=None, env=None, expect=None):
     """``world`` processes of this script (``flag`` CONFIG RANK) on cuda:0
-    in one gloo group; returns their reports and the seconds they took. A
-    rank's failure prints the tail of every rank's log and raises."""
+    in one gloo group; returns their reports and the seconds they took.
+    ``extra`` joins the ranks' config, ``env`` their environment;
+    ``expect``: the exit codes each rank must end with (all 0), a rank
+    that ends otherwise leaving no report (None in the list). A rank's
+    unexpected exit prints the tail of every rank's log and raises."""
     import tempfile
 
-    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "2"}
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "2", **(env or {})}
+    expect = expect or [0] * world
     with tempfile.TemporaryDirectory() as tmp:
         config = Path(tmp) / "config.json"
         config.write_text(json.dumps({"store": f"{tmp}/store", "out": f"{tmp}/report",
-                                      "dir": tmp, "world": world, "timeout": timeout}))
+                                      "dir": tmp, "world": world, "timeout": timeout,
+                                      **(extra or {})}))
         logs = [open(Path(tmp) / f"rank{r}.log", "w") for r in range(world)]
         t0 = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag,
@@ -3847,14 +4055,14 @@ def run_ranks(flag, world, timeout, label):
             for f in logs:
                 f.close()
         seconds = time.perf_counter() - t0
-        if codes != [0] * world:
+        if codes != expect:
             for r in range(world):
                 tail = (Path(tmp) / f"rank{r}.log").read_text()[-3000:]
                 print(f"{label} rank {r} log (tail):\n{tail}", flush=True)
-        check(codes == [0] * world,
-              f"{label} ranks exited {codes} (None: past {timeout} s)")
-        return [json.loads((Path(tmp) / f"report.rank{r}").read_text())
-                for r in range(world)], seconds
+        check(codes == expect,
+              f"{label} ranks exited {codes}, expected {expect} (None: past {timeout} s)")
+        return [json.loads((Path(tmp) / f"report.rank{r}").read_text()) if code == 0 else None
+                for r, code in enumerate(codes)], seconds
 
 
 SP_PATHS = ("attention_ring_float32", "attention_ulysses_float32", "attention_ring_bfloat16",
@@ -4224,6 +4432,500 @@ def tensor_parallel_phase(attention_cuda):
     return total, report
 
 
+def async_rank_checks(rank, config):
+    """One rank of the async_multiproc phase (``--async-rank``): the fits
+    of ``MP_FITS`` (``config["death"]`` false), or the peer-death run.
+    Reports, per fit, what the phase holds across ranks: the weights'
+    digest, the history and each worker's epoch metrics, this rank's
+    pushes and the float64 sum of their deltas (summed over the ranks by
+    gloo), on rank 0 the server's version, its applied tree (``ApplyChain``)
+    and what a client without the job's key got; the predictions' digest,
+    the evaluation, the autotune choice, the fit's seconds and the flash
+    launches."""
+    import hashlib
+    import signal
+
+    from elephas_tpu_torch import SparkModel, to_simple_rdd
+    from elephas_tpu_torch.engine import async_engine
+    from elephas_tpu_torch.ops import attention_cuda
+    from elephas_tpu_torch.parallel import distributed
+    from elephas_tpu_torch.parameter import client as client_mod
+
+    (x, y), (xv, yv) = mnist_cnn_data()
+    servers, per_worker, timed = [], {}, [0]
+    real_make_server, real_run_worker = async_engine.make_server, async_engine.AsyncTrainer._run_worker
+    real_ab = async_engine.autotune_compile_options
+
+    def make_server(*args, **kwargs):
+        servers.append(real_make_server(*args, **kwargs))
+        return servers[-1]
+
+    def run_worker(self, index, *args, **kwargs):
+        per_worker[index] = real_run_worker(self, index, *args, **kwargs)
+        return per_worker[index]
+
+    def ab(*args, **kwargs):
+        timed[0] += 1
+        return real_ab(*args, **kwargs)
+
+    async_engine.make_server = make_server
+    async_engine.AsyncTrainer._run_worker = run_worker
+    async_engine.autotune_compile_options = ab
+
+    if config.get("death"):
+        # Rank 1 dies after its first push; rank 0's teardown barrier must
+        # time out, and its server must be stopped.
+        if rank == 1:
+            for cls in (client_mod.HttpClient, client_mod.SocketClient):
+                real = cls.update_parameters
+
+                def push(self, delta, _real=real):
+                    _real(self, delta)
+                    os.kill(os.getpid(), signal.SIGKILL)
+
+                cls.update_parameters = push
+        ends = []
+        model = SparkModel(mnist_cnn(), mode="asynchronous", frequency="epoch",
+                           parameter_server_mode="http", port=0, mesh=["cuda:0"] * MP_WORKERS)
+        t0 = time.monotonic()
+        try:
+            model.fit(to_simple_rdd(None, x, y), epochs=MP_EPOCHS, batch_size=ASYNC_CNN_BATCH,
+                      callbacks=[lambda e, state, metrics: ends.append(time.monotonic())])
+            out = {"error": None}
+        except Exception as exc:
+            out = {"error": type(exc).__name__, "message": str(exc)}
+        raised = time.monotonic()
+        out.update(fit_s=raised - t0, epochs_done=len(ends),
+                   after_last_epoch_s=raised - ends[-1] if ends else None,
+                   server_stopped=bool(servers) and servers[-1]._server is None)
+        with open(f"{config['out']}.rank{rank}", "w") as f:
+            json.dump(out, f)
+        os._exit(0)  # the group has a dead member: no teardown
+
+    # A first fit in a fresh process pays for CUDA's and cuDNN's set-up:
+    # one small fit before the measured ones.
+    SparkModel(mnist_cnn(), mode="asynchronous", frequency="epoch",
+               parameter_server_mode="socket", port=0, mesh=["cuda:0"] * MP_WORKERS).fit(
+        to_simple_rdd(None, x[:ASYNC_BITWISE_ROWS], y[:ASYNC_BITWISE_ROWS]), epochs=1,
+        batch_size=ASYNC_CNN_BATCH)
+    sums, pushes = {}, [0]
+    summing_pushes(sums, pushes)
+    chain = ApplyChain() if rank == 0 else None
+    fits = {}
+    for name, (mode, transport, stream, autotune) in MP_FITS.items():
+        sums.clear()
+        pushes[0] = 0
+        if chain is not None:
+            chain.received.clear()
+        servers.clear()
+        per_worker.clear()
+        timed[0] = 0
+        attention_cuda.reset_launches()
+        net = mnist_cnn()
+        start = net.get_weights()
+        names = sorted(start)
+        unauthenticated = []
+
+        def probe(epoch, state, metrics):
+            """Rank 0's epoch fire, the server live: a client without the
+            job's key must be refused."""
+            if unauthenticated or not servers:
+                return
+            client = client_mod.make_client(transport, f"127.0.0.1:{servers[-1].port}")
+            client.timeout = 5.0
+            try:
+                client.get_parameters()
+                unauthenticated.append("answered")
+            except Exception as exc:
+                unauthenticated.append(type(exc).__name__)
+            finally:
+                if hasattr(client, "close"):
+                    client.close()
+
+        model = SparkModel(net, mode=mode, frequency="epoch", parameter_server_mode=transport,
+                           port=0, mesh=["cuda:0"] * MP_WORKERS, autotune=autotune)
+        t0 = time.perf_counter()
+        history = model.fit(to_simple_rdd(None, x, y), epochs=MP_EPOCHS,
+                            batch_size=ASYNC_CNN_BATCH, validation_data=(xv, yv),
+                            stream_batches=stream, callbacks=[probe])
+        fit_s = time.perf_counter() - t0
+        launches = dict(attention_cuda.launches)
+        final = net.get_weights()
+        # Every rank's pushed deltas, summed over the ranks.
+        total = torch.as_tensor(np.concatenate(
+            [np.ravel(sums.get(n, np.zeros(start[n].shape))) for n in names]))
+        torch.distributed.all_reduce(total)
+        offsets = np.cumsum([0] + [start[n].numel() for n in names])
+        pushed = {n: total[offsets[i]:offsets[i + 1]].numpy().reshape(start[n].shape)
+                  for i, n in enumerate(names)}
+        all_pushes = [int(b) for b in distributed.allgather_bytes(str(pushes[0]).encode())]
+        record = {"digest": state_digest(net.module), "history": history,
+                  "per_worker": {str(i): [{k: float(v) for k, v in e.items()} for e in m]
+                                 for i, m in per_worker.items()},
+                  "pushes": all_pushes, "fit_s": fit_s, "timed": timed[0],
+                  "autotune": model.last_autotune, "launches": launches,
+                  "workers": [g for g, _ in model.async_trainer.workers],
+                  "n_global_workers": model.async_trainer.n_global_workers}
+        if rank == 0:
+            buffer = servers[-1].buffer
+            survivors, count = chain.final(buffer)
+            record.update(
+                version=buffer.version, applied=buffer._head[1], survivors=count,
+                unauthenticated=unauthenticated,
+                pushed_error=sum_error_by_norm(final, start, pushed),
+                survivor_error=sum_error_by_norm(final, start, survivors),
+                received_error=sum_error_by_norm(
+                    {n: torch.as_tensor(start[n].double().numpy() - chain.received[n])
+                     for n in chain.received}, start, pushed))
+        predictions = np.ascontiguousarray(model.predict(xv[:MP_PREDICT_ROWS]))
+        record.update(predict_digest=hashlib.sha256(predictions.tobytes()).hexdigest(),
+                      predict_shape=list(predictions.shape),
+                      predict_finite=bool(np.isfinite(predictions).all()),
+                      evaluate=model.evaluate(xv, yv))
+        fits[name] = record
+    return {"rank": rank, "fits": fits}
+
+
+def async_multiproc_phase(attention_cuda, inprocess):
+    """SparkModel asynchronous and hogwild across MP_RANKS processes on
+    cuda:0 (``async_rank_checks``): every rank ends with the same weights,
+    history, validation, predictions and evaluation; the server's version
+    is every rank's pushes; the server ends at the start minus the float64
+    sum of the deltas its tree holds (every push under the lock, the
+    survivors under hogwild); the history is the worker-count-weighted mean
+    of the per-worker means; a client without the job's key is refused;
+    rank 0 alone times the autotune candidates and both ranks adopt its
+    choice; no flash kernel launches. Then rank 1 is killed mid-fit and
+    rank 0's teardown barrier must time out within
+    ``MP_BARRIER_TIMEOUT_S`` with its server stopped. ``inprocess``: the
+    async phase's in-process 4-worker fit, for the samples/s beside it.
+    Returns the launches and the report."""
+    t_phase = time.perf_counter()
+    env = {"ELEPHAS_PS_BIND": "127.0.0.1"}
+    ranks, seconds = run_ranks("--async-rank", MP_RANKS, MP_TIMEOUT_S, "async_multiproc",
+                               env=env)
+    report = {"ranks_s": seconds}
+    rows = MP_RANKS * MP_WORKERS * (ASYNC_CNN_ROWS[0] // (MP_RANKS * MP_WORKERS)
+                                    // ASYNC_CNN_BATCH) * ASYNC_CNN_BATCH
+    launches = {k: 0 for k in KERNELS}
+    for name, (mode, transport, stream, autotune) in MP_FITS.items():
+        r0, r1 = (r["fits"][name] for r in ranks)
+        what = f"async_multiproc {name}"
+        for r in (r0, r1):
+            for k in KERNELS:
+                launches[k] += r["launches"][k]
+        check(r0["digest"] == r1["digest"], f"{what}: the ranks' weights differ")
+        check(r0["history"] == r1["history"], f"{what}: the ranks' histories differ")
+        check(all(len(r0["history"][f"val_{k}"]) == MP_EPOCHS for k in ("loss", "acc")),
+              f"{what}: val entries {r0['history']}")
+        check((r0["predict_digest"], r0["evaluate"]) == (r1["predict_digest"], r1["evaluate"])
+              and r0["predict_finite"]
+              and r0["predict_shape"] == [min(MP_PREDICT_ROWS, ASYNC_CNN_ROWS[1]), 10],
+              f"{what}: predict/evaluate differ between ranks or are not finite")
+        check(r0["workers"] == [0, 1] and r1["workers"] == [2, 3]
+              and r0["n_global_workers"] == MP_RANKS * MP_WORKERS,
+              f"{what}: workers {r0['workers']}, {r1['workers']}")
+        check(r0["pushes"] == r1["pushes"] == [MP_WORKERS * MP_EPOCHS] * MP_RANKS
+              and r0["version"] == sum(r0["pushes"]),
+              f"{what}: server version {r0['version']}, pushes {r0['pushes']}")
+        check(r0["received_error"] <= 1e-12, f"{what}: the server received "
+              f"{r0['received_error']:.3e} (by norm) other than what the ranks pushed")
+        check(r0["survivors"] == r0["applied"] and r0["survivor_error"] <= ASYNC_SUM_LIMIT,
+              f"{what}: the server's weights are {r0['survivor_error']:.3e} from the start "
+              f"minus the {r0['survivors']} deltas its tree holds (applied {r0['applied']})")
+        if mode == "asynchronous":
+            check(r0["applied"] == r0["version"] and r0["pushed_error"] <= ASYNC_SUM_LIMIT,
+                  f"{what}: every locked push must apply; start minus all pushes off by "
+                  f"{r0['pushed_error']:.3e}")
+        # The JAX package's job-wide history: each rank's per-epoch means
+        # over its workers, weighted by its worker count.
+        keys = sorted(next(iter(r0["per_worker"].values()))[0])
+        counts = np.array([len(r["per_worker"]) for r in (r0, r1)], dtype=np.float64)
+        means = np.array([[[np.mean([m[e][k] for m in r["per_worker"].values()])
+                            for k in keys] for e in range(MP_EPOCHS)] for r in (r0, r1)])
+        want = (means * counts[:, None, None]).sum(axis=0) / counts.sum()
+        for i, k in enumerate(keys):
+            got = (r0["history"]["worker_retries"] if k == "_retries"
+                   else r0["history"][k])
+            ref = ([int(round(v * counts.sum())) for v in want[:, i]] if k == "_retries"
+                   else want[:, i])
+            check(np.allclose(got, ref, rtol=1e-12, atol=0),
+                  f"{what}: history {k} {got} is not the weighted mean {list(ref)}")
+        check(r0["unauthenticated"] and r0["unauthenticated"][0] != "answered",
+              f"{what}: a client without the job's key got {r0['unauthenticated']}")
+        if autotune:
+            check(r0["autotune"] == r1["autotune"] and r0["autotune"] is not None
+                  and r0["timed"] == 1 and r1["timed"] == 0,
+                  f"{what}: autotune {r0['autotune']} vs {r1['autotune']}, timed "
+                  f"{r0['timed']}/{r1['timed']}")
+        report[name] = {
+            "fit_s": [r0["fit_s"], r1["fit_s"]], "history": r0["history"],
+            "evaluate": r0["evaluate"], "version": r0["version"], "applied": r0["applied"],
+            "survivor_error": r0["survivor_error"], "pushed_error": r0["pushed_error"],
+            "autotune": r0["autotune"], "unauthenticated": r0["unauthenticated"],
+            "samples_per_s": MP_EPOCHS * rows / max(r0["fit_s"], r1["fit_s"])}
+        print(f"async_multiproc {name} ({MP_RANKS} ranks x {MP_WORKERS} workers on cuda:0, "
+              f"{mode} over {transport}, epoch frequency, {MP_EPOCHS} epochs"
+              f"{f', stream_batches {stream}' if stream else ''}): "
+              f"{json.dumps(report[name])}", flush=True)
+    check(launches == {k: 0 for k in KERNELS},
+          f"the async_multiproc path launched flash kernels: {launches}")
+    inproc_rows = ASYNC_WORKERS * (ASYNC_CNN_ROWS[0] // ASYNC_WORKERS
+                                   // ASYNC_CNN_BATCH) * ASYNC_CNN_BATCH
+    report["inprocess_4_workers_samples_per_s"] = (
+        ASYNC_CNN_EPOCHS * inproc_rows / inprocess["fit_s"])
+    print(f"async_multiproc samples/s (whole fits with per-epoch validation): "
+          f"{MP_RANKS} ranks x {MP_WORKERS} workers, asynchronous over socket "
+          f"{report['async_socket']['samples_per_s']:.1f}; one process, "
+          f"{ASYNC_WORKERS} worker threads, local server "
+          f"{report['inprocess_4_workers_samples_per_s']:.1f}", flush=True)
+
+    ranks, seconds = run_ranks("--async-rank", MP_RANKS, MP_TIMEOUT_S, "async_multiproc death",
+                               extra={"death": True},
+                               env={**env, "ELEPHAS_BARRIER_TIMEOUT": str(MP_BARRIER_TIMEOUT_S)},
+                               expect=[0, -9])
+    death = ranks[0]
+    report["death"] = {**death, "ranks_s": seconds}
+    print(f"async_multiproc peer death (rank 1 killed after its first push; "
+          f"ELEPHAS_BARRIER_TIMEOUT {MP_BARRIER_TIMEOUT_S} s): {json.dumps(report['death'])}",
+          flush=True)
+    check(death["error"] == "TimeoutError" and "elephas:pushes_done" in death["message"],
+          f"rank 0 raised {death['error']}: {death.get('message')}")
+    check(death["epochs_done"] == MP_EPOCHS and death["after_last_epoch_s"] is not None
+          and death["after_last_epoch_s"] <= MP_BARRIER_TIMEOUT_S + 5,
+          f"rank 0 raised {death['after_last_epoch_s']} s after its last epoch "
+          f"(barrier timeout {MP_BARRIER_TIMEOUT_S} s)")
+    check(death["server_stopped"], "rank 0's parameter server was not stopped")
+    report["phase_s"] = time.perf_counter() - t_phase
+    return launches, report
+
+
+def scrape(url):
+    """GET ``url``; (status, the document's sorted top-level keys), or the
+    error's name."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10.0) as resp:
+            return resp.status, sorted(json.loads(resp.read()))
+    except urllib.error.HTTPError as err:
+        return err.code, None
+    except Exception as exc:  # noqa: BLE001 - reported, then held
+        return type(exc).__name__, None
+
+
+class Poller:
+    """Scrapes ``routes`` (route -> expected top-level keys) of the
+    endpoint ``url_fn()`` names (None: not mounted) every ``OPS_POLL_S``
+    on a thread of its own; counts rounds and keeps every answer that was
+    not 200 with the expected keys. A round that the endpoint's unmount
+    cut short (``url_fn()`` no longer names it) is dropped."""
+
+    def __init__(self, url_fn, routes):
+        self.url_fn, self.routes = url_fn, routes
+        self.rounds, self.bad = 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def poll_once(self):
+        url = self.url_fn()
+        if url is None:
+            return
+        bad = []
+        for route, keys in self.routes.items():
+            got = scrape(f"{url}{route}")
+            if got != (200, sorted(keys)):
+                bad.append([route, *got])
+        if bad and self.url_fn() != url:
+            return  # unmounted mid-round
+        self.bad.extend(bad)
+        self.rounds += 1
+
+    def _run(self):
+        while not self._stop.wait(OPS_POLL_S):
+            self.poll_once()
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def ops_phase(attention_cuda):
+    """The ops endpoints on the card. (a) The PS of a single-process
+    async CNN fit over HTTP (``ps_ops_port=0``, a WAL directory so
+    ``store_dir="auto"`` journals beside it), scraped at 10 Hz while it
+    trains, every answer 200 with the JAX package's keys; the fit's
+    samples/s with and without the poller; then the server warm-restarted
+    on the WAL, killed, restarted again, and the incident rebuilt from
+    the journal alone holding the kill and the restarts. (b)
+    ``SyncTrainer.mount_ops`` beside the full-width LM f32 train step:
+    ``/profile?action=start``, OPS_PROFILE_STEPS steps, ``?action=stop``;
+    the exported trace names K1-K3's float32 kernels, a second start
+    answers busy, a bare ``/profile`` reports the card's memory as
+    ``torch.cuda.memory_stats`` does. (c) ``InferenceEngine.mount_ops``
+    while it serves ``serving_traffic()``: /load, /slo, /tenants and
+    /alerts scraped throughout, /metrics with the serving counters,
+    ``unmount_ops`` twice. Returns the launches (K1-K3 of (b)) and the
+    report."""
+    import tempfile
+    import urllib.request
+
+    from elephas_tpu_torch import obs
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.data.rdd import ShardedDataset
+    from elephas_tpu_torch.engine.async_engine import AsyncTrainer, store_of
+    from elephas_tpu_torch.engine.step import init_train_state
+    from elephas_tpu_torch.engine.sync import SyncTrainer
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parallel.mesh import build_mesh
+    from elephas_tpu_torch.parameter.server import make_server
+    from elephas_tpu_torch.serving import InferenceEngine
+
+    t_phase = time.perf_counter()
+    report = {}
+    attention_cuda.reset_launches()
+    (x, y), _ = mnist_cnn_data()
+    rows = ASYNC_WIRE_WORKERS * (len(x) // ASYNC_WIRE_WORKERS // ASYNC_CNN_BATCH) * ASYNC_CNN_BATCH
+
+    # (a) The parameter server's endpoint under a poller, fits without and
+    # with it in turn; each fit's WAL directory of its own (a server warm-
+    # restarts from the WAL it is given).
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, polled in enumerate((None, False, True, False, True)):  # None: warm-up
+            wal = os.path.join(tmp, f"fit{i}")
+            trainer = AsyncTrainer(mnist_cnn(), ["cuda:0"] * ASYNC_WIRE_WORKERS,
+                                   frequency="batch", parameter_server_mode="http", port=0,
+                                   ps_ops_port=0, ps_wal_dir=wal)
+
+            def url():
+                server = trainer.server
+                ops = getattr(server, "ops", None) if server is not None else None
+                return ops.url if ops is not None else None
+
+            poller = Poller(url if polled else (lambda: None), OPS_PS_KEYS)
+            with poller:
+                t0 = time.perf_counter()
+                trainer.fit(ShardedDataset(x, y, ASYNC_WIRE_WORKERS), epochs=1,
+                            batch_size=ASYNC_CNN_BATCH)
+                fit_s = time.perf_counter() - t0
+            if polled is None:
+                continue
+            key = "polled" if polled else "unpolled"
+            report.setdefault(f"ps_{key}_samples_per_s", []).append(rows / fit_s)
+            if polled:
+                report.setdefault("ps_poll_rounds", []).append(poller.rounds)
+                check(poller.rounds >= 5 and not poller.bad,
+                      f"the PS endpoint under the poller: {poller.rounds} rounds, "
+                      f"answers off the JAX keys {poller.bad[:5]}")
+        tree = store_of(trainer.compiled.module)
+        tree = {"params": tree[0], "batch_stats": tree[1]}
+        restarted = make_server("http", tree, port=0, wal_dir=wal, ops_port=0)
+        restarted.start()
+        version = restarted.buffer.version
+        restarted.kill()
+        check(restarted.ops is None, "the killed server's endpoint is still mounted")
+        again = make_server("http", tree, port=0, wal_dir=wal, ops_port=0)
+        again.start()
+        check(again.buffer.version == version, f"the warm restart resumed at version "
+              f"{again.buffer.version}, the killed server held {version}")
+        again.stop()
+        builder = obs.IncidentBuilder()
+        builder.add_store(os.path.join(wal, "telemetry"), name="ps")
+        incident = builder.build()
+        names = [e["name"] for e in incident["timeline"]]
+        report["incident"] = {"boots": len(incident["boots_by_proc"]["ps"]),
+                              "trigger": (incident["triggering_event"] or {}).get("kind"),
+                              "events": len(names), "digest": incident["digest"]}
+        check(report["incident"]["boots"] == 3 and report["incident"]["trigger"] == "ps_kill"
+              and "ps_kill" in names and names.count("boot (warm restart)") >= 2,
+              f"the incident rebuilt from the journal: {report['incident']}, "
+              f"timeline {names[-12:]}")
+    print(f"ops ps (AsyncTrainer over HTTP, {ASYNC_WIRE_WORKERS} workers on cuda:0, batch "
+          f"frequency, 1 epoch, ps_ops_port=0, {len(OPS_PS_KEYS)} routes polled every "
+          f"{OPS_POLL_S} s): {json.dumps(report)}", flush=True)
+
+    # (b) The trainer's endpoint: remote capture of the LM f32 train step.
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, 32000, (BATCH, SEQ + 1)), device="cuda")
+    lm = CompiledModel(get_model("transformer_lm", attention="flash", dtype="float32"),
+                       optimizer={"name": "adam", "learning_rate": 1e-3},
+                       loss="sparse_categorical_crossentropy", metrics=["acc"], seed=SEED)
+    trainer = SyncTrainer(lm, build_mesh())
+    state = init_train_state(lm)
+    ops = trainer.mount_ops()
+    with tempfile.TemporaryDirectory() as capture:
+        state, _ = trainer._train_step(state, tokens[:, :-1], tokens[:, 1:])  # warm
+        torch.cuda.synchronize()
+        attention_cuda.reset_launches()
+        started = scrape(f"{ops.url}/profile?action=start&dir={capture}")
+        busy = scrape(f"{ops.url}/profile?action=start")
+        for _ in range(OPS_PROFILE_STEPS):
+            state, metrics = trainer._train_step(state, tokens[:, :-1], tokens[:, 1:])
+        torch.cuda.synchronize()
+        stopped = scrape(f"{ops.url}/profile?action=stop")
+        launches = dict(attention_cuda.launches)
+        traces = sorted(Path(capture).glob("trace-*.json"))
+        check(started[0] == 200 and busy[0] == 409 and stopped[0] == 200 and len(traces) == 1,
+              f"/profile start {started}, second start {busy}, stop {stopped}, "
+              f"traces {traces}")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        found = {k: sum(name in n for n in kernels) for k, name in OPS_TRACE_KERNELS.items()}
+        report["profile"] = {"trace_bytes": traces[0].stat().st_size,
+                             "kernel_events": len(kernels), "flash_events": found,
+                             "launches": launches, "loss": float(metrics["loss"])}
+    with urllib.request.urlopen(f"{ops.url}/profile", timeout=10.0) as resp:
+        before = torch.cuda.memory_stats(0)["allocated_bytes.all.current"]
+        doc = json.loads(resp.read())
+    after = torch.cuda.memory_stats(0)["allocated_bytes.all.current"]
+    trainer.unmount_ops()
+    report["profile"]["device_memory"] = doc["device_memory"]
+    report["profile"]["memory_stats"] = after
+    print(f"ops trainer (SyncTrainer.mount_ops, the full-width LM f32 train step, "
+          f"{OPS_PROFILE_STEPS} steps captured over /profile): {json.dumps(report['profile'])}",
+          flush=True)
+    check(launches == {k: 4 * OPS_PROFILE_STEPS for k in KERNELS},
+          f"the captured steps launched {launches}, expected {4 * OPS_PROFILE_STEPS} of each")
+    # The capture can miss the first launches after its start (2 of K1's
+    # 12 in one run): every launch of the steps after the first must be
+    # in the trace, and none that was not made.
+    check(all(4 * (OPS_PROFILE_STEPS - 1) <= found[k] <= launches[k] for k in KERNELS),
+          f"the trace names the kernels {found} times; launched {launches}")
+    check(before == after == doc["device_memory"].get("cuda_0"),
+          f"/profile memory {doc['device_memory']}, torch.cuda.memory_stats {before}/{after}")
+    del trainer, state, lm, tokens
+
+    # (c) The serving engine's endpoint while it serves.
+    model = CompiledModel(get_model("transformer_lm"), loss="sparse_categorical_crossentropy",
+                          metrics=[], seed=SEED).module
+    engine = InferenceEngine(model, **SERVE_ENGINE)
+    ops = engine.mount_ops()
+    with Poller(lambda: ops.url, OPS_SERVING_KEYS) as poller:
+        _, elapsed = serve(engine, serving_traffic())
+        time.sleep(3 * OPS_POLL_S)
+    with urllib.request.urlopen(f"{ops.url}/metrics", timeout=10.0) as resp:
+        text = resp.read().decode()
+    engine.unmount_ops()
+    engine.unmount_ops()
+    report["serving"] = {"s": elapsed, "poll_rounds": poller.rounds, "bad": poller.bad[:5],
+                         "metrics_lines": len(text.splitlines())}
+    print(f"ops serving (InferenceEngine.mount_ops, {SERVE_REQUESTS} requests): "
+          f"{json.dumps(report['serving'])}", flush=True)
+    check(poller.rounds >= 3 and not poller.bad,
+          f"the serving endpoint under the poller: {report['serving']}")
+    check(all(f"{name}" in text for name in ("serving_itl_seconds", "elephas_process_info",
+                                             "serving_prefix_cache_hit_total")),
+          "the serving counters are missing from /metrics")
+    check(engine.ops is None, "unmount_ops left the endpoint mounted")
+    report["phase_s"] = time.perf_counter() - t_phase
+    return launches, report
+
+
 def kernel_entries(timing, errors, launches):
     """The ``{"kernels": [...]}`` line's entries: each kernel's source,
     the TPU kernel it replaces, its launches on the main path (the LM
@@ -4314,6 +5016,11 @@ def main():
     print(f"serving: {json.dumps(report)}", flush=True)
     launches["async"], report = async_phase(attention_cuda)
     print(f"async: {json.dumps(report)}", flush=True)
+    launches["async_multiproc"], report = async_multiproc_phase(attention_cuda,
+                                                                report["cnn_async"])
+    print(f"async_multiproc: {json.dumps(report)}", flush=True)
+    launches["ops"], report = ops_phase(attention_cuda)
+    print(f"ops: {json.dumps(report)}", flush=True)
     launches["estimator"], report = estimator_phase(attention_cuda)
     print(f"estimator: {json.dumps(report)}", flush=True)
     launches["search"], report = search_phase(attention_cuda)
@@ -4337,4 +5044,6 @@ if __name__ == "__main__":
         sys.exit(rank_main(seq_rank_checks, sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(rank_main(tp_rank_checks, sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--async-rank"]:
+        sys.exit(rank_main(async_rank_checks, sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

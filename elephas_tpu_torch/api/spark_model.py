@@ -11,7 +11,12 @@ JAX package's.
 - ``mode="asynchronous"`` (the default) and ``"hogwild"``
   (``engine/async_engine.py``): Downpour SGD, one worker thread per
   device of the worker list against a parameter server on the card
-  (``parameter/``), locked or lock-free.
+  (``parameter/``), locked or lock-free. Under a ``torch.distributed``
+  group of several processes the wire transports (``http``/``socket``)
+  run one server on rank 0 that every rank's workers dial (the job's
+  partitions are the ranks' workers together); every rank calls ``fit``,
+  then ``predict`` and ``evaluate`` run on the whole group and give
+  every rank the same answer.
 
 ``save`` writes the JAX package's pickled dict around a
 ``model_to_dict`` payload and ``load_spark_model`` reads it back; the
@@ -74,8 +79,9 @@ class TpuModel:
         transports).
     num_workers: synchronous: the data-group size, defaulting to the
         world size (one process per device). Asynchronous: the number of
-        worker threads, defaulting to the length of the worker device
-        list. Either is capped with a warning.
+        worker threads of this process, defaulting to the length of the
+        worker device list (across processes the job's workers are every
+        rank's together). Either is capped with a warning.
     custom_objects: builders by registry name, used where ``model`` is a
         ``model_to_dict`` payload (``serialize.dict_to_model``).
     device: where a payload's model is built (None: ``cuda``).
@@ -194,7 +200,7 @@ class TpuModel:
     @property
     def mesh(self):
         """The synchronous data group; the asynchronous modes evaluate and
-        predict on the process group (one process)."""
+        predict on the whole process group (one process alone)."""
         if self._mesh is None:
             self._mesh = build_mesh(num_data=self.num_workers if self.mode == "synchronous"
                                     else None)

@@ -164,8 +164,14 @@ class CheckpointManager:
     """Rotating snapshot manager and fit-callback factory.
 
     ``keep``: the newest snapshots kept (by step). ``save_every_epochs``:
-    the callback's cadence. ``host0_only`` is accepted for the JAX
-    package's signature and ignored: rank 0 alone writes in every mode.
+    the callback's cadence. ``host0_only``: in the JAX package it makes
+    saves non-collective (process 0 alone, no barrier), which a fit whose
+    epoch fires run on rank 0 alone needs. The port's saves are
+    non-collective whatever the flag (rank 0 alone writes, with no
+    collective), so every manager already meets that need; the flag is
+    kept so that the asynchronous fit across processes accepts and
+    refuses the same managers as the JAX package (``host0_only=True``
+    only).
     """
 
     def __init__(self, directory: str, keep: int = 3, save_every_epochs: int = 1,

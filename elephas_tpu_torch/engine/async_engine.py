@@ -74,13 +74,36 @@ did to it (the JAX package's functional state rolls it back).
   for its steps) before it pushes, so a device fault kills the unit,
   which is re-queued, and never reaches the server.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the ops endpoint (``ps_ops_port``, ``mount_ops``) and a world of
-more than one process.
+- **Across processes** (a ``torch.distributed`` group of several ranks):
+  one parameter server on rank 0, which every rank's workers dial. Each
+  rank's workers take the next slots of the job's global worker list
+  (rank r's worker i is worker ``sum(local counts before r) + i``), so
+  partition g is trained by exactly one worker of the job. Rank 0 binds
+  ``$ELEPHAS_PS_BIND`` (default ``0.0.0.0``) and broadcasts the address it
+  can be dialled at and a per-fit HMAC key over the group's control
+  plane (gloo or NCCL carries only that: parameters travel through the
+  PS); ``$ELEPHAS_PS_ADDRESS`` overrides the address,
+  ``$ELEPHAS_PS_AUTH_KEY`` (hex) the key, and ``ELEPHAS_PS_AUTH=off``
+  turns authentication off. Autotune is decided job-wide (rank 0 times,
+  every rank adopts its choice), validation and callbacks run on rank 0
+  (a checkpoint manager must say ``host0_only=True``), and the teardown
+  runs through PS-backed barriers: every rank waits on
+  ``elephas:pushes_done`` and pulls the final weights, then rank 0 waits
+  on ``elephas:final_read`` before it stops the server. A dead peer
+  surfaces as ``wait_barrier``'s ``TimeoutError`` after
+  ``$ELEPHAS_BARRIER_TIMEOUT`` seconds. The history is the job-wide
+  mean (each rank's per-epoch means weighted by its worker count) and
+  rank 0's validation records reach every rank verbatim, so every rank
+  reports the same history. The local server, ``ps_shards`` and the
+  elastic fit are refused across processes, as in the JAX package.
+- **Ops** (``ps_ops_port``, ``mount_ops``): the parameter server's ops
+  endpoint (``parameter/server.py``) and the worker process's own (role
+  ``worker``, id ``w<rank>``), each an ``obs.opsd.OpsServer``.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import queue
@@ -114,20 +137,18 @@ from elephas_tpu_torch.parameter.client import (
     make_client,
 )
 from elephas_tpu_torch.parameter.group import ShardGroup
+from elephas_tpu_torch.parallel import distributed
+from elephas_tpu_torch.parallel.mesh import Mesh, world
 from elephas_tpu_torch.parameter.server import _dial_host, make_server
 from elephas_tpu_torch.resilience import ElasticWorkerPool, FaultInjector, UnitLedger, install
 from elephas_tpu_torch.utils.compiler import autotune_candidates, autotune_compile_options
 from elephas_tpu_torch.utils.device import resolve_device
 from elephas_tpu_torch.utils.functional_utils import tree_map
+from elephas_tpu_torch.utils.sockets import determine_master
 
 _FREQUENCIES = ("batch", "epoch")
 
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it arrives with {item} "
-                               "(ROADMAP.md, queue 1)")
 
 
 def _seed(*words: int) -> int:
@@ -514,6 +535,23 @@ def load_store(module, tree) -> None:
         torch._foreach_copy_(dst, [s.to(d.device) for s, d in zip(src, dst)])
 
 
+def job_mean(per_worker, multi: bool):
+    """Each epoch's metrics averaged over every worker of the job, and the
+    job's worker count. ``per_worker``: this process's workers' per-epoch
+    metric rows (workers × epochs × keys). Across processes each rank's
+    per-epoch means are allgathered and weighted by its worker count, so
+    every rank gets the mean a single process of the whole job would
+    have (every rank calls it: a collective)."""
+    local = np.mean(np.asarray(per_worker, dtype=np.float64), axis=0)  # epochs × keys
+    if not multi:
+        return local, len(per_worker)
+    shipped = [json.loads(b) for b in distributed.allgather_bytes(
+        json.dumps({"count": len(per_worker), "means": local.tolist()}).encode())]
+    counts = np.asarray([d["count"] for d in shipped], dtype=np.float64)
+    means = np.asarray([d["means"] for d in shipped], dtype=np.float64)
+    return (means * counts[:, None, None]).sum(axis=0) / counts.sum(), int(counts.sum())
+
+
 class AsyncTrainer:
     def __init__(
         self,
@@ -622,13 +660,8 @@ class AsyncTrainer:
                     "standby streams each shard's WAL to its spare — "
                     "set ps_wal_dir"
                 )
-        if ps_ops_port is not None:
-            raise _not_ported("ps_ops_port (the PS ops endpoint)", "item 7, obs/opsd.py")
         if stream_batches is not None and stream_batches < 1:
             raise ValueError(f"stream_batches must be >= 1, got {stream_batches}")
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise _not_ported("async/hogwild training across processes",
-                              "item 6c, on parallel/distributed.py")
         self.compiled = compiled
         self.frequency = frequency
         self.lock = lock
@@ -649,6 +682,12 @@ class AsyncTrainer:
         self.ps_recovery_grace = ps_recovery_grace
         self.ps_shards = ps_shards
         self.standby = standby
+        self.ps_ops_port = ps_ops_port
+        # This process's ops endpoint (``mount_ops``) and what it serves.
+        self.ops = None
+        self.store = None
+        self._ops_history = None
+        self._ops_alerts = None
         # The elastic fit's chaos surface: the live server (a harness may
         # kill it and put a warm-restarted one here), the group, the pool.
         self._elastic_server = None
@@ -664,15 +703,78 @@ class AsyncTrainer:
         self.workers = list(enumerate(self.devices))
         # One dispatch lock per card (see the module note).
         self._dispatch_locks = {d: threading.Lock() for d in self.devices if d.type == "cuda"}
-        self.n_workers = len(self.workers)
+        self.n_workers = len(self.workers)  # this process's workers
+        # The job's: set by ``_join_job`` in a group of several processes.
+        self.n_global_workers = self.n_workers
         self.epoch_end_times: List[float] = []
         self._eval_model = None
         self._val_cache = DeviceEvalCache()
         self.server = None  # the last fit's parameter server (stopped), for inspection
 
-    def mount_ops(self, port: int = 0, host: Optional[str] = None, store_dir=None):
-        raise _not_ported("AsyncTrainer.mount_ops (the worker ops endpoint)",
-                          "item 7, obs/opsd.py")
+    def mount_ops(self, port: int = 0, host: Optional[str] = None,
+                  store_dir: Optional[str] = None):
+        """Mount a live ops endpoint for THIS worker process (role
+        ``worker``, id ``w<rank>``): ``/metrics`` serves the process
+        registry the training loop feeds, ``/history`` its sampled rings,
+        ``/profile`` device capture and memory. Loopback by default;
+        idempotent; ``unmount_ops()`` tears it down. ``store_dir`` also
+        journals this process's flight notes, alert transitions and
+        sampler ticks into a telemetry store (``obs.store``)."""
+        if self.ops is not None:
+            return self.ops
+        worker_id = f"w{distributed.process_index()}"
+        self._ops_history = obs.HistorySampler(extra_fn=obs.record_device_memory).start()
+        self._ops_alerts = obs.AlertEngine()
+        self.store = None
+        if store_dir is not None:
+            self.store = obs.TelemetryStore(store_dir, role="worker",
+                                            flight=obs.default_flight_recorder())
+            obs.default_flight_recorder().attach_store(self.store)
+            self._ops_alerts.attach_store(self.store)
+            self._ops_history.attach_store(self.store)
+        self.ops = obs.OpsServer(
+            port=port, host=host, role="worker", worker_id=worker_id,
+            alerts_fn=self._ops_alerts.scrape,
+            history=self._ops_history,
+            vars_fn=lambda: {
+                "role": "worker",
+                "worker_id": worker_id,
+                "parameter_server_mode": self.parameter_server_mode,
+                "frequency": self.frequency,
+                "elastic": self.elastic,
+            },
+            incidents_fn=self.store.doc if self.store is not None else None,
+        ).start()
+        return self.ops
+
+    def unmount_ops(self) -> None:
+        if self.ops is not None:
+            self.ops.stop()
+            self.ops = None
+        if self._ops_history is not None:
+            self._ops_history.stop()
+            self._ops_history = None
+        if self.store is not None:
+            obs.default_flight_recorder().detach_store(self.store)
+            if self._ops_alerts is not None:
+                self._ops_alerts.detach_store(self.store)
+            self.store.close()
+            self.store = None
+
+    # -- the job across processes ---------------------------------------------
+
+    def _join_job(self) -> bool:
+        """In a group of several processes, number this process's workers
+        in the job's global worker list and return True; False alone.
+        Every rank calls it (an allgather of the local worker counts)."""
+        procs, rank = world()
+        if procs == 1:
+            return False
+        counts = [int(c) for c in distributed.allgather_bytes(str(self.n_workers).encode())]
+        offset = sum(counts[:rank])
+        self.workers = [(offset + i, dev) for i, dev in enumerate(self.devices)]
+        self.n_global_workers = sum(counts)
+        return True
 
     # -- autotune --------------------------------------------------------------
 
@@ -681,12 +783,17 @@ class AsyncTrainer:
         worker 0's first rows, on its device, from a fresh clone of the
         model (the fit keeps no trace of it); the winner becomes every
         worker's step. A partition smaller than 2 batches cannot be timed:
-        'skipped', with a warning."""
+        'skipped', with a warning.
+
+        Across processes the decision is job-wide: rank 0 times and
+        ``decide_autotune`` broadcasts its outcome, which every rank
+        adopts, so every rank reaches this call."""
         local = None
+        procs, rank = world()
         index, device = self.workers[0]
         x, y = dataset.partition(index)
         nb = 2
-        if len(x) >= nb * batch_size:
+        if rank == 0 and len(x) >= nb * batch_size:
             usable = nb * batch_size
             xs = torch.as_tensor(np.asarray(x[:usable])).to(device).reshape(
                 nb, batch_size, *np.shape(x)[1:])
@@ -708,7 +815,8 @@ class AsyncTrainer:
             with torch.cuda.stream(stream) if stream is not None else nullcontext():
                 local = autotune_compile_options(build, run, lambda m: float(m["loss"]),
                                                  candidates=autotune_candidates(device))
-        decided = decide_autotune(local)
+        decided = decide_autotune(local, Mesh(procs, rank, dist.group.WORLD)
+                                  if procs > 1 else None)
         if decided is None:
             self.autotune_choice = dict(_AUTOTUNE_SKIPPED)
             logger.warning("autotune=True could not time this workload (partition smaller "
@@ -769,7 +877,7 @@ class AsyncTrainer:
                 store0, self.ps_shards, mode=self.parameter_server_mode,
                 standby=self.standby, wal_root=self.ps_wal_dir, lock=self.lock,
                 device=self.ps_device, granularity=self.granularity,
-                auth_key=auth_key, wal_every=self.wal_every)
+                auth_key=auth_key, wal_every=self.wal_every, ops_port=self.ps_ops_port)
             group.start()
             if self.standby:
                 group.start_monitor()
@@ -777,9 +885,40 @@ class AsyncTrainer:
         server = make_server(
             self.parameter_server_mode, store0, lock=self.lock, port=self.port,
             device=self.ps_device, granularity=self.granularity, auth_key=auth_key,
-            wal_dir=self.ps_wal_dir, wal_every=self.wal_every)
+            wal_dir=self.ps_wal_dir, wal_every=self.wal_every, ops_port=self.ps_ops_port)
         server.start()
         return server
+
+    def _start_job_server(self, store0):
+        """Across processes: rank 0's server, bound to ``$ELEPHAS_PS_BIND``
+        (default every interface) with auth on by default, and on every
+        rank the factory of clients that dial it (module note). Returns
+        ``(server or None, client_factory)``."""
+        auth_on = os.environ.get("ELEPHAS_PS_AUTH", "on").lower() not in ("off", "0", "false")
+        auth_key = None
+        host0 = distributed.is_host0()
+        if auth_on and host0:
+            env_key = os.environ.get("ELEPHAS_PS_AUTH_KEY")
+            auth_key = bytes.fromhex(env_key) if env_key else os.urandom(32)
+        server, advertised = None, ""
+        if host0:
+            server = make_server(
+                self.parameter_server_mode, store0, lock=self.lock, port=self.port,
+                device=self.ps_device, host=os.environ.get("ELEPHAS_PS_BIND", "0.0.0.0"),
+                granularity=self.granularity, auth_key=auth_key, wal_dir=self.ps_wal_dir,
+                wal_every=self.wal_every, ops_port=self.ps_ops_port)
+            server.start()
+            # What peers can dial: a pinned bind verbatim, else this host's
+            # routable address.
+            advertised = (f"{server.host}:{server.port}"
+                          if server.host not in ("0.0.0.0", "::", "")
+                          else determine_master(server.port))
+        address = (os.environ.get("ELEPHAS_PS_ADDRESS")
+                   or distributed.broadcast_from_host0(advertised))
+        if auth_on:
+            auth_key = distributed.broadcast_bytes_from_host0(auth_key or b"") or None
+        mode = self.parameter_server_mode
+        return server, lambda: make_client(mode, address, auth_key=auth_key)
 
     # -- fit -------------------------------------------------------------------
 
@@ -801,25 +940,62 @@ class AsyncTrainer:
         where a unit was retried, and one ``val_*`` entry per epoch
         (``val_stale`` says whether it sampled the epoch boundary).
         ``initial_step``: the step of a restored state this fit resumes.
-        With ``elastic`` the fit runs on the pool (``_fit_elastic``)."""
+        With ``elastic`` the fit runs on the pool (``_fit_elastic``).
+        Across processes every rank calls this (module note)."""
         compiled = self.compiled
-        if self.autotune and self.autotune_choice is None:
-            self._run_autotune(dataset, batch_size)
         if self.elastic:
+            if self.autotune and self.autotune_choice is None and world()[0] == 1:
+                self._run_autotune(dataset, batch_size)
             return self._fit_elastic(dataset, epochs, batch_size, validation_data,
                                      verbose, rng, callbacks, initial_step)
+        multi = self._join_job()
+        if multi and self.parameter_server_mode == "local":
+            raise ValueError(
+                "multi-host async/hogwild needs parameter_server_mode='http' "
+                "or 'socket' — the in-process buffer spans one host"
+            )
+        if multi and self.ps_shards:
+            raise ValueError(
+                "ps_shards is single-host for now: the shard directory "
+                "lives in the driver process and multi-host fits "
+                "broadcast one PS address"
+            )
+        if multi:
+            # Epoch fires run on rank 0 alone: a manager whose saves would
+            # need its peers cannot be driven from there.
+            from elephas_tpu_torch.checkpoint.checkpoint import _CheckpointCallback
+
+            for cb in callbacks:
+                if isinstance(cb, _CheckpointCallback) and not cb._manager.host0_only:
+                    raise ValueError(
+                        "multi-host async/hogwild checkpointing needs "
+                        "CheckpointManager(host0_only=True): epoch barriers "
+                        "are host-local, so collective saves deadlock"
+                    )
+        if dataset.num_partitions != self.n_global_workers:
+            dataset = dataset.repartition(self.n_global_workers)
+        if self.autotune and self.autotune_choice is None:
+            self._run_autotune(dataset, batch_size)
         params, buffers = store_of(compiled.module)
         store0 = {"params": params, "batch_stats": buffers}
-        env_key = os.environ.get("ELEPHAS_PS_AUTH_KEY")
-        server = self._start_server(store0, bytes.fromhex(env_key) if env_key else None)
+        if multi:
+            server, client_factory = self._start_job_server(store0)
+        else:
+            env_key = os.environ.get("ELEPHAS_PS_AUTH_KEY")
+            server = self._start_server(store0, bytes.fromhex(env_key) if env_key else None)
+            client_factory = server.client
         self.server = server
-        hand_over = getattr(server, "hand_over", None) or server.buffer.hand_over
+        if server is not None:
+            hand_over = getattr(server, "hand_over", None) or server.buffer.hand_over
 
         per_worker_metrics: List[Optional[List[Dict[str, float]]]] = [None] * self.n_workers
         errors: List[BaseException] = []
         self.epoch_end_times = []
-        do_val = validation_data is not None
-        run_callbacks = tuple(callbacks)
+        # Validation and callbacks run on rank 0 alone (its epoch barrier
+        # is its own workers'); the others receive its records.
+        is_driver = distributed.is_host0()
+        do_val = validation_data is not None and is_driver
+        run_callbacks = tuple(callbacks) if is_driver else ()
         epoch_done_counts = [0] * epochs
         epochs_fired = 0
         fire_cond = threading.Condition()
@@ -911,7 +1087,7 @@ class AsyncTrainer:
             try:
                 stream = torch.cuda.Stream(device) if device.type == "cuda" else None
                 with torch.cuda.stream(stream) if stream is not None else nullcontext():
-                    client = server.client()
+                    client = client_factory()
                     if hasattr(client, "worker_id"):
                         client.worker_id = f"w{index}"
                     per_worker_metrics[slot] = self._run_worker(
@@ -935,40 +1111,86 @@ class AsyncTrainer:
             drainer.join()
 
         if errors or fire_errors:
-            server.stop()
+            # Across processes this fails the rank fast; its peers' teardown
+            # barriers time out.
+            if server is not None:
+                server.stop()
             raise (fire_errors or errors)[0]
 
         # The server's final weights folded back into the master.
-        load_store(compiled.module, server.get_parameters())
+        if multi:
+            final = self._job_teardown(server, client_factory)
+        else:
+            final = server.get_parameters()
+        load_store(compiled.module, final)
         if self.ps_device.type == "cuda":
             torch.cuda.synchronize(self.ps_device)
-        server.stop()
+        if server is not None:
+            server.stop()
         state = init_train_state(compiled, rng=rng)
         state.step = initial_step + epochs
 
         keys = sorted(per_worker_metrics[0][0].keys())
-        means = np.array([[np.mean([m[e][k] for m in per_worker_metrics]) for k in keys]
-                          for e in range(epochs)], dtype=np.float64)
+        means, total_workers = job_mean(
+            [[[m[e][k] for k in keys] for e in range(epochs)] for m in per_worker_metrics],
+            multi)
         history: Dict[str, List[float]] = {
             k: [float(means[e, i]) for e in range(epochs)] for i, k in enumerate(keys)}
         if "_retries" in history:
-            history["worker_retries"] = [int(round(v * self.n_workers))
+            # A per-worker mean; the job-wide count is it times the workers.
+            history["worker_retries"] = [int(round(v * total_workers))
                                          for v in history.pop("_retries")]
+        records = None
         if do_val:
             fallback = None
-            for epoch, val in enumerate(val_records):
+            records = list(val_records)
+            for epoch, val in enumerate(records):
                 if val is None:  # defensive: evaluate the final state once
                     if fallback is None:
-                        fallback = dict(self._local_evaluate(
-                            {"params": params, "batch_stats": buffers}, *validation_data))
+                        fallback = dict(self._local_evaluate(final, *validation_data))
                         fallback["stale"] = 1.0
-                    val = fallback
-                for k, v in val.items():
-                    history.setdefault(f"val_{k}", []).append(v)
+                    records[epoch] = fallback
+        if multi:
+            # Every rank reaches this broadcast whatever its own
+            # validation_data: rank 0 decides whether val history exists.
+            records = json.loads(distributed.broadcast_bytes_from_host0(
+                json.dumps(records).encode()).decode())
+        for val in records or ():
+            for k, v in val.items():
+                history.setdefault(f"val_{k}", []).append(v)
         if verbose:
             last = {k: round(v[-1], 4) for k, v in history.items()}
             print(f"[{'async' if self.lock else 'hogwild'}] done: {last}")
         return state, history
+
+    @staticmethod
+    def _job_teardown(server, client_factory):
+        """The teardown across processes, through PS-backed barriers (not
+        collectives: asynchronous ranks may drift far past a collective's
+        deadline). Every rank waits on ``elephas:pushes_done`` and pulls
+        the final weights; rank 0 then waits on ``elephas:final_read``
+        before its server may stop, the others only arrive (waiting would
+        race the shutdown). A dead peer surfaces as ``wait_barrier``'s
+        ``TimeoutError`` (``$ELEPHAS_BARRIER_TIMEOUT``); the server is
+        always stopped on the way out of an error."""
+        procs = world()[0]
+        ctl = None
+        try:
+            ctl = client_factory()
+            ctl.wait_barrier("elephas:pushes_done", procs)
+            final = server.get_parameters() if server is not None else ctl.get_parameters()
+            if server is not None:
+                ctl.wait_barrier("elephas:final_read", procs)
+            else:
+                ctl.barrier_arrive("elephas:final_read")
+        except BaseException:
+            if server is not None:
+                server.stop()
+            raise
+        finally:
+            if ctl is not None and hasattr(ctl, "close"):
+                ctl.close()
+        return final
 
     # -- the elastic fit ---------------------------------------------------------
 
@@ -989,6 +1211,12 @@ class AsyncTrainer:
         after the fit; the history is each epoch's metrics averaged over
         the partitions."""
         compiled = self.compiled
+        if world()[0] > 1:
+            raise ValueError(
+                "elastic fit is single-host for now: one process leases "
+                "units for all of its chips (multi-host elasticity needs "
+                "a cross-host ledger)"
+            )
         params, buffers = store_of(compiled.module)
         store0 = {"params": params, "batch_stats": buffers}
         env_key = os.environ.get("ELEPHAS_PS_AUTH_KEY")

@@ -39,8 +39,9 @@ collective.
   ``train_epoch_seconds`` observation and one ``record_unit_dynamics``
   row (loss, delta norm, parameter norm), from one host read.
 
-The ops endpoint (``mount_ops``) is not ported yet (ROADMAP.md, queue 1,
-item 7).
+``mount_ops`` mounts the trainer process's ops endpoint
+(``obs.opsd.OpsServer``, role ``worker``): its registry, sampled history,
+``torch.profiler`` capture and the card's memory.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ import torch.distributed as dist
 
 from elephas_tpu_torch import native, obs
 from elephas_tpu_torch.engine.state import TrainState
+from elephas_tpu_torch.parallel import distributed
 from elephas_tpu_torch.engine.step import (
     CAPTURE_WARMUP_STEPS,
     CapturedStep,
@@ -253,15 +255,59 @@ class SyncTrainer:
         self._eval_step = make_eval_step(compiled)
         self._predict_step = make_predict_step(compiled)
         self._eval_cache = DeviceEvalCache()
+        self.ops = None  # OpsServer, mounted on demand (mount_ops)
+        self.store = None
+        self._ops_history = None
 
     @property
     def device(self) -> torch.device:
         return next(self.compiled.module.parameters()).device
 
-    def mount_ops(self, port: int = 0, host: Optional[str] = None, store_dir=None):
-        raise NotImplementedError(
-            "SyncTrainer.mount_ops (the trainer's ops endpoint) is not ported yet; it "
-            "arrives with item 7, obs/opsd.py (ROADMAP.md, queue 1)")
+    # -- observability ---------------------------------------------------------
+
+    def mount_ops(self, port: int = 0, host: Optional[str] = None,
+                  store_dir: Optional[str] = None):
+        """Mount a live introspection endpoint for this trainer's process
+        (role ``worker``, id ``w<rank>``): ``/metrics`` serves the process
+        registry the step counters feed, ``/history`` its sampled rings,
+        ``/profile`` ``torch.profiler`` capture and the card's memory.
+        Loopback by default; idempotent; ``unmount_ops()`` tears it down.
+        ``store_dir`` also journals flight notes and sampler ticks into a
+        durable telemetry store (``obs.store``) for post-mortems."""
+        if self.ops is not None:
+            return self.ops
+        worker_id = f"w{distributed.process_index()}"
+        self._ops_history = obs.HistorySampler(extra_fn=obs.record_device_memory).start()
+        self.store = None
+        if store_dir is not None:
+            self.store = obs.TelemetryStore(store_dir, role="worker",
+                                            flight=obs.default_flight_recorder())
+            obs.default_flight_recorder().attach_store(self.store)
+            self._ops_history.attach_store(self.store)
+        self.ops = obs.OpsServer(
+            port=port, host=host, role="worker", worker_id=worker_id,
+            history=self._ops_history,
+            vars_fn=lambda: {
+                "role": "worker",
+                "worker_id": worker_id,
+                "frequency": self.frequency,
+                "n_shards": self.n_shards,
+            },
+            incidents_fn=self.store.doc if self.store is not None else None,
+        ).start()
+        return self.ops
+
+    def unmount_ops(self) -> None:
+        if self.ops is not None:
+            self.ops.stop()
+            self.ops = None
+        if self._ops_history is not None:
+            self._ops_history.stop()
+            self._ops_history = None
+        if self.store is not None:
+            obs.default_flight_recorder().detach_store(self.store)
+            self.store.close()
+            self.store = None
 
     # -- collectives -----------------------------------------------------------
 

@@ -21,11 +21,15 @@ Process-global defaults back cross-cutting instrumentation:
   card) on the same counter, marker and anomaly.
 
 Ported so far: the tracer, the registry, the flight recorder, the
-history ring, the alert engine, the load tracker, the goodput ledger,
-the cost ledger and the training-health accounting (``health.py``: the
-parameter server's staleness ledger, the trainers' unit dynamics). The ops endpoint, the sampler behind it, the
-device profiler, the telemetry store, the fleet aggregator, the canary
-and the incident builder arrive with ROADMAP queue 1, item 7.
+history ring and its sampler, the alert engine, the load tracker, the
+goodput ledger, the cost ledger, the training-health accounting
+(``health.py``: the parameter server's staleness ledger, the trainers'
+unit dynamics), and the ops plane: the ops endpoint (``opsd.py``), the
+device profiler over ``torch.profiler`` (``devprof.py``), the durable
+telemetry store (``store.py``) and the incident builder that reads it
+back (``incident.py``). The fleet aggregator and the canary arrive with
+ROADMAP queue 1, item 7; until then the ops endpoint answers ``/fleet``
+and ``/canary`` as the reference's does when no provider is given.
 """
 
 from __future__ import annotations
@@ -69,7 +73,16 @@ from elephas_tpu_torch.obs.alerts import (  # noqa: F401
     AlertRule,
     default_rules,
 )
-from elephas_tpu_torch.obs.history import HistoryRing  # noqa: F401
+from elephas_tpu_torch.obs.history import (  # noqa: F401
+    DEFAULT_SAMPLE_PREFIXES,
+    HistoryRing,
+    HistorySampler,
+)
+from elephas_tpu_torch.obs.devprof import (  # noqa: F401
+    DeviceProfiler,
+    device_memory_snapshot,
+    record_device_memory,
+)
 from elephas_tpu_torch.obs.load import (  # noqa: F401
     LoadScore,
     LoadSnapshot,
@@ -87,6 +100,18 @@ from elephas_tpu_torch.obs.tenancy import (  # noqa: F401
     merge_tenant_docs,
     tenant_rules,
 )
+from elephas_tpu_torch.obs.store import (  # noqa: F401
+    RECORD_KINDS,
+    TelemetryStore,
+    iter_records,
+    read_store,
+    store_dirs,
+)
+from elephas_tpu_torch.obs.incident import (  # noqa: F401
+    IncidentBuilder,
+    render_markdown,
+)
+from elephas_tpu_torch.obs.opsd import ROUTES, OpsServer  # noqa: F401
 
 _tracer: Tracer = NULL_TRACER
 _registry = MetricsRegistry()

@@ -15,9 +15,12 @@ both:
   existing slots — no allocation, no GC pressure on the sampling path)
   exposing windowed reads: per-second rate over the trailing window,
   min/max/last, sample count.
-- ``HistorySampler`` (the registry sampler behind the ops endpoint's
-  ``/history`` route) is not ported yet; it arrives with the ops
-  endpoint.
+- ``HistorySampler`` — samples *selected* registry snapshot keys
+  (prefix-matched: all of ``ps_*``, ``serving_*``, ... by default) into
+  one ring per key at a configurable period, either explicitly
+  (``tick()`` — tests, bench checkpoints) or on a background daemon
+  thread (``start()`` — what a mounted ops endpoint runs). The opsd
+  ``/history?window=`` route serves ``snapshot(window_s)``.
 
 The alert engine's windowed-rate rules evaluate on these rings (one
 private ring per (rule, matched key)), replacing their original
@@ -33,10 +36,28 @@ an under-sampled ring answers ``None`` instead of a made-up number.
 
 from __future__ import annotations
 
+import math
 import threading
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
 
-__all__ = ["HistoryRing"]
+__all__ = ["HistoryRing", "HistorySampler", "DEFAULT_SAMPLE_PREFIXES"]
+
+#: Registry snapshot keys the sampler tracks when no explicit selection
+#: is given: the cross-process data-path counters, serving latencies,
+#: training dynamics, alert firings, and device memory watermarks.
+#: Histogram percentile expansions (`*_p50`...) ride along under their
+#: family prefix — a percentile's history is exactly what "p95 over the
+#: last minute" needs.
+DEFAULT_SAMPLE_PREFIXES = (
+    "ps_",
+    "serving_",
+    "train_",
+    "alerts_",
+    "device_mem_",
+    "tracer_",
+    "retrace_",
+)
 
 
 class HistoryRing:
@@ -130,4 +151,162 @@ class HistoryRing:
             "max": max(values),
             "rate_per_s": rate,
             "span_s": t1 - t0,
+        }
+
+
+class HistorySampler:
+    """Samples selected registry snapshot keys into per-key rings.
+
+    ``select`` is a tuple of key prefixes (exact keys match their own
+    prefix); the default tracks the package's cross-process families
+    (``DEFAULT_SAMPLE_PREFIXES``). A ring is allocated the first time a
+    key appears — after that, steady state allocates nothing.
+
+    Driving: ``tick(now)`` samples once (tests and bench checkpoints
+    call it on an injected clock); ``maybe_tick(now)`` respects
+    ``period_s``; ``start()`` runs ``tick`` on a background daemon
+    thread every ``period_s`` wall seconds (what a mounted ops endpoint
+    uses — sampling must not depend on being scraped). ``extra_fn``
+    (e.g. ``devprof.record_device_memory``) runs before each sample so
+    pull-style gauges are fresh in the snapshot the tick reads.
+    """
+
+    def __init__(self, registry=None,
+                 select: Iterable[str] = DEFAULT_SAMPLE_PREFIXES,
+                 period_s: float = 1.0, capacity: int = 512,
+                 clock=time.monotonic, extra_fn=None):
+        if period_s <= 0:
+            raise ValueError(f"period_s must be > 0, got {period_s}")
+        self._registry = registry
+        self.select = tuple(select)
+        self.period_s = float(period_s)
+        self.capacity = int(capacity)
+        self.clock = clock
+        self.extra_fn = extra_fn
+        self.rings: Dict[str, HistoryRing] = {}
+        self.ticks = 0
+        self._last_tick: Optional[float] = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._stores: tuple = ()  # durable tees (obs/store.py), COW
+
+    def _get_registry(self):
+        if self._registry is not None:
+            return self._registry
+        from elephas_tpu_torch import obs
+
+        return obs.default_registry()
+
+    def _selected(self, key: str) -> bool:
+        return any(key.startswith(p) for p in self.select)
+
+    # -- sampling -----------------------------------------------------------
+
+    def tick(self, now: Optional[float] = None) -> int:
+        """Sample every selected snapshot key once; returns how many
+        keys were recorded. Safe to call from any thread."""
+        if now is None:
+            now = self.clock()
+        if self.extra_fn is not None:
+            try:
+                self.extra_fn()
+            except Exception:
+                pass  # a broken watermark probe must not stop sampling
+        snap = self._get_registry().snapshot()
+        recorded = 0
+        sampled: Dict[str, float] = {}
+        for key, value in snap.items():
+            if not self._selected(key):
+                continue
+            if not isinstance(value, (int, float)) or isinstance(value, bool):
+                continue
+            if math.isnan(value):
+                continue
+            ring = self.rings.get(key)
+            if ring is None:
+                with self._lock:
+                    ring = self.rings.setdefault(
+                        key, HistoryRing(capacity=self.capacity))
+            ring.push(now, value)
+            sampled[key] = float(value)
+            recorded += 1
+        self.ticks += 1
+        self._last_tick = now
+        # Durable tee: the tick's sampled name→value map journals as one
+        # ``metric`` record, so a post-mortem has the metric excerpts
+        # the in-memory rings would have lost with the process.
+        for store in self._stores:
+            try:
+                store.record_metrics(sampled, self.ticks)
+            except Exception:
+                pass
+        return recorded
+
+    # -- durable tee --------------------------------------------------------
+
+    def attach_store(self, store) -> None:
+        """Journal every subsequent tick into ``store``. Idempotent."""
+        with self._lock:
+            if store not in self._stores:
+                self._stores = self._stores + (store,)
+
+    def detach_store(self, store) -> None:
+        with self._lock:
+            self._stores = tuple(s for s in self._stores if s is not store)
+
+    def maybe_tick(self, now: Optional[float] = None) -> bool:
+        """``tick`` iff at least ``period_s`` elapsed since the last."""
+        if now is None:
+            now = self.clock()
+        if self._last_tick is not None and now - self._last_tick < self.period_s:
+            return False
+        self.tick(now)
+        return True
+
+    # -- background driving -------------------------------------------------
+
+    def start(self) -> "HistorySampler":
+        """Run ``tick`` every ``period_s`` on a daemon thread
+        (idempotent). The thread waits on an Event, so ``stop()``
+        returns promptly."""
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.wait(self.period_s):
+                self.tick()
+
+        self._thread = threading.Thread(
+            target=loop, name="obs-history-sampler", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is None:
+            return
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._thread = None
+
+    # -- read-out -----------------------------------------------------------
+
+    def snapshot(self, window_s: Optional[float] = None,
+                 now: Optional[float] = None) -> Dict[str, object]:
+        """JSON-ready dump — the ``/history?window=`` route serves this:
+        one windowed stats row per tracked key, plus sampler config."""
+        if now is None and window_s is not None:
+            now = self.clock()
+        with self._lock:
+            keys = sorted(self.rings)
+        return {
+            "period_s": self.period_s,
+            "capacity": self.capacity,
+            "window_s": window_s,
+            "ticks": self.ticks,
+            "series": {
+                k: self.rings[k].stats(window_s=window_s, now=now)
+                for k in keys
+            },
         }

@@ -20,9 +20,14 @@ group's backend (on NCCL through the current card, which each process
 sets with ``torch.cuda.set_device``). Tensors ride the collectives of
 ``parallel/mesh.py`` and ``parallel/collectives.py``.
 
-Async training across processes (a parameter server on process 0,
-workers dialling ``parameter_server_address()``) is not ported yet
-(ROADMAP.md, queue 1, item 6c).
+Async training across processes runs one parameter server on process 0
+and workers on every process dialling it (``engine/async_engine.py``):
+the address and the HMAC key travel by ``broadcast_from_host0`` /
+``broadcast_bytes_from_host0``, ``$ELEPHAS_PS_ADDRESS`` overrides the
+address (``parameter_server_address``), and the job-wide history is an
+``allgather_bytes``. ``process_index``/``process_count`` name this
+process in the job, as the JAX package's ``jax.process_index`` /
+``jax.process_count`` do (the ops endpoints' worker ids read them).
 """
 
 from __future__ import annotations
@@ -103,6 +108,16 @@ def initialize(
 
 def _processes() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank in the job (0 alone)."""
+    return dist.get_rank() if _processes() > 1 else 0
+
+
+def process_count() -> int:
+    """Processes in the job (1 alone)."""
+    return _processes()
 
 
 def is_host0() -> bool:

@@ -34,9 +34,13 @@ Group membership is a ``GroupDirectory``: a generation-counted
 shard → address map. Clients re-resolve on a generation bump (failover),
 so a promotion is visible as one reconnect, not a config push.
 
-Not carried over: the members' ops endpoints (``ops_port`` raises
-``NotImplementedError`` naming ROADMAP.md queue 1, item 7) and their
-telemetry stores (every member is built with ``store_dir=None``).
+Observability: with ``ops_port`` every member mounts an ops endpoint
+(primary ``i`` at ``ops_port + i``, spare ``i`` at ``ops_port + k + i``;
+0 gives each a free port) whose ``/shards`` route serves the group's
+topology (``snapshot``); a spare mounts at ``start()`` although it
+serves no PS traffic, so the fleet board shows the standby tier. With a
+``wal_root`` each primary journals at ``<wal_root>/shard<i>/telemetry``
+and each spare at ``<wal_root>/standby<i>/telemetry``.
 """
 
 from __future__ import annotations
@@ -715,10 +719,6 @@ class ShardGroup(BaseParameterServer):
                 "standby=1 streams each primary's WAL to its spare — "
                 "pass wal_root= (the per-shard WAL parent directory)"
             )
-        if ops_port is not None:
-            raise NotImplementedError(
-                "ops_port (the group members' ops endpoints) is not ported yet; it "
-                "arrives with item 7, obs/opsd.py (ROADMAP.md, queue 1)")
 
         self.plan = ShardPlan.build(params, k)
         self.mode = mode
@@ -739,7 +739,8 @@ class ShardGroup(BaseParameterServer):
         self._lock = threading.Lock()
         self._started = False
 
-        def build(shard: int, role: str):
+        def build(shard: int, role: str, ops: Optional[int],
+                  store_dir: Optional[str] = "auto"):
             wal_dir = (os.path.join(wal_root, f"shard{shard}")
                        if wal_root else None)
             return make_server(
@@ -747,7 +748,7 @@ class ShardGroup(BaseParameterServer):
                 port=0, device=device, host=host, granularity=granularity,
                 auth_key=auth_key, wal_dir=wal_dir, wal_every=wal_every,
                 wal_keep=wal_keep,
-                heartbeat_timeout=heartbeat_timeout,
+                heartbeat_timeout=heartbeat_timeout, ops_port=ops,
                 role=role,
                 shard_info={"digest": self.plan.digest, "shard": shard,
                             "k": k},
@@ -756,17 +757,32 @@ class ShardGroup(BaseParameterServer):
                 # that shard's own version line.
                 max_staleness=max_staleness,
                 staleness_soft=staleness_soft,
-                store_dir=None,
+                store_dir=store_dir,
             )
 
+        def ops_at(offset: int) -> Optional[int]:
+            if ops_port is None:
+                return None
+            return 0 if ops_port == 0 else ops_port + offset
+
         self._active: List[BaseParameterServer] = [
-            build(i, f"ps/shard{i}") for i in range(k)
+            build(i, f"ps/shard{i}", ops_at(i)) for i in range(k)
         ]
-        # A spare shares its shard's wal_dir (WAL streaming); it serves
-        # nothing until it is promoted.
+        # A spare shares its shard's wal_dir (WAL streaming) and serves
+        # nothing until it is promoted, but does NOT share its telemetry
+        # directory: the store's open-time tail healing assumes one live
+        # writer a directory, and a spare and its primary live at once.
         self._standbys: List[Optional[BaseParameterServer]] = [
-            build(i, "ps/standby") if standby else None for i in range(k)
+            build(i, "ps/standby", ops_at(k + i),
+                  store_dir=os.path.join(wal_root, f"standby{i}", "telemetry"))
+            if standby else None
+            for i in range(k)
         ]
+        for member in self._active + self._standbys:
+            if member is not None:
+                # Every member's /shards route serves the group topology,
+                # so any shard answers "who is the group".
+                member.shards_fn = self.snapshot
         self._streamers: List[Optional[WalStreamer]] = [None] * k
 
     # -- lifecycle ----------------------------------------------------------
@@ -779,6 +795,9 @@ class ShardGroup(BaseParameterServer):
         for i, spare in enumerate(self._standbys):
             if spare is None:
                 continue
+            # A warm spare serves no PS traffic, but its ops endpoint
+            # mounts now so the fleet board shows the standby tier.
+            spare._mount_ops(self.mode)
             wal = SnapshotWAL(os.path.join(self.wal_root, f"shard{i}"))
             self._streamers[i] = WalStreamer(
                 wal, spare.buffer,
@@ -918,7 +937,16 @@ class ShardGroup(BaseParameterServer):
         caught_up = streamer.stop(catch_up=True) if streamer else None
         self._streamers[shard] = None
         self._standbys[shard] = None
+        # The promoted server takes the shard's role before its ops
+        # endpoint remounts, so the fleet board shows the new topology.
+        spare._unmount_ops()
         spare.role = f"ps/shard{shard}"
+        if spare.store is not None:
+            # The journal survives the remount: re-stamp its role and mark
+            # the hat change, so a post-mortem reads the standby's records
+            # and the promoted primary's as one process story.
+            spare.store.set_role(spare.role)
+            spare.store.record_lifecycle("promoted", shard=shard, old_boot=old_boot)
         try:
             dead.stop()  # a crashed server no-ops; a live one is demoted
         except Exception:

@@ -41,10 +41,18 @@ Durability and crashes (wire transports):
 - ``shard_info``: the shard-group handshake document (``group.py``),
   served with the live boot id merged in.
 
-Not carried over (each raises ``NotImplementedError`` naming its ROADMAP
-item): the ops endpoint (``ops_port``) and a telemetry store directory
-(``store_dir`` other than ``None``/``"auto"``; ``"auto"`` mounts no
-store next to a WAL until ``obs/store.py`` is ported).
+Observability (wire transports):
+
+- ``ops_port``: an ``obs.opsd.OpsServer`` mounts at ``start()`` (0 picks
+  a free port; read ``.ops.url``) with a ``HistorySampler`` ticking once
+  a second, a ``DeviceProfiler`` whose captures land next to the WAL,
+  and the server's identity, membership, staleness ledger, alert engine,
+  group topology (``shards_fn``) and telemetry store behind its routes.
+- ``store_dir``: the durable telemetry journal (``obs.store``). ``"auto"``
+  (the default) mounts at ``<wal_dir>/telemetry`` when there is a WAL
+  and nowhere otherwise; ``None`` mounts nothing; an explicit directory
+  mounts there. The flight recorder, the alert engine, a live tracer and
+  the ops sampler tee into it; ``kill()`` journals ``ps_kill`` last.
 """
 
 from __future__ import annotations
@@ -73,18 +81,6 @@ from elephas_tpu_torch.resilience.wal import SnapshotWAL, WalWriter
 from elephas_tpu_torch.utils import locksan
 from elephas_tpu_torch.utils import sockets as socket_utils
 from elephas_tpu_torch.utils.functional_utils import tree_map
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it arrives with {item} "
-                               "(ROADMAP.md, queue 1)")
-
-
-def _check_left_out(ops_port=None, store_dir="auto") -> None:
-    if ops_port is not None:
-        raise _not_ported("ops_port (the ops endpoint)", "item 7, obs/opsd.py")
-    if store_dir not in (None, "auto"):
-        raise _not_ported("store_dir (the telemetry store)", "item 7, obs/store.py")
 
 
 def _ps_counters(transport: str):
@@ -433,7 +429,9 @@ class _WireServer(BaseParameterServer):
     ``role``: the fleet role stamp (``ps``; ``ps/shard<i>`` and
     ``ps/standby`` in a group). ``shard_info``: the group handshake
     document (``{digest, shard, k}``), served with the live boot id
-    merged in; unset, sharded clients refuse this server."""
+    merged in; unset, sharded clients refuse this server.
+    ``ops_port``/``store_dir``: the ops endpoint and the telemetry
+    journal (module docstring)."""
 
     def __init__(self, params, lock: bool = True, port: int = 4000, device=None,
                  host: Optional[str] = None, granularity: str = "tree",
@@ -443,7 +441,6 @@ class _WireServer(BaseParameterServer):
                  wal_every: int = 1, wal_keep: int = 3, role: str = "ps",
                  shard_info: Optional[dict] = None, ops_port: Optional[int] = None,
                  store_dir: Optional[str] = "auto"):
-        _check_left_out(ops_port, store_dir)
         self.buffer = ParameterBuffer(params, lock=lock, device=device,
                                       granularity=granularity)
         self.host = host if host is not None else _default_bind_host()
@@ -463,12 +460,91 @@ class _WireServer(BaseParameterServer):
         self.shard_info = shard_info
         self.flight_dump: Optional[str] = None
         self._wal_dir = wal_dir
+        self.ops_port = ops_port
+        self.ops = None
+        self._ops_history = None
+        self._ops_profiler = None
+        self.shards_fn = None  # a group stamps its topology doc here
         self._server = None
         self._thread = None
+        self._attach_telemetry_store(store_dir)
 
     def _tracer(self):
         # Resolved per use: an enable_tracing() after start() is seen.
         return self.tracer if self.tracer is not None else obs.default_tracer()
+
+    def _attach_telemetry_store(self, store_dir) -> None:
+        """Mount the durable telemetry journal next to the WAL: the
+        process flight recorder and this server's alert engine tee into
+        it from construction on, so anomalies before ``start()`` (WAL
+        restore, tail healing) are journaled too. An explicit directory
+        mounts there regardless of the WAL — a group's standbys share
+        their shard's ``wal_dir`` but must not share its journal
+        (open-time tail healing assumes one live writer a directory)."""
+        self.store = None
+        if store_dir == "auto":
+            store_dir = (os.path.join(self._wal_dir, "telemetry")
+                         if self._wal_dir else None)
+        if store_dir is None:
+            return
+        self.store = obs.TelemetryStore(store_dir, role=self.role, boot=self.boot,
+                                        flight=obs.default_flight_recorder())
+        obs.default_flight_recorder().attach_store(self.store)
+        self.alerts.attach_store(self.store)
+        tracer = self._tracer()
+        if getattr(tracer, "enabled", False):
+            tracer.attach_store(self.store)
+
+    def _close_store(self, reason: str) -> None:
+        store = self.store
+        if store is None:
+            return
+        obs.default_flight_recorder().detach_store(store)
+        self.alerts.detach_store(store)
+        if self._ops_history is not None:
+            self._ops_history.detach_store(store)
+        tracer = self._tracer()
+        if hasattr(tracer, "detach_store"):
+            tracer.detach_store(store)
+        store.close(reason=reason)
+        self.store = None
+
+    def _mount_ops(self, transport: str) -> None:
+        """Mount the ops endpoint (``ops_port`` set): the history sampler
+        ticks on a daemon thread whether or not anyone scrapes, profiler
+        captures land next to the WAL — one directory an incarnation holds
+        the flight dump, the WAL, the journal and any device traces."""
+        if self.ops_port is None or self.ops is not None:
+            return
+        buffer, detector, boot = self.buffer, self.detector, self.boot
+        self._ops_history = obs.HistorySampler(
+            extra_fn=obs.record_device_memory).start()
+        if self.store is not None:
+            self._ops_history.attach_store(self.store)
+        self._ops_profiler = obs.DeviceProfiler(out_dir=self._wal_dir)
+        self.ops = obs.OpsServer(
+            port=self.ops_port,
+            tracer=self.tracer,  # None → the live process default
+            role=self.role, boot=boot,
+            vars_fn=lambda: {"boot": boot, "version": buffer.version,
+                             "transport": transport,
+                             "ps_host": self.host, "ps_port": self.port},
+            health_fn=lambda: {"membership": detector.membership()},
+            workers_fn=self.ledger.snapshot,
+            alerts_fn=self.alerts.scrape,
+            history=self._ops_history,
+            profiler=self._ops_profiler,
+            shards_fn=self.shards_fn,
+            incidents_fn=self.store.doc if self.store is not None else None,
+        ).start()
+
+    def _unmount_ops(self) -> None:
+        if self.ops is not None:
+            self.ops.stop()
+            self.ops = None
+        if self._ops_history is not None:
+            self._ops_history.stop()
+            self._ops_history = None
 
     def _serve(self, server) -> None:
         self._server = server
@@ -476,8 +552,11 @@ class _WireServer(BaseParameterServer):
             self.port = server.server_address[1]
         self._thread = threading.Thread(target=server.serve_forever, daemon=True)
         self._thread.start()
+        self._mount_ops(self.transport)
 
     def stop(self) -> None:
+        self._unmount_ops()
+        self._close_store("close")
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()
@@ -498,10 +577,14 @@ class _WireServer(BaseParameterServer):
         self._server.shutdown()
         self._server.server_close()
         self._server = None
+        # The journal closes AFTER the note, so ``ps_kill`` is its last
+        # record: the one a post-mortem rebuild names as the trigger.
         obs.default_flight_recorder().note(
             "ps_kill", "error", boot=self.boot, version=self.buffer.version,
         )
         self.flight_dump = _dump_flight_on_kill(self.boot, self._wal_dir)
+        self._close_store("kill")
+        self._unmount_ops()
 
     def _durable(self) -> None:
         """After an apply, before its ack: the push's WAL snapshot."""
@@ -538,6 +621,8 @@ class HttpServer(_WireServer):
     (``AdmissionPolicy``). ``tracer``: span recorder for the handle spans
     (default: the process tracer, resolved per request).
     """
+
+    transport = "http"
 
     def start(self) -> None:
         buffer = self.buffer
@@ -896,6 +981,8 @@ class SocketServer(_WireServer):
     pickle frames. Knobs as ``HttpServer``'s; a rejected push is answered
     with the raw ``EPRJ`` frame in place of the ``b"ok"`` ack."""
 
+    transport = "socket"
+
     def start(self) -> None:
         server = _ThreadingTCPServer((self.host, self.port), _SocketHandler)
         server.ps = self  # type: ignore[attr-defined]
@@ -950,12 +1037,17 @@ def make_server(
                 "shard_info requires a wire transport (http|socket): shard "
                 "group members are separate server processes"
             )
-        _check_left_out(ops_port, store_dir)
         if max_staleness is not None or staleness_soft is not None:
             raise ValueError(
                 "staleness admission requires a wire transport "
                 "(http|socket): local pushes apply under the buffer lock "
                 "and are never stale"
+            )
+        if store_dir not in (None, "auto"):
+            raise ValueError(
+                "store_dir requires a wire transport (http|socket): the "
+                "local server's telemetry dies with the training process "
+                "a post-mortem would reconstruct"
             )
         return LocalServer(params, lock=lock, device=device, granularity=granularity,
                            heartbeat_timeout=heartbeat_timeout)

@@ -278,6 +278,10 @@ class InferenceEngine:
         # by _cond) publish normally but never reach the goodput ledger.
         self._canary_ids: set = set()
         self.model_version: Optional[int] = None
+        self.ops = None  # OpsServer, mounted on demand (mount_ops)
+        self.store = None  # TelemetryStore, mounted with ops (store_dir=)
+        self._alert_engine = None
+        self._ops_history = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -601,17 +605,6 @@ class InferenceEngine:
         raise NotImplementedError(
             "the decode-tier KV handoff import " + _NOT_PORTED.format(7))
 
-    def mount_ops(self, port: int = 0, host: Optional[str] = None,
-                  store_dir: Optional[str] = None):
-        raise NotImplementedError(
-            "the ops endpoint (obs/opsd.py, devprof, store) "
-            + _NOT_PORTED.format(7))
-
-    def unmount_ops(self, reason: str = "close") -> None:
-        raise NotImplementedError(
-            "the ops endpoint (obs/opsd.py, devprof, store) "
-            + _NOT_PORTED.format(7))
-
     def attach_canary(self, driver) -> None:
         raise NotImplementedError(
             "the canary driver (obs/canary.py) " + _NOT_PORTED.format(7))
@@ -881,6 +874,94 @@ class InferenceEngine:
             out["tensor_parallel"] = {"model": self._tp.size, "decode_graph": False,
                                       "why": _EAGER_WHY}
         return out
+
+
+    def _canary_doc(self) -> dict:
+        """``/canary``: the no-driver document (the canary driver is not
+        ported yet, ``attach_canary``)."""
+        return {"surface": None, "probes": 0, "failures": 0,
+                "failure_ratio": None, "last": None}
+
+    def _tenants_doc(self) -> dict:
+        """``/tenants``: evaluate the per-tenant alert rules (burn,
+        noisy-neighbor KV share) against the ledger's synthetic metric
+        view, then snapshot — rows, totals, kv_share, alerts."""
+        self.costs.evaluate_alerts(self.clock())
+        return self.costs.snapshot()
+
+    def mount_ops(self, port: int = 0, host: Optional[str] = None,
+                  store_dir: Optional[str] = None):
+        """Mount a live introspection endpoint (``obs.opsd``) for this
+        engine: ``/metrics``, ``/healthz`` (+ queue/pool summary),
+        ``/trace``, ``/vars``, ``/flight``, ``/alerts`` (stock SLO rule
+        pack — its serving ITL rule reads the registry mirror
+        ``ServingMetrics`` feeds), plus the saturation/goodput plane:
+        ``/load`` (EWMA load score), ``/slo`` (windowed goodput +
+        burn), ``/canary`` (the no-driver document), ``/tenants``
+        (per-tenant cost ledger + burn/KV-share alerts), ``/profile``
+        (``torch.profiler`` capture and the card's memory). Loopback-bound
+        by default; port 0 picks a free one (read ``engine.ops.port``).
+        Idempotent.
+
+        ``store_dir`` additionally mounts the durable telemetry journal
+        (``obs.store``): flight notes, alert transitions, sampler ticks,
+        and completed spans persist there for cross-process post-mortem
+        reconstruction (``/incidents`` serves its meta).
+        """
+        if self.ops is not None:
+            return self.ops
+        if self._alert_engine is None:
+            self._alert_engine = obs.AlertEngine()
+        self._ops_history = obs.HistorySampler(extra_fn=obs.record_device_memory).start()
+        self.store = None
+        if store_dir is not None:
+            self.store = obs.TelemetryStore(store_dir, role="serving",
+                                            flight=obs.default_flight_recorder())
+            obs.default_flight_recorder().attach_store(self.store)
+            self._alert_engine.attach_store(self.store)
+            self._ops_history.attach_store(self.store)
+            if getattr(self.tracer, "enabled", False):
+                self.tracer.attach_store(self.store)
+        self.ops = obs.OpsServer(
+            port=port, host=host, tracer=self.tracer,
+            role="serving",
+            alerts_fn=self._alert_engine.scrape,
+            history=self._ops_history,
+            vars_fn=lambda: {
+                "role": "serving",
+                "max_slots": self.pool.max_slots,
+                "max_prompt_len": self.max_prompt_len,
+            },
+            health_fn=lambda: {
+                "queue_depth": len(self.queue),
+                "pool_active": self.pool.active_count,
+                "pool_free": self.pool.free_count,
+            },
+            load_fn=self.load.snapshot,
+            slo_fn=self.slo.snapshot,
+            canary_fn=self._canary_doc,
+            tenants_fn=self._tenants_doc,
+            incidents_fn=self.store.doc if self.store is not None else None,
+        ).start()
+        return self.ops
+
+    def unmount_ops(self, reason: str = "close") -> None:
+        """Tear the endpoint, the sampler and the journal down.
+        Idempotent."""
+        if self.ops is not None:
+            self.ops.stop()
+            self.ops = None
+        if self._ops_history is not None:
+            self._ops_history.stop()
+            self._ops_history = None
+        store, self.store = self.store, None
+        if store is not None:
+            obs.default_flight_recorder().detach_store(store)
+            if self._alert_engine is not None:
+                self._alert_engine.detach_store(store)
+            if hasattr(self.tracer, "detach_store"):
+                self.tracer.detach_store(store)
+            store.close(reason=reason)
 
 
 def shard_serving(engine: InferenceEngine, mesh, rules=None) -> InferenceEngine:

@@ -17,7 +17,8 @@ Layout:
                   sample_trials / run_search (the ASHA frontend)
     cli.py        ``python -m elephas_tpu_torch.tune.cli``
 
-Not ported yet: the ``/trials`` ops route (ROADMAP.md queue 1, item 7).
+The ``/trials`` ops route serves ``TuneRunner.trials_snapshot``:
+``obs.OpsServer(trials_fn=runner.trials_snapshot)``.
 """
 
 from elephas_tpu_torch.tune.scheduler import AshaScheduler  # noqa: F401

@@ -354,33 +354,39 @@ def test_comms_pipeline_retries_then_fails_fast():
     ({"ps_ops_port": 0}, "item 7"),
 ])
 def test_left_out_options_raise(kwargs, item):
-    """The ops endpoint is still left out (item 7); the elastic, WAL and
-    group options raise the JAX package's ``ValueError`` where it does,
-    for the same arguments."""
+    """The elastic, WAL and group options raise the JAX package's
+    ``ValueError`` where it does, for the same arguments. The ops
+    endpoint (``ps_ops_port``, which item 7 brought) is accepted by both
+    packages' constructors and kept for the fit's server."""
+    from elephas_tpu.engine.async_engine import AsyncTrainer as JaxAsyncTrainer
+    from elephas_tpu.parallel.mesh import build_mesh
+
     if item.startswith("item"):
-        with pytest.raises(NotImplementedError, match=item):
-            AsyncTrainer(_port_mlp(), ["cpu"], **kwargs)
+        trainer = AsyncTrainer(_port_mlp(), ["cpu"], **kwargs)
+        reference = JaxAsyncTrainer(None, build_mesh(num_data=1), **kwargs)
+        assert trainer.ps_ops_port == reference.ps_ops_port == kwargs["ps_ops_port"]
         return
     with pytest.raises(ValueError, match=item):
         AsyncTrainer(_port_mlp(), ["cpu"], **kwargs)
-    from elephas_tpu.engine.async_engine import AsyncTrainer as JaxAsyncTrainer
-    from elephas_tpu.parallel.mesh import build_mesh
 
     with pytest.raises(ValueError, match=item):
         JaxAsyncTrainer(None, build_mesh(num_data=1), **kwargs)
 
 
 def test_left_out_spark_model_options_raise(data, monkeypatch):
-    """What is still left out raises; ``stream_batches`` and ``autotune``
-    are ported and train."""
+    """What is still left out raises; ``stream_batches``, ``autotune``
+    and ``mount_ops`` are ported and work."""
     x, y = data
     model = et.SparkModel(_port_mlp(), mode="hogwild", mesh=["cpu"])
     history = model.fit(et.to_simple_rdd(None, x, y), epochs=1, stream_batches=2)
     assert len(history["loss"]) == 1 and np.isfinite(history["loss"][0])
     tuned = et.SparkModel(_port_mlp(), mode="asynchronous", autotune=True, mesh=["cpu"])
     assert tuned.fit(et.to_simple_rdd(None, x, y), epochs=1)["compile_autotune"] == "default"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        AsyncTrainer(_port_mlp(), ["cpu"]).mount_ops()
+    trainer = AsyncTrainer(_port_mlp(), ["cpu"])
+    ops = trainer.mount_ops()  # the worker's ops endpoint (item 7)
+    assert trainer.mount_ops() is ops and ops.role == "worker" and ops.worker_id == "w0"
+    trainer.unmount_ops()
+    assert trainer.ops is None
     monkeypatch.setenv("ELEPHAS_PS_SHARDS", "2")
     with pytest.raises(ValueError, match="wire transport"):  # a group over the local mode
         AsyncTrainer(_port_mlp(), ["cpu"])

@@ -318,11 +318,13 @@ def _main_source():
 
 
 def test_main_runs_and_reports_the_estimator_phase():
-    """``main`` drives ``estimator_phase`` after ``async_phase``, keeps its
-    launches under ``"estimator"`` and prints its report line, before the
-    kernel line and the last line."""
+    """``main`` drives ``estimator_phase`` after ``async_phase`` and the
+    two phases that follow it (the multi-process async phase and the ops
+    phase), keeps its launches under ``"estimator"`` and prints its report
+    line, before the kernel line and the last line."""
     source, phases = _main_source()
-    assert phases[phases.index("estimator_phase") - 1] == "async_phase"
+    at = phases.index("estimator_phase")
+    assert phases[at - 3:at] == ["async_phase", "async_multiproc_phase", "ops_phase"]
     assert "launches['estimator'], report = estimator_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("'kernels'") < source.index("'ok': True")
 
@@ -335,7 +337,8 @@ def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
     card's name and count."""
     source, phases = _main_source()
     assert phases == ["kernel_phase", "inference_phase", "train_phase", "seq_parallel_phase",
-                      "tensor_parallel_phase", "resnet_phase", "repair_phase", "serving_phase", "async_phase",
+                      "tensor_parallel_phase", "resnet_phase", "repair_phase", "serving_phase",
+                      "async_phase", "async_multiproc_phase", "ops_phase",
                       "estimator_phase", "search_phase", "fit_slice_phase", "chaos_phase"]
     assert "launches['search'], report = search_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("search: ") < source.index("'kernels'")
@@ -733,3 +736,138 @@ def test_replicated_digest_reads_only_replicated_parameters(smoke):
     with torch.no_grad():
         b.ln_f.weight.add_(1e-7)
     assert smoke.replicated_digest(a) != smoke.replicated_digest(b)
+
+
+def test_main_runs_the_async_multiproc_and_ops_phases_after_async():
+    """The multi-process async phase follows the async phase (whose
+    in-process CNN fit it reports beside its own samples/s), then the ops
+    phase; each keeps its launches under its own key and prints its
+    report before the kernel line; ``--async-rank`` runs one rank."""
+    source, phases = _main_source()
+    at = phases.index("async_phase")
+    assert phases[at:at + 3] == ["async_phase", "async_multiproc_phase", "ops_phase"]
+    assert "launches['async_multiproc'], report = async_multiproc_phase(attention_cuda, " \
+        "report['cnn_async'])" in source
+    assert "launches['ops'], report = ops_phase(attention_cuda)" in source
+    assert source.index("async: ") < source.index("async_multiproc: ") < \
+        source.index("ops: ") < source.index("'kernels'")
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert 'if sys.argv[1:2] == ["--async-rank"]:' in text
+
+
+def test_async_multiproc_and_ops_config(smoke):
+    """Two ranks of two workers on config 2's CNN, two epochs, the three
+    fits (asynchronous over socket, hogwild over HTTP with
+    autotune, hogwild over HTTP streamed), a 12 s barrier timeout for the
+    peer-death run; the ops phase polls at 10 Hz and captures 3 LM steps,
+    whose f32 kernels the trace must name."""
+    assert (smoke.MP_RANKS, smoke.MP_WORKERS, smoke.MP_EPOCHS) == (2, 2, 2)
+    assert smoke.MP_FITS == {"async_socket": ("asynchronous", "socket", None, False),
+                             "hogwild_http": ("hogwild", "http", None, True),
+                             "hogwild_http_streamed": ("hogwild", "http", 4, False)}
+    assert smoke.MP_BARRIER_TIMEOUT_S == 12
+    assert smoke.OPS_POLL_S == 0.1 and smoke.OPS_PROFILE_STEPS == 3
+    assert smoke.OPS_TRACE_KERNELS == {"flash_fwd": "flash_fwd_f32", "flash_dq": "flash_dq_f32",
+                                       "flash_dkv": "flash_dkv_f32"}
+    for name in smoke.OPS_TRACE_KERNELS.values():
+        source = "flash_fwd.cu" if name == "flash_fwd_f32" else "flash_bwd.cu"
+        assert f"{name}_kernel(" in (ROOT / "elephas_tpu_torch" / "csrc" / source).read_text()
+
+
+def test_ops_keys_are_the_jax_packages_documents(smoke, tmp_path):
+    """The top-level keys the ops phase holds each scrape to are those of
+    the JAX package's documents: its PS endpoint after a push, and its
+    serving trackers' snapshots."""
+    import json
+    import urllib.request
+
+    from elephas_tpu import obs
+    from elephas_tpu.parameter.server import make_server
+
+    server = make_server("http", {"w": np.ones(3, np.float32)}, port=0, ops_port=0,
+                         wal_dir=str(tmp_path))
+    server.start()
+    try:
+        client = server.client()
+        client.worker_id = "w0"
+        client.update_parameters({"w": np.ones(3, np.float32)})
+        client.close()
+        for route, keys in smoke.OPS_PS_KEYS.items():
+            with urllib.request.urlopen(f"{server.ops.url}{route}", timeout=5.0) as resp:
+                assert sorted(json.loads(resp.read())) == sorted(keys), route
+    finally:
+        server.stop()
+    load = obs.LoadTracker()
+    load.observe(queue_depth=1, queue_limit=4, active=1, max_slots=2, kv_free_frac=0.5)
+    docs = {"/load": load.snapshot(), "/slo": obs.GoodputLedger().snapshot(),
+            "/tenants": obs.CostLedger().snapshot(), "/alerts": obs.AlertEngine().scrape()}
+    for route, keys in smoke.OPS_SERVING_KEYS.items():
+        assert sorted(docs[route]) == sorted(keys), route
+
+
+def test_apply_chain_holds_the_surviving_deltas(smoke):
+    """``ApplyChain`` on a lock-free buffer: a racing apply that read an
+    older tree drops the delta it raced with; the final tree holds the
+    survivors' sum and count, and ``received`` every delta."""
+    import torch
+
+    from elephas_tpu_torch.parameter.buffer import ParameterBuffer
+
+    chain = smoke.ApplyChain()
+    try:
+        buffer = ParameterBuffer({"params": {"w": torch.ones(3)}}, lock=False, device="cpu")
+        delta = {"params": {"w": torch.full((3,), 0.5)}}
+        buffer.apply_delta(delta)
+        stale = buffer._head  # a racer's read before the next apply ...
+        buffer.apply_delta({"params": {"w": torch.full((3,), 0.25)}})
+        params = ParameterBuffer._subtract(stale[0], delta)  # ... lands after it
+        buffer._head = (params, stale[1] + 1)
+        cum, count = chain.final(buffer)
+        assert count == 2 == buffer._head[1]
+        np.testing.assert_allclose(cum["w"], [1.0, 1.0, 1.0])
+        np.testing.assert_allclose(chain.received["w"], [1.25] * 3)
+        np.testing.assert_allclose(buffer._head[0]["params"]["w"].numpy(), [0.0] * 3)
+    finally:
+        chain.close()
+    assert ParameterBuffer._subtract is chain._real
+
+
+def test_summing_pushes_and_sum_error(smoke):
+    import torch
+
+    from elephas_tpu_torch.parameter import client as client_mod
+    from elephas_tpu_torch.parameter.server import make_server
+
+    real = client_mod.HttpClient.update_parameters
+    sums, count = {}, [0]
+    restore = smoke.summing_pushes(sums, count)
+    server = make_server("http", {"params": {"w": np.ones(3, np.float32)}}, port=0, device="cpu")
+    server.start()
+    try:
+        client = server.client()
+        for _ in range(2):
+            client.update_parameters({"params": {"w": torch.full((3,), 0.25)}})
+        client.close()
+        final = {"w": server.get_parameters()["params"]["w"].cpu()}
+    finally:
+        server.stop()
+        restore()
+    assert client_mod.HttpClient.update_parameters is real
+    assert count == [2]
+    np.testing.assert_allclose(sums["w"], [0.5] * 3)
+    assert smoke.sum_error_by_norm(final, {"w": torch.ones(3)}, sums) < 1e-7
+
+
+def test_poller_counts_rounds_and_drops_an_unmounted_round(smoke, monkeypatch):
+    """A round cut short by the endpoint's unmount is dropped; a wrong
+    answer from a mounted endpoint is kept; a right one counts."""
+    answers = iter([(500, None), (200, ["b"]), (200, ["a"])])
+    urls = iter(["u", None, "u", "u", "u"])
+    monkeypatch.setattr(smoke, "scrape", lambda url: next(answers))
+    poller = smoke.Poller(lambda: next(urls), {"/x": ["a"]})
+    poller.poll_once()
+    assert (poller.rounds, poller.bad) == (0, [])
+    poller.poll_once()
+    assert (poller.rounds, poller.bad) == (1, [["/x", 200, ["b"]]])
+    poller.poll_once()
+    assert poller.rounds == 2 and len(poller.bad) == 1

@@ -427,6 +427,18 @@ def test_sync_fit_records_epoch_spans_and_gauges(data, stream):
 
 
 def test_sync_trainer_mount_ops_names_item_7():
+    """Item 7's trainer endpoint: ``mount_ops`` serves the worker role's
+    routes and is idempotent; ``unmount_ops`` takes it down."""
+    import json
+    import urllib.request
+
     trainer = sync.SyncTrainer(fresh_model(), build_mesh())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trainer.mount_ops()
+    ops = trainer.mount_ops()
+    try:
+        assert trainer.mount_ops() is ops
+        with urllib.request.urlopen(f"{ops.url}/meta", timeout=5.0) as resp:
+            meta = json.loads(resp.read())
+        assert meta["role"] == "worker" and meta["worker_id"] == "w0"
+    finally:
+        trainer.unmount_ops()
+    assert trainer.ops is None

@@ -41,11 +41,22 @@ state, the mesh's groups and, with a checkpoint directory, a save
 restored into a fresh sharded state and one more step of each; a
 ``"tp_serving"`` job serves prompts from a sharded ``InferenceEngine``
 (rank 0 serves, the others follow) and, on rank 0, from the unsharded
-engine too.
+engine too. The asynchronous jobs (``test_torch_async_multiproc.py``):
+an ``"async_fit"`` job runs ``SparkModel(mode="asynchronous"|"hogwild")``
+over a wire server on rank 0 with 2 CPU workers a rank and saves the
+weights, the history, the per-worker epoch metrics, every push's delta
+summed in float64, rank 0's buffer version, the deltas its final tree
+holds (``chip_smoke.ApplyChain``) and what an unauthenticated client got
+from the live server, the post-fit ``predict``/``evaluate``
+and the autotune choice (``"autotune"``: two injected eager candidates,
+and whether this rank timed them); an ``"async_refusals"`` job saves
+the errors of the fits a group refuses; an ``"async_death"`` job kills
+rank 1 after its first push and saves what rank 0's fit raised.
 Imports the port only, no JAX.
 """
 
 import json
+import os
 import sys
 
 import numpy as np
@@ -522,6 +533,211 @@ def _tp_serving(job, rank):
     torch.save(result, f"{job['out']}.rank{rank}")
 
 
+def _async_data():
+    rng = np.random.default_rng(0)
+    dim, nc, n = 12, 3, 512
+    centers = rng.normal(scale=3.0, size=(nc, dim))
+    labels = rng.integers(0, nc, size=n)
+    x = (centers[labels] + rng.normal(size=(n, dim))).astype(np.float32)
+    return x, np.eye(nc, dtype=np.float32)[labels]
+
+
+def _async_model():
+    import elephas_tpu_torch as et
+    from elephas_tpu_torch.models import get_model
+
+    return et.compile_model(get_model("mlp", device="cpu", features=(24,), num_classes=3),
+                            optimizer={"name": "adam", "learning_rate": 0.01},
+                            loss="categorical_crossentropy", metrics=["acc"],
+                            input_shape=(12,), seed=0)
+
+
+def _summing_pushes(sums, counts):
+    """Patch the wire clients' push to sum every delta in float64."""
+    import threading
+
+    from elephas_tpu_torch.parameter import client as client_mod
+
+    lock = threading.Lock()
+    for cls in (client_mod.HttpClient, client_mod.SocketClient):
+        real = cls.update_parameters
+
+        def push(self, delta, _real=real):
+            host = client_mod.to_host(delta)
+            flat = {f"{g}/{n}": t.double().numpy() for g in host for n, t in host[g].items()}
+            _real(self, host)
+            with lock:
+                for name, value in flat.items():
+                    sums[name] = sums.get(name, 0.0) + value
+                counts[0] += 1
+
+        cls.update_parameters = push
+
+
+def _async_fit(job, rank):
+    import elephas_tpu_torch as et
+    from elephas_tpu_torch.engine import async_engine
+    from elephas_tpu_torch.parameter.client import make_client
+
+    x, y = _async_data()
+    sums, pushes = {}, [0]
+    _summing_pushes(sums, pushes)
+    # The server's applies chained tree by tree (chip_smoke.ApplyChain).
+    from chip_smoke import ApplyChain
+
+    chain = ApplyChain() if rank == 0 else None
+    servers, per_worker = [], {}
+    real_make_server, real_run_worker = async_engine.make_server, async_engine.AsyncTrainer._run_worker
+
+    def make_server(*args, **kwargs):
+        servers.append(real_make_server(*args, **kwargs))
+        return servers[-1]
+
+    def run_worker(self, index, *args, **kwargs):
+        per_worker[index] = real_run_worker(self, index, *args, **kwargs)
+        return per_worker[index]
+
+    async_engine.make_server = make_server
+    async_engine.AsyncTrainer._run_worker = run_worker
+    timed = [0]
+    if job.get("autotune"):
+        real_ab = async_engine.autotune_compile_options
+        async_engine.autotune_candidates = lambda device=None: [("default", None),
+                                                                ("eager_again", None)]
+
+        def ab(*args, **kwargs):
+            timed[0] += 1
+            return real_ab(*args, **kwargs)
+
+        async_engine.autotune_compile_options = ab
+    unauthenticated = []
+
+    def probe(epoch, state, metrics):
+        """Rank 0's epoch fire, with the server live: a client without
+        the job's key must be refused."""
+        if unauthenticated or not servers:
+            return
+        server = servers[-1]
+        client = make_client(job["ps_mode"], f"127.0.0.1:{server.port}")
+        client.timeout = 5.0
+        try:
+            client.get_parameters()
+            unauthenticated.append("answered")
+        except Exception as exc:
+            unauthenticated.append(type(exc).__name__)
+        finally:
+            if hasattr(client, "close"):
+                client.close()
+
+    net = _async_model()
+    start = {f"{g}/{n}": t.detach().double().numpy().copy()
+             for g, tree in (("params", dict(net.module.named_parameters())),
+                             ("batch_stats", dict(net.module.named_buffers())))
+             for n, t in tree.items()}
+    model = et.SparkModel(net, mode=job["mode"], frequency="epoch",
+                          parameter_server_mode=job["ps_mode"], port=0,
+                          mesh=["cpu"] * 2, autotune=job.get("autotune", False))
+    history = model.fit(et.to_simple_rdd(None, x, y), epochs=job["epochs"], batch_size=16,
+                        validation_data=(x[:96], y[:96]),
+                        stream_batches=job.get("stream_batches"), callbacks=[probe])
+    final = {f"{g}/{n}": t.detach().double().numpy()
+             for g, tree in (("params", dict(net.module.named_parameters())),
+                             ("batch_stats", dict(net.module.named_buffers())))
+             for n, t in tree.items()}
+    result = {"weights": model.get_weights(), "history": history, "per_worker": per_worker,
+              "sums": sums, "pushes": pushes[0], "start": start, "final": final,
+              "version": servers[-1].buffer.version if servers else None,
+              "applied": servers[-1].buffer._head[1] if servers else None,
+              "unauthenticated": unauthenticated, "timed": timed[0],
+              "autotune": model.last_autotune,
+              "n_global_workers": model.async_trainer.n_global_workers,
+              "workers": [g for g, _ in model.async_trainer.workers],
+              "predict": model.predict(x[:128], batch_size=32),
+              "evaluate": model.evaluate(x[:96], y[:96], batch_size=32)}
+    if chain is not None:
+        survivors, result["survivors"] = chain.final(servers[-1].buffer)
+        full = {k.split("/", 1)[1]: k for k in start}  # the chain keys by name
+        result["survivor_sums"] = {full[k]: v for k, v in survivors.items()}
+        result["received"] = {full[k]: v for k, v in chain.received.items()}
+    async_engine.make_server, async_engine.AsyncTrainer._run_worker = real_make_server, real_run_worker
+    torch.save(result, f"{job['out']}.rank{rank}")
+
+
+def _async_refusals(job, rank):
+    import tempfile
+
+    import elephas_tpu_torch as et
+    from elephas_tpu_torch.checkpoint.checkpoint import CheckpointManager
+    from elephas_tpu_torch.engine.async_engine import AsyncTrainer
+
+    x, y = _async_data()
+    errors = {}
+    cases = {
+        "local": dict(parameter_server_mode="local"),
+        "ps_shards": dict(parameter_server_mode="socket", ps_shards=2),
+        "elastic": dict(parameter_server_mode="socket", elastic=True),
+    }
+    for name, kwargs in cases.items():
+        trainer = AsyncTrainer(_async_model(), ["cpu"] * 2, port=0, **kwargs)
+        try:
+            trainer.fit(et.data.rdd.ShardedDataset(x, y, 2), epochs=1, batch_size=16)
+        except ValueError as exc:
+            errors[name] = str(exc)
+    with tempfile.TemporaryDirectory() as d:
+        for host0_only in (False, True):
+            trainer = AsyncTrainer(_async_model(), ["cpu"] * 2, port=0,
+                                   parameter_server_mode="http")
+            manager = CheckpointManager(d, host0_only=host0_only)
+            try:
+                trainer.fit(et.data.rdd.ShardedDataset(x, y, 2), epochs=1, batch_size=16,
+                            callbacks=[manager.callback()])
+                manager.wait()
+                errors[f"checkpoint_host0_only={host0_only}"] = sorted(os.listdir(d))
+            except ValueError as exc:
+                errors[f"checkpoint_host0_only={host0_only}"] = str(exc)
+    torch.save(errors, f"{job['out']}.rank{rank}")
+
+
+def _async_death(job, rank):
+    import signal
+    import time
+
+    import elephas_tpu_torch as et
+    from elephas_tpu_torch.engine import async_engine
+
+    x, y = _async_data()
+    servers, real_make_server = [], async_engine.make_server
+
+    def make_server(*args, **kwargs):
+        servers.append(real_make_server(*args, **kwargs))
+        return servers[-1]
+
+    async_engine.make_server = make_server
+    if rank == 1:
+        from elephas_tpu_torch.parameter import client as client_mod
+
+        for cls in (client_mod.HttpClient, client_mod.SocketClient):
+            real = cls.update_parameters
+
+            def push(self, delta, _real=real):
+                _real(self, delta)
+                os.kill(os.getpid(), signal.SIGKILL)  # dies after its first push
+
+            cls.update_parameters = push
+    model = et.SparkModel(_async_model(), mode="asynchronous", frequency="epoch",
+                          parameter_server_mode=job["ps_mode"], port=0, mesh=["cpu"] * 2)
+    t0 = time.monotonic()
+    try:
+        model.fit(et.to_simple_rdd(None, x, y), epochs=job["epochs"], batch_size=16)
+        out = {"error": None}
+    except Exception as exc:
+        out = {"error": type(exc).__name__, "message": str(exc)}
+    out.update(seconds=time.monotonic() - t0,
+               server_stopped=bool(servers) and servers[-1]._server is None)
+    torch.save(out, f"{job['out']}.rank{rank}")
+    os._exit(0)  # the group has a dead member: skip its teardown
+
+
 def main(config_path, rank):
     with open(config_path) as f:
         config = json.load(f)
@@ -538,7 +754,8 @@ def main(config_path, rank):
             {"search": _search, "autotune": _autotune,
              "search_devices": _search_devices, "seq_attention": _seq_attention,
              "seq_trainer": _seq_trainer, "tp_train": _tp_train,
-             "tp_serving": _tp_serving,
+             "tp_serving": _tp_serving, "async_fit": _async_fit,
+             "async_refusals": _async_refusals, "async_death": _async_death,
              "distributed": _distributed}.get(job.get("kind"), _run)(job, rank)
     finally:
         dist.destroy_process_group()

@@ -258,17 +258,54 @@ def test_dead_server_fails_fast(monkeypatch):
 ])
 @pytest.mark.parametrize("mode", ["local", "socket", "http"])
 def test_left_out_server_options_raise(mode, kwargs, item, tmp_path):
-    """The ops endpoint and an explicit telemetry store are still left
-    out (item 7) on every transport. ``wal_dir`` and ``shard_info`` raise
-    the JAX package's ``ValueError`` on the local server, and on the wire
-    servers they build and serve: the WAL holds every acked push, and the
-    handshake document comes back with the live boot id."""
+    """``wal_dir`` and ``shard_info`` raise the JAX package's
+    ``ValueError`` on the local server, and on the wire servers they
+    build and serve: the WAL holds every acked push, and the handshake
+    document comes back with the live boot id. The ops endpoint and an
+    explicit telemetry store (item 7) behave as the JAX package's: the
+    local server ignores ``ops_port`` and refuses a ``store_dir``; a wire
+    server mounts the endpoint at ``start()`` and the journal where it is
+    told, and takes both down at ``stop()``."""
     if "wal_dir" in kwargs:
         kwargs = {"wal_dir": str(tmp_path / "wal")}
+    if "store_dir" in kwargs:
+        kwargs = {"store_dir": str(tmp_path / "unused")}
     tree = {"w": np.ones(2, np.float32)}
     if item.startswith("item"):
-        with pytest.raises(NotImplementedError, match=item):
-            make_server(mode, tree, port=0, device="cpu", **kwargs)
+        from elephas_tpu.parameter.server import make_server as jax_make_server
+
+        if mode == "local" and "store_dir" in kwargs:
+            for build in (make_server, jax_make_server):
+                with pytest.raises(ValueError, match="store_dir requires a wire transport"):
+                    build(mode, tree, port=0, **({"device": "cpu"} if build is make_server
+                                                 else {}), **kwargs)
+            return
+        server = make_server(mode, tree, port=0, device="cpu", **kwargs)
+        server.start()
+        try:
+            if mode == "local":
+                assert getattr(server, "ops", None) is None
+                return
+            if "ops_port" in kwargs:
+                import json
+                import urllib.request
+
+                with urllib.request.urlopen(f"{server.ops.url}/vars", timeout=5.0) as resp:
+                    assert json.loads(resp.read())["transport"] == mode
+            else:
+                assert server.ops is None and server.store is not None
+                client = server.client()
+                client.update_parameters({"w": np.ones(2, np.float32)})
+                client.close()
+        finally:
+            server.stop()
+        assert getattr(server, "ops", None) is None
+        if "store_dir" in kwargs:
+            from elephas_tpu import obs as jax_obs
+
+            records = jax_obs.read_store(kwargs["store_dir"])["records"]
+            assert [r["data"].get("event") for r in records if r["k"] == "lifecycle"] == \
+                ["boot", "close"]
         return
     if mode == "local":
         with pytest.raises(ValueError, match=item):

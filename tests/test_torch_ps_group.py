@@ -326,8 +326,13 @@ def test_group_validations_and_left_outs(tmp_path):
         _group(standby=2)
     with pytest.raises(ValueError, match="wal_root"):
         _group(standby=1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _group(ops_port=0)
+    group = _group(ops_port=0)  # every member mounts its endpoint at start (item 7)
+    group.start()
+    try:
+        assert all(m.ops is not None for m in group._active)
+    finally:
+        group.stop()
+    assert all(m.ops is None for m in group._active)
 
 
 # -- handshake: digest pinning + fencing ----------------------------------------------

@@ -515,14 +515,18 @@ def test_not_ported_yet_raises_naming_the_roadmap(models):
     for call in (lambda: engine.submit_prefill([1, 2]),
                  lambda: engine.handoff(0),
                  lambda: engine.submit_handoff(b""),
-                 lambda: engine.mount_ops(),
-                 lambda: engine.unmount_ops(),
                  lambda: engine.attach_canary(None),
                  lambda: engine.submit([1, 2], prefill_only=True),
                  lambda: engine.pool.export_blocks(0),
                  lambda: engine.pool.import_blocks(0, [1], [])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # The ops endpoint is ported (item 7): it mounts, and unmounts twice.
+    ops = engine.mount_ops()
+    assert engine.mount_ops() is ops and ops.role == "serving"
+    engine.unmount_ops()
+    engine.unmount_ops()
+    assert engine.ops is None
 
 
 def test_metrics_summary_and_sink(models, tmp_path):

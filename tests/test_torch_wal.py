@@ -279,10 +279,10 @@ def test_acked_pushes_are_durable_and_kill_skips_the_sync(mode, tmp_path):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_auto_store_dir_mounts_no_telemetry_store_yet(mode, tmp_path):
-    """The one deliberate gap (ROADMAP item 7, ``obs/store.py``): beside
-    a WAL the JAX server's ``store_dir="auto"`` mounts a telemetry journal
-    in ``<wal_dir>/telemetry``; the port's mounts none, and its WAL
-    directory holds only the snapshots."""
+    """Beside a WAL, ``store_dir="auto"`` mounts a telemetry journal in
+    ``<wal_dir>/telemetry`` in both packages (item 7 closed the gap this
+    test once pinned), and the two journals tell the same story: the
+    boot, then the close."""
     jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
     jax_server = jax_make_server(mode, _tree(0), port=0, wal_dir=str(jax_dir))
     port_server = make_server(mode, _tree(0), port=0, device="cpu", wal_dir=str(port_dir))
@@ -293,7 +293,14 @@ def test_auto_store_dir_mounts_no_telemetry_store_yet(mode, tmp_path):
         client.close()
         server.stop()
     assert (jax_dir / "telemetry").is_dir()
-    assert sorted(p.name for p in port_dir.iterdir()) == [f"{1:016d}.epk"]
+    assert sorted(p.name for p in port_dir.iterdir()) == [f"{1:016d}.epk", "telemetry"]
+    from elephas_tpu_torch import obs as port_obs
+
+    def lifecycle(directory):
+        records = port_obs.read_store(str(directory / "telemetry"))["records"]
+        return [r["data"]["event"] for r in records if r["k"] == "lifecycle"]
+
+    assert lifecycle(port_dir) == lifecycle(jax_dir) == ["boot", "close"]
 
 
 @pytest.mark.parametrize("mode", MODES)
