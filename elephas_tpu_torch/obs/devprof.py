@@ -23,7 +23,9 @@ thread of its own, so the capture runs on a dedicated thread that starts
 it, waits for the stop, stops it and exports a Chrome trace
 (``trace-<pid>-<n>.json``) into the capture directory. The card's kernels
 are traced process-wide, whichever thread launched them, and host ops
-on every thread (``profile_all_threads``). The starter and stopper are injectable, so tests exercise
+on every thread (``profile_all_threads``). On a card each capture opens
+with a burst of marker kernels (``MARKERS``, see there) so that the
+trace holds every launch made after ``start`` returns. The starter and stopper are injectable, so tests exercise
 the lock protocol and dump lifecycle without a profiler at all.
 """
 
@@ -42,6 +44,31 @@ __all__ = [
 ]
 
 
+# A capture can miss the first kernels launched after its start, in two
+# ways (scripts/torch_devprof_start.py, on an H100): in some sessions the
+# profiler drops the first N kernel records, N growing by about one every
+# 13 s of the process's age whatever the process did; and it places the
+# card's timestamps up to milliseconds off the host's, dropping kernels
+# that this puts before the session's start. So each capture opens with
+# a burst of marker kernels, waited for, then a settle: both losses take
+# markers, not the caller's launches. The trace opens with the markers.
+# The capture counts the markers its trace lost and widens the next
+# burst to four times that.
+MARKERS = 256
+MARKER_SETTLE_S = 0.05
+MARKER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def _count_markers(path: str) -> int:
+    """The marker kernels a Chrome trace names."""
+    import json
+
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and MARKER_KERNEL in e.get("name", ""))
+
+
 class _TorchCapture:
     """One ``torch.profiler`` capture on a thread of its own."""
 
@@ -54,6 +81,8 @@ class _TorchCapture:
         self._error: Optional[BaseException] = None
         self._seq = 0
         self.last_trace: Optional[str] = None
+        self.markers = MARKERS  # the next capture's burst
+        self.markers_lost: Optional[int] = None  # of the last capture's burst
 
     def start(self, out_dir: str) -> None:
         with self._lock:
@@ -86,6 +115,12 @@ class _TorchCapture:
             prof = profile(activities=activities,
                            experimental_config=_ExperimentalConfig(profile_all_threads=True))
             prof.start()
+            markers = self.markers if torch.cuda.is_available() else 0
+            for _ in range(markers):
+                torch.cuda._sleep(1)
+            if markers:
+                torch.cuda.synchronize()
+                time.sleep(MARKER_SETTLE_S)
         except BaseException as exc:  # surfaced by start()
             self._error = exc
             self._started.set()
@@ -98,10 +133,18 @@ class _TorchCapture:
             prof.stop()
             prof.export_chrome_trace(path)
             self.last_trace = path
+            if markers:
+                self._count_lost(markers, path)
         except BaseException as exc:  # surfaced by stop()
             self._error = exc
         finally:
             self._done.set()
+
+    def _count_lost(self, markers: int, path: str) -> None:
+        """The markers of a burst of ``markers`` that the trace at ``path``
+        lost, and the next burst four times that, never narrower."""
+        self.markers_lost = max(0, markers - _count_markers(path))
+        self.markers = max(self.markers, 4 * self.markers_lost)
 
     def stop(self) -> None:
         with self._lock:

@@ -2,14 +2,16 @@
 
 ``flash_attention(q, k, v, causal)`` computes softmax attention in tiles
 so the (seq × seq) score matrix never exists in device memory, forward
-or backward. Every CUDA input runs the hand-written kernels
-(``ops/attention_cuda.py``; K1 forward, K2 and K3 backward), as every
-TPU input runs the JAX package's Pallas kernels: ``kernel_layout`` says
-at which head_dim and dtype they compute it, and raises where no kernel
-can. Inputs on any other device run ``blockwise_reference``, K1's plain
-PyTorch version with the same numerics, and autograd differentiates it:
-the JAX package's own path off the TPU. ``flash_backward_reference`` is
-the plain version of K2 and K3.
+or backward. A CUDA input whose head_dim a kernel instance holds runs
+the hand-written kernels (``ops/attention_cuda.py``; K1 forward, K2 and
+K3 backward): ``takes_kernels`` is that rule, decided by head_dim,
+length and device, and ``kernel_layout`` says at which head_dim and
+dtype the kernels compute the input. Inputs on another device, and CUDA
+inputs of a larger head_dim below the JAX package's Pallas threshold,
+run ``blockwise_reference``, K1's plain PyTorch version with the same
+numerics, and autograd differentiates it: the JAX package's own route
+there (its XLA blockwise path). ``flash_backward_reference`` is the
+plain version of K2 and K3.
 
 Shapes: q, k, v are (batch, heads, seq, head_dim); the output is the
 same, and the optional lse is (batch, heads, seq) float32.
@@ -213,6 +215,35 @@ def scatter_prefill_columns(pool_leaf, row_table, start, chunk):
                          target < num_blocks)
 
 
+def scatter_spec_columns(pool_leaf, contiguous, table, idx, count: int, active):
+    """Write each slot's ``count`` freshly-computed columns ``[idx[s],
+    idx[s] + count)`` back into its physical blocks, in place — the
+    multi-column sibling of ``scatter_decode_columns`` for a speculative
+    verify window.
+
+    ``contiguous`` is the (max_slots, heads, L, head_dim) view AFTER a
+    forward with seq == ``count`` wrote those columns (``idx`` is the
+    PRE-advance per-slot column vector). Inactive lanes, and columns past
+    the row's virtual capacity (or in an unallocated block), write
+    nothing. Rejected-suffix columns are written too: they sit at or past
+    every reader's causal frontier until a later accepted token
+    overwrites them, so they are never attended. The pool keeps its
+    address (a captured step reads it)."""
+    num_blocks, heads, bs, head_dim = pool_leaf.shape
+    slots, bps = table.shape
+    length = contiguous.shape[2]
+    cols = idx[:, None] + torch.arange(count, device=idx.device)[None, :]  # (slots, count)
+    lanes = torch.arange(slots, device=idx.device)[:, None]
+    # (slots, count, heads, head_dim): the two index tensors broadcast
+    # first, the sliced heads axis after them.
+    written = contiguous[lanes, :, cols.clamp(max=length - 1)]
+    blk = table[lanes, (cols // bs).clamp(0, bps - 1)]
+    keep = active[:, None] & (cols < bps * bs) & (blk < num_blocks)
+    return _scatter_kept(pool_leaf, blk.reshape(-1), (cols % bs).reshape(-1),
+                         written.reshape(slots * count, heads, head_dim),
+                         keep.reshape(-1))
+
+
 def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
                              block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
                              scale: Optional[float] = None):
@@ -341,22 +372,53 @@ def _launch_bwd(q, k, v, do, lse, delta, causal, scale):
     return dq, dk, dv
 
 
+# The JAX package's ``pallas_min_seq`` outside head_dim 32-128: there it
+# takes its XLA blockwise path below this length and Pallas at or above.
+WIDE_HEAD_MIN_SEQ = 4096
+
+
+def takes_kernels(head_dim: int, seq: int, device_type: str) -> bool:
+    """The dispatch rule: whether an input of ``head_dim`` and sequence
+    length ``seq`` on a device of ``device_type`` runs the CUDA kernels.
+
+    Inputs on any other device than ``cuda`` never take them. CUDA inputs
+    whose head_dim a kernel instance holds (up to
+    ``attention_cuda.HEAD_DIMS[-1]``) take them at every length: the port
+    has no sequence-length threshold there. Above that head_dim the rule
+    is the JAX package's ``_use_pallas``: below ``WIDE_HEAD_MIN_SEQ`` it
+    runs its XLA blockwise path, and the port runs the plain versions on
+    the card. At or above it the JAX package runs its Pallas kernels,
+    whose counterpart at that head_dim is not built yet, so this raises
+    ``NotImplementedError`` rather than run plain PyTorch where the
+    reference runs a kernel. The rule reads the shape and the device
+    only: a failed build or launch raises instead of falling back."""
+    if device_type != "cuda":
+        return False
+    if head_dim <= attention_cuda.HEAD_DIMS[-1]:
+        return True
+    if seq < WIDE_HEAD_MIN_SEQ:
+        return False
+    raise NotImplementedError(
+        f"flash attention on the card at head_dim {head_dim} and seq {seq} >= "
+        f"{WIDE_HEAD_MIN_SEQ} needs a kernel instance above head_dim "
+        f"{attention_cuda.HEAD_DIMS[-1]}, which is not built yet (ROADMAP, kernel work "
+        "queued: D = 256 kernel instances)"
+    )
+
+
 def use_kernels(q, k, v) -> bool:
     """Whether ``flash_attention`` runs the CUDA kernels on q, k and v:
-    always on CUDA inputs, never on others, as the JAX package's
-    ``_use_pallas`` takes Pallas on the TPU and only there (the port has
-    no sequence-length threshold: the kernels take every length). Layout,
-    head_dim and dtype do not count: the launch makes the inputs
-    contiguous, aligned and of the kernels' ``kernel_layout``, or raises.
-    CUDA inputs must share one device and dtype."""
-    if q.device.type != "cuda":
-        return False
-    if not k.device == v.device == q.device or not k.dtype == v.dtype == q.dtype:
+    ``takes_kernels`` of q's head_dim, length and device. Layout does not
+    count: the launch makes the inputs contiguous, aligned and of the
+    kernels' ``kernel_layout``. CUDA inputs must share one device and
+    dtype."""
+    if q.device.type == "cuda" and (not k.device == v.device == q.device
+                                    or not k.dtype == v.dtype == q.dtype):
         raise ValueError(
             "flash_attention needs CUDA q, k, v on one device and of one dtype, "
             f"got {[(str(t.device), t.dtype) for t in (q, k, v)]}"
         )
-    return True
+    return takes_kernels(q.shape[-1], q.shape[2], q.device.type)
 
 
 def _check_qkv(name, q, k, v):
@@ -376,13 +438,17 @@ def flash_attention(q, k, v, causal: bool = True,
                     return_lse: bool = False):
     """Blockwise attention; ``(o, lse)`` with ``return_lse=True``.
 
-    CUDA inputs run the hand-written kernels at their own tiling
+    Inputs that ``takes_kernels`` sends to the kernels (CUDA inputs of
+    head_dim up to 128) run them at their own tiling
     (``attention_cuda.kernel_tiles``), whatever ``block_q`` and
     ``block_k`` say: the tiling sets the order of the sums, not what they
-    sum. Inputs on any other device run ``blockwise_reference`` under
-    autograd at the given tiling (default ``BLOCK_Q`` x ``BLOCK_K``). q, k
-    and v must have one shape: the kernel assumes equal query and key
-    lengths, as the JAX package's does.
+    sum. Inputs on another device, and CUDA inputs of a larger head_dim
+    shorter than ``WIDE_HEAD_MIN_SEQ``, run ``blockwise_reference`` under
+    autograd at the given tiling (default ``BLOCK_Q`` x ``BLOCK_K``), as
+    the JAX package runs its XLA path there; a CUDA input of a larger
+    head_dim at least that long raises ``NotImplementedError``. q, k and v must have
+    one shape: the kernel assumes equal query and key lengths, as the JAX
+    package's does.
     """
     _check_qkv("flash_attention", q, k, v)
     if use_kernels(q, k, v):
@@ -399,16 +465,17 @@ def flash_attention(q, k, v, causal: bool = True,
 # ``pallas_flash_attention_bwd(q, k, v, o, lse, do)`` with the GLOBAL o and
 # lse of the combined softmax, so each hop's p is its slice of the global
 # softmax and the hops' gradients sum to the exact ones. These are the
-# port's counterparts: K1, and K2 with K3, on CUDA inputs through
-# ``kernel_layout`` (the scale stays 1/sqrt of the caller's head_dim when
-# the kernels compute on zero-padded columns), the plain versions
-# elsewhere. Neither records autograd.
+# port's counterparts: K1, and K2 with K3, on the inputs ``takes_kernels``
+# sends to them, through ``kernel_layout`` (the scale stays 1/sqrt of the
+# caller's head_dim when the kernels compute on zero-padded columns), the
+# plain versions elsewhere. Neither records autograd.
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True):
     """``(o, lse)`` of softmax attention of q over k and v (causal within
-    this block, or full): K1 on CUDA inputs, ``blockwise_reference``
-    elsewhere. o is in q's dtype, lse (batch, heads, seq) float32."""
+    this block, or full): K1 where ``takes_kernels`` sends the input,
+    ``blockwise_reference`` elsewhere. o is in q's dtype, lse (batch,
+    heads, seq) float32."""
     _check_qkv("flash_attention_fwd", q, k, v)
     with torch.no_grad():
         if not use_kernels(q, k, v):
@@ -423,7 +490,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
 def flash_attention_bwd(q, k, v, o, lse, do, delta, causal: bool = True):
     """``(dq, dk, dv)`` of one block from the output ``o`` and ``lse`` of
     the WHOLE softmax this block is a slice of, and its gradient ``do``:
-    K2 and K3 on CUDA inputs, ``flash_backward_reference`` elsewhere.
+    K2 and K3 where ``takes_kernels`` sends the input,
+    ``flash_backward_reference`` elsewhere.
     ``delta`` is rowsum(do * o) in float32 from that same o, computed once
     by the caller for all its blocks (the plain version recomputes it from
     o)."""

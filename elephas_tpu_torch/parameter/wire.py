@@ -31,9 +31,11 @@ port client and a JAX server (or a JAX client and a port server) talk:
   ``b"\\x80"``), so every receive path also takes legacy pickle bodies.
   This module is the port's only home of ``pickle`` in ``parameter/``.
 
-Not carried over: the serving plane's KV-block handoff frames
-(``encode_kv_blocks``), which arrive with the prefill/decode handoff
-(ROADMAP.md queue 1, item 7).
+- A **KV-block handoff** frame (``EPKV``; ``encode_kv_blocks`` /
+  ``decode_kv_blocks``) carries one request's filled KV blocks between a
+  prefill engine and a decode engine: a free-form JSON ``meta`` dict and
+  the block arrays, 64-byte aligned, byte-identical to the JAX
+  package's frame for the same meta and arrays.
 """
 
 from __future__ import annotations
@@ -57,10 +59,12 @@ __all__ = [
     "NotModified",
     "WireFormatError",
     "decode",
+    "decode_kv_blocks",
     "decode_payload",
     "decode_payload_traced",
     "decode_pickle",
     "decode_push",
+    "encode_kv_blocks",
     "encode_not_modified",
     "encode_pickle",
     "encode_rejected",
@@ -455,6 +459,95 @@ def decode_payload_traced(buf, expect=None):
         out = _decode_tree_frame(buf, expect)
         return out.tree, out.trace
     return decode_pickle(buf), None
+
+
+# -- KV-block handoff frames --------------------------------------------------
+#
+# The disaggregated-serving payload kind: a prefill engine ships one
+# request's filled KV blocks as
+#
+#     [magic "EPKV"][u32 header_len][header JSON][pad][payload region]
+#
+# — the layout discipline of EPK1 frames (64B-aligned leaf offsets,
+# zero-copy encode through memoryview chunks), with a free-form JSON
+# ``meta`` dict in place of a tree skeleton: the serving layer owns the
+# metadata schema (``serving.handoff``), the codec only the bytes.
+
+
+def encode_kv_blocks(meta: Dict[str, Any], arrays) -> Frames:
+    """Encode a KV handoff: JSON-able ``meta`` and a list of block arrays
+    (NumPy arrays or CPU tensors; bf16 tensors travel as their 16-bit
+    patterns under the name ``"bfloat16"``).
+
+    Each array lands contiguously at a 64B-aligned offset in one payload
+    region; the header carries ``(dtype, shape, offset, nbytes)`` rows in
+    list order. Raises ``WireFormatError`` for meta that is not JSON-able
+    or an object-dtype array."""
+    rows = []
+    payload_chunks: List[Any] = []
+    offset = 0
+    for leaf in arrays:
+        arr = _host_array(leaf)
+        pad = (-offset) % _ALIGN
+        if pad:
+            payload_chunks.append(b"\x00" * pad)
+            offset += pad
+        rows.append([_dtype_name(leaf), list(arr.shape), offset, arr.nbytes])
+        payload_chunks.append(_leaf_chunk(arr))
+        offset += arr.nbytes
+    try:
+        header = json.dumps({"v": 1, "meta": meta, "leaves": rows},
+                            separators=(",", ":")).encode()
+    except (TypeError, ValueError) as exc:
+        raise WireFormatError(f"KV handoff meta is not JSON-able: {exc}") from exc
+    header += b" " * ((-(_PREFIX + len(header))) % _ALIGN)
+    return Frames([MAGIC_KV + _HLEN.pack(len(header)) + header, *payload_chunks])
+
+
+def decode_kv_blocks(buf) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
+    """Decode one ``EPKV`` frame to ``(meta, arrays)``.
+
+    The arrays are CPU tensors (bf16 as ``torch.bfloat16``) viewing
+    ``buf`` where it is writable (one copy each where it is not). Every
+    structural defect — wrong magic, truncation, corrupt JSON, a leaf
+    overrunning the payload — raises ``WireFormatError``."""
+    mv = memoryview(buf)
+    if mv.ndim != 1 or mv.format != "B":
+        mv = mv.cast("B")
+    if bytes(mv[:4]) != MAGIC_KV:
+        raise WireFormatError(f"not a KV handoff frame (magic {bytes(mv[:4])!r})")
+    if len(mv) < _PREFIX:
+        raise WireFormatError("truncated KV handoff frame header")
+    (hlen,) = _HLEN.unpack_from(mv, 4)
+    if _PREFIX + hlen > len(mv):
+        raise WireFormatError("KV handoff frame shorter than its header length")
+    try:
+        header = json.loads(bytes(mv[_PREFIX:_PREFIX + hlen]))
+    except ValueError as exc:
+        raise WireFormatError(f"corrupt KV handoff header: {exc}") from exc
+    if header.get("v") != 1 or not isinstance(header.get("leaves"), list):
+        raise WireFormatError(f"unsupported KV handoff frame version {header.get('v')!r}")
+    payload = mv[_PREFIX + hlen:]
+    arrays = []
+    for row in header["leaves"]:
+        try:
+            dtype_name, shape, offset, nbytes = row
+        except (TypeError, ValueError) as exc:
+            raise WireFormatError(f"malformed KV leaf row {row!r}") from exc
+        if offset + nbytes > len(payload):
+            raise WireFormatError(
+                f"KV leaf at offset {offset} (+{nbytes}B) overruns the "
+                f"{len(payload)}B payload region (truncated frame?)"
+            )
+        try:
+            arrays.append(_leaf_tensor(payload, dtype_name, shape, offset, nbytes,
+                                       None, 1.0))
+        except (TypeError, ValueError) as exc:
+            raise WireFormatError(f"KV leaf {row!r} does not reshape: {exc}") from exc
+    meta = header.get("meta")
+    if not isinstance(meta, dict):
+        raise WireFormatError("KV handoff frame carries no meta dict")
+    return meta, arrays
 
 
 def decode_push(buf, expect=None):

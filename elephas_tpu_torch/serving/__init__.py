@@ -23,11 +23,21 @@
                          tokens-per-sec / dispatch→fetch overlap through
                          ``metrics.logging.JsonlSink``
                          (``serving.metrics``);
+- ``SpeculativeDecoder`` — draft-and-verify decode over the paged pool:
+                         a ``DraftSource`` (shallow-stack self-draft or a
+                         ``DraftModelSource`` pulled from a parameter
+                         client) proposes gamma tokens, one target forward
+                         verifies them, the plain stream by construction
+                         (``serving.spec``); ``InferenceEngine(...,
+                         speculative=True)`` drives it;
+- ``serving.handoff``  — the KV-block handoff frame of disaggregated
+                         serving (``submit_prefill``/``handoff`` on a
+                         prefill engine, ``submit_handoff`` on a decode
+                         engine);
 - ``host_sync``        — the ONE sanctioned device→host sync point.
 
-Not ported yet (ROADMAP.md, queue 1, item 7): speculative decode
-(``serving/spec.py``), the disaggregated KV handoff, the ops endpoint
-and the replicated fleet.
+Not ported yet (ROADMAP.md, queue 1, item 7b): the canary driver and
+the replicated fleet.
 """
 
 from elephas_tpu_torch.serving import host_sync  # noqa: F401
@@ -50,3 +60,9 @@ from elephas_tpu_torch.serving.engine import (  # noqa: F401
     shard_serving,
 )
 from elephas_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401
+from elephas_tpu_torch.serving.spec import (  # noqa: F401
+    DraftModelSource,
+    DraftSource,
+    SelfDraftSource,
+    SpeculativeDecoder,
+)

@@ -34,6 +34,13 @@ decode path is dense cache attention (the reference switches its module
 to ``attention="dense"``; the port's decode forward always attends
 densely), so no flash kernel launches while serving.
 
+Speculative decode (``speculative=True``, ``serving.spec``) adds a draft
+program and a verify program, each captured once into a CUDA graph on
+the card beside the decode step. Disaggregated serving runs a request's
+prefill on one engine (``submit_prefill``, then ``handoff``) and its
+decode on another (``submit_handoff``), the KV blocks crossing in one
+``serving.handoff`` frame.
+
 Admission, eviction, slot reuse and backpressure all happen HOST-side
 between calls. The only blocking device→host reads go through
 ``serving.host_sync``.
@@ -88,6 +95,7 @@ from elephas_tpu_torch.ops.attention import (
     slot_row_to_contiguous,
 )
 from elephas_tpu_torch.serving import host_sync
+from elephas_tpu_torch.serving.handoff import decode_handoff
 from elephas_tpu_torch.serving.kv_pool import KVCachePool, PagedKVPool
 from elephas_tpu_torch.serving.metrics import ServingMetrics
 from elephas_tpu_torch.serving.scheduler import (
@@ -133,8 +141,20 @@ class InferenceEngine:
         Sampling (``temperature > 0``) is position-keyed
         (``models.transformer.sample_tokens_at``): the n-th token of a
         stream draws the same random numbers on every path.
-    speculative, gamma, draft_layers, draft_source: speculative decode
-        is not ported yet; asking for it raises.
+    speculative: draft-and-verify decode (paged only; default False).
+        Each dispatch drafts ``gamma`` tokens per slot with a cheap draft
+        source and verifies the whole window in ONE batched target
+        forward — between 1 and ``gamma + 1`` tokens emitted per step,
+        the plain decode's tokens by construction (``serving.spec``).
+    gamma: draft window length per speculation step (default 4).
+    draft_layers: shallow-stack SELF-draft — the target's first K layers
+        draft with zero extra weights (default ``num_layers // 2`` when
+        ``speculative`` and no ``draft_source`` given).
+    draft_source: an explicit ``serving.spec.DraftSource`` (e.g.
+        ``DraftModelSource`` pulling a small draft model from a
+        parameter-server client). Mutually exclusive with
+        ``draft_layers``; model sources require ``prefix_cache=False``
+        (a refcount-admitted prefix would leave the draft cache cold).
     """
 
     def __init__(
@@ -166,9 +186,6 @@ class InferenceEngine:
         clock=time.monotonic,
         tracer=None,
     ):
-        if speculative or draft_layers is not None or draft_source is not None:
-            raise NotImplementedError(
-                "speculative decode (serving/spec.py) " + _NOT_PORTED.format(7))
         module = getattr(compiled, "module", compiled)
         if params is not None:
             module = copy.deepcopy(module)
@@ -195,6 +212,18 @@ class InferenceEngine:
 
         self.tracer = tracer if tracer is not None else obs.default_tracer()
         self.paged = paged
+        if (draft_layers is not None or draft_source is not None) \
+                and not speculative:
+            raise ValueError(
+                "draft_layers/draft_source require speculative=True"
+            )
+        if speculative:
+            if not paged:
+                raise ValueError("speculative decode requires paged=True")
+            if draft_layers is not None and draft_source is not None:
+                raise ValueError(
+                    "draft_layers and draft_source are mutually exclusive"
+                )
         if paged:
             chunk = (prefill_chunk if prefill_chunk is not None
                      else max_prompt_len)
@@ -206,14 +235,19 @@ class InferenceEngine:
             self.prefill_chunk = chunk
             # A chunk may start as late as the last prompt column; its
             # slice/scatter window must fit the virtual row without
-            # clamping.
+            # clamping. A speculative verify window writes up to gamma
+            # columns past the last decode column the same way (the
+            # decode forward would clamp its write columns otherwise).
+            virtual_len = max_prompt_len - 1 + chunk
+            if speculative:
+                virtual_len = max(virtual_len, max_len + gamma)
             self.pool = PagedKVPool(
                 module, max_slots, max_len,
                 block_size=(kv_block_size if kv_block_size is not None
                             else max_prompt_len),
                 num_blocks=kv_blocks,
                 prefix_cache=prefix_cache,
-                virtual_len=max_prompt_len - 1 + chunk,
+                virtual_len=virtual_len,
             )
         else:
             if (kv_block_size is not None or kv_blocks is not None
@@ -225,6 +259,27 @@ class InferenceEngine:
                 )
             self.prefill_chunk = None
             self.pool = KVCachePool(module, max_slots, max_len)
+        # The decode step's static operands (see _load_inputs).
+        self._inputs = torch.zeros((4, max_slots), dtype=torch.int64,
+                                   device=self.device)
+        self.spec = None
+        if speculative:
+            from elephas_tpu_torch.serving.spec import (
+                SelfDraftSource,
+                SpeculativeDecoder,
+            )
+
+            if draft_source is None:
+                layers = (draft_layers if draft_layers is not None
+                          else max(1, module.num_layers // 2))
+                draft_source = SelfDraftSource(layers)
+            if draft_source.kind == "model" and prefix_cache:
+                raise ValueError(
+                    "a model draft source requires prefix_cache=False: a "
+                    "prefix-matched admission fills the target pool by "
+                    "refcount and would leave the draft cache cold"
+                )
+            self.spec = SpeculativeDecoder(self, draft_source, gamma=gamma)
         self.queue = RequestQueue(max_depth=queue_depth)
         self.metrics = ServingMetrics(sink=sink, clock=clock)
         # Saturation + goodput plane, both on the engine's clock.
@@ -251,14 +306,12 @@ class InferenceEngine:
             chunk_prefill_fn=self._chunk_prefill if paged else None,
             prefill_chunk=self.prefill_chunk,
             prefill_chunks_per_step=prefill_chunks_per_step,
+            spec_decode_fn=(self.spec.dispatch if self.spec is not None
+                            else None),
+            gamma=gamma if speculative else None,
         )
 
-        # The decode step's static operands: rows are the previous
-        # tokens, the override values, the override mask and the active
-        # mask, filled by one upload per step; ``_out`` takes the
-        # sampled tokens. All zero at first: every lane inactive.
-        self._inputs = torch.zeros((4, max_slots), dtype=torch.int64,
-                                   device=self.device)
+        # ``_out`` takes the decode step's sampled tokens.
         self._out = torch.zeros((max_slots,), dtype=torch.int64,
                                 device=self.device)
         self._decode_step = None  # the built step: graph replay or eager
@@ -340,8 +393,13 @@ class InferenceEngine:
         sampled at the chunk's last valid position."""
         if self._tp_leader:
             self._send("chunk_prefill", (slot, start, valid, tokens.shape[1]), tokens)
-        return host_sync.stage(self._chunk_prefill_body(
+        first = host_sync.stage(self._chunk_prefill_body(
             host_sync.upload(tokens, self.device), slot, start, valid))
+        if self.spec is not None:
+            # Model draft sources mirror every prompt chunk into their
+            # own cache (a no-op for a self-draft, which reads the pool).
+            self.spec.prefill_chunk(tokens, slot, start, valid)
+        return first
 
     def _chunk_prefill_body(self, tokens, slot: int, start: int, valid: int):
         self._note_prefill_build()
@@ -420,28 +478,35 @@ class InferenceEngine:
 
     def _build_decode(self) -> None:
         """Build the decode step once. The paged step on CUDA is captured
-        into a CUDA graph: warmed up on a side stream (cuBLAS and the
-        caching allocator settle before capture) while the static inputs
-        still mark every lane inactive — so the warm-up writes nothing
-        and advances no column — then captured. A capture that fails
-        raises."""
+        into a CUDA graph (``capture_step``) while the static inputs mark
+        every lane inactive — so the warm-up writes nothing and advances
+        no column (a speculative engine's inputs may hold its last
+        window's lanes: they are cleared first; ``_decode`` uploads this
+        step's after the build). A capture that fails raises."""
         self._decode_traces += 1
         obs.note_retrace("serving_decode", count=self._decode_traces)
         if not (self.paged and self.device.type == "cuda") or self._tp is not None:
             self._decode_step = self._decode_body
             return
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._decode_body()
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._decode_body()
-        self._graph = graph
-        self._decode_step = graph.replay
+        self._inputs.zero_()
+        self._graph = capture_step(self._decode_body, self.device)
+        self._decode_step = self._graph.replay
+
+    def _load_inputs(self, prev_tokens, override_vals, override_mask,
+                     active_mask) -> None:
+        """Fill the static input buffer the decode and speculative steps
+        read: rows are the previous tokens, the override values, the
+        override mask and the active mask, in one upload. A staged
+        ``prev_tokens`` (the previous step's device tokens) chains
+        straight in, never read by the host first."""
+        chained = isinstance(prev_tokens, host_sync.Staged)
+        host = np.stack([
+            np.zeros_like(override_vals) if chained else prev_tokens,
+            override_vals, override_mask, active_mask,
+        ]).astype(np.int64)
+        host_sync.upload(host, self.device, out=self._inputs)
+        if chained:
+            self._inputs[0].copy_(prev_tokens.device)
 
     def _decode(self, cache, prev_tokens, override_vals, override_mask,
                 active_mask, pad):
@@ -452,16 +517,7 @@ class InferenceEngine:
             if self.paged:
                 self.pool.device_table()
             self._build_decode()
-        chained = isinstance(prev_tokens, host_sync.Staged)
-        host = np.stack([
-            np.zeros_like(override_vals) if chained else prev_tokens,
-            override_vals, override_mask, active_mask,
-        ]).astype(np.int64)
-        host_sync.upload(host, self.device, out=self._inputs)
-        if chained:
-            # One-step lookahead: the previous step's device tokens chain
-            # straight in, never read by the host first.
-            self._inputs[0].copy_(prev_tokens.device)
+        self._load_inputs(prev_tokens, override_vals, override_mask, active_mask)
         if self.paged:
             self.pool.device_table()
         if self._tp_leader:
@@ -488,6 +544,10 @@ class InferenceEngine:
         from elephas_tpu_torch.parallel.mesh import MODEL_AXIS, world
         from elephas_tpu_torch.parallel.tensor_parallel import shard_module
 
+        if self.spec is not None:
+            raise NotImplementedError(
+                "speculative decode under shard_serving is not ported yet "
+                "(ROADMAP item 7a, sharded speculation)")
         if self._prefill_traces or self._decode_traces or self.pool.admitted_total:
             raise RuntimeError(
                 "shard_serving must run before the first request: the engine's programs "
@@ -593,21 +653,15 @@ class InferenceEngine:
 
     # -- not ported yet ----------------------------------------------------
 
-    def submit_prefill(self, prompt: Sequence[int], **kwargs) -> int:
-        raise NotImplementedError(
-            "the prefill-tier KV handoff " + _NOT_PORTED.format(7))
-
-    def handoff(self, req_id: int, timeout_s: Optional[float] = None):
-        raise NotImplementedError(
-            "the prefill-tier KV handoff " + _NOT_PORTED.format(7))
-
-    def submit_handoff(self, frame, canary: bool = False) -> int:
-        raise NotImplementedError(
-            "the decode-tier KV handoff import " + _NOT_PORTED.format(7))
-
     def attach_canary(self, driver) -> None:
         raise NotImplementedError(
-            "the canary driver (obs/canary.py) " + _NOT_PORTED.format(7))
+            "the canary driver (obs/canary.py) " + _NOT_PORTED.format("7b"))
+
+    def _refuse_sharded_handoff(self) -> None:
+        if self._tp is not None:
+            raise NotImplementedError(
+                "the KV handoff of an engine sharded by shard_serving is not ported "
+                "yet (ROADMAP item 7a, sharded handoff)")
 
     # -- frontend ----------------------------------------------------------
 
@@ -624,14 +678,16 @@ class InferenceEngine:
         """Enqueue a request; returns its id. Raises ``QueueFull`` (with
         ``.retry_after``) when admission control rejects it.
 
+        ``prefill_only=True`` (paged engines only) runs this engine as a
+        PREFILL TIER member for the request: the prompt prefills into
+        paged blocks as usual, but instead of joining the decode batch
+        the filled blocks export as a KV handoff — claim it with
+        ``handoff()`` and ship it to a decode engine's
+        ``submit_handoff``.
+
         ``canary=True`` tags the request as a blackbox probe: its result
         publishes but is excluded from the goodput ledger. ``tenant``
-        names the account billed in the engine's ``CostLedger``.
-        ``prefill_only`` (the prefill tier of disaggregated serving) is
-        not ported yet and raises."""
-        if prefill_only:
-            raise NotImplementedError(
-                "the prefill-tier KV handoff " + _NOT_PORTED.format(7))
+        names the account billed in the engine's ``CostLedger``."""
         prompt = [int(t) for t in prompt]
         if not 1 <= len(prompt) <= self.max_prompt_len:
             raise ValueError(
@@ -640,6 +696,11 @@ class InferenceEngine:
             )
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if prefill_only and not self.paged:
+            raise ValueError("prefill_only requires paged=True (the KV "
+                             "handoff ships paged blocks)")
+        if prefill_only:
+            self._refuse_sharded_handoff()
         now = self.clock()
         req = Request(
             req_id=next(self._req_ids),
@@ -651,6 +712,7 @@ class InferenceEngine:
             deadline=None if timeout_s is None else now + timeout_s,
             tenant=tenant,
             ctx=obs.current_context() or obs.new_context(),
+            prefill_only=prefill_only,
         )
         if canary:
             with self._cond:
@@ -689,6 +751,95 @@ class InferenceEngine:
                     raise
                 time.sleep(max(delay, err.retry_after))
         raise AssertionError("unreachable")
+
+    # -- disaggregated serving (prefill tier ↔ decode tier) ------------------
+
+    def submit_prefill(self, prompt: Sequence[int], **kwargs) -> int:
+        """Prefill-tier submit: identical admission to ``submit``, but
+        the request terminates at the prompt — claim its exported KV
+        blocks with ``handoff()`` and ship them to a decode replica."""
+        return self.submit(prompt, prefill_only=True, **kwargs)
+
+    def handoff(self, req_id: int, timeout_s: Optional[float] = None):
+        """Block until ``req_id``'s prefill finishes and claim its
+        exported KV handoff (the dict ``serving.handoff.encode_handoff``
+        frames). Drives the scheduler inline when no serve thread is
+        mid-step, exactly like ``result()``. Returns the handoff dict —
+        or the ``GenerationResult`` when the request terminated on this
+        engine instead (deadline eviction mid-prefill); callers
+        type-check."""
+        deadline = None if timeout_s is None else self.clock() + timeout_s
+        while True:
+            data = self.scheduler.pop_handoff(req_id)
+            if data is not None:
+                return data
+            with self._cond:
+                if req_id in self._results:
+                    return self._results.pop(req_id)
+            if not self._halted and self._step_lock.acquire(blocking=False):
+                try:
+                    finished = [] if self._halted else self.scheduler.step()
+                finally:
+                    self._step_lock.release()
+                self._publish(finished)
+                continue
+            with self._cond:
+                self._cond.wait(timeout=0.01)
+            if deadline is not None and self.clock() >= deadline:
+                raise TimeoutError(
+                    f"handoff {req_id} not ready in {timeout_s}s")
+
+    def submit_handoff(self, frame, canary: bool = False) -> int:
+        """Decode-tier admission of a packed ``KVHandoff`` frame: decode
+        it (``WireFormatError`` on any corruption — nothing binds until
+        the frame validates), import the blocks into this engine's pool,
+        and join the decode batch at the prompt frontier. Returns the
+        LOCAL request id (``result()`` claims it). Raises ``QueueFull``
+        when no slot is free — the router tries another decode replica
+        or falls back to a local re-prefill.
+
+        Cost accounting: no ``record_submit`` here — the prefill engine
+        already billed the submit, the prompt, and the first token;
+        this engine bills decode tokens from token two and block-seconds
+        from the import instant (the window the exporter closed)."""
+        if not self.paged:
+            raise RuntimeError("KV handoff import requires paged=True")
+        self._refuse_sharded_handoff()
+        data = decode_handoff(frame)
+        prompt = [int(t) for t in data["prompt"]]
+        if not 1 <= len(prompt) <= self.max_prompt_len:
+            raise ValueError(
+                f"handoff prompt length {len(prompt)} outside [1, "
+                f"{self.max_prompt_len}]"
+            )
+        req = Request(
+            req_id=next(self._req_ids),
+            prompt=prompt,
+            max_new_tokens=int(data["max_new_tokens"]),
+            stop_token=data["stop_token"],
+            timeout_s=None,
+            submitted_at=float(data["submitted_at"]),
+            deadline=data["deadline"],
+            tenant=data["tenant"],
+            ctx=obs.current_context() or obs.new_context(),
+        )
+        if canary:
+            with self._cond:
+                self._canary_ids.add(req.req_id)
+        export = data["export"]
+        try:
+            with self._step_lock:
+                _, finished = self.scheduler.admit_import(
+                    req, int(data["first"]), prompt,
+                    export["arrays"], leaf_names=export.get("leaves"),
+                )
+        except Exception:
+            if canary:
+                with self._cond:
+                    self._canary_ids.discard(req.req_id)
+            raise
+        self._publish(finished)
+        return req.req_id
 
     def cancel(self, req_id: int) -> bool:
         """QoS preemption: yank ``req_id`` from the queue if it has not
@@ -868,6 +1019,8 @@ class InferenceEngine:
             out["kv_blocks_free"] = self.pool.free_blocks
             out["kv_blocks_total"] = self.pool.num_blocks
             out.update(self.pool.prefix_stats())
+        if self.spec is not None:
+            out.update(self.spec.stats())
         if len(self.costs.tenants()) > 0:
             out["tenancy"] = self.costs.snapshot()
         if self._tp is not None:
@@ -962,6 +1115,27 @@ class InferenceEngine:
             if hasattr(self.tracer, "detach_store"):
                 self.tracer.detach_store(store)
             store.close(reason=reason)
+
+
+def capture_step(body, device) -> "torch.cuda.CUDAGraph":
+    """Capture ``body`` (a step that reads and writes only tensors whose
+    addresses never change) into a CUDA graph: warmed up twice on a side
+    stream (cuBLAS and the caching allocator settle before capture), then
+    captured, under ``no_grad``. The caller makes the warm-up harmless
+    (inactive lanes, or a step that can run again). A capture that fails
+    raises."""
+    with torch.no_grad():
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                body()
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+    return graph
 
 
 def shard_serving(engine: InferenceEngine, mesh, rules=None) -> InferenceEngine:

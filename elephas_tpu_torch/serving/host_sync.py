@@ -105,6 +105,14 @@ def fetch(staged: Staged) -> np.ndarray:
     return staged.host.numpy()
 
 
+def fetch_tensor(staged: Staged) -> torch.Tensor:
+    """``fetch`` returning the host copy as a CPU tensor (for dtypes NumPy
+    has no name for, such as bfloat16)."""
+    if staged.event is not None:
+        staged.event.synchronize()
+    return staged.host
+
+
 def fetch_scalar(value) -> int:
     """Fetch a one-element device value as a python int (prefill's first
     token)."""

@@ -633,19 +633,153 @@ class PagedKVPool(KVCachePool):
         self._mirror_push()
 
     # -- cross-tier KV handoff -----------------------------------------------
+    #
+    # The disaggregated-serving transfer unit: a prefill engine exports one
+    # slot's filled blocks to the host (``export_blocks``), the wire codec
+    # frames them (``parameter.wire.encode_kv_blocks``), and the decode
+    # engine rebinds them into its own pool (``import_blocks``) — refcounts
+    # are TRANSFERRED, not copied: the exporter's references drop with its
+    # normal ``release``, the importer derives fresh references locally
+    # (slot row + prefix-chain entries), and the billing window moves with
+    # the blocks (closed at export, reopened by the importer's
+    # ``set_slot_owner``) so cross-tier block-seconds never double-bill.
+
+    def _kv_leaf_names(self) -> Tuple[List[str], List[torch.Tensor]]:
+        """(names, tensors) of every K/V tensor, named and ordered as the
+        JAX package's paged cache flattens for the same model
+        (``jax.tree_util.keystr`` of each rank-4 leaf: layers in sorted
+        key order, ``Block_10`` before ``Block_2``), so a frame exported by
+        either package imports into the other."""
+        layers = sorted(range(len(self.cache.keys)), key=lambda i: f"Block_{i}")
+        names, leaves = [], []
+        for i in layers:
+            for name, leaf in (("cached_key", self.cache.keys[i]),
+                               ("cached_value", self.cache.values[i])):
+                names.append(f"['Block_{i}']['SelfAttention_0']['{name}']")
+                leaves.append(leaf)
+        return names, leaves
 
     def export_blocks(self, slot: int) -> Dict:
-        raise NotImplementedError(
-            "KV-block export for the disaggregated prefill/decode handoff "
-            "is not ported yet (ROADMAP.md, queue 1, item 7)"
-        )
+        """Copy ``slot``'s resident blocks to the host for a cross-tier
+        handoff.
+
+        Returns ``{"block_size", "blocks", "leaves", "arrays"}`` —
+        ``arrays[i]`` is the ``(blocks, heads, block_size, head_dim)`` CPU
+        tensor of leaf ``leaves[i]`` at the slot's block ids, in row
+        order (one device gather and one copy to the host for all of
+        them). Also CLOSES the slot's block-seconds billing window:
+        occupancy up to this instant bills the owning tenant here, the
+        later local ``release`` bills nothing, and the decode engine's
+        ``set_slot_owner`` opens the next window, so summed cross-tier
+        block-seconds equal a single engine's."""
+        if slot in self._free:
+            raise ValueError(f"slot {slot} is free; nothing to export")
+        row = self.table.rows[slot]
+        n = int((row >= 0).sum())
+        if n == 0:
+            raise ValueError(f"slot {slot} has no resident blocks")
+        self._bill_slot(slot)
+        self._owner.pop(slot, None)
+        self._billed_at.pop(slot, None)
+        names, leaves = self._kv_leaf_names()
+        ids = host_sync.upload(np.asarray(row[:n], np.int64), self.device)
+        with torch.no_grad():
+            host = host_sync.fetch_tensor(host_sync.stage(
+                torch.stack([leaf.index_select(0, ids) for leaf in leaves])))
+        return {
+            "block_size": self.block_size,
+            "blocks": n,
+            "leaves": names,
+            "arrays": list(host.unbind(0)),
+        }
 
     def import_blocks(self, slot: int, tokens: Sequence[int], arrays,
-                      leaf_names=None) -> int:
-        raise NotImplementedError(
-            "KV-block import for the disaggregated prefill/decode handoff "
-            "is not ported yet (ROADMAP.md, queue 1, item 7)"
+                      leaf_names: Optional[Sequence[str]] = None) -> int:
+        """Rebind an exported block set to ``slot`` of THIS pool.
+
+        ``tokens`` is the chain the blocks hold (the prompt: exactly the
+        columns with K/V written). ``arrays`` are CPU tensors or NumPy
+        arrays in ``_kv_leaf_names`` order. The local prefix cache is
+        consulted first: matched full-block prefixes admit by incref (a
+        shared system prompt costs no upload past its first import), only
+        the remaining blocks allocate and upload — into the pool's own
+        tensors, in place — and the full-block chain is inserted into this
+        pool's ``PrefixCache``. Returns the matched token count. The
+        caller owns slot acquisition and ``set_slot_owner`` (which opens
+        the billing window the exporter closed). Raises ``ValueError`` on
+        any structural mismatch, before anything binds."""
+        bs = self.block_size
+        if slot in self._free:
+            raise ValueError(f"slot {slot} is free; acquire it first")
+        names, leaves = self._kv_leaf_names()
+        if leaf_names is not None and list(leaf_names) != names:
+            raise ValueError(
+                f"handoff leaf structure mismatch: got {list(leaf_names)}, "
+                f"this pool has {names}"
+            )
+        if len(arrays) != len(names):
+            raise ValueError(
+                f"handoff carries {len(arrays)} leaves, pool has {len(names)}"
+            )
+        try:
+            arrays = [a if isinstance(a, torch.Tensor)
+                      else torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        except TypeError as exc:
+            raise ValueError(f"handoff leaf has no tensor dtype: {exc}") from exc
+        n_blocks = int(arrays[0].shape[0]) if arrays else 0
+        for name, leaf, arr in zip(names, leaves, arrays):
+            want = (n_blocks,) + tuple(leaf.shape[1:])
+            if tuple(arr.shape) != want:
+                raise ValueError(
+                    f"handoff leaf {name} shape {tuple(arr.shape)} != {want}"
+                )
+            if arr.dtype != leaf.dtype:
+                raise ValueError(
+                    f"handoff leaf {name} dtype {arr.dtype} != {leaf.dtype}"
+                )
+        if not tokens or n_blocks != -(-len(tokens) // bs):
+            raise ValueError(
+                f"handoff block count {n_blocks} does not back "
+                f"{len(tokens)} tokens at block size {bs}"
+            )
+        if n_blocks > self.blocks_per_slot:
+            raise ValueError(
+                f"handoff needs {n_blocks} blocks/slot, rows have "
+                f"{self.blocks_per_slot}"
+            )
+        self._bill_slot(slot)  # close the zero-block window pre-bind
+        matched, mblocks = (
+            self.prefix.match(tokens) if self.prefix is not None else (0, [])
         )
+        for i, b in enumerate(mblocks):
+            self._incref(b)
+            self.table.set(slot, i, b)
+        start = matched // bs
+        fresh = []
+        try:
+            for i in range(start, n_blocks):
+                b = self._alloc_block()
+                self.table.set(slot, i, b)
+                fresh.append(b)
+        except RuntimeError:
+            # Out of blocks mid-import: unwind every reference this
+            # import took so the slot releases clean.
+            for i in range(start + len(fresh)):
+                self._decref(int(self.table.rows[slot][i]))
+            self.table.clear_row(slot)
+            raise
+        # matched < len(tokens) (a match is strictly shorter), so at least
+        # one block always uploads.
+        ids = host_sync.upload(np.asarray(fresh, np.int64), self.device)
+        payload = host_sync.upload(
+            torch.stack([a[start:].contiguous() for a in arrays]), self.device)
+        with torch.no_grad():
+            for leaf, blocks in zip(leaves, payload.unbind(0)):
+                leaf.index_copy_(0, ids, blocks)
+            self.cache.index[slot] = len(tokens)
+        self.commit_prefix(slot, tokens)
+        self._mirror_push()
+        return matched
 
     # -- program operands ----------------------------------------------------
 

@@ -20,9 +20,6 @@ Two record streams share the sink, tagged by ``event``:
   gauge reads ≈ one full step of hidden host work; on the unpipelined
   path it collapses to the bare device-compute+transfer time.
 
-The reference's speculative-decode counters arrive with speculative
-decoding (``serving/spec.py``, ROADMAP.md queue 1, item 7).
-
 Metrics must degrade, not kill the serve loop — the sink already
 stringifies anything JSON can't carry; here a missing sink simply means
 in-memory aggregation only.
@@ -63,6 +60,13 @@ class ServingMetrics:
         self.histograms = {k: Histogram(k) for k in _LATENCY_KEYS}
         self._last_overlap: Optional[float] = None
         self._t0: Optional[float] = None
+        # Speculative decode aggregates (zero unless the engine runs
+        # with speculative=True): lane-windows harvested, draft tokens
+        # proposed/accepted, tokens emitted by speculative harvests.
+        self.spec_windows = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
         # Lazy process-registry mirror of the ITL distribution: the SLO
         # alert pack's serving rule reads ``serving_itl_seconds_p99``
         # from registry snapshots, which the private per-engine
@@ -89,6 +93,10 @@ class ServingMetrics:
         self.histograms = {k: Histogram(k) for k in _LATENCY_KEYS}
         self._last_overlap = None
         self._t0 = None
+        self.spec_windows = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
 
     # -- request lifecycle -------------------------------------------------
 
@@ -147,6 +155,31 @@ class ServingMetrics:
                 active_slots=active,
             )
 
+    # -- speculative decode ------------------------------------------------
+
+    def record_spec(self, *, windows: int, drafted: int, accepted: int,
+                    emitted: int) -> None:
+        """One speculative harvest: ``windows`` lane-windows read back,
+        ``drafted`` draft tokens proposed (gamma per lane), ``accepted``
+        of them matching the target, ``emitted`` tokens appended to
+        streams (accepted + bonus, minus stop/budget truncation)."""
+        self.spec_windows += windows
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self.spec_emitted += emitted
+
+    @property
+    def spec_accept_rate(self) -> Optional[float]:
+        if self.spec_drafted == 0:
+            return None
+        return self.spec_accepted / self.spec_drafted
+
+    @property
+    def spec_tokens_per_step(self) -> Optional[float]:
+        if self.spec_windows == 0:
+            return None
+        return self.spec_emitted / self.spec_windows
+
     # -- scheduler cadence -------------------------------------------------
 
     def record_overlap(self, seconds: float) -> None:
@@ -194,6 +227,10 @@ class ServingMetrics:
                 self.tokens_out / elapsed if elapsed else None
             ),
         }
+        if self.spec_windows:
+            out["spec_windows"] = self.spec_windows
+            out["spec_accept_rate"] = self.spec_accept_rate
+            out["spec_tokens_per_step"] = self.spec_tokens_per_step
         # Tail latencies (bucketed estimates, obs.Histogram): averages
         # hide exactly the stall spikes serving SLOs are written against.
         for key, hist in self.histograms.items():

@@ -1,8 +1,6 @@
 """Continuous-batching scheduler: iteration-level request scheduling
 over a fixed-shape KV-cache pool, with a one-step-lookahead pipelined
-decode hot path (counterpart of ``elephas_tpu/serving/scheduler.py``;
-speculative windows and the disaggregated handoff are not ported yet and
-raise, ROADMAP.md queue 1).
+decode hot path (counterpart of ``elephas_tpu/serving/scheduler.py``).
 
 The scheduling unit is one DECODE ITERATION, not one request (Orca-style
 continuous batching). In the default PIPELINED mode each ``step()``:
@@ -53,9 +51,6 @@ import numpy as np
 from elephas_tpu_torch import obs
 from elephas_tpu_torch.serving import host_sync
 from elephas_tpu_torch.utils import locksan
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, item {})"
-
 
 class QueueFull(RuntimeError):
     """Admission control rejected a submit; retry after ``retry_after``s."""
@@ -199,6 +194,12 @@ class _Inflight:
     tokens: Any                          # staged (max_slots,) token vector
     lanes: List[Tuple[int, _Active]]     # entries occupying lanes at dispatch
     dispatched_at: float = 0.0
+    # Speculative windows: ragged per-lane harvest state. ``tokens``
+    # stays the (max_slots,) NEXT-input vector (the accepted frontier's
+    # target sample) so lookahead chaining is mode-blind.
+    spec: bool = False
+    spec_emitted: Any = None             # staged (max_slots, gamma + 1)
+    spec_accepted: Any = None            # staged (max_slots,)
 
 
 class ContinuousBatchingScheduler:
@@ -231,8 +232,18 @@ class ContinuousBatchingScheduler:
         (``prefill_chunks_per_step`` bounds chunks dispatched per step;
         None runs every pending chunk at admission), block backing per
         decode column, and chain-publishing release.
-    ``spec_decode_fn`` (speculative draft-and-verify windows) is not
-        ported yet; passing one raises.
+    ``spec_decode_fn(cache, prev_tokens, override_vals, override_mask,
+    active_mask, pad) -> (last, emitted, accepted) | None``
+        speculative decode (paged + chunked prefill only): ONE
+        draft-and-verify window over all lanes. ``last`` chains as the
+        next dispatch's ``prev_tokens`` exactly like ``decode_fn``'s
+        output; ``emitted`` is the (max_slots, gamma + 1) matrix of
+        target samples and ``accepted`` the per-lane matching-prefix
+        lengths — the harvest appends ``emitted[s, :accepted[s] + 1]``
+        per lane (ragged, device-rolled-back past that). A None return
+        means the draft source failed for this window (flight-recorded
+        as ``spec_fallback``) and the scheduler runs one plain
+        ``decode_fn`` step instead — token-identical either way.
     """
 
     def __init__(
@@ -267,9 +278,9 @@ class ContinuousBatchingScheduler:
         self.prefill_chunks_per_step = prefill_chunks_per_step
         self.spec_decode_fn = spec_decode_fn
         self.gamma = gamma
-        if spec_decode_fn is not None:
-            raise NotImplementedError(
-                "speculative decode (serving/spec.py) " + _NOT_PORTED.format(7))
+        if spec_decode_fn is not None and not self.paged:
+            raise ValueError("spec_decode_fn requires the paged path "
+                             "(chunk_prefill_fn)")
         self.max_prompt_len = max_prompt_len
         self.pad_token = pad_token
         self.metrics = metrics
@@ -292,6 +303,9 @@ class ContinuousBatchingScheduler:
         self.tracer = tracer if tracer is not None else obs.default_tracer()
         self._active: Dict[int, _Active] = {}  # slot -> _Active
         self._prefilling: Dict[int, _Prefilling] = {}  # paged mid-prefill
+        # req_id -> exported handoff (prefill-only requests park their
+        # finished prompt here for the engine's ``pop_handoff``).
+        self._handoffs: Dict[int, Dict] = {}
         self._results: List[GenerationResult] = []
         self._inflight: Optional[_Inflight] = None
         # slot -> first token to splice into the NEXT dispatch (set by
@@ -598,8 +612,8 @@ class ContinuousBatchingScheduler:
         self.pool.commit_prefix(pf.slot, req.prompt)
         self.pool.admitted_total += 1
         if req.prefill_only:
-            raise NotImplementedError(
-                "the prefill-tier KV handoff " + _NOT_PORTED.format(7))
+            self._finalize_handoff(pf, first, t_pre1)
+            return
         # Same budget as the contiguous pool (capacity from the FIXED
         # prompt width, not this prompt's length) — oracle parity.
         budget = min(
@@ -638,12 +652,112 @@ class ContinuousBatchingScheduler:
         else:
             self._overrides[pf.slot] = first
 
+    def _finalize_handoff(self, pf: _Prefilling, first: int,
+                          t_pre1: float) -> None:
+        """Prefill-tier terminal: the whole prompt is on device, so
+        instead of joining the decode batch the slot's blocks export as
+        a KV handoff and the slot releases (its chain stays published in
+        THIS pool's prefix cache, so sibling prompts on the prefill tier
+        keep hitting). ``export_blocks`` closes the block-seconds
+        billing window; the importing pool's owner declaration opens the
+        next one. The prefill side bills the prompt (prefix discount
+        visible) and the prefill-sampled first token — the decode side
+        bills from token two, so cross-tier token sums equal the
+        monolithic run's."""
+        req = pf.request
+        export = self.pool.export_blocks(pf.slot)
+        chain = list(req.prompt)
+        self.pool.release(pf.slot, tokens=chain)
+        self._handoffs[req.req_id] = {
+            "req_id": req.req_id,
+            "prompt": chain,
+            "first": first,
+            "max_new_tokens": req.max_new_tokens,
+            "stop_token": req.stop_token,
+            "deadline": req.deadline,
+            "submitted_at": req.submitted_at,
+            "tenant": req.tenant,
+            "matched": pf.matched,
+            "export": export,
+        }
+        if self.costs is not None:
+            self.costs.record_prefill(req.tenant, len(req.prompt),
+                                      cached=pf.matched)
+            self.costs.record_decode(req.tenant, 1)
+        if self.tracer.enabled:
+            track = f"req:{req.req_id}"
+            self.tracer.record(
+                "queue", req.submitted_at, pf.t_pop, track=track,
+                req_id=req.req_id,
+            )
+            self.tracer.record(
+                "prefill", pf.t_pre0, t_pre1, track=track,
+                req_id=req.req_id, prompt_tokens=len(req.prompt),
+                cached_tokens=pf.matched,
+            )
+            self.tracer.instant(
+                "handoff_export", at=self.clock(), track=track,
+                req_id=req.req_id, blocks=export["blocks"],
+            )
+
+    def pop_handoff(self, req_id: int) -> Optional[Dict]:
+        """Claim a parked handoff (None until its prefill finishes)."""
+        return self._handoffs.pop(req_id, None)
+
     def admit_import(self, request: Request, first: int,
                      chain: List[int], arrays,
                      leaf_names=None) -> Tuple[int, List[GenerationResult]]:
-        """Decode-tier admission of an imported KV handoff."""
-        raise NotImplementedError(
-            "the decode-tier KV handoff import " + _NOT_PORTED.format(7))
+        """Decode-tier admission of an imported handoff: bind the
+        shipped blocks to a fresh slot and join the decode batch exactly
+        where the prefill side left off (``next_col`` at the prompt
+        frontier, the prefill-sampled first token riding in as the next
+        dispatch's override — token-identical to the monolithic path by
+        construction). Returns ``(slot, finished)`` — ``finished`` is
+        non-empty only when the first token already terminated the
+        request (stop token / budget of 1), and the caller publishes it
+        (``step``'s result slicing never returns admissions made between
+        steps). Raises ``QueueFull`` when no slot is free (the router
+        retries another decode replica or falls back to a local
+        re-prefill); any import error unwinds the slot completely."""
+        before = len(self._results)
+        slot = self.pool.acquire()
+        if slot is None:
+            raise QueueFull(self.pool.max_slots, self.pool.max_slots,
+                            self.queue.retry_hint_s)
+        if self.costs is not None and hasattr(self.pool, "set_slot_owner"):
+            self.pool.set_slot_owner(slot, request.tenant)
+        try:
+            self.pool.import_blocks(slot, chain, arrays,
+                                    leaf_names=leaf_names)
+        except Exception:
+            self.pool.release(slot)
+            raise
+        self.pool.admitted_total += 1
+        budget = min(
+            request.max_new_tokens, self.pool.max_len - self.max_prompt_len
+        )
+        entry = _Active(
+            request=request, slot=slot, tokens=[first],
+            token_times=[self.clock()], budget=budget,
+            next_col=len(chain),
+        )
+        entry.admitted_at = self.clock()
+        self._active[slot] = entry
+        if self.tracer.enabled:
+            track = f"req:{request.req_id}"
+            self.tracer.instant(
+                "handoff_import", at=entry.admitted_at, track=track,
+                req_id=request.req_id, tokens=len(chain),
+            )
+            self.tracer.record(
+                "admit", entry.token_times[0], entry.admitted_at,
+                track=track, req_id=request.req_id, slot=slot,
+            )
+        if first == request.stop_token or len(entry.tokens) >= budget:
+            self._finish(entry, "completed")
+        else:
+            self._overrides[slot] = first
+        return slot, self._results[before:]
 
     def cancel_queued(self, req_id: int) -> Optional[GenerationResult]:
         """QoS preemption hook: pull ``req_id`` out of the queue if it
@@ -704,6 +818,40 @@ class ContinuousBatchingScheduler:
         lanes = sorted(self._active.items())
         for slot, _ in lanes:
             active_mask[slot] = True
+        if self.spec_decode_fn is not None:
+            # Conservatively back TWO windows of columns per lane before
+            # the engine snapshots the device block table: window N
+            # writes [next_col, next_col + gamma], and the pipelined
+            # window N+1 dispatches before N's harvest, so its writes
+            # land no further than next_col + 2*gamma + 1. next_col
+            # itself advances at HARVEST (by accepted + 1) on this path
+            # — it must keep counting columns whose K/V write is
+            # device-ordered, and a speculative write past the accepted
+            # frontier is not one.
+            for slot, entry in lanes:
+                upto = min(entry.next_col + 2 * (self.gamma + 1),
+                           self.pool.virtual_len)
+                for col in range(entry.next_col, upto):
+                    self.pool.ensure_decode_col(slot, col)
+            out = self.spec_decode_fn(
+                self.pool.cache, prev_tokens, override_vals,
+                override_mask, active_mask, self.pool.pad,
+            )
+            if out is not None:
+                last, emitted, accepted = out
+                dispatched_at = self.clock()
+                self.tracer.record(
+                    "dispatch", t0, dispatched_at, lanes=len(lanes),
+                    spec=True,
+                )
+                return _Inflight(
+                    tokens=last, lanes=lanes, dispatched_at=dispatched_at,
+                    spec=True, spec_emitted=emitted, spec_accepted=accepted,
+                )
+            # Draft source failed (spec_fallback flight-recorded by the
+            # decoder): degrade to ONE plain decode step — the blocks
+            # backed above stay owned, and the plain path's
+            # advance-at-dispatch accounting below takes over for it.
         if self.paged:
             # Back (and exclusively own) the column each lane writes
             # this step BEFORE the engine closure snapshots the device
@@ -739,6 +887,8 @@ class ContinuousBatchingScheduler:
         Lanes whose entry finished or was evicted AFTER dispatch are
         skipped — their computed token is the one wasted lane-iteration
         pipelining costs on stop detection."""
+        if inflight.spec:
+            return self._harvest_spec(inflight)
         live = [
             (slot, entry) for slot, entry in inflight.lanes
             if self._active.get(slot) is entry
@@ -780,6 +930,80 @@ class ContinuousBatchingScheduler:
         if tenant_tokens:
             for t, n in tenant_tokens.items():
                 self.costs.record_decode(t, n)
+        return emitted
+
+    def _harvest_spec(self, inflight: _Inflight) -> int:
+        """Ragged speculative harvest: lane ``s`` gained
+        ``accepted[s] + 1`` tokens this window — the target's own
+        samples, truncated host-side at stop token / budget exactly
+        where the plain path would have stopped.
+
+        ``next_col`` advances by ``accepted + 1`` (the device frontier's
+        advance): every column below the new frontier has its K/V write
+        device-ordered, and the frontier token itself — like plain
+        decode's newest token — is K/V-unwritten until the next window
+        consumes it. ``_finish``'s chain slice therefore publishes
+        exactly the deterministically-written columns; on a truncated
+        window the Python slice clamps to the shorter token list, whose
+        last token was a draft INPUT this window (K/V written)."""
+        live = [
+            (slot, entry) for slot, entry in inflight.lanes
+            if self._active.get(slot) is entry
+        ]
+        if not live:
+            return 0
+        em = host_sync.fetch(inflight.spec_emitted)    # (S, gamma+1)
+        ac = host_sync.fetch(inflight.spec_accepted)   # (S,)
+        now = self.clock()
+        if self.metrics is not None:
+            self.metrics.record_overlap(now - inflight.dispatched_at)
+        self.tracer.record(
+            "decode_step", inflight.dispatched_at, now, lanes=len(live),
+            spec=True,
+        )
+        emitted = 0
+        accepted_sum = 0
+        for slot, entry in live:
+            a = int(ac[slot])
+            accepted_sum += a
+            entry.steps += 1
+            entry.next_col += a + 1
+            finished = False
+            lane_emitted = 0
+            for off in range(a + 1):
+                tok = int(em[slot, off])
+                entry.tokens.append(tok)
+                entry.token_times.append(now)
+                emitted += 1
+                lane_emitted += 1
+                if tok == entry.request.stop_token or \
+                        len(entry.tokens) >= entry.budget:
+                    self._finish(entry, "completed")
+                    finished = True
+                    break
+            if self.costs is not None:
+                # Per-lane attribution: the lane's tenant pays for its
+                # gamma draft proposals, its accepted prefix, and the
+                # tokens that actually reached its stream (post stop/
+                # budget truncation) — summing to the aggregate
+                # record_spec below by construction.
+                self.costs.record_spec(
+                    entry.request.tenant, drafted=self.gamma,
+                    accepted=a, emitted=lane_emitted,
+                )
+                self.costs.record_decode(entry.request.tenant,
+                                         lane_emitted)
+            if not finished:
+                # Next input rides the device chain (the frontier
+                # sample); drop any stale override for this slot.
+                self._overrides.pop(slot, None)
+        if self.metrics is not None:
+            self.metrics.record_spec(
+                windows=len(live),
+                drafted=self.gamma * len(live),
+                accepted=accepted_sum,
+                emitted=emitted,
+            )
         return emitted
 
     def _step_pipelined(self) -> int:
@@ -855,6 +1079,16 @@ class ContinuousBatchingScheduler:
                 kv_blocks_free=kv.get("kv_blocks_free"),
                 kv_blocks_total=kv.get("kv_blocks_total"),
                 prefix_hit_rate=kv.get("prefix_hit_rate"),
+                spec_accept_rate=(
+                    self.metrics.spec_accept_rate
+                    if self.metrics is not None
+                    and self.spec_decode_fn is not None else None
+                ),
+                spec_tokens_per_step=(
+                    self.metrics.spec_tokens_per_step
+                    if self.metrics is not None
+                    and self.spec_decode_fn is not None else None
+                ),
             )
         return self._results[before:]
 

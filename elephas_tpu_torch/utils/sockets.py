@@ -46,7 +46,7 @@ _AUTH_HDR_LEN = _NONCE_LEN + _TS.size
 MAGIC_TREE = b"EPK1"  # packed tensor tree (parameter.wire.encode_tree)
 MAGIC_NOTMOD = b"EPNM"  # tiny "not modified since version" reply
 MAGIC_REJECT = b"EPRJ"  # typed "delta rejected: too stale" push reply
-MAGIC_KV = b"EPKV"  # KV-block handoff frame (the serving handoff, not ported yet)
+MAGIC_KV = b"EPKV"  # KV-block handoff frame (parameter.wire.encode_kv_blocks)
 _PACKED_MAGICS = (MAGIC_TREE, MAGIC_NOTMOD, MAGIC_REJECT, MAGIC_KV)
 
 _SEND_CHUNK = 1 << 20  # slice large buffers so no send stages a huge copy

@@ -20,6 +20,7 @@ import torch
 
 from elephas_tpu.ops.attention import cache_attention_mask as jax_cache_mask
 from elephas_tpu.ops.attention import flash_attention as jax_flash
+from elephas_tpu.ops.attention import pallas_min_seq as jax_pallas_min_seq
 from elephas_tpu_torch.ops import attention as ops
 from elephas_tpu_torch.ops import attention_cuda
 
@@ -441,11 +442,83 @@ def test_kernel_layout_rules(head_dim, dtype, want):
     ((2, 8, 1, 32), torch.float32),
 ])
 def test_use_kernels_takes_every_cuda_input(shape, dtype):
-    """Every CUDA input runs the kernels, whatever its head_dim, dtype,
-    batch·heads or length (no sequence-length threshold), as every TPU
-    input runs Pallas in the JAX package; no other device does."""
+    """Every CUDA input whose head_dim a kernel instance holds runs the
+    kernels, whatever its dtype, batch·heads or length (no sequence-length
+    threshold), as every TPU input runs Pallas in the JAX package; no
+    other device does."""
     assert ops.use_kernels(*[_Inputs(shape, dtype)] * 3)
     assert not ops.use_kernels(*[_Inputs(shape, dtype, device="cpu")] * 3)
+
+
+@pytest.mark.parametrize("head_dim, device, want", [
+    (16, "cuda", True),
+    (32, "cuda", True),
+    (64, "cuda", True),
+    (128, "cuda", True),
+    (129, "cuda", False),
+    (256, "cuda", False),
+    (64, "cpu", False),
+    (256, "cpu", False),
+])
+@pytest.mark.parametrize("seq", [64, 4095])
+def test_takes_kernels_is_decided_by_head_dim_and_device(head_dim, device, want, seq):
+    """The dispatch rule below the JAX package's Pallas length for wide
+    heads: a CUDA input takes the kernels up to the largest built head_dim
+    (128) and runs the plain versions above it, as the JAX package runs
+    its XLA path there. ``use_kernels`` reads it."""
+    assert ops.WIDE_HEAD_MIN_SEQ == 4096 == jax_pallas_min_seq(256) == jax_pallas_min_seq(129)
+    assert ops.takes_kernels(head_dim, seq, device) is want
+    for dtype in (torch.float32, torch.bfloat16):
+        assert ops.use_kernels(*[_Inputs((2, 4, seq, head_dim), dtype, device)] * 3) is want
+    assert attention_cuda.HEAD_DIMS[-1] == 128
+
+
+@pytest.mark.parametrize("head_dim", [129, 256])
+def test_wide_heads_at_the_pallas_length_raise_on_the_card(head_dim):
+    """At or above the length where the JAX package runs Pallas at a wide
+    head_dim, a CUDA input raises and names the kernel instance it lacks
+    rather than run the plain versions; the kernels still take every
+    length up to head_dim 128, and the CPU runs the plain versions."""
+    for seq in (4096, 8192):
+        with pytest.raises(NotImplementedError, match="D = 256 kernel instances"):
+            ops.takes_kernels(head_dim, seq, "cuda")
+        with pytest.raises(NotImplementedError, match=f"head_dim {head_dim}"):
+            ops.use_kernels(*[_Inputs((1, 2, seq, head_dim))] * 3)
+        assert ops.takes_kernels(128, seq, "cuda")
+        assert not ops.takes_kernels(head_dim, seq, "cpu")
+
+
+def test_head_dim_256_takes_the_plain_path_and_computes_as_the_reference(monkeypatch):
+    """A head_dim no kernel holds, on an input the rule sends to the plain
+    path: ``flash_attention`` (and its gradients) and the hop helpers run
+    ``blockwise_reference`` and ``flash_backward_reference`` — no kernel
+    wrapper is called — and agree with the JAX package's
+    ``flash_attention`` and its gradients, which compute every head_dim."""
+    import jax
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper was called")
+
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        monkeypatch.setattr(attention_cuda, name, refuse)
+    q, k, v = _qkv(256, 70)
+    cot = _cotangent(q.shape)
+    want, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=True), q, k, v)
+    want = np.asarray(want)
+    want_grads = [np.asarray(g) for g in vjp(cot)]
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, True)
+    np.testing.assert_allclose(out.detach().numpy(), want, atol=1e-5)
+    do = torch.from_numpy(cot)
+    out.backward(do)
+    for leaf, ref in zip((tq, tk, tv), want_grads):
+        np.testing.assert_allclose(leaf.grad.numpy(), ref, atol=1e-5)
+    o, lse = ops.flash_attention_fwd(tq.detach(), tk.detach(), tv.detach(), True)
+    np.testing.assert_allclose(o.numpy(), want, atol=1e-5)
+    grads = ops.flash_attention_bwd(tq.detach(), tk.detach(), tv.detach(), o, lse, do,
+                                    (do * o).sum(-1), True)
+    for got, ref in zip(grads, want_grads):
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
 
 
 def test_use_kernels_needs_one_cuda_device_and_dtype():

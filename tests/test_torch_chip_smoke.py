@@ -338,7 +338,7 @@ def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
     source, phases = _main_source()
     assert phases == ["kernel_phase", "inference_phase", "train_phase", "seq_parallel_phase",
                       "tensor_parallel_phase", "resnet_phase", "repair_phase", "serving_phase",
-                      "async_phase", "async_multiproc_phase", "ops_phase",
+                      "spec_handoff_phase", "async_phase", "async_multiproc_phase", "ops_phase",
                       "estimator_phase", "search_phase", "fit_slice_phase", "chaos_phase"]
     assert "launches['search'], report = search_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("search: ") < source.index("'kernels'")
@@ -871,3 +871,99 @@ def test_poller_counts_rounds_and_drops_an_unmounted_round(smoke, monkeypatch):
     assert (poller.rounds, poller.bad) == (1, [["/x", 200, ["b"]]])
     poller.poll_once()
     assert poller.rounds == 2 and len(poller.bad) == 1
+
+
+def test_main_runs_the_spec_handoff_phase_after_serving():
+    """The speculative-decoding and handoff phase follows the serving
+    phase, keeps its launches under ``"spec_handoff"`` and prints its
+    report before the kernel line."""
+    source, phases = _main_source()
+    assert phases[phases.index("spec_handoff_phase") - 1] == "serving_phase"
+    assert "launches['spec_handoff'], report = spec_handoff_phase(attention_cuda)" in source
+    assert source.index("serving: ") < source.index("spec_handoff: ") < \
+        source.index("'kernels'")
+
+
+def test_spec_handoff_config(smoke):
+    """Gamma 4 over the serving phase's engine and traffic, a 2-of-4-layer
+    self-draft and a 1-layer model draft, one injected pull failure, 16
+    requests handed off; the repair phase's plain-path shape is head_dim
+    256 (d_model 2048 over 8 heads)."""
+    assert smoke.SPEC_GAMMA == 4 and smoke.SPEC_DRAFT_LAYERS == 2
+    assert smoke.SPEC_MODEL_DRAFT_LAYERS == 1 and smoke.SPEC_PAIRS == 2
+    assert smoke.HANDOFF_REQUESTS == 16 <= smoke.SERVE_ENGINE["max_slots"]
+    assert 0.9 <= smoke.SPEC_ACCEPT_ALL_MIN <= 1.0
+    assert smoke.REPAIR_WIDE == (2, 4, 512, 256)
+    assert smoke.SERVE_BASELINE_NEW_TOKENS_PER_S == 3216
+
+
+def test_flaky_client_fails_its_one_pull(smoke):
+    class Client:
+        def get_parameters(self):
+            return {"w": 1}
+
+    flaky = smoke.FlakyClient(Client(), 3)
+    assert flaky.get_parameters() == flaky.get_parameters() == {"w": 1}
+    with pytest.raises(ConnectionError, match="injected"):
+        flaky.get_parameters()
+    assert flaky.get_parameters() == {"w": 1}
+    assert flaky.pulls == 4 and flaky.failed == 1
+
+
+def _small_engine(**kw):
+    import torch
+
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.serving import InferenceEngine
+
+    torch.manual_seed(0)
+    module = get_model("transformer_lm", device="cpu", vocab_size=97, d_model=32,
+                       num_heads=4, num_layers=2, max_seq_len=64)
+    return module, InferenceEngine(module, **{"max_slots": 3, "max_prompt_len": 8,
+                                              "max_len": 24, "kv_block_size": 4, **kw})
+
+
+def test_drained_pool_and_imported_blocks_on_the_cpu(smoke, monkeypatch):
+    """``drained_pool`` hands back the fresh pool's ledger after a drain
+    (the prefix cache emptied) and refuses a pool whose slot still holds
+    blocks; ``imported_blocks_equal`` reads an imported slot against its
+    export to the bit; ``timed_serve`` and ``stream_gaps`` on a small
+    engine."""
+    import torch
+
+    from elephas_tpu_torch.serving.handoff import encode_handoff
+
+    monkeypatch.setattr(smoke.torch.cuda, "synchronize", lambda: None)
+    module, pre = _small_engine()
+    fresh = (pre.pool.free_blocks, pre.pool._ref.tolist())
+    traffic = [([5, 3, 9, 2, 6, 1], 4), ([7, 3, 2, 9, 4], 5)]
+    streams, row = smoke.timed_serve(pre, traffic)
+    assert [len(s) for s in streams] == [4, 5] and row["new_tokens_per_s"] > 0
+    assert row["spec_accept_rate"] is None
+    greedy_gap, _ = smoke.stream_gaps(module, traffic)
+    assert smoke.compare_streams(streams, streams, greedy_gap(streams))["identical"] == 2
+    assert pre.pool.prefix is not None and len(pre.pool.prefix) > 0
+    assert smoke.drained_pool(pre.pool) == fresh
+    _, dec = _small_engine()
+    data = pre.handoff(pre.submit_prefill([5, 3, 9, 2, 6, 1], max_new_tokens=4))
+    rid = dec.submit_handoff(encode_handoff(data).tobytes())
+    slot = next(s for s, e in dec.scheduler._active.items() if e.request.req_id == rid)
+    assert smoke.imported_blocks_equal(dec.pool, slot, data["export"])
+    with torch.no_grad():
+        dec.pool.cache.keys[0][int(dec.pool.table.rows[slot][0])] += 1.0
+    assert not smoke.imported_blocks_equal(dec.pool, slot, data["export"])
+    with pytest.raises(AssertionError, match="still holds"):
+        smoke.drained_pool(dec.pool)
+
+
+def test_wide_head_checks_hold_the_plain_path(smoke):
+    """The repair phase's head_dim 256 checks, run on the CPU at a small
+    length: both sides take the plain path, nothing launches, and every
+    error sits under K1-K3's limits."""
+    from elephas_tpu_torch.ops import attention_cuda
+
+    out = smoke.wide_head_checks(attention_cuda, shape=(1, 2, 64, 256), device="cpu")
+    assert set(out) == {"torch.float32", "torch.bfloat16"}
+    for errors in out.values():
+        assert set(errors) == {"o", "grads", "hop_o", "hop_lse", "hop_grads"}
+        assert all(v == 0.0 for v in errors.values())

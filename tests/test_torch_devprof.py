@@ -84,6 +84,37 @@ def test_a_torch_profiler_capture_on_the_cpu_writes_a_chrome_trace(tmp_path):
     assert len(list(Path(tmp_path).glob("trace-*.json"))) == 2
 
 
+def test_a_capture_on_the_cpu_opens_with_no_marker(tmp_path):
+    """The marker burst is for the card's kernels: a CPU capture launches
+    none and counts none."""
+    capture = devprof._TorchCapture()
+    capture.start(str(tmp_path))
+    torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    capture.stop()
+    assert capture.markers_lost is None and capture.markers == devprof.MARKERS
+    events = json.loads(Path(capture.last_trace).read_text())["traceEvents"]
+    assert not any(devprof.MARKER_KERNEL in e.get("name", "") for e in events)
+
+
+@pytest.mark.parametrize("found, lost, burst", [
+    (256, 0, 256), (250, 6, 256), (200, 56, 256), (100, 156, 624), (0, 256, 1024),
+])
+def test_the_burst_widens_to_four_times_the_markers_lost(tmp_path, found, lost, burst):
+    """A trace that names ``found`` of a 256-marker burst: the capture
+    records the rest as lost, and the next burst is four times that, never
+    narrower. Only kernel events of the marker's name count."""
+    events = [{"cat": "kernel", "name": f"at::cuda::{devprof.MARKER_KERNEL}(long)"}] * found
+    events += [{"cat": "cuda_runtime", "name": "cudaLaunchKernel"}] * 256
+    events += [{"cat": "kernel", "name": "void at::native::vectorized_elementwise_kernel"}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    capture = devprof._TorchCapture()
+    capture._count_lost(devprof.MARKERS, str(path))
+    assert (capture.markers_lost, capture.markers) == (lost, burst)
+    capture._count_lost(devprof.MARKERS, str(path))  # never narrower
+    assert capture.markers == burst
+
+
 def test_the_cpu_memory_snapshot_is_empty_and_sets_no_gauge():
     assert devprof.device_memory_snapshot() == {}
     registry = obs.MetricsRegistry()
