@@ -118,6 +118,26 @@ Phases, in order; any failed check raises and the process exits non-zero:
    tokens summing to the single engine's — with the handoff's ms per
    request (export, encode, decode, import) and bytes per frame; no
    flash launch;
+8c. the fleet phase (``fleet_phase``, ROADMAP item 7b) on the serving
+   phase's LM, engine and traffic behind ``serving.Router``: one replica
+   token-identical to a bare engine; two replicas on cuda:0 up to
+   near-ties; the busiest replica killed mid-traffic, every request
+   completing through requeue; five restarts of it while its peer serves,
+   each capturing its decode graph, the card's allocation after the last
+   kill within 16 MiB of its value before that boot; every replica's
+   canary probe passing and the goodput ledgers' counts the same with
+   canaries on and off; a prefill and a decode tier, every request handed
+   off; a rollout through a 2-shard socket ``ShardGroup`` (WAL, 4 versions
+   kept): version 1 baked on one replica (the other bitwise at version 0)
+   and promoted, its streams version 1's argmax teacher-forced, version 2
+   rolled back under a failing judge; a mid-stream swap on the pipelined
+   scheduler (the tokens computed before the boundary the old weights',
+   the rest those of a decode that switches weights there); ``/replicas``,
+   ``/tiers``, ``/rollout``, ``/canary`` and a ``FleetAggregator``'s
+   ``/fleet`` scraped by child-process pollers with the JAX package's
+   keys; requests/s, new tokens/s, router-relative TTFT and ITL, the
+   kill's recovery, each boot's spawn, build and capture seconds, the
+   pull, install and bake times; no flash launch;
 9. the async phase (``async_phase``): ``SparkModel(mode="asynchronous")``
    and ``"hogwild"`` — Downpour SGD against the parameter server, a
    ``ParameterBuffer`` on the card, with several worker threads on
@@ -144,7 +164,8 @@ Phases, in order; any failed check raises and the process exits non-zero:
    both; then rank 1 killed mid-fit and rank 0's teardown barrier timing
    out; samples/s beside the in-process 4-worker fit;
 9c. the ops phase (``ops_phase``): the PS endpoint of an async fit
-   scraped at 10 Hz (the JAX package's document keys) with the fit's
+   scraped at 10 Hz from a child process (``Poller``; the JAX package's
+   document keys) with the fit's
    samples/s with and without the poller, the server killed and warm-
    restarted and the incident rebuilt from its journal; a remote
    ``/profile`` capture of the LM f32 train step whose trace names
@@ -199,6 +220,140 @@ import sys
 import threading
 import time
 from pathlib import Path
+
+# The ops phases' poller scrapes from a child process of its own: this
+# script run as ``--poll-child``, which needs none of the imports below.
+OPS_POLL_S = 0.1                   # the poller's period: 10 Hz
+
+
+def scrape(url):
+    """GET ``url``; (status, the document's sorted top-level keys), or the
+    error's name."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10.0) as resp:
+            return resp.status, sorted(json.loads(resp.read()))
+    except urllib.error.HTTPError as err:
+        return err.code, None
+    except Exception as exc:  # noqa: BLE001 - reported, then held
+        return type(exc).__name__, None
+
+
+class PollRounds:
+    """Rounds of scrapes over ``routes`` (route -> expected top-level
+    keys) of the endpoint ``url_fn()`` names (None: not mounted): counts
+    rounds and keeps every answer that was not 200 with the expected keys.
+    A round that the endpoint's unmount cut short is dropped: one with a
+    bad answer whose endpoint ``url_fn()`` no longer names ``settle``
+    seconds later (the time the word of an unmount takes to arrive)."""
+
+    def __init__(self, url_fn, routes, settle=0.0):
+        self.url_fn, self.routes, self.settle = url_fn, routes, settle
+        self.rounds, self.bad = 0, []
+
+    def poll_once(self):
+        url = self.url_fn()
+        if url is None:
+            return
+        bad = []
+        for route, keys in self.routes.items():
+            got = scrape(f"{url}{route}")
+            if got != (200, sorted(keys)):
+                bad.append([route, *got])
+        if bad:
+            time.sleep(self.settle)
+            if self.url_fn() != url:
+                return  # unmounted mid-round
+        self.bad.extend(bad)
+        self.rounds += 1
+
+
+def poll_child(period, routes):
+    """``chip_smoke.py --poll-child PERIOD ROUTES``: the poller's process.
+    Reads the endpoint's URL from stdin, a line at each change (an empty
+    line: not mounted), scrapes it every ``period`` seconds until the line
+    ``stop``, then prints its pid, rounds and bad answers as one JSON
+    line. Its first line, ``ready``, says that it has started."""
+    current, done = [None], threading.Event()
+
+    def listen():
+        for line in sys.stdin:
+            if line.strip() == "stop":
+                break
+            current[0] = line.strip() or None
+        done.set()
+
+    threading.Thread(target=listen, daemon=True).start()
+    rounds = PollRounds(lambda: current[0], routes, settle=2 * period)
+    print("ready", flush=True)
+    while not done.wait(period):
+        rounds.poll_once()
+    print(json.dumps({"pid": os.getpid(), "rounds": rounds.rounds, "bad": rounds.bad}),
+          flush=True)
+    return 0
+
+
+class Poller:
+    """Scrapes ``routes`` (route -> expected top-level keys) of the
+    endpoint ``url_fn()`` names (None: not mounted) every ``OPS_POLL_S``
+    from a child process (``poll_child``), as a scraper outside the
+    polled process would: its HTTP and JSON cost the polled interpreter
+    nothing. Entry returns once the child has started. Here a thread
+    only reads ``url_fn()`` every half period and sends the child each
+    change. On exit the child's pid, rounds and bad
+    answers are read back into ``pid``, ``rounds`` and ``bad``; the child
+    is killed if it does not answer."""
+
+    def __init__(self, url_fn, routes):
+        self.url_fn, self.routes = url_fn, routes
+        self.rounds, self.bad, self.pid = 0, [], None
+        self._stop = threading.Event()
+        self._proc = self._thread = None
+
+    def _feed(self):
+        sent = None
+        while True:
+            url = self.url_fn()
+            if url != sent:
+                self._proc.stdin.write(f"{url or ''}\n")
+                self._proc.stdin.flush()
+                sent = url
+            if self._stop.is_set():
+                return
+            self._stop.wait(OPS_POLL_S / 2)
+
+    def __enter__(self):
+        self._proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--poll-child", str(OPS_POLL_S),
+             json.dumps(self.routes)], stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.pid = self._proc.pid
+        if self._proc.stdout.readline().strip() != "ready":
+            self._proc.kill()
+            self._proc.wait()
+            raise RuntimeError("the poller's child did not start")
+        self._thread = threading.Thread(target=self._feed, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        try:
+            self._thread.join()
+            out, _ = self._proc.communicate("stop\n", timeout=60)
+            doc = json.loads(out.strip().splitlines()[-1])
+        finally:
+            if self._proc.poll() is None:
+                self._proc.kill()
+                self._proc.wait()
+        if doc["pid"] != self.pid:
+            raise RuntimeError(f"the poller's child reported pid {doc['pid']}, not {self.pid}")
+        self.rounds, self.bad = doc["rounds"], doc["bad"]
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--poll-child"]:
+    sys.exit(poll_child(float(sys.argv[2]), json.loads(sys.argv[3])))
 
 # cuBLAS is deterministic across streams only with a fixed workspace; the
 # search phase's ASHA runs need it (torch.use_deterministic_algorithms)
@@ -320,6 +475,39 @@ SPEC_PAIRS = 2                     # plain and speculative serves, in turns
 SPEC_ACCEPT_ALL_MIN = 0.98
 HANDOFF_REQUESTS = 16              # of serving_traffic(), prefill engine -> decode engine
 HANDOFF_TENANT = "handoff"
+
+# Fleet phase (ROADMAP item 7b): the serving phase's LM, engine and
+# traffic behind the router, two replicas on cuda:0.
+FLEET_RESULT_TIMEOUT_S = 300
+FLEET_PROBE_S = 0.25               # the canaried serve's tick(probe=True) period
+FLEET_KILL_AFTER = 12              # results claimed before r0 is killed
+FLEET_RESTARTS = 5
+FLEET_BUSY = 8                     # requests r1 serves while each boot of r0 captures
+FLEET_RESTART_REQUESTS = 4         # served by each boot of r0
+FLEET_MEMORY_SLACK = 16 * 2**20    # bytes the last boot may leave after its kill
+FLEET_ROLLOUT_DELTA = 1e-2         # each pushed delta, relative to its tensor's mean |w|
+FLEET_WAL_KEEP = 4                 # the group's pinned-pull window (tests/test_rollout.py)
+FLEET_ROLLOUT_BAKE_S = 0.5
+FLEET_ROLLOUT_MIN_RESULTS = 4
+FLEET_ROLLOUT_REQUESTS = 8         # served between the controller's ticks
+FLEET_ROLLOUT_TIMEOUT_S = 120
+FLEET_SWAP_REQUESTS = 4            # of serving_traffic(), swapped mid-stream
+FLEET_SWAP_AFTER = 3               # tokens each has before the swap is offered
+# The top-level keys of the fleet's ops documents, as the JAX package's
+# router, controller, canary driver and aggregator answer them
+# (tests/test_torch_chip_smoke.py holds them to the JAX package's).
+FLEET_OPS_KEYS = {
+    "/replicas": ["autoscale", "replicas", "router"],
+    "/tiers": ["disagg_active", "handoffs", "imbalance", "preemptions", "qos", "tiers"],
+    "/rollout": ["active", "age_s", "approved_version", "canary", "candidate_version",
+                 "digest", "events", "phase", "probe_failures", "rollbacks", "rollouts",
+                 "skew", "subscribers", "versions"],
+    "/canary": ["e2e_s_avg", "e2e_s_max", "failure_ratio", "failures", "last", "probes",
+                "surface"],
+    "/fleet": ["alerts", "dead_after_s", "incidents", "load", "metrics", "per_tenants",
+               "polls", "processes", "replicas", "rollout", "slo", "status_counts", "t",
+               "tenants", "tiers", "trials", "workers"],
+}
 SERVE_BASELINE_NEW_TOKENS_PER_S = 3216  # the paged engine's first measure on this traffic (PERF.md §5)
 
 # Async phase: Downpour SGD against the parameter server on the card,
@@ -500,7 +688,6 @@ MP_TIMEOUT_S = 300
 # Each route's top-level document keys, as the JAX package's OpsServer
 # answers them (tests/test_torch_opsd.py and test_torch_ops_mounts.py
 # hold the port's to the JAX package's on the CPU).
-OPS_POLL_S = 0.1                   # the poller's period: 10 Hz
 OPS_PS_KEYS = {
     "/healthz": ["membership", "status", "uptime_s"],
     "/vars": ["boot", "ops_host", "ops_port", "pid", "ps_host", "ps_port", "transport",
@@ -2107,6 +2294,504 @@ def spec_handoff_phase(attention_cuda):
           flush=True)
     report["phase_s"] = time.perf_counter() - t_phase
     return dict(attention_cuda.launches), report
+
+
+def router_serve(router, traffic, **kw):
+    """Submit every request of ``traffic`` through ``router`` at once and
+    claim each result: the streams, the wall seconds, and the (TTFT, mean
+    ITL) of each outcome the router's own goodput ledger (``Router.slo``)
+    recorded — router-relative, dispatch and requeue stalls included."""
+    outcomes, record = [], router.slo.record
+
+    def recorded(result, now=None):
+        outcomes.append((result.ttft_s, result.itl_s_avg))
+        return record(result, now)
+
+    router.slo.record = recorded
+    try:
+        t0 = time.perf_counter()
+        ids = [router.submit(prompt, max_new_tokens=new, **kw) for prompt, new in traffic]
+        results = [router.result(i, timeout_s=FLEET_RESULT_TIMEOUT_S) for i in ids]
+        elapsed = time.perf_counter() - t0
+    finally:
+        router.slo.record = record
+    check(all(r.status == "completed" for r in results), "a routed request did not complete")
+    check([len(r.tokens) for r in results] == [new for _, new in traffic],
+          "a routed stream is not its budget long")
+    return [list(r.tokens) for r in results], elapsed, outcomes
+
+
+def fleet_rates(traffic, elapsed, outcomes):
+    """Requests/s and new tokens/s of one routed serve, and its TTFT and
+    ITL at p50 and p99 from the router's ledger."""
+    ttft = [t for t, _ in outcomes if t is not None]
+    itl = [i for _, i in outcomes if i is not None]
+
+    def pct(values, q):
+        return float(np.percentile(values, q)) if values else None
+
+    return {"s": elapsed, "requests_per_s": len(traffic) / elapsed,
+            "new_tokens_per_s": sum(n for _, n in traffic) / elapsed,
+            "ttft_s_p50": pct(ttft, 50), "ttft_s_p99": pct(ttft, 99),
+            "itl_s_p50": pct(itl, 50), "itl_s_p99": pct(itl, 99)}
+
+
+def teacher_forced_misses(model, prompt, stream, margin=MARGIN, start=0):
+    """Positions ``k >= start`` of ``stream`` where ``model``'s argmax over
+    ``prompt + stream[:k]`` is another token though its top-2 gap is at
+    least ``margin``: the tokens that are not the model's."""
+    with torch.no_grad():
+        context = torch.as_tensor([list(prompt) + list(stream[:-1])], device=model.device)
+        rows = model(context)[0, len(prompt) - 1:]
+    top2 = torch.topk(rows, 2, dim=-1)
+    best = top2.indices[:, 0].tolist()
+    gaps = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+    return [k for k in range(start, len(stream)) if gaps[k] >= margin and best[k] != stream[k]]
+
+
+def boundary_tokens(engine):
+    """At a step boundary, each active request's tokens computed so far:
+    those harvested and the one its in-flight decode step is computing
+    (``req_id -> count``)."""
+    sched = engine.scheduler
+    inflight = ({id(entry) for _, entry in sched._inflight.lanes}
+                if sched._inflight is not None else set())
+    return {entry.request.req_id: len(entry.tokens) + (id(entry) in inflight)
+            for entry in sched._active.values()}
+
+
+class TimedPulls:
+    """A parameter client whose every pull (live or pinned) is timed."""
+
+    def __init__(self, client):
+        self.client, self.seconds = client, []
+
+    def pull(self, version=None):
+        t0 = time.perf_counter()
+        out = self.client.pull(version=version)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def engine_streams(engine, requests):
+    """Greedy streams of ``requests`` served at once by a bare engine."""
+    ids = [engine.submit(prompt, max_new_tokens=new) for prompt, new in requests]
+    engine.run_until_drained()
+    results = [engine.result(i) for i in ids]
+    check(all(r.status == "completed" for r in results), "a request did not complete")
+    return [list(r.tokens) for r in results]
+
+
+def swapped_misses(old, new, prompt, stream, boundary, margin=MARGIN):
+    """Positions of ``stream`` that are not the argmax of a teacher-forced
+    decode through one KV cache in which tokens before ``boundary`` are
+    computed by ``old`` and the rest by ``new`` (a mid-stream swap: the
+    cache keeps what the old weights wrote), wherever the top-2 gap is at
+    least ``margin``."""
+    from elephas_tpu_torch.models.transformer import make_decode_cache
+
+    cache = make_decode_cache(old, 1, len(prompt) + len(stream))
+    misses = []
+    with torch.no_grad():
+        inputs = torch.as_tensor([list(prompt)], device=old.device)
+        for k, token in enumerate(stream):
+            module = old if k < boundary else new
+            top2 = torch.topk(module(inputs, cache=cache)[0, -1], 2)
+            if float(top2.values[0] - top2.values[1]) >= margin and \
+                    int(top2.indices[0]) != token:
+                misses.append(k)
+            inputs = torch.as_tensor([[token]], device=old.device)
+    return misses
+
+
+def mid_stream_swap(factory, model, traffic, subscriber_cls):
+    """Another set of weights (each tensor of ``model`` reversed along its
+    first axis: as random, unrelated) offered as version 1 to a pipelined
+    engine whose requests are all decoding, and installed at the next step
+    boundary. Each stream's tokens computed before the boundary (harvested
+    or in flight) equal those of the engine without the swap; every token
+    is the argmax of a teacher-forced decode that switches weights at the
+    boundary (``swapped_misses``) wherever the top-2 gap is at least
+    MARGIN."""
+    import copy
+
+    requests = traffic[:FLEET_SWAP_REQUESTS]
+    other = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in other.parameters():
+            p.copy_(torch.flip(p, dims=[0]))
+    want = engine_streams(factory(), requests)
+    engine = factory()
+    sub = subscriber_cls(None).attach(engine)
+    ids = [engine.submit(prompt, max_new_tokens=new) for prompt, new in requests]
+    for _ in range(100_000):
+        active = list(engine.scheduler._active.values())
+        if len(active) == len(ids) and all(len(e.tokens) >= FLEET_SWAP_AFTER for e in active):
+            break
+        engine.step()
+    sub.offer(other.state_dict(), 1)
+    engine.step()
+    check(engine.model_version == 1 and sub.swaps == 1, "the offered weights did not install")
+    at = boundary_tokens(engine)
+    engine.run_until_drained()
+    got = [list(engine.result(i).tokens) for i in ids]
+    out = {"requests": len(ids), "boundary_tokens": [at[i] for i in ids], "changed": 0}
+    for i, (rid, (prompt, _)) in enumerate(zip(ids, requests)):
+        b = at[rid]
+        check(0 < b < len(got[i]), f"request {i}: boundary at token {b} of {len(got[i])}")
+        check(got[i][:b] == want[i][:b], f"request {i}: a token before the boundary ({b}) is "
+                                         f"not the old weights'")
+        misses = swapped_misses(model, other, prompt, got[i], b)
+        check(not misses, f"request {i}: tokens {misses} are not those of a decode that "
+                          f"switches weights at token {b}")
+        out["changed"] += sum(x != y for x, y in zip(got[i][b:], want[i][b:]))
+    check(out["changed"] > 0, "the swap changed no token")
+    return out
+
+
+def fleet_phase(attention_cuda, model=None, traffic=None, engine_kw=None):
+    """ROADMAP item 7b on the card: the serving phase's LM, engine and
+    traffic (``model``, ``traffic`` and ``engine_kw`` stand in for them
+    in a small run on the CPU) behind ``Router``: (1) one replica against
+    a bare engine, (2) two replicas on one card, (3) a kill mid-traffic,
+    (4) restarts under traffic with the card's memory held, (5) canaries
+    and the goodput ledger, (6) a prefill and a decode tier, (7) a rollout
+    of new weights through a ``ShardGroup``, a mid-stream swap and a
+    rollback, (8) the ops documents through the child-process poller, (9)
+    no flash launch."""
+    import contextlib
+    import copy
+    import gc
+    import tempfile
+
+    from elephas_tpu_torch import obs
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parameter import ShardGroup
+    from elephas_tpu_torch.rollout import RolloutController, WeightSubscriber
+    from elephas_tpu_torch.serving import InferenceEngine, ReplicaSet, Router
+    from elephas_tpu_torch.serving import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    if model is None:
+        model = CompiledModel(get_model("transformer_lm"), loss="sparse_categorical_crossentropy",
+                              metrics=[], seed=SEED).module
+    traffic = serving_traffic() if traffic is None else traffic
+    engine_kw = SERVE_ENGINE if engine_kw is None else engine_kw
+    on_card = model.device.type == "cuda"
+    card = smi("name,power.limit") if on_card else "no card"
+    attention_cuda.reset_launches()
+    report = {"card": card, "requests": len(traffic)}
+    greedy_gap, _ = stream_gaps(model, traffic)
+    builds, captures = [], []
+
+    def factory():
+        t0 = time.perf_counter()
+        engine = InferenceEngine(model, **engine_kw)
+        builds.append(time.perf_counter() - t0)
+        return engine
+
+    real_capture = engine_mod.capture_step
+    peer = {"engine": None}
+
+    def timed_capture(body, device):
+        busy = peer["engine"] is not None and peer["engine"].scheduler.has_work
+        t0 = time.perf_counter()
+        graph = real_capture(body, device)
+        captures.append((time.perf_counter() - t0, busy))
+        return graph
+
+    def line(name, doc):
+        print(f"fleet ({card}) {name}: {json.dumps(doc)}", flush=True)
+
+    engine_mod.capture_step = timed_capture
+    routers, stack = [], contextlib.ExitStack()
+    try:
+        # (1) One replica behind the router against a bare engine.
+        want = engine_streams(factory(), traffic)
+        rs = ReplicaSet(factory, initial=1)
+        routers.append(Router(rs))
+        got, elapsed, outcomes = router_serve(routers[-1], traffic)
+        check(got == want, "the one-replica fleet's streams differ from the bare engine's")
+        report["one_replica"] = fleet_rates(traffic, elapsed, outcomes)
+        routers.pop().close()
+        line("one replica vs a bare engine: identical", report["one_replica"])
+
+        # (2) Two replicas on the card; canaries off, then on (5).
+        rs = ReplicaSet(factory, initial=2)
+        router = Router(rs)
+        routers.append(router)
+
+        def evaluated():
+            return (router.slo.snapshot()["evaluated"],
+                    sum(rep.engine.slo.snapshot()["evaluated"] for rep in rs.serving()))
+
+        before = evaluated()
+        mono, elapsed, outcomes = router_serve(router, traffic)
+        report["two_replicas"] = fleet_rates(traffic, elapsed, outcomes)
+        report["two_vs_bare"] = compare_streams(want, mono, greedy_gap(want))
+        counts_off = tuple(a - b for a, b in zip(evaluated(), before))
+        line("two replicas on one card", {**report["two_replicas"],
+                                          "vs_bare": report["two_vs_bare"]})
+        stop = threading.Event()
+
+        def prober():
+            while not stop.wait(FLEET_PROBE_S):
+                router.tick(probe=True)
+
+        probing = threading.Thread(target=prober, daemon=True)
+        before = evaluated()
+        probing.start()
+        try:
+            canaried, _, _ = router_serve(router, traffic)
+        finally:
+            stop.set()
+            probing.join()
+        counts_on = tuple(a - b for a, b in zip(evaluated(), before))
+        router.tick(probe=True)
+        probes = {rid: rep.canary.snapshot() for rid, rep in rs.replicas.items()}
+        check(counts_on == counts_off == (len(traffic), len(traffic)),
+              f"goodput counts with canaries on {counts_on}, off {counts_off}")
+        check(all(p["probes"] >= 1 and p["failures"] == 0 and p["last"]["ok"]
+                  for p in probes.values()), f"a canary probe failed: {probes}")
+        report["canaried_vs_bare"] = compare_streams(want, canaried, greedy_gap(want))
+        report["canary"] = {"counts_on": counts_on, "counts_off": counts_off,
+                            **{rid: {k: p[k] for k in ("probes", "failures", "e2e_s_avg",
+                                                       "e2e_s_max")}
+                               for rid, p in probes.items()}}
+        line("canaries (probe latency s; router and replica ledgers' counts)",
+             report["canary"])
+
+        # (3) A kill mid-traffic: every request completes through requeue.
+        ids = [router.submit(p, max_new_tokens=n) for p, n in traffic]
+        results = [router.result(i, timeout_s=FLEET_RESULT_TIMEOUT_S)
+                   for i in ids[:FLEET_KILL_AFTER]]
+        victim = max(rs.serving(), key=lambda r: (len(r.engine.queue)
+                                                  + r.engine.pool.active_count, r.replica_id))
+        t_kill = time.perf_counter()
+        rs.kill(victim.replica_id)
+        results += [router.result(i, timeout_s=FLEET_RESULT_TIMEOUT_S)
+                    for i in ids[FLEET_KILL_AFTER:]]
+        recovery_s = time.perf_counter() - t_kill
+        check(all(r.status == "completed" for r in results), "a request was lost to the kill")
+        check(router.requeues >= 1, "the kill stranded no request")
+        report["kill"] = {"victim": victim.replica_id, "requeues": router.requeues,
+                          "kill_to_done_s": recovery_s,
+                          "vs_bare": compare_streams(want, [list(r.tokens) for r in results],
+                                                     greedy_gap(want))}
+        line("the busiest replica killed mid-traffic", report["kill"])
+
+        # (4) Restarts of the killed replica under traffic on its peer:
+        # each boot captures its decode graph while the peer steps, and
+        # its kill gives the memory back.
+        dead = victim.replica_id
+        live = next(rid for rid in rs.replicas if rid != dead)
+        peer["engine"] = rs.get(live).engine
+        cycles = []
+        for _ in range(FLEET_RESTARTS):
+            gc.collect()
+            mem_before = torch.cuda.memory_allocated() if on_card else None
+            n_builds, n_captures = len(builds), len(captures)
+            t0 = time.perf_counter()
+            rep = rs.restart(dead)
+            spawn_s = time.perf_counter() - t0
+            busy = [rs.get(live).engine.submit(p, max_new_tokens=n)
+                    for p, n in traffic[:FLEET_BUSY]]
+            mine = [rep.engine.submit(p, max_new_tokens=n)
+                    for p, n in traffic[FLEET_BUSY:FLEET_BUSY + FLEET_RESTART_REQUESTS]]
+            done = [rep.result(i, timeout_s=FLEET_RESULT_TIMEOUT_S) for i in mine]
+            done += [rs.get(live).result(i, timeout_s=FLEET_RESULT_TIMEOUT_S) for i in busy]
+            check(all(r.status == "completed" for r in done), "a request of a restart failed")
+            check(rep.engine.stats()["decode_traces"] == 1, "the restarted boot rebuilt a program")
+            if on_card:
+                check(isinstance(getattr(rep.engine, "_graph", None), torch.cuda.CUDAGraph),
+                      "the restarted boot's decode step is not a CUDA graph")
+            boot_captures = captures[n_captures:]
+            check(len(boot_captures) == (1 if on_card else 0),
+                  f"boot {rep.boot} captured {len(boot_captures)} graphs")
+            rs.kill(dead)
+            gc.collect()
+            mem_after = torch.cuda.memory_allocated() if on_card else None
+            cycles.append({"boot": rep.boot, "spawn_s": spawn_s,
+                           "build_s": builds[n_builds] if len(builds) > n_builds else None,
+                           "capture_s": boot_captures[0][0] if boot_captures else None,
+                           "peer_busy_at_capture": boot_captures[0][1] if boot_captures else None,
+                           "memory_before": mem_before, "memory_after": mem_after})
+        if on_card:
+            check(all(c["peer_busy_at_capture"] for c in cycles),
+                  "a boot captured while its peer had no work")
+            last = cycles[-1]
+            check(abs(last["memory_after"] - last["memory_before"]) <= FLEET_MEMORY_SLACK,
+                  f"the last boot left {last['memory_after'] - last['memory_before']} bytes "
+                  f"allocated after its kill (slack {FLEET_MEMORY_SLACK})")
+        report["restarts"] = cycles
+        line(f"{FLEET_RESTARTS} restarts of {dead} while {live} serves", cycles)
+        peer["engine"] = None
+        routers.pop().close()
+
+        # (6) One prefill and one decode replica.
+        rs = ReplicaSet(factory, tiers={"prefill": 1, "decode": 1})
+        router = Router(rs)
+        routers.append(router)
+        tiered, elapsed, outcomes = router_serve(router, traffic)
+        tiers = router.tiers_doc()
+        check(router.handoffs == len(traffic) and router.handoff_fails == 0,
+              f"{router.handoffs} handoffs and {router.handoff_fails} failures for "
+              f"{len(traffic)} requests")
+        report["tiers"] = {**fleet_rates(traffic, elapsed, outcomes),
+                           "vs_mono": compare_streams(mono, tiered, greedy_gap(mono)),
+                           "handoffs": tiers["handoffs"]}
+        line("prefill tier + decode tier", report["tiers"])
+        routers.pop().close()
+
+        # (7) A rollout through a PS group, with (8) the ops documents
+        # scraped throughout from the child-process pollers.
+        v0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        rng = np.random.default_rng(SEED)
+        deltas = [{k: torch.as_tensor(rng.standard_normal(tuple(v.shape)).astype(np.float32),
+                                      device=v.device) * (FLEET_ROLLOUT_DELTA
+                                                          * v.abs().mean() + 1e-8)
+                   for k, v in v0.items()} for _ in range(2)]
+        v1 = {k: v0[k] - deltas[0][k] for k in v0}
+        scratch = stack.enter_context(tempfile.TemporaryDirectory())
+        group = ShardGroup(v0, 2, mode="socket", wal_root=scratch, wal_keep=FLEET_WAL_KEEP,
+                           device=model.device)
+        group.start()
+        stack.callback(group.stop)
+        client = group.client()
+        stack.callback(client.close)
+        pulls = TimedPulls(client)
+        rs = ReplicaSet(factory, initial=2, mount_ops=True)
+        router = Router(rs)
+        routers.append(router)
+        installs = []
+        for rep in rs.replicas.values():
+            real_install = rep.engine.install_weights
+
+            def timed_install(tree, version=None, _real=real_install, _rid=rep.replica_id):
+                t0 = time.perf_counter()
+                _real(tree, version)
+                installs.append((_rid, version, time.perf_counter() - t0))
+
+            rep.engine.install_weights = timed_install
+        verdict = {"good": True}
+        ctrl = RolloutController(rs, pulls, bake_s=FLEET_ROLLOUT_BAKE_S,
+                                 min_results=FLEET_ROLLOUT_MIN_RESULTS,
+                                 judge=lambda *a: verdict["good"])
+        router.attach_rollout(ctrl)
+        ops = router.mount_ops()
+        aggregator = obs.FleetAggregator(dead_after=30.0)
+        for rid, rep in rs.replicas.items():
+            aggregator.add(rep.engine.ops.url, name=rid)
+        host = obs.OpsServer(port=0, role="fleet", fleet_fn=aggregator.snapshot).start()
+        stack.callback(host.stop)
+        polls = contextlib.ExitStack()
+        pollers = [polls.enter_context(Poller(lambda: ops.url, {
+                       route: FLEET_OPS_KEYS[route] for route in ("/replicas", "/tiers",
+                                                                  "/rollout")})),
+                   polls.enter_context(Poller(lambda: rs.get("r0").engine.ops.url,
+                                              {"/canary": FLEET_OPS_KEYS["/canary"]})),
+                   polls.enter_context(Poller(lambda: host.url,
+                                              {"/fleet": FLEET_OPS_KEYS["/fleet"]}))]
+        rollout = {}
+
+        def fleet_state():
+            doc = ctrl.doc()
+            return json.dumps({
+                "phase": doc["phase"], "canary": doc["canary"], "versions": doc["versions"],
+                "replicas": {rid: {"shedding": rep.shedding, "burn": rep.worst_burn(),
+                                   "evaluated": rep.engine.slo.snapshot()["evaluated"]}
+                             for rid, rep in rs.replicas.items()},
+                "subscribers": doc["subscribers"], "events": [e["kind"] for e in doc["events"]]})
+
+        def ticks_until(predicate, what):
+            deadline = time.perf_counter() + FLEET_ROLLOUT_TIMEOUT_S
+            while True:
+                aggregator.poll()
+                phase = router.tick(probe=True)["rollout"]
+                if predicate(phase):
+                    return phase
+                # A shedding canary is routed no request, so its bake
+                # could never finish: say so at once.
+                baking = rs.replicas.get(ctrl.doc()["canary"]) if phase == "canary" else None
+                check(baking is None or not baking.shedding
+                      or all(rep.shedding for rep in rs.serving()),
+                      f"the canary sheds and its peer does not, so its bake gets no request: "
+                      f"{fleet_state()}")
+                check(time.perf_counter() < deadline,
+                      f"the rollout never reached {what}: {fleet_state()}")
+                router_serve(router, traffic[:FLEET_ROLLOUT_REQUESTS])
+
+        with polls:
+            check(router.tick()["rollout"] == "idle", "the controller did not start idle")
+            for version, delta in ((1, deltas[0]), (2, deltas[1])):
+                verdict["good"] = version == 1
+                client.update_parameters(delta)
+                t0 = time.perf_counter()
+                ticks_until(lambda phase: phase == "canary", "its canary")
+                canary = rs.get(ctrl.doc()["canary"])
+                other = next(r for r in rs.replicas.values() if r is not canary)
+                ticks_until(lambda phase: canary.engine.model_version == version
+                            or phase != "canary", "the canary's install")
+                if version == 1:
+                    check(all(torch.equal(v, v0[k]) for k, v in other.engine.params.items())
+                          and other.engine.model_version is None,
+                          "the other replica's weights moved during the bake")
+                ticks_until(lambda phase: phase == "idle", "idle")
+                versions = {rid: rep.engine.model_version for rid, rep in rs.replicas.items()}
+                rollout[f"v{version}"] = {"canary": canary.replica_id, "versions": versions,
+                                          "bake_to_verdict_s": time.perf_counter() - t0}
+                check(set(versions.values()) == {1}, f"after version {version}: {versions}")
+                if version == 1:
+                    # In rounds of the bake's size: a burst past the
+                    # fleet's slots misses the TTFT objective on some
+                    # replica, and a canary shed for that is routed no
+                    # request of the next bake (PERF.md §7).
+                    streams = []
+                    for at in range(0, len(traffic), FLEET_ROLLOUT_REQUESTS):
+                        streams += router_serve(router,
+                                                traffic[at:at + FLEET_ROLLOUT_REQUESTS])[0]
+                    v1_model = copy.deepcopy(model)
+                    v1_model.load_state_dict(v1)
+                    misses = {i: teacher_forced_misses(v1_model, traffic[i][0], s)
+                              for i, s in enumerate(streams)}
+                    misses = {i: m for i, m in misses.items() if m}
+                    check(not misses, f"tokens after the swap that are not version 1's: {misses}")
+                    del v1_model
+            doc = ctrl.doc()
+            check((ctrl.rollouts, ctrl.rollbacks, doc["approved_version"]) == (1, 1, 1),
+                  f"rollouts {ctrl.rollouts}, rollbacks {ctrl.rollbacks}, approved "
+                  f"{doc['approved_version']}")
+            rollout.update({"shedding": {rid: rep.shedding for rid, rep in rs.replicas.items()},
+                            "burn": {rid: rep.worst_burn() for rid, rep in rs.replicas.items()},
+                            "events": [e["kind"] for e in doc["events"]],
+                            "digest": doc["digest"],
+                            "pull_ms": [round(s * 1e3, 3) for s in pulls.seconds],
+                            "install_ms": [[rid, v, round(s * 1e3, 3)]
+                                           for rid, v, s in installs]})
+            aggregator.poll()
+            time.sleep(3 * OPS_POLL_S)
+        rollout["ops"] = [{"pid": p.pid, "rounds": p.rounds, "bad": p.bad[:5]}
+                          for p in pollers]
+        check(all(p.rounds >= 3 and not p.bad for p in pollers),
+              f"the fleet's ops documents under the pollers: {rollout['ops']}")
+        report["rollout"] = rollout
+        line("rollout of version 1 (promoted) and 2 (rolled back)", rollout)
+        routers.pop().close()
+
+        # (7) A mid-stream swap on the pipelined scheduler.
+        report["mid_swap"] = mid_stream_swap(factory, model, traffic, WeightSubscriber)
+        line("mid-stream swap at a step boundary", report["mid_swap"])
+    finally:
+        engine_mod.capture_step = real_capture
+        for router in routers:
+            router.close()
+        stack.close()
+    launches = dict(attention_cuda.launches)
+    check(launches == {name: 0 for name in KERNELS},
+          f"the fleet phase launched flash kernels: {launches}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    return launches, report
 
 
 def span_ms(events, names):
@@ -5108,61 +5793,6 @@ def async_multiproc_phase(attention_cuda, inprocess):
     return launches, report
 
 
-def scrape(url):
-    """GET ``url``; (status, the document's sorted top-level keys), or the
-    error's name."""
-    import urllib.error
-    import urllib.request
-
-    try:
-        with urllib.request.urlopen(url, timeout=10.0) as resp:
-            return resp.status, sorted(json.loads(resp.read()))
-    except urllib.error.HTTPError as err:
-        return err.code, None
-    except Exception as exc:  # noqa: BLE001 - reported, then held
-        return type(exc).__name__, None
-
-
-class Poller:
-    """Scrapes ``routes`` (route -> expected top-level keys) of the
-    endpoint ``url_fn()`` names (None: not mounted) every ``OPS_POLL_S``
-    on a thread of its own; counts rounds and keeps every answer that was
-    not 200 with the expected keys. A round that the endpoint's unmount
-    cut short (``url_fn()`` no longer names it) is dropped."""
-
-    def __init__(self, url_fn, routes):
-        self.url_fn, self.routes = url_fn, routes
-        self.rounds, self.bad = 0, []
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-
-    def poll_once(self):
-        url = self.url_fn()
-        if url is None:
-            return
-        bad = []
-        for route, keys in self.routes.items():
-            got = scrape(f"{url}{route}")
-            if got != (200, sorted(keys)):
-                bad.append([route, *got])
-        if bad and self.url_fn() != url:
-            return  # unmounted mid-round
-        self.bad.extend(bad)
-        self.rounds += 1
-
-    def _run(self):
-        while not self._stop.wait(OPS_POLL_S):
-            self.poll_once()
-
-    def __enter__(self):
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        self._thread.join()
-
-
 def ops_phase(attention_cuda):
     """The ops endpoints on the card. (a) The PS of a single-process
     async CNN fit over HTTP (``ps_ops_port=0``, a WAL directory so
@@ -5426,6 +6056,8 @@ def main():
     print(f"serving: {json.dumps(report)}", flush=True)
     launches["spec_handoff"], report = spec_handoff_phase(attention_cuda)
     print(f"spec_handoff: {json.dumps(report)}", flush=True)
+    launches["fleet"], report = fleet_phase(attention_cuda)
+    print(f"fleet: {json.dumps(report)}", flush=True)
     launches["async"], report = async_phase(attention_cuda)
     print(f"async: {json.dumps(report)}", flush=True)
     launches["async_multiproc"], report = async_multiproc_phase(attention_cuda,

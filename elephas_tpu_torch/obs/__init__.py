@@ -20,16 +20,16 @@ Process-global defaults back cross-cutting instrumentation:
   counts the builds of the serving programs (a CUDA-graph capture on the
   card) on the same counter, marker and anomaly.
 
-Ported so far: the tracer, the registry, the flight recorder, the
+Ported: the tracer, the registry, the flight recorder, the
 history ring and its sampler, the alert engine, the load tracker, the
 goodput ledger, the cost ledger, the training-health accounting
 (``health.py``: the parameter server's staleness ledger, the trainers'
 unit dynamics), and the ops plane: the ops endpoint (``opsd.py``), the
 device profiler over ``torch.profiler`` (``devprof.py``), the durable
 telemetry store (``store.py``) and the incident builder that reads it
-back (``incident.py``). The fleet aggregator and the canary arrive with
-ROADMAP queue 1, item 7; until then the ops endpoint answers ``/fleet``
-and ``/canary`` as the reference's does when no provider is given.
+back (``incident.py``), the fleet aggregator behind ``/fleet``
+(``fleet.py``) and the blackbox canaries behind ``/canary``
+(``canary.py``).
 """
 
 from __future__ import annotations
@@ -112,6 +112,15 @@ from elephas_tpu_torch.obs.incident import (  # noqa: F401
     render_markdown,
 )
 from elephas_tpu_torch.obs.opsd import ROUTES, OpsServer  # noqa: F401
+from elephas_tpu_torch.obs.fleet import (  # noqa: F401
+    FleetAggregator,
+    ProcessRegistry,
+    parse_prometheus_text,
+)
+from elephas_tpu_torch.obs.canary import (  # noqa: F401
+    CanaryDriver,
+    PSCanary,
+)
 
 _tracer: Tracer = NULL_TRACER
 _registry = MetricsRegistry()

@@ -34,10 +34,15 @@
                          serving (``submit_prefill``/``handoff`` on a
                          prefill engine, ``submit_handoff`` on a decode
                          engine);
+- ``fleet``            — the replicated layer above the engine: a
+                         ``ReplicaSet`` of N engine replicas with
+                         process-like lifecycles behind a signal-driven
+                         session-affinity ``Router`` that sheds, requeues,
+                         drain-and-restarts canary-flagged replicas,
+                         routes prefill and decode tiers and actuates a
+                         burn-driven ``FleetAutoscaler``
+                         (``serving.fleet``);
 - ``host_sync``        — the ONE sanctioned device→host sync point.
-
-Not ported yet (ROADMAP.md, queue 1, item 7b): the canary driver and
-the replicated fleet.
 """
 
 from elephas_tpu_torch.serving import host_sync  # noqa: F401
@@ -65,4 +70,12 @@ from elephas_tpu_torch.serving.spec import (  # noqa: F401
     DraftSource,
     SelfDraftSource,
     SpeculativeDecoder,
+)
+from elephas_tpu_torch.serving.fleet import (  # noqa: F401
+    FleetAutoscaler,
+    FleetUnavailable,
+    Replica,
+    ReplicaDead,
+    ReplicaSet,
+    Router,
 )

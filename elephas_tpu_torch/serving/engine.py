@@ -109,7 +109,6 @@ from elephas_tpu_torch.serving.scheduler import (
 # Bounded backoff for submit_with_retry: a handful of increasing delays,
 # then the error propagates.
 _RETRY_DELAYS = (0.1, 0.2, 0.4, 0.8, 1.3)
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, item {})"
 
 # The sharded engine's messages: a header of _HEAD ints (the op, then its
 # ints), the prompt tokens, the decode inputs, the pool's column and pad
@@ -132,8 +131,15 @@ class InferenceEngine:
         serves on the module's device: ``cuda`` unless the model was
         built with ``device="cpu"``.
     params: optional ``state_dict`` to serve instead of the module's own
-        weights (e.g. ``convert.from_flax_params``); the engine then
-        serves a copy of the module holding them.
+        weights (e.g. ``convert.from_flax_params``).
+
+    Each engine serves weights of its own, as each JAX engine binds its
+    own ``params``: the constructor always copies the module (and loads
+    ``params`` into the copy), before any program is built, so the
+    captured decode graph holds the copy's addresses and a self-draft's
+    layer view shares the copy's tensors. ``install_weights`` on one
+    engine therefore never reaches another engine built from the same
+    model, nor the caller's model.
     max_slots, max_prompt_len, max_len, stop_token, queue_depth,
     pad_token, temperature, top_k, seed, pipeline, paged,
     kv_block_size, kv_blocks, prefix_cache, prefill_chunk,
@@ -186,9 +192,8 @@ class InferenceEngine:
         clock=time.monotonic,
         tracer=None,
     ):
-        module = getattr(compiled, "module", compiled)
+        module = copy.deepcopy(getattr(compiled, "module", compiled))
         if params is not None:
-            module = copy.deepcopy(module)
             module.load_state_dict(params)
         if max_prompt_len >= max_len:
             raise ValueError(
@@ -330,7 +335,13 @@ class InferenceEngine:
         # Canary exclusion: req_ids submitted with canary=True (guarded
         # by _cond) publish normally but never reach the goodput ledger.
         self._canary_ids: set = set()
+        self.canary = None  # CanaryDriver, attached on demand
+        # Live model delivery (rollout/): the PS version the served
+        # weights carry (None: the construction-time weights) and the
+        # WeightSubscriber whose on_step hook runs at every step boundary
+        # under _step_lock.
         self.model_version: Optional[int] = None
+        self._subscriber = None
         self.ops = None  # OpsServer, mounted on demand (mount_ops)
         self.store = None  # TelemetryStore, mounted with ops (store_dir=)
         self._alert_engine = None
@@ -340,6 +351,21 @@ class InferenceEngine:
     def params(self) -> Dict[str, torch.Tensor]:
         """The served weights, as the module's (live) ``state_dict``."""
         return self.module.state_dict()
+
+    @property
+    def subscriber(self):
+        """The ``rollout.WeightSubscriber`` called at every step boundary
+        (None: no live delivery)."""
+        return self._subscriber
+
+    @subscriber.setter
+    def subscriber(self, sub) -> None:
+        if sub is not None and self._tp is not None:
+            raise NotImplementedError(
+                "a weight subscriber on an engine sharded by shard_serving is not ported "
+                "yet (ROADMAP item 7a, sharded left-outs: its install broadcasts the "
+                "weights to the followers under the step lock that the hook holds)")
+        self._subscriber = sub
 
     # -- the two programs --------------------------------------------------
 
@@ -548,6 +574,10 @@ class InferenceEngine:
             raise NotImplementedError(
                 "speculative decode under shard_serving is not ported yet "
                 "(ROADMAP item 7a, sharded speculation)")
+        if self._subscriber is not None:
+            raise NotImplementedError(
+                "shard_serving of an engine with a weight subscriber is not ported yet "
+                "(ROADMAP item 7a, sharded left-outs)")
         if self._prefill_traces or self._decode_traces or self.pool.admitted_total:
             raise RuntimeError(
                 "shard_serving must run before the first request: the engine's programs "
@@ -569,8 +599,7 @@ class InferenceEngine:
         self.mesh = mesh
         if tp == 1:
             return self
-        self.module = copy.deepcopy(self.module)  # the caller's model stays whole
-        shard_module(self.module, mesh, rules)
+        shard_module(self.module, mesh, rules)  # the engine's own copy (see __init__)
         self._tp = mesh.over(MODEL_AXIS)
         self.pool.shard_heads(self._tp)
         self._tp_leader = self._tp.rank == 0
@@ -650,12 +679,6 @@ class InferenceEngine:
         if self._tp_leader and not self._tp_closed:
             self._tp_closed = True
             self._send("stop")
-
-    # -- not ported yet ----------------------------------------------------
-
-    def attach_canary(self, driver) -> None:
-        raise NotImplementedError(
-            "the canary driver (obs/canary.py) " + _NOT_PORTED.format("7b"))
 
     def _refuse_sharded_handoff(self) -> None:
         if self._tp is not None:
@@ -779,6 +802,8 @@ class InferenceEngine:
             if not self._halted and self._step_lock.acquire(blocking=False):
                 try:
                     finished = [] if self._halted else self.scheduler.step()
+                    if not self._halted:
+                        self._on_step_boundary()
                 finally:
                     self._step_lock.release()
                 self._publish(finished)
@@ -883,6 +908,32 @@ class InferenceEngine:
     def halted(self) -> bool:
         return self._halted
 
+    def release(self) -> None:
+        """Give a halted engine's device memory back, as a dead process's
+        returns to the card: the captured programs are dropped and the
+        storage of the pool, the decode operands and the served weights
+        (a speculative decoder's buffers and draft cache too) is freed in
+        place, after any step in flight (on the CPU a storage that a
+        NumPy array shares cannot be resized and is left to the garbage
+        collector). Published results stay claimable: they live on the
+        host. The JAX package needs no counterpart (a killed engine there
+        is a process that exits); the fleet's ``Replica`` calls it when a
+        boot dies, so restarts on the card do not grow its allocation.
+        Idempotent."""
+        if not self._halted:
+            raise RuntimeError("release() frees a halted engine's memory; halt() it first")
+        with self._step_lock:
+            host_sync.settle(self.device)
+            self._graph = self._decode_step = None
+            tensors = [*self.pool.tensors(), self._inputs, self._out,
+                       *self.module.parameters(), *self.module.buffers()]
+            if self.spec is not None:
+                tensors += self.spec.release()
+            for t in tensors:
+                storage = t.untyped_storage()
+                if storage.resizable():  # not a CPU storage a NumPy array shares
+                    storage.resize_(0)
+
     def step(self) -> List[GenerationResult]:
         """One scheduler iteration; publishes finished results."""
         if self._halted:
@@ -891,15 +942,33 @@ class InferenceEngine:
             if self._halted:
                 return []
             finished = self.scheduler.step()
+            self._on_step_boundary()
         self._publish(finished)
         return finished
+
+    def _on_step_boundary(self) -> None:
+        """The subscription plane's swap point. Runs under ``_step_lock``
+        after every scheduler step (one speculative window is one step,
+        so no window spans it). On the card a pipelined step may have
+        launched the next decode graph already: ``install_weights``
+        copies on the same stream after that replay, so the step in
+        flight computes with the old weights and the next one with the
+        new, as the JAX engine's dispatched program keeps the params it
+        was called with."""
+        sub = self._subscriber
+        if sub is not None:
+            sub.on_step(self)
 
     def install_weights(self, tree, version: Optional[int] = None) -> None:
         """Swap the served weights in place: ``tree`` (a ``state_dict``)
         is copied INTO the module's parameters, whose addresses the
         captured decode step holds — so the next step computes with the
-        new weights and nothing is rebuilt. Callers own the engine (no
-        step may be mid-flight). ``model_version`` takes ``version``.
+        new weights and nothing is rebuilt. This is the rollout plane's
+        write seam: callers hold ``_step_lock`` through the subscriber
+        hook, or own the engine. ``model_version`` takes ``version``.
+        The paged pool's resident prefixes are forgotten: their K/V are
+        the old weights' (requests in flight keep theirs, as in the JAX
+        engine, and do not publish them).
 
         On an engine sharded by ``shard_serving`` rank 0 installs: it sends
         every whole tensor of ``tree`` to the followers, and each rank
@@ -907,6 +976,7 @@ class InferenceEngine:
         if self._tp is None:
             with torch.no_grad():
                 self.module.load_state_dict(tree)
+            self._forget_prefixes()
             if version is not None:
                 self.model_version = int(version)
             return
@@ -926,6 +996,13 @@ class InferenceEngine:
         with self._step_lock:  # no decode message between the weights' broadcasts
             self._send("install", (version is not None, version or 0))
             self._install_shards(tree, version)
+            self._forget_prefixes()
+
+    def _forget_prefixes(self) -> None:
+        """After a weight install no request admits by refcount onto K/V
+        the old weights wrote (``PagedKVPool.invalidate_prefixes``)."""
+        if self.paged:
+            self.pool.invalidate_prefixes()
 
     def _full_shapes(self) -> Dict[str, tuple]:
         """(whole shape, dtype) of each ``state_dict`` tensor of a sharded
@@ -971,6 +1048,8 @@ class InferenceEngine:
                 # No server thread mid-step: advance the world ourselves.
                 try:
                     finished = [] if self._halted else self.scheduler.step()
+                    if not self._halted:
+                        self._on_step_boundary()
                 finally:
                     self._step_lock.release()
                 self._publish(finished)
@@ -1028,10 +1107,13 @@ class InferenceEngine:
                                       "why": _EAGER_WHY}
         return out
 
+    def attach_canary(self, driver) -> None:
+        """Register the blackbox probe driver serving ``/canary``."""
+        self.canary = driver
 
     def _canary_doc(self) -> dict:
-        """``/canary``: the no-driver document (the canary driver is not
-        ported yet, ``attach_canary``)."""
+        if self.canary is not None:
+            return self.canary.snapshot()
         return {"surface": None, "probes": 0, "failures": 0,
                 "failure_ratio": None, "last": None}
 
@@ -1050,7 +1132,8 @@ class InferenceEngine:
         pack — its serving ITL rule reads the registry mirror
         ``ServingMetrics`` feeds), plus the saturation/goodput plane:
         ``/load`` (EWMA load score), ``/slo`` (windowed goodput +
-        burn), ``/canary`` (the no-driver document), ``/tenants``
+        burn), ``/canary`` (the blackbox probe document of an attached
+        ``CanaryDriver``), ``/tenants``
         (per-tenant cost ledger + burn/KV-share alerts), ``/profile``
         (``torch.profiler`` capture and the card's memory). Loopback-bound
         by default; port 0 picks a free one (read ``engine.ops.port``).
@@ -1117,23 +1200,40 @@ class InferenceEngine:
             store.close(reason=reason)
 
 
+# Captures run one at a time in a process (torch.cuda.graph captures on
+# one shared stream), each warmed up on its device's one side stream.
+_CAPTURE_LOCK = threading.Lock()
+_WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
 def capture_step(body, device) -> "torch.cuda.CUDAGraph":
     """Capture ``body`` (a step that reads and writes only tensors whose
     addresses never change) into a CUDA graph: warmed up twice on a side
     stream (cuBLAS and the caching allocator settle before capture), then
     captured, under ``no_grad``. The caller makes the warm-up harmless
     (inactive lanes, or a step that can run again). A capture that fails
-    raises."""
-    with torch.no_grad():
+    raises.
+
+    The capture's error mode is ``thread_local``: a replica of a fleet
+    builds its decode graph on its serve thread while a peer engine on
+    the same card steps on its own, syncing the host and allocating, and
+    the default ``global`` mode refuses such calls from every thread of
+    the process while a capture is open. The side stream is one per
+    device, so the warm-up's cuBLAS workspace is not allocated anew for
+    every engine a fleet boots."""
+    with _CAPTURE_LOCK, torch.no_grad():
+        device = torch.device(device)
+        side = _WARMUP_STREAMS.get(device)
+        if side is None:
+            side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
         current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             for _ in range(2):
                 body()
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             body()
     return graph
 

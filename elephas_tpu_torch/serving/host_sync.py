@@ -94,6 +94,15 @@ def upload(array, device: torch.device, out: Optional[torch.Tensor] = None):
     return out.copy_(host, non_blocking=True)
 
 
+def settle(device: torch.device) -> None:
+    """Wait for every launch queued on ``device``: a halted engine's
+    last step, before ``InferenceEngine.release`` frees the memory it
+    reads and writes. The one wait here that reads no value; a no-op off
+    the card."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def fetch(staged: Staged) -> np.ndarray:
     """Wait for a staged copy and return it as a NumPy array.
 

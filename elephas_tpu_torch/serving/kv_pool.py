@@ -286,6 +286,15 @@ class PrefixCache:
             added += 1
         return added
 
+    def clear(self, decref) -> int:
+        """Drop every entry, releasing its block references through
+        ``decref`` (no eviction is counted). Returns the entries dropped."""
+        entries, self._entries = self._entries, {}
+        for entry in entries.values():
+            for b in entry.blocks:
+                decref(b)
+        return len(entries)
+
     def evict_lru(self, decref) -> Optional[_PrefixEntry]:
         """Drop the least-recently-used entry, releasing its block
         references through ``decref``. Returns it (None when empty)."""
@@ -375,6 +384,11 @@ class PagedKVPool(KVCachePool):
         self._ref = np.zeros((self.num_blocks,), np.int64)
         self._free_blocks: List[int] = list(range(self.num_blocks))
         self.prefix = PrefixCache(block_size) if prefix_cache else None
+        # The served weights' epoch (``invalidate_prefixes``) and the one
+        # each slot was acquired in: a slot whose K/V older weights wrote
+        # never publishes them to the prefix cache.
+        self._epoch = 0
+        self._slot_epoch: Dict[int, int] = {}
         # Lazy process-registry mirror (the fleet aggregator federates
         # these from /metrics scrapes).
         self._mirror = None
@@ -393,6 +407,27 @@ class PagedKVPool(KVCachePool):
 
     def tensors(self) -> List[torch.Tensor]:
         return super().tensors() + [self.table.buffer]
+
+    def acquire(self) -> Optional[int]:
+        slot = super().acquire()
+        if slot is not None:
+            self._slot_epoch[slot] = self._epoch
+        return slot
+
+    def invalidate_prefixes(self) -> int:
+        """Forget every resident prefix: the served weights changed
+        (``InferenceEngine.install_weights``), and the K/V the old ones
+        wrote would otherwise admit new requests by refcount. The entries'
+        block references are released, and a slot acquired before now
+        publishes nothing to the prefix cache (``commit_prefix``,
+        ``release``): its blocks hold the old weights' K/V. The JAX
+        package keeps its prefixes across a swap (ROADMAP, deliberate
+        differences). Returns the entries dropped."""
+        self._epoch += 1
+        return self.prefix.clear(self._decref) if self.prefix is not None else 0
+
+    def _publishes(self, slot: int) -> bool:
+        return self.prefix is not None and self._slot_epoch.get(slot) == self._epoch
 
     # -- block accounting ----------------------------------------------------
 
@@ -525,7 +560,7 @@ class PagedKVPool(KVCachePool):
         """Publish ``slot``'s freshly-prefilled prompt to the prefix
         cache (full blocks only) so requests arriving DURING this
         conversation can share it — not just after release."""
-        if self.prefix is None:
+        if not self._publishes(slot):
             return
         row = self.table.rows[slot]
         nfull = len(prompt) // self.block_size
@@ -591,6 +626,7 @@ class PagedKVPool(KVCachePool):
         child = self.acquire()
         if child is None:
             return None
+        self._slot_epoch[child] = self._slot_epoch.get(parent)
         for i, b in enumerate(self.table.rows[parent]):
             if b >= 0:
                 self._incref(int(b))
@@ -616,7 +652,7 @@ class PagedKVPool(KVCachePool):
         self._owner.pop(slot, None)
         self._billed_at.pop(slot, None)
         row = self.table.rows[slot]
-        if tokens is not None and self.prefix is not None:
+        if tokens is not None and self._publishes(slot):
             backed = int((row >= 0).sum())
             nfull = min(len(tokens) // self.block_size, backed)
             if nfull > 0:

@@ -66,7 +66,7 @@ same functions run eagerly. ``draft_traces``, ``verify_traces`` and
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -267,6 +267,18 @@ class SpeculativeDecoder:
             # slot, start, valid, then the (right-padded) chunk's tokens.
             self._prefill_inputs = torch.zeros((3 + engine.prefill_chunk,),
                                                dtype=torch.int64, device=dev)
+
+    def release(self) -> List[torch.Tensor]:
+        """Drop the captured programs and return the decoder's own device
+        tensors, whose storage ``InferenceEngine.release`` frees (a model
+        source's module is the caller's and stays)."""
+        self._draft_step = self._verify_step = self._draft_prefill_step = None
+        self._graphs = []
+        own = [self._t0, self._drafts, self._out]
+        if self._draft_cache is not None:
+            own += [*self._draft_cache.keys, *self._draft_cache.values,
+                    self._draft_index, self._prefill_inputs]
+        return own
 
     # -- the programs' bodies ------------------------------------------------
 

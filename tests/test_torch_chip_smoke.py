@@ -338,8 +338,9 @@ def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
     source, phases = _main_source()
     assert phases == ["kernel_phase", "inference_phase", "train_phase", "seq_parallel_phase",
                       "tensor_parallel_phase", "resnet_phase", "repair_phase", "serving_phase",
-                      "spec_handoff_phase", "async_phase", "async_multiproc_phase", "ops_phase",
-                      "estimator_phase", "search_phase", "fit_slice_phase", "chaos_phase"]
+                      "spec_handoff_phase", "fleet_phase", "async_phase", "async_multiproc_phase",
+                      "ops_phase", "estimator_phase", "search_phase", "fit_slice_phase",
+                      "chaos_phase"]
     assert "launches['search'], report = search_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("search: ") < source.index("'kernels'")
     last = source[source.index("'ok': True"):]
@@ -860,17 +861,45 @@ def test_summing_pushes_and_sum_error(smoke):
 
 def test_poller_counts_rounds_and_drops_an_unmounted_round(smoke, monkeypatch):
     """A round cut short by the endpoint's unmount is dropped; a wrong
-    answer from a mounted endpoint is kept; a right one counts."""
+    answer from a mounted endpoint is kept; a right one counts (the
+    rounds the poller's child process runs)."""
     answers = iter([(500, None), (200, ["b"]), (200, ["a"])])
     urls = iter(["u", None, "u", "u", "u"])
     monkeypatch.setattr(smoke, "scrape", lambda url: next(answers))
-    poller = smoke.Poller(lambda: next(urls), {"/x": ["a"]})
+    poller = smoke.PollRounds(lambda: next(urls), {"/x": ["a"]})
     poller.poll_once()
     assert (poller.rounds, poller.bad) == (0, [])
     poller.poll_once()
     assert (poller.rounds, poller.bad) == (1, [["/x", 200, ["b"]]])
     poller.poll_once()
     assert poller.rounds == 2 and len(poller.bad) == 1
+
+
+def test_the_poller_scrapes_from_a_child_process(smoke):
+    """``Poller`` runs its scrapes in a process of its own (this script
+    as ``--poll-child``) and reads back its rounds and bad answers: a
+    route answering off its keys is reported, a right one is not, the
+    URL set after the start reaches the child, and the child is gone
+    after the exit."""
+    import os
+    import time
+
+    from elephas_tpu_torch.obs import OpsServer
+
+    ops = OpsServer(port=0, role="serving").start()
+    try:
+        status, keys = smoke.scrape(f"{ops.url}/meta")
+        assert status == 200 and "routes" in keys
+        url = [None]
+        with smoke.Poller(lambda: url[0], {"/meta": keys, "/vars": ["nope"]}) as poller:
+            time.sleep(0.3)
+            url[0] = ops.url
+            time.sleep(1.5)
+        assert poller.pid != os.getpid() and poller._proc.poll() is not None
+        assert poller.rounds >= 3
+        assert poller.bad and all(b[:2] == ["/vars", 200] for b in poller.bad)
+    finally:
+        ops.stop()
 
 
 def test_main_runs_the_spec_handoff_phase_after_serving():
@@ -967,3 +996,94 @@ def test_wide_head_checks_hold_the_plain_path(smoke):
     for errors in out.values():
         assert set(errors) == {"o", "grads", "hop_o", "hop_lse", "hop_grads"}
         assert all(v == 0.0 for v in errors.values())
+
+
+def test_main_runs_the_fleet_phase_after_the_spec_handoff_phase():
+    """The fleet phase follows the speculative-decoding and handoff phase,
+    keeps its launches under ``"fleet"`` and prints its report before the
+    kernel line."""
+    source, phases = _main_source()
+    assert phases[phases.index("fleet_phase") - 1] == "spec_handoff_phase"
+    assert "launches['fleet'], report = fleet_phase(attention_cuda)" in source
+    assert source.index("spec_handoff: ") < source.index("fleet: ") < source.index("'kernels'")
+
+
+def test_fleet_config(smoke):
+    """Five restarts held to 16 MiB, a kill after 12 results, a 2-shard
+    group keeping 4 WAL versions, deltas of 1e-2 relative scale, and the
+    serving phase's engine and traffic."""
+    assert smoke.FLEET_RESTARTS == 5 and smoke.FLEET_MEMORY_SLACK == 16 * 2**20
+    assert smoke.FLEET_KILL_AFTER == 12 < smoke.SERVE_REQUESTS
+    assert smoke.FLEET_WAL_KEEP == 4 and smoke.FLEET_ROLLOUT_DELTA == 1e-2
+    assert smoke.FLEET_BUSY + smoke.FLEET_RESTART_REQUESTS <= smoke.SERVE_REQUESTS
+    assert smoke.FLEET_SWAP_REQUESTS <= smoke.SERVE_ENGINE["max_slots"]
+    assert smoke.OPS_POLL_S == 0.1
+
+
+def test_fleet_ops_keys_are_the_jax_packages_documents(smoke):
+    """The keys the fleet phase holds each scrape to are those of the JAX
+    package's router, rollout controller, canary driver and aggregator."""
+    import jax.numpy as jnp
+
+    from elephas_tpu import obs as jax_obs
+    from elephas_tpu.api.compile import CompiledModel
+    from elephas_tpu.models import get_model
+    from elephas_tpu.rollout import RolloutController
+    from elephas_tpu.serving import InferenceEngine, ReplicaSet, Router
+
+    compiled = CompiledModel(get_model("transformer_lm", vocab_size=97, d_model=32,
+                                       num_heads=4, num_layers=2, max_seq_len=64),
+                             loss="sparse_categorical_crossentropy", metrics=[],
+                             input_shape=(64,), input_dtype=jnp.int32, seed=0)
+
+    class Client:
+        def pull(self, version=None):
+            return 0, {}
+
+    router = Router(ReplicaSet(lambda: InferenceEngine(compiled, max_slots=2, max_prompt_len=8,
+                                                       max_len=24), initial=1))
+    try:
+        controller = RolloutController(router.replica_set, Client())
+        controller.tick()
+        engine = router.replica_set.get("r0").engine
+        docs = {"/replicas": router.replicas_doc(), "/tiers": router.tiers_doc(),
+                "/rollout": controller.doc(), "/canary": jax_obs.CanaryDriver(engine).snapshot(),
+                "/fleet": jax_obs.FleetAggregator().snapshot()}
+    finally:
+        router.close()
+    assert set(smoke.FLEET_OPS_KEYS) == set(docs)
+    for route, doc in docs.items():
+        assert sorted(doc) == smoke.FLEET_OPS_KEYS[route], route
+
+
+def test_the_fleet_phase_runs_on_the_cpu_at_a_small_size(smoke, monkeypatch):
+    """The whole fleet phase on the CPU: a 2-layer LM of width 32, 12
+    requests on two replicas of 4 slots (some queued at the kill), two
+    restarts. Every check but the card's (the graphs, the
+    memory) runs, and no flash kernel launches."""
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.ops import attention_cuda
+
+    for name, value in (("FLEET_RESTARTS", 2), ("FLEET_KILL_AFTER", 1), ("FLEET_BUSY", 2),
+                        ("FLEET_RESTART_REQUESTS", 2), ("FLEET_ROLLOUT_REQUESTS", 4),
+                        ("FLEET_SWAP_REQUESTS", 3)):
+        monkeypatch.setattr(smoke, name, value)
+    model = get_model("transformer_lm", device="cpu", vocab_size=97, d_model=32, num_heads=4,
+                      num_layers=2, max_seq_len=48)
+    rng = np.random.default_rng(0)
+    traffic = [(rng.integers(1, 97, int(rng.integers(4, 13))).tolist(), int(rng.integers(12, 17)))
+               for _ in range(12)]
+    engine_kw = {"max_slots": 4, "max_prompt_len": 12, "max_len": 32, "queue_depth": 64,
+                 "kv_block_size": 4, "prefill_chunk": 8, "prefill_chunks_per_step": 2,
+                 "prefix_cache": True}
+    launches, report = smoke.fleet_phase(attention_cuda, model=model, traffic=traffic,
+                                         engine_kw=engine_kw)
+    assert launches == {name: 0 for name in smoke.KERNELS}
+    assert report["two_vs_bare"]["identical"] == len(traffic)
+    assert report["kill"]["requeues"] >= 1 and len(report["restarts"]) == 2
+    assert report["tiers"]["handoffs"]["count"] == len(traffic)
+    assert report["rollout"]["events"] == ["baseline", "canary_start", "promote_start", "pin",
+                                           "promoted", "canary_start", "rollback_start",
+                                           "rolled_back"]
+    assert all(p["rounds"] >= 3 and not p["bad"] for p in report["rollout"]["ops"])
+    assert report["mid_swap"]["changed"] > 0

@@ -513,6 +513,11 @@ def _tp_serving(job, rank):
             engine.follow()
             result[f"{key}_version"] = engine.model_version
             continue
+        if paged:  # a weight subscriber is one of item 7a's sharded left-outs
+            try:
+                engine.subscriber = object()
+            except NotImplementedError as err:
+                result["subscriber_refused"] = str(err)
 
         def serve(engine):
             ids = [engine.submit(p, max_new_tokens=job["new_tokens"]) for p in job["prompts"]]

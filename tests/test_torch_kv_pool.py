@@ -249,6 +249,30 @@ def test_block_acquire_release_refcount_invariants(module):
     pool.assert_block_invariants()
 
 
+def test_invalidated_prefixes_and_older_slots_publish_nothing(module):
+    """``invalidate_prefixes`` (every weight install) drops the resident
+    entries with their references, and a slot acquired before it neither
+    commits nor releases its blocks into the prefix cache; a slot
+    acquired after it does."""
+    pool = _pool(module)
+    chain = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+    old = pool.acquire()
+    pool.ensure_cols(old, len(chain))
+    pool.commit_prefix(old, chain)
+    assert len(pool.prefix) == 2
+    assert pool.invalidate_prefixes() == 2 and len(pool.prefix) == 0
+    pool.assert_block_invariants()
+    pool.commit_prefix(old, chain)
+    pool.release(old, tokens=chain)
+    assert len(pool.prefix) == 0 and pool.free_blocks == pool.num_blocks
+    new = pool.acquire()
+    pool.ensure_cols(new, len(chain))
+    pool.release(new, tokens=chain)
+    assert len(pool.prefix) == 2
+    assert pool.admit_prefix(pool.acquire(), chain) == 8
+    pool.assert_block_invariants()
+
+
 def test_double_releases_fail_loudly(module):
     pool = _pool(module)
     slot = pool.acquire()

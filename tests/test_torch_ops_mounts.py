@@ -328,8 +328,10 @@ def test_the_serving_engine_mounts_the_jax_routes():
     finally:
         engine.unmount_ops()
     engine.unmount_ops()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        engine.attach_canary(None)
+    from elephas_tpu_torch.obs import CanaryDriver
+
+    driver = CanaryDriver(engine)
+    assert driver.probe()["ok"] and engine._canary_doc()["probes"] == 1
 
 
 def _staircase(config, state, epochs, seed, rung):

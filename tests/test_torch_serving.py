@@ -479,6 +479,118 @@ def test_install_weights_serves_the_new_weights(models):
     assert torch.equal(module.lm_head.weight, sd["lm_head.weight"])
 
 
+PROMPTS = [[5, 3, 9], [7, 2, 8, 4, 1, 6], [11, 12], [1, 2, 3, 4]]
+
+
+def _greedy(engine, prompts=PROMPTS, new=8):
+    ids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    return [engine.result(i, timeout_s=120).tokens for i in ids]
+
+
+def test_engines_built_from_one_module_own_their_weights(models):
+    """Two engines from one module, as the JAX fleet and rollout tests
+    build every replica from one ``compiled``: ``install_weights`` on the
+    first leaves the second's greedy streams and every parameter bitwise
+    as they were (and the caller's module too), while the first serves
+    the new weights."""
+    jc, module, sd = models
+    sd2 = from_flax_params(jax.tree_util.tree_map(np.asarray, _jax_compiled(seed=1).params),
+                           module)
+    first, second = InferenceEngine(module, **_kw()), InferenceEngine(module, **_kw())
+    before = {k: v.clone() for k, v in second.params.items()}
+    want = _greedy(second)
+    old = _greedy(first)
+    first.install_weights(sd2, version=1)
+    assert _greedy(first) != old
+    assert _greedy(second) == want
+    assert all(torch.equal(v, before[k]) for k, v in second.params.items())
+    assert all(torch.equal(v, sd[k]) for k, v in module.state_dict().items())
+    ptrs = {p.data_ptr() for p in second.module.parameters()}
+    assert not ptrs & {p.data_ptr() for p in first.module.parameters()}
+    assert not ptrs & {p.data_ptr() for p in module.parameters()}
+
+
+def test_a_self_draft_reads_its_own_engines_weights(models):
+    """The copy comes before the draft binds: a self-draft's layer view
+    shares the tensors of its own engine, not the caller's module's."""
+    _, module, _ = models
+    engine = InferenceEngine(module, speculative=True, gamma=2, draft_layers=1, **_kw())
+    own = {p.data_ptr() for p in engine.module.parameters()}
+    view = {p.data_ptr() for p in engine.spec.source.module.parameters()}
+    assert view and view <= own
+    assert not view & {p.data_ptr() for p in module.parameters()}
+
+
+@pytest.mark.parametrize("speculative", [False, True])
+def test_release_frees_a_halted_engines_storage(models, speculative):
+    """``release`` frees the storage of a halted engine's pool, decode
+    operands and weights (and a speculative decoder's buffers); results
+    published before stay claimable, the caller's module is untouched, and
+    an engine that still runs refuses."""
+    _, module, sd = models
+    kw = {"speculative": True, "gamma": 2, "draft_layers": 1} if speculative else {}
+    engine = InferenceEngine(module, **_kw(**kw))
+    rid = engine.submit([5, 3, 9], max_new_tokens=4)
+    engine.run_until_drained()
+    with pytest.raises(RuntimeError, match="halt"):
+        engine.release()
+    engine.halt()
+    engine.release()
+    engine.release()
+    freed = [*engine.pool.tensors(), engine._inputs, engine._out, *engine.module.parameters()]
+    if speculative:
+        freed += [engine.spec._t0, engine.spec._drafts, engine.spec._out]
+    assert all(t.untyped_storage().nbytes() == 0 for t in freed)
+    assert engine.result(rid, timeout_s=0.0).status == "completed"
+    assert all(torch.equal(v, sd[k]) for k, v in module.state_dict().items())
+
+
+class _CountingSubscriber:
+    def __init__(self):
+        self.calls = 0
+
+    def on_step(self, engine):
+        self.calls += 1
+
+
+def _count_boundaries(engine, path):
+    """Boundary calls and scheduler steps of ``engine`` on one path: the
+    serve loop's ``step()``, ``result()``'s inline steps, or
+    ``handoff()``'s inline steps."""
+    sub, steps = _CountingSubscriber(), [0]
+    engine.subscriber = sub
+    real = engine.scheduler.step
+
+    def step():
+        steps[0] += 1
+        return real()
+
+    engine.scheduler.step = step
+    if path == "step":
+        ids = [engine.submit(p, max_new_tokens=6) for p in PROMPTS]
+        engine.run_until_drained()
+        assert all(engine.result(i).status == "completed" for i in ids)
+    elif path == "result":
+        ids = [engine.submit(p, max_new_tokens=6) for p in PROMPTS]
+        assert all(engine.result(i, timeout_s=120).status == "completed" for i in ids)
+    else:
+        ids = [engine.submit_prefill(p, max_new_tokens=6) for p in PROMPTS]
+        assert all(isinstance(engine.handoff(i, timeout_s=120), dict) for i in ids)
+    return sub.calls, steps[0]
+
+
+@pytest.mark.parametrize("path", ["step", "result", "handoff"])
+def test_step_boundary_calls_per_step_match_the_jax_engine(models, path):
+    """The subscriber hook runs once after every scheduler step on each
+    of the engine's three stepping paths, as many times as the JAX
+    engine's on the same traffic."""
+    jc, module, _ = models
+    jax_calls, jax_steps = _count_boundaries(JaxEngine(jc, **_kw()), path)
+    calls, steps = _count_boundaries(InferenceEngine(module, **_kw()), path)
+    assert calls == steps > 0
+    assert (calls, steps) == (jax_calls, jax_steps)
+
+
 def test_serve_forever_thread(models):
     _, module, _ = models
     engine = InferenceEngine(module, **_kw())
@@ -508,14 +620,21 @@ def test_cancel_and_halt(models):
 
 
 def test_not_ported_yet_raises_naming_the_roadmap(models):
-    """Of the engine's surface only the canary driver (ROADMAP item 7b)
-    is left to port and raises; speculative decode and the KV handoff
-    (item 7a) answer as the reference does (``tests/test_torch_spec.py``,
-    ``tests/test_torch_disagg.py``)."""
+    """Of the engine's surface only ROADMAP item 7a's sharded left-outs
+    raise (here: sharding an engine that has a weight subscriber); the
+    canary driver (item 7b) attaches and serves ``/canary``, speculative
+    decode and the KV handoff (item 7a) answer as the reference does
+    (``tests/test_torch_spec.py``, ``tests/test_torch_disagg.py``)."""
+    from elephas_tpu_torch.obs import CanaryDriver
+
     _, module, _ = models
     engine = InferenceEngine(module, **_kw())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*7b"):
-        engine.attach_canary(None)
+    driver = CanaryDriver(engine)
+    assert engine.canary is driver and engine._canary_doc() == driver.snapshot()
+    subscribed = InferenceEngine(module, **_kw())
+    subscribed.subscriber = object()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7a, sharded left-outs"):
+        subscribed.shard_serving(object())
     assert InferenceEngine(module, speculative=True, **_kw()).spec is not None
     for call, error in ((lambda: engine.submit_handoff(b""), ValueError),
                         (lambda: engine.pool.export_blocks(0), ValueError),

@@ -169,6 +169,14 @@ def test_installed_weights_reach_every_rank(served):
     assert [rank["paged_version"] for rank in served] == [7] * WORLD
 
 
+def test_a_weight_subscriber_on_a_sharded_engine_is_not_ported_yet(served):
+    """Attaching a weight subscriber to a sharded engine raises naming
+    ROADMAP item 7a's sharded left-outs, before any step lock is taken:
+    the engine then serves as before."""
+    assert "ROADMAP item 7a, sharded left-outs" in served[0]["subscriber_refused"]
+    assert served[0]["paged"] == served[0]["paged_plain"]
+
+
 def test_shard_serving_refuses_a_warm_engine(jax_compiled):
     engine = InferenceEngine(_port(jax_compiled), **ENGINE)
     engine.result(engine.submit([5, 3, 9], max_new_tokens=2), timeout_s=60)
