@@ -181,6 +181,20 @@ Phases, in order; any failed check raises and the process exits non-zero:
    also on the CPU), a fit resumed from its epoch-1 checkpoint against
    the uninterrupted one, the bare train step's samples/s at batch 32,
    256 and 1024 and a kernel breakdown; no flash launch;
+10b. the lock-sanitizer phase (``locksan_phase``, ROADMAP item 7c):
+   ``utils.locksan`` on, seeded from ``ANALYSIS_TORCH.json``, before any
+   engine, server or router is built; two replicas of the fleet phase's
+   LM at 2 layers behind the router serve 16 requests in rounds of 8
+   (twice, the second pass timed), one
+   rollout promotion through a socket ``ShardGroup`` with in-process
+   scrapes of ``/replicas``, ``/rollout`` and ``/canary``, then config 2's
+   CNN over 4 socket workers for one epoch; no inversion (also none a
+   thread swallowed), order checks made, the
+   ``ParameterBuffer._lock -> ParameterBuffer._version_guard`` edge
+   observed, observed and static orders acyclic together, no flash
+   launch; the observed edges the static graph lacks and the
+   held-while-blocking events printed; the sanitizer off again, and the
+   same serve on a plain fleet timed beside the sanitized one;
 11. the search phase (``search_phase``), BASELINE config 5: the masked
    MLP (``mlp_masked``, width 100 in bucket 128) against the plain one at
    width 100 (logits, loss, live gradients; padded entries exactly still
@@ -508,6 +522,15 @@ FLEET_OPS_KEYS = {
                "polls", "processes", "replicas", "rollout", "slo", "status_counts", "t",
                "tenants", "tiers", "trials", "workers"],
 }
+# Lock-sanitizer phase (ROADMAP item 7c): the fleet phase's LM at this
+# depth (full width) and engine, and config 2's CNN over the socket
+# server, with ``utils.locksan`` on and seeded from ANALYSIS_TORCH.json.
+LOCKSAN_LAYERS = 2
+LOCKSAN_REQUESTS = 16              # of serving_traffic(), served in rounds of 8
+LOCKSAN_ROUND = 8
+LOCKSAN_SCRAPES = 3                # in-process rounds over the fleet's ops routes
+LOCKSAN_CNN_EPOCHS = 1
+LOCKSAN_EDGE = ("ParameterBuffer._lock", "ParameterBuffer._version_guard")
 SERVE_BASELINE_NEW_TOKENS_PER_S = 3216  # the paged engine's first measure on this traffic (PERF.md §5)
 
 # Async phase: Downpour SGD against the parameter server on the card,
@@ -2666,14 +2689,14 @@ def fleet_phase(attention_cuda, model=None, traffic=None, engine_kw=None):
         routers.append(router)
         installs = []
         for rep in rs.replicas.values():
-            real_install = rep.engine.install_weights
+            real_install = rep.engine.install_weights_held  # the subscriber's call
 
             def timed_install(tree, version=None, _real=real_install, _rid=rep.replica_id):
                 t0 = time.perf_counter()
                 _real(tree, version)
                 installs.append((_rid, version, time.perf_counter() - t0))
 
-            rep.engine.install_weights = timed_install
+            rep.engine.install_weights_held = timed_install
         verdict = {"good": True}
         ctrl = RolloutController(rs, pulls, bake_s=FLEET_ROLLOUT_BAKE_S,
                                  min_results=FLEET_ROLLOUT_MIN_RESULTS,
@@ -3419,6 +3442,218 @@ def estimator_phase(attention_cuda):
     launches = dict(attention_cuda.launches)
     check(launches == {k: 0 for k in KERNELS},
           f"the estimator path launched flash kernels: {launches}")
+    return launches, report
+
+
+def order_cycle(observed, static):
+    """A cycle of the union of two order graphs (``{src: {dst}}``) as the
+    list of its locks with the first repeated at the end, or None."""
+    graph = {}
+    for edges in (observed, static):
+        for src, dsts in edges.items():
+            graph.setdefault(src, set()).update(dsts)
+    done, on_path = set(), []
+
+    def visit(node):
+        if node in on_path:
+            return on_path[on_path.index(node):] + [node]
+        if node in done:
+            return None
+        on_path.append(node)
+        for nxt in sorted(graph.get(node, ())):
+            found = visit(nxt)
+            if found:
+                return found
+        on_path.pop()
+        done.add(node)
+        return None
+
+    for start in sorted(graph):
+        found = visit(start)
+        if found:
+            return found
+    return None
+
+
+def blind_spots(observed, static):
+    """The observed order edges the static graph lacks, as sorted
+    ``[src, dst]`` pairs: what the static analyzer cannot see."""
+    return sorted([src, dst] for src, dsts in observed.items() for dst in dsts
+                  if dst not in static.get(src, ()))
+
+
+def locksan_phase(attention_cuda, model=None, traffic=None, engine_kw=None, device="cuda:0"):
+    """ROADMAP item 7c on the card: the runtime lock sanitizer
+    (``utils.locksan``) on, seeded from ANALYSIS_TORCH.json, before any
+    engine, server or router is built; then (1) two replicas of the fleet
+    phase's LM at ``LOCKSAN_LAYERS`` layers behind the router serve
+    ``LOCKSAN_REQUESTS`` requests in rounds of ``LOCKSAN_ROUND``, twice
+    (the second pass timed), (2) one
+    rollout promotion through a socket ``ShardGroup`` with in-process
+    scrapes of the ops routes, (3) a 4-worker socket async fit of config
+    2's CNN for ``LOCKSAN_CNN_EPOCHS`` epoch. Held: no inversion (also
+    none a thread swallowed), order checks made, the
+    ``ParameterBuffer._lock -> ._version_guard`` edge observed (the
+    ``RWLock`` is one node), observed and static orders acyclic together,
+    no flash launch. The observed edges the static graph lacks and the
+    held-while-blocking events are printed, not held. The sanitizer is
+    off again at the end, and the same serve on a plain fleet is timed
+    beside the sanitized one. ``model``, ``traffic``, ``engine_kw`` and
+    ``device`` stand in for a small run on the CPU."""
+    import contextlib
+    import tempfile
+
+    from elephas_tpu_torch import SparkModel, to_simple_rdd
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.parameter import ShardGroup
+    from elephas_tpu_torch.rollout import RolloutController
+    from elephas_tpu_torch.serving import InferenceEngine, ReplicaSet, Router
+    from elephas_tpu_torch.utils import locksan
+
+    t_phase = time.perf_counter()
+    attention_cuda.reset_launches()
+    on_card = torch.device(device).type == "cuda"
+    card = smi("name,power.limit") if on_card else "no card"
+    report = {"card": card}
+    check(not locksan.enabled(), "the sanitizer was on before its phase")
+    locksan.enable(analysis_path=locksan.ANALYSIS_PATH)
+    san = locksan.registry()
+    static = san.static_edges()
+    report["static_edges"] = sum(len(v) for v in static.values())
+    check(report["static_edges"] > 0, f"no static edge loaded from {locksan.ANALYSIS_PATH}")
+
+    def line(name, doc):
+        print(f"locksan ({card}) {name}: {json.dumps(doc)}", flush=True)
+
+    if model is None:
+        model = CompiledModel(get_model("transformer_lm", num_layers=LOCKSAN_LAYERS),
+                              loss="sparse_categorical_crossentropy", metrics=[],
+                              seed=SEED).module
+    traffic = serving_traffic()[:LOCKSAN_REQUESTS] if traffic is None else traffic
+    engine_kw = SERVE_ENGINE if engine_kw is None else engine_kw
+
+    def factory():
+        return InferenceEngine(model, **engine_kw)
+
+    def rounds(router):
+        """The traffic in rounds, twice: the rates of the second (warm)
+        pass, and the first pass's seconds."""
+        passes = []
+        for _ in range(2):
+            streams, elapsed, outcomes = [], 0.0, []
+            for at in range(0, len(traffic), LOCKSAN_ROUND):
+                got, s, out = router_serve(router, traffic[at:at + LOCKSAN_ROUND])
+                streams, elapsed, outcomes = streams + got, elapsed + s, outcomes + out
+            passes.append((streams, elapsed, outcomes))
+        return passes[1][0], {**fleet_rates(traffic, *passes[1][1:]), "first_pass_s": passes[0][1]}
+
+    routers, stack = [], contextlib.ExitStack()
+    try:
+        # (1) Two replicas behind the router, in rounds of 8.
+        v0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        scratch = stack.enter_context(tempfile.TemporaryDirectory())
+        group = ShardGroup(v0, 2, mode="socket", wal_root=scratch, wal_keep=FLEET_WAL_KEEP,
+                           device=model.device)
+        group.start()
+        stack.callback(group.stop)
+        client = group.client()
+        stack.callback(client.close)
+        rs = ReplicaSet(factory, initial=2, mount_ops=True)
+        router = Router(rs)
+        routers.append(router)
+        ctrl = RolloutController(rs, client, bake_s=FLEET_ROLLOUT_BAKE_S,
+                                 min_results=FLEET_ROLLOUT_MIN_RESULTS, judge=lambda *a: True)
+        router.attach_rollout(ctrl)
+        ops = router.mount_ops()
+        sanitized, report["sanitized_fleet"] = rounds(router)
+        line("two replicas, sanitized", report["sanitized_fleet"])
+
+        # (2) One promotion, scraping the ops routes between rounds.
+        scrapes = PollRounds(lambda: ops.url, {route: FLEET_OPS_KEYS[route]
+                                               for route in ("/replicas", "/rollout")})
+        canaries = PollRounds(lambda: rs.get("r0").engine.ops.url,
+                              {"/canary": FLEET_OPS_KEYS["/canary"]})
+        check(router.tick()["rollout"] == "idle", "the controller did not start idle")
+        rng = np.random.default_rng(SEED)
+        client.update_parameters({
+            k: torch.as_tensor(rng.standard_normal(tuple(v.shape)).astype(np.float32),
+                               device=v.device) * (FLEET_ROLLOUT_DELTA * v.abs().mean() + 1e-8)
+            for k, v in v0.items()})
+        deadline, seen = time.perf_counter() + FLEET_ROLLOUT_TIMEOUT_S, []
+        while True:
+            phase = router.tick(probe=True)["rollout"]
+            if not seen or seen[-1] != phase:
+                seen.append(phase)
+            if phase == "idle" and "canary" in seen:
+                break
+            check(time.perf_counter() < deadline,
+                  f"the sanitized rollout never came back to idle: {seen}, {ctrl.doc()['phase']}")
+            router_serve(router, traffic[:LOCKSAN_ROUND])
+            if scrapes.rounds < LOCKSAN_SCRAPES:
+                scrapes.poll_once()
+                canaries.poll_once()
+        versions = {rid: rep.engine.model_version for rid, rep in rs.replicas.items()}
+        check(set(versions.values()) == {1} and ctrl.rollouts == 1,
+              f"the sanitized promotion: versions {versions}, rollouts {ctrl.rollouts}")
+        while scrapes.rounds < LOCKSAN_SCRAPES:
+            scrapes.poll_once()
+            canaries.poll_once()
+        check(not scrapes.bad and not canaries.bad,
+              f"the ops routes under the sanitizer: {scrapes.bad + canaries.bad}")
+        report["rollout"] = {"phases": seen, "versions": versions,
+                             "scrapes": scrapes.rounds + canaries.rounds}
+        line("one promotion", report["rollout"])
+        routers.pop().close()
+        stack.close()
+
+        # (3) Config 2's CNN, 4 workers over the socket server.
+        (x, y), _ = mnist_cnn_data()
+        spark = SparkModel(mnist_cnn(device), mode="asynchronous", frequency="epoch",
+                           parameter_server_mode="socket", port=0,
+                           mesh=[device] * ASYNC_WORKERS)
+        t0 = time.perf_counter()
+        history = spark.fit(to_simple_rdd(None, x, y), epochs=LOCKSAN_CNN_EPOCHS,
+                            batch_size=ASYNC_CNN_BATCH)
+        report["cnn_socket"] = {"fit_s": time.perf_counter() - t0, "loss": history["loss"],
+                                "version": spark.async_trainer.server.buffer.version}
+        check(all(np.isfinite(history["loss"])), f"the sanitized fit's loss: {history['loss']}")
+        line(f"config 2's CNN, {ASYNC_WORKERS} workers, socket server", report["cnn_socket"])
+    finally:
+        for router in routers:
+            router.close()
+        stack.close()
+        observed = san.snapshot_edges()
+        locksan.disable()
+    report.update({
+        "inversions": san.inversions, "checks": san.checks,
+        "observed_edges": sum(len(v) for v in observed.values()),
+        "blind_spots": blind_spots(observed, static),
+        "blocking_events": len(san.blocking_events),
+        "cycle": order_cycle(observed, static)})
+    print(f"locksan blind spots (observed, not in ANALYSIS_TORCH.json): "
+          f"{json.dumps(report['blind_spots'])}; blocking events: "
+          f"{report['blocking_events']}", flush=True)
+    check(not san.inversions, f"lock-order inversions under the sanitizer: {san.inversions}")
+    check(san.checks > 0, "the sanitizer order-checked no acquisition")
+    check(LOCKSAN_EDGE[1] in observed.get(LOCKSAN_EDGE[0], ()),
+          f"{' -> '.join(LOCKSAN_EDGE)} was not observed: {observed}")
+    check(report["cycle"] is None, f"observed and static orders hold a cycle: {report['cycle']}")
+
+    # The same serve on a plain fleet, beside the sanitized one.
+    check(not locksan.enabled(), "the sanitizer is still on")
+    router = Router(ReplicaSet(factory, initial=2))
+    try:
+        plain, report["plain_fleet"] = rounds(router)
+    finally:
+        router.close()
+    greedy_gap, _ = stream_gaps(model, traffic)
+    report["plain_vs_sanitized"] = compare_streams(plain, sanitized, greedy_gap(plain))
+    line("two replicas, plain", report["plain_fleet"])
+    launches = dict(attention_cuda.launches)
+    check(launches == {name: 0 for name in KERNELS},
+          f"the locksan phase launched flash kernels: {launches}")
+    report["phase_s"] = time.perf_counter() - t_phase
     return launches, report
 
 
@@ -6067,6 +6302,8 @@ def main():
     print(f"ops: {json.dumps(report)}", flush=True)
     launches["estimator"], report = estimator_phase(attention_cuda)
     print(f"estimator: {json.dumps(report)}", flush=True)
+    launches["locksan"], report = locksan_phase(attention_cuda)
+    print(f"locksan: {json.dumps(report)}", flush=True)
     launches["search"], report = search_phase(attention_cuda)
     print(f"search: {json.dumps(report)}", flush=True)
     launches["fit_slice"], report = fit_slice_phase(attention_cuda)

@@ -1,0 +1,6 @@
+import sys
+
+from elephas_tpu_torch.analysis.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

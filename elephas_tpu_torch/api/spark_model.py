@@ -25,8 +25,9 @@ constructor takes such a payload as well as a ``CompiledModel``.
 eager step against the step captured as a CUDA graph at the start of a
 fit and trains with the faster (``utils/compiler.py``); ``fit(...,
 stream_batches=N)`` streams the data to the device in chunks of N
-batches instead of uploading it once. Not ported yet, and raising where
-asked for: Keras models (the Keras bridge; ROADMAP.md, queue 1).
+batches instead of uploading it once. A compiled Keras-3 model of the
+torch backend is taken as the reference takes it, through
+``serialize/keras_bridge.py``.
 """
 
 from __future__ import annotations
@@ -50,11 +51,6 @@ logger = logging.getLogger(__name__)
 
 MODES = ("synchronous", "asynchronous", "hogwild")
 FREQUENCIES = ("batch", "epoch", "fit")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it arrives with {item} "
-                               "(ROADMAP.md, queue 1)")
 
 
 class TpuModel:
@@ -84,7 +80,8 @@ class TpuModel:
         rank's together). Either is capped with a warning.
     custom_objects: builders by registry name, used where ``model`` is a
         ``model_to_dict`` payload (``serialize.dict_to_model``).
-    device: where a payload's model is built (None: ``cuda``).
+    device: where a payload's or a Keras model's weights are placed
+        (None: ``cuda``).
     batch_size: default per-worker batch size for ``fit``.
     mesh: synchronous: an optional pre-built ``parallel.mesh.Mesh``.
         Asynchronous: the workers' devices, a list in which a device may
@@ -130,13 +127,18 @@ class TpuModel:
         if isinstance(model, dict):
             model = dict_to_model(model, custom_objects, device=device)
         if not isinstance(model, CompiledModel):
-            if type(model).__module__.split(".")[0] == "keras":
-                raise _not_ported("a Keras model", "item 3's Keras bridge "
-                                  "(serialize/keras_bridge.py)")
-            raise TypeError(
-                "model must be a CompiledModel; wrap modules with "
-                "elephas_tpu_torch.compile_model"
-            )
+            if type(model).__module__.split(".")[0] != "keras":
+                raise TypeError(
+                    "model must be a CompiledModel, a compiled Keras-3 model, or a "
+                    "model_to_dict payload; wrap modules with "
+                    "elephas_tpu_torch.compile_model"
+                )
+            # Reference drop-in: ``SparkModel(compiled_keras_model, ...)``
+            # ingests through the Keras-3 bridge, reading the model's own
+            # compile configuration, on ``device``.
+            from elephas_tpu_torch.serialize.keras_bridge import from_keras
+
+            model = from_keras(model, device=device)
         self._master = model
         self.mode = mode
         self.frequency = frequency

@@ -77,7 +77,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
     if _lib is None and not _build_failed:
         with _lock:
             if _lib is None and not _build_failed:
-                _lib = _build()  # one-time compile, under the lock
+                _lib = _build()  # lock-ok: one-time compile; the module lock exists to build exactly once
     return _lib
 
 

@@ -149,7 +149,7 @@ def _function(name: str):
     lib_name = _FUNCTIONS[name][0]
     with _lock:
         if lib_name not in _libs:
-            lib = ctypes.CDLL(str(build(lib_name)))
+            lib = ctypes.CDLL(str(build(lib_name)))  # lock-ok: one-time nvcc build; the module lock exists to build each library once
             for fn_name, (owner, pointers) in _FUNCTIONS.items():
                 if owner == lib_name:
                     fn = getattr(lib, fn_name)

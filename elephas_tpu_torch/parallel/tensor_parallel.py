@@ -208,11 +208,21 @@ def decode_cache_specs(cache, axis: str = MODEL_AXIS):
 
 
 def keras_param_rules(keras_model, rules: Rules) -> Rules:
-    """Rules over Keras variable paths as rules over the Keras bridge's
-    keys: the bridge (``serialize/keras_bridge.py``) is not ported yet."""
-    raise NotImplementedError(
-        "keras_param_rules needs the Keras bridge (serialize/keras_bridge.py), which is "
-        "not ported yet (ROADMAP.md, queue 1, item 3)")
+    """Translate rules over Keras variable paths into bridge-key rules.
+
+    The Keras bridge packs trainable variables as ``v0..vN``
+    (serialize/keras_bridge.py), which hides layer names from the
+    path-regex matcher. Keras-3 variables carry their own ``.path``
+    (e.g. ``'sequential/dense_1/kernel'``); this matches ``rules``
+    against those and returns an exact-key table.
+    """
+    out = []
+    for i, var in enumerate(keras_model.trainable_variables):
+        for pattern, spec in rules:
+            if re.match(pattern, var.path):
+                out.append((rf"^v{i}$", spec))
+                break
+    return tuple(out)
 
 
 # -- the torch layout ---------------------------------------------------------------

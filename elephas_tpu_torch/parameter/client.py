@@ -598,8 +598,8 @@ class SocketClient(_WireClient):
         for retry in (idempotent, False):
             sock = self._connection()
             try:
-                nonce = socket_utils.send(sock, frame, key=self.auth_key)
-                return socket_utils.receive(sock, key=self.auth_key, bind=nonce)
+                nonce = socket_utils.send(sock, frame, key=self.auth_key)  # lock-ok: the conn lock exists to serialize this socket (one in-flight request)
+                return socket_utils.receive(sock, key=self.auth_key, bind=nonce)  # lock-ok: reply read is the second half of the serialized exchange
             except (socket.timeout, TimeoutError) as exc:
                 self._drop_connection(sock)
                 raise ParameterServerUnavailable(

@@ -307,9 +307,9 @@ class _SnapshotCache:
                 return entry
             version, snap = self._buffer.get_host_with_version()
             if codec == "packed":
-                payload = wire.encode_tree(snap, version=version, boot=self._boot)
+                payload = wire.encode_tree(snap, version=version, boot=self._boot)  # lock-ok: single-flight encode; the lock exists to dedupe this work
             else:
-                payload = wire.encode_pickle(snap)
+                payload = wire.encode_pickle(snap)  # lock-ok: single-flight encode
             entry = (version, payload)
             self._entries[codec] = entry
             return entry

@@ -114,13 +114,13 @@ class SnapshotWAL:
         with self._lock:
             if final.exists():
                 return final
-            frames = wire.encode_tree(tree, version=version)
+            frames = wire.encode_tree(tree, version=version)  # lock-ok: snapshot encode under the WAL lock is the atomic-publish protocol
             tmp = self.directory / f"{_TMP_PREFIX}{version:016d}-{os.getpid()}"
             with open(tmp, "wb") as f:
                 for chunk in frames.chunks:
                     f.write(chunk)
-                f.flush()
-                os.fsync(f.fileno())
+                f.flush()  # lock-ok: tmp-file durability before the atomic rename
+                os.fsync(f.fileno())  # lock-ok: tmp-file durability before the atomic rename
             os.rename(tmp, final)
             self._prune_locked()
         return final

@@ -208,7 +208,10 @@ class WeightSubscriber:
 
     def _install(self, engine, tree, version: Optional[int]) -> None:
         prior = engine.model_version
-        engine.install_weights(tree, version)
+        # The hook runs under the engine's step lock: install through the
+        # body that assumes it held (a bare fake has only the public call).
+        install = getattr(engine, "install_weights_held", None) or engine.install_weights
+        install(tree, version)
         self.swaps += 1
         obs.default_flight_recorder().note(
             "weight_swap", "info", version=version, prior=prior,

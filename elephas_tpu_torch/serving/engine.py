@@ -619,7 +619,7 @@ class InferenceEngine:
         head[0] = _OPS[op]
         head[1:1 + len(ints)] = ints
         if tokens is not None:
-            flat = np.asarray(tokens, np.int64).reshape(-1)
+            flat = np.asarray(tokens, np.int64).reshape(-1)  # host-ok: host tokens
             head[_HEAD:_HEAD + flat.size] = flat
         pool = self.pool
         parts = [host_sync.upload(head, self.device), self._inputs.reshape(-1),
@@ -642,8 +642,8 @@ class InferenceEngine:
         while True:
             msg = torch.empty((self._msg_len,), dtype=torch.int64, device=self.device)
             dist.broadcast(msg, src=src, group=self._tp.group)
-            head = host_sync.fetch(host_sync.stage(msg[:_HEAD]))
-            op, ints = int(head[0]), [int(v) for v in head[1:]]
+            head = host_sync.fetch_ints(host_sync.stage(msg[:_HEAD]))
+            op, ints = head[0], head[1:]
             if op == _OPS["stop"]:
                 self._tp_closed = True
                 return
@@ -711,7 +711,7 @@ class InferenceEngine:
         ``canary=True`` tags the request as a blackbox probe: its result
         publishes but is excluded from the goodput ledger. ``tenant``
         names the account billed in the engine's ``CostLedger``."""
-        prompt = [int(t) for t in prompt]
+        prompt = [int(t) for t in prompt]  # host-ok: caller-supplied ints
         if not 1 <= len(prompt) <= self.max_prompt_len:
             raise ValueError(
                 f"prompt length {len(prompt)} outside [1, "
@@ -831,7 +831,7 @@ class InferenceEngine:
             raise RuntimeError("KV handoff import requires paged=True")
         self._refuse_sharded_handoff()
         data = decode_handoff(frame)
-        prompt = [int(t) for t in data["prompt"]]
+        prompt = [int(t) for t in data["prompt"]]  # host-ok: wire metadata
         if not 1 <= len(prompt) <= self.max_prompt_len:
             raise ValueError(
                 f"handoff prompt length {len(prompt)} outside [1, "
@@ -840,10 +840,10 @@ class InferenceEngine:
         req = Request(
             req_id=next(self._req_ids),
             prompt=prompt,
-            max_new_tokens=int(data["max_new_tokens"]),
+            max_new_tokens=int(data["max_new_tokens"]),  # host-ok: wire metadata
             stop_token=data["stop_token"],
             timeout_s=None,
-            submitted_at=float(data["submitted_at"]),
+            submitted_at=float(data["submitted_at"]),  # host-ok: wire metadata
             deadline=data["deadline"],
             tenant=data["tenant"],
             ctx=obs.current_context() or obs.new_context(),
@@ -855,7 +855,7 @@ class InferenceEngine:
         try:
             with self._step_lock:
                 _, finished = self.scheduler.admit_import(
-                    req, int(data["first"]), prompt,
+                    req, int(data["first"]), prompt,  # host-ok: wire metadata
                     export["arrays"], leaf_names=export.get("leaves"),
                 )
         except Exception:
@@ -963,22 +963,34 @@ class InferenceEngine:
         """Swap the served weights in place: ``tree`` (a ``state_dict``)
         is copied INTO the module's parameters, whose addresses the
         captured decode step holds — so the next step computes with the
-        new weights and nothing is rebuilt. This is the rollout plane's
-        write seam: callers hold ``_step_lock`` through the subscriber
-        hook, or own the engine. ``model_version`` takes ``version``.
-        The paged pool's resident prefixes are forgotten: their K/V are
-        the old weights' (requests in flight keep theirs, as in the JAX
-        engine, and do not publish them).
+        new weights and nothing is rebuilt. ``model_version`` takes
+        ``version``. The paged pool's resident prefixes are forgotten:
+        their K/V are the old weights' (requests in flight keep theirs,
+        as in the JAX engine, and do not publish them).
 
-        On an engine sharded by ``shard_serving`` rank 0 installs: it sends
-        every whole tensor of ``tree`` to the followers, and each rank
-        keeps its shard."""
+        This is the call for a caller that owns the engine and does not
+        hold ``_step_lock``; the rollout plane's subscriber hook, which
+        runs under it, calls :meth:`install_weights_held`. On an engine
+        sharded by ``shard_serving`` rank 0 installs: it takes
+        ``_step_lock`` so that no decode message goes out between the
+        weights' broadcasts, sends every whole tensor of ``tree`` to the
+        followers, and each rank keeps its shard."""
+        if self._tp is None:
+            self.install_weights_held(tree, version)
+            return
+        with self._step_lock:  # no decode message between the weights' broadcasts
+            self.install_weights_held(tree, version)
+
+    def install_weights_held(self, tree, version: Optional[int] = None) -> None:
+        """:meth:`install_weights`'s body, for a caller that holds
+        ``_step_lock`` (the step-boundary hook) or owns an unsharded
+        engine. It never takes the lock, so the hook cannot re-enter it."""
         if self._tp is None:
             with torch.no_grad():
                 self.module.load_state_dict(tree)
             self._forget_prefixes()
             if version is not None:
-                self.model_version = int(version)
+                self.model_version = int(version)  # host-ok: PS version, plain int
             return
         if not self._tp_leader:
             raise RuntimeError("install_weights runs on rank 0 of a sharded engine; the "
@@ -993,10 +1005,9 @@ class InferenceEngine:
         if wrong:
             raise ValueError(f"install_weights takes the whole tensors: {wrong} differ from "
                              f"{ {k: shapes[k][0] for k in wrong} }")
-        with self._step_lock:  # no decode message between the weights' broadcasts
-            self._send("install", (version is not None, version or 0))
-            self._install_shards(tree, version)
-            self._forget_prefixes()
+        self._send("install", (version is not None, version or 0))
+        self._install_shards(tree, version)
+        self._forget_prefixes()
 
     def _forget_prefixes(self) -> None:
         """After a weight install no request admits by refcount onto K/V
@@ -1031,7 +1042,7 @@ class InferenceEngine:
         with torch.no_grad():
             self.module.load_state_dict(self.module._tensor_parallel.local_state(full))
         if version is not None:
-            self.model_version = int(version)
+            self.model_version = int(version)  # host-ok: PS version, plain int
 
     def result(
         self, req_id: int, timeout_s: Optional[float] = None

@@ -114,6 +114,12 @@ def fetch(staged: Staged) -> np.ndarray:
     return staged.host.numpy()
 
 
+def fetch_ints(staged: Staged) -> list:
+    """``fetch`` converted to (nested) python ints, for callers that read
+    lanes and scalars off the copy."""
+    return fetch(staged).tolist()
+
+
 def fetch_tensor(staged: Staged) -> torch.Tensor:
     """``fetch`` returning the host copy as a CPU tensor (for dtypes NumPy
     has no name for, such as bfloat16)."""

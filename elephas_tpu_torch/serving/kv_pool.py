@@ -505,7 +505,7 @@ class PagedKVPool(KVCachePool):
         if last is None:
             return  # slot never owned: nothing to attribute
         now = self._cost_clock()
-        blocks = int((self.table.rows[slot] >= 0).sum())
+        blocks = int((self.table.rows[slot] >= 0).sum())  # host-ok: numpy table
         seconds = (now - last) * blocks
         self._billed_at[slot] = now
         if seconds > 0.0 or cow:
@@ -564,7 +564,7 @@ class PagedKVPool(KVCachePool):
             return
         row = self.table.rows[slot]
         nfull = len(prompt) // self.block_size
-        blocks = [int(row[i]) for i in range(nfull)]
+        blocks = [int(row[i]) for i in range(nfull)]  # host-ok: numpy table
         assert all(b >= 0 for b in blocks), (
             f"slot {slot}: prompt columns not fully backed at commit")
         self.prefix.insert(tuple(prompt)[:nfull * self.block_size],
@@ -598,7 +598,7 @@ class PagedKVPool(KVCachePool):
         never triggers the copy; ``fork_slot`` aliases do. Returns the
         (possibly fresh) physical block id."""
         i = col // self.block_size
-        block = int(self.table.rows[slot, i])
+        block = int(self.table.rows[slot, i])  # host-ok: numpy table
         if block < 0:
             raise ValueError(f"slot {slot} column {col} is unallocated")
         if self._ref[block] == 1:
@@ -629,8 +629,8 @@ class PagedKVPool(KVCachePool):
         self._slot_epoch[child] = self._slot_epoch.get(parent)
         for i, b in enumerate(self.table.rows[parent]):
             if b >= 0:
-                self._incref(int(b))
-                self.table.set(child, i, int(b))
+                self._incref(int(b))  # host-ok: numpy table
+                self.table.set(child, i, int(b))  # host-ok: numpy table
         if parent in self._owner:
             self.set_slot_owner(child, self._owner[parent])
         return child
@@ -653,17 +653,17 @@ class PagedKVPool(KVCachePool):
         self._billed_at.pop(slot, None)
         row = self.table.rows[slot]
         if tokens is not None and self._publishes(slot):
-            backed = int((row >= 0).sum())
+            backed = int((row >= 0).sum())  # host-ok: numpy table
             nfull = min(len(tokens) // self.block_size, backed)
             if nfull > 0:
                 self.prefix.insert(
                     tuple(tokens)[:nfull * self.block_size],
-                    [int(row[i]) for i in range(nfull)],
+                    [int(row[i]) for i in range(nfull)],  # host-ok: numpy table
                     self._incref,
                 )
         for b in row:
             if b >= 0:
-                self._decref(int(b))
+                self._decref(int(b))  # host-ok: numpy table
         self.table.clear_row(slot)
         self._free.append(slot)
         self._mirror_push()
@@ -711,14 +711,14 @@ class PagedKVPool(KVCachePool):
         if slot in self._free:
             raise ValueError(f"slot {slot} is free; nothing to export")
         row = self.table.rows[slot]
-        n = int((row >= 0).sum())
+        n = int((row >= 0).sum())  # host-ok: numpy table
         if n == 0:
             raise ValueError(f"slot {slot} has no resident blocks")
         self._bill_slot(slot)
         self._owner.pop(slot, None)
         self._billed_at.pop(slot, None)
         names, leaves = self._kv_leaf_names()
-        ids = host_sync.upload(np.asarray(row[:n], np.int64), self.device)
+        ids = host_sync.upload(np.asarray(row[:n], np.int64), self.device)  # host-ok: numpy table
         with torch.no_grad():
             host = host_sync.fetch_tensor(host_sync.stage(
                 torch.stack([leaf.index_select(0, ids) for leaf in leaves])))
@@ -762,7 +762,7 @@ class PagedKVPool(KVCachePool):
                       else torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
         except TypeError as exc:
             raise ValueError(f"handoff leaf has no tensor dtype: {exc}") from exc
-        n_blocks = int(arrays[0].shape[0]) if arrays else 0
+        n_blocks = int(arrays[0].shape[0]) if arrays else 0  # host-ok: host array
         for name, leaf, arr in zip(names, leaves, arrays):
             want = (n_blocks,) + tuple(leaf.shape[1:])
             if tuple(arr.shape) != want:
@@ -801,12 +801,12 @@ class PagedKVPool(KVCachePool):
             # Out of blocks mid-import: unwind every reference this
             # import took so the slot releases clean.
             for i in range(start + len(fresh)):
-                self._decref(int(self.table.rows[slot][i]))
+                self._decref(int(self.table.rows[slot][i]))  # host-ok: numpy table
             self.table.clear_row(slot)
             raise
         # matched < len(tokens) (a match is strictly shorter), so at least
         # one block always uploads.
-        ids = host_sync.upload(np.asarray(fresh, np.int64), self.device)
+        ids = host_sync.upload(np.asarray(fresh, np.int64), self.device)  # host-ok: host list
         payload = host_sync.upload(
             torch.stack([a[start:].contiguous() for a in arrays]), self.device)
         with torch.no_grad():

@@ -499,7 +499,7 @@ class ContinuousBatchingScheduler:
                 continue
             plen = len(req.prompt)
             pad = self.max_prompt_len - plen
-            padded = np.asarray(
+            padded = np.asarray(  # host-ok: host prompt list
                 [[self.pad_token] * pad + list(req.prompt)], np.int64
             )
             t_pre0 = self.clock()
@@ -594,7 +594,7 @@ class ContinuousBatchingScheduler:
         self.pool.ensure_cols(pf.slot, start + valid)
         chunk = list(req.prompt[start:start + valid])
         chunk += [self.pad_token] * (self.prefill_chunk - valid)
-        tokens = np.asarray([chunk], np.int64)
+        tokens = np.asarray([chunk], np.int64)  # host-ok: host prompt list
         pf.first_dev = self.chunk_prefill_fn(tokens, pf.slot, start, valid)
         pf.next_col = start + valid
         if pf.next_col >= plen:
@@ -952,8 +952,8 @@ class ContinuousBatchingScheduler:
         ]
         if not live:
             return 0
-        em = host_sync.fetch(inflight.spec_emitted)    # (S, gamma+1)
-        ac = host_sync.fetch(inflight.spec_accepted)   # (S,)
+        em = host_sync.fetch_ints(inflight.spec_emitted)    # (S, gamma+1)
+        ac = host_sync.fetch_ints(inflight.spec_accepted)   # (S,)
         now = self.clock()
         if self.metrics is not None:
             self.metrics.record_overlap(now - inflight.dispatched_at)
@@ -964,14 +964,14 @@ class ContinuousBatchingScheduler:
         emitted = 0
         accepted_sum = 0
         for slot, entry in live:
-            a = int(ac[slot])
+            a = ac[slot]
             accepted_sum += a
             entry.steps += 1
             entry.next_col += a + 1
             finished = False
             lane_emitted = 0
             for off in range(a + 1):
-                tok = int(em[slot, off])
+                tok = em[slot][off]
                 entry.tokens.append(tok)
                 entry.token_times.append(now)
                 emitted += 1

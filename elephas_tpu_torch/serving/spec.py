@@ -123,7 +123,7 @@ class SelfDraftSource(DraftSource):
     kind = "self"
 
     def __init__(self, layers: int):
-        self.layers = int(layers)
+        self.layers = int(layers)  # host-ok: constructor arg
         self.module = None
         self._engine = None
 
@@ -165,7 +165,7 @@ class DraftModelSource(DraftSource):
             )
         self._raw_module = module
         self.client = client
-        self.refresh_every = int(refresh_every)
+        self.refresh_every = int(refresh_every)  # host-ok: constructor arg
         self.subscribed = bool(subscribed)
         self.module = None
         self._engine = None
@@ -243,7 +243,7 @@ class SpeculativeDecoder:
             raise ValueError(f"gamma must be >= 1, got {gamma}")
         self.engine = engine
         self.source = source
-        self.gamma = int(gamma)
+        self.gamma = int(gamma)  # host-ok: constructor arg
         source.bind(engine)
         self.draft_traces = 0
         self.verify_traces = 0
@@ -488,8 +488,8 @@ class SpeculativeDecoder:
             return
         if not self._params(where="prefill"):
             return
-        host = np.concatenate([np.asarray([slot, start, valid], np.int64),
-                               np.asarray(tokens, np.int64).reshape(-1)])
+        host = np.concatenate([np.asarray([slot, start, valid], np.int64),  # host-ok: host ints
+                               np.asarray(tokens, np.int64).reshape(-1)])  # host-ok: host chunk
         host_sync.upload(host, self.engine.device, out=self._prefill_inputs)
         if self._draft_prefill_step is None:
             # Warmed up on this chunk itself: running it again writes the

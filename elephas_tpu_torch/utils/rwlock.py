@@ -9,37 +9,47 @@ it, so pull-heavy Downpour loops cannot starve the merge thread. The
 reference's ``acquire_read`` / ``acquire_write`` / ``release`` are kept,
 with context-manager helpers, which is what the engine uses.
 
-The condition's mutex comes from ``utils.locksan.make_lock``: a plain
-lock normally, an order-checked one under the sanitizer. The JAX
-package also tracks the whole lock as one node of the order graph while
-a side is held (``locksan.rw_acquire``); those read-write hooks arrive
-with the rest of the sanitizer (ROADMAP.md queue 1, item 7).
+Under the runtime sanitizer (``utils.locksan``) a NAMED lock is one
+node of the order graph while either side is held: ``acquire_read`` /
+``acquire_write`` order-check the name before blocking
+(``locksan.rw_acquire``) and ``release`` pops it
+(``locksan.rw_release``). The condition's own mutex stays a plain
+``threading.Lock``: it is released before the caller's critical section
+runs, so it can never take part in an inversion.
 """
 
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
+from typing import Optional
 
 from elephas_tpu_torch.utils import locksan
 
 
 class RWLock:
-    """Writer-preferring readers-writer lock with the reference's API."""
+    """Writer-preferring readers-writer lock with the reference's API.
 
-    def __init__(self, name: str = "RWLock._cond"):
-        self._cond = threading.Condition(locksan.make_lock(name))
+    ``name`` opts the lock into the sanitizer under its static identity
+    (the ``Class.attr`` the analyzer derives); an unnamed lock is
+    untracked."""
+
+    def __init__(self, name: Optional[str] = None):
+        self._cond = threading.Condition(threading.Lock())
         self._readers = 0
         self._writer = False
         self._writers_waiting = 0
+        self._san_name = name
 
     def acquire_read(self):
+        locksan.rw_acquire(self._san_name, write=False)
         with self._cond:
             while self._writer or self._writers_waiting:
                 self._cond.wait()
             self._readers += 1
 
     def acquire_write(self):
+        locksan.rw_acquire(self._san_name, write=True)
         with self._cond:
             self._writers_waiting += 1
             try:
@@ -59,6 +69,7 @@ class RWLock:
             else:
                 raise RuntimeError("release() without a held lock")
             self._cond.notify_all()
+        locksan.rw_release(self._san_name)
 
     @contextmanager
     def reading(self):

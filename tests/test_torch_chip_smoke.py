@@ -339,8 +339,8 @@ def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
     assert phases == ["kernel_phase", "inference_phase", "train_phase", "seq_parallel_phase",
                       "tensor_parallel_phase", "resnet_phase", "repair_phase", "serving_phase",
                       "spec_handoff_phase", "fleet_phase", "async_phase", "async_multiproc_phase",
-                      "ops_phase", "estimator_phase", "search_phase", "fit_slice_phase",
-                      "chaos_phase"]
+                      "ops_phase", "estimator_phase", "locksan_phase", "search_phase",
+                      "fit_slice_phase", "chaos_phase"]
     assert "launches['search'], report = search_phase(attention_cuda)" in source
     assert source.index("estimator: ") < source.index("search: ") < source.index("'kernels'")
     last = source[source.index("'ok': True"):]
@@ -1087,3 +1087,77 @@ def test_the_fleet_phase_runs_on_the_cpu_at_a_small_size(smoke, monkeypatch):
                                            "rolled_back"]
     assert all(p["rounds"] >= 3 and not p["bad"] for p in report["rollout"]["ops"])
     assert report["mid_swap"]["changed"] > 0
+
+
+# -- the lock-sanitizer phase ---------------------------------------------------------
+
+
+def test_main_runs_the_locksan_phase_after_the_fleet_and_async_phases():
+    """``locksan_phase`` runs after the fleet and async phases, keeps its
+    launches under ``"locksan"`` (so the kernel line lists this path's
+    zeros) and prints its report before the kernel line and the last
+    line."""
+    source, phases = _main_source()
+    at = phases.index("locksan_phase")
+    assert phases.index("fleet_phase") < at and phases.index("async_phase") < at
+    assert "launches['locksan'], report = locksan_phase(attention_cuda)" in source
+    assert source.index("fleet: ") < source.index("async: ") < source.index("locksan: ") \
+        < source.index("'kernels'") < source.index("'ok': True")
+
+
+def test_locksan_config(smoke):
+    """The fleet phase's LM at a smaller depth (the registry's is 4), its
+    engine and traffic in rounds of the rollout's 8, config 2's CNN over
+    4 workers for one epoch, and the edge the repaired RWLock must show."""
+    from elephas_tpu_torch.utils import locksan
+
+    assert smoke.LOCKSAN_LAYERS < 4 and smoke.LOCKSAN_ROUND == smoke.FLEET_ROLLOUT_REQUESTS == 8
+    assert smoke.LOCKSAN_REQUESTS % smoke.LOCKSAN_ROUND == 0
+    assert smoke.ASYNC_WORKERS == 4 and smoke.LOCKSAN_CNN_EPOCHS == 1
+    assert smoke.LOCKSAN_EDGE == ("ParameterBuffer._lock", "ParameterBuffer._version_guard")
+    assert locksan.ANALYSIS_PATH == ROOT / "ANALYSIS_TORCH.json"
+
+
+def test_order_cycle_and_blind_spots_on_a_hand_made_graph(smoke):
+    """The phase's helpers: a cycle only across the two graphs together
+    is found (and none without the closing edge), and the blind spots
+    are the observed edges the static graph lacks, sorted."""
+    static = {"A": {"B"}, "B": {"C"}}
+    assert smoke.order_cycle({"X": {"Y"}}, static) is None
+    cycle = smoke.order_cycle({"C": {"A"}}, static)
+    assert cycle[0] == cycle[-1] and set(cycle) == {"A", "B", "C"} and len(cycle) == 4
+    assert smoke.order_cycle({}, {"A": {"A"}}) == ["A", "A"]
+    assert smoke.blind_spots({"A": {"B", "D"}, "E": {"A"}}, static) == [["A", "D"], ["E", "A"]]
+    assert smoke.blind_spots({"A": {"B"}}, static) == []
+
+
+def test_the_locksan_phase_runs_on_the_cpu_at_a_small_size(smoke, monkeypatch):
+    """The whole sanitized phase on the CPU: a 2-layer LM of width 32, 8
+    requests on two replicas in rounds of 4, one promotion, config 2's
+    CNN on 512 rows over 4 socket workers. No inversion, order checks
+    made, the buffer's RWLock -> version-guard edge observed, no cycle,
+    the sanitizer off afterwards, the plain fleet's streams the
+    sanitized one's, no flash launch."""
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.ops import attention_cuda
+    from elephas_tpu_torch.utils import locksan
+
+    for name, value in (("ASYNC_CNN_ROWS", (512, 128)), ("LOCKSAN_ROUND", 4),
+                        ("FLEET_ROLLOUT_REQUESTS", 4)):
+        monkeypatch.setattr(smoke, name, value)
+    model = get_model("transformer_lm", device="cpu", vocab_size=97, d_model=32, num_heads=4,
+                      num_layers=2, max_seq_len=48)
+    rng = np.random.default_rng(0)
+    traffic = [(rng.integers(1, 97, int(rng.integers(4, 13))).tolist(), int(rng.integers(12, 17)))
+               for _ in range(8)]
+    engine_kw = {"max_slots": 4, "max_prompt_len": 12, "max_len": 32, "queue_depth": 64,
+                 "kv_block_size": 4, "prefill_chunk": 8, "prefill_chunks_per_step": 2,
+                 "prefix_cache": True}
+    launches, report = smoke.locksan_phase(attention_cuda, model=model, traffic=traffic,
+                                           engine_kw=engine_kw, device="cpu")
+    assert not locksan.enabled()
+    assert launches == {name: 0 for name in smoke.KERNELS}
+    assert report["inversions"] == [] and report["checks"] > 0 and report["cycle"] is None
+    assert report["static_edges"] > 0 and report["observed_edges"] >= 1
+    assert report["rollout"]["versions"] == {"r0": 1, "r1": 1}
+    assert report["plain_vs_sanitized"]["identical"] == len(traffic)

@@ -21,6 +21,17 @@ from elephas_tpu.obs import fleet as jax_fleet
 from elephas_tpu.obs import MetricsRegistry as JaxRegistry
 from elephas_tpu_torch.obs import FlightRecorder, MetricsRegistry, OpsServer, Tracer
 from elephas_tpu_torch.obs import fleet
+from elephas_tpu_torch.utils import locksan
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_sanitizer(request):
+    """The suite runs with the port's lock sanitizer on, seeded from
+    ANALYSIS_TORCH.json (``locksan.SANITIZED_SUITES``): module fixtures
+    included, so the scenarios they run are order-checked too."""
+    with locksan.sanitized_suite(request.module.__name__):
+        yield
+
 
 FLEETS = {"jax": jax_fleet, "port": fleet}
 

@@ -40,6 +40,17 @@ from elephas_tpu_torch import serving
 from elephas_tpu_torch.convert import from_flax_params
 from elephas_tpu_torch.models import get_model
 from elephas_tpu_torch.serving import fleet
+from elephas_tpu_torch.utils import locksan
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_sanitizer(request):
+    """The suite runs with the port's lock sanitizer on, seeded from
+    ANALYSIS_TORCH.json (``locksan.SANITIZED_SUITES``): module fixtures
+    included, so the scenarios they run are order-checked too."""
+    with locksan.sanitized_suite(request.module.__name__):
+        yield
+
 
 VOCAB, SEQ = 97, 64
 NEAR_TIE = 1e-4

@@ -19,6 +19,17 @@ import pytest
 import torch
 
 from elephas_tpu_torch.parameter.buffer import ParameterBuffer
+from elephas_tpu_torch.utils import locksan
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_sanitizer(request):
+    """The suite runs with the port's lock sanitizer on, seeded from
+    ANALYSIS_TORCH.json (``locksan.SANITIZED_SUITES``): module fixtures
+    included, so the scenarios they run are order-checked too."""
+    with locksan.sanitized_suite(request.module.__name__):
+        yield
+
 
 N_THREADS = 8
 N_UPDATES = 150  # per thread; integer-valued f32 stays exact far past this

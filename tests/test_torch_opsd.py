@@ -24,6 +24,16 @@ from elephas_tpu.obs import opsd as jax_opsd
 from elephas_tpu_torch import obs as torch_obs
 from elephas_tpu_torch.obs import devprof as torch_devprof
 from elephas_tpu_torch.obs import opsd as torch_opsd
+from elephas_tpu_torch.utils import locksan
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_sanitizer(request):
+    """The suite runs with the port's lock sanitizer on, seeded from
+    ANALYSIS_TORCH.json (``locksan.SANITIZED_SUITES``): module fixtures
+    included, so the scenarios they run are order-checked too."""
+    with locksan.sanitized_suite(request.module.__name__):
+        yield
 
 
 def _get(url, timeout=5.0):

@@ -41,6 +41,16 @@ from elephas_tpu_torch.parameter.client import (
 from elephas_tpu_torch.parameter.server import AdmissionPolicy, _scale_tree, make_server
 from elephas_tpu_torch.resilience.liveness import FailureDetector
 from elephas_tpu_torch.utils.rwlock import RWLock
+from elephas_tpu_torch.utils import locksan
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lock_sanitizer(request):
+    """The suite runs with the port's lock sanitizer on, seeded from
+    ANALYSIS_TORCH.json (``locksan.SANITIZED_SUITES``): module fixtures
+    included, so the scenarios they run are order-checked too."""
+    with locksan.sanitized_suite(request.module.__name__):
+        yield
 
 
 def _tree(seed):

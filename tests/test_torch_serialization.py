@@ -245,7 +245,13 @@ def test_save_and_load_spark_model_across_packages(tmp_path):
                                jax_model.evaluate(x, labels)["loss"], rtol=1e-5)
 
 
-def test_keras_models_still_raise_naming_the_bridge():
+def test_keras_models_still_raise_naming_the_bridge(monkeypatch):
+    """A Keras model now goes to the Keras bridge, whose refusal of a
+    backend other than torch names the ingestion (keras itself is not
+    imported here: this process may hold it on another backend)."""
+    from elephas_tpu_torch.serialize import keras_bridge
+
+    monkeypatch.setattr(keras_bridge, "_keras_backend", lambda: "jax")
     Keras = type("Model", (), {"__module__": "keras.src.models"})
-    with pytest.raises(NotImplementedError, match="Keras bridge"):
-        et.SparkModel(Keras())
+    with pytest.raises(ValueError, match="Keras ingestion needs the torch backend"):
+        et.SparkModel(Keras(), device="cpu")

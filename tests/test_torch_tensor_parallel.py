@@ -312,8 +312,20 @@ def test_specs_with_no_torch_layout_raise(path, spec):
 
 
 def test_keras_param_rules_names_item_3():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tp.keras_param_rules(None, tp.LM_RULES)
+    """Item 3's Keras bridge is ported: rules over Keras variable paths
+    become rules over the bridge's ``v{i}`` keys, the table the JAX
+    package's ``keras_param_rules`` gives for the same variables."""
+    from types import SimpleNamespace
+
+    from elephas_tpu.parallel import tensor_parallel as jax_tp
+
+    paths = ("sequential/dense/kernel", "sequential/dense/bias", "sequential/dense_1/kernel")
+    model = SimpleNamespace(trainable_variables=[SimpleNamespace(path=p) for p in paths])
+    rules = ((r".*/dense/kernel$", (None, MODEL_AXIS)), (r".*/dense_1/kernel$", (MODEL_AXIS, None)))
+    got = tp.keras_param_rules(model, tuple((pat, tp.P(*spec)) for pat, spec in rules))
+    assert got == ((r"^v0$", tp.P(None, MODEL_AXIS)), (r"^v2$", tp.P(MODEL_AXIS, None)))
+    want = jax_tp.keras_param_rules(model, tuple((pat, JaxP(*spec)) for pat, spec in rules))
+    assert [(k, tuple(v)) for k, v in got] == [(k, tuple(v)) for k, v in want]
 
 
 def test_decode_cache_specs_shard_heads_of_both_pools():
