@@ -82,10 +82,20 @@ Phases, in order; any failed check raises and the process exits non-zero:
    one (K1-K3 at head_dim 32 on zero-padded columns), head_dim 16 and
    80, float16 and float64 (the float32 kernels), a strided view, 65600
    (batch, head) pairs and a caller's block sizes; head_dim 16 timed
-   against SDPA; and head_dim 256 at (2, 4, 512, 256), which no kernel
+   against SDPA; and head_dim 512 at (2, 4, 512, 512), which no kernel
    holds: ``flash_attention`` and the ring's hop helpers on the plain
    path on the card against the CPU at K1-K3's limits, launching
-   nothing;
+   nothing, and the rule raising at seq 4096;
+7b. the wide-head phase (``wide_head_phase``): K1-K3 at head_dim 256
+   in float32 and bf16 at (2, 8, 4096, 256) causal (timed beside their
+   bounds, plain versions and SDPA) and (1, 8, 2048, 256) full against
+   their plain versions; head_dim 192 through ``flash_attention`` on
+   zero columns; the ring's hop helpers at (2, 8, 1024, 256) with a
+   global lse and delta; then a full-width head_dim-256 LM (d_model 2048,
+   8 heads, 4 layers, 340,929,792 parameters) at 2 x 4096 tokens: 3 f32
+   Adam steps against its dense twin (losses, first gradients), 4
+   launches of each kernel a step, a bf16 step, scoring and train
+   tokens/s;
 8. the serving phase (``serving_phase``): ``InferenceEngine`` serving
    the full-width LM in float32 from the default paged pool (64-column
    blocks, prefix cache, 128-token prefill chunks at 2 a step, the
@@ -452,10 +462,25 @@ REPAIR_LOSS_ATOL, REPAIR_GRAD_RTOL = 1e-4, 1e-3  # head_dim 16 LM, flash vs dens
 # float16, as the plain version does: one float16 rounding (2^-11 of the
 # value) either side, relative to max(1, max |reference|).
 REPAIR_F16_LIMITS = {"o": 2e-3, "grads": 2e-3}
-# head_dim 256 (d_model 2048 over 8 heads): no kernel instance holds it,
-# so the plain versions run on the card, held to the CPU's at K1-K3's
-# limits (TOL, TOL_BWD) and launching nothing.
-REPAIR_WIDE = (2, 4, 512, 256)
+# head_dim 512: no kernel instance holds it, so below WIDE_HEAD_MIN_SEQ
+# the plain versions run on the card, held to the CPU's at K1-K3's limits
+# (TOL, TOL_BWD) and launching nothing.
+REPAIR_WIDE = (2, 4, 512, 512)
+
+# Wide-head phase: K1-K3 at head_dim 256 (kernel_case; the first case
+# timed), head_dim 192 on their zero columns, the ring's hop helpers, and
+# a full-width head_dim-256 LM: 8 heads of 256 (Gemma-2B's attention
+# width, d_model 2048) in the registry's LM, 4 layers, at 2 x 4096 tokens,
+# the length where the JAX package runs Pallas at that head_dim.
+WIDE_CASES = (((2, 8, 4096, 256), True), ((1, 8, 2048, 256), False))
+WIDE_ROUTE = (2, 4, 1000, 192)
+WIDE_HOP = (2, 8, 1024, 256)
+WIDE_LM = {"vocab_size": 32000, "d_model": 2048, "num_heads": 8, "num_layers": 4,
+           "max_seq_len": 4096}
+WIDE_PARAMS = 340_929_792
+WIDE_BATCH = (2, 4096)
+WIDE_STEPS = 3                     # f32 Adam steps against the dense twin
+WIDE_LOSS_RTOL = 1e-4              # flash vs dense f32 loss, each step, relative
 
 # Serving phase: the registry's full-width LM behind InferenceEngine.
 # The KV pool is 16 slots x 1024 columns x 4 layers x (K, V) x 8 heads x
@@ -881,13 +906,24 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def wall_ms(fn):
+    """``fn()`` and its milliseconds on the host's clock, the card
+    synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def kernel_case(attention_cuda, shape, causal, dtype, gen, timed=False):
     """K1 against ``blockwise_reference`` and K2/K3 against
     ``flash_backward_reference`` at one case, the plain versions at each
     kernel's own tiling (a disagreement raises). Returns each kernel's max
     error, K2's and K3's worst norm errors (whole, worst 64-row block)
-    and, ``timed``, each kernel's timing beside its plain version, SDPA
-    and its bounds."""
+    and, ``timed``, each kernel's timing beside its plain version (the
+    wall time of the check's own call: the plain versions are bound by
+    the host, one launch a small op), SDPA and its bounds."""
     from elephas_tpu_torch.ops.attention import (
         blockwise_reference,
         flash_backward_reference,
@@ -901,7 +937,9 @@ def kernel_case(attention_cuda, shape, causal, dtype, gen, timed=False):
     dq = attention_cuda.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = attention_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
-    ref_o, ref_lse = blockwise_reference(q, k, v, causal, *tiles["flash_fwd"])
+    with torch.inference_mode():
+        (ref_o, ref_lse), plain_fwd_ms = wall_ms(
+            lambda: blockwise_reference(q, k, v, causal, *tiles["flash_fwd"]))
     err_o = (o.float() - ref_o.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     tol_o, tol_lse = TOL[dtype]
@@ -914,11 +952,14 @@ def kernel_case(attention_cuda, shape, causal, dtype, gen, timed=False):
     norms = {"flash_dq": [0.0, 0.0], "flash_dkv": [0.0, 0.0]}
 
     # K2's dq and K3's dk, dv each from the plain version at its tiling.
-    ref = dict(zip(("dq", "dk", "dv"), flash_backward_reference(
-        q, k, v, o, lse, do, causal, *tiles["flash_dq"])))
-    if tiles["flash_dkv"] != tiles["flash_dq"]:
-        ref["dk"], ref["dv"] = flash_backward_reference(
-            q, k, v, o, lse, do, causal, *tiles["flash_dkv"])[1:]
+    with torch.inference_mode():
+        grads, plain_bwd_ms = wall_ms(lambda: flash_backward_reference(
+            q, k, v, o, lse, do, causal, *tiles["flash_dq"]))
+        ref = dict(zip(("dq", "dk", "dv"), grads))
+        if tiles["flash_dkv"] != tiles["flash_dq"]:
+            grads, plain_bwd_ms = wall_ms(lambda: flash_backward_reference(
+                q, k, v, o, lse, do, causal, *tiles["flash_dkv"]))
+            ref["dk"], ref["dv"] = grads[1:]
     parts = []
     for name, label, got in (("flash_dq", "dq", dq), ("flash_dkv", "dk", dk),
                              ("flash_dkv", "dv", dv)):
@@ -946,15 +987,12 @@ def kernel_case(attention_cuda, shape, causal, dtype, gen, timed=False):
     exp_floor = exp_floor_ms(shape, causal, sms, max_clock)
     timing = {"flash_fwd": {
         "ms": cuda_ms(lambda: attention_cuda.flash_fwd(q, k, v, causal), 20),
-        "plain_ms": cuda_ms(lambda: blockwise_reference(
-            q, k, v, causal, *tiles["flash_fwd"]), 3, 1),
+        "plain_ms": plain_fwd_ms,
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal), 20),
     }}
     # The plain version and SDPA's backward each compute dq, dk and
     # dv together; SDPA's forward runs once, outside the timing.
-    plain_ms = cuda_ms(lambda: flash_backward_reference(
-        q, k, v, o, lse, do, causal, *tiles["flash_dkv"]), 3, 1)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
@@ -966,7 +1004,7 @@ def kernel_case(attention_cuda, shape, causal, dtype, gen, timed=False):
             q, k, v, do, lse, delta, causal),
     }
     for name, fn in launch.items():
-        timing[name] = {"ms": cuda_ms(fn, 20), "plain_ms": plain_ms,
+        timing[name] = {"ms": cuda_ms(fn, 20), "plain_ms": plain_bwd_ms,
                         "library_ms": library_ms}
     for name in KERNELS:
         bound, by = bounds[name]
@@ -1543,11 +1581,7 @@ def repair_phase(attention_cuda):
     from elephas_tpu_torch.api import CompiledModel
     from elephas_tpu_torch.engine.step import init_train_state, make_loss_fn, make_train_step
     from elephas_tpu_torch.models import get_model
-    from elephas_tpu_torch.ops.attention import (
-        blockwise_reference,
-        flash_attention,
-        kernel_layout,
-    )
+    from elephas_tpu_torch.ops.attention import flash_attention
 
     report = {}
     attention_cuda.reset_launches()
@@ -1560,12 +1594,6 @@ def repair_phase(attention_cuda):
                              optimizer={"name": "adam", "learning_rate": 1e-3},
                              loss="sparse_categorical_crossentropy", metrics=["acc"], seed=SEED)
 
-    def counted(fn):
-        before = dict(attention_cuda.launches)
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: attention_cuda.launches[k] - before[k] for k in KERNELS}
-
     # head_dim 16 (256 / 16 heads): flash against dense, f32, 4 of each.
     losses, grads = {}, {}
     for attention in ("flash", "dense"):
@@ -1576,7 +1604,7 @@ def repair_phase(attention_cuda):
             loss.backward()
             return loss.item()
 
-        losses[attention], launched = counted(loss_and_grads)
+        losses[attention], launched = counted(attention_cuda, loss_and_grads)
         want = {k: 4 if attention == "flash" else 0 for k in KERNELS}
         check(launched == want, f"head_dim 16 {attention} launched {launched}, expected {want}")
         grads[attention] = {}
@@ -1600,42 +1628,9 @@ def repair_phase(attention_cuda):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def held(what, shape, dtype, limits, view=None, blocks=(None, None)):
-        """flash_attention and its gradients against blockwise_reference
-        under autograd, at the tiling of the kernel that computes the
-        input; each a 1-launch forward and a 1 + 1 launch backward. The
-        inputs are (b, s, h, d) tensors viewed as (b, h, s, d) where
-        ``view`` is set. Returns the errors, max|d| / max(1, max|ref|)."""
-        make = (lambda: torch.randn(shape, device="cuda", generator=gen).to(dtype))
-        tensors = [make() for _ in range(4)]
-        if view:
-            tensors = [t.transpose(1, 2) for t in tensors]
-        head_dim, kernel_dtype = kernel_layout(shape[-1], dtype)
-        tiles = attention_cuda.kernel_tiles("flash_fwd", kernel_dtype, head_dim)
-        results = []
-        for kernels in (True, False):
-            leaves = [t.detach().clone().requires_grad_() for t in tensors[:3]]
-            if kernels:
-                out, fwd = counted(lambda: flash_attention(*leaves, True, *blocks))
-                got, bwd = counted(lambda: torch.autograd.grad(out, leaves, tensors[3]))
-            else:
-                out = blockwise_reference(*leaves, True, *tiles)[0]
-                got = torch.autograd.grad(out, leaves, tensors[3])
-            results.append((out.detach(), got))
-        (out, got), (ref_out, ref) = results
-
-        def err(a, b):
-            return ((a.double() - b.double()).abs().max() / max(1.0, b.abs().max().item())).item()
-
-        errors = {"o": err(out, ref_out), "grads": max(err(a, b) for a, b in zip(got, ref))}
-        report[what] = {**errors, "launches": [fwd, bwd], "shape": list(shape),
-                        "dtype": str(dtype)}
-        print(f"repair: {what} {tuple(shape)} {dtype}: {json.dumps(errors)} limits "
-              f"{json.dumps(limits)}; launches {fwd} then {bwd}", flush=True)
-        check(fwd == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
-              and bwd == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1},
-              f"{what} launched {fwd} then {bwd}")
-        check(not breaches(errors, limits), f"{what}: breaches {breaches(errors, limits)}")
-        return [t.detach() for t in tensors[:3]], out
+        report[what], inputs, out = held_route(attention_cuda, gen, what, shape, dtype, limits,
+                                               view, blocks)
+        return inputs, out
 
     f32 = {"o": TOL[torch.float32][0], "grads": TOL_BWD[torch.float32]}
     bf16 = {"o": TOL[torch.bfloat16][0], "grads": TOL_BWD[torch.bfloat16]}
@@ -1649,10 +1644,10 @@ def repair_phase(attention_cuda):
     inputs, own = held("caller blocks", (2, 8, 256, 32), torch.float32, f32, blocks=(16, 16))
     check(torch.equal(own, flash_attention(*inputs, True)),
           "the kernels' output moved with the caller's block sizes")
-    report["head_dim_256"] = {"shape": list(REPAIR_WIDE), **wide_head_checks(attention_cuda)}
-    print(f"repair: head_dim 256 {REPAIR_WIDE}, flash_attention and the hop helpers on the "
+    report["head_dim_512"] = {"shape": list(REPAIR_WIDE), **wide_head_checks(attention_cuda)}
+    print(f"repair: head_dim 512 {REPAIR_WIDE}, flash_attention and the hop helpers on the "
           f"plain path on the card vs the CPU, no launch: "
-          f"{json.dumps(report['head_dim_256'])}", flush=True)
+          f"{json.dumps(report['head_dim_512'])}", flush=True)
 
     # head_dim 16 at the LM's scoring shape: the kernels (at head_dim 32)
     # against the yardstick, SDPA, forward and forward + backward.
@@ -1690,7 +1685,7 @@ def repair_phase(attention_cuda):
     # head_dim 32: one LM train step still launches 4 of each kernel.
     model = lm(attention="flash")
     step, state = make_train_step(model), init_train_state(model)
-    (_, metrics), launched = counted(lambda: step(state, x, y))
+    (_, metrics), launched = counted(attention_cuda, lambda: step(state, x, y))
     check(launched == {k: 4 for k in KERNELS}, f"a head_dim 32 LM step launched {launched}")
     check(np.isfinite(float(metrics["loss"])), "head_dim 32 LM loss not finite")
     report["head_dim_32_step_launches"] = launched
@@ -1761,6 +1756,214 @@ def wide_head_checks(attention_cuda, shape=REPAIR_WIDE, device="cuda"):
               f"head_dim {shape[-1]} {dtype}: breaches {breaches(errors, limits)}")
         results[str(dtype)] = errors
     return results
+
+
+def counted(attention_cuda, fn):
+    """``fn()`` and the launches of each kernel it made, the card
+    synchronized after it."""
+    before = dict(attention_cuda.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: attention_cuda.launches[k] - before[k] for k in KERNELS}
+
+
+def held_route(attention_cuda, gen, what, shape, dtype, limits, view=None, blocks=(None, None),
+               phase="repair"):
+    """``flash_attention`` and its gradients on CUDA inputs of ``shape``
+    against ``blockwise_reference`` under autograd, at the tiling of the
+    kernel that computes the input (``kernel_layout``); each a 1-launch
+    forward and a 1 + 1 launch backward, the errors, max|d| / max(1,
+    max|ref|), within ``limits``. The inputs are (b, s, h, d) tensors
+    viewed as (b, h, s, d) where ``view`` is set. Returns the record
+    (errors, launches, shape, dtype), the inputs and the output."""
+    from elephas_tpu_torch.ops.attention import blockwise_reference, flash_attention, kernel_layout
+
+    make = (lambda: torch.randn(shape, device="cuda", generator=gen).to(dtype))
+    tensors = [make() for _ in range(4)]
+    if view:
+        tensors = [t.transpose(1, 2) for t in tensors]
+    head_dim, kernel_dtype = kernel_layout(shape[-1], dtype)
+    tiles = attention_cuda.kernel_tiles("flash_fwd", kernel_dtype, head_dim)
+    results = []
+    for kernels in (True, False):
+        leaves = [t.detach().clone().requires_grad_() for t in tensors[:3]]
+        if kernels:
+            out, fwd = counted(attention_cuda, lambda: flash_attention(*leaves, True, *blocks))
+            got, bwd = counted(attention_cuda,
+                               lambda: torch.autograd.grad(out, leaves, tensors[3]))
+        else:
+            out = blockwise_reference(*leaves, True, *tiles)[0]
+            got = torch.autograd.grad(out, leaves, tensors[3])
+        results.append((out.detach(), got))
+    (out, got), (ref_out, ref) = results
+
+    def err(a, b):
+        return ((a.double() - b.double()).abs().max() / max(1.0, b.abs().max().item())).item()
+
+    errors = {"o": err(out, ref_out), "grads": max(err(a, b) for a, b in zip(got, ref))}
+    print(f"{phase}: {what} {tuple(shape)} {dtype}: {json.dumps(errors)} limits "
+          f"{json.dumps(limits)}; launches {fwd} then {bwd}", flush=True)
+    check(fwd == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
+          and bwd == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1},
+          f"{what} launched {fwd} then {bwd}")
+    check(not breaches(errors, limits), f"{what}: breaches {breaches(errors, limits)}")
+    record = {**errors, "launches": [fwd, bwd], "shape": list(shape), "dtype": str(dtype)}
+    return record, [t.detach() for t in tensors[:3]], out
+
+
+def wide_head_phase(attention_cuda):
+    """The head_dim-256 instances of K1-K3 (``WIDE_CASES``, held against
+    their plain versions; the first case timed), head_dim 192 on zero
+    columns (``WIDE_ROUTE``), the ring's hop helpers at ``WIDE_HOP``, then
+    the full-width head_dim-256 LM (``WIDE_LM``) at ``WIDE_BATCH``: f32
+    first gradients and ``WIDE_STEPS`` Adam steps against its dense twin,
+    a bf16 step, scoring, each launching 4 of each kernel a step (4 K1 a
+    forward). The launch counts are set to 0 before the LM's run and read
+    after it. Returns them, the timing at the first case by dtype, the
+    kernels' worst errors by dtype, and a report."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.engine.step import init_train_state, make_loss_fn, make_train_step
+    from elephas_tpu_torch.metrics import mfu, peak_flops, transformer_flops_per_token
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.ops.attention import WIDE_HEAD_MIN_SEQ, takes_kernels
+
+    t_phase = time.perf_counter()
+    report = {}
+    check(takes_kernels(256, WIDE_HEAD_MIN_SEQ, "cuda") and takes_kernels(129, 64, "cuda"),
+          "head_dim 129-256 is not routed to the kernels on the card")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    errors = {name: {torch.float32: 0.0, torch.bfloat16: 0.0} for name in KERNELS}
+    timing = {}
+    for shape, causal in WIDE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            timed = shape == WIDE_CASES[0][0]
+            errs, norms, times = kernel_case(attention_cuda, shape, causal, dtype, gen,
+                                             timed=timed)
+            for name in KERNELS:
+                errors[name][dtype] = max(errors[name][dtype], errs[name])
+            if timed:
+                timing[dtype] = times
+    report["route_192"] = {
+        str(dtype): held_route(attention_cuda, gen, "head_dim 192 on zero columns", WIDE_ROUTE,
+                               dtype, {"o": TOL[dtype][0], "grads": TOL_BWD[dtype]},
+                               phase="wide_head")[0]
+        for dtype in (torch.float32, torch.bfloat16)}
+    report["hop"] = hop_checks(attention_cuda, shape=WIDE_HOP, phase="wide_head")
+    report["kernel_case_s"] = time.perf_counter() - t_phase
+
+    rng = np.random.default_rng(SEED)
+    batch, seq = WIDE_BATCH
+    tokens = torch.as_tensor(rng.integers(0, WIDE_LM["vocab_size"], (batch, seq + 1)),
+                             device="cuda")
+    x, y = tokens[:, :-1], tokens[:, 1:]
+
+    def compiled(attention, dtype="float32", params=None):
+        return CompiledModel(get_model("transformer_lm", attention=attention, dtype=dtype,
+                                       **WIDE_LM), params,
+                             optimizer={"name": "adam", "learning_rate": 1e-3},
+                             loss="sparse_categorical_crossentropy", metrics=["acc"], seed=SEED)
+
+    def first_grads(model):
+        """One loss and its gradients; the key third of each qkv bias is
+        left out (its exact gradient is 0, so what is left is rounding)."""
+        loss, _ = make_loss_fn(model)(x, y)
+        loss.backward()
+        grads = {}
+        for n, p in model.module.named_parameters():
+            g = p.grad
+            if n.endswith("attn.qkv.bias"):
+                third = len(g) // 3
+                g = torch.cat([g[:third], g[2 * third:]])
+            grads[n] = g.detach().clone()
+            p.grad = None
+        return loss.item(), grads
+
+    def steps(model, count):
+        step, state = make_train_step(model), init_train_state(model)
+        losses, times = [], []
+        for _ in range(count):
+            (state, metrics), ms = wall_ms(lambda: step(state, x, y))
+            losses.append(float(metrics["loss"]))
+            times.append(ms)
+        return losses, times
+
+    def score(model):
+        """Two scoring forwards, the second timed; the logits checked."""
+        logits = model.apply_eval(x)
+        check(tuple(logits.shape) == (batch, seq, WIDE_LM["vocab_size"])
+              and bool(torch.isfinite(logits).all()),
+              "head_dim-256 logits not finite or misshapen")
+        del logits
+        return wall_ms(lambda: model.apply_eval(x))[1]
+
+    def record(dtype, losses, times, score_ms):
+        step_ms = times[-1]  # the last step: the first ones warm the allocator
+        report[f"lm_{dtype}"] = {
+            "losses": losses, "step_ms": step_ms,
+            "train_tokens_per_s": batch * seq / step_ms * 1e3,
+            "mfu_vs_bf16_peak": mfu(batch * seq / step_ms * 1e3, fpt, peak_flops()),
+            "score_ms": score_ms, "score_tokens_per_s": batch * seq / score_ms * 1e3}
+        print(f"wide_head LM {dtype}: {json.dumps(report[f'lm_{dtype}'])}", flush=True)
+
+    fpt = transformer_flops_per_token(WIDE_PARAMS, WIDE_LM["num_layers"], WIDE_LM["d_model"],
+                                      seq, backward=True)
+    attention_cuda.reset_launches()
+    runs = {}
+    # The seeded weights are drawn once, on the host; the dense twin and
+    # the bf16 model load them.
+    init = None
+    for attention in ("flash", "dense"):
+        model, report[f"build_{attention}_ms"] = wall_ms(lambda: compiled(attention, params=init))
+        if attention == "flash":
+            report["params"] = model.count_params()
+            check(report["params"] == WIDE_PARAMS,
+                  f"the head_dim-256 LM has {report['params']} parameters, not {WIDE_PARAMS}")
+            init = {n: t.detach().clone() for n, t in model.module.state_dict().items()}
+        before = dict(attention_cuda.launches)
+        loss, grads = first_grads(model)
+        losses, times = steps(model, WIDE_STEPS)
+        launched = {n: attention_cuda.launches[n] - before[n] for n in KERNELS}
+        want = {n: 4 * (1 + WIDE_STEPS) if attention == "flash" else 0 for n in KERNELS}
+        check(launched == want, f"the head_dim-256 {attention} LM launched {launched}, "
+              f"expected {want}")
+        check(all(np.isfinite(losses)), f"head_dim-256 f32 {attention} loss not finite")
+        runs[attention] = {"loss": loss, "grads": grads, "losses": losses}
+        if attention == "flash":
+            before = dict(attention_cuda.launches)
+            record("float32", losses, times, score(model))
+            launched = {n: attention_cuda.launches[n] - before[n] for n in KERNELS}
+            check(launched == {"flash_fwd": 8, "flash_dq": 0, "flash_dkv": 0},
+                  f"two head_dim-256 f32 scoring forwards launched {launched}")
+        del model
+        torch.cuda.empty_cache()
+    flash, dense = runs["flash"], runs["dense"]
+    grad_err = max(((flash["grads"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                   for n, g in dense["grads"].items())
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip([flash["loss"], *flash["losses"]],
+                                                       [dense["loss"], *dense["losses"]]))
+    report["f32_flash_vs_dense"] = {"losses": flash["losses"], "dense_losses": dense["losses"],
+                                    "loss_rel_err": loss_err, "grad_rel_err": grad_err}
+    print(f"wide_head LM f32 flash vs dense over {WIDE_STEPS} Adam steps: "
+          f"{json.dumps(report['f32_flash_vs_dense'])} (loss rtol {WIDE_LOSS_RTOL}, first "
+          f"gradients max|d| / max|g| rtol {GRAD_RTOL})", flush=True)
+    check(loss_err <= WIDE_LOSS_RTOL, "head_dim-256 flash and dense f32 losses disagree")
+    check(grad_err <= GRAD_RTOL, "head_dim-256 flash and dense f32 first gradients disagree")
+    del runs, flash, dense
+
+    model = compiled("flash", "bfloat16", params=init)
+    del init
+    before = dict(attention_cuda.launches)
+    losses, times = steps(model, 2)
+    check(all(np.isfinite(losses)), "head_dim-256 bf16 loss not finite")
+    record("bfloat16", losses, times, score(model))
+    launched = {n: attention_cuda.launches[n] - before[n] for n in KERNELS}
+    check(launched == {"flash_fwd": 16, "flash_dq": 8, "flash_dkv": 8},
+          f"two head_dim-256 bf16 train steps and two scoring forwards launched {launched}")
+    del model
+    torch.cuda.empty_cache()
+    launches = dict(attention_cuda.launches)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return launches, timing, errors, report
 
 
 def serving_traffic(seed=SEED):
@@ -5074,7 +5277,8 @@ def hop_checks(attention_cuda, shape=SP_HOP, phase="seq_parallel"):
     process: K1 non-causal with the lse against ``blockwise_reference``,
     and K2/K3 of an earlier owner's hop given the global lse and delta of
     a two-hop combined softmax against ``flash_backward_reference``; each
-    timed with its bound, plain version and SDPA's time."""
+    timed with its bound, plain version (as ``kernel_case`` times it) and
+    SDPA's time."""
     from elephas_tpu_torch.ops.attention import (
         blockwise_reference,
         flash_attention_bwd,
@@ -5091,7 +5295,8 @@ def hop_checks(attention_cuda, shape=SP_HOP, phase="seq_parallel"):
         q, ka, va, kb, vb, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                                  for _ in range(6))
         o2, l2 = flash_attention_fwd(q, kb, vb, causal=False)
-        ref_o, ref_l = blockwise_reference(q, kb, vb, False, *tiles["flash_fwd"])
+        (ref_o, ref_l), plain_fwd_ms = wall_ms(
+            lambda: blockwise_reference(q, kb, vb, False, *tiles["flash_fwd"]))
         err_o = (o2.float() - ref_o.float()).abs().max().item()
         err_l = (l2 - ref_l).abs().max().item()
         tol_o, tol_l = TOL[dtype]
@@ -5106,8 +5311,9 @@ def hop_checks(attention_cuda, shape=SP_HOP, phase="seq_parallel"):
             q, kb, vb, out, lse, do, delta, causal=False)))
         ref = dict(zip(("dq", "dk", "dv"), flash_backward_reference(
             q, kb, vb, out, lse, do, False, *tiles["flash_dq"])))
-        ref["dk"], ref["dv"] = flash_backward_reference(
-            q, kb, vb, out, lse, do, False, *tiles["flash_dkv"])[1:]
+        grads, plain_bwd_ms = wall_ms(lambda: flash_backward_reference(
+            q, kb, vb, out, lse, do, False, *tiles["flash_dkv"]))
+        ref["dk"], ref["dv"] = grads[1:]
         errs = {"o": err_o, "lse": err_l}
         for label in ("dq", "dk", "dv"):
             err = (got[label].float() - ref[label].float()).abs().max().item()
@@ -5119,8 +5325,6 @@ def hop_checks(attention_cuda, shape=SP_HOP, phase="seq_parallel"):
             errs[label] = err
             errs[f"{label}_norm"] = max(whole, block)
         work = kernel_work(shape, q.element_size(), causal=False)
-        plain_bwd_ms = cuda_ms(lambda: flash_backward_reference(
-            q, kb, vb, out, lse, do, False, *tiles["flash_dkv"]), 3, 1)
         leaves = [t.detach().requires_grad_() for t in (q, kb, vb)]
         sdpa = F.scaled_dot_product_attention(*leaves)
         sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, leaves, do,
@@ -5128,8 +5332,7 @@ def hop_checks(attention_cuda, shape=SP_HOP, phase="seq_parallel"):
         times = {
             "flash_fwd": {
                 "ms": cuda_ms(lambda: attention_cuda.flash_fwd(q, kb, vb, False), 20),
-                "plain_ms": cuda_ms(lambda: blockwise_reference(
-                    q, kb, vb, False, *tiles["flash_fwd"]), 3, 1),
+                "plain_ms": plain_fwd_ms,
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, kb, vb), 20)},
             "flash_dq": {"ms": cuda_ms(lambda: attention_cuda.flash_bwd_dq(
                 q, kb, vb, do, lse, delta, False), 20),
@@ -6201,11 +6404,12 @@ def ops_phase(attention_cuda):
     return launches, report
 
 
-def kernel_entries(timing, errors, launches):
+def kernel_entries(timing, errors, launches, wide=None):
     """The ``{"kernels": [...]}`` line's entries: each kernel's source,
     the TPU kernel it replaces, its launches on the main path (the LM
     train run) and on every path, its errors and its f32 (and bf16)
-    times and bounds."""
+    times and bounds; with ``wide`` (the wide-head phase's timing and
+    errors by dtype), the head_dim-256 instances' too."""
     sources = {
         "flash_fwd": ("elephas_tpu_torch/csrc/flash_fwd.cu",
                       "elephas_tpu/ops/attention_pallas.py:36"),
@@ -6230,6 +6434,12 @@ def kernel_entries(timing, errors, launches):
             **f32,
             "bf16": bf16,
         })
+        if wide is not None:
+            wide_timing, wide_errors = wide
+            entries[-1]["head_dim_256"] = {
+                str(dtype).split(".")[-1]: {**wide_timing[dtype][name],
+                                            "max_err": wide_errors[name][dtype]}
+                for dtype in (torch.float32, torch.bfloat16)}
     return entries
 
 
@@ -6287,6 +6497,8 @@ def main():
     print(f"resnet: {json.dumps(report)}", flush=True)
     launches["repair"], report = repair_phase(attention_cuda)
     print(f"repair: {json.dumps(report)}", flush=True)
+    launches["wide_head"], wide_timing, wide_errors, report = wide_head_phase(attention_cuda)
+    print(f"wide_head: {json.dumps(report)}", flush=True)
     launches["serving"], report = serving_phase(attention_cuda)
     print(f"serving: {json.dumps(report)}", flush=True)
     launches["spec_handoff"], report = spec_handoff_phase(attention_cuda)
@@ -6311,7 +6523,8 @@ def main():
     launches["chaos"], report = chaos_phase(attention_cuda)
     print(f"chaos: {json.dumps(report)}", flush=True)
 
-    print(json.dumps({"kernels": kernel_entries(timing, errors, launches)}))
+    print(json.dumps({"kernels": kernel_entries(timing, errors, launches,
+                                                wide=(wide_timing, wide_errors))}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -17,29 +17,31 @@
 // - K2: one block per (query-row tile, batch*head). Q, dO, lse and delta
 //   stay put; K/V tiles stream through shared memory up to the diagonal
 //   (causal) or the end. bf16: 128 rows against 128 keys at D = 32, 192
-//   against 64 at D = 64, 128 against 64 at D = 128; float32: 128 rows
-//   against 64 keys at D = 32 and 32 at D = 64, 64 rows against 16 at
-//   D = 128.
+//   against 64 at D = 64, 128 against 64 at D = 128, 128 against 32 at
+//   D = 256; float32: 128 rows against 64 keys at D = 32 and 32 at D = 64,
+//   64 rows against 16 at D = 128, 32 (stacked) against 16 at D = 256.
 // - K3: one block per (key tile, batch*head): in bf16 192 keys at D = 32
-//   and 128 at D = 64 and 128, against query tiles of 64 rows; in float32
-//   128 keys against 64-row query tiles at D = 32, 64 keys against 32 and
-//   16 rows at D = 64 and 128. K and V stay put; Q/dO tiles stream from
+//   and 128 at D = 64 and 128, 64 at D = 256, against query tiles of 64
+//   rows; in float32 128 keys against 64-row query tiles at D = 32, 64
+//   keys against 32 and 16 rows at D = 64 and 128, 32 keys (stacked)
+//   against 16 rows at D = 256. K and V stay put; Q/dO tiles stream from
 //   the one holding the block's first key (causal) or from the start, with
 //   lse and delta staged beside them. dk and dv accumulate in float32
-//   registers.
+//   registers; at D = 256 a block holds half of their columns (a third
+//   grid axis picks which) and computes S^T and dP^T over all 256 for it.
 //
 // Two kernels per dtype, no atomics, so the sums are deterministic and in
 // the reference's order. Keys and rows at or past `seq` contribute nothing.
 //
 // - bfloat16 K2, built for Hopper (sm90.cuh), in bf16 K1's shape: warp 0
 //   is the producer. It loads the block's Q and dO tiles once by TMA and
-//   streams K and V tiles (128 keys at D = 32, 64 at D = 64 and 128)
-//   through a 3-stage ring with full/empty mbarriers. Consumer warpgroups
-//   own 64 query rows each, their lse (base 2) and delta in registers: two
-//   at D = 32 and 128 (240 registers a thread), three at D = 64 (160), as
-//   S and dP (N / 2 accumulators each), the packed dS (N / 4) and dQ
-//   (D / 2) are live together. Per tile: S = Q K^T
-//   and dP = dO V^T as one wgmma group with Q, dO, K and V K-major from
+//   streams K and V tiles (128 keys at D = 32, 64 at D = 64 and 128, 32
+//   at D = 256) through a 3-stage ring with full/empty mbarriers. Consumer
+//   warpgroups own 64 query rows each, their lse (base 2) and delta in
+//   registers: two at D = 32, 128 and 256 (240 registers a thread), three
+//   at D = 64 (160), as S and dP (N / 2 accumulators each), the packed dS
+//   (N / 4) and dQ (D / 2) are live together. Per tile: S = Q K^T and
+//   dP = dO V^T as one wgmma group with Q, dO, K and V K-major from
 //   shared memory; dS = exp2(S c - lse) (dP - delta) in registers (one
 //   FFMA and one MUFU.EX2 a score), masked only on the causal diagonal and
 //   a ragged last tile, rounded to bf16 straight into the register
@@ -55,7 +57,8 @@
 //   fills those rows of Q and dO with zeros). Consumer warpgroups own 64
 //   keys each: three at D = 32 (160 registers a thread), two at D = 64
 //   and 128, where dK and dV take 64-128 accumulators a thread (240
-//   registers). They overlap one another, not the exponentials with their
+//   registers), one at D = 256 with half the columns (2 stages). They
+//   overlap one another, not the exponentials with their
 //   own products. Per tile: S^T = K Q^T and dP^T = V dO^T as wgmma with K
 //   and V from shared memory and Q and dO K-major; P^T = exp2(S^T c - lse)
 //   and dS^T = P^T (dP^T - delta) in registers, masked only on the causal
@@ -92,6 +95,10 @@
 //     64-byte rows), 2 stages, 1 buffer: 128 + 34 + 48 = 210 KB. With two
 //     buffers tile i+1 is split while tile i's S^T and dP^T run; with one,
 //     after tile i's products.
+//   - D = 256 (DqF32Shape<256>, DkvF32Shape<256>): a 64-row tile is 64 KiB,
+//     so the fixed side is 32 rows or keys as stacked tiles (tf32.cuh),
+//     one consumer warpgroup and one stage, tile by tile: K2 224 KiB, K3
+//     (half the columns a block) 225 KiB.
 
 // Bound. Causal work is 3*B*H*S^2*D FLOPs for K2 and 4*B*H*S^2*D for K3
 // (the Pallas kernels' CostEstimates) against 5*B*H*S*D*itemsize bytes, so
@@ -127,10 +134,12 @@ using namespace flash::sm90;
 // dQ (D / 2) are live together. At D = 32 tiles of 128 keys with two
 // warpgroups at 240 registers a thread beat 64 keys with three at 160
 // (PERF.md); at D = 64 the 128-key tiles spill, so 64 keys and three
-// warpgroups; at D = 128 dQ alone takes 64 registers: 64 keys and two.
+// warpgroups; at D = 128 dQ alone takes 64 registers: 64 keys and two; at
+// D = 256 it takes 128, so 32 keys and two (Q and dO 128 KiB, 32 KiB a
+// stage).
 template <int D>
 struct DqShape {
-  static constexpr int kN = D == 32 ? 128 : 64;  // keys per K/V tile
+  static constexpr int kN = D == 32 ? 128 : (D == 256 ? 32 : 64);  // keys per K/V tile
   static constexpr int kConsumers = D == 64 ? 3 : 2;
   static constexpr int kRows = 64 * kConsumers;  // query rows per block
   static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
@@ -365,6 +374,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
     return err;
   }
   constexpr size_t smem = DqSmem<D>::kBytes;
+  static_assert(smem <= 232448, "bf16 K2 needs more shared memory than a block has");
   if ((err = allow_smem(flash_dq_bf16_kernel<D>, smem)) != cudaSuccess) return err;
   const dim3 grid(batch_heads, (seq + Sh::kRows - 1) / Sh::kRows);
   flash_dq_bf16_kernel<D><<<grid, Sh::kThreads, smem, stream>>>(
@@ -376,17 +386,22 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 // ----------------------------------------------------------- bf16 K3
 
 constexpr int kQRows = 64;  // query rows per streamed tile
-constexpr int kStages = 3;  // Q/dO ring depth
 
 // Consumer warpgroups own 64 keys each: three at D = 32, where their
 // registers fit in 160 a thread; two (240 registers) at D = 64 and 128.
+// dK and dV of 64 keys at D = 256 would take 256 registers a thread, so
+// there a block computes kOut = 128 of the output columns (blockIdx.z
+// picks which), S^T and dP^T over all 256 for each half: one warpgroup,
+// 64 keys, a 2-stage Q/dO ring (K and V 64 KiB, 65 KiB a stage).
 template <int D>
 struct DkvShape {
-  static constexpr int kConsumers = D == 32 ? 3 : 2;
+  static constexpr int kConsumers = D == 32 ? 3 : (D == 256 ? 1 : 2);
   static constexpr int kKeys = 64 * kConsumers;  // keys per block
+  static constexpr int kOut = D == 256 ? 128 : D;  // dK and dV columns per block
+  static constexpr int kStages = D == 256 ? 2 : 3;  // Q/dO ring depth
   static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
   static constexpr int kConsumerWarps = 4 * kConsumers;
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;  // after setmaxnreg
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;  // after setmaxnreg
 };
 
 // Shared memory: the K and V tiles, then per stage a Q tile, a dO tile
@@ -394,6 +409,7 @@ struct DkvShape {
 // rows, then the barriers; plus slack to align the base.
 template <int D>
 struct DkvSmem {
+  static constexpr int kStages = DkvShape<D>::kStages;
   static constexpr size_t kKV = align1k(tile_bytes<D>(DkvShape<D>::kKeys));
   static constexpr size_t kQ = align1k(tile_bytes<D>(kQRows));
   static constexpr size_t kK = 0;
@@ -436,7 +452,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, int seq, int causal, float scale_log2, float scale) {
   using S = DkvSmem<D>;
-  constexpr int kKeys = DkvShape<D>::kKeys;
+  constexpr int kKeys = DkvShape<D>::kKeys, kOut = DkvShape<D>::kOut, kStages = S::kStages;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
@@ -453,6 +469,10 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warpgroup = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
   const auto stage = [&](int i) { return smem + S::kStage0 + (i % kStages) * S::kStage; };
+  // This block's first dK and dV column, and the byte offset of its column
+  // block in a Q or dO tile (read MN-major for those products).
+  const int c0 = kOut < D ? blockIdx.z * kOut : 0;
+  const int c0_bytes = c0 / TileLayout<D>::W * TileLayout<D>::block_bytes(kQRows);
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -508,9 +528,9 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int kw0 = k0 + k_row0;
   const int keys[2] = {kw0 + warp * 16 + lane / 4, kw0 + warp * 16 + lane / 4 + 8};
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[kOut / 2], dv_acc[kOut / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < kOut / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   float s[kQRows / 2], dp[kQRows / 2];  // S^T = K Q^T and dP^T = V dO^T
   uint32_t pa[kQRows / 16][4], dsa[kQRows / 16][4];  // P^T and dS^T as bf16 A operands
 
@@ -561,11 +581,11 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kQRows / 16; ++kk) {
-      wgmma_rs<D>(dv_acc, pa[kk], desc_mn_major<D>(st + S::kDo, kQRows, kk), 1);
+      wgmma_rs<kOut>(dv_acc, pa[kk], desc_mn_major<D>(st + S::kDo + c0_bytes, kQRows, kk), 1);
     }
 #pragma unroll
     for (int kk = 0; kk < kQRows / 16; ++kk) {
-      wgmma_rs<D>(dk_acc, dsa[kk], desc_mn_major<D>(st, kQRows, kk), 1);
+      wgmma_rs<kOut>(dk_acc, dsa[kk], desc_mn_major<D>(st + c0_bytes, kQRows, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -577,9 +597,9 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (keys[r] >= seq) continue;
-    const int64_t off = (static_cast<int64_t>(bh) * seq + keys[r]) * D + 2 * t;
+    const int64_t off = (static_cast<int64_t>(bh) * seq + keys[r]) * D + c0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < kOut / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
           __floats2bfloat162_rn(scale * dk_acc[4 * n + 2 * r], scale * dk_acc[4 * n + 2 * r + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
@@ -602,8 +622,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
     return err;
   }
   constexpr size_t smem = DkvSmem<D>::kBytes;
+  static_assert(smem <= 232448, "bf16 K3 needs more shared memory than a block has");
   if ((err = allow_smem(flash_dkv_bf16_kernel<D>, smem)) != cudaSuccess) return err;
-  const dim3 grid(batch_heads, (seq + kKeys - 1) / kKeys);
+  const dim3 grid(batch_heads, (seq + kKeys - 1) / kKeys, D / DkvShape<D>::kOut);
   flash_dkv_bf16_kernel<D><<<grid, DkvShape<D>::kThreads, smem, stream>>>(
       q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       seq, causal, scale_log2, scale);
@@ -863,6 +884,200 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const voi
   if ((err = allow_smem(flash_dq_f32_kernel<D>, smem)) != cudaSuccess) return err;
   const dim3 grid(batch_heads, (seq + Sh::kRows - 1) / Sh::kRows);
   flash_dq_f32_kernel<D><<<grid, Sh::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<float*>(dq), seq, causal, scale_log2,
+      scale);
+  return cudaGetLastError();
+}
+
+// float32 K2 at D = 256. Q, dO and their lo copies for 64 rows would be
+// 256 KiB, so the block takes 32 query rows as two stacked tiles (tf32.cuh;
+// Q_st and dO_st, 128 KiB) and 16-key tiles in one stage (K, V by TMA,
+// K_lo, V_lo, K^T and K^T_lo written by the consumers: 96 KiB), one
+// consumer warpgroup (dQ takes 128 registers a thread). S = Q_st K^T +
+// Q_st K_lo^T, dP = dO_st V^T + dO_st V_lo^T, dQ += dS_st K + dS_st K_lo.
+// With one stage the loop runs tile by tile: the stage is released once S
+// and dP are done (dQ reads only the derived K^T), so the next tile's TMA
+// runs under dS and dQ.
+template <>
+struct DqF32Shape<256> {
+  static constexpr int D = 256;
+  static constexpr int kRows = 32;  // query rows per block
+  static constexpr int kN = 16;     // keys per K/V tile
+  static constexpr int kThreads = 256;  // the producer and one consumer warpgroup
+  static constexpr size_t kFixed = align1k(tile_bytes<D, float>(64));  // a stacked tile
+  static constexpr size_t kQ = 0, kDo = kFixed, kStage0 = 2 * kFixed;
+  static constexpr size_t kBuf = align1k(tile_bytes<D, float>(kN));
+  static constexpr size_t kK = 0, kV = kBuf, kKlo = 2 * kBuf, kVlo = 3 * kBuf;
+  static constexpr size_t kKt = 4 * kBuf, kKtlo = 5 * kBuf;  // within the stage
+  static constexpr size_t kBar = kStage0 + 6 * kBuf;
+  static constexpr size_t kBytes = kBar + 3 * sizeof(uint64_t) + 1024;
+};
+
+template <>
+__global__ void __launch_bounds__(DqF32Shape<256>::kThreads, 1)
+flash_dq_f32_kernel<256>(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dq, int seq,
+                         int causal, float scale_log2, float scale) {
+  using S = DqF32Shape<256>;
+  constexpr int D = S::D, N = S::kN, kRows = S::kRows;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint8_t* st = smem + S::kStage0;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* q_full = bars;
+  uint64_t* kv_full = bars + 1;
+  uint64_t* empty = bars + 2;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + kRows) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  const int warpgroup = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(kv_full, 1);
+    mbar_init(empty, 4);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * tile_bytes<D, float>(kRows));
+      tf32::load_stacked_tma<D>(smem + S::kQ, &q_map, q_full, q0, bh);
+      tf32::load_stacked_tma<D>(smem + S::kDo, &do_map, q_full, q0, bh);
+      for (int j = 0; j < tiles; ++j) {
+        mbar_wait(empty, (j & 1) ^ 1);
+        mbar_arrive_expect_tx(kv_full, 2 * tile_bytes<D, float>(N));
+        load_tile_tma<D, float>(st + S::kK, &k_map, kv_full, N, j * N, bh);
+        load_tile_tma<D, float>(st + S::kV, &v_map, kv_full, N, j * N, bh);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: thread (warp w, lane l) owns query row
+  // q0 + 8w + l/4.
+  setmaxnreg_inc<240>();
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int row = q0 + 8 * warp + lane / 4;
+  const int tid = threadIdx.x - 128, t = lane % 4;
+  const int64_t at = static_cast<int64_t>(bh) * seq + row;
+  const float lse2 = row < seq ? lse[at] * kLog2e : 0.f;  // base 2
+  const float dlt = row < seq ? delta[at] : 0.f;
+
+  float acc[D / 2];  // stacked dQ
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[N / 2], dp[N / 2], sm[N / 4], dpm[N / 4];
+  uint32_t ds[N / 8][4];
+  const auto consumers_sync = [&] { named_barrier_sync(1, 128); };
+
+  mbar_wait(q_full, 0);
+  tf32::write_stacked_lo<D>(smem + S::kQ, tid, 128);
+  tf32::write_stacked_lo<D>(smem + S::kDo, tid, 128);
+  for (int j = 0; j < tiles; ++j) {
+    // Tile j's derived tiles, made visible to wgmma.
+    mbar_wait(kv_full, j & 1);
+    tf32::write_lo(st + S::kKlo, st + S::kK, N * D * 4, tid, 128);
+    tf32::write_lo(st + S::kVlo, st + S::kV, N * D * 4, tid, 128);
+    tf32::write_transposed<N, D>(st + S::kKt, st + S::kKtlo, st + S::kK, tid, 128);
+    fence_proxy_async();
+    consumers_sync();
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<N>(s, desc_k_major<D, float>(smem + S::kQ, 64, 0, kk),
+                       desc_k_major<D, float>(st + S::kK, N, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<N>(s, desc_k_major<D, float>(smem + S::kQ, 64, 0, kk),
+                       desc_k_major<D, float>(st + S::kKlo, N, 0, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<N>(dp, desc_k_major<D, float>(smem + S::kDo, 64, 0, kk),
+                       desc_k_major<D, float>(st + S::kV, N, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<N>(dp, desc_k_major<D, float>(smem + S::kDo, 64, 0, kk),
+                       desc_k_major<D, float>(st + S::kVlo, N, 0, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(s);
+    fence_operand(dp);
+    if (lane == 0) mbar_arrive(empty);  // K and V are read; K^T stays for dQ
+
+    // dS = P (dP - delta), P = exp2(S c - lse), masked on the causal
+    // diagonal and a ragged last tile.
+    tf32::merge_stacked<N>(sm, s);
+    tf32::merge_stacked<N>(dpm, dp);
+    const bool mask = (causal && j * N + N - 1 > q0) || j * N + N > seq;
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      float p = exp2_approx(fmaf(sm[i], scale_log2, -lse2));
+      if (mask) {
+        const int col = j * N + (i / 2) * 8 + 2 * t + (i & 1);
+        if (col >= seq || (causal && col > row)) p = 0.f;
+      }
+      sm[i] = p * (dpm[i] - dlt);
+    }
+    tf32::stacked_fragments<N>(ds, sm);
+
+    // dQ += dS_st K^T + dS_st K^T_lo, K read as K^T.
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 8; ++kk) {
+      wgmma_rs_tf32<D>(acc, ds[kk], desc_k_major<N, float>(st + S::kKt, D, 0, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < N / 8; ++kk) {
+      wgmma_rs_tf32<D>(acc, ds[kk], desc_k_major<N, float>(st + S::kKtlo, D, 0, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    consumers_sync();  // every warp is done with the derived tiles
+  }
+
+  if (row >= seq) return;
+  float* out = dq + at * D + 2 * t;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(out + n * 8) =
+        make_float2(scale * (acc[4 * n] + acc[4 * n + 2]), scale * (acc[4 * n + 1] + acc[4 * n + 3]));
+  }
+}
+
+template <>
+cudaError_t launch_dq_f32<256>(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* delta, void* dq, int batch_heads,
+                               int seq, int causal, float scale_log2, float scale,
+                               cudaStream_t stream) {
+  using S = DqF32Shape<256>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err;
+  if ((err = make_tile_map<S::D, float>(&q_map, q, batch_heads, seq, 8)) != cudaSuccess ||
+      (err = make_tile_map<S::D, float>(&k_map, k, batch_heads, seq, S::kN)) != cudaSuccess ||
+      (err = make_tile_map<S::D, float>(&v_map, v, batch_heads, seq, S::kN)) != cudaSuccess ||
+      (err = make_tile_map<S::D, float>(&do_map, dout, batch_heads, seq, 8)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = S::kBytes;
+  static_assert(smem <= 232448, "float32 K2 needs more shared memory than a block has");
+  if ((err = allow_smem(flash_dq_f32_kernel<256>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + S::kRows - 1) / S::kRows);
+  flash_dq_f32_kernel<256><<<grid, S::kThreads, smem, stream>>>(
       q_map, k_map, v_map, do_map, lse, delta, static_cast<float*>(dq), seq, causal, scale_log2,
       scale);
   return cudaGetLastError();
@@ -1170,6 +1385,237 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// float32 K3 at D = 256. K, V and their lo copies for 64 keys would be
+// 256 KiB, and dK and dV of 64 keys 256 registers a thread. The block
+// takes 32 keys as two stacked tiles (tf32.cuh; K_st and V_st, 128 KiB)
+// and computes kOut = 128 of the output columns (blockIdx.z picks which;
+// S^T and dP^T run over all 256 for each half), one consumer warpgroup
+// (stacked dK and dV, 64 registers each). Query tiles of 16 rows stream
+// through one stage (Q, dO by TMA, lse and delta by the producer warp's
+// lanes), and the consumers write their derived tiles into one buffer:
+// Q_lo and dO_lo, and Q^T, Q^T_lo, dO^T and dO^T_lo of the block's columns
+// (224 KiB in all). S^T = K_st Q^T + K_st Q_lo^T, dP^T = V_st dO^T +
+// V_st dO_lo^T, dV += P^T_st dO + P^T_st dO_lo, dK += dS^T_st Q + dS^T_st
+// Q_lo. The stage is released once S^T and dP^T are done and the tile's
+// lse and delta read, so the next tile's TMA runs under dK and dV.
+template <>
+struct DkvF32Shape<256> {
+  static constexpr int D = 256;
+  static constexpr int kKeys = 32;  // keys per block
+  static constexpr int kQ = 16;     // query rows per tile
+  static constexpr int kOut = 128;  // dK and dV columns per block
+  static constexpr int kThreads = 256;  // the producer and one consumer warpgroup
+  static constexpr size_t kFixed = align1k(tile_bytes<D, float>(64));  // a stacked tile
+  static constexpr size_t kK = 0, kV = kFixed, kRing = 2 * kFixed;
+  static constexpr size_t kTile = align1k(tile_bytes<D, float>(kQ));
+  static constexpr size_t kDo = kTile, kLse = 2 * kTile;  // within the stage
+  static constexpr size_t kDlt = kLse + kQ * sizeof(float);
+  static constexpr size_t kDerived = kRing + align1k(2 * kTile + 2 * kQ * sizeof(float));
+  static constexpr size_t kHalf = align1k(tile_bytes<kOut, float>(kQ));  // a transposed copy
+  static constexpr size_t kQlo = 0, kDolo = kTile;  // within the derived buffer
+  static constexpr size_t kQt = 2 * kTile, kQtlo = kQt + kHalf;
+  static constexpr size_t kDot = kQt + 2 * kHalf, kDotlo = kQt + 3 * kHalf;
+  static constexpr size_t kBar = kDerived + 2 * kTile + 4 * kHalf;
+  static constexpr size_t kBytes = kBar + 3 * sizeof(uint64_t) + 1024;
+};
+
+template <>
+__global__ void __launch_bounds__(DkvF32Shape<256>::kThreads, 1)
+flash_dkv_f32_kernel<256>(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int seq, int causal,
+                          float scale_log2, float scale) {
+  using S = DkvF32Shape<256>;
+  constexpr int D = S::D, kQ = S::kQ, kKeys = S::kKeys, kOut = S::kOut;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint8_t* st = smem + S::kRing;
+  uint8_t* dr = smem + S::kDerived;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 2;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kKeys;  // causal: the longest (first) key tiles first
+  const int c0 = blockIdx.z * kOut;   // this block's first dK and dV column
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = (seq - q_begin + kQ - 1) / kQ;
+  const int warpgroup = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(full, 32);  // the producer warp's lanes: their lse/delta stores
+    mbar_init(empty, 4);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {  // producer: warp 0
+    setmaxnreg_dec<24>();
+    if (threadIdx.x >= 32) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * tile_bytes<D, float>(kKeys));
+      tf32::load_stacked_tma<D>(smem + S::kK, &k_map, kv_full, k0, bh);
+      tf32::load_stacked_tma<D>(smem + S::kV, &v_map, kv_full, k0, bh);
+    }
+    const int64_t row_base = static_cast<int64_t>(bh) * seq;
+    for (int i = 0; i < tiles; ++i) {
+      const int q0 = q_begin + i * kQ;
+      // This lane's lse (base 2) and delta row, read before the stage is free.
+      const int r = q0 + lane;
+      const float lse_r = r < seq ? lse[row_base + r] * kLog2e : 0.f;
+      const float dlt_r = r < seq ? delta[row_base + r] : 0.f;
+      mbar_wait(empty, (i & 1) ^ 1);
+      if (lane < kQ) {
+        reinterpret_cast<float*>(st + S::kLse)[lane] = lse_r;
+        reinterpret_cast<float*>(st + S::kDlt)[lane] = dlt_r;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full, 2 * tile_bytes<D, float>(kQ));
+        load_tile_tma<D, float>(st, &q_map, full, kQ, q0, bh);
+        load_tile_tma<D, float>(st + S::kDo, &do_map, full, kQ, q0, bh);
+      } else {
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: thread (warp w, lane l) owns key k0 + 8w + l/4.
+  setmaxnreg_inc<240>();
+  const int warp = (threadIdx.x / 32) % 4, t = lane % 4;
+  const int key = k0 + 8 * warp + lane / 4;
+  const int tid = threadIdx.x - 128;
+
+  float dk_acc[kOut / 2], dv_acc[kOut / 2];  // stacked
+#pragma unroll
+  for (int i = 0; i < kOut / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float s[kQ / 2], dp[kQ / 2], sm[kQ / 4], dpm[kQ / 4];  // S^T and dP^T
+  uint32_t pa[kQ / 8][4], dsa[kQ / 8][4];  // P^T and dS^T, stacked
+  const auto consumers_sync = [&] { named_barrier_sync(1, 128); };
+
+  mbar_wait(kv_full, 0);
+  tf32::write_stacked_lo<D>(smem + S::kK, tid, 128);
+  tf32::write_stacked_lo<D>(smem + S::kV, tid, 128);
+  for (int i = 0; i < tiles; ++i) {
+    const int q0 = q_begin + i * kQ;
+    // Tile i's derived tiles, made visible to wgmma.
+    mbar_wait(full, i & 1);
+    tf32::write_lo(dr + S::kQlo, st, kQ * D * 4, tid, 128);
+    tf32::write_lo(dr + S::kDolo, st + S::kDo, kQ * D * 4, tid, 128);
+    tf32::write_transposed<kQ, kOut, D>(dr + S::kQt, dr + S::kQtlo, st, tid, 128, c0);
+    tf32::write_transposed<kQ, kOut, D>(dr + S::kDot, dr + S::kDotlo, st + S::kDo, tid, 128, c0);
+    fence_proxy_async();
+    consumers_sync();
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<kQ>(s, desc_k_major<D, float>(smem + S::kK, 64, 0, kk),
+                        desc_k_major<D, float>(st, kQ, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<kQ>(s, desc_k_major<D, float>(smem + S::kK, 64, 0, kk),
+                        desc_k_major<D, float>(dr + S::kQlo, kQ, 0, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<kQ>(dp, desc_k_major<D, float>(smem + S::kV, 64, 0, kk),
+                        desc_k_major<D, float>(st + S::kDo, kQ, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<kQ>(dp, desc_k_major<D, float>(smem + S::kV, 64, 0, kk),
+                        desc_k_major<D, float>(dr + S::kDolo, kQ, 0, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(s);
+    fence_operand(dp);
+
+    // P^T = exp2(S^T c - lse) and dS^T = P^T (dP^T - delta); the thread's
+    // row is its key, columns query rows. Masks only on the causal
+    // diagonal and a ragged last tile.
+    tf32::merge_stacked<kQ>(sm, s);
+    tf32::merge_stacked<kQ>(dpm, dp);
+    const bool mask = (causal && q0 < k0 + kKeys - 1) || q0 + kQ > seq;
+    const float* lse_s = reinterpret_cast<const float*>(st + S::kLse);
+    const float* dlt_s = reinterpret_cast<const float*>(st + S::kDlt);
+#pragma unroll
+    for (int e = 0; e < kQ / 4; ++e) {
+      const int col = (e / 2) * 8 + 2 * t + (e & 1), qi = q0 + col;
+      float p = exp2_approx(fmaf(sm[e], scale_log2, -lse_s[col]));
+      if (mask && (qi >= seq || (causal && key > qi))) p = 0.f;
+      sm[e] = p;
+      dpm[e] = p * (dpm[e] - dlt_s[col]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty);  // Q, dO, lse and delta are read
+    tf32::stacked_fragments<kQ>(pa, sm);
+    tf32::stacked_fragments<kQ>(dsa, dpm);
+
+    // dV += P^T_st dO and dK += dS^T_st Q, over this block's columns.
+    fence_operand(dk_acc);
+    fence_operand(dv_acc);
+    wgmma_fence();
+    const auto bt = [&](size_t at, int kk) { return desc_k_major<kQ, float>(dr + at, kOut, 0, kk); };
+#pragma unroll
+    for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<kOut>(dv_acc, pa[kk], bt(S::kDot, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<kOut>(dv_acc, pa[kk], bt(S::kDotlo, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<kOut>(dk_acc, dsa[kk], bt(S::kQt, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<kOut>(dk_acc, dsa[kk], bt(S::kQtlo, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(dk_acc);
+    fence_operand(dv_acc);
+    consumers_sync();  // every warp is done with the derived tiles
+  }
+
+  if (key >= seq) return;
+  const int64_t off = (static_cast<int64_t>(bh) * seq + key) * D + c0 + 2 * t;
+#pragma unroll
+  for (int n = 0; n < kOut / 8; ++n) {
+    *reinterpret_cast<float2*>(dk + off + n * 8) =
+        make_float2(scale * (dk_acc[4 * n] + dk_acc[4 * n + 2]),
+                    scale * (dk_acc[4 * n + 1] + dk_acc[4 * n + 3]));
+    *reinterpret_cast<float2*>(dv + off + n * 8) =
+        make_float2(dv_acc[4 * n] + dv_acc[4 * n + 2], dv_acc[4 * n + 1] + dv_acc[4 * n + 3]);
+  }
+}
+
+template <>
+cudaError_t launch_dkv_f32<256>(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* delta, void* dk, void* dv,
+                                int batch_heads, int seq, int causal, float scale_log2,
+                                float scale, cudaStream_t stream) {
+  using S = DkvF32Shape<256>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err;
+  if ((err = make_tile_map<S::D, float>(&q_map, q, batch_heads, seq, S::kQ)) != cudaSuccess ||
+      (err = make_tile_map<S::D, float>(&k_map, k, batch_heads, seq, 8)) != cudaSuccess ||
+      (err = make_tile_map<S::D, float>(&v_map, v, batch_heads, seq, 8)) != cudaSuccess ||
+      (err = make_tile_map<S::D, float>(&do_map, dout, batch_heads, seq, S::kQ)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = S::kBytes;
+  static_assert(smem <= 232448, "float32 K3 needs more shared memory than a block has");
+  if ((err = allow_smem(flash_dkv_f32_kernel<256>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + S::kKeys - 1) / S::kKeys, S::D / S::kOut);
+  flash_dkv_f32_kernel<256><<<grid, S::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
+      seq, causal, scale_log2, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace hopper
 
 // ---------------------------------------------------------------- launch
@@ -1219,6 +1665,8 @@ cudaError_t dispatch_dim(const Args& a, int head_dim) {
       return kDq ? launch_dq<64, kBf16>(a) : launch_dkv<64, kBf16>(a);
     case 128:
       return kDq ? launch_dq<128, kBf16>(a) : launch_dkv<128, kBf16>(a);
+    case 256:
+      return kDq ? launch_dq<256, kBf16>(a) : launch_dkv<256, kBf16>(a);
     default:
       return cudaErrorInvalidValue;
   }

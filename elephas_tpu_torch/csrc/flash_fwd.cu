@@ -27,7 +27,9 @@
 //
 // - bfloat16: 192 query rows per block (three consumer warpgroups at 160
 //   registers, so more warpgroups' products hide each one's softmax), K/V
-//   tiles of 128 keys (64 at D = 128) in 3 stages. Q and K are K-major
+//   tiles of 128 keys (64 at D = 128) in 3 stages; at D = 256, where O
+//   takes 128 registers a thread, 128 rows (two warpgroups at 240) against
+//   64-key tiles in 2 stages (192 KiB). Q and K are K-major
 //   operands from shared memory; P is rounded to bf16 straight into the
 //   register A-operand layout; V is read MN-major through the descriptor's
 //   transpose bit.
@@ -44,7 +46,9 @@
 //   Per D, three / two / one consumer warpgroups, tiles of 64 / 64 / 32
 //   keys and 3 / 2 / 2 stages fit the registers (S, P_hi and P_lo, N / 2
 //   each, and O, D / 2) and the shared memory (Q, Q_lo and five tiles a
-//   stage).
+//   stage). At D = 256 Q and Q_lo of 64 rows alone take 128 KiB: the
+//   block takes 32 query rows as one stacked tile (tf32.cuh), 16-key tiles
+//   in 2 stages (F32Shape<256>).
 //
 // Bound. Causal work is 2*B*H*S^2*D FLOPs (K1's CostEstimate) and the
 // traffic is 4*B*H*S*D*itemsize bytes plus the lse, so at the LM's shape
@@ -71,27 +75,34 @@ namespace hopper {
 
 using namespace flash::sm90;
 
-constexpr int kConsumers = 3;                 // consumer warpgroups, 64 query rows each
-constexpr int kRows = 64 * kConsumers;        // query rows per block
-constexpr int kStages = 3;                    // K/V ring depth
-constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
-constexpr int kConsumerWarps = 4 * kConsumers;
-constexpr int kConsumerRegs = 160;  // after setmaxnreg: 128 * 24 + 384 * 160 <= 65536
-
+// Consumer warpgroups (64 query rows each), keys per K/V tile and the
+// ring's depth: three warpgroups at 160 registers (128 * 24 + 384 * 160 <=
+// 65536), tiles of 128 keys (64 at D = 128) in 3 stages; at D = 256, where
+// O alone takes 128 registers a thread, two warpgroups at 240 and 64-key
+// tiles in 2 stages (a 128-row Q tile and 64 KiB a stage).
 template <int D>
-constexpr int keys_per_tile() { return D == 128 ? 64 : 128; }
+struct Shape {
+  static constexpr int kConsumers = D == 256 ? 2 : 3;
+  static constexpr int kN = D >= 128 ? 64 : 128;  // keys per K/V tile
+  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr int kRows = 64 * kConsumers;            // query rows per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;  // after setmaxnreg
+};
 
 // Shared memory: the Q tile, kStages K tiles, kStages V tiles (each on a
 // 1024-byte boundary), then the barriers; plus slack to align the base.
 template <int D>
 struct Smem {
-  static constexpr int kN = keys_per_tile<D>();
+  using Sh = Shape<D>;
+  static constexpr int kN = Sh::kN;
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = align1k(kQ + tile_bytes<D>(kRows));
-  static constexpr size_t kV = kK + kStages * align1k(tile_bytes<D>(kN));
-  static constexpr size_t kBar = kV + kStages * align1k(tile_bytes<D>(kN));
+  static constexpr size_t kK = align1k(kQ + tile_bytes<D>(Sh::kRows));
+  static constexpr size_t kV = kK + Sh::kStages * align1k(tile_bytes<D>(kN));
+  static constexpr size_t kBar = kV + Sh::kStages * align1k(tile_bytes<D>(kN));
   static constexpr size_t kStage = align1k(tile_bytes<D>(kN));
-  static constexpr size_t kBytes = kBar + (1 + 3 * kStages) * sizeof(uint64_t) + 1024;
+  static constexpr size_t kBytes = kBar + (1 + 3 * Sh::kStages) * sizeof(uint64_t) + 1024;
 };
 
 // Softmax of one score tile in place (s becomes p = exp2(s*c - m)),
@@ -152,8 +163,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[N / 2], const uint8_t* q_s, 
                                          const uint8_t* k_s) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    wgmma_ss<N>(s, desc_k_major<D>(q_s, kRows, q_row0, kk), desc_k_major<D>(k_s, N, 0, kk),
-                kk > 0);
+    wgmma_ss<N>(s, desc_k_major<D>(q_s, Shape<D>::kRows, q_row0, kk),
+                desc_k_major<D>(k_s, N, 0, kk), kk > 0);
   }
   wgmma_commit();
 }
@@ -168,13 +179,14 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Shape<D>::kThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
                       float* __restrict__ lse, int seq, int causal, float scale_log2) {
+  using Sh = Shape<D>;
   using S = Smem<D>;
-  constexpr int N = S::kN;
+  constexpr int N = S::kN, kRows = Sh::kRows, kStages = Sh::kStages;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
   uint8_t* q_s = smem + S::kQ;
@@ -195,7 +207,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
+      mbar_init(&empty[s], Sh::kConsumerWarps);
     }
     fence_barrier_init();
   }
@@ -219,7 +231,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   // Consumers: this warpgroup's 64 rows start at r0.
-  setmaxnreg_inc<kConsumerRegs>();
+  setmaxnreg_inc<Sh::kConsumerRegs>();
   const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
   const int r0 = q0 + (warpgroup - 1) * 64;
   const int rows[2] = {r0 + warp * 16 + lane / 4, r0 + warp * 16 + lane / 4 + 8};
@@ -298,18 +310,19 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
                    int batch_heads, int seq, int causal, float scale_log2, cudaStream_t stream) {
-  constexpr int N = keys_per_tile<D>();
+  using Sh = Shape<D>;
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err;
-  if ((err = make_tile_map<D>(&q_map, q, batch_heads, seq, kRows)) != cudaSuccess ||
-      (err = make_tile_map<D>(&k_map, k, batch_heads, seq, N)) != cudaSuccess ||
-      (err = make_tile_map<D>(&v_map, v, batch_heads, seq, N)) != cudaSuccess) {
+  if ((err = make_tile_map<D>(&q_map, q, batch_heads, seq, Sh::kRows)) != cudaSuccess ||
+      (err = make_tile_map<D>(&k_map, k, batch_heads, seq, Sh::kN)) != cudaSuccess ||
+      (err = make_tile_map<D>(&v_map, v, batch_heads, seq, Sh::kN)) != cudaSuccess) {
     return err;
   }
   constexpr size_t smem = Smem<D>::kBytes;
+  static_assert(smem <= 232448, "bf16 K1 needs more shared memory than a block has");
   if ((err = allow_smem(flash_fwd_bf16_kernel<D>, smem)) != cudaSuccess) return err;
-  const dim3 grid(batch_heads, (seq + kRows - 1) / kRows);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(batch_heads, (seq + Sh::kRows - 1) / Sh::kRows);
+  flash_fwd_bf16_kernel<D><<<grid, Sh::kThreads, smem, stream>>>(
       q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), seq, causal,
       scale_log2);
   return cudaGetLastError();
@@ -555,9 +568,256 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, voi
     return err;
   }
   constexpr size_t smem = F32Smem<D>::kBytes;
+  static_assert(smem <= 232448, "float32 K1 needs more shared memory than a block has");
   if ((err = allow_smem(flash_fwd_f32_kernel<D>, smem)) != cudaSuccess) return err;
   const dim3 grid(batch_heads, (seq + Sh::kRows - 1) / Sh::kRows);
   flash_fwd_f32_kernel<D><<<grid, Sh::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<float*>(o), static_cast<float*>(lse), seq, causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- float32 at D = 256
+
+// A 64-row float32 tile of head_dim 256 is 64 KiB: Q and Q_lo of 64 rows
+// leave too little for a K/V ring. The block takes 32 query rows as a
+// stacked tile (tf32.cuh: rows and their lo parts in one 64-row operand,
+// 64 KiB), one consumer warpgroup (O takes 128 registers a thread), and
+// 16-key tiles in 2 stages (K and V by TMA, K_lo, V^T and V^T_lo written
+// by the consumers, 80 KiB a stage): 224 KiB. S = Q_st K^T + Q_st K_lo^T
+// and O += P_st V^T + P_st V^T_lo, P_st the stacked fragments of P, give
+// the four terms of each split product; each thread merges its row's hi
+// and lo halves (merge_stacked) and runs the softmax on one row. The loop
+// is float32 K1's: tile j's S and tile j-1's P V in flight together.
+template <>
+struct F32Shape<256> {
+  static constexpr int D = 256;
+  static constexpr int kRows = 32;   // query rows per block
+  static constexpr int kN = 16;      // keys per K/V tile
+  static constexpr int kStages = 2;  // K/V ring depth
+  static constexpr int kThreads = 256;  // the producer and one consumer warpgroup
+  static constexpr size_t kBuf = align1k(tile_bytes<D, float>(kN));
+  static constexpr size_t kQ = 0, kStage0 = align1k(tile_bytes<D, float>(64));
+  static constexpr size_t kK = 0, kV = kBuf, kKlo = 2 * kBuf, kVt = 3 * kBuf, kVtlo = 4 * kBuf;
+  static constexpr size_t kStage = 5 * kBuf;
+  static constexpr size_t kBar = kStage0 + kStages * kStage;
+  static constexpr size_t kBytes = kBar + (1 + 2 * kStages) * sizeof(uint64_t) + 1024;
+};
+
+// Softmax of one row's merged scores in place (sm becomes p), as
+// softmax_tile does for two rows.
+template <int N>
+__device__ __forceinline__ void softmax_row(float (&sm)[N / 4], float& m, float& l, float& corr,
+                                            bool mask, int k0, int row, int seq, int causal,
+                                            float scale_log2) {
+  const int t = threadIdx.x % 4;
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const int col = k0 + (i / 2) * 8 + 2 * t + (i & 1);
+      if (col >= seq || (causal && col > row)) sm[i] = -INFINITY;
+    }
+  }
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) mx = fmaxf(mx, sm[i]);
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  const float m_new = fmaxf(m, mx * scale_log2);
+  const float shift = isfinite(m_new) ? m_new : 0.f;
+  corr = isfinite(m) ? exp2_approx(m - shift) : 0.f;
+  m = m_new;
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    sm[i] = exp2_approx(fmaf(sm[i], scale_log2, -shift));
+    sum += sm[i];
+  }
+  l = l * corr + sum;
+}
+
+template <>
+__global__ void __launch_bounds__(F32Shape<256>::kThreads, 1)
+flash_fwd_f32_kernel<256>(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
+                          float* __restrict__ lse, int seq, int causal, float scale_log2) {
+  using S = F32Shape<256>;
+  constexpr int D = S::D, N = S::kN, kRows = S::kRows, kStages = S::kStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* q_full = bars;
+  uint64_t* kv_full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + kRows) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  const int warpgroup = threadIdx.x / 128;
+  const auto stage = [&](int j) { return smem + S::kStage0 + (j % kStages) * S::kStage; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, tile_bytes<D, float>(kRows));
+      tf32::load_stacked_tma<D>(smem + S::kQ, &q_map, q_full, q0, bh);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kv_full[s], 2 * tile_bytes<D, float>(N));
+        load_tile_tma<D, float>(stage(j) + S::kK, &k_map, &kv_full[s], N, j * N, bh);
+        load_tile_tma<D, float>(stage(j) + S::kV, &v_map, &kv_full[s], N, j * N, bh);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: thread (warp w, lane l) owns query row
+  // q0 + 8w + l/4.
+  setmaxnreg_inc<240>();
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int row = q0 + 8 * warp + lane / 4;
+  const int tid = threadIdx.x - 128;
+
+  float acc[D / 2];  // stacked O: hi rows and lo rows of the thread's row
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[N / 2], sm[N / 4];
+  uint32_t p[N / 8][4];
+  float m = -INFINITY, l = 0.f, corr;
+
+  const auto needs_mask = [&](int j) {  // the causal diagonal or a ragged last tile
+    return (causal && j * N + N - 1 > q0) || j * N + N > seq;
+  };
+  // Tile j's K_lo, V^T and V^T_lo, made visible to wgmma; a consumer
+  // barrier follows before any warp reads them.
+  const auto split = [&](int j) {
+    mbar_wait(&kv_full[j % kStages], (j / kStages) & 1);
+    uint8_t* st = stage(j);
+    tf32::write_lo(st + S::kKlo, st + S::kK, N * D * 4, tid, 128);
+    tf32::write_transposed<N, D>(st + S::kVt, st + S::kVtlo, st + S::kV, tid, 128);
+    fence_proxy_async();
+  };
+  const auto consumers_sync = [&] { named_barrier_sync(1, 128); };
+  // S (stacked) = Q_st K^T + Q_st K_lo^T against tile j, one wgmma group.
+  const auto issue_qk = [&](int j) {
+    const uint8_t* st = stage(j);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<N>(s, desc_k_major<D, float>(smem + S::kQ, 64, 0, kk),
+                       desc_k_major<D, float>(st + S::kK, N, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_ss_tf32<N>(s, desc_k_major<D, float>(smem + S::kQ, 64, 0, kk),
+                       desc_k_major<D, float>(st + S::kKlo, N, 0, kk), 1);
+    }
+    wgmma_commit();
+  };
+  // O (stacked) += P_st V^T + P_st V^T_lo over tile j, one wgmma group.
+  const auto issue_pv = [&](int j) {
+    const uint8_t* st = stage(j);
+#pragma unroll
+    for (int kk = 0; kk < N / 8; ++kk) {
+      wgmma_rs_tf32<D>(acc, p[kk], desc_k_major<N, float>(st + S::kVt, D, 0, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < N / 8; ++kk) {
+      wgmma_rs_tf32<D>(acc, p[kk], desc_k_major<N, float>(st + S::kVtlo, D, 0, kk), 1);
+    }
+    wgmma_commit();
+  };
+
+  mbar_wait(q_full, 0);
+  tf32::write_stacked_lo<D>(smem + S::kQ, tid, 128);
+  split(0);
+  consumers_sync();
+  wgmma_fence();
+  issue_qk(0);
+  if (tiles > 1) split(1);
+  wgmma_wait<0>();
+  fence_operand(s);
+  tf32::merge_stacked<N>(sm, s);
+  softmax_row<N>(sm, m, l, corr, needs_mask(0), 0, row, seq, causal, scale_log2);
+  if (tiles > 1) consumers_sync();
+  tf32::stacked_fragments<N>(p, sm);
+
+  for (int j = 1; j < tiles; ++j) {
+    // Tile j's S and tile j-1's O += P V in flight together; tile j's
+    // softmax runs while P V is still on the tensor cores.
+    fence_operand(acc);
+    wgmma_fence();
+    issue_qk(j);
+    wgmma_fence();
+    issue_pv(j - 1);
+    wgmma_wait<1>();
+    fence_operand(s);
+    tf32::merge_stacked<N>(sm, s);
+    softmax_row<N>(sm, m, l, corr, needs_mask(j), j * N, row, seq, causal, scale_log2);
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (lane == 0) mbar_arrive(&empty[(j - 1) % kStages]);
+    if (j + 1 < tiles) {  // its stage is tile j-1's, released above
+      split(j + 1);
+      consumers_sync();
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr;
+    tf32::stacked_fragments<N>(p, sm);
+  }
+  fence_operand(acc);
+  wgmma_fence();
+  issue_pv(tiles - 1);
+  wgmma_wait<0>();
+  fence_operand(acc);
+  if (lane == 0) mbar_arrive(&empty[(tiles - 1) % kStages]);
+
+  const int t = lane % 4;
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  const float denom = fmaxf(l, 1e-30f);
+  if (row >= seq) return;
+  if (t == 0) {
+    const float shift = isfinite(m) ? m : 0.f;
+    lse[static_cast<int64_t>(bh) * seq + row] = (shift + log2f(denom)) * kLn2;
+  }
+  float* out = o + (static_cast<int64_t>(bh) * seq + row) * D + 2 * t;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(out + n * 8) =
+        make_float2((acc[4 * n] + acc[4 * n + 2]) / denom, (acc[4 * n + 1] + acc[4 * n + 3]) / denom);
+  }
+}
+
+template <>
+cudaError_t launch_f32<256>(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int batch_heads, int seq, int causal, float scale_log2,
+                            cudaStream_t stream) {
+  using S = F32Shape<256>;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err;
+  if ((err = make_tile_map<S::D, float>(&q_map, q, batch_heads, seq, 8)) != cudaSuccess ||
+      (err = make_tile_map<S::D, float>(&k_map, k, batch_heads, seq, S::kN)) != cudaSuccess ||
+      (err = make_tile_map<S::D, float>(&v_map, v, batch_heads, seq, S::kN)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = S::kBytes;
+  static_assert(smem <= 232448, "float32 K1 needs more shared memory than a block has");
+  if ((err = allow_smem(flash_fwd_f32_kernel<256>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + S::kRows - 1) / S::kRows);
+  flash_fwd_f32_kernel<256><<<grid, S::kThreads, smem, stream>>>(
       q_map, k_map, v_map, static_cast<float*>(o), static_cast<float*>(lse), seq, causal,
       scale_log2);
   return cudaGetLastError();
@@ -589,6 +849,8 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o,
       return launch<64, kBf16>(q, k, v, o, lse, batch_heads, seq, causal, scale_log2, stream);
     case 128:
       return launch<128, kBf16>(q, k, v, o, lse, batch_heads, seq, causal, scale_log2, stream);
+    case 256:
+      return launch<256, kBf16>(q, k, v, o, lse, batch_heads, seq, causal, scale_log2, stream);
     default:
       return cudaErrorInvalidValue;
   }

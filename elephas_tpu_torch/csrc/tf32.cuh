@@ -65,15 +65,16 @@ __host__ __device__ constexpr int fragment_pos(int r) {
 // transposed into the K-major B operand of a product that reduces over its
 // R rows: C rows of R columns (TileLayout<R, float>), column fragment_pos(r)
 // holding source row r; the values into `hi` and their lo into `lo_t`.
-template <int R, int C>
+// With SrcC > C, `src` is (R, SrcC) and columns c0 .. c0 + C are taken.
+template <int R, int C, int SrcC = C>
 __device__ __forceinline__ void write_transposed(uint8_t* hi, uint8_t* lo_t, const uint8_t* src,
-                                                 int tid, int threads) {
-  using Src = TileLayout<C, float>;
+                                                 int tid, int threads, int c0 = 0) {
+  using Src = TileLayout<SrcC, float>;
   using Dst = TileLayout<R, float>;
   for (int i = tid; i < R * C / 4; i += threads) {
-    const int r = i % R, c = (i / R) * 4;  // source row, first of 4 columns
+    const int r = i % R, c = (i / R) * 4, sc = c0 + c;  // source row, first of 4 columns
     const float4 x = *reinterpret_cast<const float4*>(
-        src + (c / Src::W) * Src::block_bytes(R) + Src::offset(r, (c % Src::W) * 4));
+        src + (sc / Src::W) * Src::block_bytes(R) + Src::offset(r, (sc % Src::W) * 4));
     const int pos = fragment_pos(r);
     const int block = (pos / Dst::W) * Dst::block_bytes(C), col = (pos % Dst::W) * 4;
     const float v[4] = {x.x, x.y, x.z, x.w};
@@ -99,6 +100,75 @@ __device__ __forceinline__ void split_fragments(uint32_t (&hi)[N / 8][4], uint32
     for (int r = 0; r < 4; ++r) {
       hi[kk][r] = __float_as_uint(x[r]) & 0xffffe000u;
       lo_f[kk][r] = __float_as_uint(x[r] - __uint_as_float(hi[kk][r]));
+    }
+  }
+}
+
+// ------------------------------------------------ stacked tiles (D = 256)
+//
+// At head_dim 256 a float32 tile of 64 rows is 64 KiB, so a block cannot
+// hold two 64-row operands of one side with their lo copies. A stacked
+// tile holds 32 source rows and their lo parts in one 64-row wgmma
+// operand: rows 16w .. 16w + 7 are source rows 8w .. 8w + 7 (w < 4) and
+// rows 16w + 8 .. 16w + 15 their lo parts, so a product over it leaves
+// the hi and the lo product of source row 8w + l/4 in the same thread
+// (rows i = 0 and i = 1 of its accumulator): merge_stacked adds them. As
+// an A operand from registers, stacked_fragments puts a row's hi part in
+// fragment rows g and its lo part in rows g + 8. Either way one product
+// against B and one against B_lo give all four terms of the split.
+
+// Load 32 rows from `row` of head `bh` into a stacked tile: per column
+// block, four TMA boxes of 8 rows (a map of 8-row boxes), each on its own
+// 1024-byte swizzle atom, so the swizzle is a whole tile's.
+template <int D>
+__device__ __forceinline__ void load_stacked_tma(void* tile, const CUtensorMap* map, uint64_t* bar,
+                                                 int row, int bh) {
+  using L = TileLayout<D, float>;
+#pragma unroll
+  for (int c = 0; c < L::kBlocks; ++c) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      sm90::tma_load_3d(static_cast<char*>(tile) + c * L::block_bytes(64) + 16 * w * L::kSwizzle,
+                        map, bar, c * L::W, row + 8 * w, bh);
+    }
+  }
+}
+
+// The lo halves of a stacked tile from its loaded rows: each 8-row group
+// shifted by one swizzle atom (1024 bytes), whose XOR pattern is the same.
+template <int D>
+__device__ __forceinline__ void write_stacked_lo(uint8_t* tile, int tid, int threads) {
+  using L = TileLayout<D, float>;
+  constexpr int kAtom = 8 * L::kSwizzle;  // bytes of 8 rows of a column block
+  for (int i = tid; i < L::kBlocks * 4 * kAtom / 16; i += threads) {
+    uint8_t* src = tile + (i / (kAtom / 16)) * 2 * kAtom + (i % (kAtom / 16)) * 16;
+    *reinterpret_cast<float4*>(src + kAtom) = lo(*reinterpret_cast<const float4*>(src));
+  }
+}
+
+// A stacked product's accumulator (d[4j + 2i + c]: row i = 0 hi, i = 1 lo)
+// as the source row's values, m[2j + c] = column 8j + 2(l%4) + c.
+template <int N>
+__device__ __forceinline__ void merge_stacked(float (&m)[N / 4], const float (&d)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    m[2 * j] = d[4 * j] + d[4 * j + 2];
+    m[2 * j + 1] = d[4 * j + 1] + d[4 * j + 3];
+  }
+}
+
+// One row's values (merge_stacked's layout) as stacked tf32 A fragments
+// of 8 columns each, in the column order of fragment_pos: hi in fragment
+// rows g (a[0], a[2]), lo in rows g + 8 (a[1], a[3]).
+template <int N>
+__device__ __forceinline__ void stacked_fragments(uint32_t (&a)[N / 8][4], const float (&m)[N / 4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float x = m[2 * kk + c];
+      a[kk][2 * c] = __float_as_uint(x) & 0xffffe000u;
+      a[kk][2 * c + 1] = __float_as_uint(x - __uint_as_float(a[kk][2 * c]));
     }
   }
 }

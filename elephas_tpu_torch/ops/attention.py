@@ -6,12 +6,12 @@ or backward. A CUDA input whose head_dim a kernel instance holds runs
 the hand-written kernels (``ops/attention_cuda.py``; K1 forward, K2 and
 K3 backward): ``takes_kernels`` is that rule, decided by head_dim,
 length and device, and ``kernel_layout`` says at which head_dim and
-dtype the kernels compute the input. Inputs on another device, and CUDA
-inputs of a larger head_dim below the JAX package's Pallas threshold,
-run ``blockwise_reference``, K1's plain PyTorch version with the same
-numerics, and autograd differentiates it: the JAX package's own route
-there (its XLA blockwise path). ``flash_backward_reference`` is the
-plain version of K2 and K3.
+dtype the kernels compute the input (every head_dim up to 256). Inputs on
+another device, and CUDA inputs of a larger head_dim below the JAX
+package's Pallas threshold, run ``blockwise_reference``, K1's plain
+PyTorch version with the same numerics, and autograd differentiates it:
+the JAX package's own route there (its XLA blockwise path).
+``flash_backward_reference`` is the plain version of K2 and K3.
 
 Shapes: q, k, v are (batch, heads, seq, head_dim); the output is the
 same, and the optional lse is (batch, heads, seq) float32.
@@ -383,10 +383,10 @@ def takes_kernels(head_dim: int, seq: int, device_type: str) -> bool:
 
     Inputs on any other device than ``cuda`` never take them. CUDA inputs
     whose head_dim a kernel instance holds (up to
-    ``attention_cuda.HEAD_DIMS[-1]``) take them at every length: the port
-    has no sequence-length threshold there. Above that head_dim the rule
-    is the JAX package's ``_use_pallas``: below ``WIDE_HEAD_MIN_SEQ`` it
-    runs its XLA blockwise path, and the port runs the plain versions on
+    ``attention_cuda.HEAD_DIMS[-1]``, 256) take them at every length: the
+    port has no sequence-length threshold there. Above that head_dim the
+    rule is the JAX package's ``_use_pallas``: below ``WIDE_HEAD_MIN_SEQ``
+    it runs its XLA blockwise path, and the port runs the plain versions on
     the card. At or above it the JAX package runs its Pallas kernels,
     whose counterpart at that head_dim is not built yet, so this raises
     ``NotImplementedError`` rather than run plain PyTorch where the
@@ -402,7 +402,7 @@ def takes_kernels(head_dim: int, seq: int, device_type: str) -> bool:
         f"flash attention on the card at head_dim {head_dim} and seq {seq} >= "
         f"{WIDE_HEAD_MIN_SEQ} needs a kernel instance above head_dim "
         f"{attention_cuda.HEAD_DIMS[-1]}, which is not built yet (ROADMAP, kernel work "
-        "queued: D = 256 kernel instances)"
+        f"queued: instances for head_dim above {attention_cuda.HEAD_DIMS[-1]})"
     )
 
 
@@ -439,7 +439,7 @@ def flash_attention(q, k, v, causal: bool = True,
     """Blockwise attention; ``(o, lse)`` with ``return_lse=True``.
 
     Inputs that ``takes_kernels`` sends to the kernels (CUDA inputs of
-    head_dim up to 128) run them at their own tiling
+    head_dim up to 256) run them at their own tiling
     (``attention_cuda.kernel_tiles``), whatever ``block_q`` and
     ``block_k`` say: the tiling sets the order of the sums, not what they
     sum. Inputs on another device, and CUDA inputs of a larger head_dim

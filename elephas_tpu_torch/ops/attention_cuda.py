@@ -17,13 +17,17 @@ What bounds them on an H100: causal work is 2·B·H·S²·D FLOPs for K1,
 ``CostEstimate``s) against 4–5·B·H·S·D·itemsize bytes, so at the LM's
 shape (8, 8, 2048, 32) all three are bound by operations; in bf16 the
 exponentials (one per valid score) are a floor of their own. Every
-kernel, in both dtypes, is built for Hopper (``csrc/sm90.cuh``): TMA
-loads into an mbarrier ring, a producer warp and one to three consumer
-warpgroups of 64 rows each on ``wgmma``. The float32 kernels take each
-product as three tf32 products (a_lo b + a b_lo + a b, a_lo the part of a
-below tf32's 10 mantissa bits; ``csrc/tf32.cuh``), which keeps float32
-accuracy (times in PERF.md). ``kernel_tiles`` gives each kernel's tiling,
-which sets the order of its sums.
+kernel, in both dtypes and at every head_dim of ``HEAD_DIMS``, is built
+for Hopper (``csrc/sm90.cuh``): TMA loads into an mbarrier ring, a
+producer warp and one to three consumer warpgroups of 64 rows each on
+``wgmma``. The float32 kernels take each product as three tf32 products
+(a_lo b + a b_lo + a b, a_lo the part of a below tf32's 10 mantissa bits;
+``csrc/tf32.cuh``), which keeps float32 accuracy (times in PERF.md); at
+head_dim 256 they take 32 rows (or keys) as a stacked 64-row operand of
+those rows and their lo parts, so that one block's tiles fit its shared
+memory, and K3 computes half of dK's and dV's columns a block in both
+dtypes. ``kernel_tiles`` gives each kernel's tiling, which sets the
+order of its sums.
 
 ``launches`` counts the launches of each kernel (``flash_fwd``,
 ``flash_dq``, ``flash_dkv``); a count moves where its kernel is launched
@@ -49,7 +53,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu"}
 HEADERS = (CSRC / "common.cuh", CSRC / "sm90.cuh", CSRC / "tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 # Each kernel's grid is (batch·heads, tiles of seq): CUDA's x-dimension limit.
 MAX_GRID_X = 2**31 - 1
@@ -58,18 +62,26 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 # (query rows, keys) of each kernel's tile; it sets the order of the sums.
 # bf16: K1 192 query rows (three consumer warpgroups of 64) against 128
-# keys (64 at head_dim 128); K2 128 query rows against 128 keys at head_dim
-# 32, 192 against 64 at 64, 128 against 64 at 128; K3 64 query rows against
-# 192 keys (128 at head_dim 64 and 128). float32: K1 192, 128 and 64 query
-# rows against 64, 64 and 32 keys at head_dim 32, 64 and 128; K2 128, 128
-# and 64 against 64, 32 and 16; K3 64, 32 and 16 against 128, 64 and 64.
+# keys (64 at head_dim 128), 128 against 64 at 256; K2 128 query rows
+# against 128 keys at head_dim 32, 192 against 64 at 64, 128 against 64 at
+# 128 and 32 at 256; K3 64 query rows against 192 keys (128 at head_dim 64
+# and 128, 64 at 256). float32: K1 192, 128, 64 and 32 query rows against
+# 64, 64, 32 and 16 keys at head_dim 32, 64, 128 and 256; K2 128, 128, 64
+# and 32 against 64, 32, 16 and 16; K3 64, 32, 16 and 16 against 128, 64,
+# 64 and 32.
 _TILES = {
-    torch.bfloat16: {"flash_fwd": {32: (192, 128), 64: (192, 128), 128: (192, 64)},
-                     "flash_dq": {32: (128, 128), 64: (192, 64), 128: (128, 64)},
-                     "flash_dkv": {32: (64, 192), 64: (64, 128), 128: (64, 128)}},
-    torch.float32: {"flash_fwd": {32: (192, 64), 64: (128, 64), 128: (64, 32)},
-                    "flash_dq": {32: (128, 64), 64: (128, 32), 128: (64, 16)},
-                    "flash_dkv": {32: (64, 128), 64: (32, 64), 128: (16, 64)}},
+    torch.bfloat16: {"flash_fwd": {32: (192, 128), 64: (192, 128), 128: (192, 64),
+                                   256: (128, 64)},
+                     "flash_dq": {32: (128, 128), 64: (192, 64), 128: (128, 64),
+                                  256: (128, 32)},
+                     "flash_dkv": {32: (64, 192), 64: (64, 128), 128: (64, 128),
+                                   256: (64, 64)}},
+    torch.float32: {"flash_fwd": {32: (192, 64), 64: (128, 64), 128: (64, 32),
+                                  256: (32, 16)},
+                    "flash_dq": {32: (128, 64), 64: (128, 32), 128: (64, 16),
+                                 256: (32, 16)},
+                    "flash_dkv": {32: (64, 128), 64: (32, 64), 128: (16, 64),
+                                  256: (16, 32)}},
 }
 
 # C functions of each library: name -> (library, pointer arguments).

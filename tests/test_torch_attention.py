@@ -415,8 +415,9 @@ class _Inputs:
     (100, torch.float16, (128, torch.float32)),
     (32, torch.float16, (32, torch.float32)),
     (32, torch.float64, (32, torch.float32)),
-    (129, torch.float32, ValueError),
-    (256, torch.bfloat16, ValueError),
+    (129, torch.float32, (256, torch.float32)),
+    (256, torch.bfloat16, (256, torch.bfloat16)),
+    (257, torch.float32, ValueError),
     (0, torch.float32, ValueError),
     (32, torch.int32, TypeError),
     (32, torch.complex64, TypeError),
@@ -455,8 +456,9 @@ def test_use_kernels_takes_every_cuda_input(shape, dtype):
     (32, "cuda", True),
     (64, "cuda", True),
     (128, "cuda", True),
-    (129, "cuda", False),
-    (256, "cuda", False),
+    (129, "cuda", True),
+    (256, "cuda", True),
+    (257, "cuda", False),
     (64, "cpu", False),
     (256, "cpu", False),
 ])
@@ -464,33 +466,33 @@ def test_use_kernels_takes_every_cuda_input(shape, dtype):
 def test_takes_kernels_is_decided_by_head_dim_and_device(head_dim, device, want, seq):
     """The dispatch rule below the JAX package's Pallas length for wide
     heads: a CUDA input takes the kernels up to the largest built head_dim
-    (128) and runs the plain versions above it, as the JAX package runs
+    (256) and runs the plain versions above it, as the JAX package runs
     its XLA path there. ``use_kernels`` reads it."""
-    assert ops.WIDE_HEAD_MIN_SEQ == 4096 == jax_pallas_min_seq(256) == jax_pallas_min_seq(129)
+    assert ops.WIDE_HEAD_MIN_SEQ == 4096 == jax_pallas_min_seq(256) == jax_pallas_min_seq(257)
     assert ops.takes_kernels(head_dim, seq, device) is want
     for dtype in (torch.float32, torch.bfloat16):
         assert ops.use_kernels(*[_Inputs((2, 4, seq, head_dim), dtype, device)] * 3) is want
-    assert attention_cuda.HEAD_DIMS[-1] == 128
+    assert attention_cuda.HEAD_DIMS[-1] == 256
 
 
-@pytest.mark.parametrize("head_dim", [129, 256])
+@pytest.mark.parametrize("head_dim", [257, 512])
 def test_wide_heads_at_the_pallas_length_raise_on_the_card(head_dim):
     """At or above the length where the JAX package runs Pallas at a wide
-    head_dim, a CUDA input raises and names the kernel instance it lacks
+    head_dim, a CUDA input raises and names the kernel instances it lacks
     rather than run the plain versions; the kernels still take every
-    length up to head_dim 128, and the CPU runs the plain versions."""
+    length up to head_dim 256, and the CPU runs the plain versions."""
     for seq in (4096, 8192):
-        with pytest.raises(NotImplementedError, match="D = 256 kernel instances"):
+        with pytest.raises(NotImplementedError, match="head_dim above 256"):
             ops.takes_kernels(head_dim, seq, "cuda")
         with pytest.raises(NotImplementedError, match=f"head_dim {head_dim}"):
             ops.use_kernels(*[_Inputs((1, 2, seq, head_dim))] * 3)
-        assert ops.takes_kernels(128, seq, "cuda")
+        assert ops.takes_kernels(256, seq, "cuda") and ops.takes_kernels(129, seq, "cuda")
         assert not ops.takes_kernels(head_dim, seq, "cpu")
 
 
 def test_head_dim_256_takes_the_plain_path_and_computes_as_the_reference(monkeypatch):
-    """A head_dim no kernel holds, on an input the rule sends to the plain
-    path: ``flash_attention`` (and its gradients) and the hop helpers run
+    """head_dim 256 on an input the rule sends to the plain path (a CPU
+    input): ``flash_attention`` (and its gradients) and the hop helpers run
     ``blockwise_reference`` and ``flash_backward_reference`` — no kernel
     wrapper is called — and agree with the JAX package's
     ``flash_attention`` and its gradients, which compute every head_dim."""
@@ -628,8 +630,8 @@ def test_kernel_function_raises_where_no_kernel_computes(monkeypatch):
     """head_dim above the largest kernel's, or a dtype no kernel takes,
     raises on the way to the kernels: no plain version runs instead."""
     _plain_kernels(monkeypatch, [])
-    with pytest.raises(ValueError, match="head_dim 160"):
-        ops._FlashAttentionCUDA.apply(*[torch.zeros(1, 1, 8, 160)] * 3, True)
+    with pytest.raises(ValueError, match="head_dim 320"):
+        ops._FlashAttentionCUDA.apply(*[torch.zeros(1, 1, 8, 320)] * 3, True)
     with pytest.raises(TypeError, match="int32"):
         ops._FlashAttentionCUDA.apply(*[torch.zeros(1, 1, 8, 32, dtype=torch.int32)] * 3,
                                       True)

@@ -206,6 +206,7 @@ def test_kernel_line_carries_every_path(smoke):
                 "train": {k: 176 for k in smoke.KERNELS},
                 "resnet": {k: 0 for k in smoke.KERNELS},
                 "repair": {k: 12 for k in smoke.KERNELS},
+                "wide_head": {"flash_fwd": 40, "flash_dq": 24, "flash_dkv": 24},
                 "serving": {k: 0 for k in smoke.KERNELS},
                 "async": {k: 0 for k in smoke.KERNELS},
                 "estimator": {k: 0 for k in smoke.KERNELS},
@@ -216,6 +217,7 @@ def test_kernel_line_carries_every_path(smoke):
     for e in entries:
         assert e["launches"] == 176 and e["launches_by_path"]["resnet"] == 0
         assert e["launches_by_path"]["repair"] == 12
+        assert e["launches_by_path"]["wide_head"] == (40 if e["name"] == "flash_fwd" else 24)
         assert e["launches_by_path"]["serving"] == 0
         assert e["launches_by_path"]["async"] == 0
         assert e["launches_by_path"]["estimator"] == 0
@@ -225,6 +227,61 @@ def test_kernel_line_carries_every_path(smoke):
         assert e["replaces"].startswith("elephas_tpu/ops/attention_pallas.py:")
         assert e["ms"] == 1.0 and e["bf16"] == {"ms": 0.5}
     assert entries[0]["launches_by_path"]["inference"] == 56
+
+
+def test_kernel_line_carries_the_head_dim_256_instances(smoke):
+    """Given the wide-head phase's timing and errors, each kernel's entry
+    also carries its head_dim-256 instances by dtype; the contract's keys
+    stay those of the LM's shape."""
+    import torch
+
+    timing = {name: {torch.float32: {"ms": 1.0}, torch.bfloat16: {"ms": 0.5}}
+              for name in smoke.KERNELS}
+    errors = {name: {torch.float32: 1e-6, torch.bfloat16: 1e-3} for name in smoke.KERNELS}
+    wide_timing = {dtype: {name: {"ms": 2.0, "bound_ms": 1.0, "library_ms": 3.0}
+                           for name in smoke.KERNELS}
+                   for dtype in (torch.float32, torch.bfloat16)}
+    wide_errors = {name: {torch.float32: 2e-6, torch.bfloat16: 4e-3} for name in smoke.KERNELS}
+    launches = {"train": {k: 176 for k in smoke.KERNELS},
+                "wide_head": {"flash_fwd": 40, "flash_dq": 24, "flash_dkv": 24}}
+    entries = smoke.kernel_entries(timing, errors, launches, wide=(wide_timing, wide_errors))
+    for e in entries:
+        assert e["ms"] == 1.0 and e["launches"] == 176
+        assert e["head_dim_256"] == {
+            "float32": {"ms": 2.0, "bound_ms": 1.0, "library_ms": 3.0, "max_err": 2e-6},
+            "bfloat16": {"ms": 2.0, "bound_ms": 1.0, "library_ms": 3.0, "max_err": 4e-3}}
+    assert "head_dim_256" not in smoke.kernel_entries(timing, errors, launches)[0]
+
+
+def test_wide_head_config_is_the_full_width_head_dim_256_lm(smoke):
+    """The wide-head phase's LM: 8 heads of 256 (d_model 2048) in the
+    registry's LM, 4 layers, vocab 32000, at 2 x 4096 tokens (the length
+    at which the JAX package runs Pallas at that head_dim), with the
+    parameter count the phase checks; the cases sit at head_dim 256 and
+    the zero-column route at 192."""
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.ops.attention import WIDE_HEAD_MIN_SEQ
+
+    module = get_model("transformer_lm", device="meta", attention="flash", **smoke.WIDE_LM)
+    assert sum(p.numel() for p in module.parameters()) == smoke.WIDE_PARAMS == 340_929_792
+    assert smoke.WIDE_LM["d_model"] // smoke.WIDE_LM["num_heads"] == 256
+    assert smoke.WIDE_BATCH == (2, WIDE_HEAD_MIN_SEQ) == (2, smoke.WIDE_LM["max_seq_len"])
+    assert [shape[-1] for shape, _ in smoke.WIDE_CASES] == [256, 256]
+    assert smoke.WIDE_CASES[0] == ((2, 8, 4096, 256), True)
+    assert smoke.WIDE_ROUTE[-1] == 192 and smoke.WIDE_HOP[-1] == 256
+    assert smoke.WIDE_STEPS == 3 and smoke.WIDE_LOSS_RTOL == 1e-4 and smoke.GRAD_RTOL == 1e-3
+
+
+def test_main_runs_the_wide_head_phase_after_the_repair_phase():
+    """The wide-head phase follows the repair phase, keeps its launches
+    under ``"wide_head"``, prints its report before the kernel line and
+    hands its timing and errors to it."""
+    source, phases = _main_source()
+    assert phases[phases.index("wide_head_phase") - 1] == "repair_phase"
+    assert "launches['wide_head'], wide_timing, wide_errors, report = " \
+        "wide_head_phase(attention_cuda)" in source
+    assert "wide=(wide_timing, wide_errors)" in source
+    assert source.index("repair: ") < source.index("wide_head: ") < source.index("'kernels'")
 
 
 def test_serving_config_is_the_full_width_deployment(smoke):
@@ -337,7 +394,8 @@ def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
     card's name and count."""
     source, phases = _main_source()
     assert phases == ["kernel_phase", "inference_phase", "train_phase", "seq_parallel_phase",
-                      "tensor_parallel_phase", "resnet_phase", "repair_phase", "serving_phase",
+                      "tensor_parallel_phase", "resnet_phase", "repair_phase",
+                      "wide_head_phase", "serving_phase",
                       "spec_handoff_phase", "fleet_phase", "async_phase", "async_multiproc_phase",
                       "ops_phase", "estimator_phase", "locksan_phase", "search_phase",
                       "fit_slice_phase", "chaos_phase"]
@@ -917,12 +975,12 @@ def test_spec_handoff_config(smoke):
     """Gamma 4 over the serving phase's engine and traffic, a 2-of-4-layer
     self-draft and a 1-layer model draft, one injected pull failure, 16
     requests handed off; the repair phase's plain-path shape is head_dim
-    256 (d_model 2048 over 8 heads)."""
+    512, which no kernel instance holds."""
     assert smoke.SPEC_GAMMA == 4 and smoke.SPEC_DRAFT_LAYERS == 2
     assert smoke.SPEC_MODEL_DRAFT_LAYERS == 1 and smoke.SPEC_PAIRS == 2
     assert smoke.HANDOFF_REQUESTS == 16 <= smoke.SERVE_ENGINE["max_slots"]
     assert 0.9 <= smoke.SPEC_ACCEPT_ALL_MIN <= 1.0
-    assert smoke.REPAIR_WIDE == (2, 4, 512, 256)
+    assert smoke.REPAIR_WIDE == (2, 4, 512, 512)
     assert smoke.SERVE_BASELINE_NEW_TOKENS_PER_S == 3216
 
 
@@ -986,12 +1044,12 @@ def test_drained_pool_and_imported_blocks_on_the_cpu(smoke, monkeypatch):
 
 
 def test_wide_head_checks_hold_the_plain_path(smoke):
-    """The repair phase's head_dim 256 checks, run on the CPU at a small
+    """The repair phase's head_dim 512 checks, run on the CPU at a small
     length: both sides take the plain path, nothing launches, and every
     error sits under K1-K3's limits."""
     from elephas_tpu_torch.ops import attention_cuda
 
-    out = smoke.wide_head_checks(attention_cuda, shape=(1, 2, 64, 256), device="cpu")
+    out = smoke.wide_head_checks(attention_cuda, shape=(1, 2, 64, 512), device="cpu")
     assert set(out) == {"torch.float32", "torch.bfloat16"}
     for errors in out.values():
         assert set(errors) == {"o", "grads", "hop_o", "hop_lse", "hop_grads"}
