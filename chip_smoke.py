@@ -473,6 +473,9 @@ REPAIR_WIDE = (2, 4, 512, 512)
 # width, d_model 2048) in the registry's LM, 4 layers, at 2 x 4096 tokens,
 # the length where the JAX package runs Pallas at that head_dim.
 WIDE_CASES = (((2, 8, 4096, 256), True), ((1, 8, 2048, 256), False))
+# Ragged lengths at head_dim 256, causal and not, both dtypes: the last
+# streamed tile's TMA boxes reach past `seq` and must arrive as zeros.
+WIDE_RAGGED = (37, 100, 1000)
 WIDE_ROUTE = (2, 4, 1000, 192)
 WIDE_HOP = (2, 8, 1024, 256)
 WIDE_LM = {"vocab_size": 32000, "d_model": 2048, "num_heads": 8, "num_layers": 4,
@@ -1812,9 +1815,10 @@ def held_route(attention_cuda, gen, what, shape, dtype, limits, view=None, block
 
 
 def wide_head_phase(attention_cuda):
-    """The head_dim-256 instances of K1-K3 (``WIDE_CASES``, held against
-    their plain versions; the first case timed), head_dim 192 on zero
-    columns (``WIDE_ROUTE``), the ring's hop helpers at ``WIDE_HOP``, then
+    """The head_dim-256 instances of K1-K3 (``WIDE_CASES`` and the ragged
+    lengths ``WIDE_RAGGED``, held against their plain versions; the first
+    case timed), head_dim 192 on zero columns (``WIDE_ROUTE``), the
+    ring's hop helpers at ``WIDE_HOP``, then
     the full-width head_dim-256 LM (``WIDE_LM``) at ``WIDE_BATCH``: f32
     first gradients and ``WIDE_STEPS`` Adam steps against its dense twin,
     a bf16 step, scoring, each launching 4 of each kernel a step (4 K1 a
@@ -1843,6 +1847,12 @@ def wide_head_phase(attention_cuda):
                 errors[name][dtype] = max(errors[name][dtype], errs[name])
             if timed:
                 timing[dtype] = times
+    for seq in WIDE_RAGGED:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                errs = kernel_case(attention_cuda, (2, 2, seq, 256), causal, dtype, gen)[0]
+                for name in KERNELS:
+                    errors[name][dtype] = max(errors[name][dtype], errs[name])
     report["route_192"] = {
         str(dtype): held_route(attention_cuda, gen, "head_dim 192 on zero columns", WIDE_ROUTE,
                                dtype, {"o": TOL[dtype][0], "grads": TOL_BWD[dtype]},

@@ -19,12 +19,13 @@
 //   (causal) or the end. bf16: 128 rows against 128 keys at D = 32, 192
 //   against 64 at D = 64, 128 against 64 at D = 128, 128 against 32 at
 //   D = 256; float32: 128 rows against 64 keys at D = 32 and 32 at D = 64,
-//   64 rows against 16 at D = 128, 32 (stacked) against 16 at D = 256.
+//   64 rows against 16 at D = 128, 32 (stacked, in registers) against 16
+//   at D = 256.
 // - K3: one block per (key tile, batch*head): in bf16 192 keys at D = 32
 //   and 128 at D = 64 and 128, 64 at D = 256, against query tiles of 64
 //   rows; in float32 128 keys against 64-row query tiles at D = 32, 64
-//   keys against 32 and 16 rows at D = 64 and 128, 32 keys (stacked)
-//   against 16 rows at D = 256. K and V stay put; Q/dO tiles stream from
+//   keys against 32 and 16 rows at D = 64 and 128, 32 keys (stacked, in
+//   registers) against 16 rows at D = 256. K and V stay put; Q/dO tiles stream from
 //   the one holding the block's first key (causal) or from the start, with
 //   lse and delta staged beside them. dk and dv accumulate in float32
 //   registers; at D = 256 a block holds half of their columns (a third
@@ -95,10 +96,11 @@
 //     64-byte rows), 2 stages, 1 buffer: 128 + 34 + 48 = 210 KB. With two
 //     buffers tile i+1 is split while tile i's S^T and dP^T run; with one,
 //     after tile i's products.
-//   - D = 256 (DqF32Shape<256>, DkvF32Shape<256>): a 64-row tile is 64 KiB,
-//     so the fixed side is 32 rows or keys as stacked tiles (tf32.cuh),
-//     one consumer warpgroup and one stage, tile by tile: K2 224 KiB, K3
-//     (half the columns a block) 225 KiB.
+//   - D = 256 (WideF32, below): a 64-row tile is 64 KiB, so the fixed
+//     side is 32 rows or keys as stacked register A operands (tf32.cuh),
+//     one a warpgroup (Q and dO, or K and V), against 16-row tiles in a
+//     2-stage ring, the two warpgroups' S and dP (S^T and dP^T) at once,
+//     202 KiB; K3 half the columns a block.
 
 // Bound. Causal work is 3*B*H*S^2*D FLOPs for K2 and 4*B*H*S^2*D for K3
 // (the Pallas kernels' CostEstimates) against 5*B*H*S*D*itemsize bytes, so
@@ -889,200 +891,6 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
-// float32 K2 at D = 256. Q, dO and their lo copies for 64 rows would be
-// 256 KiB, so the block takes 32 query rows as two stacked tiles (tf32.cuh;
-// Q_st and dO_st, 128 KiB) and 16-key tiles in one stage (K, V by TMA,
-// K_lo, V_lo, K^T and K^T_lo written by the consumers: 96 KiB), one
-// consumer warpgroup (dQ takes 128 registers a thread). S = Q_st K^T +
-// Q_st K_lo^T, dP = dO_st V^T + dO_st V_lo^T, dQ += dS_st K + dS_st K_lo.
-// With one stage the loop runs tile by tile: the stage is released once S
-// and dP are done (dQ reads only the derived K^T), so the next tile's TMA
-// runs under dS and dQ.
-template <>
-struct DqF32Shape<256> {
-  static constexpr int D = 256;
-  static constexpr int kRows = 32;  // query rows per block
-  static constexpr int kN = 16;     // keys per K/V tile
-  static constexpr int kThreads = 256;  // the producer and one consumer warpgroup
-  static constexpr size_t kFixed = align1k(tile_bytes<D, float>(64));  // a stacked tile
-  static constexpr size_t kQ = 0, kDo = kFixed, kStage0 = 2 * kFixed;
-  static constexpr size_t kBuf = align1k(tile_bytes<D, float>(kN));
-  static constexpr size_t kK = 0, kV = kBuf, kKlo = 2 * kBuf, kVlo = 3 * kBuf;
-  static constexpr size_t kKt = 4 * kBuf, kKtlo = 5 * kBuf;  // within the stage
-  static constexpr size_t kBar = kStage0 + 6 * kBuf;
-  static constexpr size_t kBytes = kBar + 3 * sizeof(uint64_t) + 1024;
-};
-
-template <>
-__global__ void __launch_bounds__(DqF32Shape<256>::kThreads, 1)
-flash_dq_f32_kernel<256>(const __grid_constant__ CUtensorMap q_map,
-                         const __grid_constant__ CUtensorMap k_map,
-                         const __grid_constant__ CUtensorMap v_map,
-                         const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
-                         const float* __restrict__ delta, float* __restrict__ dq, int seq,
-                         int causal, float scale_log2, float scale) {
-  using S = DqF32Shape<256>;
-  constexpr int D = S::D, N = S::kN, kRows = S::kRows;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
-  uint8_t* st = smem + S::kStage0;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
-  uint64_t* q_full = bars;
-  uint64_t* kv_full = bars + 1;
-  uint64_t* empty = bars + 2;
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest q tiles first
-  const int kv_end = causal ? min(seq, q0 + kRows) : seq;
-  const int tiles = (kv_end + N - 1) / N;
-  const int warpgroup = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    mbar_init(kv_full, 1);
-    mbar_init(empty, 4);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (warpgroup == 0) {  // producer
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(q_full, 2 * tile_bytes<D, float>(kRows));
-      tf32::load_stacked_tma<D>(smem + S::kQ, &q_map, q_full, q0, bh);
-      tf32::load_stacked_tma<D>(smem + S::kDo, &do_map, q_full, q0, bh);
-      for (int j = 0; j < tiles; ++j) {
-        mbar_wait(empty, (j & 1) ^ 1);
-        mbar_arrive_expect_tx(kv_full, 2 * tile_bytes<D, float>(N));
-        load_tile_tma<D, float>(st + S::kK, &k_map, kv_full, N, j * N, bh);
-        load_tile_tma<D, float>(st + S::kV, &v_map, kv_full, N, j * N, bh);
-      }
-    }
-    return;
-  }
-
-  // The consumer warpgroup: thread (warp w, lane l) owns query row
-  // q0 + 8w + l/4.
-  setmaxnreg_inc<240>();
-  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
-  const int row = q0 + 8 * warp + lane / 4;
-  const int tid = threadIdx.x - 128, t = lane % 4;
-  const int64_t at = static_cast<int64_t>(bh) * seq + row;
-  const float lse2 = row < seq ? lse[at] * kLog2e : 0.f;  // base 2
-  const float dlt = row < seq ? delta[at] : 0.f;
-
-  float acc[D / 2];  // stacked dQ
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float s[N / 2], dp[N / 2], sm[N / 4], dpm[N / 4];
-  uint32_t ds[N / 8][4];
-  const auto consumers_sync = [&] { named_barrier_sync(1, 128); };
-
-  mbar_wait(q_full, 0);
-  tf32::write_stacked_lo<D>(smem + S::kQ, tid, 128);
-  tf32::write_stacked_lo<D>(smem + S::kDo, tid, 128);
-  for (int j = 0; j < tiles; ++j) {
-    // Tile j's derived tiles, made visible to wgmma.
-    mbar_wait(kv_full, j & 1);
-    tf32::write_lo(st + S::kKlo, st + S::kK, N * D * 4, tid, 128);
-    tf32::write_lo(st + S::kVlo, st + S::kV, N * D * 4, tid, 128);
-    tf32::write_transposed<N, D>(st + S::kKt, st + S::kKtlo, st + S::kK, tid, 128);
-    fence_proxy_async();
-    consumers_sync();
-
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<N>(s, desc_k_major<D, float>(smem + S::kQ, 64, 0, kk),
-                       desc_k_major<D, float>(st + S::kK, N, 0, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<N>(s, desc_k_major<D, float>(smem + S::kQ, 64, 0, kk),
-                       desc_k_major<D, float>(st + S::kKlo, N, 0, kk), 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<N>(dp, desc_k_major<D, float>(smem + S::kDo, 64, 0, kk),
-                       desc_k_major<D, float>(st + S::kV, N, 0, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<N>(dp, desc_k_major<D, float>(smem + S::kDo, 64, 0, kk),
-                       desc_k_major<D, float>(st + S::kVlo, N, 0, kk), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operand(s);
-    fence_operand(dp);
-    if (lane == 0) mbar_arrive(empty);  // K and V are read; K^T stays for dQ
-
-    // dS = P (dP - delta), P = exp2(S c - lse), masked on the causal
-    // diagonal and a ragged last tile.
-    tf32::merge_stacked<N>(sm, s);
-    tf32::merge_stacked<N>(dpm, dp);
-    const bool mask = (causal && j * N + N - 1 > q0) || j * N + N > seq;
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      float p = exp2_approx(fmaf(sm[i], scale_log2, -lse2));
-      if (mask) {
-        const int col = j * N + (i / 2) * 8 + 2 * t + (i & 1);
-        if (col >= seq || (causal && col > row)) p = 0.f;
-      }
-      sm[i] = p * (dpm[i] - dlt);
-    }
-    tf32::stacked_fragments<N>(ds, sm);
-
-    // dQ += dS_st K^T + dS_st K^T_lo, K read as K^T.
-    fence_operand(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < N / 8; ++kk) {
-      wgmma_rs_tf32<D>(acc, ds[kk], desc_k_major<N, float>(st + S::kKt, D, 0, kk), 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < N / 8; ++kk) {
-      wgmma_rs_tf32<D>(acc, ds[kk], desc_k_major<N, float>(st + S::kKtlo, D, 0, kk), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operand(acc);
-    consumers_sync();  // every warp is done with the derived tiles
-  }
-
-  if (row >= seq) return;
-  float* out = dq + at * D + 2 * t;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<float2*>(out + n * 8) =
-        make_float2(scale * (acc[4 * n] + acc[4 * n + 2]), scale * (acc[4 * n + 1] + acc[4 * n + 3]));
-  }
-}
-
-template <>
-cudaError_t launch_dq_f32<256>(const void* q, const void* k, const void* v, const void* dout,
-                               const float* lse, const float* delta, void* dq, int batch_heads,
-                               int seq, int causal, float scale_log2, float scale,
-                               cudaStream_t stream) {
-  using S = DqF32Shape<256>;
-  CUtensorMap q_map, k_map, v_map, do_map;
-  cudaError_t err;
-  if ((err = make_tile_map<S::D, float>(&q_map, q, batch_heads, seq, 8)) != cudaSuccess ||
-      (err = make_tile_map<S::D, float>(&k_map, k, batch_heads, seq, S::kN)) != cudaSuccess ||
-      (err = make_tile_map<S::D, float>(&v_map, v, batch_heads, seq, S::kN)) != cudaSuccess ||
-      (err = make_tile_map<S::D, float>(&do_map, dout, batch_heads, seq, 8)) != cudaSuccess) {
-    return err;
-  }
-  constexpr size_t smem = S::kBytes;
-  static_assert(smem <= 232448, "float32 K2 needs more shared memory than a block has");
-  if ((err = allow_smem(flash_dq_f32_kernel<256>, smem)) != cudaSuccess) return err;
-  const dim3 grid(batch_heads, (seq + S::kRows - 1) / S::kRows);
-  flash_dq_f32_kernel<256><<<grid, S::kThreads, smem, stream>>>(
-      q_map, k_map, v_map, do_map, lse, delta, static_cast<float*>(dq), seq, causal, scale_log2,
-      scale);
-  return cudaGetLastError();
-}
-
 // ----------------------------------------------------------- float32 K3
 
 // float32 K3 in split tf32 (tf32.cuh), in bf16 K3's shape: consumer
@@ -1385,42 +1193,410 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-// float32 K3 at D = 256. K, V and their lo copies for 64 keys would be
-// 256 KiB, and dK and dV of 64 keys 256 registers a thread. The block
-// takes 32 keys as two stacked tiles (tf32.cuh; K_st and V_st, 128 KiB)
-// and computes kOut = 128 of the output columns (blockIdx.z picks which;
-// S^T and dP^T run over all 256 for each half), one consumer warpgroup
-// (stacked dK and dV, 64 registers each). Query tiles of 16 rows stream
-// through one stage (Q, dO by TMA, lse and delta by the producer warp's
-// lanes), and the consumers write their derived tiles into one buffer:
-// Q_lo and dO_lo, and Q^T, Q^T_lo, dO^T and dO^T_lo of the block's columns
-// (224 KiB in all). S^T = K_st Q^T + K_st Q_lo^T, dP^T = V_st dO^T +
-// V_st dO_lo^T, dV += P^T_st dO + P^T_st dO_lo, dK += dS^T_st Q + dS^T_st
-// Q_lo. The stage is released once S^T and dP^T are done and the tile's
-// lse and delta read, so the next tile's TMA runs under dK and dV.
-template <>
-struct DkvF32Shape<256> {
+// ------------------------------------------- float32 K2 and K3 at D = 256
+//
+// A 64-row float32 tile at head_dim 256 is 64 KiB, and 64 rows of an
+// output (dQ; dK and dV) take 128 registers a thread per warpgroup. So
+// both kernels hold a fixed side of 32 rows (K2: query rows; K3: keys) as
+// stacked register operands (tf32.cuh) and stream tiles of 16 rows of the
+// other side; K3 keeps computing half of dK's and dV's columns a block
+// (blockIdx.z: all 256 would take 256 registers a thread for dK and dV
+// beside the 128 of the A operand). One design with the roles swapped
+// (WideF32, wide_f32), two warpgroups and no producer warpgroup:
+//
+// - Warpgroup 0 holds the stacked Q (K2) or K (K3), warpgroup 1 the
+//   stacked dO (K2) or V (K3) as the register A operand of its products
+//   (128 registers a thread), brought once by TMA into a staging area. S
+//   (S^T) and dP (dP^T) run at once, one a warpgroup, each reading only a
+//   32-row B tile from shared memory. (The parent read the 64-row stacked
+//   operand from shared memory for every m64n16 product, 2 KiB for 8
+//   clocks of tf32 work: those products were bound by shared-memory
+//   reads, half of a tile's cycles.)
+// - Streamed tiles come by TMA into a 2-stage ring. A stage holds two
+//   paired tiles of 32 rows, K and V (K2) or Q and dO (K3): per 128-byte
+//   column block the 16 rows TMA brings, then their lo parts, which the
+//   warpgroup that multiplies by the tile writes. One m64n32 product a k8
+//   step against the pair gives A B and A B_lo, all four terms of the
+//   split with the stacked A. (With A in registers a warpgroup issues
+//   about one m64nNk8 product per 33 clocks at N = 16 or 32: two
+//   warpgroups' m64n16 products held the tensor cores at half their tf32
+//   rate, m64n32 ones reach it.)
+// - P (warpgroup 0, masked) and dP - delta (warpgroup 1), 4 values a
+//   thread, cross through shared memory once a tile; each warpgroup forms
+//   the stacked dS, or P^T (warpgroup 0) and dS^T (1), as the register A
+//   operand of its own output: K2 warpgroup w owns dQ's columns 128w ..
+//   128w + 127, K3 warpgroup 0 dV's and warpgroup 1 dK's 128 columns. Its
+//   B operands are the transposed copies, hi and lo, of those columns of a
+//   streamed tile (K^T; dO^T or Q^T), which the warpgroup writes itself
+//   into one of two buffers.
+// - Every derived tile is written and read by one warpgroup, published by
+//   fence.proxy.async and a warpgroup-local named barrier; the
+//   warpgroups meet once a tile, at the exchange. Every warp issues 2 of a
+//   tile's 16 TMA boxes: issued by one warp, they held its warpgroup
+//   about 1,200 clocks a tile.
+//
+// Per tile (16 streamed rows, both warpgroups, NVIDIA H100 at 1,980 MHz):
+// about 1,200 clocks of S/dP products (the tensor cores near their tf32
+// rate, the issuing warps held), 400 of loads, 550 of transposed copies, 250 of exponentials and
+// exchange, 270 of output products, 900 of lo parts; the warpgroups run
+// in step, so the tensor cores idle while both derive.
+//
+// Budget: shared memory 2 stages x 64 KiB + 1 KiB (K3's lse and delta) +
+// 2 x 32 KiB of transposed copies (the A staging area first) + 8 KiB of
+// exchange + barriers = 206,888 of 232,448 bytes; 256 threads, so 255
+// registers a thread with no setmaxnreg (A 128, output 64, S or dP 16,
+// dS 8): with a producer warpgroup the consumers' 240 made ptxas
+// serialize the m64n32 products (C7512). Bound: operations, 9 (K2) and 12
+// (K3) * B*H*S^2*D split-tf32 FLOPs at 495 TFLOP/s (causal, halved); the
+// stacked operand takes 4 tf32 products per split product where 3 would
+// do, and K3's halves compute S^T and dP^T twice (1.5x its products).
+struct WideF32 {
   static constexpr int D = 256;
-  static constexpr int kKeys = 32;  // keys per block
-  static constexpr int kQ = 16;     // query rows per tile
-  static constexpr int kOut = 128;  // dK and dV columns per block
-  static constexpr int kThreads = 256;  // the producer and one consumer warpgroup
-  static constexpr size_t kFixed = align1k(tile_bytes<D, float>(64));  // a stacked tile
-  static constexpr size_t kK = 0, kV = kFixed, kRing = 2 * kFixed;
-  static constexpr size_t kTile = align1k(tile_bytes<D, float>(kQ));
-  static constexpr size_t kDo = kTile, kLse = 2 * kTile;  // within the stage
-  static constexpr size_t kDlt = kLse + kQ * sizeof(float);
-  static constexpr size_t kDerived = kRing + align1k(2 * kTile + 2 * kQ * sizeof(float));
-  static constexpr size_t kHalf = align1k(tile_bytes<kOut, float>(kQ));  // a transposed copy
-  static constexpr size_t kQlo = 0, kDolo = kTile;  // within the derived buffer
-  static constexpr size_t kQt = 2 * kTile, kQtlo = kQt + kHalf;
-  static constexpr size_t kDot = kQt + 2 * kHalf, kDotlo = kQt + 3 * kHalf;
-  static constexpr size_t kBar = kDerived + 2 * kTile + 4 * kHalf;
-  static constexpr size_t kBytes = kBar + 3 * sizeof(uint64_t) + 1024;
+  static constexpr int kFixed = 32;  // rows of the fixed side a block
+  static constexpr int kTile = 16;   // rows of a streamed tile
+  static constexpr int kCols = 128;  // output columns a consumer warpgroup
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 256;  // two warpgroups, no producer
+  using L = TileLayout<D, float>;       // 8 column blocks of 128-byte rows
+  using T = TileLayout<kTile, float>;   // transposed copies: 64-byte rows
+  static constexpr int kPairBlock = L::block_bytes(2 * kTile);  // a column block of a paired tile
+  static constexpr size_t kPair = tile_bytes<D, float>(2 * kTile);
+  static constexpr size_t kStage = 2 * kPair;
+  static constexpr size_t kRowVals = kStages * kStage;  // K3: per stage lse (base 2), delta
+  static constexpr size_t kCopy = T::block_bytes(kCols);  // one transposed copy
+  static constexpr size_t kCopyBuf = 4 * kCopy;  // per warpgroup hi, lo
+  static constexpr size_t kCopies = kRowVals + 1024;
+  static constexpr size_t kXchg = kCopies + 2 * kCopyBuf;  // per parity and warpgroup 128 float4
+  static constexpr size_t kBar = kXchg + 2 * 2 * 128 * sizeof(float4);
+  static constexpr size_t kBytes = kBar + (1 + 2 * kStages) * sizeof(uint64_t) + 1024;
+  static_assert(2 * tile_bytes<D, float>(kFixed) <= 2 * kCopyBuf, "A staging exceeds the copies");
 };
 
+// The generic kernels' launch bounds name these when the D = 256 kernels
+// below are declared.
 template <>
-__global__ void __launch_bounds__(DkvF32Shape<256>::kThreads, 1)
+struct DqF32Shape<256> {
+  static constexpr int kThreads = WideF32::kThreads;
+};
+template <>
+struct DkvF32Shape<256> {
+  static constexpr int kThreads = WideF32::kThreads;
+};
+
+// Rows 0-15 of the paired tile `pair` (by TMA) as their lo parts into rows
+// 16-31; by one warpgroup.
+__device__ __forceinline__ void write_pair_lo(uint8_t* pair, int ctid) {
+  using W = WideF32;
+  constexpr int kChunks = W::kPairBlock / 2 / 16;  // 16-byte chunks of 16 rows of a block
+#pragma unroll
+  for (int k = 0; k < W::L::kBlocks * kChunks / 128; ++k) {
+    const int i = ctid + 128 * k;
+    uint8_t* p = pair + (i / kChunks) * W::kPairBlock + (i % kChunks) * 16;
+    *reinterpret_cast<float4*>(p + W::kPairBlock / 2) =
+        tf32::lo(*reinterpret_cast<const float4*>(p));
+  }
+}
+
+// Rows 0-15 of the paired tile `pair`, columns c0 .. c0 + 127, transposed
+// into the K-major B operand of a product over those rows: 128 rows of 16
+// (TileLayout<16, float>), column fragment_pos(r) holding row r; values
+// into `hi`, their lo parts into `lo_t`; by one warpgroup. Thread ctid
+// writes row ctid as four 16-byte chunks, chunk p (positions 4p .. 4p+3)
+// gathered from rows 8(p/2) + p%2 + 2j of source column c0 + ctid: a
+// warp's loads read one row's 32 banks, its stores are conflict-free.
+__device__ __forceinline__ void write_pair_transposed(uint8_t* hi, uint8_t* lo_t,
+                                                      const uint8_t* pair, int c0, int ctid) {
+  using W = WideF32;
+  const int sc = c0 + ctid;
+  const uint8_t* src = pair + (sc / W::L::W) * W::kPairBlock;
+  const int cb = (sc % W::L::W) * 4;  // byte column within a 128-byte row
+  const int row = ctid * W::T::kSwizzle;
+  const int swz = ((ctid >> 1) & 3) << 4;  // TileLayout<16, float>::offset's XOR for row ctid
+#pragma unroll 2
+  for (int p = 0; p < 4; ++p) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 8 * (p >> 1) + (p & 1) + 2 * j;
+      v[j] = *reinterpret_cast<const float*>(src + r * W::L::kSwizzle + (cb ^ ((r & 7) << 4)));
+    }
+    const int off = row + ((16 * p) ^ swz);
+    *reinterpret_cast<float4*>(hi + off) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(lo_t + off) =
+        make_float4(tf32::lo(v[0]), tf32::lo(v[1]), tf32::lo(v[2]), tf32::lo(v[3]));
+  }
+}
+
+// The stacked A operand (tf32.cuh) of this thread's row `r` of a (32, 256)
+// float32 tile as TMA stores it: per k8 step kk, hi and lo of columns
+// 8kk + t (a[kk][0], a[kk][1]) and 8kk + t + 4 (a[kk][2], a[kk][3]).
+__device__ __forceinline__ void load_stacked_a(uint32_t (&a)[32][4], const uint8_t* tile, int r,
+                                               int t) {
+  using W = WideF32;
+#pragma unroll
+  for (int kk = 0; kk < W::D / 8; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 8 * kk + t + 4 * h;
+      const float x = *reinterpret_cast<const float*>(
+          tile + (col / W::L::W) * W::L::block_bytes(W::kFixed) + W::L::offset(r, (col % W::L::W) * 4));
+      a[kk][2 * h] = __float_as_uint(x) & 0xffffe000u;
+      a[kk][2 * h + 1] = __float_as_uint(x - __uint_as_float(a[kk][2 * h]));
+    }
+  }
+}
+
+// K2 (kDkv false): fixed = Q, dO (32 query rows), streamed = K, V; out0 =
+// dQ. K3 (kDkv true): fixed = K, V (32 keys), streamed = Q, dO with their
+// lse and delta; out0 = dK, out1 = dV, columns 128 * blockIdx.z on.
+template <bool kDkv>
+__device__ __forceinline__ void wide_f32(const CUtensorMap* fixed0, const CUtensorMap* fixed1,
+                                         const CUtensorMap* stream0, const CUtensorMap* stream1,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta, float* __restrict__ out0,
+                                         float* __restrict__ out1, int seq, int causal,
+                                         float scale_log2, float scale) {
+  using W = WideF32;
+  constexpr int D = W::D, kTile = W::kTile, kStages = W::kStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + W::kBar);
+  uint64_t* a_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = blockIdx.x;
+  // K2: query rows longest first, key tiles up to the diagonal (causal);
+  // K3: keys (the first the longest), query tiles from the diagonal.
+  const int f0 = (kDkv ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * W::kFixed;
+  const int n_begin = kDkv && causal ? f0 : 0;
+  const int n_end = !kDkv && causal ? min(seq, f0 + W::kFixed) : seq;
+  const int tiles = (n_end - n_begin + kTile - 1) / kTile;
+  const int warpgroup = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const auto stage = [&](int i) { return smem + (i % kStages) * W::kStage; };
+  const auto row_vals = [&](int i) {
+    return reinterpret_cast<float*>(smem + W::kRowVals) + (i % kStages) * 2 * kTile;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(a_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 8);  // every warp's share of the tile's loads
+      mbar_init(&empty[s], 8);  // every warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Every warp's lane 0 loads a share of each streamed tile: warp w (of
+  // 8) two of its 16 TMA boxes and, K3, the lse (base 2) and delta of the
+  // tile's rows 2w and 2w + 1,
+  // read a tile ahead (`ahead`). Tile i goes to stage i % 2 once every
+  // warp has released it. Warp 0 first loads the fixed tiles.
+  const int warp8 = threadIdx.x / 32;
+  const int64_t row_base = static_cast<int64_t>(bh) * seq;
+  // (lse, lse, delta, delta) of rows 2w, 2w + 1, as read: scaled where
+  // they are stored, so the warp does not wait here for the loads.
+  const auto ahead = [&](int i) {
+    const int n = n_begin + i * kTile + 2 * warp8;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (kDkv && n < seq) v.x = lse[row_base + n], v.z = delta[row_base + n];
+    if (kDkv && n + 1 < seq) v.y = lse[row_base + n + 1], v.w = delta[row_base + n + 1];
+    return v;
+  };
+  const auto load = [&](int i, float4 rv) {  // lane 0
+    const int s = i % kStages, n0 = n_begin + i * kTile;
+    if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+    if (kDkv) {
+      float* v = row_vals(i) + 2 * warp8;
+      v[0] = rv.x * kLog2e, v[1] = rv.y * kLog2e, v[kTile] = rv.z, v[kTile + 1] = rv.w;
+    }
+    mbar_arrive_expect_tx(&full[s], 2 * W::L::block_bytes(kTile));
+#pragma unroll
+    for (int b = 2 * warp8; b < 2 * warp8 + 2; ++b) {
+      const int c = b % W::L::kBlocks, second = b / W::L::kBlocks;
+      tma_load_3d(stage(i) + second * W::kPair + c * W::kPairBlock, second ? stream1 : stream0,
+                  &full[s], c * W::L::W, n0, bh);
+    }
+  };
+  if (lane == 0) {
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(a_full, 2 * tile_bytes<D, float>(W::kFixed));
+      load_tile_tma<D, float>(smem + W::kCopies, fixed0, a_full, W::kFixed, f0, bh);
+      load_tile_tma<D, float>(smem + W::kCopies + W::kCopyBuf, fixed1, a_full, W::kFixed, f0, bh);
+    }
+    for (int i = 0; i < min(tiles, kStages); ++i) load(i, ahead(i));
+  }
+
+  // Warpgroup g; thread (warp w, lane l) owns fixed row f0 + 8w + l/4.
+  const int g = warpgroup, ctid = threadIdx.x % 128, t = lane % 4;
+  const int r = 8 * (ctid / 32) + lane / 4;
+  const int f = f0 + r;
+  const int64_t frow = static_cast<int64_t>(bh) * seq + f;
+  const int c0 = kDkv ? blockIdx.z * W::kCols : g * W::kCols;  // this warpgroup's output columns
+  const int tsrc = kDkv ? 1 - g : 0;  // the paired tile its output reads transposed
+  float lse2 = 0.f, dlt = 0.f;        // K2: this row's lse (base 2) and delta
+  if (!kDkv && f < seq) {
+    lse2 = lse[frow] * kLog2e;
+    dlt = delta[frow];
+  }
+
+  uint32_t a[D / 8][4];  // stacked Q, dO (K2) or K, V (K3)
+  mbar_wait(a_full, 0);
+  load_stacked_a(a, smem + W::kCopies + g * W::kCopyBuf, r, t);
+  named_barrier_sync(3, 256);  // both are read before the copies overwrite them
+
+  // Stacked output: dQ, or dV (g = 0) / dK (g = 1). Tile 0's first product
+  // overwrites it: zeros set by other instructions could land inside an
+  // open wgmma stage, and ptxas then serializes every wgmma (C7515).
+  float acc[W::kCols / 2];
+  float x[kTile], m[kTile / 4];  // S or dP (S^T or dP^T) against B and B_lo, then merged
+  uint32_t fr[kTile / 8][4];         // stacked dS (P^T, dS^T)
+  float4* xchg = reinterpret_cast<float4*>(smem + W::kXchg);
+  const auto copies = [&](int i) { return smem + W::kCopies + (i % 2) * W::kCopyBuf + g * 2 * W::kCopy; };
+  const auto wg_sync = [&] { named_barrier_sync(1 + g, 128); };
+  const auto derive_lo = [&](int i) {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    write_pair_lo(stage(i) + g * W::kPair, ctid);
+  };
+  const auto derive_t = [&](int i) {
+    write_pair_transposed(copies(i), copies(i) + W::kCopy, stage(i) + tsrc * W::kPair, c0, ctid);
+  };
+  // A [B; B_lo]^T over D: one m64n32 product a k8 step against the
+  // paired tile.
+  const auto issue_x = [&](int i) {
+    const uint8_t* p = stage(i) + g * W::kPair;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_rs_tf32<2 * kTile>(x, a[kk], desc_k_major<D, float>(p, 2 * kTile, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // acc += A_st C^T + A_st C^T_lo over the tile's rows (tile 0: acc =).
+  // No fence_operand on acc here: inside the open stage of tile i+1's
+  // product it would count as a definition of an accumulator (C7515).
+  const auto issue_out = [&](int i) {
+    const uint8_t* cp = copies(i);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 8; ++kk) {
+      wgmma_rs_tf32<W::kCols>(acc, fr[kk], desc_k_major<kTile, float>(cp, W::kCols, 0, kk),
+                              i > 0 || kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTile / 8; ++kk) {
+      wgmma_rs_tf32<W::kCols>(acc, fr[kk], desc_k_major<kTile, float>(cp + W::kCopy, W::kCols, 0, kk),
+                              1);
+    }
+    wgmma_commit();
+  };
+
+  derive_lo(0);
+  derive_t(0);
+  fence_proxy_async();
+  wg_sync();
+  issue_x(0);
+  if (tiles > 1) {
+    derive_lo(1);
+    derive_t(1);
+    fence_proxy_async();
+    wg_sync();
+  }
+  float4 rv_next = lane == 0 && 2 < tiles ? ahead(2) : float4{};
+  for (int i = 0; i < tiles; ++i) {
+    const int n0 = n_begin + i * kTile;
+    wgmma_wait<0>();  // tile i's product and tile i-1's output product
+    fence_operand(x);
+    fence_operand(acc);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // columns 8j + 2t + c against B (x[4j ..]) and B_lo (x[4j + 8 ..])
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        m[2 * j + c] = (x[4 * j + c] + x[4 * j + 2 + c]) + (x[4 * j + 8 + c] + x[4 * j + 10 + c]);
+      }
+    }
+    float rv[4];  // K3: lse (g = 0) or delta (g = 1) of this thread's columns
+    if (kDkv) {
+      const float* v = row_vals(i) + g * kTile;
+      const float2 lo = *reinterpret_cast<const float2*>(v + 2 * t);
+      const float2 hi = *reinterpret_cast<const float2*>(v + 8 + 2 * t);
+      rv[0] = lo.x, rv[1] = lo.y, rv[2] = hi.x, rv[3] = hi.y;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % kStages]);  // the stage is read
+    if (i + 1 < tiles) issue_x(i + 1);
+    // Tile i+2 into the stage every warp released above.
+    if (lane == 0) {
+      if (i + 2 < tiles) load(i + 2, rv_next);
+      if (kDkv && i + 3 < tiles) rv_next = ahead(i + 3);
+    }
+    if (i >= 1 && i + 1 < tiles) {  // its buffer's last reader, tile i-1's output, is done
+      derive_t(i + 1);
+      fence_proxy_async();
+      wg_sync();
+    }
+
+    // Warpgroup 0: P = exp2(S c - lse) (P^T), 0 past `seq` and above the
+    // causal diagonal; warpgroup 1: dP - delta (dP^T - delta).
+    const bool mask = (causal && (kDkv ? n0 < f0 + W::kFixed - 1 : n0 + kTile - 1 > f0)) ||
+                      n0 + kTile > seq;
+    float mine[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (g == 0) {
+        float p = exp2_approx(fmaf(m[e], scale_log2, -(kDkv ? rv[e] : lse2)));
+        const int n = n0 + (e / 2) * 8 + 2 * t + (e & 1);
+        if (mask && (n >= seq || (causal && (kDkv ? f > n : n > f)))) p = 0.f;
+        mine[e] = p;
+      } else {
+        mine[e] = m[e] - (kDkv ? rv[e] : dlt);
+      }
+    }
+    xchg[((i % 2) * 2 + g) * 128 + ctid] = make_float4(mine[0], mine[1], mine[2], mine[3]);
+    named_barrier_sync(3, 256);
+    const float4 o = xchg[((i % 2) * 2 + 1 - g) * 128 + ctid];
+    // dS = P (dP - delta) in both (K2); K3: P^T for dV (g = 0), dS^T for dK.
+    const bool own = kDkv && g == 0;
+    m[0] = own ? mine[0] : mine[0] * o.x;
+    m[1] = own ? mine[1] : mine[1] * o.y;
+    m[2] = own ? mine[2] : mine[2] * o.z;
+    m[3] = own ? mine[3] : mine[3] * o.w;
+    tf32::stacked_fragments<kTile>(fr, m);
+    issue_out(i);
+    if (i + 2 < tiles) {  // its stage was released by both warpgroups above
+      derive_lo(i + 2);
+      fence_proxy_async();
+      wg_sync();
+    }
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+
+  if (f >= seq) return;
+  const float s = kDkv && g == 0 ? 1.f : scale;
+  float* out = (kDkv && g == 0 ? out1 : out0) + frow * D + c0 + 2 * t;
+#pragma unroll
+  for (int n = 0; n < W::kCols / 8; ++n) {
+    *reinterpret_cast<float2*>(out + n * 8) =
+        make_float2(s * (acc[4 * n] + acc[4 * n + 2]), s * (acc[4 * n + 1] + acc[4 * n + 3]));
+  }
+}
+
+template <>
+__global__ void __launch_bounds__(WideF32::kThreads, 1)
+flash_dq_f32_kernel<256>(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dq, int seq,
+                         int causal, float scale_log2, float scale) {
+  wide_f32<false>(&q_map, &do_map, &k_map, &v_map, lse, delta, dq, nullptr, seq, causal,
+                  scale_log2, scale);
+}
+
+template <>
+__global__ void __launch_bounds__(WideF32::kThreads, 1)
 flash_dkv_f32_kernel<256>(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
@@ -1428,168 +1604,41 @@ flash_dkv_f32_kernel<256>(const __grid_constant__ CUtensorMap q_map,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv, int seq, int causal,
                           float scale_log2, float scale) {
-  using S = DkvF32Shape<256>;
-  constexpr int D = S::D, kQ = S::kQ, kKeys = S::kKeys, kOut = S::kOut;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
-  uint8_t* st = smem + S::kRing;
-  uint8_t* dr = smem + S::kDerived;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
-  uint64_t* kv_full = bars;
-  uint64_t* full = bars + 1;
-  uint64_t* empty = bars + 2;
+  wide_f32<true>(&k_map, &v_map, &q_map, &do_map, lse, delta, dk, dv, seq, causal, scale_log2,
+                 scale);
+}
 
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kKeys;  // causal: the longest (first) key tiles first
-  const int c0 = blockIdx.z * kOut;   // this block's first dK and dV column
-  const int q_begin = causal ? k0 : 0;
-  const int tiles = (seq - q_begin + kQ - 1) / kQ;
-  const int warpgroup = threadIdx.x / 128;
-  const int lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    mbar_init(full, 32);  // the producer warp's lanes: their lse/delta stores
-    mbar_init(empty, 4);
-    fence_barrier_init();
+// Tensor maps of the fixed side (boxes of 32 rows) and the streamed side
+// (16), shared by both launches.
+inline cudaError_t wide_maps(CUtensorMap (&maps)[4], const void* fixed0, const void* fixed1,
+                             const void* stream0, const void* stream1, int batch_heads, int seq) {
+  using W = WideF32;
+  const void* ptrs[4] = {fixed0, fixed1, stream0, stream1};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err =
+        make_tile_map<W::D, float>(&maps[i], ptrs[i], batch_heads, seq, i < 2 ? W::kFixed : W::kTile);
+    if (err != cudaSuccess) return err;
   }
-  __syncthreads();
+  return cudaSuccess;
+}
 
-  if (warpgroup == 0) {  // producer: warp 0
-    setmaxnreg_dec<24>();
-    if (threadIdx.x >= 32) return;
-    if (lane == 0) {
-      mbar_arrive_expect_tx(kv_full, 2 * tile_bytes<D, float>(kKeys));
-      tf32::load_stacked_tma<D>(smem + S::kK, &k_map, kv_full, k0, bh);
-      tf32::load_stacked_tma<D>(smem + S::kV, &v_map, kv_full, k0, bh);
-    }
-    const int64_t row_base = static_cast<int64_t>(bh) * seq;
-    for (int i = 0; i < tiles; ++i) {
-      const int q0 = q_begin + i * kQ;
-      // This lane's lse (base 2) and delta row, read before the stage is free.
-      const int r = q0 + lane;
-      const float lse_r = r < seq ? lse[row_base + r] * kLog2e : 0.f;
-      const float dlt_r = r < seq ? delta[row_base + r] : 0.f;
-      mbar_wait(empty, (i & 1) ^ 1);
-      if (lane < kQ) {
-        reinterpret_cast<float*>(st + S::kLse)[lane] = lse_r;
-        reinterpret_cast<float*>(st + S::kDlt)[lane] = dlt_r;
-      }
-      if (lane == 0) {
-        mbar_arrive_expect_tx(full, 2 * tile_bytes<D, float>(kQ));
-        load_tile_tma<D, float>(st, &q_map, full, kQ, q0, bh);
-        load_tile_tma<D, float>(st + S::kDo, &do_map, full, kQ, q0, bh);
-      } else {
-        mbar_arrive(full);
-      }
-    }
-    return;
-  }
-
-  // The consumer warpgroup: thread (warp w, lane l) owns key k0 + 8w + l/4.
-  setmaxnreg_inc<240>();
-  const int warp = (threadIdx.x / 32) % 4, t = lane % 4;
-  const int key = k0 + 8 * warp + lane / 4;
-  const int tid = threadIdx.x - 128;
-
-  float dk_acc[kOut / 2], dv_acc[kOut / 2];  // stacked
-#pragma unroll
-  for (int i = 0; i < kOut / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  float s[kQ / 2], dp[kQ / 2], sm[kQ / 4], dpm[kQ / 4];  // S^T and dP^T
-  uint32_t pa[kQ / 8][4], dsa[kQ / 8][4];  // P^T and dS^T, stacked
-  const auto consumers_sync = [&] { named_barrier_sync(1, 128); };
-
-  mbar_wait(kv_full, 0);
-  tf32::write_stacked_lo<D>(smem + S::kK, tid, 128);
-  tf32::write_stacked_lo<D>(smem + S::kV, tid, 128);
-  for (int i = 0; i < tiles; ++i) {
-    const int q0 = q_begin + i * kQ;
-    // Tile i's derived tiles, made visible to wgmma.
-    mbar_wait(full, i & 1);
-    tf32::write_lo(dr + S::kQlo, st, kQ * D * 4, tid, 128);
-    tf32::write_lo(dr + S::kDolo, st + S::kDo, kQ * D * 4, tid, 128);
-    tf32::write_transposed<kQ, kOut, D>(dr + S::kQt, dr + S::kQtlo, st, tid, 128, c0);
-    tf32::write_transposed<kQ, kOut, D>(dr + S::kDot, dr + S::kDotlo, st + S::kDo, tid, 128, c0);
-    fence_proxy_async();
-    consumers_sync();
-
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<kQ>(s, desc_k_major<D, float>(smem + S::kK, 64, 0, kk),
-                        desc_k_major<D, float>(st, kQ, 0, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<kQ>(s, desc_k_major<D, float>(smem + S::kK, 64, 0, kk),
-                        desc_k_major<D, float>(dr + S::kQlo, kQ, 0, kk), 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<kQ>(dp, desc_k_major<D, float>(smem + S::kV, 64, 0, kk),
-                        desc_k_major<D, float>(st + S::kDo, kQ, 0, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<kQ>(dp, desc_k_major<D, float>(smem + S::kV, 64, 0, kk),
-                        desc_k_major<D, float>(dr + S::kDolo, kQ, 0, kk), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operand(s);
-    fence_operand(dp);
-
-    // P^T = exp2(S^T c - lse) and dS^T = P^T (dP^T - delta); the thread's
-    // row is its key, columns query rows. Masks only on the causal
-    // diagonal and a ragged last tile.
-    tf32::merge_stacked<kQ>(sm, s);
-    tf32::merge_stacked<kQ>(dpm, dp);
-    const bool mask = (causal && q0 < k0 + kKeys - 1) || q0 + kQ > seq;
-    const float* lse_s = reinterpret_cast<const float*>(st + S::kLse);
-    const float* dlt_s = reinterpret_cast<const float*>(st + S::kDlt);
-#pragma unroll
-    for (int e = 0; e < kQ / 4; ++e) {
-      const int col = (e / 2) * 8 + 2 * t + (e & 1), qi = q0 + col;
-      float p = exp2_approx(fmaf(sm[e], scale_log2, -lse_s[col]));
-      if (mask && (qi >= seq || (causal && key > qi))) p = 0.f;
-      sm[e] = p;
-      dpm[e] = p * (dpm[e] - dlt_s[col]);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty);  // Q, dO, lse and delta are read
-    tf32::stacked_fragments<kQ>(pa, sm);
-    tf32::stacked_fragments<kQ>(dsa, dpm);
-
-    // dV += P^T_st dO and dK += dS^T_st Q, over this block's columns.
-    fence_operand(dk_acc);
-    fence_operand(dv_acc);
-    wgmma_fence();
-    const auto bt = [&](size_t at, int kk) { return desc_k_major<kQ, float>(dr + at, kOut, 0, kk); };
-#pragma unroll
-    for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<kOut>(dv_acc, pa[kk], bt(S::kDot, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<kOut>(dv_acc, pa[kk], bt(S::kDotlo, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<kOut>(dk_acc, dsa[kk], bt(S::kQt, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < kQ / 8; ++kk) wgmma_rs_tf32<kOut>(dk_acc, dsa[kk], bt(S::kQtlo, kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operand(dk_acc);
-    fence_operand(dv_acc);
-    consumers_sync();  // every warp is done with the derived tiles
-  }
-
-  if (key >= seq) return;
-  const int64_t off = (static_cast<int64_t>(bh) * seq + key) * D + c0 + 2 * t;
-#pragma unroll
-  for (int n = 0; n < kOut / 8; ++n) {
-    *reinterpret_cast<float2*>(dk + off + n * 8) =
-        make_float2(scale * (dk_acc[4 * n] + dk_acc[4 * n + 2]),
-                    scale * (dk_acc[4 * n + 1] + dk_acc[4 * n + 3]));
-    *reinterpret_cast<float2*>(dv + off + n * 8) =
-        make_float2(dv_acc[4 * n] + dv_acc[4 * n + 2], dv_acc[4 * n + 1] + dv_acc[4 * n + 3]);
-  }
+template <>
+cudaError_t launch_dq_f32<256>(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* delta, void* dq, int batch_heads,
+                               int seq, int causal, float scale_log2, float scale,
+                               cudaStream_t stream) {
+  using W = WideF32;
+  CUtensorMap maps[4];  // q, dout, k, v
+  cudaError_t err;
+  if ((err = wide_maps(maps, q, dout, k, v, batch_heads, seq)) != cudaSuccess) return err;
+  constexpr size_t smem = W::kBytes;
+  static_assert(smem <= 232448, "float32 K2 needs more shared memory than a block has");
+  if ((err = allow_smem(flash_dq_f32_kernel<256>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + W::kFixed - 1) / W::kFixed);
+  flash_dq_f32_kernel<256><<<grid, W::kThreads, smem, stream>>>(
+      maps[0], maps[2], maps[3], maps[1], lse, delta, static_cast<float*>(dq), seq, causal,
+      scale_log2, scale);
+  return cudaGetLastError();
 }
 
 template <>
@@ -1597,22 +1646,17 @@ cudaError_t launch_dkv_f32<256>(const void* q, const void* k, const void* v, con
                                 const float* lse, const float* delta, void* dk, void* dv,
                                 int batch_heads, int seq, int causal, float scale_log2,
                                 float scale, cudaStream_t stream) {
-  using S = DkvF32Shape<256>;
-  CUtensorMap q_map, k_map, v_map, do_map;
+  using W = WideF32;
+  CUtensorMap maps[4];  // k, v, q, dout
   cudaError_t err;
-  if ((err = make_tile_map<S::D, float>(&q_map, q, batch_heads, seq, S::kQ)) != cudaSuccess ||
-      (err = make_tile_map<S::D, float>(&k_map, k, batch_heads, seq, 8)) != cudaSuccess ||
-      (err = make_tile_map<S::D, float>(&v_map, v, batch_heads, seq, 8)) != cudaSuccess ||
-      (err = make_tile_map<S::D, float>(&do_map, dout, batch_heads, seq, S::kQ)) != cudaSuccess) {
-    return err;
-  }
-  constexpr size_t smem = S::kBytes;
+  if ((err = wide_maps(maps, k, v, q, dout, batch_heads, seq)) != cudaSuccess) return err;
+  constexpr size_t smem = W::kBytes;
   static_assert(smem <= 232448, "float32 K3 needs more shared memory than a block has");
   if ((err = allow_smem(flash_dkv_f32_kernel<256>, smem)) != cudaSuccess) return err;
-  const dim3 grid(batch_heads, (seq + S::kKeys - 1) / S::kKeys, S::D / S::kOut);
-  flash_dkv_f32_kernel<256><<<grid, S::kThreads, smem, stream>>>(
-      q_map, k_map, v_map, do_map, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
-      seq, causal, scale_log2, scale);
+  const dim3 grid(batch_heads, (seq + W::kFixed - 1) / W::kFixed, W::D / W::kCols);
+  flash_dkv_f32_kernel<256><<<grid, W::kThreads, smem, stream>>>(
+      maps[2], maps[0], maps[1], maps[3], lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), seq, causal, scale_log2, scale);
   return cudaGetLastError();
 }
 

@@ -65,16 +65,15 @@ __host__ __device__ constexpr int fragment_pos(int r) {
 // transposed into the K-major B operand of a product that reduces over its
 // R rows: C rows of R columns (TileLayout<R, float>), column fragment_pos(r)
 // holding source row r; the values into `hi` and their lo into `lo_t`.
-// With SrcC > C, `src` is (R, SrcC) and columns c0 .. c0 + C are taken.
-template <int R, int C, int SrcC = C>
+template <int R, int C>
 __device__ __forceinline__ void write_transposed(uint8_t* hi, uint8_t* lo_t, const uint8_t* src,
-                                                 int tid, int threads, int c0 = 0) {
-  using Src = TileLayout<SrcC, float>;
+                                                 int tid, int threads) {
+  using Src = TileLayout<C, float>;
   using Dst = TileLayout<R, float>;
   for (int i = tid; i < R * C / 4; i += threads) {
-    const int r = i % R, c = (i / R) * 4, sc = c0 + c;  // source row, first of 4 columns
+    const int r = i % R, c = (i / R) * 4;  // source row, first of 4 columns
     const float4 x = *reinterpret_cast<const float4*>(
-        src + (sc / Src::W) * Src::block_bytes(R) + Src::offset(r, (sc % Src::W) * 4));
+        src + (c / Src::W) * Src::block_bytes(R) + Src::offset(r, (c % Src::W) * 4));
     const int pos = fragment_pos(r);
     const int block = (pos / Dst::W) * Dst::block_bytes(C), col = (pos % Dst::W) * 4;
     const float v[4] = {x.x, x.y, x.z, x.w};

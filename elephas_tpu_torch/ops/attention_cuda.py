@@ -25,8 +25,9 @@ producer warp and one to three consumer warpgroups of 64 rows each on
 ``csrc/tf32.cuh``), which keeps float32 accuracy (times in PERF.md); at
 head_dim 256 they take 32 rows (or keys) as a stacked 64-row operand of
 those rows and their lo parts, so that one block's tiles fit its shared
-memory, and K3 computes half of dK's and dV's columns a block in both
-dtypes. ``kernel_tiles`` gives each kernel's tiling, which sets the
+memory (float32 K2 and K3 hold it in registers, one operand a warpgroup,
+and issue their loads from every warp instead of a producer), and K3
+computes half of dK's and dV's columns a block in both dtypes. ``kernel_tiles`` gives each kernel's tiling, which sets the
 order of its sums.
 
 ``launches`` counts the launches of each kernel (``flash_fwd``,

@@ -346,6 +346,60 @@ def test_tf32_fragment_key_order(keys):
                                    rtol=1e-12, atol=1e-12)
 
 
+
+def test_wide_f32_transposed_chunks_gather_fragment_order():
+    """flash_bwd.cu's write_pair_transposed (float32 K2/K3 at head_dim 256)
+    writes each row of the transposed copy as four 16-byte chunks, chunk p
+    gathered from source rows 8(p/2) + p%2 + 2j (j < 4): that is the
+    column order of fragment_pos, the copy _transposed_copy describes."""
+    rng = np.random.default_rng(0)
+    src = rng.standard_normal((16, 128))  # 16 streamed rows, a warpgroup's columns
+    copy = np.zeros((128, 16))
+    for row in range(128):
+        for p in range(4):
+            for j in range(4):
+                copy[row, 4 * p + j] = src[8 * (p // 2) + p % 2 + 2 * j, row]
+    np.testing.assert_array_equal(copy, _transposed_copy(src))
+
+
+def _tf32(x):
+    """What the tensor cores read of float32 x: its low 13 bits cleared."""
+    return (np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_wide_f32_paired_product_merges_to_the_split_product():
+    """Float32 K2/K3 at head_dim 256: the stacked A (rows 16w + l the hi
+    parts of source rows 8w + l, rows 16w + 8 + l their lo parts) against
+    a paired tile (16 streamed rows, then their lo parts) in one m64n32
+    product; a thread's merge of its accumulator (d[4j + 2i + c] is row
+    16w + l/4 + 8i, column 8j + 2(l%4) + c) gives its source row's values
+    at columns 8j + 2t + c, j < 2, to float32 accuracy."""
+    rng = np.random.default_rng(1)
+    fixed = rng.standard_normal((32, 256)).astype(np.float32)
+    streamed = rng.standard_normal((16, 256)).astype(np.float32)
+    hi = _tf32(fixed)
+    stacked = np.zeros((64, 256), np.float32)
+    for w in range(4):
+        stacked[16 * w:16 * w + 8] = hi[8 * w:8 * w + 8]
+        stacked[16 * w + 8:16 * w + 16] = fixed[8 * w:8 * w + 8] - hi[8 * w:8 * w + 8]
+    pair = np.concatenate([streamed, streamed - _tf32(streamed)])
+    acc = _tf32(stacked).astype(np.float64) @ _tf32(pair).astype(np.float64).T  # 64 x 32
+    exact = fixed.astype(np.float64) @ streamed.astype(np.float64).T
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            d = np.zeros(16)
+            for j in range(4):
+                for i in range(2):
+                    for c in range(2):
+                        d[4 * j + 2 * i + c] = acc[16 * w + g + 8 * i, 8 * j + 2 * t + c]
+            for j in range(2):
+                for c in range(2):
+                    m = (d[4 * j + c] + d[4 * j + 2 + c]) + (d[4 * j + 8 + c] + d[4 * j + 10 + c])
+                    want = exact[8 * w + g, 8 * j + 2 * t + c]
+                    assert abs(m - want) <= 2e-6 * np.abs(fixed[8 * w + g]) @ np.abs(
+                        streamed[8 * j + 2 * t + c])
+
 def test_headers_cover_every_include():
     """Every header in csrc/ and every header a source includes is hashed
     into the library's name."""

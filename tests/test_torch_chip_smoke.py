@@ -6,6 +6,7 @@ refusal to run without a card.
 """
 
 import importlib.util
+import inspect
 import os
 import subprocess
 import sys
@@ -271,6 +272,17 @@ def test_wide_head_config_is_the_full_width_head_dim_256_lm(smoke):
     assert smoke.WIDE_ROUTE[-1] == 192 and smoke.WIDE_HOP[-1] == 256
     assert smoke.WIDE_STEPS == 3 and smoke.WIDE_LOSS_RTOL == 1e-4 and smoke.GRAD_RTOL == 1e-3
 
+
+
+def test_wide_head_phase_holds_ragged_lengths(smoke):
+    """The wide-head phase also holds K1-K3 at head_dim 256 to their plain
+    versions at ragged lengths (37, 100 and 1000 tokens, causal and not,
+    both dtypes), where the last streamed tile's TMA boxes reach past the
+    sequence and must arrive as zeros."""
+    assert smoke.WIDE_RAGGED == (37, 100, 1000)
+    source = inspect.getsource(smoke.wide_head_phase)
+    assert "for seq in WIDE_RAGGED:" in source
+    assert "kernel_case(attention_cuda, (2, 2, seq, 256), causal, dtype, gen)" in source
 
 def test_main_runs_the_wide_head_phase_after_the_repair_phase():
     """The wide-head phase follows the repair phase, keeps its launches
