@@ -24,8 +24,8 @@ Phases, in order; any failed check raises and the process exits non-zero:
    (``attention_cuda.kernel_tiles``); each timed at the LM's shape beside
    its plain version and one PyTorch call
    (``F.scaled_dot_product_attention`` and its backward: the yardsticks,
-   never called by the port) and printed with its bound (each float32
-   kernel also with the split-tf32 tensor-core bound, ``bound_tc_ms``), the floor the
+   never called by the port) and printed with its bound (float32: the
+   split-tf32 tensor-core bound, three tf32 products a FLOP), the floor the
    exponentials set (one per valid score, 16 a clock per SM at the card's
    maximum SM clock) and the card's clock, power draw and temperature;
 4. inference: the Transformer LM at the registry's full width
@@ -778,9 +778,12 @@ def cuda_ms(fn, iters, warmup=2):
 
 
 def bound_ms(ops, nbytes, dtype):
-    """Least time (ms) for the work: operations over the dtype's peak, and
-    each input read once and each output written once over memory rate."""
-    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+    """Least time (ms) for the work: operations over the card's peak rate
+    for them, and each input read once and each output written once over
+    memory rate. The float32 kernels run split tf32 on the tensor cores:
+    three tf32 products for each of their FLOPs, over the tf32 peak."""
+    t_ops = 3 * ops / PEAK_TF32 if dtype == torch.float32 else ops / PEAK_OPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -795,13 +798,6 @@ def kernel_work(shape, itemsize, causal):
     return {"flash_fwd": (2 * flops, 4 * tensor + rows),
             "flash_dq": (3 * flops, 5 * tensor + 2 * rows),
             "flash_dkv": (4 * flops, 6 * tensor + 2 * rows)}
-
-
-def split_tf32_bound_ms(flops, nbytes):
-    """A float32 kernel on tf32 tensor cores in split tf32: three products
-    for each of its FLOPs over the tf32 peak, or its bytes over the memory
-    rate."""
-    return max(3 * flops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
 
 
 def exp_floor_ms(shape, causal, sms, clock_mhz):
@@ -1012,8 +1008,6 @@ def kernel_case(attention_cuda, shape, causal, dtype, gen, timed=False):
     for name in KERNELS:
         bound, by = bounds[name]
         timing[name].update(bound_ms=bound, bound_by=by, exp_floor_ms=exp_floor)
-        if dtype == torch.float32:
-            timing[name]["bound_tc_ms"] = split_tf32_bound_ms(*work[name])
     print(f"card during the timings ({dtype}): "
           f"{smi('clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu')} "
           "(clocks.sm, clocks.max.sm, power.draw, power.limit, temperature.gpu)",
@@ -1847,6 +1841,11 @@ def wide_head_phase(attention_cuda):
                 errors[name][dtype] = max(errors[name][dtype], errs[name])
             if timed:
                 timing[dtype] = times
+    k1 = timing[torch.float32]["flash_fwd"]
+    report["f32_k1"] = {"ms": k1["ms"], "bound_share": k1["bound_ms"] / k1["ms"],
+                        "vs_sdpa_fwd": k1["ms"] / k1["library_ms"]}
+    print(f"wide_head f32 K1 at {WIDE_CASES[0][0]}: {json.dumps(report['f32_k1'])} (share of "
+          "its split-TF32 bound; its time over SDPA's forward)", flush=True)
     for seq in WIDE_RAGGED:
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
@@ -5353,8 +5352,6 @@ def hop_checks(attention_cuda, shape=SP_HOP, phase="seq_parallel"):
         }
         for name in KERNELS:
             times[name]["bound_ms"], times[name]["bound_by"] = bound_ms(*work[name], dtype)
-            if dtype == torch.float32:
-                times[name]["bound_tc_ms"] = split_tf32_bound_ms(*work[name])
             print(f"{phase} hop {name} {shape} full {dtype}: {json.dumps(times[name])}",
                   flush=True)
         print(f"{phase} hop errors {dtype}: {json.dumps(errs)}", flush=True)

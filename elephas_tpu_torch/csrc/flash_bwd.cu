@@ -1283,20 +1283,6 @@ struct DkvF32Shape<256> {
   static constexpr int kThreads = WideF32::kThreads;
 };
 
-// Rows 0-15 of the paired tile `pair` (by TMA) as their lo parts into rows
-// 16-31; by one warpgroup.
-__device__ __forceinline__ void write_pair_lo(uint8_t* pair, int ctid) {
-  using W = WideF32;
-  constexpr int kChunks = W::kPairBlock / 2 / 16;  // 16-byte chunks of 16 rows of a block
-#pragma unroll
-  for (int k = 0; k < W::L::kBlocks * kChunks / 128; ++k) {
-    const int i = ctid + 128 * k;
-    uint8_t* p = pair + (i / kChunks) * W::kPairBlock + (i % kChunks) * 16;
-    *reinterpret_cast<float4*>(p + W::kPairBlock / 2) =
-        tf32::lo(*reinterpret_cast<const float4*>(p));
-  }
-}
-
 // Rows 0-15 of the paired tile `pair`, columns c0 .. c0 + 127, transposed
 // into the K-major B operand of a product over those rows: 128 rows of 16
 // (TileLayout<16, float>), column fragment_pos(r) holding row r; values
@@ -1324,25 +1310,6 @@ __device__ __forceinline__ void write_pair_transposed(uint8_t* hi, uint8_t* lo_t
     *reinterpret_cast<float4*>(hi + off) = make_float4(v[0], v[1], v[2], v[3]);
     *reinterpret_cast<float4*>(lo_t + off) =
         make_float4(tf32::lo(v[0]), tf32::lo(v[1]), tf32::lo(v[2]), tf32::lo(v[3]));
-  }
-}
-
-// The stacked A operand (tf32.cuh) of this thread's row `r` of a (32, 256)
-// float32 tile as TMA stores it: per k8 step kk, hi and lo of columns
-// 8kk + t (a[kk][0], a[kk][1]) and 8kk + t + 4 (a[kk][2], a[kk][3]).
-__device__ __forceinline__ void load_stacked_a(uint32_t (&a)[32][4], const uint8_t* tile, int r,
-                                               int t) {
-  using W = WideF32;
-#pragma unroll
-  for (int kk = 0; kk < W::D / 8; ++kk) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = 8 * kk + t + 4 * h;
-      const float x = *reinterpret_cast<const float*>(
-          tile + (col / W::L::W) * W::L::block_bytes(W::kFixed) + W::L::offset(r, (col % W::L::W) * 4));
-      a[kk][2 * h] = __float_as_uint(x) & 0xffffe000u;
-      a[kk][2 * h + 1] = __float_as_uint(x - __uint_as_float(a[kk][2 * h]));
-    }
   }
 }
 
@@ -1443,7 +1410,7 @@ __device__ __forceinline__ void wide_f32(const CUtensorMap* fixed0, const CUtens
 
   uint32_t a[D / 8][4];  // stacked Q, dO (K2) or K, V (K3)
   mbar_wait(a_full, 0);
-  load_stacked_a(a, smem + W::kCopies + g * W::kCopyBuf, r, t);
+  tf32::load_stacked_a(a, smem + W::kCopies + g * W::kCopyBuf, r, t);
   named_barrier_sync(3, 256);  // both are read before the copies overwrite them
 
   // Stacked output: dQ, or dV (g = 0) / dK (g = 1). Tile 0's first product
@@ -1457,7 +1424,7 @@ __device__ __forceinline__ void wide_f32(const CUtensorMap* fixed0, const CUtens
   const auto wg_sync = [&] { named_barrier_sync(1 + g, 128); };
   const auto derive_lo = [&](int i) {
     mbar_wait(&full[i % kStages], (i / kStages) & 1);
-    write_pair_lo(stage(i) + g * W::kPair, ctid);
+    tf32::write_pair_lo(stage(i) + g * W::kPair, ctid);
   };
   const auto derive_t = [&](int i) {
     write_pair_transposed(copies(i), copies(i) + W::kCopy, stage(i) + tsrc * W::kPair, c0, ctid);

@@ -11,7 +11,8 @@
 // output accumulator stay in float32 registers. Scores are kept in base 2
 // (log2(e) folded into the scale) so the exponentials are exp2; the lse is
 // converted back to base e. Both dtypes are built for Hopper (sm90.cuh)
-// in one shape: warp 0 is the producer, which loads the block's Q tile once
+// in one shape (float32 at D = 256 apart, below): warp 0 is the producer,
+// which loads the block's Q tile once
 // and streams K and V tiles by TMA into a ring of stages with full barriers
 // and empty barriers the consumers release; TMA's 3-D boxes (D, rows, 1)
 // never cross into the next head and fill rows past the sequence with
@@ -47,8 +48,9 @@
 //   keys and 3 / 2 / 2 stages fit the registers (S, P_hi and P_lo, N / 2
 //   each, and O, D / 2) and the shared memory (Q, Q_lo and five tiles a
 //   stage). At D = 256 Q and Q_lo of 64 rows alone take 128 KiB: the
-//   block takes 32 query rows as one stacked tile (tf32.cuh), 16-key tiles
-//   in 2 stages (F32Shape<256>).
+//   block takes 32 query rows as one stacked operand (tf32.cuh) against
+//   16-key tiles, in two warpgroups and no producer warpgroup, one for S
+//   and the softmax, one for O (WideFwd).
 //
 // Bound. Causal work is 2*B*H*S^2*D FLOPs (K1's CostEstimate) and the
 // traffic is 4*B*H*S*D*itemsize bytes plus the lse, so at the LM's shape
@@ -336,9 +338,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 // tile and the ring depth are what fit the registers (S, P_hi, P_lo: N / 2
 // each, O: D / 2) and the shared memory (Q, Q_lo, and per stage K, V, K_lo,
 // V^T, V^T_lo).
+__host__ __device__ constexpr int f32_consumers(int D) { return D == 32 ? 3 : (D == 64 ? 2 : 1); }
+
 template <int D>
 struct F32Shape {
-  static constexpr int kConsumers = D == 32 ? 3 : (D == 64 ? 2 : 1);
+  static constexpr int kConsumers = f32_consumers(D);
   static constexpr int kN = D == 128 ? 32 : 64;  // keys per K/V tile
   static constexpr int kStages = D == 32 ? 3 : 2;
   static constexpr int kRows = 64 * kConsumers;  // query rows per block
@@ -416,8 +420,11 @@ __device__ __forceinline__ void issue_pv_f32(float (&acc)[D / 2],
   wgmma_commit();
 }
 
+// Its launch bounds name no F32Shape: declaring the D = 256 kernel below,
+// which has a shape of its own, would instantiate F32Shape<256>, whose
+// unused members nvcc reports.
 template <int D>
-__global__ void __launch_bounds__(F32Shape<D>::kThreads, 1)
+__global__ void __launch_bounds__(128 * (1 + f32_consumers(D)), 1)
 flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
@@ -579,225 +586,420 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, voi
 
 // ------------------------------------------------- float32 at D = 256
 
-// A 64-row float32 tile of head_dim 256 is 64 KiB: Q and Q_lo of 64 rows
-// leave too little for a K/V ring. The block takes 32 query rows as a
-// stacked tile (tf32.cuh: rows and their lo parts in one 64-row operand,
-// 64 KiB), one consumer warpgroup (O takes 128 registers a thread), and
-// 16-key tiles in 2 stages (K and V by TMA, K_lo, V^T and V^T_lo written
-// by the consumers, 80 KiB a stage): 224 KiB. S = Q_st K^T + Q_st K_lo^T
-// and O += P_st V^T + P_st V^T_lo, P_st the stacked fragments of P, give
-// the four terms of each split product; each thread merges its row's hi
-// and lo halves (merge_stacked) and runs the softmax on one row. The loop
-// is float32 K1's: tile j's S and tile j-1's P V in flight together.
-template <>
-struct F32Shape<256> {
+// A 64-row float32 tile of head_dim 256 is 64 KiB, and 64 rows of O take
+// 128 registers a thread. The block takes 32 query rows as a stacked
+// operand (tf32.cuh: rows and their lo parts in one 64-row operand)
+// against 16-key tiles, in two warpgroups and no producer warpgroup (256
+// threads, up to 255 registers a thread: beside a producer warpgroup the
+// others' 240 made ptxas serialize the products, C7512). The online
+// softmax still steps 16 keys at a time, so the order of the sums is the
+// (32, 16) tiling's.
+//
+// - Warpgroup 0 holds the stacked Q as the register A operand of S (128
+//   registers, brought once by TMA into a staging area) and takes the
+//   keys two tiles at a time: a stage of its K ring holds per column
+//   block the 32 keys TMA brings, then their lo parts, which it writes.
+//   One m64n64k8 product a k8 step gives Q_st K^T and Q_st K_lo^T of both
+//   tiles, all four terms of the split (32 products for 32 keys; none
+//   reads Q from shared memory, and m64n64 keeps the tensor cores at their
+//   rate where a warpgroup's m64n16 and m64n32 products from registers
+//   left them at half). It merges the terms, masks, runs the online
+//   softmax of both tiles and writes each tile's P, hi and lo (query
+//   rows, then their lo parts: the B operand of the output's products),
+//   with each row's correction, into one of 4 exchange buffers.
+// - Warpgroup 1 holds O transposed, O^T = V^T P^T, all 256 head_dim rows
+//   as 4 slabs of 64 (128 registers), one tile at a time. Its A operand is
+//   V^T in registers, hi and lo, loaded straight from the TMA tile: tf32
+//   operands in shared memory are K-major only, so O = P V would need V^T
+//   written into shared memory each tile. Its B operand is the
+//   exchange's P pair: per slab and k8 step, V^T [P; P_lo]^T (m64n64)
+//   and V^T_lo P^T (m64n32, into the P columns), the three terms of the
+//   split (16 products a tile). Each thread's head_dim rows are chosen
+//   (`wide_fwd_dim`) so that a warp's 8-byte loads of V meet no bank
+//   twice. It rescales O by each row's correction before a tile's
+//   products (a warp whose corrections are all 1 skips it), and at the
+//   end adds each row's hi and lo columns.
+// - Each warpgroup loads its own ring by TMA, every warp 2 of a stage's 8
+//   boxes, after its side of the exchange (issuing a box takes a warp
+//   tens of cycles, which the other warpgroup would otherwise wait for).
+//   The warpgroups meet only at the exchange, so warpgroup 0's S and
+//   softmax run ahead while warpgroup 1's products run.
+//
+// Budget: shared memory 2 x 64 KiB (K) + 3 x 16 KiB (V) + 32 KiB (Q
+// staging, then the exchange) + barriers = 214,128 of 232,448 bytes. Per
+// 16-key tile the tensor cores do 64 x 32 x 256 + 256 x 96 x 16
+// multiply-adds (S; O), about 900 cycles at the tf32 rate; shared memory
+// moves about 140 KiB (TMA, K_lo, V's fragments, the products' B
+// operands, the exchange), about 1,100 cycles at 128 bytes a cycle.
+// scripts/torch_fwd_clocks.py splits a tile's cycles by phase and
+// warpgroup.
+struct WideFwd {
   static constexpr int D = 256;
-  static constexpr int kRows = 32;   // query rows per block
-  static constexpr int kN = 16;      // keys per K/V tile
-  static constexpr int kStages = 2;  // K/V ring depth
-  static constexpr int kThreads = 256;  // the producer and one consumer warpgroup
-  static constexpr size_t kBuf = align1k(tile_bytes<D, float>(kN));
-  static constexpr size_t kQ = 0, kStage0 = align1k(tile_bytes<D, float>(64));
-  static constexpr size_t kK = 0, kV = kBuf, kKlo = 2 * kBuf, kVt = 3 * kBuf, kVtlo = 4 * kBuf;
-  static constexpr size_t kStage = 5 * kBuf;
-  static constexpr size_t kBar = kStage0 + kStages * kStage;
-  static constexpr size_t kBytes = kBar + (1 + 2 * kStages) * sizeof(uint64_t) + 1024;
+  static constexpr int kRows = 32;   // query rows a block
+  static constexpr int kN = 16;      // keys a tile
+  static constexpr int kKStages = 2;  // K ring, two tiles a stage
+  static constexpr int kVStages = 3;  // V ring, a tile a stage
+  static constexpr int kBufs = 4;     // exchange buffers, a tile each
+  static constexpr int kThreads = 256;  // two warpgroups, no producer
+  using L = TileLayout<D, float>;       // Q, K and V tiles: 8 column blocks of 128-byte rows
+  using P = TileLayout<kN, float>;      // the P pair: 64 rows of 64 bytes
+  static constexpr size_t kKStage = tile_bytes<D, float>(4 * kN);  // K of two tiles, then K_lo
+  static constexpr size_t kVTile = tile_bytes<D, float>(kN);
+  static constexpr size_t kV = kKStages * kKStage;
+  static constexpr size_t kQ = kV + kVStages * kVTile;  // Q staging, then the exchange
+  static constexpr size_t kXchg = kQ;
+  static constexpr size_t kCorr = P::block_bytes(2 * kRows);  // within an exchange buffer
+  static constexpr size_t kXchgBuf = align1k(kCorr + kRows * sizeof(float));
+  static constexpr size_t kRowL = kXchg + kBufs * kXchgBuf;  // each row's sum, at the end
+  static constexpr size_t kBar = kQ + tile_bytes<D, float>(kRows);
+  static constexpr size_t kBytes =
+      kBar + (1 + kKStages + kVStages + 2 * kBufs) * sizeof(uint64_t) + 1024;
+  static_assert(kRowL + kRows * sizeof(float) <= kBar, "the exchange outgrows the Q staging area");
 };
 
-// Softmax of one row's merged scores in place (sm becomes p), as
-// softmax_tile does for two rows.
-template <int N>
-__device__ __forceinline__ void softmax_row(float (&sm)[N / 4], float& m, float& l, float& corr,
-                                            bool mask, int k0, int row, int seq, int causal,
-                                            float scale_log2) {
+// Head_dim row of O^T (within a slab of 64) that warpgroup 1's thread
+// (warp w, lane group gq = lane / 4) holds as fragment row 16w + gq; it
+// holds the next, d + 1, as row 16w + gq + 8. With key t (lane % 4) the
+// 8-byte loads of a warp cover each 128-byte row of a swizzled V tile
+// once (chunk 4((gq >> 1) & 1) + w XOR the key's row), half a warp a
+// column block.
+__device__ __forceinline__ int wide_fwd_dim(int w, int gq) {
+  return 32 * (gq >> 2) + 16 * ((gq >> 1) & 1) + 4 * w + 2 * (gq & 1);
+}
+
+// Softmax of two consecutive 16-key tiles of one row from key k0 (merged
+// scores in place: sm[u] of tile u becomes p), as softmax_tile does for
+// two rows and one tile; the same operations in the same order as the
+// tiles in turn, their dependency chains interleaved. corr[u] rescales
+// what came before tile u.
+__device__ __forceinline__ void softmax_pair(float (&sm)[2][4], float& m, float& l,
+                                             float (&corr)[2], bool mask, int k0, int row,
+                                             int seq, int causal, float scale_log2) {
+  constexpr int T = 2;
   const int t = threadIdx.x % 4;
   if (mask) {
 #pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const int col = k0 + (i / 2) * 8 + 2 * t + (i & 1);
-      if (col >= seq || (causal && col > row)) sm[i] = -INFINITY;
+    for (int u = 0; u < T; ++u) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + 16 * u + (i / 2) * 8 + 2 * t + (i & 1);
+        if (col >= seq || (causal && col > row)) sm[u][i] = -INFINITY;
+      }
     }
   }
-  float mx = -INFINITY;
+  float mx[T], shift[T];
 #pragma unroll
-  for (int i = 0; i < N / 4; ++i) mx = fmaxf(mx, sm[i]);
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-  const float m_new = fmaxf(m, mx * scale_log2);
-  const float shift = isfinite(m_new) ? m_new : 0.f;
-  corr = isfinite(m) ? exp2_approx(m - shift) : 0.f;
-  m = m_new;
-  float sum = 0.f;
+  for (int u = 0; u < T; ++u) mx[u] = fmaxf(fmaxf(sm[u][0], sm[u][1]), fmaxf(sm[u][2], sm[u][3]));
 #pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    sm[i] = exp2_approx(fmaf(sm[i], scale_log2, -shift));
-    sum += sm[i];
+  for (int u = 0; u < T; ++u) mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+#pragma unroll
+  for (int u = 0; u < T; ++u) mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+#pragma unroll
+  for (int u = 0; u < T; ++u) {
+    const float m_new = fmaxf(m, mx[u] * scale_log2);
+    shift[u] = isfinite(m_new) ? m_new : 0.f;
+    corr[u] = isfinite(m) ? exp2_approx(m - shift[u]) : 0.f;
+    m = m_new;
   }
-  l = l * corr + sum;
+#pragma unroll
+  for (int u = 0; u < T; ++u) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sm[u][i] = exp2_approx(fmaf(sm[u][i], scale_log2, -shift[u]));
+      sum += sm[u][i];
+    }
+    l = l * corr[u] + sum;
+  }
 }
 
+// The `clock:` comments name the phases of a tile that
+// scripts/torch_fwd_clocks.py stamps with clock() in a copy of this file.
 template <>
-__global__ void __launch_bounds__(F32Shape<256>::kThreads, 1)
+__global__ void __launch_bounds__(WideFwd::kThreads, 1)
 flash_fwd_f32_kernel<256>(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
                           float* __restrict__ lse, int seq, int causal, float scale_log2) {
-  using S = F32Shape<256>;
-  constexpr int D = S::D, N = S::kN, kRows = S::kRows, kStages = S::kStages;
+  using S = WideFwd;
+  constexpr int D = S::D, N = S::kN;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
   uint64_t* q_full = bars;
-  uint64_t* kv_full = bars + 1;
-  uint64_t* empty = bars + 1 + kStages;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + S::kKStages;
+  uint64_t* p_full = v_full + S::kVStages;  // per exchange buffer
+  uint64_t* p_empty = p_full + S::kBufs;
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest q tiles first
-  const int kv_end = causal ? min(seq, q0 + kRows) : seq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * S::kRows;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + S::kRows) : seq;
   const int tiles = (kv_end + N - 1) / N;
-  const int warpgroup = threadIdx.x / 128;
-  const auto stage = [&](int j) { return smem + S::kStage0 + (j % kStages) * S::kStage; };
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4, t = lane % 4;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&kv_full[s], 1);
-      mbar_init(&empty[s], 4);
+    // Every warp of the warpgroup that loads the ring, and of the one that
+    // writes (p_full) or releases (p_empty) an exchange buffer.
+    for (int s = 0; s < S::kKStages; ++s) mbar_init(&k_full[s], 4);
+    for (int s = 0; s < S::kVStages; ++s) mbar_init(&v_full[s], 4);
+    for (int b = 0; b < S::kBufs; ++b) {
+      mbar_init(&p_full[b], 4);
+      mbar_init(&p_empty[b], 4);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (warpgroup == 0) {  // producer
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(q_full, tile_bytes<D, float>(kRows));
-      tf32::load_stacked_tma<D>(smem + S::kQ, &q_map, q_full, q0, bh);
-      for (int j = 0; j < tiles; ++j) {
-        const int s = j % kStages;
-        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&kv_full[s], 2 * tile_bytes<D, float>(N));
-        load_tile_tma<D, float>(stage(j) + S::kK, &k_map, &kv_full[s], N, j * N, bh);
-        load_tile_tma<D, float>(stage(j) + S::kV, &v_map, &kv_full[s], N, j * N, bh);
+  // The warpgroup, broadcast so that ptxas knows it is warp-uniform: with
+  // wgmma in both branches, a branch it takes as divergent serializes
+  // every wgmma (C7520).
+  const int g = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0), ctid = threadIdx.x % 128;
+  // clock: start
+  const CUtensorMap* const kmap = &k_map;
+  const CUtensorMap* const vmap = &v_map;
+  uint8_t* const xchg = smem + S::kXchg;
+  float* const rowl = reinterpret_cast<float*>(smem + S::kRowL);
+
+  if (g == 0) {
+    // S, the softmax and P. Thread (warp w, lane l) owns query row
+    // q0 + 8w + l/4, its keys 8jj + 2t + c of a tile (jj, c < 2). Stage i
+    // of the K ring holds tiles 2i and 2i + 1: per column block their 32
+    // keys (one TMA box), then the keys' lo parts.
+    const int pairs = (tiles + 1) / 2;
+    const auto k_stage = [&](int i) { return smem + (i % S::kKStages) * S::kKStage; };
+    const auto load_k = [&](int i) {
+      if (lane == 0 && i < pairs) {
+        uint64_t* full = &k_full[i % S::kKStages];
+        mbar_arrive_expect_tx(full, 4 * S::L::block_bytes(N));
+#pragma unroll
+        for (int c = 2 * warp; c < 2 * warp + 2; ++c) {
+          tma_load_3d(k_stage(i) + c * S::L::block_bytes(4 * N), kmap, full, c * S::L::W, 2 * i * N, bh);
+        }
+      }
+    };
+    if (ctid == 0) {
+      mbar_arrive_expect_tx(q_full, tile_bytes<D, float>(S::kRows));
+      load_tile_tma<D, float>(smem + S::kQ, &q_map, q_full, S::kRows, q0, bh);
+    }
+    for (int i = 0; i < S::kKStages; ++i) load_k(i);
+    const int r = 8 * warp + lane / 4, row = q0 + r;
+
+    uint32_t a[D / 8][4];  // stacked Q
+    mbar_wait(q_full, 0);
+    tf32::load_stacked_a(a, smem + S::kQ, r, t);
+    float x[2 * N];      // S of the stacked rows against the stage's 64 rows
+    float sm[2][N / 4];  // merged, then p, of both tiles
+    float m = -INFINITY, l = 0.f, corr[2];
+    // Pair i's K_lo, visible to wgmma once a warpgroup barrier follows.
+    const auto write_k_lo = [&](int i) {
+      mbar_wait(&k_full[i % S::kKStages], (i / S::kKStages) & 1);
+      tf32::write_pair_lo<4 * N>(k_stage(i), ctid);
+      fence_proxy_async();
+    };
+    const auto issue_s = [&](int i) {
+      const uint8_t* st = k_stage(i);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        wgmma_rs_tf32<4 * N>(x, a[kk], desc_k_major<D, float>(st, 4 * N, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    write_k_lo(0);  // Q staging is read: the exchange may take it after this barrier
+    named_barrier_sync(1, 128);
+    for (int i = 0; i < pairs; ++i) {
+      issue_s(i);  // clock: S issue
+      if (i + 1 < pairs) write_k_lo(i + 1);  // clock: K_lo copy and TMA wait (next pair)
+      wgmma_wait<0>();  // clock: S products
+      fence_operand(x);
+      // Every warp's S of pair i is done (its stage may take pair i + 2)
+      // and pair i + 1's lo parts are written.
+      named_barrier_sync(1, 128);  // clock: warpgroup barrier
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            // Key 8jj + 2t + c of tile 2i + h: column 16h + 8jj + 2t + c
+            // against K, + 32 against K_lo; hi rows, then lo rows.
+            const float* y = x + 8 * h + 4 * jj + c;
+            sm[h][2 * jj + c] = (y[0] + y[2]) + (y[16] + y[18]);
+          }
+        }
+      }
+      // A tile past the last (tiles odd) is masked whole: its p are 0 and
+      // its correction 1, and no P of it is written.
+      const int k0 = 2 * i * N;
+      const bool mask = (causal && k0 + 2 * N - 1 > q0) || k0 + 2 * N > seq;
+      softmax_pair(sm, m, l, corr, mask, k0, row, seq, causal, scale_log2);
+      // clock: merge and softmax
+      // P and the corrections of tile j into buffer j % kBufs, once tile
+      // j - kBufs's products have read it.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * i + h;
+        if (j >= tiles) break;
+        uint8_t* xb = xchg + (j % S::kBufs) * S::kXchgBuf;
+        if (j >= S::kBufs) mbar_wait(&p_empty[j % S::kBufs], ((j / S::kBufs) - 1) & 1);
+        // clock: wait for an exchange buffer
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int col = (8 * jj + 2 * t) * 4;
+          const float2 p = make_float2(sm[h][2 * jj], sm[h][2 * jj + 1]);
+          *reinterpret_cast<float2*>(xb + S::P::offset(r, col)) = p;
+          *reinterpret_cast<float2*>(xb + S::P::offset(r + S::kRows, col)) =
+              make_float2(tf32::lo(p.x), tf32::lo(p.y));
+        }
+        if (t == 0) reinterpret_cast<float*>(xb + S::kCorr)[r] = corr[h];
+      }
+      fence_proxy_async();
+      __syncwarp();  // clock: P exchange write
+      if (lane == 0) {
+        mbar_arrive(&p_full[(2 * i) % S::kBufs]);
+        if (2 * i + 1 < tiles) mbar_arrive(&p_full[(2 * i + 1) % S::kBufs]);
+      }
+      load_k(i + S::kKStages);  // into pair i's stage
+    }
+
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float denom = fmaxf(l, 1e-30f);
+    if (t == 0) {
+      rowl[r] = denom;
+      if (row < seq) {
+        lse[static_cast<int64_t>(bh) * seq + row] = ((isfinite(m) ? m : 0.f) + log2f(denom)) * kLn2;
       }
     }
+    named_barrier_sync(3, 256);  // clock: store
     return;
   }
 
-  // The consumer warpgroup: thread (warp w, lane l) owns query row
-  // q0 + 8w + l/4.
-  setmaxnreg_inc<240>();
-  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
-  const int row = q0 + 8 * warp + lane / 4;
-  const int tid = threadIdx.x - 128;
-
-  float acc[D / 2];  // stacked O: hi rows and lo rows of the thread's row
+  // Warpgroup 1: O^T. Thread (warp w, lane l) holds, per slab s, head_dim
+  // rows 64s + d0 and + 1 against query columns 8j + 2t + c (j < 4: P;
+  // j >= 4: P_lo of the same rows).
+  const auto v_tile = [&](int j) { return smem + S::kV + (j % S::kVStages) * S::kVTile; };
+  const auto load_v = [&](int j) {
+    if (lane == 0 && j < tiles) {  // column blocks 2 warp and 2 warp + 1
+      uint64_t* full = &v_full[j % S::kVStages];
+      mbar_arrive_expect_tx(full, 2 * S::L::block_bytes(N));
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float s[N / 2], sm[N / 4];
-  uint32_t p[N / 8][4];
-  float m = -INFINITY, l = 0.f, corr;
-
-  const auto needs_mask = [&](int j) {  // the causal diagonal or a ragged last tile
-    return (causal && j * N + N - 1 > q0) || j * N + N > seq;
-  };
-  // Tile j's K_lo, V^T and V^T_lo, made visible to wgmma; a consumer
-  // barrier follows before any warp reads them.
-  const auto split = [&](int j) {
-    mbar_wait(&kv_full[j % kStages], (j / kStages) & 1);
-    uint8_t* st = stage(j);
-    tf32::write_lo(st + S::kKlo, st + S::kK, N * D * 4, tid, 128);
-    tf32::write_transposed<N, D>(st + S::kVt, st + S::kVtlo, st + S::kV, tid, 128);
-    fence_proxy_async();
-  };
-  const auto consumers_sync = [&] { named_barrier_sync(1, 128); };
-  // S (stacked) = Q_st K^T + Q_st K_lo^T against tile j, one wgmma group.
-  const auto issue_qk = [&](int j) {
-    const uint8_t* st = stage(j);
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<N>(s, desc_k_major<D, float>(smem + S::kQ, 64, 0, kk),
-                       desc_k_major<D, float>(st + S::kK, N, 0, kk), kk > 0);
+      for (int c = 2 * warp; c < 2 * warp + 2; ++c) {
+        tma_load_3d(v_tile(j) + c * S::L::block_bytes(N), vmap, full, c * S::L::W, j * N, bh);
+      }
     }
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_ss_tf32<N>(s, desc_k_major<D, float>(smem + S::kQ, 64, 0, kk),
-                       desc_k_major<D, float>(st + S::kKlo, N, 0, kk), 1);
-    }
-    wgmma_commit();
   };
-  // O (stacked) += P_st V^T + P_st V^T_lo over tile j, one wgmma group.
+  for (int j = 0; j < S::kVStages; ++j) load_v(j);
+  const int d0 = wide_fwd_dim(warp, lane / 4);
+
+  float acc[4][32];
+  uint32_t v_hi[4][2][4], v_lo[4][2][4];  // per slab and k8 step
+  // A fragments of tile j's V^T: rows d0, d0 + 1 of each slab (a[0..1]:
+  // key 8kk + t; a[2..3]: key 8kk + t + 4), each one 8-byte load.
+  const auto v_frags = [&](int j) {
+    const uint8_t* vt = v_tile(j);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = 64 * s + d0, key = 8 * kk + t + 4 * h;
+          const float2 x = *reinterpret_cast<const float2*>(
+              vt + (d / S::L::W) * S::L::block_bytes(N) + S::L::offset(key, (d % S::L::W) * 4));
+          v_hi[s][kk][2 * h] = __float_as_uint(x.x) & 0xffffe000u;
+          v_hi[s][kk][2 * h + 1] = __float_as_uint(x.y) & 0xffffe000u;
+          v_lo[s][kk][2 * h] = __float_as_uint(x.x - __uint_as_float(v_hi[s][kk][2 * h]));
+          v_lo[s][kk][2 * h + 1] = __float_as_uint(x.y - __uint_as_float(v_hi[s][kk][2 * h + 1]));
+        }
+        fence_operand(v_hi[s][kk]);
+        fence_operand(v_lo[s][kk]);
+      }
+    }
+  };
+  // O *= each query row's correction for tile j, unless the warp's are all 1.
+  const auto rescale = [&](int j) {
+    const float* cr = reinterpret_cast<const float*>(xchg + (j % S::kBufs) * S::kXchgBuf + S::kCorr);
+    float c8[8];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float2 c2 = *reinterpret_cast<const float2*>(cr + 8 * jj + 2 * t);
+      c8[2 * jj] = c2.x, c8[2 * jj + 1] = c2.y;
+    }
+    bool ones = true;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ones = ones && c8[i] == 1.f;
+    if (__all_sync(0xffffffffu, ones)) return;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[s][i] *= c8[2 * ((i / 4) % 4) + (i & 1)];
+    }
+  };
+  // O^T += V^T [P; P_lo]^T + V^T_lo P^T over tile j; tile 0's first
+  // product of each slab overwrites it (zeros set by other instructions
+  // could land inside an open wgmma stage, where ptxas serializes every
+  // wgmma: C7515).
   const auto issue_pv = [&](int j) {
-    const uint8_t* st = stage(j);
+    const uint8_t* pb = xchg + (j % S::kBufs) * S::kXchgBuf;
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < N / 8; ++kk) {
-      wgmma_rs_tf32<D>(acc, p[kk], desc_k_major<N, float>(st + S::kVt, D, 0, kk), 1);
-    }
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint64_t b = desc_k_major<N, float>(pb, 2 * S::kRows, 0, kk);
 #pragma unroll
-    for (int kk = 0; kk < N / 8; ++kk) {
-      wgmma_rs_tf32<D>(acc, p[kk], desc_k_major<N, float>(st + S::kVtlo, D, 0, kk), 1);
+      for (int s = 0; s < 4; ++s) wgmma_rs_tf32<64>(acc[s], v_hi[s][kk], b, j > 0 || kk > 0);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {  // V^T_lo against P alone: the columns of P, acc's first 16
+        wgmma_rs_tf32<32>(*reinterpret_cast<float(*)[16]>(acc[s]), v_lo[s][kk], b, 1);
+      }
     }
     wgmma_commit();
   };
 
-  mbar_wait(q_full, 0);
-  tf32::write_stacked_lo<D>(smem + S::kQ, tid, 128);
-  split(0);
-  consumers_sync();
-  wgmma_fence();
-  issue_qk(0);
-  if (tiles > 1) split(1);
-  wgmma_wait<0>();
-  fence_operand(s);
-  tf32::merge_stacked<N>(sm, s);
-  softmax_row<N>(sm, m, l, corr, needs_mask(0), 0, row, seq, causal, scale_log2);
-  if (tiles > 1) consumers_sync();
-  tf32::stacked_fragments<N>(p, sm);
-
-  for (int j = 1; j < tiles; ++j) {
-    // Tile j's S and tile j-1's O += P V in flight together; tile j's
-    // softmax runs while P V is still on the tensor cores.
-    fence_operand(acc);
-    wgmma_fence();
-    issue_qk(j);
-    wgmma_fence();
-    issue_pv(j - 1);
-    wgmma_wait<1>();
-    fence_operand(s);
-    tf32::merge_stacked<N>(sm, s);
-    softmax_row<N>(sm, m, l, corr, needs_mask(j), j * N, row, seq, causal, scale_log2);
-    wgmma_wait<0>();
-    fence_operand(acc);
-    if (lane == 0) mbar_arrive(&empty[(j - 1) % kStages]);
-    if (j + 1 < tiles) {  // its stage is tile j-1's, released above
-      split(j + 1);
-      consumers_sync();
+  for (int j = 0; j < tiles; ++j) {
+    // Tile j - 1's products are done (none are pending before tile 0),
+    // so its exchange buffer is free. The wait is unconditional: on a path
+    // ptxas sees without it, the writes below to V's and O's registers
+    // would meet a product in flight, and it serializes every wgmma (C7520).
+    wgmma_wait<0>();  // clock: PV products
+#pragma unroll
+    for (int s = 0; s < 4; ++s) fence_operand(acc[s]);
+    if (j > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&p_empty[(j - 1) % S::kBufs]);  // clock: PV products
     }
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr;
-    tf32::stacked_fragments<N>(p, sm);
+    mbar_wait(&v_full[j % S::kVStages], (j / S::kVStages) & 1);  // clock: TMA wait V
+    v_frags(j);  // clock: V fragments
+    named_barrier_sync(2, 128);  // every warp has read tile j's V; clock: warpgroup barrier 1
+    mbar_wait(&p_full[j % S::kBufs], (j / S::kBufs) & 1);  // clock: wait for P
+    if (j > 0) rescale(j);  // clock: rescale
+    issue_pv(j);  // clock: PV issue
+    load_v(j + S::kVStages);  // into tile j's stage
   }
-  fence_operand(acc);
-  wgmma_fence();
-  issue_pv(tiles - 1);
   wgmma_wait<0>();
-  fence_operand(acc);
-  if (lane == 0) mbar_arrive(&empty[(tiles - 1) % kStages]);
-
-  const int t = lane % 4;
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  const float denom = fmaxf(l, 1e-30f);
-  if (row >= seq) return;
-  if (t == 0) {
-    const float shift = isfinite(m) ? m : 0.f;
-    lse[static_cast<int64_t>(bh) * seq + row] = (shift + log2f(denom)) * kLn2;
-  }
-  float* out = o + (static_cast<int64_t>(bh) * seq + row) * D + 2 * t;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<float2*>(out + n * 8) =
-        make_float2((acc[4 * n] + acc[4 * n + 2]) / denom, (acc[4 * n + 1] + acc[4 * n + 3]) / denom);
+  for (int s = 0; s < 4; ++s) fence_operand(acc[s]);
+  named_barrier_sync(3, 256);  // warpgroup 0 has written each row's sum; clock: store
+
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int q = 8 * jj + 2 * t + c;
+      if (q0 + q >= seq) continue;
+      const float denom = rowl[q];
+      float* out = o + (static_cast<int64_t>(bh) * seq + q0 + q) * D + d0;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float* a = acc[s];
+        *reinterpret_cast<float2*>(out + 64 * s) =
+            make_float2((a[4 * jj + c] + a[4 * jj + 16 + c]) / denom,
+                        (a[4 * jj + 2 + c] + a[4 * jj + 18 + c]) / denom);
+      }
+    }
   }
 }
 
@@ -805,11 +1007,11 @@ template <>
 cudaError_t launch_f32<256>(const void* q, const void* k, const void* v, void* o, void* lse,
                             int batch_heads, int seq, int causal, float scale_log2,
                             cudaStream_t stream) {
-  using S = F32Shape<256>;
+  using S = WideFwd;
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err;
-  if ((err = make_tile_map<S::D, float>(&q_map, q, batch_heads, seq, 8)) != cudaSuccess ||
-      (err = make_tile_map<S::D, float>(&k_map, k, batch_heads, seq, S::kN)) != cudaSuccess ||
+  if ((err = make_tile_map<S::D, float>(&q_map, q, batch_heads, seq, S::kRows)) != cudaSuccess ||
+      (err = make_tile_map<S::D, float>(&k_map, k, batch_heads, seq, 2 * S::kN)) != cudaSuccess ||
       (err = make_tile_map<S::D, float>(&v_map, v, batch_heads, seq, S::kN)) != cudaSuccess) {
     return err;
   }

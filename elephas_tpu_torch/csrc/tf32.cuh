@@ -111,54 +111,50 @@ __device__ __forceinline__ void split_fragments(uint32_t (&hi)[N / 8][4], uint32
 // operand: rows 16w .. 16w + 7 are source rows 8w .. 8w + 7 (w < 4) and
 // rows 16w + 8 .. 16w + 15 their lo parts, so a product over it leaves
 // the hi and the lo product of source row 8w + l/4 in the same thread
-// (rows i = 0 and i = 1 of its accumulator): merge_stacked adds them. As
-// an A operand from registers, stacked_fragments puts a row's hi part in
-// fragment rows g and its lo part in rows g + 8. Either way one product
-// against B and one against B_lo give all four terms of the split.
+// (rows i = 0 and i = 1 of its accumulator), which adds them. As an A
+// operand from registers (load_stacked_a, stacked_fragments) a row's hi
+// part is in fragment rows g and its lo part in rows g + 8. One product
+// against a paired B (B, then B_lo) gives all four terms of the split.
 
-// Load 32 rows from `row` of head `bh` into a stacked tile: per column
-// block, four TMA boxes of 8 rows (a map of 8-row boxes), each on its own
-// 1024-byte swizzle atom, so the swizzle is a whole tile's.
-template <int D>
-__device__ __forceinline__ void load_stacked_tma(void* tile, const CUtensorMap* map, uint64_t* bar,
-                                                 int row, int bh) {
-  using L = TileLayout<D, float>;
+// A paired tile (D = 256) holds per 128-byte column block kRows rows: the
+// kRows / 2 rows TMA brings, then their lo parts, so that one product
+// against it gives A B and A B_lo. The first half of each block of `pair`
+// as its lo parts into the second; by the 128 threads of one warpgroup.
+template <int kRows = 32>
+__device__ __forceinline__ void write_pair_lo(uint8_t* pair, int ctid) {
+  using L = TileLayout<256, float>;
+  constexpr int kBlock = L::block_bytes(kRows);
+  constexpr int kChunks = kBlock / 2 / 16;  // 16-byte chunks of half a block
 #pragma unroll
-  for (int c = 0; c < L::kBlocks; ++c) {
+  for (int k = 0; k < L::kBlocks * kChunks / 128; ++k) {
+    const int i = ctid + 128 * k;
+    uint8_t* p = pair + (i / kChunks) * kBlock + (i % kChunks) * 16;
+    *reinterpret_cast<float4*>(p + kBlock / 2) = lo(*reinterpret_cast<const float4*>(p));
+  }
+}
+
+// The stacked A operand of this thread's row `r` of a (32, 256) float32
+// tile as TMA stores it: per k8 step kk, hi and lo of columns 8kk + t
+// (a[kk][0], a[kk][1]) and 8kk + t + 4 (a[kk][2], a[kk][3]).
+__device__ __forceinline__ void load_stacked_a(uint32_t (&a)[32][4], const uint8_t* tile, int r,
+                                               int t) {
+  using L = TileLayout<256, float>;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      sm90::tma_load_3d(static_cast<char*>(tile) + c * L::block_bytes(64) + 16 * w * L::kSwizzle,
-                        map, bar, c * L::W, row + 8 * w, bh);
+  for (int kk = 0; kk < 32; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 8 * kk + t + 4 * h;
+      const float x = *reinterpret_cast<const float*>(
+          tile + (col / L::W) * L::block_bytes(32) + L::offset(r, (col % L::W) * 4));
+      a[kk][2 * h] = __float_as_uint(x) & 0xffffe000u;
+      a[kk][2 * h + 1] = __float_as_uint(x - __uint_as_float(a[kk][2 * h]));
     }
   }
 }
 
-// The lo halves of a stacked tile from its loaded rows: each 8-row group
-// shifted by one swizzle atom (1024 bytes), whose XOR pattern is the same.
-template <int D>
-__device__ __forceinline__ void write_stacked_lo(uint8_t* tile, int tid, int threads) {
-  using L = TileLayout<D, float>;
-  constexpr int kAtom = 8 * L::kSwizzle;  // bytes of 8 rows of a column block
-  for (int i = tid; i < L::kBlocks * 4 * kAtom / 16; i += threads) {
-    uint8_t* src = tile + (i / (kAtom / 16)) * 2 * kAtom + (i % (kAtom / 16)) * 16;
-    *reinterpret_cast<float4*>(src + kAtom) = lo(*reinterpret_cast<const float4*>(src));
-  }
-}
-
-// A stacked product's accumulator (d[4j + 2i + c]: row i = 0 hi, i = 1 lo)
-// as the source row's values, m[2j + c] = column 8j + 2(l%4) + c.
-template <int N>
-__device__ __forceinline__ void merge_stacked(float (&m)[N / 4], const float (&d)[N / 2]) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    m[2 * j] = d[4 * j] + d[4 * j + 2];
-    m[2 * j + 1] = d[4 * j + 1] + d[4 * j + 3];
-  }
-}
-
-// One row's values (merge_stacked's layout) as stacked tf32 A fragments
-// of 8 columns each, in the column order of fragment_pos: hi in fragment
-// rows g (a[0], a[2]), lo in rows g + 8 (a[1], a[3]).
+// One row's values (m[2j + c]: column 8j + 2(l%4) + c) as stacked tf32 A
+// fragments of 8 columns each, in the column order of fragment_pos: hi in
+// fragment rows g (a[0], a[2]), lo in rows g + 8 (a[1], a[3]).
 template <int N>
 __device__ __forceinline__ void stacked_fragments(uint32_t (&a)[N / 8][4], const float (&m)[N / 4]) {
 #pragma unroll

@@ -18,17 +18,18 @@ What bounds them on an H100: causal work is 2·B·H·S²·D FLOPs for K1,
 shape (8, 8, 2048, 32) all three are bound by operations; in bf16 the
 exponentials (one per valid score) are a floor of their own. Every
 kernel, in both dtypes and at every head_dim of ``HEAD_DIMS``, is built
-for Hopper (``csrc/sm90.cuh``): TMA loads into an mbarrier ring, a
-producer warp and one to three consumer warpgroups of 64 rows each on
-``wgmma``. The float32 kernels take each product as three tf32 products
-(a_lo b + a b_lo + a b, a_lo the part of a below tf32's 10 mantissa bits;
-``csrc/tf32.cuh``), which keeps float32 accuracy (times in PERF.md); at
-head_dim 256 they take 32 rows (or keys) as a stacked 64-row operand of
-those rows and their lo parts, so that one block's tiles fit its shared
-memory (float32 K2 and K3 hold it in registers, one operand a warpgroup,
-and issue their loads from every warp instead of a producer), and K3
-computes half of dK's and dV's columns a block in both dtypes. ``kernel_tiles`` gives each kernel's tiling, which sets the
-order of its sums.
+for Hopper (``csrc/sm90.cuh``): TMA loads into an mbarrier ring and
+``wgmma`` products, in most instances a producer warp and one to three
+consumer warpgroups of 64 rows each. The float32 kernels take each
+product as three tf32 products (a_lo b + a b_lo + a b, a_lo the part of
+a below tf32's 10 mantissa bits; ``csrc/tf32.cuh``), which keeps float32
+accuracy (times in PERF.md); at head_dim 256 they take 32 rows (or keys)
+as a stacked 64-row operand of those rows and their lo parts, held in
+registers, in two warpgroups with no producer that issue their loads
+from every warp (K1: one warpgroup for S and the softmax, one for O; K2
+and K3: one operand a warpgroup), and K3 computes half of dK's and dV's
+columns a block in both dtypes. ``kernel_tiles`` gives each kernel's
+tiling, which sets the order of its sums.
 
 ``launches`` counts the launches of each kernel (``flash_fwd``,
 ``flash_dq``, ``flash_dkv``); a count moves where its kernel is launched
@@ -122,11 +123,21 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_command(source: Path, out: Path, extra_flags=()) -> list:
+    """The ``nvcc`` command that builds ``source`` for ``sm_90a`` into the
+    shared library ``out``, with the ``-Xptxas -v`` register and
+    shared-memory report and ``extra_flags``."""
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *extra_flags,
+        "-o", str(out), str(source),
+    ]
+
+
 def build(name: str) -> Path:
     """Compile the source ``name`` (a key of ``SOURCES``) unless a library
-    of its hash exists; returns the library's path. ``nvcc``'s output,
-    with the ``-Xptxas -v`` register and shared-memory report, goes
-    beside it in a ``.log`` file."""
+    of its hash exists; returns the library's path. ``nvcc``'s output
+    goes beside it in a ``.log`` file."""
     source = SOURCES[name]
     digest = hashlib.sha256(
         b"".join(p.read_bytes() for p in (source, *HEADERS))).hexdigest()[:16]
@@ -135,12 +146,7 @@ def build(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{name}-{digest}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(source),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(nvcc_command(source, tmp), capture_output=True, text=True)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -157,19 +163,27 @@ def build_all() -> dict:
         return dict(zip(SOURCES, pool.map(build, SOURCES)))
 
 
+def bind(lib: ctypes.CDLL, name: str):
+    """The C function ``name`` (a key of ``_FUNCTIONS``) of the loaded
+    library ``lib``, its signature set: the tensors' pointers, five ints
+    (batch·heads, seq, head_dim, bf16, causal), the scale and the stream."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * _FUNCTIONS[name][1] + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _function(name: str):
     """The C function ``name``, its library built and loaded on first use."""
     lib_name = _FUNCTIONS[name][0]
     with _lock:
         if lib_name not in _libs:
             lib = ctypes.CDLL(str(build(lib_name)))  # lock-ok: one-time nvcc build; the module lock exists to build each library once
-            for fn_name, (owner, pointers) in _FUNCTIONS.items():
+            for fn_name, (owner, _) in _FUNCTIONS.items():
                 if owner == lib_name:
-                    fn = getattr(lib, fn_name)
-                    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [
-                        ctypes.c_float, ctypes.c_void_p,
-                    ]
-                    fn.restype = ctypes.c_int
+                    bind(lib, fn_name)
             _libs[lib_name] = lib
     return getattr(_libs[lib_name], name)
 

@@ -400,6 +400,154 @@ def test_wide_f32_paired_product_merges_to_the_split_product():
                     assert abs(m - want) <= 2e-6 * np.abs(fixed[8 * w + g]) @ np.abs(
                         streamed[8 * j + 2 * t + c])
 
+
+def _wide_fwd_dim():
+    """flash_fwd.cu's wide_fwd_dim(w, gq), evaluated from its source."""
+    source = (attention_cuda.CSRC / "flash_fwd.cu").read_text()
+    body = re.search(r"int wide_fwd_dim\(int w, int gq\) \{\s*return ([^;]+);", source).group(1)
+    return lambda w, gq: eval(body, {}, {"w": w, "gq": gq})  # noqa: S307 - the kernel's own expression
+
+
+def _swizzled(row, col_bytes, row_bytes):
+    """TileLayout::offset: byte column ``col_bytes`` of ``row`` in a column
+    block of ``row_bytes``-byte rows, its 16-byte chunk XORed with address
+    bits 7-9 (128-byte rows) or 7-8 (64-byte rows) of the row's start."""
+    return row * row_bytes + (col_bytes ^ ((((row * row_bytes) >> 7) & (row_bytes // 16 - 1)) << 4))
+
+
+def test_wide_fwd_v_rows_cover_a_slab_and_meet_no_bank_twice():
+    """Float32 K1 at head_dim 256: warpgroup 1's thread (warp w, lane
+    group gq) holds head_dim rows wide_fwd_dim(w, gq) and + 1 of each
+    64-row slab of O^T, so the 32 (w, gq) pairs cover a slab once; its
+    8-byte loads of V (keys t and t + 4 of a k8 step, t = lane % 4) from
+    the swizzled TMA tile put each half warp on 32 distinct banks."""
+    dim = _wide_fwd_dim()
+    rows = sorted(dim(w, gq) + i for w in range(4) for gq in range(8) for i in range(2))
+    assert rows == list(range(64))
+    for s in range(4):
+        for w in range(4):
+            for kk in range(2):
+                for h in range(2):
+                    for half in range(2):
+                        banks = []
+                        for lane in range(16 * half, 16 * half + 16):
+                            d, key = 64 * s + dim(w, lane // 4), 8 * kk + lane % 4 + 4 * h
+                            addr = (d // 32) * 16 * 128 + _swizzled(key, (d % 32) * 4, 128)
+                            assert addr % 8 == 0
+                            banks += [(addr // 4) % 32, (addr // 4 + 1) % 32]
+                        assert sorted(banks) == list(range(32)), (s, w, kk, h, half)
+
+
+def test_wide_fwd_exchange_and_transposed_output_give_softmax_v():
+    """Float32 K1 at head_dim 256 over three 16-key tiles, as its two
+    warpgroups compute it, in numpy. Warpgroup 0 takes the tiles in
+    pairs: the stacked Q against a stage of 64 rows per column block (the
+    pair's 32 keys, then their lo parts; the second pair's second tile
+    lies past the sequence, zeros as TMA fills them), merged per thread
+    into the split S of each tile (to float32 accuracy), the online
+    softmax of both tiles with that tile masked whole, and each real
+    tile's P (hi rows 0-31, lo rows 32-63) with each row's correction
+    written into the 64-byte-swizzled exchange. Warpgroup 1 reads that
+    exchange as the B operand of O^T = V^T [P; P_lo]^T + V^T_lo P^T, its
+    A fragments V^T, hi and lo, loaded from the 128-byte-swizzled V tile
+    at wide_fwd_dim's rows, rescales its accumulator by the corrections
+    each thread reads back (c8), and at the end adds hi and lo columns
+    and divides by the row sums. Equals softmax(Q K^T / 16) V in float64
+    to float32 accuracy."""
+    rng = np.random.default_rng(21)
+    dim = _wide_fwd_dim()
+    tiles, scale_log2 = 3, np.float32(math.log2(math.e) / 16.0)
+    seq = 16 * tiles
+    q = rng.standard_normal((32, 256)).astype(np.float32)
+    k = rng.standard_normal((seq, 256)).astype(np.float32)
+    v = rng.standard_normal((seq, 256)).astype(np.float32)
+    hi = _tf32(q)
+    stacked = np.zeros((64, 256), np.float32)
+    for w in range(4):
+        stacked[16 * w:16 * w + 8] = hi[8 * w:8 * w + 8]
+        stacked[16 * w + 8:16 * w + 16] = q[8 * w:8 * w + 8] - hi[8 * w:8 * w + 8]
+    threads = [(w, lane // 4, lane % 4) for w in range(4) for lane in range(32)]
+
+    def v_at(d, key):  # float index of V[key, d] in the tile as TMA stores it
+        return ((d // 32) * 16 * 128 + _swizzled(key, (d % 32) * 4, 128)) // 4
+
+    m = np.full(32, -np.inf, np.float32)
+    l = np.zeros(32, np.float32)
+    acc = np.zeros((4, 64, 64))  # per slab: fragment rows x [P; P_lo] rows
+    for i in range((tiles + 1) // 2):
+        kt = np.zeros((32, 256), np.float32)  # the pair's keys, zeros past the sequence
+        kt[:min(32, seq - 32 * i)] = k[32 * i:32 * i + 32]
+        stage = np.concatenate([kt, kt - _tf32(kt)])  # 64 rows: keys, then their lo parts
+        x = _tf32(stacked).astype(np.float64) @ _tf32(stage).astype(np.float64).T  # 64 x 64
+        s_pair = np.zeros((32, 32), np.float32)
+        for w, g, t in threads:  # each thread's merge: y = x + 8h + 4jj + c in its registers
+            for h in range(2):
+                for jj in range(2):
+                    for c in range(2):
+                        key = 16 * h + 8 * jj + 2 * t + c
+                        s_pair[8 * w + g, key] = ((x[16 * w + g, key] + x[16 * w + g + 8, key])
+                                                  + (x[16 * w + g, 32 + key] + x[16 * w + g + 8, 32 + key]))
+        exact = q.astype(np.float64) @ kt.astype(np.float64).T
+        assert (np.abs(s_pair - exact) <= 2e-6 * np.abs(q) @ np.abs(kt).T).all()
+        s_pair[:, np.arange(32 * i, 32 * i + 32) >= seq] = -np.inf
+        for h in range(2):
+            j = 2 * i + h
+            s_tile = s_pair[:, 16 * h:16 * h + 16]
+            m_new = np.maximum(m, s_tile.max(1) * scale_log2)
+            shift = np.where(np.isfinite(m_new), m_new, 0).astype(np.float32)
+            corr = np.where(np.isfinite(m), np.exp2(m - shift), 0).astype(np.float32)
+            p = np.exp2(s_tile * scale_log2 - shift[:, None]).astype(np.float32)
+            l = l * corr + p.sum(1)
+            m = m_new
+            if j >= tiles:
+                assert (p == 0).all() and (corr == 1).all()
+                continue
+            xchg = np.zeros(64 * 16, np.float32)
+            for w, g, t in threads:
+                r = 8 * w + g
+                for jj in range(2):
+                    for c in range(2):
+                        col = (8 * jj + 2 * t + c) * 4
+                        xchg[_swizzled(r, col, 64) // 4] = p[r, col // 4]
+                        xchg[_swizzled(r + 32, col, 64) // 4] = p[r, col // 4] - _tf32(p[r, col // 4])
+            b = np.array([[xchg[_swizzled(n, 4 * key, 64) // 4] for key in range(16)]
+                          for n in range(64)], np.float32)  # as the K-major descriptor reads it
+            vt = v[16 * j:16 * j + 16]
+            vtile = np.zeros(16 * 256, np.float32)
+            for key in range(16):
+                for d in range(256):
+                    vtile[v_at(d, key)] = vt[key, d]
+            for s in range(4):
+                a = np.zeros((64, 16), np.float32)  # the A fragments of all threads
+                for w, g, t in threads:
+                    d = 64 * s + dim(w, g)
+                    for key in (t, t + 4, 8 + t, 12 + t):  # each an 8-byte load: rows d, d + 1
+                        a[16 * w + g, key] = vtile[v_at(d, key)]
+                        a[16 * w + g + 8, key] = vtile[v_at(d, key) + 1]
+                    if j > 0:  # O^T *= the corrections, as the thread reads them
+                        c8 = [corr[8 * jj + 2 * t + c] for jj in range(4) for c in range(2)]
+                        for e in range(32):
+                            row, col = 16 * w + g + 8 * ((e // 2) % 2), 8 * (e // 4) + 2 * t + (e % 2)
+                            acc[s][row, col] *= c8[2 * ((e // 4) % 4) + (e & 1)]
+                a_hi = _tf32(a)
+                acc[s] += a_hi.astype(np.float64) @ _tf32(b).astype(np.float64).T
+                acc[s][:, :32] += (_tf32(a - a_hi).astype(np.float64)
+                                   @ _tf32(b[:32]).astype(np.float64).T)
+    out = np.zeros((32, 256))
+    for s in range(4):
+        for w, g, t in threads:
+            for jj in range(4):
+                for c in range(2):
+                    qr = 8 * jj + 2 * t + c
+                    for i in range(2):
+                        row = 16 * w + g + 8 * i
+                        out[qr, 64 * s + dim(w, g) + i] = (acc[s][row, qr] + acc[s][row, qr + 32]) / l[qr]
+    scores = q.astype(np.float64) @ k.astype(np.float64).T / 16.0
+    probs = np.exp(scores - scores.max(1, keepdims=True))
+    want = (probs / probs.sum(1, keepdims=True)) @ v.astype(np.float64)
+    np.testing.assert_allclose(out, want, rtol=0, atol=2e-6)
+
+
 def test_headers_cover_every_include():
     """Every header in csrc/ and every header a source includes is hashed
     into the library's name."""

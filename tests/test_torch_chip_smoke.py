@@ -72,10 +72,13 @@ def test_required_ops_per_instantiation(smoke, instance, want):
 
 
 def test_split_tf32_bound(smoke):
-    """The float32 kernels' tensor-core bound, three tf32 products for each
-    FLOP over 495 TFLOP/s, at the LM's causal shape: K1 (2·B·H·S²·D FLOPs)
-    0.1041 ms, K2 (3·B·H·S²·D) 0.1562 ms, K3 (4·B·H·S²·D) 0.2082 ms; full
-    attention twice each."""
+    """The float32 kernels' bound is their tensor-core bound, three tf32
+    products for each FLOP over 495 TFLOP/s, at the LM's causal shape: K1
+    (2·B·H·S²·D FLOPs) 0.1041 ms, K2 (3·B·H·S²·D) 0.1562 ms, K3
+    (4·B·H·S²·D) 0.2082 ms, all bound by operations; full attention twice
+    each."""
+    import torch
+
     shape = (8, 8, 2048, 32)
     causal = smoke.kernel_work(shape, 4, True)
     full = smoke.kernel_work(shape, 4, False)
@@ -83,9 +86,28 @@ def test_split_tf32_bound(smoke):
                        ("flash_dkv", 0.20824)):
         flops, nbytes = causal[name]
         assert flops == {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[name] * 8 * 8 * 2048**2 * 32
-        assert smoke.split_tf32_bound_ms(flops, nbytes) == pytest.approx(want, abs=1e-5)
-        assert smoke.split_tf32_bound_ms(*full[name]) == pytest.approx(
-            2 * smoke.split_tf32_bound_ms(flops, nbytes), rel=1e-12)
+        bound, by = smoke.bound_ms(flops, nbytes, torch.float32)
+        assert bound == pytest.approx(want, abs=1e-5) and by == "operations"
+        assert smoke.bound_ms(*full[name], torch.float32)[0] == pytest.approx(
+            2 * bound, rel=1e-12)
+
+
+@pytest.mark.parametrize("name,want", [("flash_fwd", 0.8330), ("flash_dq", 1.2495),
+                                       ("flash_dkv", 1.6660)])
+def test_wide_float32_bounds_are_the_split_tf32_ones(smoke, name, want):
+    """At (2, 8, 4096, 256) causal each float32 kernel's bound is its
+    split-tf32 time (K1 0.8330 ms), below the time of its FLOPs at the
+    FMA rate (K1 2.051 ms), which it runs none of; bf16 keeps its own
+    peak."""
+    import torch
+
+    work = smoke.kernel_work((2, 8, 4096, 256), 4, True)[name]
+    bound, by = smoke.bound_ms(*work, torch.float32)
+    assert bound == pytest.approx(want, abs=1e-3) and by == "operations"
+    assert bound < work[0] / smoke.PEAK_OPS[torch.float32] * 1e3
+    bf16 = smoke.kernel_work((2, 8, 4096, 256), 2, True)[name]
+    assert smoke.bound_ms(*bf16, torch.bfloat16)[0] == pytest.approx(
+        bf16[0] / 989e12 * 1e3, rel=1e-12)
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
