@@ -17,30 +17,30 @@
 // - K2: one block per (query-row tile, batch*head). Q, dO, lse and delta
 //   stay put; K/V tiles stream through shared memory up to the diagonal
 //   (causal) or the end. bf16: 128 rows against 128 keys at D = 32, 192
-//   against 64 at D = 64, 128 against 64 at D = 128, 128 against 32 at
-//   D = 256; float32: 128 rows against 64 keys at D = 32 and 32 at D = 64,
-//   64 rows against 16 at D = 128, 32 (stacked, in registers) against 16
-//   at D = 256.
+//   against 64 at D = 64, 128 against 64 at D = 128 and 256; float32: 128
+//   rows against 64 keys at D = 32 and 32 at D = 64, 64 rows against 16 at
+//   D = 128, 32 (stacked, in registers) against 16 at D = 256.
 // - K3: one block per (key tile, batch*head): in bf16 192 keys at D = 32
 //   and 128 at D = 64 and 128, 64 at D = 256, against query tiles of 64
 //   rows; in float32 128 keys against 64-row query tiles at D = 32, 64
 //   keys against 32 and 16 rows at D = 64 and 128, 32 keys (stacked, in
-//   registers) against 16 rows at D = 256. K and V stay put; Q/dO tiles stream from
-//   the one holding the block's first key (causal) or from the start, with
-//   lse and delta staged beside them. dk and dv accumulate in float32
-//   registers; at D = 256 a block holds half of their columns (a third
-//   grid axis picks which) and computes S^T and dP^T over all 256 for it.
+//   registers) against 16 rows at D = 256. K and V stay put; Q/dO tiles
+//   stream from the one holding the block's first key (causal) or from the
+//   start, with lse and delta staged beside them. dk and dv accumulate in
+//   float32 registers; float32 at D = 256 holds half of their columns a
+//   block (a third grid axis picks which) and computes S^T and dP^T over
+//   all 256 for it.
 //
 // Two kernels per dtype, no atomics, so the sums are deterministic and in
 // the reference's order. Keys and rows at or past `seq` contribute nothing.
 //
-// - bfloat16 K2, built for Hopper (sm90.cuh), in bf16 K1's shape: warp 0
-//   is the producer. It loads the block's Q and dO tiles once by TMA and
-//   streams K and V tiles (128 keys at D = 32, 64 at D = 64 and 128, 32
-//   at D = 256) through a 3-stage ring with full/empty mbarriers. Consumer
+// - bfloat16 K2 at D <= 128, built for Hopper (sm90.cuh), in bf16 K1's
+//   shape: warp 0 is the producer. It loads the block's Q and dO tiles
+//   once by TMA and streams K and V tiles (128 keys at D = 32, 64 at D = 64
+//   and 128) through a 3-stage ring with full/empty mbarriers. Consumer
 //   warpgroups own 64 query rows each, their lse (base 2) and delta in
-//   registers: two at D = 32, 128 and 256 (240 registers a thread), three
-//   at D = 64 (160), as S and dP (N / 2 accumulators each), the packed dS
+//   registers: two at D = 32 and 128 (240 registers a thread), three at
+//   D = 64 (160), as S and dP (N / 2 accumulators each), the packed dS
 //   (N / 4) and dQ (D / 2) are live together. Per tile: S = Q K^T and
 //   dP = dO V^T as one wgmma group with Q, dO, K and V K-major from
 //   shared memory; dS = exp2(S c - lse) (dP - delta) in registers (one
@@ -51,15 +51,15 @@
 //   j-1's dS K, and tile j's dS is computed while dS K is in flight. A
 //   warpgroup stops at its own diagonal and releases the tiles it skips.
 //   Blocks go longest first (causal).
-// - bfloat16 K3, built for Hopper (sm90.cuh): warp 0 is the producer. It
+// - bfloat16 K3 at D <= 128, built for Hopper (sm90.cuh): warp 0 is the
+//   producer. It
 //   loads the block's K and V tiles once by TMA and streams Q and dO tiles
 //   through a 3-stage ring with full/empty mbarriers, its lanes storing the
 //   tile's lse (base 2) and delta beside them (rows past `seq` as 0; TMA
 //   fills those rows of Q and dO with zeros). Consumer warpgroups own 64
 //   keys each: three at D = 32 (160 registers a thread), two at D = 64
 //   and 128, where dK and dV take 64-128 accumulators a thread (240
-//   registers), one at D = 256 with half the columns (2 stages). They
-//   overlap one another, not the exponentials with their
+//   registers). They overlap one another, not the exponentials with their
 //   own products. Per tile: S^T = K Q^T and dP^T = V dO^T as wgmma with K
 //   and V from shared memory and Q and dO K-major; P^T = exp2(S^T c - lse)
 //   and dS^T = P^T (dP^T - delta) in registers, masked only on the causal
@@ -67,6 +67,11 @@
 //   with P^T and dS^T as bf16 register A operands and the same dO and Q
 //   tiles read MN-major. Keys being the rows (wgmma's 64-row M) is what
 //   puts P^T and dS^T in A-operand layout without a transpose.
+// - bfloat16 K2 and K3 at D = 256 (WideBf16, below): two warpgroups and no
+//   producer. K2 takes 128 query rows a block, each warpgroup 64 of them
+//   with all 256 columns of dQ, against 64-key tiles; K3 64 keys a block
+//   with all 256 columns of dK and dV, warpgroup 0 computing S^T, P^T and
+//   dV, warpgroup 1 dP^T, dS^T and dK, P^T crossing through shared memory.
 // - In the bf16 kernels dS (K2, K3) and P (K3) are rounded to bf16 before
 //   their products, which is where the error against the plain version
 //   comes from.
@@ -113,6 +118,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "sm90.cuh"
 #include "tf32.cuh"
@@ -136,12 +143,11 @@ using namespace flash::sm90;
 // dQ (D / 2) are live together. At D = 32 tiles of 128 keys with two
 // warpgroups at 240 registers a thread beat 64 keys with three at 160
 // (PERF.md); at D = 64 the 128-key tiles spill, so 64 keys and three
-// warpgroups; at D = 128 dQ alone takes 64 registers: 64 keys and two; at
-// D = 256 it takes 128, so 32 keys and two (Q and dO 128 KiB, 32 KiB a
-// stage).
+// warpgroups; at D = 128 dQ alone takes 64 registers: 64 keys and two.
+// D = 256 has a kernel of its own (WideBf16, below).
 template <int D>
 struct DqShape {
-  static constexpr int kN = D == 32 ? 128 : (D == 256 ? 32 : 64);  // keys per K/V tile
+  static constexpr int kN = D == 32 ? 128 : 64;  // keys per K/V tile
   static constexpr int kConsumers = D == 64 ? 3 : 2;
   static constexpr int kRows = 64 * kConsumers;  // query rows per block
   static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
@@ -391,16 +397,12 @@ constexpr int kQRows = 64;  // query rows per streamed tile
 
 // Consumer warpgroups own 64 keys each: three at D = 32, where their
 // registers fit in 160 a thread; two (240 registers) at D = 64 and 128.
-// dK and dV of 64 keys at D = 256 would take 256 registers a thread, so
-// there a block computes kOut = 128 of the output columns (blockIdx.z
-// picks which), S^T and dP^T over all 256 for each half: one warpgroup,
-// 64 keys, a 2-stage Q/dO ring (K and V 64 KiB, 65 KiB a stage).
+// D = 256 has a kernel of its own (WideBf16, below).
 template <int D>
 struct DkvShape {
-  static constexpr int kConsumers = D == 32 ? 3 : (D == 256 ? 1 : 2);
+  static constexpr int kConsumers = D == 32 ? 3 : 2;
   static constexpr int kKeys = 64 * kConsumers;  // keys per block
-  static constexpr int kOut = D == 256 ? 128 : D;  // dK and dV columns per block
-  static constexpr int kStages = D == 256 ? 2 : 3;  // Q/dO ring depth
+  static constexpr int kStages = 3;  // Q/dO ring depth
   static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
   static constexpr int kConsumerWarps = 4 * kConsumers;
   static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;  // after setmaxnreg
@@ -454,7 +456,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, int seq, int causal, float scale_log2, float scale) {
   using S = DkvSmem<D>;
-  constexpr int kKeys = DkvShape<D>::kKeys, kOut = DkvShape<D>::kOut, kStages = S::kStages;
+  constexpr int kKeys = DkvShape<D>::kKeys, kStages = S::kStages;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBar);
@@ -471,10 +473,6 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warpgroup = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
   const auto stage = [&](int i) { return smem + S::kStage0 + (i % kStages) * S::kStage; };
-  // This block's first dK and dV column, and the byte offset of its column
-  // block in a Q or dO tile (read MN-major for those products).
-  const int c0 = kOut < D ? blockIdx.z * kOut : 0;
-  const int c0_bytes = c0 / TileLayout<D>::W * TileLayout<D>::block_bytes(kQRows);
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -530,9 +528,9 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int kw0 = k0 + k_row0;
   const int keys[2] = {kw0 + warp * 16 + lane / 4, kw0 + warp * 16 + lane / 4 + 8};
 
-  float dk_acc[kOut / 2], dv_acc[kOut / 2];
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < kOut / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   float s[kQRows / 2], dp[kQRows / 2];  // S^T = K Q^T and dP^T = V dO^T
   uint32_t pa[kQRows / 16][4], dsa[kQRows / 16][4];  // P^T and dS^T as bf16 A operands
 
@@ -583,11 +581,11 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kQRows / 16; ++kk) {
-      wgmma_rs<kOut>(dv_acc, pa[kk], desc_mn_major<D>(st + S::kDo + c0_bytes, kQRows, kk), 1);
+      wgmma_rs<D>(dv_acc, pa[kk], desc_mn_major<D>(st + S::kDo, kQRows, kk), 1);
     }
 #pragma unroll
     for (int kk = 0; kk < kQRows / 16; ++kk) {
-      wgmma_rs<kOut>(dk_acc, dsa[kk], desc_mn_major<D>(st + c0_bytes, kQRows, kk), 1);
+      wgmma_rs<D>(dk_acc, dsa[kk], desc_mn_major<D>(st, kQRows, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -599,9 +597,9 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (keys[r] >= seq) continue;
-    const int64_t off = (static_cast<int64_t>(bh) * seq + keys[r]) * D + c0 + 2 * t;
+    const int64_t off = (static_cast<int64_t>(bh) * seq + keys[r]) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kOut / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
           __floats2bfloat162_rn(scale * dk_acc[4 * n + 2 * r], scale * dk_acc[4 * n + 2 * r + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
@@ -626,8 +624,549 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   constexpr size_t smem = DkvSmem<D>::kBytes;
   static_assert(smem <= 232448, "bf16 K3 needs more shared memory than a block has");
   if ((err = allow_smem(flash_dkv_bf16_kernel<D>, smem)) != cudaSuccess) return err;
-  const dim3 grid(batch_heads, (seq + kKeys - 1) / kKeys, D / DkvShape<D>::kOut);
+  const dim3 grid(batch_heads, (seq + kKeys - 1) / kKeys);
   flash_dkv_bf16_kernel<D><<<grid, DkvShape<D>::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      seq, causal, scale_log2, scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------- bf16 K2 and K3 at D = 256
+//
+// 64 rows of an output at head_dim 256 take 128 f32 registers a thread in
+// one warpgroup, and a 64 x 256 bf16 tile is 32 KiB. Both kernels have two
+// warpgroups and no producer warpgroup (256 threads, up to 255 registers
+// each, no setmaxnreg). Every streamed tile is 64 rows of K and V (K2) or
+// Q and dO (K3), 64 KiB, and an SM takes such tiles in from L2 at about
+// 21 bytes a clock, no faster with them multicast to a cluster: a 64 x 64
+// tile's products need fewer clocks than its bytes. So a block makes each
+// streamed tile serve as many output rows as its registers hold.
+//
+// - K2, one block per 128 query rows and head, K/V tiles of 64 keys. Each
+//   warpgroup owns 64 rows: S = Q K^T and dP = dO V^T (m64n64, Q and dO
+//   from the block's fixed tiles in shared memory), dS = P (dP - delta)
+//   with P = exp2(S c - lse) in registers, dQ += dS K over all 256 columns
+//   (128 registers): 128 rows take a K/V tile in for every 128 x 64 of
+//   scores, half of what 64-row blocks take. 64-key tiles keep the
+//   products m64n64 (an m64n32 product is issued no faster than one of
+//   twice its width), and with no producer warpgroup shared memory holds
+//   Q, dO, two K buffers and one V buffer, which dP frees first: each tile
+//   issues dP, then S, and releases V once dP is done, so V's next tile
+//   loads while S, the exponentials and dS K run. A warpgroup whose rows
+//   end before a tile skips it (the causal diagonal) but keeps releasing
+//   the ring.
+// - K3, one block per 64 keys and head, all 256 columns of dK and dV, so
+//   S^T and dP^T are computed once for both (4 M MACs a 64 x 64 tile;
+//   half the columns a block would take 6 M). Warpgroup 0 computes S^T =
+//   K Q^T and P^T = exp2(S^T c - lse), masked, and owns dV += P^T dO;
+//   warpgroup 1 computes dP^T = V dO^T and owns dK += dS^T Q, dS^T = P^T
+//   (dP^T - delta). P^T crosses once a tile through shared memory in f32
+//   (two buffers): both accumulators have one layout, so thread i of
+//   warpgroup 1 reads back exactly the positions thread i of warpgroup 0
+//   wrote. K and V stay put; Q, dO and their rows' lse and delta stream
+//   through a 2-stage ring that warpgroup 1 fills once a stage is
+//   released, so warpgroup 0 waits on nothing but its data and the
+//   exchange. Warpgroup 1 issues tile i's dK with tile i+1's dP^T.
+//
+// Budget (bytes of 232,448): K2 Q and dO 128 KiB + 3 x 32 KiB of K/V +
+// barriers + 1 KiB alignment = 230,456; K3 64 KiB of K and V + 2 x 64 KiB
+// of Q/dO + 1 KiB of lse and delta + 2 x 16 KiB of exchange + barriers +
+// 1 KiB = 231,464. Registers: K2 128 (dQ) + 32 (S) + 32 (dP) + 16 (dS);
+// K3 128 (dV or dK) + 32 + 16. Bound: operations, 3 (K2) and 4 (K3) *
+// B*H*S^2*D bf16 FLOPs at 989 TFLOP/s (causal, halved).
+struct WideBf16 {
+  static constexpr int D = 256;
+  static constexpr int kRows = 64;      // rows of a streamed tile; keys of a K3 block
+  static constexpr int kThreads = 256;  // two warpgroups, no producer
+  using L = TileLayout<D>;              // 4 column blocks of 128-byte rows
+  static constexpr size_t kTile = tile_bytes<D>(kRows);
+  static constexpr int kBox = L::block_bytes(kRows);  // one TMA box: a column block
+  static constexpr size_t kXchg = kRows * kRows * sizeof(float);  // a warpgroup's 64 x 64 f32
+  static constexpr int kXchgQuads = kRows * kRows / 4;
+  // K2: Q and dO of the block's 128 rows, two K buffers, one V buffer.
+  static constexpr int kDqRows = 128;
+  static constexpr size_t kDqFixed = tile_bytes<D>(kDqRows);
+  static constexpr size_t kDqDo = kDqFixed;
+  static constexpr size_t kDqK = 2 * kDqFixed;
+  static constexpr size_t kDqV = kDqK + 2 * kTile;
+  static constexpr size_t kDqBar = kDqV + kTile;
+  static constexpr size_t kDqBytes = kDqBar + 7 * sizeof(uint64_t) + 1024;
+  // K3: K and V, a 2-stage Q/dO ring, each stage's lse (base 2) and delta,
+  // two exchange buffers.
+  static constexpr int kDkvStages = 2;
+  static constexpr size_t kDkvStage0 = 2 * kTile;
+  static constexpr size_t kDkvStage = 2 * kTile;  // Q, then dO
+  static constexpr size_t kDkvRowVals = kDkvStage0 + kDkvStages * kDkvStage;
+  static constexpr size_t kDkvXchg = kDkvRowVals + kDkvStages * 2 * kRows * sizeof(float);
+  static constexpr size_t kDkvBar = kDkvXchg + 2 * kXchg;
+  static constexpr size_t kDkvBytes = kDkvBar + (1 + 2 * kDkvStages) * sizeof(uint64_t) + 1024;
+};
+
+// The generic kernels' launch bounds name these when the D = 256 kernels
+// below are declared.
+template <>
+struct DqShape<256> {
+  static constexpr int kThreads = WideBf16::kThreads;
+};
+template <>
+struct DkvShape<256> {
+  static constexpr int kThreads = WideBf16::kThreads;
+};
+
+template <>
+__global__ void __launch_bounds__(WideBf16::kThreads, 1)
+flash_dq_bf16_kernel<256>(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dq, int seq,
+                          int causal, float scale_log2, float scale) {
+  using W = WideBf16;
+  constexpr int D = W::D, N = W::kRows, R = W::kDqRows;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + W::kDqBar);
+  uint64_t* qd_full = bars;
+  uint64_t* k_full = bars + 1;   // per K buffer
+  uint64_t* k_empty = bars + 3;  // per K buffer
+  uint64_t* v_full = bars + 5;
+  uint64_t* v_empty = bars + 6;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + R) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  // The warpgroup, broadcast so that ptxas knows it is warp-uniform.
+  const int g = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4, t = lane % 4;
+  uint8_t* const v_s = smem + W::kDqV;
+  const auto k_buf = [&](int j) { return smem + W::kDqK + (j % 2) * W::kTile; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&k_full[b], 4);   // warpgroup 0's warps: a column block of K each
+      mbar_init(&k_empty[b], 8);  // every warp
+    }
+    mbar_init(v_full, 4);   // warpgroup 1's warps: a column block of V each
+    mbar_init(v_empty, 8);  // every warp
+    fence_barrier_init();
+  }
+  __syncthreads();  // clock: start
+
+  // Warp w of warpgroup 0 (lane 0) loads column block w of K tiles, of
+  // warpgroup 1 of V tiles.
+  const auto load_k = [&](int j) {
+    uint64_t* bar = &k_full[j % 2];
+    mbar_arrive_expect_tx(bar, W::kBox);
+    tma_load_3d(k_buf(j) + w * W::kBox, &k_map, bar, w * W::L::W, j * N, bh);
+  };
+  const auto load_v = [&](int j) {
+    mbar_arrive_expect_tx(v_full, W::kBox);
+    tma_load_3d(v_s + w * W::kBox, &v_map, v_full, w * W::L::W, j * N, bh);
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(qd_full, 2 * W::kDqFixed);
+    load_tile_tma<D>(smem, &q_map, qd_full, R, q0, bh);
+    load_tile_tma<D>(smem + W::kDqDo, &do_map, qd_full, R, q0, bh);
+  }
+  if (lane == 0) {
+    if (g == 0) {
+      for (int j = 0; j < min(tiles, 2); ++j) load_k(j);
+    } else {
+      load_v(0);
+    }
+  }
+  __syncwarp();
+
+  // Warpgroup g owns rows 64g .. 64g + 63 of the block; thread (warp w,
+  // lane l) rows 16w + l/4 and + 8 of those, with their lse (base 2) and
+  // delta. Its tiles end at its own diagonal (causal); rows wholly past
+  // `seq` need none.
+  const int r0 = q0 + 64 * g;
+  const int rows[2] = {r0 + 16 * w + lane / 4, r0 + 16 * w + lane / 4 + 8};
+  const int own_end = causal ? min(seq, r0 + 64) : seq;
+  const int mine = r0 < seq ? (own_end + N - 1) / N : 0;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t at = static_cast<int64_t>(bh) * seq + rows[r];
+    lse2[r] = rows[r] < seq ? lse[at] * kLog2e : 0.f;
+    dlt[r] = rows[r] < seq ? delta[at] : 0.f;
+  }
+
+  float acc[D / 2];        // dQ of the warpgroup's 64 rows
+  float s[N / 2], dp[N / 2];  // S, then dS; dP
+  uint32_t ds[N / 16][4];  // dS as bf16 A operands
+  // Tile j's V is read (every warp arrives) and warpgroup 1 loads tile
+  // j + 1's into the buffer once all have; likewise K, two tiles ahead, by
+  // warpgroup 0.
+  const auto release_v = [&](int j) {
+    if (lane == 0) mbar_arrive(v_empty);
+    if (g == 1 && j + 1 < tiles) {
+      mbar_wait(v_empty, j & 1);
+      if (lane == 0) load_v(j + 1);
+    }
+    __syncwarp();
+  };
+  const auto release_k = [&](int j) {
+    if (lane == 0) mbar_arrive(&k_empty[j % 2]);
+    if (g == 0 && j + 2 < tiles) {
+      mbar_wait(&k_empty[j % 2], (j / 2) & 1);
+      if (lane == 0) load_k(j + 2);
+    }
+    __syncwarp();
+  };
+  // dS = P (dP - delta) in place of S, P = exp2(S c - lse); `masked`: 0
+  // past `seq` and above the causal diagonal.
+  const auto ds_tile = [&](int n0, auto masked) {
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) {
+      const int r = (e / 2) & 1;
+      float p = exp2_approx(fmaf(s[e], scale_log2, -lse2[r]));
+      if constexpr (decltype(masked)::value) {
+        const int col = n0 + (e / 4) * 8 + 2 * t + (e & 1);
+        if (col >= seq || (causal && col > rows[r])) p = 0.f;
+      }
+      s[e] = p * (dp[e] - dlt[r]);
+    }
+  };
+
+  mbar_wait(qd_full, 0);
+  const uint8_t* q_s = smem;
+  const uint8_t* do_s = smem + W::kDqDo;
+  for (int j = 0; j < mine; ++j) {
+    const int n0 = j * N;
+    mbar_wait(&k_full[j % 2], (j / 2) & 1);
+    mbar_wait(v_full, j & 1);  // clock: tma_wait
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<N>(dp, desc_k_major<D>(do_s, R, 64 * g, kk), desc_k_major<D>(v_s, N, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<N>(s, desc_k_major<D>(q_s, R, 64 * g, kk), desc_k_major<D>(k_buf(j), N, 0, kk),
+                  kk > 0);
+    }
+    wgmma_commit();  // clock: issue
+    wgmma_wait<1>();
+    fence_operand(dp);  // clock: dp_wait
+    release_v(j);  // clock: v_release
+    wgmma_wait<0>();
+    fence_operand(s);  // clock: s_wait
+    if ((causal && n0 + N - 1 > r0) || n0 + N > seq) {
+      ds_tile(n0, std::true_type{});
+    } else {
+      ds_tile(n0, std::false_type{});
+    }  // clock: ds
+    pack_ds<N>(ds, s);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) fence_operand(ds[kk]);
+    wgmma_fence();
+    // dQ += dS K, K read MN-major; tile 0's first product overwrites dQ
+    // (zeros set by other instructions could land inside an open wgmma
+    // stage, C7515).
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      wgmma_rs<D>(acc, ds[kk], desc_mn_major<D>(k_buf(j), N, kk), j > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);  // clock: dq
+    release_k(j);  // clock: k_release
+  }
+  // Tiles this warpgroup skips are released at once, so the ring keeps
+  // turning for the other.
+  for (int j = mine; j < tiles; ++j) {
+    release_v(j);
+    release_k(j);
+  }
+  // clock: store
+
+  if (mine == 0) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= seq) continue;
+    bf16* out = dq + (static_cast<int64_t>(bh) * seq + rows[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+          __floats2bfloat162_rn(scale * acc[4 * n + 2 * r], scale * acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+template <>
+cudaError_t launch_dq<256>(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dq, int batch_heads,
+                           int seq, int causal, float scale_log2, float scale,
+                           cudaStream_t stream) {
+  using W = WideBf16;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err;
+  if ((err = make_tile_map<W::D>(&q_map, q, batch_heads, seq, W::kDqRows)) != cudaSuccess ||
+      (err = make_tile_map<W::D>(&k_map, k, batch_heads, seq, W::kRows)) != cudaSuccess ||
+      (err = make_tile_map<W::D>(&v_map, v, batch_heads, seq, W::kRows)) != cudaSuccess ||
+      (err = make_tile_map<W::D>(&do_map, dout, batch_heads, seq, W::kDqRows)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = W::kDqBytes;
+  static_assert(smem <= 232448, "bf16 K2 needs more shared memory than a block has");
+  if ((err = allow_smem(flash_dq_bf16_kernel<256>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + W::kDqRows - 1) / W::kDqRows);
+  flash_dq_bf16_kernel<256><<<grid, W::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dq), seq, causal, scale_log2,
+      scale);
+  return cudaGetLastError();
+}
+
+template <>
+__global__ void __launch_bounds__(WideBf16::kThreads, 1)
+flash_dkv_bf16_kernel<256>(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int seq, int causal,
+                           float scale_log2, float scale) {
+  using W = WideBf16;
+  constexpr int D = W::D, N = W::kRows, kStages = W::kDkvStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + W::kDkvBar);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * N;  // causal: the longest (first) key blocks first
+  // Causal: query tiles before the one holding the block's first key see
+  // none of its keys.
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = (seq - q_begin + N - 1) / N;
+  // The warpgroup, broadcast so that ptxas knows it is warp-uniform: with
+  // wgmma in both branches below, a branch it takes as divergent
+  // serializes every wgmma (C7520).
+  const int g = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int ctid = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int w = ctid / 32, t = lane % 4;
+  const auto stage = [&](int i) { return smem + W::kDkvStage0 + (i % kStages) * W::kDkvStage; };
+  // Tile i's lse (base 2), then its delta, by query row.
+  const auto row_vals = [&](int i) {
+    return reinterpret_cast<float*>(smem + W::kDkvRowVals) + (i % kStages) * 2 * N;
+  };
+  float4* xchg = reinterpret_cast<float4*>(smem + W::kDkvXchg);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 128);  // warpgroup 1's threads: its boxes, lse and delta
+      mbar_init(&empty[s], 4);   // warpgroup 0's warps (warpgroup 1 issues the loads)
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();  // clock: start
+
+  // Thread (warp w, lane l) of either warpgroup holds keys 16w + l/4 and
+  // + 8 of the block.
+  const int keys[2] = {k0 + 16 * w + lane / 4, k0 + 16 * w + lane / 4 + 8};
+  float acc[D / 2];        // dV (warpgroup 0) or dK (1)
+  float x[N / 2];          // S^T, then P^T (0); dP^T, then dS^T (1)
+  uint32_t fr[N / 16][4];  // P^T or dS^T as bf16 A operands
+  // S^T = K Q^T or dP^T = V dO^T against tile i, all K-major.
+  const auto issue_x = [&](int i) {
+    const uint8_t* a_s = smem + g * W::kTile;    // K or V
+    const uint8_t* b = stage(i) + g * W::kTile;  // Q or dO
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<N>(x, desc_k_major<D>(a_s, N, 0, kk), desc_k_major<D>(b, N, 0, kk), kk > 0);
+    }
+  };
+  // dV += P^T dO or dK += dS^T Q, dO or Q read MN-major; tile 0's first
+  // product overwrites the output (C7515).
+  const auto issue_out = [&](int i) {
+    const uint8_t* b = stage(i) + (1 - g) * W::kTile;
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      wgmma_rs<D>(acc, fr[kk], desc_mn_major<D>(b, N, kk), i > 0 || kk > 0);
+    }
+  };
+  const auto pack = [&] {
+    pack_ds<N>(fr, x);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) fence_operand(fr[kk]);
+  };
+
+  if (g == 0) {
+    // P^T = exp2(S^T c - lse); rows are keys, columns query rows;
+    // `masked`: 0 past `seq` and above the causal diagonal (the diagonal
+    // tiles and a ragged last tile).
+    const auto softmax = [&](int q0, const float* lse_s, auto masked) {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 4 * j; e < 4 * j + 4; ++e) {
+          float p = exp2_approx(fmaf(x[e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          if constexpr (decltype(masked)::value) {
+            const int qi = q0 + 8 * j + 2 * t + (e & 1);
+            if (qi >= seq || (causal && keys[(e / 2) & 1] > qi)) p = 0.f;
+          }
+          x[e] = p;
+        }
+      }
+    };
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < tiles; ++i) {
+      const int q0 = q_begin + i * N;
+      mbar_wait(&full[i % kStages], (i / kStages) & 1);  // clock: tma_wait
+      wgmma_fence();
+      issue_x(i);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(x);  // clock: x
+      if ((causal && q0 < k0 + N - 1) || q0 + N > seq) {
+        softmax(q0, row_vals(i), std::true_type{});
+      } else {
+        softmax(q0, row_vals(i), std::false_type{});
+      }  // clock: p
+      // P^T into buffer i % 2 (named barrier 1 + i % 2), once warpgroup 1
+      // has read tile i - 2's from it (barrier 3 + i % 2).
+      if (i >= 2) named_barrier_sync(3 + (i & 1), 256);  // clock: xchg_free
+      float4* buf = xchg + (i & 1) * W::kXchgQuads;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        buf[j * 128 + ctid] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      }
+      named_barrier_arrive(1 + (i & 1), 256);  // clock: xchg_write
+      pack();
+      wgmma_fence();
+      issue_out(i);
+      wgmma_commit();  // clock: out_issue
+      wgmma_wait<0>();
+      fence_operand(acc);  // clock: out_wait
+      // Release the stage where a tile follows.
+      if (i + kStages < tiles && lane == 0) mbar_arrive(&empty[i % kStages]);
+    }
+  } else {
+    // Warpgroup 1 loads the stream: for tile i, thread ctid stores the lse
+    // (base 2; ctid < 64) or delta of query row ctid % 64, read a tile
+    // ahead (`ahead`), and warp w's lane 0 issues boxes 2w and 2w + 1 of
+    // the tile's 8 (Q's column blocks, then dO's).
+    const auto ahead = [&](int i) {
+      const int r = q_begin + i * N + ctid % N;
+      const int64_t at = static_cast<int64_t>(bh) * seq + r;
+      return r >= seq ? 0.f : (ctid < N ? lse[at] * kLog2e : delta[at]);
+    };
+    const auto load = [&](int i, float v) {
+      uint64_t* bar = &full[i % kStages];
+      row_vals(i)[ctid] = v;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar, 2 * W::kBox);
+#pragma unroll
+        for (int b = 2 * w; b < 2 * w + 2; ++b) {
+          tma_load_3d(stage(i) + (b / 4) * W::kTile + (b % 4) * W::kBox, b < 4 ? &q_map : &do_map,
+                      bar, (b % 4) * W::L::W, q_begin + i * N, bh);
+        }
+      } else {
+        mbar_arrive(bar);
+      }
+    };
+    if (ctid == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * W::kTile);
+      load_tile_tma<D>(smem, &k_map, kv_full, N, k0, bh);
+      load_tile_tma<D>(smem + W::kTile, &v_map, kv_full, N, k0, bh);
+    }
+    for (int i = 0; i < min(tiles, kStages); ++i) load(i, ahead(i));
+    float v_next = kStages < tiles ? ahead(kStages) : 0.f;
+    __syncwarp();
+
+    mbar_wait(kv_full, 0);
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    issue_x(0);
+    wgmma_commit();
+    // Tile i: dS^T, dK of tile i issued with tile i+1's dP^T (kNext; at
+    // compile time, so no wgmma sits under a branch), then tile i + 2's
+    // loads into this stage once warpgroup 0 has released it (its dV of
+    // tile i is done; this warpgroup's dK is).
+    const auto step = [&](int i, auto next) {
+      constexpr bool kNext = decltype(next)::value;
+      wgmma_wait<0>();  // tile i's dP^T and tile i-1's dK
+      fence_operand(x);
+      fence_operand(acc);  // clock: x
+      named_barrier_sync(1 + (i & 1), 256);  // clock: p_wait
+      // dS^T = P^T (dP^T - delta), P^T as warpgroup 0 wrote it.
+      const float4* buf = xchg + (i & 1) * W::kXchgQuads;
+      const float* dlt_s = row_vals(i) + N;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const float4 p = buf[j * 128 + ctid];
+        const float2 dl = *reinterpret_cast<const float2*>(dlt_s + 8 * j + 2 * t);
+        x[4 * j] = p.x * (x[4 * j] - dl.x);
+        x[4 * j + 1] = p.y * (x[4 * j + 1] - dl.y);
+        x[4 * j + 2] = p.z * (x[4 * j + 2] - dl.x);
+        x[4 * j + 3] = p.w * (x[4 * j + 3] - dl.y);
+      }
+      if (i + 2 < tiles) named_barrier_arrive(3 + (i & 1), 256);  // clock: ds
+      pack();
+      wgmma_fence();
+      issue_out(i);
+      wgmma_commit();  // clock: out_issue
+      if constexpr (kNext) mbar_wait(&full[(i + 1) % kStages], ((i + 1) / kStages) & 1);  // clock: tma_wait
+      wgmma_fence();
+      if constexpr (kNext) issue_x(i + 1);
+      wgmma_commit();  // clock: x_issue
+      wgmma_wait<1>();  // clock: out_wait
+      if (i + kStages < tiles) {
+        mbar_wait(&empty[i % kStages], (i / kStages) & 1);
+        load(i + kStages, v_next);
+        v_next = i + kStages + 1 < tiles ? ahead(i + kStages + 1) : 0.f;
+      }
+      __syncwarp();  // clock: load
+    };
+    for (int i = 0; i + 1 < tiles; ++i) step(i, std::true_type{});
+    step(tiles - 1, std::false_type{});
+    wgmma_wait<0>();
+    fence_operand(acc);
+  }
+  // clock: store
+
+  const float s = g == 0 ? 1.f : scale;
+  bf16* out = g == 0 ? dv : dk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= seq) continue;
+    const int64_t off = (static_cast<int64_t>(bh) * seq + keys[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(out + off + n * 8) =
+          __floats2bfloat162_rn(s * acc[4 * n + 2 * r], s * acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+template <>
+cudaError_t launch_dkv<256>(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dk, void* dv,
+                            int batch_heads, int seq, int causal, float scale_log2, float scale,
+                            cudaStream_t stream) {
+  using W = WideBf16;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err;
+  if ((err = make_tile_map<W::D>(&q_map, q, batch_heads, seq, W::kRows)) != cudaSuccess ||
+      (err = make_tile_map<W::D>(&k_map, k, batch_heads, seq, W::kRows)) != cudaSuccess ||
+      (err = make_tile_map<W::D>(&v_map, v, batch_heads, seq, W::kRows)) != cudaSuccess ||
+      (err = make_tile_map<W::D>(&do_map, dout, batch_heads, seq, W::kRows)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = W::kDkvBytes;
+  static_assert(smem <= 232448, "bf16 K3 needs more shared memory than a block has");
+  if ((err = allow_smem(flash_dkv_bf16_kernel<256>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + W::kRows - 1) / W::kRows);
+  flash_dkv_bf16_kernel<256><<<grid, W::kThreads, smem, stream>>>(
       q_map, k_map, v_map, do_map, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       seq, causal, scale_log2, scale);
   return cudaGetLastError();

@@ -462,6 +462,13 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive at named barrier `id` without waiting: the barrier completes once
+// `threads` threads have arrived or synced at it, and this thread's prior
+// memory accesses are then performed for those that synced.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 
 // ------------------------------------------------------------ registers
 

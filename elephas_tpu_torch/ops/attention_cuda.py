@@ -27,9 +27,13 @@ accuracy (times in PERF.md); at head_dim 256 they take 32 rows (or keys)
 as a stacked 64-row operand of those rows and their lo parts, held in
 registers, in two warpgroups with no producer that issue their loads
 from every warp (K1: one warpgroup for S and the softmax, one for O; K2
-and K3: one operand a warpgroup), and K3 computes half of dK's and dV's
-columns a block in both dtypes. ``kernel_tiles`` gives each kernel's
-tiling, which sets the order of its sums.
+and K3: one operand a warpgroup), and float32 K3 computes half of dK's
+and dV's columns a block. The bf16 K2 and K3 at head_dim 256 also have
+two warpgroups and no producer: K2 64 query rows and all of dQ's columns
+a warpgroup, 128 rows a block; K3 all of dK's and dV's columns for 64
+keys, warpgroup 0 on S^T, P^T and dV, warpgroup 1 on dP^T, dS^T and dK.
+``kernel_tiles`` gives each kernel's tiling, which sets the order of its
+sums.
 
 ``launches`` counts the launches of each kernel (``flash_fwd``,
 ``flash_dq``, ``flash_dkv``); a count moves where its kernel is launched
@@ -66,16 +70,16 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 # bf16: K1 192 query rows (three consumer warpgroups of 64) against 128
 # keys (64 at head_dim 128), 128 against 64 at 256; K2 128 query rows
 # against 128 keys at head_dim 32, 192 against 64 at 64, 128 against 64 at
-# 128 and 32 at 256; K3 64 query rows against 192 keys (128 at head_dim 64
-# and 128, 64 at 256). float32: K1 192, 128, 64 and 32 query rows against
-# 64, 64, 32 and 16 keys at head_dim 32, 64, 128 and 256; K2 128, 128, 64
-# and 32 against 64, 32, 16 and 16; K3 64, 32, 16 and 16 against 128, 64,
-# 64 and 32.
+# 128 and 256; K3 64 query rows against 192 keys (128 at
+# head_dim 64 and 128, 64 at 256). float32: K1 192, 128, 64 and 32 query
+# rows against 64, 64, 32 and 16 keys at head_dim 32, 64, 128 and 256; K2
+# 128, 128, 64 and 32 against 64, 32, 16 and 16; K3 64, 32, 16 and 16
+# against 128, 64, 64 and 32.
 _TILES = {
     torch.bfloat16: {"flash_fwd": {32: (192, 128), 64: (192, 128), 128: (192, 64),
                                    256: (128, 64)},
                      "flash_dq": {32: (128, 128), 64: (192, 64), 128: (128, 64),
-                                  256: (128, 32)},
+                                  256: (128, 64)},
                      "flash_dkv": {32: (64, 192), 64: (64, 128), 128: (64, 128),
                                    256: (64, 64)}},
     torch.float32: {"flash_fwd": {32: (192, 64), 64: (128, 64), 128: (64, 32),

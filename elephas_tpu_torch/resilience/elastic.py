@@ -469,7 +469,19 @@ class ElasticWorkerPool:
         client = None
         try:
             client = self.client_factory(worker_id)
-            self._beat(client, worker_id)
+            try:
+                self._beat(client, worker_id)
+            except ParameterServerUnavailable:
+                # Unreachable before the first lease (a partition that
+                # opens at start-up): nothing to re-queue, so ride it out
+                # as an outage under the same grace as one mid-fit.
+                client = self._await_ps(worker_id, client)
+                if client is None:
+                    self._fatal = ParameterServerUnavailable(
+                        "parameter server did not come back within "
+                        f"{self.ps_recovery_grace}s grace"
+                    )
+                    return
             while not self._stop and self._fatal is None:
                 if self.membership.is_dead(worker_id):
                     # Fencing: the detector expired us (we stalled past

@@ -548,6 +548,227 @@ def test_wide_fwd_exchange_and_transposed_output_give_softmax_v():
     np.testing.assert_allclose(out, want, rtol=0, atol=2e-6)
 
 
+LOG2E = np.float32(math.log2(math.e))
+
+
+def _acc_layout(cols):
+    """(thread, register, row, column) of a wgmma m64nN f32 accumulator:
+    thread ctid (warp w, lane l) of a warpgroup holds d[4j + 2i + c] at row
+    16w + l/4 + 8i, column 8j + 2(l%4) + c."""
+    for ctid in range(128):
+        w, lane = divmod(ctid, 32)
+        g, t = lane // 4, lane % 4
+        for j in range(cols // 8):
+            for i in range(2):
+                for c in range(2):
+                    yield ctid, 4 * j + 2 * i + c, 16 * w + g + 8 * i, 8 * j + 2 * t + c
+
+
+def _plain_ds(q, k, v, do, lse, delta, q0, k0, seq, causal, scale):
+    """The plain version's dS for one (query tile, key tile), as
+    ``flash_backward_reference`` forms it, in float32: rows past ``seq``
+    are left out (NaN)."""
+    qf, kf, vf, dof = (torch.from_numpy(a) for a in (q, k, v, do))
+    p = torch.exp(scale * (qf @ kf.T) - torch.from_numpy(lse)[:, None])
+    if causal:
+        q_pos = torch.arange(q0, q0 + 64)[:, None]
+        k_pos = torch.arange(k0, k0 + 64)[None, :]
+        p = p.masked_fill(k_pos > q_pos, 0.0)
+    p = p.masked_fill(torch.arange(k0, k0 + 64)[None, :] >= seq, 0.0)
+    ds = (p * (dof @ vf.T - torch.from_numpy(delta)[:, None])).numpy()
+    ds[np.arange(q0, q0 + 64) >= seq] = np.nan
+    return ds
+
+
+def _tile_inputs(rng, q0, k0, seq):
+    """A 64-row query tile and a 64-key tile of head_dim 256 as TMA gives
+    them (rows past ``seq`` zero), with each query row's lse and delta
+    (0 past ``seq``)."""
+    q, k, v, do = (rng.standard_normal((64, 256)).astype(np.float32) for _ in range(4))
+    q[np.arange(q0, q0 + 64) >= seq] = 0
+    do[np.arange(q0, q0 + 64) >= seq] = 0
+    k[np.arange(k0, k0 + 64) >= seq] = 0
+    v[np.arange(k0, k0 + 64) >= seq] = 0
+    lse = (rng.standard_normal(64) + 3.0).astype(np.float32)
+    delta = rng.standard_normal(64).astype(np.float32)
+    lse[np.arange(q0, q0 + 64) >= seq] = 0
+    delta[np.arange(q0, q0 + 64) >= seq] = 0
+    return q, k, v, do, lse, delta
+
+
+# (q0, k0, seq, causal) of one tile: below the diagonal, on it, ragged.
+_WIDE_BF16_TILES = {"interior": (128, 0, 4096, True), "causal_diagonal": (64, 64, 4096, True),
+                    "ragged": (960, 960, 1000, False)}
+
+
+@pytest.mark.parametrize("case", sorted(_WIDE_BF16_TILES))
+def test_wide_bf16_k3_exchange_gives_the_plain_ds(case):
+    """bf16 K3 at head_dim 256, one tile as its two warpgroups compute it
+    in numpy (float32). Warpgroup 1 stores the tile's lse (base 2) and
+    delta as its threads do (thread ctid < 64 row ctid's lse, the others
+    row ctid - 64's delta); warpgroup 0 forms P^T = exp2(S^T c - lse) in
+    its accumulator (rows keys, columns query rows), each column's lse read
+    as a float2 at 8j + 2t, masked past ``seq`` and above the diagonal
+    only where the tile's flag says so, and writes its quad j to float4
+    j * 128 + ctid of the exchange; warpgroup 1's thread ctid reads it back
+    at the same positions of its dP^T accumulator and forms dS^T = P^T
+    (dP^T - delta). That is the plain version's dS, transposed, before any
+    bf16 rounding, and 0 for query rows past ``seq`` (keys past it are
+    never written)."""
+    q0, k0, seq, causal = _WIDE_BF16_TILES[case]
+    rng = np.random.default_rng(22)
+    q, k, v, do, lse, delta = _tile_inputs(rng, q0, k0, seq)
+    scale = np.float32(1 / 16)
+    scale_log2 = np.float32(scale * LOG2E)
+    st, dpt = k @ q.T, v @ do.T  # S^T and dP^T: keys x query rows, float32
+    row_vals = np.zeros(128, np.float32)
+    for ctid in range(128):
+        r = q0 + ctid % 64
+        row_vals[ctid] = 0 if r >= seq else (lse[ctid] * LOG2E if ctid < 64 else delta[ctid - 64])
+    mask = (causal and q0 < k0 + 63) or q0 + 64 > seq
+    xchg = np.zeros((8 * 128, 4), np.float32)
+    for ctid, e, row, col in _acc_layout(64):
+        p = np.exp2(np.float32(st[row, col] * scale_log2 - row_vals[col]))
+        qi = q0 + col
+        if mask and (qi >= seq or (causal and k0 + row > qi)):
+            p = np.float32(0)
+        xchg[(e // 4) * 128 + ctid, e % 4] = p
+    dst = np.zeros((64, 64), np.float32)
+    for ctid, e, row, col in _acc_layout(64):
+        p = xchg[(e // 4) * 128 + ctid, e % 4]
+        dst[row, col] = p * (dpt[row, col] - row_vals[64 + col])
+    want = _plain_ds(q, k, v, do, lse, delta, q0, k0, seq, causal, scale)
+    keys = np.arange(k0, k0 + 64) < seq
+    live = ~np.isnan(want) & keys[None, :]
+    np.testing.assert_allclose(dst.T[live], want[live], rtol=2e-5,
+                               atol=2e-5 * np.abs(want[live]).max())
+    assert (dst.T[np.isnan(want) & keys[None, :]] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["interior", "causal_diagonal"])
+def test_wide_bf16_k2_ds_in_its_row_layout(case):
+    """bf16 K2 at head_dim 256: a warpgroup's thread holds rows 16w + l/4
+    and + 8 of its 64 and their lse (base 2) and delta, S and dP of a
+    64-key tile in the accumulator layout, and forms dS = exp2(S c - lse)
+    (dP - delta) with the mask arithmetic only on a flagged tile. Equals
+    the plain version's dS for the tile in float32."""
+    q0, k0, seq, causal = _WIDE_BF16_TILES[case]
+    rng = np.random.default_rng(23)
+    q, k, v, do, lse, delta = _tile_inputs(rng, q0, k0, seq)
+    scale = np.float32(1 / 16)
+    scale_log2 = np.float32(scale * LOG2E)
+    s, dp = q @ k.T, do @ v.T
+    mask = (causal and k0 + 63 > q0) or k0 + 64 > seq
+    ds = np.zeros((64, 64), np.float32)
+    for _, e, row, col in _acc_layout(64):
+        p = np.exp2(np.float32(s[row, col] * scale_log2 - lse[row] * LOG2E))
+        if mask and (k0 + col >= seq or (causal and k0 + col > q0 + row)):
+            p = np.float32(0)
+        ds[row, col] = p * (dp[row, col] - delta[row])
+    want = _plain_ds(q, k, v, do, lse, delta, q0, k0, seq, causal, scale)
+    np.testing.assert_allclose(ds, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
+
+
+def _wide_bf16_k2_blocks(seq, causal):
+    """bf16 K2 at head_dim 256: per block (128 query rows) and warpgroup
+    (64 of them), the rows and the key tiles it computes, by the kernel's
+    expressions (`tiles`, `mine`)."""
+    for q0 in range(0, seq, 128):
+        kv_end = min(seq, q0 + 128) if causal else seq
+        tiles = -(-kv_end // 64)
+        for g in range(2):
+            r0 = q0 + 64 * g
+            own_end = min(seq, r0 + 64) if causal else seq
+            mine = -(-own_end // 64) if r0 < seq else 0
+            assert mine <= tiles
+            yield r0, mine
+
+
+@pytest.mark.parametrize("seq, causal", [(4096, True), (1000, True), (1000, False), (37, True)])
+def test_wide_bf16_tiles_cover_every_score_and_flag_every_mask(seq, causal):
+    """bf16 K2 (128-row blocks, warpgroups of 64 rows, 64-key tiles) and K3
+    (64-key blocks, 64-row query tiles from the block's first key, causal)
+    at head_dim 256: every score a row < ``seq`` needs (key < ``seq``, key
+    <= row when causal) lies in exactly one computed tile, and every
+    computed tile that holds a score the mask must zero carries the mask
+    flag (the kernels skip the mask arithmetic elsewhere)."""
+    need = np.zeros((seq, seq), np.int8)
+    for r0, mine in _wide_bf16_k2_blocks(seq, causal):
+        rows = np.arange(r0, min(seq, r0 + 64))
+        for j in range(mine):
+            n0 = 64 * j
+            keys = np.arange(n0, n0 + 64)
+            flag = (causal and n0 + 63 > r0) or n0 + 64 > seq
+            zeroed = (keys[None, :] >= seq) | (causal & (keys[None, :] > rows[:, None]))
+            assert flag or not zeroed.any(), (r0, j)
+            live = keys[keys < seq]
+            need[np.ix_(rows, live)] += ~zeroed[:, : len(live)]
+    want = np.tril(np.ones((seq, seq), np.int8)) if causal else np.ones((seq, seq), np.int8)
+    np.testing.assert_array_equal(need, want)
+    need[:] = 0
+    for k0 in range(0, seq, 64):
+        keys = np.arange(k0, min(seq, k0 + 64))
+        q_begin = k0 if causal else 0
+        for i in range(-(-(seq - q_begin) // 64)):
+            q0 = q_begin + 64 * i
+            rows = np.arange(q0, q0 + 64)
+            flag = (causal and q0 < k0 + 63) or q0 + 64 > seq
+            zeroed = (rows[None, :] >= seq) | (causal & (keys[:, None] > rows[None, :]))
+            assert flag or not zeroed.any(), (k0, i)
+            live = rows[rows < seq]
+            need[np.ix_(live, keys)] += ~zeroed[:, : len(live)].T
+    np.testing.assert_array_equal(need, want)
+
+
+@pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkv"])
+def test_wide_bf16_outputs_write_each_position_once(kernel):
+    """bf16 K2 at head_dim 256 writes a block's 128 x 256 dQ from its two
+    warpgroups' m64n256 accumulators (warpgroup g rows 64g ..), K3 its 64
+    x 256 dV (warpgroup 0) and dK (1): thread (warp w, lane l) writes row
+    16w + l/4 + 8r, columns 8n + 2(l%4) and + 1 from acc[4n + 2r] and
+    acc[4n + 2r + 1]. Each position once."""
+    counts = {}
+    for g in range(2):
+        out = np.zeros((128 if kernel == "flash_dq" else 64, 256), np.int64)
+        base = 64 * g if kernel == "flash_dq" else 0
+        for ctid in range(128):
+            w, lane = divmod(ctid, 32)
+            t = lane % 4
+            for r in range(2):
+                row = base + 16 * w + lane // 4 + 8 * r
+                for n in range(32):
+                    out[row, 8 * n + 2 * t: 8 * n + 2 * t + 2] += 1
+        counts[g] = out
+    if kernel == "flash_dq":
+        np.testing.assert_array_equal(counts[0] + counts[1], np.ones((128, 256), np.int64))
+    else:
+        for g in range(2):
+            np.testing.assert_array_equal(counts[g], np.ones((64, 256), np.int64))
+
+
+def test_wide_bf16_fragments_are_the_accumulator_in_a_layout():
+    """The bf16 D = 256 kernels pack a 64 x 64 f32 accumulator (dS, P^T or
+    dS^T) as the register A operand of the next product: fr[kk][r] holds
+    d[8kk + 2r] and d[8kk + 2r + 1]. Read as wgmma's A layout (a[0] row
+    l/4, columns 16kk + 2(l%4) and + 1; a[1] those columns of row + 8; a[2]
+    and a[3] columns + 8), the fragments are the accumulator's matrix."""
+    rng = np.random.default_rng(24)
+    acc = rng.standard_normal((64, 64)).astype(np.float32)
+    regs = np.zeros((128, 32), np.float32)
+    for ctid, e, row, col in _acc_layout(64):
+        regs[ctid, e] = acc[row, col]
+    a = np.zeros((64, 64), np.float32)
+    for ctid in range(128):
+        w, lane = divmod(ctid, 32)
+        g, t = lane // 4, lane % 4
+        for kk in range(4):
+            for r in range(4):
+                row = 16 * w + g + 8 * (r & 1)
+                col = 16 * kk + 8 * (r >> 1) + 2 * t
+                a[row, col], a[row, col + 1] = regs[ctid, 8 * kk + 2 * r], regs[ctid, 8 * kk + 2 * r + 1]
+    np.testing.assert_array_equal(a, acc)
+
+
 def test_headers_cover_every_include():
     """Every header in csrc/ and every header a source includes is hashed
     into the library's name."""

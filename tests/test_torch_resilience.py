@@ -310,6 +310,42 @@ def test_pool_rides_out_ps_outage_on_the_fake_clock():
     assert state["clients"] >= 2  # a FRESH client after the outage
 
 
+class _UnreachableAtStart(_FakeClient):
+    """A client whose first heartbeat finds the server unreachable."""
+
+    def heartbeat(self, worker_id):
+        raise ParameterServerUnavailable("dropped during heartbeat")
+
+
+@pytest.mark.parametrize("returns", [True, False], ids=["returns", "never"])
+def test_pool_rides_out_ps_outage_before_the_first_lease(returns):
+    """Every worker's first heartbeat is dropped (a partition open at
+    start-up): the pool waits out the grace for the server instead of
+    losing its workers with every unit still pending."""
+    fake = FakeTime()
+    clients = {}
+
+    def factory(worker_id):
+        clients[worker_id] = clients.get(worker_id, 0) + 1
+        if worker_id != "monitor" and clients[worker_id] == 1:
+            return _UnreachableAtStart()
+        return _FakeClient(healthy=returns)
+
+    pool = _pool(UnitLedger(2, [0, 1]), lambda wid, client, unit: {}, fake,
+                 factory=factory, ps_recovery_grace=2.0)
+    pool.start()
+    if not returns:
+        with pytest.raises(ParameterServerUnavailable, match="grace"):
+            pool.wait()
+        assert not any(o["recovered"] for o in pool.stats["ps_outages"])
+        return
+    stats = pool.wait()
+    assert stats["completed_units"] == 4 and stats["requeued_units"] == 0
+    assert stats["worker_deaths"] == []
+    assert len(stats["ps_outages"]) == 2 and all(o["recovered"] for o in stats["ps_outages"])
+    assert clients["w0"] >= 2 and clients["w1"] >= 2  # a fresh client each
+
+
 def test_pool_fails_fast_when_ps_never_returns():
     fake = FakeTime()
 

@@ -34,7 +34,7 @@ SHAPE = (1, 2, 256)  # (batch, heads, seq) of the attention checks
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # (query rows, keys) of each head_dim-256 instance.
 WIDE_TILES = {
-    torch.bfloat16: {"flash_fwd": (128, 64), "flash_dq": (128, 32), "flash_dkv": (64, 64)},
+    torch.bfloat16: {"flash_fwd": (128, 64), "flash_dq": (128, 64), "flash_dkv": (64, 64)},
     torch.float32: {"flash_fwd": (32, 16), "flash_dq": (32, 16), "flash_dkv": (16, 32)},
 }
 TILINGS = sorted({t for by_name in WIDE_TILES.values() for t in by_name.values()})
@@ -79,10 +79,10 @@ def test_kernel_layout_pads_wide_heads_to_256(head_dim, dtype):
 @pytest.mark.parametrize("name", KERNELS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_tiles_at_head_dim_256(name, dtype):
-    """Each head_dim-256 instance's tiling: bf16 K1 128 query rows (two
-    warpgroups) against 64 keys, K2 128 against 32, K3 64 query rows
-    against 64 keys; float32 K1 and K2 32 query rows (a stacked tile)
-    against 16 keys, K3 16 query rows against 32 keys (stacked)."""
+    """Each head_dim-256 instance's tiling: bf16 K1 and K2 128 query rows
+    (two warpgroups) against 64 keys, K3 64 query rows against 64 keys;
+    float32 K1 and K2 32 query rows (a stacked tile) against 16 keys, K3
+    16 query rows against 32 keys (stacked)."""
     assert attention_cuda.kernel_tiles(name, dtype, 256) == WIDE_TILES[dtype][name]
 
 
