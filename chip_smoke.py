@@ -1810,14 +1810,19 @@ def held_route(attention_cuda, gen, what, shape, dtype, limits, view=None, block
 
 def wide_kernel_report(timing):
     """The wide-head phase's summary of its timed case (``timing`` by dtype,
-    as ``kernel_case`` returns it): float32 K1's time, its share of its
-    split-TF32 bound and its time over SDPA's forward; bf16 K2's and K3's
-    times and shares of their bounds, and the pair's time over SDPA's
-    backward, which computes dq, dk and dv in one call."""
-    k1 = timing[torch.float32]["flash_fwd"]
+    as ``kernel_case`` returns it): float32 K1's and bf16 K1's times, their
+    shares of their bounds (float32's in split TF32) and their times over
+    SDPA's forward; bf16 K2's and K3's times and shares of their bounds,
+    and the pair's time over SDPA's backward, which computes dq, dk and dv
+    in one call."""
+
+    def k1(dtype):
+        t = timing[dtype]["flash_fwd"]
+        return {"ms": t["ms"], "bound_share": t["bound_ms"] / t["ms"],
+                "vs_sdpa_fwd": t["ms"] / t["library_ms"]}
+
     k2, k3 = (timing[torch.bfloat16][name] for name in ("flash_dq", "flash_dkv"))
-    return {"f32_k1": {"ms": k1["ms"], "bound_share": k1["bound_ms"] / k1["ms"],
-                       "vs_sdpa_fwd": k1["ms"] / k1["library_ms"]},
+    return {"f32_k1": k1(torch.float32), "bf16_k1": k1(torch.bfloat16),
             "bf16_k2_k3": {"k2_ms": k2["ms"], "k2_bound_share": k2["bound_ms"] / k2["ms"],
                            "k3_ms": k3["ms"], "k3_bound_share": k3["bound_ms"] / k3["ms"],
                            "vs_sdpa_bwd": (k2["ms"] + k3["ms"]) / k2["library_ms"]}}
@@ -1859,6 +1864,8 @@ def wide_head_phase(attention_cuda):
     report.update(wide_kernel_report(timing))
     print(f"wide_head f32 K1 at {WIDE_CASES[0][0]}: {json.dumps(report['f32_k1'])} (share of "
           "its split-TF32 bound; its time over SDPA's forward)", flush=True)
+    print(f"wide_head bf16 K1 at {WIDE_CASES[0][0]}: {json.dumps(report['bf16_k1'])} (share of "
+          "its bound; its time over SDPA's forward)", flush=True)
     print(f"wide_head bf16 K2 + K3 at {WIDE_CASES[0][0]}: {json.dumps(report['bf16_k2_k3'])} "
           "(each kernel's share of its bound; the pair's time over SDPA's backward)", flush=True)
     for seq in WIDE_RAGGED:

@@ -11,7 +11,7 @@
 // output accumulator stay in float32 registers. Scores are kept in base 2
 // (log2(e) folded into the scale) so the exponentials are exp2; the lse is
 // converted back to base e. Both dtypes are built for Hopper (sm90.cuh)
-// in one shape (float32 at D = 256 apart, below): warp 0 is the producer,
+// in one shape (D = 256 apart, below): warp 0 is the producer,
 // which loads the block's Q tile once
 // and streams K and V tiles by TMA into a ring of stages with full barriers
 // and empty barriers the consumers release; TMA's 3-D boxes (D, rows, 1)
@@ -28,12 +28,12 @@
 //
 // - bfloat16: 192 query rows per block (three consumer warpgroups at 160
 //   registers, so more warpgroups' products hide each one's softmax), K/V
-//   tiles of 128 keys (64 at D = 128) in 3 stages; at D = 256, where O
-//   takes 128 registers a thread, 128 rows (two warpgroups at 240) against
-//   64-key tiles in 2 stages (192 KiB). Q and K are K-major
+//   tiles of 128 keys (64 at D = 128) in 3 stages. Q and K are K-major
 //   operands from shared memory; P is rounded to bf16 straight into the
 //   register A-operand layout; V is read MN-major through the descriptor's
-//   transpose bit.
+//   transpose bit. At D = 256, where O takes 128 registers a thread, 128
+//   rows (two warpgroups at 240) against 64-key tiles, with K and V in
+//   rings of their own (WideFwdBf16).
 // - float32, in split tf32 (tf32.cuh, shared with the float32 backward) so
 //   results keep float32 accuracy: each product
 //   a b is a_lo b + a b_lo + a b on tf32 tensor cores (m64nNk8), the
@@ -78,19 +78,18 @@ namespace hopper {
 using namespace flash::sm90;
 
 // Consumer warpgroups (64 query rows each), keys per K/V tile and the
-// ring's depth: three warpgroups at 160 registers (128 * 24 + 384 * 160 <=
-// 65536), tiles of 128 keys (64 at D = 128) in 3 stages; at D = 256, where
-// O alone takes 128 registers a thread, two warpgroups at 240 and 64-key
-// tiles in 2 stages (a 128-row Q tile and 64 KiB a stage).
+// ring's depth at D <= 128: three warpgroups at 160 registers (128 * 24 +
+// 384 * 160 <= 65536), tiles of 128 keys (64 at D = 128) in 3 stages. D =
+// 256 has a shape of its own (WideFwdBf16, below).
 template <int D>
 struct Shape {
-  static constexpr int kConsumers = D == 256 ? 2 : 3;
-  static constexpr int kN = D >= 128 ? 64 : 128;  // keys per K/V tile
-  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr int kConsumers = 3;
+  static constexpr int kN = D == 128 ? 64 : 128;  // keys per K/V tile
+  static constexpr int kStages = 3;
   static constexpr int kRows = 64 * kConsumers;            // query rows per block
   static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer warpgroup
   static constexpr int kConsumerWarps = 4 * kConsumers;
-  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;  // after setmaxnreg
+  static constexpr int kConsumerRegs = 160;  // after setmaxnreg
 };
 
 // Shared memory: the Q tile, kStages K tiles, kStages V tiles (each on a
@@ -158,15 +157,15 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[N / 16][4], const float (&s
   }
 }
 
-// S = Q K^T for one warpgroup's 64 query rows (from row q_row0 of the Q
-// tile) against a tile of N keys, committed as one wgmma group.
-template <int D, int N>
+// S = Q K^T for one warpgroup's 64 query rows (from row q_row0 of a Q
+// tile of kRows rows) against a tile of N keys, committed as one wgmma group.
+template <int D, int N, int kRows>
 __device__ __forceinline__ void issue_qk(float (&s)[N / 2], const uint8_t* q_s, int q_row0,
                                          const uint8_t* k_s) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    wgmma_ss<N>(s, desc_k_major<D>(q_s, Shape<D>::kRows, q_row0, kk),
-                desc_k_major<D>(k_s, N, 0, kk), kk > 0);
+    wgmma_ss<N>(s, desc_k_major<D>(q_s, kRows, q_row0, kk), desc_k_major<D>(k_s, N, 0, kk),
+                kk > 0);
   }
   wgmma_commit();
 }
@@ -178,6 +177,32 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) wgmma_rs<D>(acc, p[kk], desc_mn_major<D>(v_s, N, kk), 1);
   wgmma_commit();
+}
+
+// O = acc / l in bf16 and the lse (base e) of this thread's two rows
+// below `seq`; the row sums are first summed over the quad that holds a row.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ o, float* __restrict__ lse,
+                                           const float (&acc)[D / 2], const float (&m)[2],
+                                           float (&l)[2], const int (&rows)[2], int bh, int seq) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float denom = fmaxf(l[r], 1e-30f);
+    if (rows[r] >= seq) continue;
+    if (t == 0) {
+      const float shift = isfinite(m[r]) ? m[r] : 0.f;
+      lse[static_cast<int64_t>(bh) * seq + rows[r]] = (shift + log2f(denom)) * kLn2;
+    }
+    bf16* out = o + (static_cast<int64_t>(bh) * seq + rows[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * r] / denom, acc[4 * n + 2 * r + 1] / denom);
+    }
+  }
 }
 
 template <int D>
@@ -255,7 +280,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   mbar_wait(q_full, 0);
   mbar_wait(&k_full[0], 0);
   wgmma_fence();
-  issue_qk<D, N>(s, q_s, q_row0, k_tile(0));
+  issue_qk<D, N, kRows>(s, q_s, q_row0, k_tile(0));
   wgmma_wait<0>();
   fence_operand(s);
   softmax_tile<N>(s, m, l, corr, needs_mask(0), 0, rows, seq, causal, scale_log2);
@@ -267,7 +292,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(&k_full[j % kStages], (j / kStages) & 1);
     fence_operand(acc);
     wgmma_fence();
-    issue_qk<D, N>(s, q_s, q_row0, k_tile(j));
+    issue_qk<D, N, kRows>(s, q_s, q_row0, k_tile(j));
     mbar_wait(&v_full[(j - 1) % kStages], ((j - 1) / kStages) & 1);
     wgmma_fence();
     issue_pv<D, N>(acc, p, v_tile(j - 1));
@@ -288,25 +313,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   wgmma_wait<0>();
   fence_operand(acc);
   if (lane == 0) mbar_arrive(&empty[(tiles - 1) % kStages]);
-
-  const int t = lane % 4;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float denom = fmaxf(l[r], 1e-30f);
-    if (rows[r] >= seq) continue;
-    if (t == 0) {
-      const float shift = isfinite(m[r]) ? m[r] : 0.f;
-      lse[static_cast<int64_t>(bh) * seq + rows[r]] = (shift + log2f(denom)) * kLn2;
-    }
-    bf16* out = o + (static_cast<int64_t>(bh) * seq + rows[r]) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
-          __floats2bfloat162_rn(acc[4 * n + 2 * r] / denom, acc[4 * n + 2 * r + 1] / denom);
-    }
-  }
+  store_rows<D>(o, lse, acc, m, l, rows, bh, seq);
 }
 
 template <int D>
@@ -325,6 +332,212 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   if ((err = allow_smem(flash_fwd_bf16_kernel<D>, smem)) != cudaSuccess) return err;
   const dim3 grid(batch_heads, (seq + Sh::kRows - 1) / Sh::kRows);
   flash_fwd_bf16_kernel<D><<<grid, Sh::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), seq, causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- bfloat16 at D = 256
+
+// At D = 256 a K or V tile of 64 keys is 32 KiB and 64 rows of O take 128
+// registers a thread, so the block keeps the generic shape's plan at 128
+// query rows: two consumer warpgroups at 240 registers beside a producer
+// warpgroup at 24 (128 * 24 + 256 * 240 <= 65536), 64-key tiles, S_j and
+// P_{j-1} V_{j-1} in flight together. A tile's products take ~2,050 cycles
+// of the tensor cores, and its 64 KiB of K and V arrive at 20-odd bytes a
+// clock, ~3,000 cycles: the stream sets the pace, and the design keeps it
+// busy:
+// - K and V have rings of their own, each slot with a full and an empty
+//   barrier. K_j's slot is released once S_j = Q K_j^T is done, V_j's once
+//   P_j V_j is. (One stage of K and V released after P V left the producer
+//   refilling K just before the consumers needed it: a third of a tile's
+//   cycles went to waiting for K.)
+// - The producer issues the tiles in the order the consumers read them,
+//   K_{j+1} before V_j.
+// - Two K slots and three V slots: V's release comes later in an iteration
+//   than K's, so V's ring is the deeper (3 + 2 and 2 + 2 slots ran ~3%
+//   slower; scripts/torch_fwd_variants.py times such variants).
+// - Causal: the first consumer warpgroup's last tile (keys q0 + 64 ..)
+//   lies wholly above its rows, and its loop ends a tile early (a few
+//   percent of the time). The bound is uniform over the warpgroup, so no
+//   wgmma sits under a branch (C7520).
+// - A slot is released only if it is filled again: the last tiles' slots,
+//   and the tile the first consumer skips, take no arrival, so no barrier
+//   is left in a phase that is never completed.
+//
+// Budget: 64 KiB (Q) + 5 x 32 KiB + 11 barriers + 1 KiB of alignment slack
+// = 230,488 of 232,448 bytes.
+struct WideFwdBf16 {
+  static constexpr int D = 256;
+  static constexpr int kRows = 128;  // query rows a block
+  static constexpr int kN = 64;      // keys a tile
+  static constexpr int kKSlots = 2;
+  static constexpr int kVSlots = 3;
+  static constexpr bool kSkipMasked = true;  // the first consumer's masked last tile (causal)
+  static constexpr int kThreads = 384;       // the producer warpgroup and two consumers
+  static constexpr int kConsumerWarps = 8;
+  static constexpr size_t kTile = tile_bytes<D>(kN);
+  static constexpr size_t kK = tile_bytes<D>(kRows);  // the K ring, after Q
+  static constexpr size_t kV = kK + kKSlots * kTile;
+  static constexpr size_t kBar = kV + kVSlots * kTile;
+  static constexpr size_t kBytes =
+      kBar + (1 + 2 * (kKSlots + kVSlots)) * sizeof(uint64_t) + 1024;
+};
+
+// The generic kernel's launch bounds name this when the D = 256 kernel
+// below is declared.
+template <>
+struct Shape<256> {
+  static constexpr int kThreads = WideFwdBf16::kThreads;
+};
+
+// The `clock:` comments name the phases of a tile that
+// scripts/torch_fwd_clocks.py stamps with clock() in a copy of this file.
+template <>
+__global__ void __launch_bounds__(WideFwdBf16::kThreads, 1)
+flash_fwd_bf16_kernel<256>(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                           float* __restrict__ lse, int seq, int causal, float scale_log2) {
+  using W = WideFwdBf16;
+  constexpr int D = W::D, N = W::kN, kKS = W::kKSlots, kVS = W::kVSlots;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + W::kBar);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* k_empty = k_full + kKS;
+  uint64_t* v_full = k_empty + kKS;
+  uint64_t* v_empty = v_full + kVS;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * W::kRows;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + W::kRows) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  // The warpgroup, broadcast so that ptxas knows it is warp-uniform: a
+  // loop bound it takes as divergent serializes every wgmma (C7520).
+  const int warpgroup = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const auto k_tile = [&](int j) { return smem + W::kK + (j % kKS) * W::kTile; };
+  const auto v_tile = [&](int j) { return smem + W::kV + (j % kVS) * W::kTile; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kKS; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], W::kConsumerWarps);
+    }
+    for (int s = 0; s < kVS; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], W::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();  // clock: start
+
+  if (warpgroup == 0) {  // producer: Q and K_0, then K_{j+1} and V_j for each j
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      // Fill n of a slot waits until fill n - 1 is released; fill 0 waits
+      // on the phase before the barrier's first, which counts as complete.
+      const auto load = [&](uint64_t* full, uint64_t* empty, uint8_t* tile, const CUtensorMap* map,
+                            int j, int stages) {
+        mbar_wait(&empty[j % stages], ((j / stages) & 1) ^ 1);  // clock: slot wait
+        mbar_arrive_expect_tx(&full[j % stages], W::kTile);
+        load_tile_tma<D>(tile, map, &full[j % stages], N, j * N, bh);  // clock: TMA issue
+      };
+      mbar_arrive_expect_tx(q_full, tile_bytes<D>(W::kRows));
+      load_tile_tma<D>(smem, &q_map, q_full, W::kRows, q0, bh);
+      load(k_full, k_empty, k_tile(0), &k_map, 0, kKS);
+      for (int j = 0; j < tiles; ++j) {
+        if (j + 1 < tiles) load(k_full, k_empty, k_tile(j + 1), &k_map, j + 1, kKS);
+        load(v_full, v_empty, v_tile(j), &v_map, j, kVS);
+      }
+    }  // clock: store
+    return;
+  }
+
+  // Consumers: this warpgroup's 64 rows start at r0. It computes `mine`
+  // tiles: all of them, but for the first consumer's wholly masked last one.
+  setmaxnreg_inc<240>();
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int q_row0 = (warpgroup - 1) * 64;  // within the Q tile
+  const int r0 = q0 + q_row0;
+  const int rows[2] = {r0 + warp * 16 + lane / 4, r0 + warp * 16 + lane / 4 + 8};
+  const int mine = W::kSkipMasked && causal ? (min(seq, r0 + 64) + N - 1) / N : tiles;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[N / 2];
+  uint32_t p[N / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+
+  const auto needs_mask = [&](int j) {  // the causal diagonal or a ragged last tile
+    return (causal && j * N + N - 1 > r0) || j * N + N > seq;
+  };
+  // Tile j's slot is done with (every warp arrives) if it is filled again.
+  const auto release = [&](uint64_t* empty, int j, int stages) {
+    if (lane == 0 && j + stages < tiles) mbar_arrive(&empty[j % stages]);
+  };
+
+  mbar_wait(q_full, 0);
+  mbar_wait(&k_full[0], 0);  // clock: K wait
+  wgmma_fence();
+  issue_qk<D, N, W::kRows>(s, smem, q_row0, k_tile(0));  // clock: S issue
+  wgmma_wait<0>();
+  fence_operand(s);  // clock: S wait
+  release(k_empty, 0, kKS);
+  softmax_tile<N>(s, m, l, corr, needs_mask(0), 0, rows, seq, causal, scale_log2);  // clock: softmax
+  pack_p<N>(p, s);  // clock: rescale and pack
+
+  for (int j = 1; j < mine; ++j) {
+    // Tile j's S and tile j-1's P V in flight together; K_j is released as
+    // soon as S is done, V_{j-1} once P V is.
+    mbar_wait(&k_full[j % kKS], (j / kKS) & 1);  // clock: K wait
+    fence_operand(acc);
+    wgmma_fence();
+    issue_qk<D, N, W::kRows>(s, smem, q_row0, k_tile(j));  // clock: S issue
+    mbar_wait(&v_full[(j - 1) % kVS], ((j - 1) / kVS) & 1);  // clock: V wait
+    wgmma_fence();
+    issue_pv<D, N>(acc, p, v_tile(j - 1));  // clock: PV issue
+    wgmma_wait<1>();
+    fence_operand(s);  // clock: S wait
+    release(k_empty, j, kKS);
+    softmax_tile<N>(s, m, l, corr, needs_mask(j), j * N, rows, seq, causal, scale_log2);  // clock: softmax
+    wgmma_wait<0>();
+    fence_operand(acc);  // clock: PV wait
+    release(v_empty, j - 1, kVS);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) & 1];
+    pack_p<N>(p, s);  // clock: rescale and pack
+  }
+  mbar_wait(&v_full[(mine - 1) % kVS], ((mine - 1) / kVS) & 1);  // clock: V wait
+  fence_operand(acc);
+  wgmma_fence();
+  issue_pv<D, N>(acc, p, v_tile(mine - 1));  // clock: PV issue
+  wgmma_wait<0>();
+  fence_operand(acc);  // clock: PV wait
+  release(v_empty, mine - 1, kVS);  // clock: store
+  store_rows<D>(o, lse, acc, m, l, rows, bh, seq);
+}
+
+template <>
+cudaError_t launch<256>(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int batch_heads, int seq, int causal, float scale_log2,
+                        cudaStream_t stream) {
+  using W = WideFwdBf16;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err;
+  if ((err = make_tile_map<W::D>(&q_map, q, batch_heads, seq, W::kRows)) != cudaSuccess ||
+      (err = make_tile_map<W::D>(&k_map, k, batch_heads, seq, W::kN)) != cudaSuccess ||
+      (err = make_tile_map<W::D>(&v_map, v, batch_heads, seq, W::kN)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = W::kBytes;
+  static_assert(smem <= 232448, "bf16 K1 needs more shared memory than a block has");
+  if ((err = allow_smem(flash_fwd_bf16_kernel<256>, smem)) != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (seq + W::kRows - 1) / W::kRows);
+  flash_fwd_bf16_kernel<256><<<grid, W::kThreads, smem, stream>>>(
       q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), seq, causal,
       scale_log2);
   return cudaGetLastError();

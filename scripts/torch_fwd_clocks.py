@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Per-phase cycles a tile of a head_dim-256 kernel instance, from
 ``clock()`` stamps in a copy of a checkout's ``csrc/`` source: float32 K1
-(``--kernel fwd_f32``, the default), or bf16 K2 (``dq_bf16``) or K3
-(``dkv_bf16``).
+(``--kernel fwd_f32``, the default), bf16 K1 (``fwd_bf16``), or bf16 K2
+(``dq_bf16``) or K3 (``dkv_bf16``).
 
 The instance names its phases in ``// clock: <phase>`` comments: a stamp
 goes after each such line (after ``start`` the stamps' state is declared,
@@ -51,6 +51,8 @@ MARK = re.compile(r"//.*\bclock: (.+?)\s*$")
 # kernel_tiles, and which side of its tiling a tile of the loop is.
 KERNELS = {
     "fwd_f32": ("flash_fwd.cu", "flash_fwd_f32_kernel", "flash_fwd", torch.float32, "flash_fwd", 1),
+    "fwd_bf16": ("flash_fwd.cu", "flash_fwd_bf16_kernel", "flash_fwd", torch.bfloat16,
+                 "flash_fwd", 1),
     "dq_bf16": ("flash_bwd.cu", "flash_dq_bf16_kernel", "flash_bwd_dq", torch.bfloat16,
                 "flash_dq", 1),
     "dkv_bf16": ("flash_bwd.cu", "flash_dkv_bf16_kernel", "flash_bwd_dkv", torch.bfloat16,
@@ -104,24 +106,31 @@ def stamped(source, function):
     return text, names
 
 
-def build(root, source, function):
+def build_copy(text, source, csrc, work):
+    """``text`` as ``source`` beside the headers of ``csrc`` in ``work``
+    (emptied first), built as the wrappers build; returns the library and
+    nvcc's log (also in ``work/build.log``)."""
     from elephas_tpu_torch.ops import attention_cuda
 
-    csrc = Path(root) / "elephas_tpu_torch" / "csrc"
-    work = REPO / "_archive_check" / "clocks"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    for header in csrc.glob("*.cuh"):
+    for header in Path(csrc).glob("*.cuh"):
         shutil.copy(header, work / header.name)
-    text, names = stamped((csrc / source).read_text(), function)
     (work / source).write_text(text)
-    lib = work / f"{Path(source).stem}_clocks.so"
+    lib = work / f"{Path(source).stem}.so"
     proc = subprocess.run(attention_cuda.nvcc_command(work / source, lib),
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     (work / "build.log").write_text(log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{log[-4000:]}")
+    return lib, log
+
+
+def build(root, source, function):
+    csrc = Path(root) / "elephas_tpu_torch" / "csrc"
+    text, names = stamped((csrc / source).read_text(), function)
+    lib, log = build_copy(text, source, csrc, REPO / "_archive_check" / "clocks")
     return lib, names, log
 
 
@@ -171,7 +180,7 @@ def main():
     scale = 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream().cuda_stream
     if entry == "flash_fwd":
-        q, k, v = (torch.randn(SHAPE, device="cuda", generator=gen) for _ in range(3))
+        q, k, v = (torch.randn(SHAPE, device="cuda", generator=gen).to(dtype) for _ in range(3))
         o = torch.empty_like(q)
         lse = torch.empty(SHAPE[:3], device="cuda")
         ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr()]

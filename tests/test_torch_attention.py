@@ -769,6 +769,211 @@ def test_wide_bf16_fragments_are_the_accumulator_in_a_layout():
     np.testing.assert_array_equal(a, acc)
 
 
+def _wide_fwd_bf16_shape():
+    """The constants of ``WideFwdBf16`` (bf16 K1 at head_dim 256) as its
+    source declares them."""
+    text = attention_cuda.SOURCES["flash_fwd"].read_text()
+    body = re.search(r"struct WideFwdBf16 \{(.*?)\n\};", text, re.S).group(1)
+    consts = {name: value for name, value in re.findall(
+        r"static constexpr \w+ (k\w+) = (\w+);", body)}
+    shape = {name: int(consts[name]) for name in ("kRows", "kN", "kKSlots", "kVSlots",
+                                                  "kConsumerWarps")}
+    shape["kSkipMasked"] = consts["kSkipMasked"] == "true"
+    return shape
+
+
+def _wide_fwd_bf16_mine(q0, seq, causal, tiles, shape):
+    """Tiles each consumer warpgroup of a bf16 K1 block at head_dim 256
+    computes, by the kernel's expression (`mine`)."""
+    n = shape["kN"]
+    return [-(-min(seq, q0 + 64 * g + 64) // n) if shape["kSkipMasked"] and causal else tiles
+            for g in range(2)]
+
+
+class _MBarrier:
+    """An mbarrier: `count` arrivals and the transaction bytes it was told
+    to expect complete a phase; a wait on parity P returns once the
+    completed phases' count differs from P in parity."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.phases = count, count, 0, 0
+
+    def arrive(self, tx=0):
+        assert self.pending > 0
+        self.pending -= 1
+        self.tx += tx
+        self._settle()
+
+    def land(self, nbytes):
+        self.tx -= nbytes
+        self._settle()
+
+    def _settle(self):
+        if self.pending == 0 and self.tx == 0:
+            self.phases += 1
+            self.pending = self.count
+
+    def passes(self, parity):
+        return self.phases % 2 != parity
+
+
+def _run_wide_fwd_bf16_block(q0, seq, causal, shape, rng):
+    """One block of bf16 K1 at head_dim 256 as its producer thread and its
+    8 consumer warps run it, in an order drawn from ``rng``: each step runs
+    one agent up to its next barrier operation, or lands one TMA load in
+    flight (loads land in any order). Checks the schedule as it goes and
+    returns the barriers at the end."""
+    n, stages = shape["kN"], {"k": shape["kKSlots"], "v": shape["kVSlots"]}
+    kv_end = min(seq, q0 + shape["kRows"]) if causal else seq
+    tiles = -(-kv_end // n)
+    mine = _wide_fwd_bf16_mine(q0, seq, causal, tiles, shape)
+    full = {r: [_MBarrier(1) for _ in range(stages[r])] for r in stages}
+    empty = {r: [_MBarrier(shape["kConsumerWarps"]) for _ in range(stages[r])] for r in stages}
+    q_full = _MBarrier(1)
+    slot_tile = {r: [None] * stages[r] for r in stages}  # the tile TMA writes or wrote there
+    landed = {r: [False] * stages[r] for r in stages}
+    read_done = {}  # (ring, tile) -> warps that finished reading it
+    in_flight = []
+    warps = [(g, w) for g in range(2) for w in range(4)]
+    readers = {(r, j): {wp for wp in warps if j < mine[wp[0]]} for r in stages for j in range(tiles)}
+
+    def wait(bar, parity, fills):  # the wait returns at exactly `fills` completed phases
+        while not bar.passes(parity):
+            yield
+        assert bar.phases == fills, (bar.phases, fills)
+
+    def producer():
+        q_full.arrive(tx=1)
+        in_flight.append((q_full, None, None))
+        yield
+
+        def load(r, j):
+            s = j % stages[r]
+            yield from wait(empty[r][s], ((j // stages[r]) & 1) ^ 1, j // stages[r])
+            if j >= stages[r]:  # every reader of the slot's previous tile is done with it
+                assert readers[(r, j - stages[r])] <= read_done.get((r, j - stages[r]), set())
+            full[r][s].arrive(tx=1)
+            slot_tile[r][s], landed[r][s] = j, False
+            in_flight.append((full[r][s], r, s))
+            yield
+
+        yield from load("k", 0)
+        for j in range(tiles):
+            if j + 1 < tiles:
+                yield from load("k", j + 1)
+            yield from load("v", j)
+
+    def consumer(g, w):
+        def acquire(r, j):  # the full wait, then the slot holds tile j, landed
+            s = j % stages[r]
+            yield from wait(full[r][s], (j // stages[r]) & 1, j // stages[r] + 1)
+            assert slot_tile[r][s] == j and landed[r][s]
+
+        def done(r, j):  # the products reading it completed; released if filled again
+            read_done.setdefault((r, j), set()).add((g, w))
+            if j + stages[r] < tiles:
+                empty[r][j % stages[r]].arrive()
+            yield
+
+        yield from wait(q_full, 0, 1)
+        yield from acquire("k", 0)
+        yield from done("k", 0)
+        for j in range(1, mine[g]):
+            yield from acquire("k", j)
+            yield from acquire("v", j - 1)
+            yield from done("k", j)  # wgmma_wait<1>: S_j
+            yield from done("v", j - 1)  # wgmma_wait<0>: P_{j-1} V_{j-1}
+        yield from acquire("v", mine[g] - 1)
+        yield from done("v", mine[g] - 1)
+
+    agents = [producer()] + [consumer(g, w) for g, w in warps]
+    while agents or in_flight:
+        pick = rng.integers(len(agents) + (1 if in_flight else 0))
+        if pick == len(agents):
+            bar, r, s = in_flight.pop(rng.integers(len(in_flight)))
+            if r is not None:
+                landed[r][s] = True
+            bar.land(1)
+            continue
+        try:
+            next(agents[pick])
+        except StopIteration:
+            agents.pop(pick)
+    return [q_full] + [bar for r in stages for bar in full[r] + empty[r]], read_done, readers
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq", [37, 100, 1000, 4096])
+def test_wide_bf16_fwd_rings_schedule(seq, causal):
+    """bf16 K1 at head_dim 256 streams K and V through rings of their own
+    (``WideFwdBf16``'s slot counts, read from the source): the producer
+    loads Q, K_0, then K_{j+1} and V_j; a consumer warp releases K_j once
+    S_j is done and V_{j-1} once P V is, and only a slot that is filled
+    again. Over the distinct blocks of one head, in random orders of the
+    producer, the 8 consumer warps and the loads' landing: no load writes a
+    slot before every warp that reads its previous tile has released it;
+    every wait returns at the fill (or release) count its parity names;
+    the schedule ends with no load in flight, every warp's tiles read, and
+    every barrier at a phase boundary with no bytes outstanding."""
+    shape = _wide_fwd_bf16_shape()
+    assert (shape["kRows"], shape["kN"]) == attention_cuda.kernel_tiles(
+        "flash_fwd", torch.bfloat16, 256)
+    assert shape["kConsumerWarps"] == 8
+    rng = np.random.default_rng(seq + causal)
+    blocks = {}
+    for q0 in range(0, seq, shape["kRows"]):  # the distinct (tiles, mine) of the head
+        kv_end = min(seq, q0 + shape["kRows"]) if causal else seq
+        tiles = -(-kv_end // shape["kN"])
+        blocks.setdefault((tiles, *_wide_fwd_bf16_mine(q0, seq, causal, tiles, shape)), q0)
+    if seq == 4096:  # the longest blocks, and a few short ones, keep the test quick
+        keys = sorted(blocks)
+        blocks = {key: blocks[key] for key in keys[:3] + keys[-3:]}
+    for q0 in blocks.values():
+        for _ in range(2 if seq < 4096 else 1):
+            bars, read_done, readers = _run_wide_fwd_bf16_block(q0, seq, causal, shape, rng)
+            assert all(bar.pending == bar.count and bar.tx == 0 for bar in bars)
+            assert all(read_done.get(key, set()) == warps for key, warps in readers.items())
+
+
+@pytest.mark.parametrize("seq, causal", [(4096, True), (1000, True), (1000, False), (37, True),
+                                         (100, True), (200, False)])
+def test_wide_bf16_fwd_tiles_cover_every_score_and_flag_every_mask(seq, causal):
+    """bf16 K1 at head_dim 256 (128-row blocks, consumer warpgroups of 64
+    rows, 64-key tiles, the first warpgroup's wholly masked last tile
+    skipped when causal): every score a row < ``seq`` needs lies in
+    exactly one computed tile, every computed tile that holds a score the
+    mask must zero carries the mask flag, and every skipped tile holds only
+    scores the mask zeroes (so skipping it changes no sum)."""
+    shape = _wide_fwd_bf16_shape()
+    n, rows_a_block = shape["kN"], shape["kRows"]
+    need = np.zeros((seq, seq), np.int8)
+    skipped = 0
+    for q0 in range(0, seq, rows_a_block):
+        kv_end = min(seq, q0 + rows_a_block) if causal else seq
+        tiles = -(-kv_end // n)
+        for g, mine in enumerate(_wide_fwd_bf16_mine(q0, seq, causal, tiles, shape)):
+            r0 = q0 + 64 * g
+            rows = np.arange(r0, r0 + 64)
+            for j in range(tiles):
+                n0 = n * j
+                keys = np.arange(n0, n0 + n)
+                zeroed = (keys[None, :] >= seq) | (causal & (keys[None, :] > rows[:, None]))
+                if j >= mine:
+                    skipped += 1
+                    assert zeroed.all(), (q0, g, j)
+                    continue
+                flag = (causal and n0 + n - 1 > r0) or n0 + n > seq
+                assert flag or not zeroed.any(), (q0, g, j)
+                live_rows, live_keys = rows < seq, keys < seq
+                need[np.ix_(rows[live_rows], keys[live_keys])] += \
+                    ~zeroed[np.ix_(live_rows, live_keys)]
+    want = np.tril(np.ones((seq, seq), np.int8)) if causal else np.ones((seq, seq), np.int8)
+    np.testing.assert_array_equal(need, want)
+    # One tile a block skipped where the block reaches past its first 64 rows.
+    assert skipped == (sum(1 for q0 in range(0, seq, rows_a_block) if seq > q0 + 64)
+                       if causal else 0)
+
+
 def test_headers_cover_every_include():
     """Every header in csrc/ and every header a source includes is hashed
     into the library's name."""

@@ -111,18 +111,21 @@ def test_wide_float32_bounds_are_the_split_tf32_ones(smoke, name, want):
 
 
 def test_wide_kernel_report_reads_the_timed_case(smoke):
-    """The wide-head phase's summary of its timed case: float32 K1's share
-    of its bound and its time over SDPA's forward; bf16 K2's and K3's
-    shares of their bounds and the pair's time over SDPA's backward (the
-    library time both kernels carry, since SDPA's backward computes dq,
-    dk and dv in one call)."""
+    """The wide-head phase's summary of its timed case: float32 K1's and
+    bf16 K1's shares of their bounds and their times over SDPA's forward;
+    bf16 K2's and K3's shares of their bounds and the pair's time over
+    SDPA's backward (the library time both kernels carry, since SDPA's
+    backward computes dq, dk and dv in one call)."""
     import torch
 
     timing = {torch.float32: {"flash_fwd": {"ms": 2.0, "bound_ms": 0.8, "library_ms": 4.0}},
-              torch.bfloat16: {"flash_dq": {"ms": 0.3, "bound_ms": 0.21, "library_ms": 1.0},
+              torch.bfloat16: {"flash_fwd": {"ms": 0.25, "bound_ms": 0.14, "library_ms": 0.2},
+                               "flash_dq": {"ms": 0.3, "bound_ms": 0.21, "library_ms": 1.0},
                                "flash_dkv": {"ms": 0.5, "bound_ms": 0.28, "library_ms": 1.0}}}
     report = smoke.wide_kernel_report(timing)
     assert report["f32_k1"] == pytest.approx({"ms": 2.0, "bound_share": 0.4, "vs_sdpa_fwd": 0.5})
+    assert report["bf16_k1"] == pytest.approx({"ms": 0.25, "bound_share": 0.56,
+                                               "vs_sdpa_fwd": 1.25})
     assert report["bf16_k2_k3"] == pytest.approx({
         "k2_ms": 0.3, "k2_bound_share": 0.7, "k3_ms": 0.5, "k3_bound_share": 0.56,
         "vs_sdpa_bwd": 0.8})
