@@ -68,7 +68,17 @@ Phases, in order; any failed check raises and the process exits non-zero:
    ring (24 a step) and Ulysses (16) and a ``SeqParallelTrainer(rules=
    LM_RULES).fit`` with validation, and ``shard_serving`` over model 4
    against the single-process engine (greedy streams up to near-ties, new
-   tokens/s, ITL); each rank's step ms and tensor-parallel bytes;
+   tokens/s, ITL); then on that sharded engine, 8 requests each: a
+   self-draft speculating at gamma 4 (its draft and verify built once,
+   eagerly; streams up to near-ties; the same windows on every rank), the
+   KV handoff both ways with a single-process engine (exported K/V
+   within K1's float32 limit of the single-process export; streams up to
+   near-ties; ms per request and bytes per frame), and a rollout through
+   a ``WeightSubscriber`` over a socket ``ShardGroup`` installing a
+   perturbed version mid-traffic (version 1 on every rank; tokens the
+   teacher-forced argmax of a decode that switches weights at the
+   boundary; install ms); no flash launch on any serving path; each
+   rank's step ms and tensor-parallel bytes;
 6. the ResNet phase (``resnet_phase``), the paper's main path: the
    CIFAR-10 ResNet-18 at full width, one train step on the card in
    float64, float32 and bf16 against the port's CPU path, the bf16
@@ -716,6 +726,15 @@ TP_SHAPES = ((BATCH, 8 // TP_RANKS, SEQ, 32),       # data 1 x model 4: 2 heads 
              (BATCH // 2, 8 // 2, SEQ, 32))         # data 2 x model 2: 4 heads, 4 rows
 TP_HOP = (BATCH, 8 // 2, SEQ // 2, 32)      # sp x tp ring: a hop of 4 heads at seq 2
 TP_SERVE_REQUESTS = 16                     # of serving_traffic(), sharded over model 4
+# The sharded engine's speculation, handoff and rollout paths: each serves
+# the first TP_PATH_REQUESTS requests with their budgets cut to
+# TP_PATH_NEW_TOKENS (every sharded step is a round of gloo collectives).
+TP_PATH_REQUESTS = 8
+TP_PATH_NEW_TOKENS = 32
+TP_HANDOFF_KV_TOL = 1e-4                   # max |err| / max(1, max |single|): K1's f32 O limit
+TP_ROLLOUT_DELTA = 0.5                     # the pushed delta, relative to each tensor's mean |w|
+TP_ROLLOUT_AFTER = 8                       # tokens every request has before the push
+TP_SERVE_PATHS = ("serving_spec", "serving_handoff", "serving_rollout")
 TP_TIMEOUT_S = 600
 
 # async_multiproc phase: SparkModel's asynchronous and hogwild fits across
@@ -5710,8 +5729,10 @@ def tp_rank_checks(rank, config):
     2 with the ring and Ulysses, and a ``SeqParallelTrainer(rules=
     LM_RULES).fit`` with validation, (d) ``shard_serving`` over model 4
     against the single-process engine (rank 0 serves, the others follow).
-    Each path's launches are read with the counts set to 0 just before it.
-    Returns the rank's report; a failed check raises."""
+    (e)-(g) speculation, the KV handoff and a rollout on the engine
+    sharded over model 4 (``tp_serving_paths``). Each path's launches are
+    read with the counts set to 0 just before it. Returns the rank's
+    report; a failed check raises."""
     from elephas_tpu_torch.api import CompiledModel
     from elephas_tpu_torch.checkpoint import CheckpointManager
     from elephas_tpu_torch.engine.step import init_train_state, make_loss_fn, make_train_step
@@ -5939,11 +5960,230 @@ def tp_rank_checks(rank, config):
             "stats": engine.stats()["tensor_parallel"]}
     check(report["launches"]["serving"] == {k: 0 for k in KERNELS},
           f"rank {rank}: the sharded serving path launched {report['launches']['serving']}")
+    tp_serving_paths(rank, report, module, mesh14, run_path)
+    for name in TP_SERVE_PATHS:
+        check(report["launches"][name] == {k: 0 for k in KERNELS},
+              f"rank {rank}: the sharded {name} path launched {report['launches'][name]}")
     return report
 
 
+def tp_serving_paths(rank, report, module, mesh, run_path):
+    """(e)-(g) of ``tp_rank_checks`` on ``module`` served by an engine
+    sharded over ``mesh`` (rank 0 serves, the others follow), each path
+    one ``run_path``: (e) a self-draft speculating at SPEC_GAMMA with the
+    first SPEC_DRAFT_LAYERS layers against the single-process speculative
+    engine; (f) the KV handoff from the sharded engine to a single-process
+    one and back, the exports against the single-process engine's; (g) a
+    ``WeightSubscriber`` over a socket ``ShardGroup`` on the card that
+    installs a perturbed version 1 mid-traffic. Fills ``report``; a failed
+    check raises."""
+    import copy
+
+    from elephas_tpu_torch.parameter import ShardGroup
+    from elephas_tpu_torch.rollout import WeightSubscriber
+    from elephas_tpu_torch.serving import InferenceEngine, QueueFull
+    from elephas_tpu_torch.serving.handoff import decode_handoff, encode_handoff
+
+    traffic = [(prompt, min(new, TP_PATH_NEW_TOKENS))
+               for prompt, new in serving_traffic()[:TP_PATH_REQUESTS]]
+    new_tokens = sum(n for _, n in traffic)
+    greedy_gap, _ = stream_gaps(module, traffic)
+    spec_kw = {"speculative": True, "gamma": SPEC_GAMMA, "draft_layers": SPEC_DRAFT_LAYERS}
+
+    def engine(sharded=True, **kw):
+        eng = InferenceEngine(module, **{**SERVE_ENGINE, **kw})
+        return eng.shard_serving(mesh) if sharded else eng
+
+    def closing(eng, fn):
+        try:
+            return fn()
+        finally:
+            eng.close()
+
+    # (e) Speculation: a self-draft on the sharded engine.
+    spec = engine(**spec_kw)
+    if rank != 0:
+        run_path("serving_spec", spec.follow)
+    else:
+        streams, elapsed = run_path("serving_spec", lambda: closing(spec, lambda: serve(
+            spec, traffic)))
+        single, single_s = serve(engine(False, **spec_kw), traffic)
+        stats = spec.stats()
+        check(stats["draft_traces"] == stats["verify_traces"] == 1
+              and stats["tensor_parallel"]["spec_graphs"] is False
+              and stats["spec_fallbacks"] == 0,
+              f"the sharded self-draft built draft {stats['draft_traces']}, verify "
+              f"{stats['verify_traces']} times ({stats['tensor_parallel']})")
+        report["serving_spec"] = {
+            "requests": len(traffic), "new_tokens": new_tokens, "s": elapsed,
+            "new_tokens_per_s": new_tokens / elapsed,
+            "itl_s_p50": spec.metrics.summary()["itl_s_p50"],
+            "accept_rate": stats["spec_accept_rate"],
+            "tokens_per_window": stats["spec_tokens_per_step"],
+            "windows": stats["spec_windows"], "builds": [stats["draft_traces"],
+                                                         stats["verify_traces"]],
+            "single_process_s": single_s,
+            "single_process_new_tokens_per_s": new_tokens / single_s,
+            "streams": compare_streams(single, streams, greedy_gap(single))}
+    report["spec_windows"] = spec.stats()["spec_windows"]
+    del spec
+
+    # (f) The KV handoff: sharded prefill -> single-process decode, and
+    # single-process prefill -> sharded decode.
+    pre, dec = engine(), engine()
+    if rank != 0:
+        run_path("serving_handoff", lambda: (pre.follow(), dec.follow()))
+    else:
+        spent = {"export": [], "encode": [], "decode": [], "import": []}
+        sizes = []
+
+        def timed(fn, key):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent[key].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        def prefill(eng):
+            ids = [eng.submit_prefill(prompt, max_new_tokens=n) for prompt, n in traffic]
+            handoffs = [eng.handoff(i) for i in ids]
+            check(all(isinstance(h, dict) for h in handoffs), "a prefill returned no handoff")
+            return handoffs
+
+        def frames(handoffs):
+            out = []
+            for h in handoffs:
+                t0 = time.perf_counter()
+                out.append(encode_handoff(h).tobytes())
+                spent["encode"].append((time.perf_counter() - t0) * 1e3)
+                sizes.append(len(out[-1]))
+                t0 = time.perf_counter()
+                decode_handoff(out[-1])
+                spent["decode"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def decode(eng, frames):  # stepping the engine while its slots are all taken
+            ids = []
+            for frame in frames:
+                while True:
+                    try:
+                        ids.append(eng.submit_handoff(frame))
+                        break
+                    except QueueFull:
+                        eng.step()
+            eng.run_until_drained()
+            return [eng.result(i).tokens for i in ids]
+
+        def handoffs():
+            pre.pool.export_blocks = timed(pre.pool.export_blocks, "export")
+            sharded = closing(pre, lambda: prefill(pre))
+            to_single = decode(engine(False), frames(sharded))
+            single_pre = prefill(engine(False))
+            dec.pool.import_blocks = timed(dec.pool.import_blocks, "import")
+            to_sharded = closing(dec, lambda: decode(dec, frames(single_pre)))
+            return sharded, single_pre, to_single, to_sharded
+
+        sharded, single_pre, to_single, to_sharded = run_path("serving_handoff", handoffs)
+        mono, _ = serve(engine(False), traffic)
+        worst = 0.0
+        for ours, theirs in zip(sharded, single_pre):
+            a, b = ours["export"], theirs["export"]
+            check(a["leaves"] == b["leaves"] and a["blocks"] == b["blocks"]
+                  and [x.shape for x in a["arrays"]] == [y.shape for y in b["arrays"]],
+                  "a sharded export's leaves or shapes differ from the single-process one's")
+            for x, y in zip(a["arrays"], b["arrays"]):
+                err = (x.float() - y.float()).abs().max().item()
+                worst = max(worst, err / (TP_HANDOFF_KV_TOL * max(1.0, y.abs().max().item())))
+        check(worst <= 1.0, f"a sharded export is {worst} of the limit from the "
+                            "single-process export")
+        report["serving_handoff"] = {
+            "requests": len(traffic), "kv_worst_of_limit": worst,
+            "sharded_to_single": compare_streams(mono, to_single, greedy_gap(mono)),
+            "single_to_sharded": compare_streams(mono, to_sharded, greedy_gap(mono)),
+            "frame_bytes_mean": float(np.mean(sizes)), "frame_bytes_max": max(sizes),
+            **{f"{k}_ms_mean": float(np.mean(v)) for k, v in spent.items()},
+            **{f"{k}_ms_max": float(np.max(v)) for k, v in spent.items()},
+            "messages": {"prefill": pre.stats()["tensor_parallel"]["messages"],
+                         "decode": dec.stats()["tensor_parallel"]["messages"]}}
+    del pre, dec
+
+    # (g) A rollout: version 1 pushed to a socket ShardGroup mid-traffic,
+    # pulled by the sharded engine's subscriber at a step boundary.
+    roll = InferenceEngine(module, **SERVE_ENGINE)
+    if rank != 0:
+        roll.shard_serving(mesh)
+        run_path("serving_rollout", roll.follow)
+        report["rollout_version"] = roll.model_version
+        return
+    v0 = {k: v.detach().clone() for k, v in module.state_dict().items()}
+    rng = np.random.default_rng(SEED + 24)
+    delta = {k: torch.as_tensor(rng.standard_normal(tuple(v.shape)).astype(np.float32),
+                                device=v.device) * (TP_ROLLOUT_DELTA * v.abs().mean() + 1e-8)
+             for k, v in v0.items()}
+    group = ShardGroup(v0, 2, mode="socket", device=module.device)
+    group.start()
+    client = group.client()
+    sub = WeightSubscriber(client).attach(roll)  # before sharding: kept
+    roll.shard_serving(mesh)
+    check(roll.subscriber is sub, "shard_serving dropped the weight subscriber")
+    installs = []
+    real_install = roll.install_weights_held  # the subscriber's call
+
+    def timed_install(tree, version=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_install(tree, version)
+        torch.cuda.synchronize()
+        installs.append((time.perf_counter() - t0) * 1e3)
+
+    roll.install_weights_held = timed_install
+
+    def rollout():
+        ids = [roll.submit(prompt, max_new_tokens=n) for prompt, n in traffic]
+        for _ in range(100_000):
+            active = list(roll.scheduler._active.values())
+            if len(active) == len(ids) and all(len(e.tokens) >= TP_ROLLOUT_AFTER
+                                               for e in active):
+                break
+            check(roll.scheduler.has_work, "the requests finished before the push")
+            roll.step()
+        client.update_parameters(delta)
+        sub.pin(1)
+        roll.step()  # the subscriber pulls and installs at this step's boundary
+        at = boundary_tokens(roll)
+        roll.run_until_drained()
+        return ids, at, [list(roll.result(i).tokens) for i in ids]
+
+    try:
+        ids, at, streams = run_path("serving_rollout", lambda: closing(roll, rollout))
+        _, tree = client.pull(version=1)
+    finally:
+        client.close()
+        group.stop()
+    check(roll.model_version == 1 and sub.swaps == 1 and len(installs) == 1,
+          f"the subscriber installed {sub.swaps} times (version {roll.model_version})")
+    new = copy.deepcopy(module)
+    new.load_state_dict(tree)
+    out = {"requests": len(ids), "install_ms": installs[0], "changed": 0,
+           "boundary_tokens": [at[i] for i in ids]}
+    for i, (rid, (prompt, _)) in enumerate(zip(ids, traffic)):
+        b = at[rid]
+        check(0 < b < len(streams[i]), f"request {i}: boundary at token {b} of "
+                                       f"{len(streams[i])}")
+        misses = swapped_misses(module, new, prompt, streams[i], b)
+        check(not misses, f"request {i}: tokens {misses} are not those of a decode that "
+                          f"switches to version 1 at token {b}")
+        out["changed"] += sum(x != y for x, y in zip(streams[i][b:], mono[i][b:]))
+    check(out["changed"] > 0, "the installed version changed no token")
+    report["serving_rollout"] = out
+    report["rollout_version"] = roll.model_version
+
+
 TP_PATHS = ("lm_model4_float32", "lm_model4_bfloat16", "lm_data2_model2", "lm_sptp_ring",
-            "lm_sptp_ulysses", "fit", "serving")
+            "lm_sptp_ulysses", "fit", "serving", *TP_SERVE_PATHS)
 
 
 def tensor_parallel_phase(attention_cuda):
@@ -5981,10 +6221,24 @@ def tensor_parallel_phase(attention_cuda):
               + f"; errors {json.dumps(r['errors'])}", flush=True)
     print(f"tensor_parallel serving over model {TP_RANKS} ({card}): "
           f"{json.dumps(ranks[0]['serving'])}", flush=True)
+    windows = [r["spec_windows"] for r in ranks]
+    check(windows == [ranks[0]["serving_spec"]["windows"]] * TP_RANKS,
+          f"the ranks ran {windows} speculation windows")
+    versions = [r["rollout_version"] for r in ranks]
+    check(versions == [1] * TP_RANKS, f"the ranks report versions {versions} after the rollout")
+    for key, label in (("serving_spec", "(e) self-draft speculation"),
+                       ("serving_handoff", "(f) KV handoff both ways"),
+                       ("serving_rollout", "(g) rollout through a WeightSubscriber")):
+        print(f"tensor_parallel {label} over model {TP_RANKS} ({card}; gloo through the "
+              f"host, not NCCL): {json.dumps(ranks[0][key])}", flush=True)
+    print("tensor_parallel (e)-(g) seconds: " + json.dumps(
+        {k: ranks[0]["ms"][k] / 1e3 for k in TP_SERVE_PATHS}), flush=True)
     report["ranks"] = [{k: r[k] for k in ("rank", "errors", "ms", "tp_bytes", "launches",
                                           "fit")} for r in ranks]
     report["checkpoint"] = ranks[0]["checkpoint"]
     report["serving"] = ranks[0]["serving"]
+    for key in TP_SERVE_PATHS:
+        report[key] = ranks[0][key]
     report["launches_summed"] = summed
     report["phase_s"] = time.perf_counter() - t_phase
     total = {k: sum(summed[path][k] for path in TP_PATHS) for k in KERNELS}

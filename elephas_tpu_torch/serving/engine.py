@@ -36,7 +36,8 @@ densely), so no flash kernel launches while serving.
 
 Speculative decode (``speculative=True``, ``serving.spec``) adds a draft
 program and a verify program, each captured once into a CUDA graph on
-the card beside the decode step. Disaggregated serving runs a request's
+the card beside the decode step (run eagerly on a sharded engine, as its
+decode step is). Disaggregated serving runs a request's
 prefill on one engine (``submit_prefill``, then ``handoff``) and its
 decode on another (``submit_handoff``), the KV blocks crossing in one
 ``serving.handoff`` frame.
@@ -55,7 +56,11 @@ and the other ranks, in ``follow()``, run the same program on their
 shards until ``close()``. Logits are gathered over the model group
 before sampling, so every rank samples the same token. The decode step
 runs eagerly there: its collectives are gloo's where ranks share a card,
-and a gloo collective cannot be captured in a CUDA graph.
+and a gloo collective cannot be captured in a CUDA graph. A sharded
+engine speculates with a self-draft (a model draft is refused, as in the
+JAX package: the draft model has no sharding rules), hands its KV blocks
+off with every head of the model in the frame, and takes a weight
+subscriber, whose installs rank 0 broadcasts at a step boundary.
 
 Usage::
 
@@ -111,15 +116,17 @@ from elephas_tpu_torch.serving.scheduler import (
 _RETRY_DELAYS = (0.1, 0.2, 0.4, 0.8, 1.3)
 
 # The sharded engine's messages: a header of _HEAD ints (the op, then its
-# ints), the prompt tokens, the decode inputs, the pool's column and pad
-# vectors and, paged, its block table. "install" is followed by one
-# broadcast of each whole state_dict tensor.
+# ints), a payload of ints (the prompt tokens, or a handoff's block ids),
+# the decode inputs, the pool's column and pad vectors and, paged, its
+# block table. "install" is followed by one broadcast of each whole
+# state_dict tensor, "import" by one of the blocks' K/V, and "export" by
+# one all_gather of them.
 _HEAD = 6
 _OPS = {"stop": 0, "chunk_prefill": 1, "prefill": 2, "decode": 3, "admit": 4,
-        "copy_block": 5, "install": 6}
-_EAGER_WHY = ("the tensor-parallel decode step runs eagerly: its model-group collectives "
-              "are gloo's where ranks share a card, and gloo cannot be captured in a CUDA "
-              "graph")
+        "copy_block": 5, "install": 6, "spec": 7, "export": 8, "import": 9}
+_EAGER_WHY = ("the tensor-parallel decode step (and a speculative engine's draft and verify "
+              "programs) run eagerly: their model-group collectives are gloo's where ranks "
+              "share a card, and gloo cannot be captured in a CUDA graph")
 
 
 class InferenceEngine:
@@ -360,11 +367,6 @@ class InferenceEngine:
 
     @subscriber.setter
     def subscriber(self, sub) -> None:
-        if sub is not None and self._tp is not None:
-            raise NotImplementedError(
-                "a weight subscriber on an engine sharded by shard_serving is not ported "
-                "yet (ROADMAP item 7a, sharded left-outs: its install broadcasts the "
-                "weights to the followers under the step lock that the hook holds)")
         self._subscriber = sub
 
     # -- the two programs --------------------------------------------------
@@ -566,18 +568,17 @@ class InferenceEngine:
         same thing again, and one process per device has nothing to give
         them, so that layout is refused. A warm engine is refused (its
         programs are built), and so are heads that do not divide over the
-        model axis. Returns ``self``."""
+        model axis. A self-draft speculative engine and a weight
+        subscriber are kept (the draft's layer view is bound again to the
+        sharded module); a model draft source is refused, as the JAX
+        package refuses it. Returns ``self``."""
         from elephas_tpu_torch.parallel.mesh import MODEL_AXIS, world
         from elephas_tpu_torch.parallel.tensor_parallel import shard_module
 
-        if self.spec is not None:
+        if self.spec is not None and self.spec.source.kind != "self":
             raise NotImplementedError(
-                "speculative decode under shard_serving is not ported yet "
-                "(ROADMAP item 7a, sharded speculation)")
-        if self._subscriber is not None:
-            raise NotImplementedError(
-                "shard_serving of an engine with a weight subscriber is not ported yet "
-                "(ROADMAP item 7a, sharded left-outs)")
+                "tensor-parallel serving with a model draft source is not supported (the "
+                "draft model has no sharding rules); use a self-draft")
         if self._prefill_traces or self._decode_traces or self.pool.admitted_total:
             raise RuntimeError(
                 "shard_serving must run before the first request: the engine's programs "
@@ -603,23 +604,29 @@ class InferenceEngine:
         self._tp = mesh.over(MODEL_AXIS)
         self.pool.shard_heads(self._tp)
         self._tp_leader = self._tp.rank == 0
+        if self.spec is not None:
+            self.spec.source.bind(self)  # the view copies the sharded module's attributes
         if self._tp_leader:
             self.pool.mirror = self._mirror
         table = self.pool.table.buffer.numel() if self.paged else 0
-        self._msg_len = (_HEAD + self.max_prompt_len + self._inputs.numel()
+        # The payload holds a prompt chunk or a handoff's block ids.
+        self._payload = max(self.max_prompt_len,
+                            self.pool.blocks_per_slot if self.paged else 0)
+        self._msg_len = (_HEAD + self._payload + self._inputs.numel()
                          + 2 * self.pool.max_slots + table)
+        self._tp_messages = {op: 0 for op in _OPS}
         return self
 
-    def _mirror(self, op: str, *ints) -> None:
-        self._send(op, ints)
+    def _mirror(self, op: str, *ints, payload=None) -> None:
+        self._send(op, ints, payload)
 
-    def _send(self, op: str, ints=(), tokens=None) -> None:
+    def _send(self, op: str, ints=(), payload=None) -> None:
         """Rank 0: broadcast one message to the model group."""
-        head = np.zeros((_HEAD + self.max_prompt_len,), np.int64)
+        head = np.zeros((_HEAD + self._payload,), np.int64)
         head[0] = _OPS[op]
         head[1:1 + len(ints)] = ints
-        if tokens is not None:
-            flat = np.asarray(tokens, np.int64).reshape(-1)  # host-ok: host tokens
+        if payload is not None:
+            flat = np.asarray(payload, np.int64).reshape(-1)  # host-ok: host ints
             head[_HEAD:_HEAD + flat.size] = flat
         pool = self.pool
         parts = [host_sync.upload(head, self.device), self._inputs.reshape(-1),
@@ -628,6 +635,7 @@ class InferenceEngine:
             parts.append(pool.device_table().reshape(-1))
         dist.broadcast(torch.cat(parts), src=dist.get_global_rank(self._tp.group, 0),
                        group=self._tp.group)
+        self._tp_messages[op] += 1
 
     def follow(self) -> None:
         """Run the programs rank 0 of a sharded engine sends, on this
@@ -638,16 +646,18 @@ class InferenceEngine:
                                "sharded by shard_serving")
         pool, slots = self.pool, self.pool.max_slots
         src = dist.get_global_rank(self._tp.group, 0)
+        names = {code: op for op, code in _OPS.items()}
         pending = None
         while True:
             msg = torch.empty((self._msg_len,), dtype=torch.int64, device=self.device)
             dist.broadcast(msg, src=src, group=self._tp.group)
             head = host_sync.fetch_ints(host_sync.stage(msg[:_HEAD]))
             op, ints = head[0], head[1:]
+            self._tp_messages[names[op]] += 1
             if op == _OPS["stop"]:
                 self._tp_closed = True
                 return
-            at = _HEAD + self.max_prompt_len
+            at = _HEAD + self._payload
             tokens = msg[_HEAD:at]
             inputs = msg[at:at + self._inputs.numel()]
             at += self._inputs.numel()
@@ -672,6 +682,13 @@ class InferenceEngine:
                     self._decode_body()
                 elif op == _OPS["install"]:
                     self._install_shards(None, ints[1] if ints[0] else None)
+                elif op == _OPS["spec"]:
+                    self._inputs.copy_(inputs.view_as(self._inputs))
+                    self.spec.follow_window()
+                elif op == _OPS["export"]:
+                    pool.gather_blocks(tokens[:ints[0]])
+                elif op == _OPS["import"]:
+                    pool.write_blocks(tokens[:ints[0]])
 
     def close(self) -> None:
         """Release the follower ranks of a sharded engine (rank 0; once).
@@ -679,12 +696,6 @@ class InferenceEngine:
         if self._tp_leader and not self._tp_closed:
             self._tp_closed = True
             self._send("stop")
-
-    def _refuse_sharded_handoff(self) -> None:
-        if self._tp is not None:
-            raise NotImplementedError(
-                "the KV handoff of an engine sharded by shard_serving is not ported "
-                "yet (ROADMAP item 7a, sharded handoff)")
 
     # -- frontend ----------------------------------------------------------
 
@@ -722,8 +733,6 @@ class InferenceEngine:
         if prefill_only and not self.paged:
             raise ValueError("prefill_only requires paged=True (the KV "
                              "handoff ships paged blocks)")
-        if prefill_only:
-            self._refuse_sharded_handoff()
         now = self.clock()
         req = Request(
             req_id=next(self._req_ids),
@@ -829,7 +838,6 @@ class InferenceEngine:
         from the import instant (the window the exporter closed)."""
         if not self.paged:
             raise RuntimeError("KV handoff import requires paged=True")
-        self._refuse_sharded_handoff()
         data = decode_handoff(frame)
         prompt = [int(t) for t in data["prompt"]]  # host-ok: wire metadata
         if not 1 <= len(prompt) <= self.max_prompt_len:
@@ -1115,7 +1123,9 @@ class InferenceEngine:
             out["tenancy"] = self.costs.snapshot()
         if self._tp is not None:
             out["tensor_parallel"] = {"model": self._tp.size, "decode_graph": False,
-                                      "why": _EAGER_WHY}
+                                      "why": _EAGER_WHY, "messages": dict(self._tp_messages)}
+            if self.spec is not None:
+                out["tensor_parallel"]["spec_graphs"] = False
         return out
 
     def attach_canary(self, driver) -> None:

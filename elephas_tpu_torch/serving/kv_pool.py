@@ -32,8 +32,11 @@ Under tensor parallelism (``InferenceEngine.shard_serving``) each rank's
 pool holds its ``heads / M`` heads of every K/V tensor, laid out as
 ``parallel.tensor_parallel.decode_cache_specs`` says (``shard_heads``);
 the slot and block bookkeeping lives on rank 0, whose pool reports each
-device write it makes outside the engine's programs (an admission, a
-copy-on-write) through ``mirror`` so the other ranks repeat it.
+device write or read it makes outside the engine's programs (an
+admission, a copy-on-write, a handoff's export or import) through
+``mirror`` so the other ranks repeat it. A handoff's blocks cross with
+all the heads (``gather_blocks``, ``write_blocks``): a frame from a
+sharded pool is a frame from an unsharded pool of either package.
 
 Donation: the reference donates the pool to every program that
 rewrites it, and reading a donated (stale) tree raises
@@ -51,7 +54,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from elephas_tpu_torch.parallel.collectives import all_gather, local_chunk
 from elephas_tpu_torch.serving import host_sync
 
 
@@ -91,14 +96,14 @@ class KVCachePool:
                                device=self.device)
         self._free: List[int] = list(range(max_slots))
         self.admitted_total = 0  # lifetime admissions (slot reuse visible)
-        self.mirror = None  # rank 0 of a sharded engine: (op, *ints) -> None
+        self.mirror = None  # rank 0 of a sharded engine: (op, *ints, payload=) -> None
+        self.model_group = None  # the group the heads split over (shard_heads)
 
     def shard_heads(self, mesh) -> None:
         """Keep this rank's heads of every K/V tensor (dim 1 split into
         ``mesh.size`` chunks, ``decode_cache_specs``' layout). Only on an
         empty pool: the tensors are new (a captured step must come after)."""
-        from elephas_tpu_torch.parallel.collectives import local_chunk
-
+        self.model_group = mesh
         self.cache.keys = [local_chunk(k, mesh, 1).contiguous() for k in self.cache.keys]
         self.cache.values = [local_chunk(v, mesh, 1).contiguous() for v in self.cache.values]
 
@@ -404,6 +409,7 @@ class PagedKVPool(KVCachePool):
         self._owner: Dict[int, Optional[str]] = {}
         self._billed_at: Dict[int, float] = {}
         self.mirror = None
+        self.model_group = None
 
     def tensors(self) -> List[torch.Tensor]:
         return super().tensors() + [self.table.buffer]
@@ -695,6 +701,41 @@ class PagedKVPool(KVCachePool):
                 leaves.append(leaf)
         return names, leaves
 
+    def gather_blocks(self, ids: torch.Tensor) -> torch.Tensor:
+        """Every K/V tensor at block ``ids`` (a device tensor), stacked in
+        ``_kv_leaf_names`` order: ``(leaves, blocks, heads, block_size,
+        head_dim)`` with all the heads. On a sharded pool each rank selects
+        its heads and they are gathered over the model group in rank order
+        (every rank calls it: rank 0 from ``export_blocks``, the others on
+        its ``"export"`` message)."""
+        _, leaves = self._kv_leaf_names()
+        with torch.no_grad():
+            local = torch.stack([leaf.index_select(0, ids) for leaf in leaves])
+        if self.model_group is None:
+            return local
+        return all_gather(local, self.model_group, dim=2)
+
+    def write_blocks(self, ids: torch.Tensor, payload: Optional[torch.Tensor] = None) -> None:
+        """Write ``payload`` (``(leaves, blocks, heads, block_size,
+        head_dim)`` in ``_kv_leaf_names`` order, with all the heads) into
+        block ``ids`` of every K/V tensor, in place. On a sharded pool rank
+        0 (from ``import_blocks``) broadcasts it over the model group, the
+        other ranks take it on its ``"import"`` message (passing None), and
+        each rank keeps its heads."""
+        _, leaves = self._kv_leaf_names()
+        group = self.model_group
+        if group is not None:
+            if payload is None:
+                like = leaves[0]
+                payload = torch.empty(
+                    (len(leaves), ids.numel(), like.shape[1] * group.size, *like.shape[2:]),
+                    dtype=like.dtype, device=self.device)
+            dist.broadcast(payload, src=dist.get_global_rank(group.group, 0), group=group.group)
+            payload = local_chunk(payload, group, 2)
+        with torch.no_grad():
+            for leaf, blocks in zip(leaves, payload.unbind(0)):
+                leaf.index_copy_(0, ids, blocks)
+
     def export_blocks(self, slot: int) -> Dict:
         """Copy ``slot``'s resident blocks to the host for a cross-tier
         handoff.
@@ -703,7 +744,8 @@ class PagedKVPool(KVCachePool):
         ``arrays[i]`` is the ``(blocks, heads, block_size, head_dim)`` CPU
         tensor of leaf ``leaves[i]`` at the slot's block ids, in row
         order (one device gather and one copy to the host for all of
-        them). Also CLOSES the slot's block-seconds billing window:
+        them), with every head of the model on a sharded pool too
+        (``gather_blocks``). Also CLOSES the slot's block-seconds billing window:
         occupancy up to this instant bills the owning tenant here, the
         later local ``release`` bills nothing, and the decode engine's
         ``set_slot_owner`` opens the next window, so summed cross-tier
@@ -717,11 +759,12 @@ class PagedKVPool(KVCachePool):
         self._bill_slot(slot)
         self._owner.pop(slot, None)
         self._billed_at.pop(slot, None)
-        names, leaves = self._kv_leaf_names()
-        ids = host_sync.upload(np.asarray(row[:n], np.int64), self.device)  # host-ok: numpy table
-        with torch.no_grad():
-            host = host_sync.fetch_tensor(host_sync.stage(
-                torch.stack([leaf.index_select(0, ids) for leaf in leaves])))
+        names, _ = self._kv_leaf_names()
+        blocks = np.asarray(row[:n], np.int64)  # host-ok: numpy table
+        if self.mirror is not None:
+            self.mirror("export", n, payload=blocks)
+        host = host_sync.fetch_tensor(host_sync.stage(
+            self.gather_blocks(host_sync.upload(blocks, self.device))))
         return {
             "block_size": self.block_size,
             "blocks": n,
@@ -743,7 +786,11 @@ class PagedKVPool(KVCachePool):
         pool's ``PrefixCache``. Returns the matched token count. The
         caller owns slot acquisition and ``set_slot_owner`` (which opens
         the billing window the exporter closed). Raises ``ValueError`` on
-        any structural mismatch, before anything binds."""
+        any structural mismatch, before anything binds. A sharded pool
+        takes a frame with every head of the model, as an unsharded one
+        does: rank 0 matches and allocates, then each rank writes its
+        heads of the uploaded blocks (``write_blocks``); matched prefix
+        blocks are resident on every rank already."""
         bs = self.block_size
         if slot in self._free:
             raise ValueError(f"slot {slot} is free; acquire it first")
@@ -763,8 +810,9 @@ class PagedKVPool(KVCachePool):
         except TypeError as exc:
             raise ValueError(f"handoff leaf has no tensor dtype: {exc}") from exc
         n_blocks = int(arrays[0].shape[0]) if arrays else 0  # host-ok: host array
+        split = 1 if self.model_group is None else self.model_group.size
         for name, leaf, arr in zip(names, leaves, arrays):
-            want = (n_blocks,) + tuple(leaf.shape[1:])
+            want = (n_blocks, leaf.shape[1] * split) + tuple(leaf.shape[2:])
             if tuple(arr.shape) != want:
                 raise ValueError(
                     f"handoff leaf {name} shape {tuple(arr.shape)} != {want}"
@@ -806,12 +854,12 @@ class PagedKVPool(KVCachePool):
             raise
         # matched < len(tokens) (a match is strictly shorter), so at least
         # one block always uploads.
-        ids = host_sync.upload(np.asarray(fresh, np.int64), self.device)  # host-ok: host list
-        payload = host_sync.upload(
-            torch.stack([a[start:].contiguous() for a in arrays]), self.device)
+        ids = np.asarray(fresh, np.int64)  # host-ok: host list
+        if self.mirror is not None:
+            self.mirror("import", len(fresh), payload=ids)
+        self.write_blocks(host_sync.upload(ids, self.device), host_sync.upload(
+            torch.stack([a[start:].contiguous() for a in arrays]), self.device))
         with torch.no_grad():
-            for leaf, blocks in zip(leaves, payload.unbind(0)):
-                leaf.index_copy_(0, ids, blocks)
             self.cache.index[slot] = len(tokens)
         self.commit_prefix(slot, tokens)
         self._mirror_push()

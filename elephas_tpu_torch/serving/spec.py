@@ -59,8 +59,17 @@ reading only tensors whose addresses never change — the pool, the block
 table, the engine's static decode inputs, the parameters (a model
 source's pulled tree is copied INTO the draft module's tensors, and only
 when it changed) and the decoder's own static buffers. On the CPU the
-same functions run eagerly. ``draft_traces``, ``verify_traces`` and
-``draft_prefill_traces`` count the builds.
+same functions run eagerly, and so they do on an engine sharded by
+``shard_serving``, whose forwards carry the model group's collectives
+(gloo's, where ranks share a card, cannot be captured). ``draft_traces``,
+``verify_traces`` and ``draft_prefill_traces`` count the builds.
+
+Sharded (a self-draft only: the engine refuses a model draft there, as
+the JAX package does): rank 0 sends each window's operands to the other
+ranks (``"spec"``), which run the same draft and verify programs on their
+heads and shards (``follow_window``). The draft's and the target's logits
+are gathered over the model group, so every rank drafts, accepts and
+rolls back alike.
 """
 
 from __future__ import annotations
@@ -128,6 +137,9 @@ class SelfDraftSource(DraftSource):
         self._engine = None
 
     def bind(self, engine) -> None:
+        """Build the view of ``engine.module``; ``shard_serving`` binds
+        again once the module is sharded, so the view's own attributes
+        (its head count, its tensor-parallel layout) are the shards'."""
         target = engine.module
         if not 1 <= self.layers < target.num_layers:
             raise ValueError(
@@ -386,11 +398,12 @@ class SpeculativeDecoder:
 
     def _build(self, body, program: str):
         """Build one program: counted in ``<program>_traces``, a CUDA graph
-        on the card (``engine.capture_step``), the eager body elsewhere."""
+        on the card (``engine.capture_step``), the eager body elsewhere and
+        on a sharded engine."""
         counter = f"{program}_traces"
         setattr(self, counter, getattr(self, counter) + 1)
         obs.note_retrace(f"serving_{program}", count=getattr(self, counter))
-        if self.engine.device.type != "cuda":
+        if self.engine.device.type != "cuda" or self.engine._tp is not None:
             def eager():
                 with torch.no_grad():
                     body()
@@ -461,6 +474,8 @@ class SpeculativeDecoder:
             return None
         eng._load_inputs(prev_tokens, override_vals, override_mask, active_mask)
         eng.pool.device_table()
+        if eng._tp_leader:
+            eng._send("spec")
         if self._draft_step is None:
             self._build_window()
         t0c = eng.clock()
@@ -478,6 +493,16 @@ class SpeculativeDecoder:
             return host_sync.Staged(out.device[:, cols], out.host[:, cols], out.event)
 
         return part(width + 1), part(slice(0, width)), part(width)
+
+    def follow_window(self) -> None:
+        """A follower rank of a sharded engine: rank 0's window, whose
+        operands ``follow()`` has put in the engine's static inputs, on
+        this rank's shards."""
+        if self._draft_step is None:
+            self._build_window()
+        self._draft_step()
+        self._verify_step()
+        self.windows += 1
 
     def prefill_chunk(self, tokens, slot: int, start: int, valid: int) -> None:
         """Model sources: land one prompt chunk in the draft cache (rides

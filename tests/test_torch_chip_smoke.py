@@ -820,6 +820,20 @@ def test_tensor_parallel_config(smoke):
                                    "fit", "serving"}
 
 
+def test_tensor_parallel_serving_paths_config(smoke):
+    """(e)-(g) serve at most 8 requests each, every one in flight at once
+    (the rollout pushes when all hold TP_ROLLOUT_AFTER tokens, before any
+    budget ends); each budget is cut below the traffic's least; the
+    handoff's K/V limit is K1's float32 O limit; each path is a path of
+    the phase whose launches are read."""
+    assert 0 < smoke.TP_PATH_REQUESTS <= min(8, smoke.SERVE_ENGINE["max_slots"])
+    assert smoke.TP_ROLLOUT_AFTER < smoke.TP_PATH_NEW_TOKENS <= smoke.SERVE_NEW_TOKENS[0]
+    assert smoke.TP_HANDOFF_KV_TOL == smoke.TOL[smoke.torch.float32][0]
+    assert smoke.TP_SERVE_PATHS == ("serving_spec", "serving_handoff", "serving_rollout")
+    assert set(smoke.TP_SERVE_PATHS) <= set(smoke.TP_PATHS)
+    assert 0 < smoke.TP_ROLLOUT_DELTA <= 1
+
+
 @pytest.mark.parametrize("layout,want", [("ring", 24), ("ulysses", 16)])
 def test_sptp_launches_a_step(smoke, layout, want):
     """sp x tp on data 1 x seq 2 x model 2: each model index runs the

@@ -41,7 +41,14 @@ state, the mesh's groups and, with a checkpoint directory, a save
 restored into a fresh sharded state and one more step of each; a
 ``"tp_serving"`` job serves prompts from a sharded ``InferenceEngine``
 (rank 0 serves, the others follow) and, on rank 0, from the unsharded
-engine too. The asynchronous jobs (``test_torch_async_multiproc.py``):
+engine too; a ``"tp_spec"`` job serves them from a sharded self-draft
+speculative engine, a ``"tp_handoff"`` job hands KV blocks off between
+sharded, unsharded and JAX engines in every pairing, and a
+``"tp_rollout"`` job installs new weights on sharded engines through a
+``WeightSubscriber`` over a local ``ShardGroup``, and a
+``"tp_smoke_paths"`` job runs ``chip_smoke.tp_serving_paths`` (the
+tensor-parallel phase's speculation, handoff and rollout paths) on the
+CPU at the job's small engine and traffic. The asynchronous jobs (``test_torch_async_multiproc.py``):
 an ``"async_fit"`` job runs ``SparkModel(mode="asynchronous"|"hogwild")``
 over a wire server on rank 0 with 2 CPU workers a rank and saves the
 weights, the history, the per-worker epoch metrics, every push's delta
@@ -487,25 +494,40 @@ def _tp_train(job, rank):
     torch.save(result, f"{job['out']}.rank{rank}")
 
 
+def _tp_compiled(job):
+    """A fresh model with the job's weights: an unsharded engine installs
+    into its own."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.models import get_model
+
+    return CompiledModel(get_model("transformer_lm", device="cpu", **job["kwargs"]),
+                         torch.load(job["weights"]), optimizer="adam",
+                         loss="sparse_categorical_crossentropy", metrics=[])
+
+
+def _tp_mesh():
+    from elephas_tpu_torch.parallel.mesh import build_mesh
+
+    return build_mesh(num_data=1, num_model=dist.get_world_size())
+
+
+def _tp_serve(engine, job, prompts=None, **kw):
+    ids = [engine.submit(p, max_new_tokens=job["new_tokens"], **kw)
+           for p in prompts or job["prompts"]]
+    return [engine.result(i, timeout_s=240).tokens for i in ids]
+
+
 def _tp_serving(job, rank):
     """The prompts served by an engine sharded over the whole world (rank
     0 serves, the others follow), per pool layout; rank 0 also serves them
     from the unsharded engine. The paged engine then installs the job's
     second weights (rank 0 sends them) and serves the prompts again."""
-    from elephas_tpu_torch.api import CompiledModel
-    from elephas_tpu_torch.models import get_model
-    from elephas_tpu_torch.parallel.mesh import build_mesh
     from elephas_tpu_torch.serving import InferenceEngine
 
-    def compiled():  # a fresh model each time: an unsharded engine installs into its own
-        return CompiledModel(get_model("transformer_lm", device="cpu", **job["kwargs"]),
-                             torch.load(job["weights"]), optimizer="adam",
-                             loss="sparse_categorical_crossentropy", metrics=[])
-
-    mesh = build_mesh(num_data=1, num_model=dist.get_world_size())
+    mesh = _tp_mesh()
     result = {}
     for paged in (True, False):
-        engine = InferenceEngine(compiled(), paged=paged, **job["engine"])
+        engine = InferenceEngine(_tp_compiled(job), paged=paged, **job["engine"])
         engine.shard_serving(mesh)
         key = "paged" if paged else "contiguous"
         result[f"{key}_kv_heads"] = [tuple(k.shape) for k in engine.pool.cache.keys]
@@ -513,29 +535,225 @@ def _tp_serving(job, rank):
             engine.follow()
             result[f"{key}_version"] = engine.model_version
             continue
-        if paged:  # a weight subscriber is one of item 7a's sharded left-outs
-            try:
-                engine.subscriber = object()
-            except NotImplementedError as err:
-                result["subscriber_refused"] = str(err)
-
-        def serve(engine):
-            ids = [engine.submit(p, max_new_tokens=job["new_tokens"]) for p in job["prompts"]]
-            return [engine.result(i, timeout_s=240).tokens for i in ids]
-
-        result[key] = serve(engine)
+        result[key] = _tp_serve(engine, job)
         result[f"{key}_stats"] = engine.stats()
         if paged:
             engine.install_weights(torch.load(job["installed"]), version=7)
-            result["installed"] = serve(engine)
+            result["installed"] = _tp_serve(engine, job)
             result[f"{key}_version"] = engine.model_version
         engine.close()
-        plain = InferenceEngine(compiled(), paged=paged, **job["engine"])
-        result[f"{key}_plain"] = serve(plain)
+        plain = InferenceEngine(_tp_compiled(job), paged=paged, **job["engine"])
+        result[f"{key}_plain"] = _tp_serve(plain, job)
         if paged:
             plain.install_weights(torch.load(job["installed"]))
-            result["installed_plain"] = serve(plain)
+            result["installed_plain"] = _tp_serve(plain, job)
     torch.save(result, f"{job['out']}.rank{rank}")
+
+
+def _tp_spec(job, rank):
+    """The prompts served by a self-draft speculative engine sharded over
+    the whole world; rank 0 also serves them from the unsharded
+    speculative engine and the plain one. Every rank saves its stats and
+    its draft view's head count beside the target's."""
+    from elephas_tpu_torch.serving import InferenceEngine
+
+    spec = dict(speculative=True, gamma=job["gamma"], draft_layers=job["draft_layers"])
+    engine = InferenceEngine(_tp_compiled(job), **spec, **job["engine"]).shard_serving(_tp_mesh())
+    result = {"heads": (engine.module.local_heads, engine.spec.source.module.local_heads)}
+    if rank != 0:
+        engine.follow()
+    else:
+        result["streams"] = _tp_serve(engine, job)
+        engine.close()
+        result["unsharded"] = _tp_serve(InferenceEngine(_tp_compiled(job), **spec,
+                                                        **job["engine"]), job)
+        result["plain"] = _tp_serve(InferenceEngine(_tp_compiled(job), **job["engine"]), job)
+    result["stats"] = engine.stats()
+    torch.save(result, f"{job['out']}.rank{rank}")
+
+
+def _tp_handoff(job, rank):
+    """KV handoffs in every pairing with a sharded engine. Rank 0 prefills
+    the prompts on a sharded engine (tenant "sharded") and on an unsharded
+    one (tenant "unsharded"), saving their exports; then imports the
+    sharded frames into an unsharded decode engine, and the sharded, the
+    unsharded and the JAX package's frames (tenant "jax") into a sharded
+    decode engine, after offering it a corrupt frame and a frame holding
+    one rank's heads only. A single engine serves the prompts whole."""
+    from elephas_tpu_torch.serving import InferenceEngine, QueueFull
+    from elephas_tpu_torch.serving.handoff import encode_handoff
+
+    mesh = _tp_mesh()
+
+    def engine(sharded):
+        eng = InferenceEngine(_tp_compiled(job), kv_block_size=job["block_size"],
+                              **job["engine"])
+        return eng.shard_serving(mesh) if sharded else eng
+
+    prompts, new = job["prompts"], job["new_tokens"]
+    result = {}
+    pre = engine(True)
+    if rank != 0:
+        pre.follow()
+        result["pre_messages"] = pre.stats()["tensor_parallel"]["messages"]
+        dec = engine(True)
+        dec.follow()
+        result["dec_messages"] = dec.stats()["tensor_parallel"]["messages"]
+        torch.save(result, f"{job['out']}.rank{rank}")
+        return
+
+    def prefill(eng, tenant):
+        return [eng.handoff(eng.submit_prefill(p, max_new_tokens=new, tenant=tenant),
+                            timeout_s=240) for p in prompts]
+
+    def frames(handoffs):
+        return [encode_handoff(h).tobytes() for h in handoffs]
+
+    def decode(eng, frames):  # stepping the engine while its slots are all taken
+        ids = []
+        for frame in frames:
+            while True:
+                try:
+                    ids.append(eng.submit_handoff(frame))
+                    break
+                except QueueFull:
+                    eng.step()
+        return [eng.result(i, timeout_s=240).tokens for i in ids]
+
+    def billed(eng):
+        return {tenant: {k: row[k] for k in ("submitted", "completed", "prefill_tokens",
+                                             "decode_tokens")}
+                for tenant, row in eng.costs.snapshot()["tenants"].items()}
+
+    sharded_handoffs = prefill(pre, "sharded")
+    result["sharded_exports"] = [h["export"] for h in sharded_handoffs]
+    sharded_frames = frames(sharded_handoffs)
+    pre.close()
+    result["pre_messages"] = pre.stats()["tensor_parallel"]["messages"]
+    unsharded = engine(False)
+    unsharded_handoffs = prefill(unsharded, "unsharded")
+    result["unsharded_exports"] = [h["export"] for h in unsharded_handoffs]
+    unsharded_frames = frames(unsharded_handoffs)
+    single = engine(False)
+    result["single"] = _tp_serve(single, job, tenant="sharded")
+    to_unsharded = engine(False)
+    result["sharded_to_unsharded"] = decode(to_unsharded, sharded_frames)
+    dec = engine(True)
+    refused, before = {}, (dec.pool.free_count, dec.pool.free_blocks, dict(
+        dec.stats()["tensor_parallel"]["messages"]))
+    corrupt = bytearray(sharded_frames[0])
+    corrupt[12] ^= 0xFF  # inside the JSON header
+    export = sharded_handoffs[0]["export"]
+    heads = export["arrays"][0].shape[1] // dist.get_world_size()
+    one_rank = encode_handoff({**sharded_handoffs[0], "export": {
+        **export, "arrays": [a[:, :heads].contiguous() for a in export["arrays"]]}}).tobytes()
+    for name, frame in (("corrupt", bytes(corrupt)), ("one_rank_heads", one_rank)):
+        try:
+            dec.submit_handoff(frame)
+        except Exception as err:  # noqa: BLE001 - the refusal is the result
+            refused[name] = f"{type(err).__name__}: {err}"
+    result["refused"] = refused
+    result["refused_pool"] = (before, (dec.pool.free_count, dec.pool.free_blocks, dict(
+        dec.stats()["tensor_parallel"]["messages"])))
+    result["sharded_to_sharded"] = decode(dec, sharded_frames)
+    result["unsharded_to_sharded"] = decode(dec, unsharded_frames)
+    result["jax_to_sharded"] = decode(dec, [open(f, "rb").read() for f in job["jax_frames"]])
+    dec.close()
+    result["dec_messages"] = dec.stats()["tensor_parallel"]["messages"]
+    result["dec_prefix_hits"] = dec.stats()["prefix_hits"]
+    result["billed"] = {name: billed(eng) for name, eng in (
+        ("pre", pre), ("unsharded", unsharded), ("single", single),
+        ("to_unsharded", to_unsharded), ("dec", dec))}
+    torch.save(result, f"{job['out']}.rank{rank}")
+
+
+def _tp_rollout(job, rank):
+    """Weight delivery to sharded engines through a ``WeightSubscriber``
+    over a local socket ``ShardGroup`` on rank 0 (version 1: the job's
+    delta pushed onto the served weights). The first engine's subscriber
+    is attached before ``shard_serving`` and installs version 1 at a step
+    boundary of a first request, then the prompts are served; the second
+    engine's subscriber ``nudge``s it while idle. Rank 0 also serves the
+    prompts from an unsharded engine that installed the pulled tree."""
+    from elephas_tpu_torch.parameter import ShardGroup
+    from elephas_tpu_torch.rollout import WeightSubscriber
+    from elephas_tpu_torch.serving import InferenceEngine
+
+    result = {}
+    mesh = _tp_mesh()
+    group = client = None
+    if rank == 0:
+        group = ShardGroup(torch.load(job["weights"]), 2, mode="socket", device="cpu")
+        group.start()
+        client = group.client()
+    for name in ("step", "nudge"):
+        engine = InferenceEngine(_tp_compiled(job), **job["engine"])
+        sub = None
+        if rank == 0:
+            sub = WeightSubscriber(client, every=1, follow=True)
+            if name == "step":
+                sub.attach(engine)
+        engine.shard_serving(mesh)
+        if rank != 0:
+            engine.follow()
+            result[f"{name}_version"] = engine.model_version
+            continue
+        if name == "step":
+            result["kept"] = engine.subscriber is sub
+            client.update_parameters(torch.load(job["delta"]))
+            first = _tp_serve(engine, job, prompts=job["prompts"][:1])
+            result["first"] = first
+            result["version_after_first"] = engine.model_version
+        else:
+            sub.attach(engine)
+            result["nudged"] = sub.nudge(engine)
+            result["version_after_nudge"] = engine.model_version
+        result[name] = _tp_serve(engine, job)
+        result[f"{name}_swaps"] = sub.swaps
+        result[f"{name}_version"] = engine.model_version
+        result[f"{name}_messages"] = engine.stats()["tensor_parallel"]["messages"]
+        engine.close()
+    if rank == 0:
+        version, tree = client.pull()
+        plain = InferenceEngine(_tp_compiled(job), **job["engine"])
+        plain.install_weights(tree, version)
+        result["plain"] = _tp_serve(plain, job)
+        result["pulled_version"] = version
+        client.close()
+        group.stop()
+    torch.save(result, f"{job['out']}.rank{rank}")
+
+
+def _tp_smoke_paths(job, rank):
+    """``chip_smoke.tp_serving_paths`` on the job's LM on the CPU, with
+    the script's engine, traffic and draft depth replaced by the job's
+    (``"overrides"``) and the card's synchronisation a no-op; every rank
+    saves its report."""
+    import time
+
+    import chip_smoke as smoke
+
+    saved = {name: getattr(smoke, name) for name in job["overrides"]}
+    synchronize = torch.cuda.synchronize
+    for name, value in job["overrides"].items():
+        setattr(smoke, name, value)
+    smoke.serving_traffic = lambda seed=smoke.SEED: [tuple(r) for r in job["traffic"]]
+    torch.cuda.synchronize = lambda *args, **kwargs: None
+    report = {"ms": {}, "launches": {}}
+
+    def run_path(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        report["ms"][name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    try:
+        smoke.tp_serving_paths(rank, report, _tp_compiled(job).module, _tp_mesh(), run_path)
+    finally:
+        torch.cuda.synchronize = synchronize
+        for name, value in saved.items():
+            setattr(smoke, name, value)
+    torch.save(report, f"{job['out']}.rank{rank}")
 
 
 def _async_data():
@@ -759,7 +977,9 @@ def main(config_path, rank):
             {"search": _search, "autotune": _autotune,
              "search_devices": _search_devices, "seq_attention": _seq_attention,
              "seq_trainer": _seq_trainer, "tp_train": _tp_train,
-             "tp_serving": _tp_serving, "async_fit": _async_fit,
+             "tp_serving": _tp_serving, "tp_spec": _tp_spec, "tp_handoff": _tp_handoff,
+             "tp_rollout": _tp_rollout, "tp_smoke_paths": _tp_smoke_paths,
+             "async_fit": _async_fit,
              "async_refusals": _async_refusals, "async_death": _async_death,
              "distributed": _distributed}.get(job.get("kind"), _run)(job, rank)
     finally:

@@ -620,21 +620,23 @@ def test_cancel_and_halt(models):
 
 
 def test_not_ported_yet_raises_naming_the_roadmap(models):
-    """Of the engine's surface only ROADMAP item 7a's sharded left-outs
-    raise (here: sharding an engine that has a weight subscriber); the
-    canary driver (item 7b) attaches and serves ``/canary``, speculative
-    decode and the KV handoff (item 7a) answer as the reference does
-    (``tests/test_torch_spec.py``, ``tests/test_torch_disagg.py``)."""
+    """No part of the engine's surface raises naming the ROADMAP any more:
+    ``shard_serving`` keeps a weight subscriber (its sharded installs:
+    ``tests/test_torch_serving_tp.py``), the canary driver (item 7b)
+    attaches and serves ``/canary``, speculative decode and the KV handoff
+    (item 7a) answer as the reference does (``tests/test_torch_spec.py``,
+    ``tests/test_torch_disagg.py``)."""
     from elephas_tpu_torch.obs import CanaryDriver
+    from elephas_tpu_torch.parallel.mesh import Mesh
 
     _, module, _ = models
     engine = InferenceEngine(module, **_kw())
     driver = CanaryDriver(engine)
     assert engine.canary is driver and engine._canary_doc() == driver.snapshot()
     subscribed = InferenceEngine(module, **_kw())
-    subscribed.subscriber = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7a, sharded left-outs"):
-        subscribed.shard_serving(object())
+    sub = subscribed.subscriber = object()
+    assert subscribed.shard_serving(Mesh()) is subscribed  # a model axis of 1
+    assert subscribed.subscriber is sub
     assert InferenceEngine(module, speculative=True, **_kw()).spec is not None
     for call, error in ((lambda: engine.submit_handoff(b""), ValueError),
                         (lambda: engine.pool.export_blocks(0), ValueError),

@@ -497,10 +497,35 @@ def test_stats_keys_match_the_reference(models):
         assert tst[key] == jst[key], key
 
 
-def test_sharded_speculation_is_not_ported_yet(models):
-    eng = _engine(models[1], speculative=True, gamma=2, draft_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7a, sharded speculation"):
-        eng.shard_serving(object())
+def test_sharded_speculation_refuses_a_model_draft_as_the_reference_does(models):
+    """Under ``shard_serving`` the JAX engine refuses a model draft source
+    (the draft model has no sharding rules) and takes a self-draft; so
+    does the port, before it shards anything (the sharded self-draft's
+    streams: ``tests/test_torch_serving_tp.py``)."""
+    from elephas_tpu.parallel.mesh import build_mesh as jax_build_mesh
+    from elephas_tpu.serving import shard_serving as jax_shard_serving
+    from elephas_tpu_torch.parallel.mesh import Mesh
+
+    _, module, sd = models
+    kw = dict(max_slots=2, max_prompt_len=8, max_len=24, speculative=True, gamma=2,
+              prefix_cache=False)
+    jc = JaxCompiledModel(  # a vocabulary that divides over the model axis
+        jax_get_model("transformer_lm", vocab_size=64, d_model=32, num_heads=4,
+                      num_layers=2, max_seq_len=SEQ),
+        optimizer="adam", loss="sparse_categorical_crossentropy", metrics=[],
+        input_shape=(SEQ,), input_dtype=jnp.int32, seed=0)
+    jeng = JaxEngine(jc, draft_source=JaxDraftModelSource(jc.module, FakePSClient(jc.params)),
+                     **kw)
+    with pytest.raises(NotImplementedError, match="model draft source") as want:
+        jax_shard_serving(jeng, jax_build_mesh(num_data=1, num_model=2))
+    teng = InferenceEngine(module, draft_source=DraftModelSource(_port_module(),
+                                                                 FakePSClient(sd)), **kw)
+    with pytest.raises(NotImplementedError, match="model draft source") as got:
+        teng.shard_serving(Mesh(model_size=2))
+    assert "use a self-draft" in str(want.value) and "use a self-draft" in str(got.value)
+    assert teng._tp is None and teng.mesh is None
+    assert _engine(module, speculative=True, gamma=2, draft_layers=1).shard_serving(
+        Mesh()).spec.source.kind == "self"
 
 
 # -- against the JAX package ---------------------------------------------------
