@@ -472,9 +472,10 @@ REPAIR_LOSS_ATOL, REPAIR_GRAD_RTOL = 1e-4, 1e-3  # head_dim 16 LM, flash vs dens
 # float16, as the plain version does: one float16 rounding (2^-11 of the
 # value) either side, relative to max(1, max |reference|).
 REPAIR_F16_LIMITS = {"o": 2e-3, "grads": 2e-3}
-# head_dim 512: no kernel instance holds it, so below WIDE_HEAD_MIN_SEQ
-# the plain versions run on the card, held to the CPU's at K1-K3's limits
-# (TOL, TOL_BWD) and launching nothing.
+# head_dim 512 below WIDE_HEAD_MIN_SEQ, where the JAX package runs its
+# XLA path: the kernels' instances above 256 take it on the card, held to
+# the CPU's plain versions at K1-K3's limits (TOL, TOL_BWD), 4 launches of
+# each kernel over the two dtypes.
 REPAIR_WIDE = (2, 4, 512, 512)
 
 # Wide-head phase: K1-K3 at head_dim 256 (kernel_case; the first case
@@ -494,6 +495,21 @@ WIDE_PARAMS = 340_929_792
 WIDE_BATCH = (2, 4096)
 WIDE_STEPS = 3                     # f32 Adam steps against the dense twin
 WIDE_LOSS_RTOL = 1e-4              # flash vs dense f32 loss, each step, relative
+
+# Wide-head 512 phase: K1-K3's instances above head_dim 256 (any multiple
+# of 256, the output's columns in chunks of 256 over the grid's z
+# dimension): at head_dim 512 causal (timed, beside SDPA under each of
+# PyTorch's backends) and full, and at 768 (three chunks); the ragged
+# lengths WIDE_RAGGED at 512; head_dim 320 on zero columns to 512; the
+# ring's hop helpers; and WIDE_LM's 2048 columns in 4 heads of 512 (the
+# registry's LM at the input that raised before these instances; no
+# public model of the family the repo follows has heads this wide),
+# WIDE_PARAMS parameters, at WIDE_BATCH.
+WIDE_512_CASES = (((2, 4, 4096, 512), True), ((1, 4, 2048, 512), False),
+                  ((1, 2, 2048, 768), True))
+WIDE_512_ROUTE = (2, 4, 1000, 320)
+WIDE_512_HOP = (2, 4, 1024, 512)
+WIDE_512_LM = {**WIDE_LM, "num_heads": 4}
 
 # Serving phase: the registry's full-width LM behind InferenceEngine.
 # The KV pool is 16 slots x 1024 columns x 4 layers x (K, V) x 8 heads x
@@ -836,6 +852,17 @@ def smi(fields):
     ).stdout.strip().splitlines()[0]
 
 
+# A kernel instantiation's mangled name: K1-K3 at one head_dim
+# (``flash_fwd_bf16_kernel<64>``) or above 256 (``flash_fwd_bf16_wide_kernel``,
+# every multiple of 256, named "D=256n").
+KERNEL_NAME = r"(flash_[a-z]+)_(bf16|f32)_(?:kernelILi(\d+)E|wide_kernel)"
+
+
+def kernel_label(entry):
+    """``"flash_fwd bf16 D=64"`` (or ``D=256n``) of a ``KERNEL_NAME`` match."""
+    return f"{entry.group(1)} {entry.group(2)} D={entry.group(3) or '256n'}"
+
+
 def sass_counts(lib, cuobjdump):
     """``HGMMA`` and ``UTMALDG`` instructions per kernel instantiation in
     the library's SASS (``cuobjdump -sass``)."""
@@ -843,9 +870,9 @@ def sass_counts(lib, cuobjdump):
                           check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
-        entry = re.search(r"Function : \S*?(flash_[a-z]+)_(bf16|f32)_kernelILi(\d+)E", line)
+        entry = re.search(r"Function : \S*?" + KERNEL_NAME, line)
         if entry:
-            name = f"{entry.group(1)} {entry.group(2)} D={entry.group(3)}"
+            name = kernel_label(entry)
             counts[name] = {"HGMMA": 0, "UTMALDG": 0}
         elif name:
             for op in counts[name]:
@@ -867,9 +894,9 @@ def ptxas_summary(log):
     """Registers and spills per kernel instantiation from nvcc's -Xptxas -v."""
     parts, name = [], None
     for line in log.splitlines():
-        entry = re.search(r"(flash_[a-z]+)_(bf16|f32)_kernelILi(\d+)E", line)
+        entry = re.search(KERNEL_NAME, line)
         if "Compiling entry function" in line and entry:
-            name = f"{entry.group(1)} {entry.group(2)} D={entry.group(3)}"
+            name = kernel_label(entry)
             spill = "spills not reported"
         elif name and "spill stores" in line:
             spill = line.split(",")[1].strip()
@@ -1585,8 +1612,8 @@ def resnet_phase(attention_cuda):
 
 def repair_phase(attention_cuda):
     """The dispatch of ``flash_attention`` on the card: every CUDA input
-    whose head_dim a kernel holds runs the kernels, and a larger one the
-    plain versions (``wide_head_checks``). A head_dim 16 LM trains under
+    runs the kernels, head_dim 512 too (``wide_head_checks``, against the
+    CPU's plain versions). A head_dim 16 LM trains under
     ``attention="flash"`` as the dense one does, through K1-K3 at
     head_dim 32 (zero columns);
     head_dim 16, float16 and float64 inputs (the float32 kernels), a
@@ -1661,9 +1688,9 @@ def repair_phase(attention_cuda):
     check(torch.equal(own, flash_attention(*inputs, True)),
           "the kernels' output moved with the caller's block sizes")
     report["head_dim_512"] = {"shape": list(REPAIR_WIDE), **wide_head_checks(attention_cuda)}
-    print(f"repair: head_dim 512 {REPAIR_WIDE}, flash_attention and the hop helpers on the "
-          f"plain path on the card vs the CPU, no launch: "
-          f"{json.dumps(report['head_dim_512'])}", flush=True)
+    print(f"repair: head_dim 512 {REPAIR_WIDE}, flash_attention and the hop helpers through "
+          f"the kernels above 256 on the card vs the CPU's plain versions, 2 launches of each "
+          f"kernel a dtype: {json.dumps(report['head_dim_512'])}", flush=True)
 
     # head_dim 16 at the LM's scoring shape: the kernels (at head_dim 32)
     # against the yardstick, SDPA, forward and forward + backward.
@@ -1712,14 +1739,15 @@ def repair_phase(attention_cuda):
 def wide_head_checks(attention_cuda, shape=REPAIR_WIDE, device="cuda"):
     """``flash_attention`` (forward and gradients) and the ring's hop
     helpers (``flash_attention_fwd``, ``flash_attention_bwd``) on inputs
-    of ``shape`` on ``device``, whose head_dim no kernel instance holds and
-    whose length is below ``WIDE_HEAD_MIN_SEQ``, against the same calls on
-    the CPU, in float32 and bf16: the errors, max|d| / max(1, max|ref|),
-    held to K1-K3's limits, and no launch. On the card, the rule must
-    raise at that head_dim and ``WIDE_HEAD_MIN_SEQ``. Returns the errors
-    by dtype."""
+    of ``shape`` on ``device``, whose head_dim is above 256 and whose
+    length is below ``WIDE_HEAD_MIN_SEQ``, against the same calls on the
+    CPU (the plain versions), in float32 and bf16: the errors, max|d| /
+    max(1, max|ref|), held to K1-K3's limits. On the card the kernels'
+    instances above 256 take the input, a dtype launching K1 twice
+    (``flash_attention``, the forward hop) and K2 and K3 twice each (its
+    backward, the backward hop); on the CPU nothing launches. Returns the
+    errors by dtype."""
     from elephas_tpu_torch.ops.attention import (
-        WIDE_HEAD_MIN_SEQ,
         flash_attention,
         flash_attention_bwd,
         flash_attention_fwd,
@@ -1740,27 +1768,22 @@ def wide_head_checks(attention_cuda, shape=REPAIR_WIDE, device="cuda"):
         hop = flash_attention_bwd(q, k, v, o, lse, do, delta, True)
         return out.detach(), grads, o, lse, hop
 
-    device_type = torch.device(device).type
-    check(not takes_kernels(shape[-1], shape[2], device_type),
-          f"head_dim {shape[-1]} at seq {shape[2]} is routed to the kernels")
-    if device_type == "cuda":
-        # At the JAX package's Pallas length the rule names the kernel
-        # instance it lacks instead of running the plain versions.
-        try:
-            takes_kernels(shape[-1], WIDE_HEAD_MIN_SEQ, device_type)
-            check(False, f"head_dim {shape[-1]} at seq {WIDE_HEAD_MIN_SEQ} did not raise")
-        except NotImplementedError:
-            pass
+    on_card = torch.device(device).type == "cuda"
+    check(takes_kernels(shape[-1], shape[2], torch.device(device).type) == on_card,
+          f"head_dim {shape[-1]} at seq {shape[2]} on {device} is routed "
+          f"{'away from' if on_card else 'to'} the kernels")
+    want = {k: 2 if on_card else 0 for k in KERNELS}
     gen = torch.Generator().manual_seed(SEED)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         cpu = [torch.randn(shape, generator=gen).to(dtype) for _ in range(4)]
         before = dict(attention_cuda.launches)
         got = run([t.to(device) for t in cpu])
-        if torch.device(device).type == "cuda":
+        if on_card:
             torch.cuda.synchronize()
-        check(dict(attention_cuda.launches) == before,
-              f"head_dim {shape[-1]} {dtype} launched kernels: {attention_cuda.launches}")
+        launched = {k: attention_cuda.launches[k] - before[k] for k in KERNELS}
+        check(launched == want, f"head_dim {shape[-1]} {dtype} launched {launched}, "
+              f"expected {want}")
         ref = run(cpu)
         errors = {"o": err(got[0], ref[0]),
                   "grads": max(err(a, b) for a, b in zip(got[1], ref[1])),
@@ -1858,10 +1881,6 @@ def wide_head_phase(attention_cuda):
     forward). The launch counts are set to 0 before the LM's run and read
     after it. Returns them, the timing at the first case by dtype, the
     kernels' worst errors by dtype, and a report."""
-    from elephas_tpu_torch.api import CompiledModel
-    from elephas_tpu_torch.engine.step import init_train_state, make_loss_fn, make_train_step
-    from elephas_tpu_torch.metrics import mfu, peak_flops, transformer_flops_per_token
-    from elephas_tpu_torch.models import get_model
     from elephas_tpu_torch.ops.attention import WIDE_HEAD_MIN_SEQ, takes_kernels
 
     t_phase = time.perf_counter()
@@ -1901,15 +1920,150 @@ def wide_head_phase(attention_cuda):
     report["hop"] = hop_checks(attention_cuda, shape=WIDE_HOP, phase="wide_head")
     report["kernel_case_s"] = time.perf_counter() - t_phase
 
+    wide_lm_checks(attention_cuda, WIDE_LM, report)
+    launches = dict(attention_cuda.launches)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return launches, timing, errors, report
+
+
+def sdpa_backends(shape, causal, dtype, gen):
+    """SDPA at ``shape`` under each of PyTorch's backends
+    (``torch.nn.attention.sdpa_kernel``): its forward's and its backward's
+    (dq, dk, dv) milliseconds by CUDA events, or the first line of its
+    refusal (PyTorch's warning of each refusal silenced); and the backend
+    the default call takes (``torch._fused_sdp_choice``). A yardstick
+    only: the port calls none of them."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+    names = {b.value: name.lower() for name, b in SDPBackend.__members__.items()}
+    out = {"default": names.get(int(torch._fused_sdp_choice(q, k, v, is_causal=causal)))}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        name = names[backend.value]
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+                out[name] = {
+                    "fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal), 5),
+                    "bwd_ms": cuda_ms(lambda: torch.autograd.grad(o, leaves, do,
+                                                                  retain_graph=True), 5)}
+                del o, leaves
+        except RuntimeError as exc:
+            out[name] = {"refused": str(exc).strip().splitlines()[0][:200]}
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_512_kernel_report(timing):
+    """The wide-head 512 phase's summary of its timed case (``timing`` by
+    dtype, as ``kernel_case`` returns it): each kernel's time and share of
+    its bound (float32's in split TF32) by dtype, K1's time over SDPA's
+    forward and K2 + K3's over SDPA's backward (the default call's)."""
+    report = {}
+    for dtype, times in timing.items():
+        k1, k2, k3 = (times[name] for name in KERNELS)
+        report[str(dtype).split(".")[-1]] = {
+            **{f"{name}_ms": times[name]["ms"] for name in KERNELS},
+            **{f"{name}_bound_share": times[name]["bound_ms"] / times[name]["ms"]
+               for name in KERNELS},
+            "k1_vs_sdpa_fwd": k1["ms"] / k1["library_ms"],
+            "k2_k3_vs_sdpa_bwd": (k2["ms"] + k3["ms"]) / k2["library_ms"]}
+    return report
+
+
+def wide_head_512_phase(attention_cuda):
+    """K1-K3's instances above head_dim 256 (every multiple of 256, the
+    output's columns in chunks of 256): ``WIDE_512_CASES`` (head_dim 512
+    causal, timed beside its bounds and SDPA under each backend, and full;
+    768, three chunks) and the ragged lengths ``WIDE_RAGGED`` at 512, each
+    held against its plain version at the kernel's tiling; head_dim 320
+    on zero columns (``WIDE_512_ROUTE``); the ring's hop helpers at
+    ``WIDE_512_HOP``; then the full-width LM in heads of 512
+    (``WIDE_512_LM``) at ``WIDE_BATCH`` as ``wide_lm_checks`` runs it: f32
+    Adam steps against its dense twin, 4 launches of each kernel a step,
+    a bf16 step, scoring. Returns the LM run's launch counts, the timing at
+    the first case by dtype, the kernels' worst errors by dtype, and a
+    report."""
+    from elephas_tpu_torch.ops.attention import WIDE_HEAD_MIN_SEQ, kernel_layout, takes_kernels
+
+    t_phase = time.perf_counter()
+    report = {}
+    check(all(takes_kernels(d, n, "cuda") for d in (320, 512, 768)
+              for n in (64, WIDE_HEAD_MIN_SEQ)),
+          "a head_dim above 256 is not routed to the kernels on the card")
+    check(kernel_layout(WIDE_512_ROUTE[-1], torch.bfloat16) == (512, torch.bfloat16),
+          f"head_dim {WIDE_512_ROUTE[-1]} is not padded to 512")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    errors = {name: {torch.float32: 0.0, torch.bfloat16: 0.0} for name in KERNELS}
+    timing = {}
+    for shape, causal in WIDE_512_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            timed = shape == WIDE_512_CASES[0][0]
+            errs, norms, times = kernel_case(attention_cuda, shape, causal, dtype, gen,
+                                             timed=timed)
+            for name in KERNELS:
+                errors[name][dtype] = max(errors[name][dtype], errs[name])
+            if timed:
+                timing[dtype] = times
+                report[f"sdpa_{str(dtype).split('.')[-1]}"] = sdpa_backends(shape, causal,
+                                                                             dtype, gen)
+    report.update(wide_512_kernel_report(timing))
+    for dtype in ("float32", "bfloat16"):
+        print(f"wide_head_512 {dtype} at {WIDE_512_CASES[0][0]}: {json.dumps(report[dtype])} "
+              f"(each kernel's share of its bound; K1 over SDPA's forward, K2 + K3 over its "
+              f"backward); SDPA by backend: {json.dumps(report[f'sdpa_{dtype}'])}", flush=True)
+    for seq in WIDE_RAGGED:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                errs = kernel_case(attention_cuda, (2, 2, seq, 512), causal, dtype, gen)[0]
+                for name in KERNELS:
+                    errors[name][dtype] = max(errors[name][dtype], errs[name])
+    report["route_320"] = {
+        str(dtype): held_route(attention_cuda, gen, "head_dim 320 on zero columns",
+                               WIDE_512_ROUTE, dtype,
+                               {"o": TOL[dtype][0], "grads": TOL_BWD[dtype]},
+                               phase="wide_head_512")[0]
+        for dtype in (torch.float32, torch.bfloat16)}
+    report["hop"] = hop_checks(attention_cuda, shape=WIDE_512_HOP, phase="wide_head_512")
+    report["kernel_case_s"] = time.perf_counter() - t_phase
+
+    wide_lm_checks(attention_cuda, WIDE_512_LM, report, phase="wide_head_512")
+    launches = dict(attention_cuda.launches)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return launches, timing, errors, report
+
+
+def wide_lm_checks(attention_cuda, lm, report, phase="wide_head"):
+    """The full-width LM of config ``lm`` (``WIDE_LM`` or ``WIDE_512_LM``:
+    ``WIDE_PARAMS`` parameters whatever its heads) at ``WIDE_BATCH``: f32
+    first gradients and ``WIDE_STEPS`` Adam steps against its dense twin
+    (loss ``WIDE_LOSS_RTOL`` relative each step, first gradients
+    ``GRAD_RTOL`` of each max), two bf16 steps and scoring, each launching
+    one of each kernel a layer and step (K1 a layer and forward): at 4
+    layers 40, 24 and 24 in all, the launch counts set to 0 before the
+    run. Fills ``report``; ``phase`` names its lines."""
+    from elephas_tpu_torch.api import CompiledModel
+    from elephas_tpu_torch.engine.step import init_train_state, make_loss_fn, make_train_step
+    from elephas_tpu_torch.metrics import mfu, peak_flops, transformer_flops_per_token
+    from elephas_tpu_torch.models import get_model
+
+    label = f"head_dim-{lm['d_model'] // lm['num_heads']}"
+    layers = lm["num_layers"]  # launches of each kernel a step (K1 a forward)
     rng = np.random.default_rng(SEED)
     batch, seq = WIDE_BATCH
-    tokens = torch.as_tensor(rng.integers(0, WIDE_LM["vocab_size"], (batch, seq + 1)),
+    tokens = torch.as_tensor(rng.integers(0, lm["vocab_size"], (batch, seq + 1)),
                              device="cuda")
     x, y = tokens[:, :-1], tokens[:, 1:]
 
     def compiled(attention, dtype="float32", params=None):
         return CompiledModel(get_model("transformer_lm", attention=attention, dtype=dtype,
-                                       **WIDE_LM), params,
+                                       **lm), params,
                              optimizer={"name": "adam", "learning_rate": 1e-3},
                              loss="sparse_categorical_crossentropy", metrics=["acc"], seed=SEED)
 
@@ -1940,9 +2094,9 @@ def wide_head_phase(attention_cuda):
     def score(model):
         """Two scoring forwards, the second timed; the logits checked."""
         logits = model.apply_eval(x)
-        check(tuple(logits.shape) == (batch, seq, WIDE_LM["vocab_size"])
+        check(tuple(logits.shape) == (batch, seq, lm["vocab_size"])
               and bool(torch.isfinite(logits).all()),
-              "head_dim-256 logits not finite or misshapen")
+              f"{label} logits not finite or misshapen")
         del logits
         return wall_ms(lambda: model.apply_eval(x))[1]
 
@@ -1953,9 +2107,9 @@ def wide_head_phase(attention_cuda):
             "train_tokens_per_s": batch * seq / step_ms * 1e3,
             "mfu_vs_bf16_peak": mfu(batch * seq / step_ms * 1e3, fpt, peak_flops()),
             "score_ms": score_ms, "score_tokens_per_s": batch * seq / score_ms * 1e3}
-        print(f"wide_head LM {dtype}: {json.dumps(report[f'lm_{dtype}'])}", flush=True)
+        print(f"{phase} LM {dtype}: {json.dumps(report[f'lm_{dtype}'])}", flush=True)
 
-    fpt = transformer_flops_per_token(WIDE_PARAMS, WIDE_LM["num_layers"], WIDE_LM["d_model"],
+    fpt = transformer_flops_per_token(WIDE_PARAMS, lm["num_layers"], lm["d_model"],
                                       seq, backward=True)
     attention_cuda.reset_launches()
     runs = {}
@@ -1967,23 +2121,23 @@ def wide_head_phase(attention_cuda):
         if attention == "flash":
             report["params"] = model.count_params()
             check(report["params"] == WIDE_PARAMS,
-                  f"the head_dim-256 LM has {report['params']} parameters, not {WIDE_PARAMS}")
+                  f"the {label} LM has {report['params']} parameters, not {WIDE_PARAMS}")
             init = {n: t.detach().clone() for n, t in model.module.state_dict().items()}
         before = dict(attention_cuda.launches)
         loss, grads = first_grads(model)
         losses, times = steps(model, WIDE_STEPS)
         launched = {n: attention_cuda.launches[n] - before[n] for n in KERNELS}
-        want = {n: 4 * (1 + WIDE_STEPS) if attention == "flash" else 0 for n in KERNELS}
-        check(launched == want, f"the head_dim-256 {attention} LM launched {launched}, "
+        want = {n: layers * (1 + WIDE_STEPS) if attention == "flash" else 0 for n in KERNELS}
+        check(launched == want, f"the {label} {attention} LM launched {launched}, "
               f"expected {want}")
-        check(all(np.isfinite(losses)), f"head_dim-256 f32 {attention} loss not finite")
+        check(all(np.isfinite(losses)), f"{label} f32 {attention} loss not finite")
         runs[attention] = {"loss": loss, "grads": grads, "losses": losses}
         if attention == "flash":
             before = dict(attention_cuda.launches)
             record("float32", losses, times, score(model))
             launched = {n: attention_cuda.launches[n] - before[n] for n in KERNELS}
-            check(launched == {"flash_fwd": 8, "flash_dq": 0, "flash_dkv": 0},
-                  f"two head_dim-256 f32 scoring forwards launched {launched}")
+            check(launched == {"flash_fwd": 2 * layers, "flash_dq": 0, "flash_dkv": 0},
+                  f"two {label} f32 scoring forwards launched {launched}")
         del model
         torch.cuda.empty_cache()
     flash, dense = runs["flash"], runs["dense"]
@@ -1993,27 +2147,25 @@ def wide_head_phase(attention_cuda):
                                                        [dense["loss"], *dense["losses"]]))
     report["f32_flash_vs_dense"] = {"losses": flash["losses"], "dense_losses": dense["losses"],
                                     "loss_rel_err": loss_err, "grad_rel_err": grad_err}
-    print(f"wide_head LM f32 flash vs dense over {WIDE_STEPS} Adam steps: "
+    print(f"{phase} LM f32 flash vs dense over {WIDE_STEPS} Adam steps: "
           f"{json.dumps(report['f32_flash_vs_dense'])} (loss rtol {WIDE_LOSS_RTOL}, first "
           f"gradients max|d| / max|g| rtol {GRAD_RTOL})", flush=True)
-    check(loss_err <= WIDE_LOSS_RTOL, "head_dim-256 flash and dense f32 losses disagree")
-    check(grad_err <= GRAD_RTOL, "head_dim-256 flash and dense f32 first gradients disagree")
+    check(loss_err <= WIDE_LOSS_RTOL, f"{label} flash and dense f32 losses disagree")
+    check(grad_err <= GRAD_RTOL, f"{label} flash and dense f32 first gradients disagree")
     del runs, flash, dense
 
     model = compiled("flash", "bfloat16", params=init)
     del init
     before = dict(attention_cuda.launches)
     losses, times = steps(model, 2)
-    check(all(np.isfinite(losses)), "head_dim-256 bf16 loss not finite")
+    check(all(np.isfinite(losses)), f"{label} bf16 loss not finite")
     record("bfloat16", losses, times, score(model))
     launched = {n: attention_cuda.launches[n] - before[n] for n in KERNELS}
-    check(launched == {"flash_fwd": 16, "flash_dq": 8, "flash_dkv": 8},
-          f"two head_dim-256 bf16 train steps and two scoring forwards launched {launched}")
+    check(launched == {"flash_fwd": 4 * layers, "flash_dq": 2 * layers,
+                       "flash_dkv": 2 * layers},
+          f"two {label} bf16 train steps and two scoring forwards launched {launched}")
     del model
     torch.cuda.empty_cache()
-    launches = dict(attention_cuda.launches)
-    report["phase_s"] = time.perf_counter() - t_phase
-    return launches, timing, errors, report
 
 
 def serving_traffic(seed=SEED):
@@ -6687,12 +6839,13 @@ def ops_phase(attention_cuda):
     return launches, report
 
 
-def kernel_entries(timing, errors, launches, wide=None):
+def kernel_entries(timing, errors, launches, wide=None, wide_512=None):
     """The ``{"kernels": [...]}`` line's entries: each kernel's source,
     the TPU kernel it replaces, its launches on the main path (the LM
     train run) and on every path, its errors and its f32 (and bf16)
     times and bounds; with ``wide`` (the wide-head phase's timing and
-    errors by dtype), the head_dim-256 instances' too."""
+    errors by dtype), the head_dim-256 instances' too, and with
+    ``wide_512`` (the wide-head 512 phase's) the head_dim-512 ones."""
     sources = {
         "flash_fwd": ("elephas_tpu_torch/csrc/flash_fwd.cu",
                       "elephas_tpu/ops/attention_pallas.py:36"),
@@ -6717,12 +6870,13 @@ def kernel_entries(timing, errors, launches, wide=None):
             **f32,
             "bf16": bf16,
         })
-        if wide is not None:
-            wide_timing, wide_errors = wide
-            entries[-1]["head_dim_256"] = {
-                str(dtype).split(".")[-1]: {**wide_timing[dtype][name],
-                                            "max_err": wide_errors[name][dtype]}
-                for dtype in (torch.float32, torch.bfloat16)}
+        for key, extra in (("head_dim_256", wide), ("head_dim_512", wide_512)):
+            if extra is not None:
+                extra_timing, extra_errors = extra
+                entries[-1][key] = {
+                    str(dtype).split(".")[-1]: {**extra_timing[dtype][name],
+                                                "max_err": extra_errors[name][dtype]}
+                    for dtype in (torch.float32, torch.bfloat16)}
     return entries
 
 
@@ -6744,10 +6898,11 @@ def main():
     print(f"build: {', '.join(lib.name for lib in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cuobjdump = str(Path(attention_cuda._nvcc()).with_name("cuobjdump"))
-    instances = {"flash_fwd": [f"flash_fwd {t} D={d}" for t in ("bf16", "f32")
-                               for d in attention_cuda.HEAD_DIMS],
+    # Every head_dim of HEAD_DIMS and, "D=256n", every multiple of 256 above it.
+    dims = [*attention_cuda.HEAD_DIMS, "256n"]
+    instances = {"flash_fwd": [f"flash_fwd {t} D={d}" for t in ("bf16", "f32") for d in dims],
                  "flash_bwd": [f"flash_{k} {t} D={d}" for k in ("dq", "dkv")
-                               for t in ("bf16", "f32") for d in attention_cuda.HEAD_DIMS]}
+                               for t in ("bf16", "f32") for d in dims]}
     for source, lib in libs.items():
         log = lib.with_suffix(".log").read_text()
         summary = ptxas_summary(log)
@@ -6782,6 +6937,9 @@ def main():
     print(f"repair: {json.dumps(report)}", flush=True)
     launches["wide_head"], wide_timing, wide_errors, report = wide_head_phase(attention_cuda)
     print(f"wide_head: {json.dumps(report)}", flush=True)
+    launches["wide_head_512"], wide_512_timing, wide_512_errors, report = \
+        wide_head_512_phase(attention_cuda)
+    print(f"wide_head_512: {json.dumps(report)}", flush=True)
     launches["serving"], report = serving_phase(attention_cuda)
     print(f"serving: {json.dumps(report)}", flush=True)
     launches["spec_handoff"], report = spec_handoff_phase(attention_cuda)
@@ -6807,7 +6965,8 @@ def main():
     print(f"chaos: {json.dumps(report)}", flush=True)
 
     print(json.dumps({"kernels": kernel_entries(timing, errors, launches,
-                                                wide=(wide_timing, wide_errors))}))
+                                                wide=(wide_timing, wide_errors),
+                                                wide_512=(wide_512_timing, wide_512_errors))}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2166,6 +2166,332 @@ cudaError_t launch_dkv_f32<256>(const void* q, const void* k, const void* v, con
   return cudaGetLastError();
 }
 
+// ------------------------------------------- K2 and K3 above D = 256
+//
+// head_dim = 256 n, n >= 2 (sm90.cuh, "above D = 256"), in both dtypes
+// one design with the roles swapped, as at D = 256:
+// - K2: a block takes fixed query rows (longest first) and owns chunk c =
+//   blockIdx.z of dQ; K/V tiles stream up to the diagonal (causal). Per
+//   tile S = Q K^T and dP = dO V^T stream over all n chunks, dS = P (dP -
+//   delta) with P = exp2(S c - lse), and dQ_c += dS K_c.
+// - K3: a block takes fixed keys and owns, by blockIdx.z = 2 c + b, chunk
+//   c of dV (b = 0: dV_c += P^T dO_c, no dP^T) or of dK (b = 1: dK_c +=
+//   dS^T Q_c, dS^T = P^T (dP^T - delta)); Q/dO tiles stream from the
+//   diagonal (causal), their rows' lse and delta beside the out slot.
+// S (S^T) is recomputed by every block of a row (key) tile, dP (dP^T) by
+// each dQ (dK) block: the work is (2 n + 1) / 3 of K2's CostEstimate and
+// (3 n + 2) / 4 of K3's (a dV block computes no dP^T). bf16 rounds dS
+// (K2, K3) and P^T (dV) to bf16 before the output product, as at D <=
+// 256.
+
+// K2 (kDkv false): fixed = Q, dO; streamed = K, V; out0 = dQ. K3 (kDkv
+// true): fixed = K, V; streamed = Q, dO; out0 = dK, out1 = dV.
+template <bool kDkv>
+__device__ __forceinline__ void wide_bwd_bf16(const CUtensorMap* q_map, const CUtensorMap* k_map,
+                                              const CUtensorMap* v_map, const CUtensorMap* do_map,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ delta,
+                                              bf16* __restrict__ out0, bf16* __restrict__ out1,
+                                              int seq, int head_dim, int causal, float scale_log2,
+                                              float scale) {
+  using W = WideChunkBf16;
+  constexpr int N = W::kRows;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  const WideBars<W> bars(smem);
+  const int bh = blockIdx.x, n = head_dim / 256;
+  const int c = kDkv ? blockIdx.z / 2 : blockIdx.z;
+  const bool dk = kDkv && blockIdx.z % 2 == 1;  // a K3 block of dK
+  const bool dv = kDkv && !dk;
+  // K2: query rows longest first, key tiles up to the diagonal (causal);
+  // K3: keys (the first the longest), query tiles from the diagonal.
+  const int f0 = (kDkv ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * N;
+  const int n_begin = kDkv && causal ? f0 : 0;
+  const int n_end = !kDkv && causal ? min(seq, f0 + N) : seq;
+  const int tiles = (n_end - n_begin + N - 1) / N;
+  const int slices1 = dv ? 0 : n;  // dP's slices (dP^T's)
+  // The warpgroup, broadcast so that ptxas knows it is warp-uniform.
+  const int warpgroup = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) bars.init();
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    if (threadIdx.x < 32) {
+      wide_produce<W>(smem, bars.full, bars.empty, bars.out_full, bars.out_empty,
+                      kDkv ? k_map : q_map, kDkv ? q_map : k_map, kDkv ? v_map : do_map,
+                      kDkv ? do_map : v_map, slices1, kDkv ? (dk ? q_map : do_map) : k_map,
+                      kDkv ? lse : nullptr, kDkv ? delta : nullptr, n, c, f0, n_begin, tiles, bh,
+                      seq);
+    }
+    return;
+  }
+
+  // Thread (warp w, lane l) holds fixed rows f0 + 16w + l/4 and + 8.
+  const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4, t = lane % 4;
+  const int rows[2] = {f0 + 16 * w + lane / 4, f0 + 16 * w + lane / 4 + 8};
+  float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};  // K2: its rows' lse (base 2) and delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t at = static_cast<int64_t>(bh) * seq + rows[r];
+    if (!kDkv && rows[r] < seq) lse2[r] = lse[at] * kLog2e, dlt[r] = delta[at];
+  }
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float s[N / 2], dp[N / 2];  // S (S^T), then dS (P^T or dS^T); dP (dP^T)
+  uint32_t fr[N / 16][4];
+  int it = 0;
+  for (int j = 0; j < tiles; ++j) {
+    const int n0 = n_begin + j * N;
+    wide_reduce_bf16(s, smem, bars.full, bars.empty, it, n);
+    wide_reduce_bf16(dp, smem, bars.full, bars.empty, it, slices1);
+    mbar_wait(bars.out_full, j & 1);
+    if constexpr (!kDkv) {
+      ds_tile<N>(s, dp, (causal && n0 + N - 1 > f0) || n0 + N > seq, n0, rows, lse2, dlt, seq,
+                 causal, scale_log2);
+    } else {
+      // P^T = exp2(S^T c - lse), rows keys, columns query rows, 0 past
+      // `seq` and above the causal diagonal; dS^T = P^T (dP^T - delta).
+      const bool mask = (causal && n0 < f0 + N - 1) || n0 + N > seq;
+      const float* lse_s = reinterpret_cast<const float*>(smem + W::kRowVals);
+      const float* dlt_s = lse_s + N;
+#pragma unroll
+      for (int jj = 0; jj < N / 8; ++jj) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * jj + 2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(dlt_s + 8 * jj + 2 * t);
+#pragma unroll
+        for (int e = 4 * jj; e < 4 * jj + 4; ++e) {
+          const int qi = n0 + 8 * jj + 2 * t + (e & 1);
+          float p = exp2_approx(fmaf(s[e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          if (mask && (qi >= seq || (causal && rows[(e / 2) & 1] > qi))) p = 0.f;
+          s[e] = dk ? p * (dp[e] - ((e & 1) ? dl.y : dl.x)) : p;
+        }
+      }
+    }
+    pack_ds<N>(fr, s);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) fence_operand(fr[kk]);
+    // dQ_c += dS K_c, dV_c += P^T dO_c or dK_c += dS^T Q_c: the out slot's
+    // tile read MN-major.
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      wgmma_rs<256>(acc, fr[kk], desc_mn_major<256>(smem + W::kOut, N, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (lane == 0) mbar_arrive(bars.out_empty);
+  }
+
+  const float sc = dv ? 1.f : scale;
+  bf16* out = dv ? out1 : out0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= seq) continue;
+    bf16* o = out + (static_cast<int64_t>(bh) * seq + rows[r]) * head_dim + 256 * c + 2 * t;
+#pragma unroll
+    for (int nn = 0; nn < 32; ++nn) {
+      *reinterpret_cast<__nv_bfloat162*>(o + nn * 8) =
+          __floats2bfloat162_rn(sc * acc[4 * nn + 2 * r], sc * acc[4 * nn + 2 * r + 1]);
+    }
+  }
+}
+
+// float32 (split tf32): 32 fixed rows (stacked) against 32-row tiles.
+// Thread (warp w, lane l) owns fixed row f0 + 8w + l/4 and streamed rows
+// 8j + 2t + c of a tile (t = l % 4); the output is a stacked m64n256
+// accumulator, each row's hi and lo parts added at the end.
+template <bool kDkv>
+__device__ __forceinline__ void wide_bwd_f32(const CUtensorMap* q_map, const CUtensorMap* k_map,
+                                             const CUtensorMap* v_map, const CUtensorMap* do_map,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ delta,
+                                             float* __restrict__ out0, float* __restrict__ out1,
+                                             int seq, int head_dim, int causal, float scale_log2,
+                                             float scale) {
+  using W = WideChunkF32;
+  constexpr int N = W::kRows;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  const WideBars<W> bars(smem);
+  const int bh = blockIdx.x, n = head_dim / 256;
+  const int c = kDkv ? blockIdx.z / 2 : blockIdx.z;
+  const bool dk = kDkv && blockIdx.z % 2 == 1;
+  const bool dv = kDkv && !dk;
+  const int f0 = (kDkv ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * N;
+  const int n_begin = kDkv && causal ? f0 : 0;
+  const int n_end = !kDkv && causal ? min(seq, f0 + N) : seq;
+  const int tiles = (n_end - n_begin + N - 1) / N;
+  const int slices = n * (256 / W::kSlice);
+  const int slices1 = dv ? 0 : slices;
+  const int warpgroup = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) bars.init();
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    if (threadIdx.x < 32) {
+      wide_produce<W>(smem, bars.full, bars.empty, bars.out_full, bars.out_empty,
+                      kDkv ? k_map : q_map, kDkv ? q_map : k_map, kDkv ? v_map : do_map,
+                      kDkv ? do_map : v_map, slices1, kDkv ? (dk ? q_map : do_map) : k_map,
+                      kDkv ? lse : nullptr, kDkv ? delta : nullptr, n, c, f0, n_begin, tiles, bh,
+                      seq);
+    }
+    return;
+  }
+
+  const int ctid = threadIdx.x % 128, lane = threadIdx.x % 32, t = lane % 4;
+  const int r = 8 * (ctid / 32) + lane / 4, f = f0 + r;
+  const int64_t frow = static_cast<int64_t>(bh) * seq + f;
+  float lse2 = 0.f, dlt = 0.f;  // K2: this row's lse (base 2) and delta
+  if (!kDkv && f < seq) lse2 = lse[frow] * kLog2e, dlt = delta[frow];
+  float acc[2][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+  float x[N];           // a stacked product against a pair
+  float s0[8], s1[8];   // S (S^T), then dS (P^T or dS^T); dP (dP^T)
+  uint32_t fr[4][4];
+  int it = 0;
+  for (int j = 0; j < tiles; ++j) {
+    const int n0 = n_begin + j * N;
+    tf32::wide_reduce_f32(x, smem, bars.full, bars.empty, it, slices, r, t, ctid);
+    tf32::merge_stacked(s0, x);
+    tf32::wide_reduce_f32(x, smem, bars.full, bars.empty, it, slices1, r, t, ctid);
+    tf32::merge_stacked(s1, x);
+    mbar_wait(bars.out_full, j & 1);
+    // P = exp2(S c - lse) (P^T), 0 past `seq` and above the causal
+    // diagonal; dS = P (dP - delta) (dS^T), or P^T for dV.
+    const bool mask = (causal && (kDkv ? n0 < f0 + N - 1 : n0 + N - 1 > f0)) || n0 + N > seq;
+    const float* rv = reinterpret_cast<const float*>(smem + W::kRowVals);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int idx = 8 * (e / 2) + 2 * t + (e & 1), col = n0 + idx;
+      float p = exp2_approx(fmaf(s0[e], scale_log2, -(kDkv ? rv[idx] : lse2)));
+      if (mask && (col >= seq || (causal && (kDkv ? f > col : col > f)))) p = 0.f;
+      s0[e] = dv ? p : p * (s1[e] - (kDkv ? rv[N + idx] : dlt));
+    }
+    tf32::stacked_fragments<N>(fr, s0);
+    // The out slot's tile transposed (C^T, C^T_lo) for dQ_c += dS K_c,
+    // dV_c += P^T dO_c or dK_c += dS^T Q_c.
+    tf32::write_transposed<N, 256>(smem + W::kCopy, smem + W::kCopy + W::kCopyBytes,
+                                   smem + W::kOut, ctid, 128);
+    fence_proxy_async();
+    named_barrier_sync(1, 128);
+    if (lane == 0) mbar_arrive(bars.out_empty);
+    fence_operand(acc[0]);
+    fence_operand(acc[1]);
+    tf32::wide_out_f32(acc, fr, smem + W::kCopy, smem + W::kCopy + W::kCopyBytes);
+    wgmma_wait<0>();
+    fence_operand(acc[0]);
+    fence_operand(acc[1]);
+  }
+
+  if (f >= seq) return;
+  const float sc = dv ? 1.f : scale;
+  float* o = (dv ? out1 : out0) + frow * head_dim + 256 * c + 2 * t;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int nn = 0; nn < 16; ++nn) {
+      const float* a = acc[half];
+      *reinterpret_cast<float2*>(o + 128 * half + 8 * nn) =
+          make_float2(sc * (a[4 * nn] + a[4 * nn + 2]), sc * (a[4 * nn + 1] + a[4 * nn + 3]));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WideChunkBf16::kThreads, 1)
+flash_dq_bf16_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dq, int seq,
+                          int head_dim, int causal, float scale_log2, float scale) {
+  wide_bwd_bf16<false>(&q_map, &k_map, &v_map, &do_map, lse, delta, dq, nullptr, seq, head_dim,
+                       causal, scale_log2, scale);
+}
+
+__global__ void __launch_bounds__(WideChunkBf16::kThreads, 1)
+flash_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int seq, int head_dim,
+                           int causal, float scale_log2, float scale) {
+  wide_bwd_bf16<true>(&q_map, &k_map, &v_map, &do_map, lse, delta, dk, dv, seq, head_dim, causal,
+                      scale_log2, scale);
+}
+
+__global__ void __launch_bounds__(WideChunkF32::kThreads, 1)
+flash_dq_f32_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dq, int seq,
+                         int head_dim, int causal, float scale_log2, float scale) {
+  wide_bwd_f32<false>(&q_map, &k_map, &v_map, &do_map, lse, delta, dq, nullptr, seq, head_dim,
+                      causal, scale_log2, scale);
+}
+
+__global__ void __launch_bounds__(WideChunkF32::kThreads, 1)
+flash_dkv_f32_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int seq, int head_dim,
+                          int causal, float scale_log2, float scale) {
+  wide_bwd_f32<true>(&q_map, &k_map, &v_map, &do_map, lse, delta, dk, dv, seq, head_dim, causal,
+                     scale_log2, scale);
+}
+
+// K2 (kDq) or K3 above head_dim 256: grid (batch*heads, fixed tiles,
+// chunks), the chunks n for K2 and 2 n (dV and dK) for K3.
+template <bool kDq, bool kBf16>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, void* out0, void* out1,
+                        int batch_heads, int seq, int head_dim, int causal, float scale_log2,
+                        float scale, cudaStream_t stream) {
+  using W = std::conditional_t<kBf16, WideChunkBf16, WideChunkF32>;
+  using T = typename W::T;
+  CUtensorMap maps[4];  // q, k, v, dout
+  const void* ptrs[4] = {q, k, v, dout};
+  cudaError_t err;
+  for (int i = 0; i < 4; ++i) {
+    if ((err = make_wide_map<T>(&maps[i], ptrs[i], head_dim, batch_heads, seq, W::kRows)) !=
+        cudaSuccess) {
+      return err;
+    }
+  }
+  constexpr size_t smem = W::kBytes;
+  static_assert(smem <= 232448, "K2/K3 above head_dim 256 need more shared memory than a block has");
+  const dim3 grid(batch_heads, (seq + W::kRows - 1) / W::kRows, (kDq ? 1 : 2) * (head_dim / 256));
+  if constexpr (kBf16 && kDq) {
+    if ((err = allow_smem(flash_dq_bf16_wide_kernel, smem)) != cudaSuccess) return err;
+    flash_dq_bf16_wide_kernel<<<grid, W::kThreads, smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<bf16*>(out0), seq, head_dim,
+        causal, scale_log2, scale);
+  } else if constexpr (kBf16) {
+    if ((err = allow_smem(flash_dkv_bf16_wide_kernel, smem)) != cudaSuccess) return err;
+    flash_dkv_bf16_wide_kernel<<<grid, W::kThreads, smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<bf16*>(out0),
+        static_cast<bf16*>(out1), seq, head_dim, causal, scale_log2, scale);
+  } else if constexpr (kDq) {
+    if ((err = allow_smem(flash_dq_f32_wide_kernel, smem)) != cudaSuccess) return err;
+    flash_dq_f32_wide_kernel<<<grid, W::kThreads, smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<float*>(out0), seq, head_dim,
+        causal, scale_log2, scale);
+  } else {
+    if ((err = allow_smem(flash_dkv_f32_wide_kernel, smem)) != cudaSuccess) return err;
+    flash_dkv_f32_wide_kernel<<<grid, W::kThreads, smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<float*>(out0),
+        static_cast<float*>(out1), seq, head_dim, causal, scale_log2, scale);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace hopper
 
 // ---------------------------------------------------------------- launch
@@ -2217,8 +2543,14 @@ cudaError_t dispatch_dim(const Args& a, int head_dim) {
       return kDq ? launch_dq<128, kBf16>(a) : launch_dkv<128, kBf16>(a);
     case 256:
       return kDq ? launch_dq<256, kBf16>(a) : launch_dkv<256, kBf16>(a);
-    default:
-      return cudaErrorInvalidValue;
+    default:  // 256 n, n >= 2, in chunks of 256 (the grid's z dimension)
+      if (head_dim <= 256 || head_dim % 256 != 0 || (kDq ? 1 : 2) * (head_dim / 256) > 65535) {
+        return cudaErrorInvalidValue;
+      }
+      return hopper::launch_wide<kDq, kBf16>(
+          a.q, a.k, a.v, a.dout, static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), a.out0, a.out1, a.batch_heads, a.seq, head_dim,
+          a.causal, a.scale_log2, a.scale, a.stream);
   }
 }
 
@@ -2231,7 +2563,8 @@ int dispatch(const Args& a, int head_dim, int is_bf16) {
 }  // namespace
 
 // q, k, v, dout, dq: (batch_heads, seq, head_dim) contiguous and 16-byte
-// aligned, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse, delta:
+// aligned, head_dim 32, 64, 128 or a multiple of 256, float32 (is_bf16 =
+// 0) or bfloat16 (is_bf16 = 1); lse, delta:
 // (batch_heads, seq) float32. Launches K2 on `stream` and returns
 // cudaGetLastError() after the launch (0 = success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -62,6 +62,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "sm90.cuh"
 #include "tf32.cuh"
@@ -1238,6 +1240,236 @@ cudaError_t launch_f32<256>(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- above D = 256
+//
+// head_dim = 256 n, n >= 2 (sm90.cuh, "above D = 256"): a block takes
+// the fixed query rows q0 .. of one head and owns chunk c = blockIdx.z of
+// O, 256 columns, against K/V tiles up to the diagonal (causal) or the
+// end. Per tile S = Q K^T streams over all n chunks of Q and K; the online
+// softmax runs as at D <= 256, and O_c += P V_c reads the tile's chunk c
+// of V from the out slot. Every block of a row tile computes S and the
+// softmax in one order, so all agree; block 0 writes the lse. Recomputing
+// S in each of the n blocks makes the work (n + 1) / 2 of K1's
+// CostEstimate. Blocks are handed out longest first (causal).
+
+// bfloat16: 64 query rows a block against 64-key tiles; the consumer
+// warpgroup's registers hold O_c (128), S (32) and P (16).
+__global__ void __launch_bounds__(WideChunkBf16::kThreads, 1)
+flash_fwd_bf16_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                           float* __restrict__ lse, int seq, int head_dim, int causal,
+                           float scale_log2) {
+  using W = WideChunkBf16;
+  constexpr int N = W::kRows;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  const WideBars<W> bars(smem);
+  const int bh = blockIdx.x, c = blockIdx.z, n = head_dim / 256;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * N;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + N) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  // The warpgroup, broadcast so that ptxas knows it is warp-uniform.
+  const int warpgroup = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) bars.init();
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    if (threadIdx.x < 32) {
+      wide_produce<W>(smem, bars.full, bars.empty, bars.out_full, bars.out_empty, &q_map, &k_map,
+                      &q_map, &k_map, 0, &v_map, nullptr, nullptr, n, c, q0, 0, tiles, bh, seq);
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int rows[2] = {q0 + warp * 16 + lane / 4, q0 + warp * 16 + lane / 4 + 8};
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float s[N / 2];
+  uint32_t p[N / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+  int it = 0;
+  for (int j = 0; j < tiles; ++j) {
+    wide_reduce_bf16(s, smem, bars.full, bars.empty, it, n);
+    const bool mask = (causal && j * N + N - 1 > q0) || j * N + N > seq;
+    softmax_tile<N>(s, m, l, corr, mask, j * N, rows, seq, causal, scale_log2);
+    fence_operand(acc);
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] *= corr[(i / 2) & 1];
+    pack_p<N>(p, s);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) fence_operand(p[kk]);
+    mbar_wait(bars.out_full, j & 1);
+    fence_operand(acc);
+    wgmma_fence();
+    issue_pv<256, N>(acc, p, smem + W::kOut);
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (lane == 0) mbar_arrive(bars.out_empty);
+  }
+
+  const int t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float denom = fmaxf(l[r], 1e-30f);
+    if (rows[r] >= seq) continue;
+    if (c == 0 && t == 0) {
+      const float shift = isfinite(m[r]) ? m[r] : 0.f;
+      lse[static_cast<int64_t>(bh) * seq + rows[r]] = (shift + log2f(denom)) * kLn2;
+    }
+    bf16* out = o + (static_cast<int64_t>(bh) * seq + rows[r]) * head_dim + 256 * c + 2 * t;
+#pragma unroll
+    for (int nn = 0; nn < 32; ++nn) {
+      *reinterpret_cast<__nv_bfloat162*>(out + nn * 8) =
+          __floats2bfloat162_rn(acc[4 * nn + 2 * r] / denom, acc[4 * nn + 2 * r + 1] / denom);
+    }
+  }
+}
+
+// float32 (split tf32): 32 query rows a block, stacked, against 32-key
+// tiles. Thread (warp w, lane l) owns query row q0 + 8w + l/4 and keys
+// 8j + 2t + c of a tile (t = l % 4): the online softmax over a row's 32
+// keys reduces over its quad. O_c is a stacked m64n256 accumulator (128
+// registers), each row's hi and lo parts added at the end.
+__global__ void __launch_bounds__(WideChunkF32::kThreads, 1)
+flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
+                          float* __restrict__ lse, int seq, int head_dim, int causal,
+                          float scale_log2) {
+  using W = WideChunkF32;
+  constexpr int N = W::kRows;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (align1k(smem_addr(smem_raw)) - smem_addr(smem_raw));
+  const WideBars<W> bars(smem);
+  const int bh = blockIdx.x, c = blockIdx.z, n = head_dim / 256;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * N;  // longest q tiles first
+  const int kv_end = causal ? min(seq, q0 + N) : seq;
+  const int tiles = (kv_end + N - 1) / N;
+  const int warpgroup = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) bars.init();
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    if (threadIdx.x < 32) {
+      wide_produce<W>(smem, bars.full, bars.empty, bars.out_full, bars.out_empty, &q_map, &k_map,
+                      &q_map, &k_map, 0, &v_map, nullptr, nullptr, n, c, q0, 0, tiles, bh, seq);
+    }
+    return;
+  }
+
+  const int ctid = threadIdx.x % 128, lane = threadIdx.x % 32, t = lane % 4;
+  const int r = 8 * (ctid / 32) + lane / 4, row = q0 + r;
+  const int slices = n * (256 / W::kSlice);
+  float acc[2][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+  float x[N];      // the stacked S against the keys and their lo parts
+  float sm[8];     // S, then P, of this row's 8 keys
+  uint32_t fr[4][4];
+  float m = -INFINITY, l = 0.f;
+  int it = 0;
+  for (int j = 0; j < tiles; ++j) {
+    const int k0 = j * N;
+    tf32::wide_reduce_f32(x, smem, bars.full, bars.empty, it, slices, r, t, ctid);
+    tf32::merge_stacked(sm, x);
+    if ((causal && k0 + N - 1 > q0) || k0 + N > seq) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int col = k0 + (e / 2) * 8 + 2 * t + (e & 1);
+        if (col >= seq || (causal && col > row)) sm[e] = -INFINITY;
+      }
+    }
+    float mx = sm[0];
+#pragma unroll
+    for (int e = 1; e < 8; ++e) mx = fmaxf(mx, sm[e]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx * scale_log2);
+    const float shift = isfinite(m_new) ? m_new : 0.f;
+    const float corr = isfinite(m) ? exp2_approx(m - shift) : 0.f;
+    m = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      sm[e] = exp2_approx(fmaf(sm[e], scale_log2, -shift));
+      sum += sm[e];
+    }
+    l = l * corr + sum;
+    fence_operand(acc[0]);
+    fence_operand(acc[1]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] *= corr, acc[1][i] *= corr;
+    tf32::stacked_fragments<N>(fr, sm);
+
+    // V's chunk c of the tile, transposed (C^T, C^T_lo) for O_c += P V_c.
+    mbar_wait(bars.out_full, j & 1);
+    tf32::write_transposed<N, 256>(smem + W::kCopy, smem + W::kCopy + W::kCopyBytes,
+                                   smem + W::kOut, ctid, 128);
+    fence_proxy_async();
+    named_barrier_sync(1, 128);
+    if (lane == 0) mbar_arrive(bars.out_empty);
+    fence_operand(acc[0]);
+    fence_operand(acc[1]);
+    tf32::wide_out_f32(acc, fr, smem + W::kCopy, smem + W::kCopy + W::kCopyBytes);
+    wgmma_wait<0>();
+    fence_operand(acc[0]);
+    fence_operand(acc[1]);
+  }
+
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  const float denom = fmaxf(l, 1e-30f);
+  if (row >= seq) return;
+  if (c == 0 && t == 0) {
+    lse[static_cast<int64_t>(bh) * seq + row] = ((isfinite(m) ? m : 0.f) + log2f(denom)) * kLn2;
+  }
+  float* out = o + (static_cast<int64_t>(bh) * seq + row) * head_dim + 256 * c + 2 * t;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int nn = 0; nn < 16; ++nn) {
+      const float* a = acc[half];
+      *reinterpret_cast<float2*>(out + 128 * half + 8 * nn) =
+          make_float2((a[4 * nn] + a[4 * nn + 2]) / denom, (a[4 * nn + 1] + a[4 * nn + 3]) / denom);
+    }
+  }
+}
+
+template <bool kBf16>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int batch_heads, int seq, int head_dim, int causal, float scale_log2,
+                        cudaStream_t stream) {
+  using W = std::conditional_t<kBf16, WideChunkBf16, WideChunkF32>;
+  using T = typename W::T;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err;
+  if ((err = make_wide_map<T>(&q_map, q, head_dim, batch_heads, seq, W::kRows)) != cudaSuccess ||
+      (err = make_wide_map<T>(&k_map, k, head_dim, batch_heads, seq, W::kRows)) != cudaSuccess ||
+      (err = make_wide_map<T>(&v_map, v, head_dim, batch_heads, seq, W::kRows)) != cudaSuccess) {
+    return err;
+  }
+  constexpr size_t smem = W::kBytes;
+  static_assert(smem <= 232448, "K1 above head_dim 256 needs more shared memory than a block has");
+  const dim3 grid(batch_heads, (seq + W::kRows - 1) / W::kRows, head_dim / 256);
+  if constexpr (kBf16) {
+    if ((err = allow_smem(flash_fwd_bf16_wide_kernel, smem)) != cudaSuccess) return err;
+    flash_fwd_bf16_wide_kernel<<<grid, W::kThreads, smem, stream>>>(
+        q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), seq, head_dim,
+        causal, scale_log2);
+  } else {
+    if ((err = allow_smem(flash_fwd_f32_wide_kernel, smem)) != cudaSuccess) return err;
+    flash_fwd_f32_wide_kernel<<<grid, W::kThreads, smem, stream>>>(
+        q_map, k_map, v_map, static_cast<float*>(o), static_cast<float*>(lse), seq, head_dim,
+        causal, scale_log2);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace hopper
 
 // ---------------------------------------------------------------- launch
@@ -1266,15 +1498,20 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o,
       return launch<128, kBf16>(q, k, v, o, lse, batch_heads, seq, causal, scale_log2, stream);
     case 256:
       return launch<256, kBf16>(q, k, v, o, lse, batch_heads, seq, causal, scale_log2, stream);
-    default:
-      return cudaErrorInvalidValue;
+    default:  // 256 n, n >= 2, in chunks of 256 (the grid's z dimension)
+      if (head_dim <= 256 || head_dim % 256 != 0 || head_dim / 256 > 65535) {
+        return cudaErrorInvalidValue;
+      }
+      return hopper::launch_wide<kBf16>(q, k, v, o, lse, batch_heads, seq, head_dim, causal,
+                                        scale_log2, stream);
   }
 }
 
 }  // namespace
 
 // q, k, v, o: (batch_heads, seq, head_dim) contiguous and 16-byte aligned,
-// float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse: (batch_heads, seq)
+// head_dim 32, 64, 128 or a multiple of 256, float32 (is_bf16 = 0) or
+// bfloat16 (is_bf16 = 1); lse: (batch_heads, seq)
 // float32. Launches on `stream` and returns cudaGetLastError() after the
 // launch (0 = success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,

@@ -515,19 +515,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a (batch_heads, seq, D) tensor of T (bf16 or float32) as
-// the 3-D array (D, seq, batch_heads), boxes of (W, rows, 1) swizzled as
-// TileLayout<D, T> says; a box never crosses into the next head, and its
-// rows past `seq` are filled with zeros.
-template <int D, typename T = __nv_bfloat16>
-cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, int batch_heads, int seq, int rows) {
-  using L = TileLayout<D, T>;
+// Tensor map of a (batch_heads, seq, head_dim) tensor of T (bf16 or
+// float32) as the 3-D array (head_dim, seq, batch_heads), boxes of (W,
+// rows, 1) swizzled as the layout L says; a box never crosses into the
+// next head, and its rows past `seq` are filled with zeros.
+template <typename L, typename T>
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, int head_dim, int batch_heads, int seq,
+                       int rows) {
   constexpr cuuint64_t kElem = sizeof(T);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(seq),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(batch_heads)};
-  const cuuint64_t strides[2] = {D * kElem, static_cast<cuuint64_t>(seq) * D * kElem};  // bytes
+  const cuuint64_t strides[2] = {dims[0] * kElem, static_cast<cuuint64_t>(seq) * dims[0] * kElem};  // bytes
   const cuuint32_t box[3] = {L::W, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult res = encode(
@@ -538,8 +538,220 @@ cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, int batch_heads, in
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The map of a (batch_heads, seq, D) tensor, tiles of TileLayout<D, T>.
+template <int D, typename T = __nv_bfloat16>
+cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, int batch_heads, int seq, int rows) {
+  return encode_map<TileLayout<D, T>, T>(map, ptr, D, batch_heads, seq, rows);
+}
+
+// The map of a tensor whose head_dim is a runtime multiple of 256 (the
+// instances above 256): the boxes and swizzle of a 256-wide tile, so a
+// box of W columns loads at any column that is a multiple of W.
+template <typename T>
+cudaError_t make_wide_map(CUtensorMap* map, const void* ptr, int head_dim, int batch_heads,
+                          int seq, int rows) {
+  return encode_map<TileLayout<256, T>, T>(map, ptr, head_dim, batch_heads, seq, rows);
+}
+
 // Round `offset` up to the swizzle atom (1024 bytes).
 __host__ __device__ constexpr size_t align1k(size_t offset) { return (offset + 1023) & ~size_t{1023}; }
+
+// ------------------------------------------------------------ above D = 256
+//
+// The instances above head_dim 256 (D = 256 n, n >= 2 at run time) split
+// every output by columns over a grid dimension of n: a block owns chunk
+// c, the 256 columns 256 c .., of its output rows (O of K1, dQ of K2, dK
+// or dV of K3), so its accumulators are a head_dim-256 instance's. The
+// products that reduce over head_dim (S = Q K^T and dP = dO V^T, or S^T
+// and dP^T) are streamed over all n chunks in slices of kSlice columns
+// and recomputed by each of the n blocks of a row tile, in the same order,
+// so the blocks agree exactly (block 0 writes K1's lse).
+//
+// One pipeline serves K1-K3: a block holds kRows fixed rows (query rows;
+// keys in K3) and streams tiles of kRows rows of the other side. Its
+// warpgroup 0's first warp is the producer (wide_produce), warpgroup 1
+// the consumer. Per streamed tile the producer brings each reduction
+// product's slices, the fixed rows' slice and the tile's, into a ring of
+// kStages stages (full and empty barriers), then the tile's rows of chunk
+// c of the output product's operand (V, K, dO or Q) into an out slot,
+// with the rows' lse (base 2) and delta for K3. The consumer waits for a
+// product's last slice before the next (wgmma_wait<0> a slice: the
+// stream, not the tensor cores, sets the pace), so no wgmma sits under a
+// branch and every loop bound is uniform over the block.
+//
+// Both sides stream, the fixed rows too: a block's fixed rows at D = 256
+// n take 32 n KiB (bf16, 64 rows) or more, past shared memory for large n.
+
+// bfloat16: 64 fixed rows (one consumer warpgroup) against 64-row tiles,
+// slices of 256 columns (a fixed and a streamed 64 x 256 tile, 32 KiB
+// each) in 3 stages, and the out slot (64 x 256, 32 KiB): 230,976 of
+// 232,448 bytes.
+struct WideChunkBf16 {
+  using T = __nv_bfloat16;
+  static constexpr int kRows = 64;   // fixed rows a block; rows a streamed tile
+  static constexpr int kSlice = 256;  // reduction columns a stage
+  static constexpr int kStages = 3;
+  static constexpr int kStreamRows = kRows;  // rows of a stage's streamed column block
+  static constexpr int kThreads = 256;  // the producer warpgroup and the consumer
+  static constexpr size_t kFixed = tile_bytes<kSlice, T>(kRows);  // the streamed slice's offset
+  static constexpr size_t kStage = kFixed + tile_bytes<kSlice, T>(kStreamRows);
+  static constexpr uint32_t kStageTx = 2 * tile_bytes<kSlice, T>(kRows);
+  static constexpr size_t kOut = kStages * kStage;
+  static constexpr uint32_t kOutTx = tile_bytes<256, T>(kRows);
+  static constexpr size_t kRowVals = kOut + kOutTx;  // lse (base 2), then delta
+  static constexpr size_t kBar = kRowVals + 2 * kRows * sizeof(float);
+  static constexpr size_t kBytes = kBar + (2 * kStages + 2) * sizeof(uint64_t) + 1024;
+};
+
+// float32 (split tf32): 32 fixed rows, stacked with their lo parts into
+// one 64-row operand (tf32.cuh), against 32-row tiles, slices of 64
+// columns in 4 stages (a stage: the fixed 32 x 64 slice, then the
+// streamed one as a pair, per column block its 32 rows and their lo
+// parts), the out slot (32 x 256, 32 KiB) and its transposed copies C^T
+// and C^T_lo (256 x 32 each, 32 KiB): 197,968 of 232,448 bytes.
+struct WideChunkF32 {
+  using T = float;
+  static constexpr int kRows = 32;
+  static constexpr int kSlice = 64;
+  static constexpr int kStages = 4;
+  static constexpr int kStreamRows = 2 * kRows;  // the streamed rows, then their lo parts
+  static constexpr int kThreads = 256;
+  static constexpr size_t kFixed = tile_bytes<kSlice, T>(kRows);
+  static constexpr size_t kStage = kFixed + tile_bytes<kSlice, T>(kStreamRows);
+  static constexpr uint32_t kStageTx = 2 * tile_bytes<kSlice, T>(kRows);
+  static constexpr size_t kOut = kStages * kStage;
+  static constexpr uint32_t kOutTx = tile_bytes<256, T>(kRows);
+  static constexpr size_t kCopy = kOut + kOutTx;  // C^T, then C^T_lo
+  static constexpr size_t kCopyBytes = tile_bytes<kRows, T>(256);
+  static constexpr size_t kRowVals = kCopy + 2 * kCopyBytes;
+  static constexpr size_t kBar = kRowVals + 2 * kRows * sizeof(float);
+  static constexpr size_t kBytes = kBar + (2 * kStages + 2) * sizeof(uint64_t) + 1024;
+};
+
+// The barriers of an instance above 256, after its shared memory's ring,
+// out slot and row values: full and empty a stage, out_full, out_empty.
+template <typename W>
+struct WideBars {
+  uint64_t *full, *empty, *out_full, *out_empty;
+  __device__ explicit WideBars(uint8_t* smem) {
+    full = reinterpret_cast<uint64_t*>(smem + W::kBar);
+    empty = full + W::kStages;
+    out_full = empty + W::kStages;
+    out_empty = out_full + 1;
+  }
+  // By thread 0, before the block's first barrier: the producer warp's
+  // lanes arrive on out_full, the consumer's 4 warps release.
+  __device__ void init() const {
+    for (int s = 0; s < W::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(out_full, 32);
+    mbar_init(out_empty, 4);
+    fence_barrier_init();
+  }
+};
+
+// Columns col .. col + kCols of the map's box rows from `row` of head bh,
+// one box per column block, into a tile of TileLayout<kCols, T> whose
+// column blocks hold `block_rows` rows; counted on `bar`.
+template <int kCols, typename T>
+__device__ __forceinline__ void load_slice_tma(void* tile, const CUtensorMap* map, uint64_t* bar,
+                                               int block_rows, int col, int row, int bh) {
+  using L = TileLayout<kCols, T>;
+#pragma unroll
+  for (int c = 0; c < L::kBlocks; ++c) {
+    tma_load_3d(static_cast<char*>(tile) + c * L::block_bytes(block_rows), map, bar,
+                col + c * L::W, row, bh);
+  }
+}
+
+// The producer warp of an instance above 256 (all its lanes; lane 0
+// issues the loads). Streamed tile j's rows start at n_begin + j kRows.
+// Per tile: the slices of reduction product 0 (fixed0's rows f0 against
+// stream0's, all 256 n columns), then `slices1` slices of product 1
+// (fixed1, stream1: all of them, or none), then the tile's rows of chunk
+// c of `out`, with, where `lse` is given, the rows' lse (base 2) and
+// delta (0 past `seq`). Fill m of a stage waits for fill m - 1's release;
+// fill 0 waits on the phase before the barrier's first, which counts as
+// complete.
+template <typename W>
+__device__ __forceinline__ void wide_produce(uint8_t* smem, uint64_t* full, uint64_t* empty,
+                                             uint64_t* out_full, uint64_t* out_empty,
+                                             const CUtensorMap* fixed0, const CUtensorMap* stream0,
+                                             const CUtensorMap* fixed1, const CUtensorMap* stream1,
+                                             int slices1, const CUtensorMap* out,
+                                             const float* lse, const float* delta, int n, int c,
+                                             int f0, int n_begin, int tiles, int bh, int seq) {
+  using T = typename W::T;
+  constexpr int kPerLane = W::kRows / 32;
+  const int lane = threadIdx.x % 32;
+  const int slices0 = n * (256 / W::kSlice);
+  const int64_t row_base = static_cast<int64_t>(bh) * seq;
+  int it = 0;  // stage fills so far
+  for (int j = 0; j < tiles; ++j) {
+    const int row = n_begin + j * W::kRows;
+    if (lane == 0) {
+      for (int h = 0; h < slices0 + slices1; ++h, ++it) {
+        const bool second = h >= slices0;
+        const int col = (second ? h - slices0 : h) * W::kSlice;
+        const int s = it % W::kStages;
+        uint8_t* st = smem + s * W::kStage;
+        mbar_wait(&empty[s], ((it / W::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], W::kStageTx);
+        load_slice_tma<W::kSlice, T>(st, second ? fixed1 : fixed0, &full[s], W::kRows, col, f0,
+                                     bh);
+        load_slice_tma<W::kSlice, T>(st + W::kFixed, second ? stream1 : stream0, &full[s],
+                                     W::kStreamRows, col, row, bh);
+      }
+    }
+    // This lane's rows' lse and delta, read before the slot is free.
+    float vals[2][kPerLane];
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int r = row + lane + 32 * i;
+      const bool live = lse != nullptr && r < seq;
+      vals[0][i] = live ? lse[row_base + r] * kLog2e : 0.f;
+      vals[1][i] = live ? delta[row_base + r] : 0.f;
+    }
+    mbar_wait(out_empty, (j & 1) ^ 1);
+    float* row_vals = reinterpret_cast<float*>(smem + W::kRowVals);
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      row_vals[lane + 32 * i] = vals[0][i];
+      row_vals[W::kRows + lane + 32 * i] = vals[1][i];
+    }
+    if (lane == 0) {
+      mbar_arrive_expect_tx(out_full, W::kOutTx);
+      load_slice_tma<256, T>(smem + W::kOut, out, out_full, W::kRows, 256 * c, row, bh);
+    } else {
+      mbar_arrive(out_full);
+    }
+  }
+}
+
+// acc (64 x 64, f32) = the fixed rows' 64 x (256 n) times the streamed
+// tile's transposed, over `slices` bf16 ring stages from fill `it` (which
+// it advances), each released once its products are done.
+__device__ __forceinline__ void wide_reduce_bf16(float (&acc)[32], uint8_t* smem, uint64_t* full,
+                                                 uint64_t* empty, int& it, int slices) {
+  using W = WideChunkBf16;
+  for (int h = 0; h < slices; ++h, ++it) {
+    const int s = it % W::kStages;
+    const uint8_t* st = smem + s * W::kStage;
+    mbar_wait(&full[s], (it / W::kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < W::kSlice / 16; ++kk) {
+      wgmma_ss<64>(acc, desc_k_major<W::kSlice>(st, W::kRows, 0, kk),
+                   desc_k_major<W::kSlice>(st + W::kFixed, W::kRows, 0, kk), h > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[s]);
+  }
+}
 
 }  // namespace sm90
 }  // namespace flash

@@ -116,15 +116,17 @@ __device__ __forceinline__ void split_fragments(uint32_t (&hi)[N / 8][4], uint32
 // part is in fragment rows g and its lo part in rows g + 8. One product
 // against a paired B (B, then B_lo) gives all four terms of the split.
 
-// A paired tile (D = 256) holds per 128-byte column block kRows rows: the
-// kRows / 2 rows TMA brings, then their lo parts, so that one product
-// against it gives A B and A B_lo. The first half of each block of `pair`
-// as its lo parts into the second; by the 128 threads of one warpgroup.
-template <int kRows = 32>
+// A paired tile (kCols columns, 256 at D = 256) holds per 128-byte column
+// block kRows rows: the kRows / 2 rows TMA brings, then their lo parts, so
+// that one product against it gives A B and A B_lo. The first half of each
+// block of `pair` as its lo parts into the second; by the 128 threads of
+// one warpgroup.
+template <int kRows = 32, int kCols = 256>
 __device__ __forceinline__ void write_pair_lo(uint8_t* pair, int ctid) {
-  using L = TileLayout<256, float>;
+  using L = TileLayout<kCols, float>;
   constexpr int kBlock = L::block_bytes(kRows);
   constexpr int kChunks = kBlock / 2 / 16;  // 16-byte chunks of half a block
+  static_assert(L::kBlocks * kChunks % 128 == 0, "a pair's lo parts split unevenly");
 #pragma unroll
   for (int k = 0; k < L::kBlocks * kChunks / 128; ++k) {
     const int i = ctid + 128 * k;
@@ -133,14 +135,15 @@ __device__ __forceinline__ void write_pair_lo(uint8_t* pair, int ctid) {
   }
 }
 
-// The stacked A operand of this thread's row `r` of a (32, 256) float32
+// The stacked A operand of this thread's row `r` of a (32, kCols) float32
 // tile as TMA stores it: per k8 step kk, hi and lo of columns 8kk + t
 // (a[kk][0], a[kk][1]) and 8kk + t + 4 (a[kk][2], a[kk][3]).
-__device__ __forceinline__ void load_stacked_a(uint32_t (&a)[32][4], const uint8_t* tile, int r,
-                                               int t) {
-  using L = TileLayout<256, float>;
+template <int kCols = 256>
+__device__ __forceinline__ void load_stacked_a(uint32_t (&a)[kCols / 8][4], const uint8_t* tile,
+                                               int r, int t) {
+  using L = TileLayout<kCols, float>;
 #pragma unroll
-  for (int kk = 0; kk < 32; ++kk) {
+  for (int kk = 0; kk < kCols / 8; ++kk) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int col = 8 * kk + t + 4 * h;
@@ -166,6 +169,88 @@ __device__ __forceinline__ void stacked_fragments(uint32_t (&a)[N / 8][4], const
       a[kk][2 * c + 1] = __float_as_uint(x - __uint_as_float(a[kk][2 * c]));
     }
   }
+}
+
+// ------------------------------------------------ above D = 256
+//
+// The float32 instances above head_dim 256 (sm90.cuh, WideChunkF32) take
+// 32 fixed rows as a stacked operand, as at D = 256, one slice of
+// columns at a time: the fixed side streams too.
+
+// x (64 x 64, f32) = the stacked fixed rows (32 rows and their lo parts)
+// times the streamed pair (32 rows, then their lo parts) transposed, over
+// all head_dim: `slices` float32 ring stages from fill `it` (which it
+// advances). Per stage the warpgroup writes the pair's lo parts, loads
+// the stacked A from the fixed slice and releases the stage once its
+// products are done. Row r (8w + l/4) and column t (l % 4) of this thread
+// as in tf32::load_stacked_a; `ctid` its index in the warpgroup.
+__device__ __forceinline__ void wide_reduce_f32(float (&x)[32], uint8_t* smem, uint64_t* full,
+                                                uint64_t* empty, int& it, int slices, int r,
+                                                int t, int ctid) {
+  using W = sm90::WideChunkF32;
+  constexpr int kSteps = W::kSlice / 8;
+  for (int h = 0; h < slices; ++h, ++it) {
+    const int s = it % W::kStages;
+    uint8_t* st = smem + s * W::kStage;
+    sm90::mbar_wait(&full[s], (it / W::kStages) & 1);
+    write_pair_lo<W::kStreamRows, W::kSlice>(st + W::kFixed, ctid);
+    sm90::fence_proxy_async();
+    sm90::named_barrier_sync(1, 128);
+    uint32_t a[kSteps][4];
+    load_stacked_a<W::kSlice>(a, st, r, t);
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) sm90::fence_operand(a[kk]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      sm90::wgmma_rs_tf32<2 * W::kRows>(
+          x, a[kk], sm90::desc_k_major<W::kSlice, float>(st + W::kFixed, W::kStreamRows, 0, kk),
+          h > 0 || kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(x);
+    if (threadIdx.x % 32 == 0) sm90::mbar_arrive(&empty[s]);
+  }
+}
+
+// S (or dP, S^T, dP^T) of this thread's row against 32 streamed rows
+// from x: m[2j + c] is streamed row 8j + 2t + c, the sum of the hi and lo
+// rows' products with the pair's row and its lo part.
+__device__ __forceinline__ void merge_stacked(float (&m)[8], const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      m[2 * j + c] = (x[4 * j + c] + x[4 * j + 2 + c]) + (x[4 * j + 16 + c] + x[4 * j + 18 + c]);
+    }
+  }
+}
+
+// acc (the stacked fixed rows x the 256 columns of chunk c) += the stacked
+// A `fr` (P, dS, P^T or dS^T over the 32 streamed rows) times the tile's
+// rows of chunk c, from its transposed copies C^T and C^T_lo (256 rows of
+// 32, keys in fragment_pos order); one wgmma group.
+__device__ __forceinline__ void wide_out_f32(float (&acc)[2][64], uint32_t (&fr)[4][4],
+                                             const uint8_t* copy_hi, const uint8_t* copy_lo) {
+  using W = sm90::WideChunkF32;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) sm90::fence_operand(fr[kk]);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int kk = 0; kk < W::kRows / 8; ++kk) {
+      sm90::wgmma_rs_tf32<128>(acc[half], fr[kk],
+                               sm90::desc_k_major<W::kRows, float>(copy_hi, 256, 128 * half, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < W::kRows / 8; ++kk) {
+      sm90::wgmma_rs_tf32<128>(acc[half], fr[kk],
+                               sm90::desc_k_major<W::kRows, float>(copy_lo, 256, 128 * half, kk), 1);
+    }
+  }
+  sm90::wgmma_commit();
 }
 
 }  // namespace tf32

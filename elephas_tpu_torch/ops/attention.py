@@ -2,16 +2,16 @@
 
 ``flash_attention(q, k, v, causal)`` computes softmax attention in tiles
 so the (seq × seq) score matrix never exists in device memory, forward
-or backward. A CUDA input whose head_dim a kernel instance holds runs
-the hand-written kernels (``ops/attention_cuda.py``; K1 forward, K2 and
-K3 backward): ``takes_kernels`` is that rule, decided by head_dim,
-length and device, and ``kernel_layout`` says at which head_dim and
-dtype the kernels compute the input (every head_dim up to 256). Inputs on
-another device, and CUDA inputs of a larger head_dim below the JAX
-package's Pallas threshold, run ``blockwise_reference``, K1's plain
-PyTorch version with the same numerics, and autograd differentiates it:
-the JAX package's own route there (its XLA blockwise path).
-``flash_backward_reference`` is the plain version of K2 and K3.
+or backward. Every CUDA input runs the hand-written kernels
+(``ops/attention_cuda.py``; K1 forward, K2 and K3 backward), at every
+head_dim and length: ``takes_kernels`` is that rule, decided by the
+device, and ``kernel_layout`` says at which head_dim and dtype the
+kernels compute the input (up to 256 the smallest instance that holds
+it, above 256 the next multiple of 256). Inputs on another device run
+``blockwise_reference``, K1's plain PyTorch version with the same
+numerics, and autograd differentiates it: the JAX package's own route
+off the TPU (its XLA blockwise path). ``flash_backward_reference`` is
+the plain version of K2 and K3.
 
 Shapes: q, k, v are (batch, heads, seq, head_dim); the output is the
 same, and the optional lse is (batch, heads, seq) float32.
@@ -290,27 +290,26 @@ def kernel_layout(head_dim: int, dtype) -> tuple:
     ``head_dim`` and ``dtype``.
 
     The head_dim is the smallest of ``attention_cuda.HEAD_DIMS`` that
-    holds it: zero columns added to q, k and v change no score, add zero
-    columns to o and the gradients, and the scale stays ``1 /
-    sqrt(head_dim)`` of the caller's. The dtype is the caller's where the
-    kernels are built for it, else float32 for float16 and float64: the
-    Pallas kernels compute every tile in float32 and cast the results to
-    the inputs' dtype, and so does ``blockwise_reference``. Raises where
-    no kernel computes the input (a head_dim above the largest, a dtype
-    that is not floating point)."""
+    holds it, and above the largest (256) the next multiple of 256, which
+    the instances above 256 take in chunks of 256 columns: zero columns
+    added to q, k and v change no score, add zero columns to o and the
+    gradients, and the scale stays ``1 / sqrt(head_dim)`` of the
+    caller's. The dtype is the caller's where the kernels are built for
+    it, else float32 for float16 and float64: the Pallas kernels compute
+    every tile in float32 and cast the results to the inputs' dtype, and
+    so does ``blockwise_reference``. Raises where no kernel computes the
+    input (a head_dim below 1, a dtype that is not floating point)."""
     if dtype in attention_cuda.DTYPES:
         kernel_dtype = dtype
     elif dtype in (torch.float16, torch.float64):
         kernel_dtype = torch.float32
     else:
         raise TypeError(f"no flash-attention kernel computes {dtype} inputs")
+    if head_dim < 1:
+        raise ValueError(f"no flash-attention kernel takes head_dim {head_dim}")
     fits = [d for d in attention_cuda.HEAD_DIMS if d >= head_dim]
-    if head_dim < 1 or not fits:
-        raise ValueError(
-            f"no flash-attention kernel takes head_dim {head_dim}: the kernels "
-            f"are built for head_dim up to {attention_cuda.HEAD_DIMS[-1]}"
-        )
-    return fits[0], kernel_dtype
+    wide = attention_cuda.WIDE
+    return (fits[0] if fits else -(-head_dim // wide) * wide), kernel_dtype
 
 
 def _aligned(t):
@@ -374,6 +373,8 @@ def _launch_bwd(q, k, v, do, lse, delta, causal, scale):
 
 # The JAX package's ``pallas_min_seq`` outside head_dim 32-128: there it
 # takes its XLA blockwise path below this length and Pallas at or above.
+# The port's rule has no length: this is the length of the wide-head
+# checks on the card, where both packages run kernels.
 WIDE_HEAD_MIN_SEQ = 4096
 
 
@@ -381,29 +382,15 @@ def takes_kernels(head_dim: int, seq: int, device_type: str) -> bool:
     """The dispatch rule: whether an input of ``head_dim`` and sequence
     length ``seq`` on a device of ``device_type`` runs the CUDA kernels.
 
-    Inputs on any other device than ``cuda`` never take them. CUDA inputs
-    whose head_dim a kernel instance holds (up to
-    ``attention_cuda.HEAD_DIMS[-1]``, 256) take them at every length: the
-    port has no sequence-length threshold there. Above that head_dim the
-    rule is the JAX package's ``_use_pallas``: below ``WIDE_HEAD_MIN_SEQ``
-    it runs its XLA blockwise path, and the port runs the plain versions on
-    the card. At or above it the JAX package runs its Pallas kernels,
-    whose counterpart at that head_dim is not built yet, so this raises
-    ``NotImplementedError`` rather than run plain PyTorch where the
-    reference runs a kernel. The rule reads the shape and the device
-    only: a failed build or launch raises instead of falling back."""
-    if device_type != "cuda":
-        return False
-    if head_dim <= attention_cuda.HEAD_DIMS[-1]:
-        return True
-    if seq < WIDE_HEAD_MIN_SEQ:
-        return False
-    raise NotImplementedError(
-        f"flash attention on the card at head_dim {head_dim} and seq {seq} >= "
-        f"{WIDE_HEAD_MIN_SEQ} needs a kernel instance above head_dim "
-        f"{attention_cuda.HEAD_DIMS[-1]}, which is not built yet (ROADMAP, kernel work "
-        f"queued: instances for head_dim above {attention_cuda.HEAD_DIMS[-1]})"
-    )
+    Every CUDA input takes them, at every head_dim (``kernel_layout``) and
+    every length: the port has no sequence-length threshold, where the
+    JAX package runs its XLA blockwise path below ``WIDE_HEAD_MIN_SEQ``
+    outside head_dim 32-128 (a deliberate difference: the kernels are
+    the port's counterpart of Pallas at every shape). Inputs on any other
+    device never take them. The rule reads the device only: a failed
+    build or launch raises instead of falling back."""
+    del head_dim, seq  # every CUDA input takes the kernels
+    return device_type == "cuda"
 
 
 def use_kernels(q, k, v) -> bool:
@@ -438,17 +425,14 @@ def flash_attention(q, k, v, causal: bool = True,
                     return_lse: bool = False):
     """Blockwise attention; ``(o, lse)`` with ``return_lse=True``.
 
-    Inputs that ``takes_kernels`` sends to the kernels (CUDA inputs of
-    head_dim up to 256) run them at their own tiling
-    (``attention_cuda.kernel_tiles``), whatever ``block_q`` and
-    ``block_k`` say: the tiling sets the order of the sums, not what they
-    sum. Inputs on another device, and CUDA inputs of a larger head_dim
-    shorter than ``WIDE_HEAD_MIN_SEQ``, run ``blockwise_reference`` under
-    autograd at the given tiling (default ``BLOCK_Q`` x ``BLOCK_K``), as
-    the JAX package runs its XLA path there; a CUDA input of a larger
-    head_dim at least that long raises ``NotImplementedError``. q, k and v must have
-    one shape: the kernel assumes equal query and key lengths, as the JAX
-    package's does.
+    Inputs that ``takes_kernels`` sends to the kernels (every CUDA input)
+    run them at their own tiling (``attention_cuda.kernel_tiles``),
+    whatever ``block_q`` and ``block_k`` say: the tiling sets the order of
+    the sums, not what they sum. Inputs on another device run
+    ``blockwise_reference`` under autograd at the given tiling (default
+    ``BLOCK_Q`` x ``BLOCK_K``), as the JAX package runs its XLA path off
+    the TPU. q, k and v must have one shape: the kernel assumes equal
+    query and key lengths, as the JAX package's does.
     """
     _check_qkv("flash_attention", q, k, v)
     if use_kernels(q, k, v):

@@ -35,6 +35,16 @@ keys, warpgroup 0 on S^T, P^T and dV, warpgroup 1 on dP^T, dS^T and dK.
 ``kernel_tiles`` gives each kernel's tiling, which sets the order of its
 sums.
 
+Above head_dim 256 every kernel takes any multiple of 256 (``WIDE``,
+``wide_chunks``): each splits its output by columns over the grid's z
+dimension, a block owning one chunk of 256 columns (O, dQ, dK or dV; K3
+a chunk of dV or of dK), and streams the products that reduce over
+head_dim (S = Q K^T and dP = dO V^T, or their transposes) over all the
+chunks, recomputing them in every block of a row tile. A block takes 64
+fixed rows (bf16) or 32 as a stacked operand (float32) against streamed
+tiles of as many rows, with a producer warp and one consumer warpgroup;
+both sides stream, in slices of 256 (bf16) or 64 (float32) columns.
+
 ``launches`` counts the launches of each kernel (``flash_fwd``,
 ``flash_dq``, ``flash_dkv``); a count moves where its kernel is launched
 and nowhere else.
@@ -60,9 +70,14 @@ SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu
 HEADERS = (CSRC / "common.cuh", CSRC / "sm90.cuh", CSRC / "tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 HEAD_DIMS = (32, 64, 128, 256)
+# Above 256 the instances take every multiple of WIDE, one chunk of
+# WIDE output columns a block.
+WIDE = 256
 DTYPES = (torch.float32, torch.bfloat16)
-# Each kernel's grid is (batch·heads, tiles of seq): CUDA's x-dimension limit.
+# Each kernel's grid is (batch·heads, tiles of seq[, chunks]): CUDA's x-
+# and z-dimension limits.
 MAX_GRID_X = 2**31 - 1
+MAX_GRID_Z = 65535
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
@@ -74,7 +89,8 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 # head_dim 64 and 128, 64 at 256). float32: K1 192, 128, 64 and 32 query
 # rows against 64, 64, 32 and 16 keys at head_dim 32, 64, 128 and 256; K2
 # 128, 128, 64 and 32 against 64, 32, 16 and 16; K3 64, 32, 16 and 16
-# against 128, 64, 64 and 32.
+# against 128, 64, 64 and 32. Above 256 (``WIDE_TILES``): bf16 64 rows
+# against 64, float32 32 against 32, in every kernel.
 _TILES = {
     torch.bfloat16: {"flash_fwd": {32: (192, 128), 64: (192, 128), 128: (192, 64),
                                    256: (128, 64)},
@@ -90,6 +106,8 @@ _TILES = {
                                   256: (16, 32)}},
 }
 
+WIDE_TILES = {torch.bfloat16: (64, 64), torch.float32: (32, 32)}
+
 # C functions of each library: name -> (library, pointer arguments).
 _FUNCTIONS = {"flash_fwd": ("flash_fwd", 5), "flash_bwd_dq": ("flash_bwd", 7),
               "flash_bwd_dkv": ("flash_bwd", 8)}
@@ -98,10 +116,19 @@ _libs = {}
 _lock = threading.Lock()
 
 
+def wide_chunks(head_dim: int) -> int:
+    """The chunks of ``WIDE`` columns an instance above 256 splits
+    ``head_dim`` into, or 0 where head_dim is no multiple of ``WIDE``
+    above it."""
+    return head_dim // WIDE if head_dim > WIDE and head_dim % WIDE == 0 else 0
+
+
 def kernel_tiles(name: str, dtype, head_dim: int) -> tuple:
     """``(block_q, block_k)`` at which the kernel ``name`` (a key of
     ``launches``) sums for ``dtype`` and ``head_dim``: the tiling at which
     its plain version sums in the same order."""
+    if name in launches and dtype in WIDE_TILES and wide_chunks(head_dim):
+        return WIDE_TILES[dtype]
     try:
         return _TILES[dtype][name][head_dim]
     except KeyError:
@@ -212,8 +239,14 @@ def _check(name, q, *others):
             f"got {[tuple(t.shape) for t in tensors]}"
         )
     batch, heads, seq, head_dim = q.shape
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {head_dim}")
+    if head_dim not in HEAD_DIMS and not wide_chunks(head_dim):
+        raise ValueError(
+            f"head_dim must be one of {HEAD_DIMS} or a multiple of {WIDE} above it, "
+            f"got {head_dim}")
+    # K3 above 256 takes two blocks a chunk (dV and dK) on the z dimension.
+    if wide_chunks(head_dim) * (2 if name == "flash_bwd_dkv" else 1) > MAX_GRID_Z:
+        raise ValueError(f"{name}: head_dim {head_dim} has more chunks of {WIDE} than the "
+                         f"grid's z dimension holds ({MAX_GRID_Z})")
     if not 0 < batch * heads <= MAX_GRID_X or seq < 1:
         raise ValueError(
             f"batch*heads must be in [1, {MAX_GRID_X}] and seq >= 1, got {tuple(q.shape)}"

@@ -1045,17 +1045,20 @@ class _Inputs:
     (32, torch.float64, (32, torch.float32)),
     (129, torch.float32, (256, torch.float32)),
     (256, torch.bfloat16, (256, torch.bfloat16)),
-    (257, torch.float32, ValueError),
+    (257, torch.float32, (512, torch.float32)),
+    (320, torch.bfloat16, (512, torch.bfloat16)),
+    (513, torch.float16, (768, torch.float32)),
     (0, torch.float32, ValueError),
     (32, torch.int32, TypeError),
     (32, torch.complex64, TypeError),
 ])
 def test_kernel_layout_rules(head_dim, dtype, want):
     """The head_dim and dtype at which the kernels compute an input: the
-    smallest built head_dim that holds it (zero columns), the input's
-    dtype where a kernel is built for it, float32 for float16 and
-    float64 (the Pallas kernels' tile dtype); an error where no kernel
-    computes it."""
+    smallest built head_dim that holds it (zero columns), above 256 the
+    next multiple of 256 (the instances that take it in chunks of 256
+    columns), the input's dtype where a kernel is built for it, float32
+    for float16 and float64 (the Pallas kernels' tile dtype); an error
+    where no kernel computes it."""
     if isinstance(want, type):
         with pytest.raises(want):
             ops.kernel_layout(head_dim, dtype)
@@ -1086,36 +1089,37 @@ def test_use_kernels_takes_every_cuda_input(shape, dtype):
     (128, "cuda", True),
     (129, "cuda", True),
     (256, "cuda", True),
-    (257, "cuda", False),
+    (257, "cuda", True),
+    (512, "cuda", True),
+    (768, "cuda", True),
     (64, "cpu", False),
     (256, "cpu", False),
 ])
 @pytest.mark.parametrize("seq", [64, 4095])
 def test_takes_kernels_is_decided_by_head_dim_and_device(head_dim, device, want, seq):
     """The dispatch rule below the JAX package's Pallas length for wide
-    heads: a CUDA input takes the kernels up to the largest built head_dim
-    (256) and runs the plain versions above it, as the JAX package runs
-    its XLA path there. ``use_kernels`` reads it."""
+    heads: a CUDA input takes the kernels at every head_dim (above 256 the
+    instances that take it in chunks of 256 columns), where the JAX
+    package runs its XLA path there; no other device does.
+    ``use_kernels`` reads it."""
     assert ops.WIDE_HEAD_MIN_SEQ == 4096 == jax_pallas_min_seq(256) == jax_pallas_min_seq(257)
     assert ops.takes_kernels(head_dim, seq, device) is want
     for dtype in (torch.float32, torch.bfloat16):
         assert ops.use_kernels(*[_Inputs((2, 4, seq, head_dim), dtype, device)] * 3) is want
-    assert attention_cuda.HEAD_DIMS[-1] == 256
+    assert attention_cuda.HEAD_DIMS[-1] == 256 == attention_cuda.WIDE
 
 
 @pytest.mark.parametrize("head_dim", [257, 512])
-def test_wide_heads_at_the_pallas_length_raise_on_the_card(head_dim):
-    """At or above the length where the JAX package runs Pallas at a wide
-    head_dim, a CUDA input raises and names the kernel instances it lacks
-    rather than run the plain versions; the kernels still take every
-    length up to head_dim 256, and the CPU runs the plain versions."""
+def test_wide_heads_at_the_pallas_length_take_the_kernels_on_the_card(head_dim):
+    """At and above the length where the JAX package runs Pallas at a
+    wide head_dim, a CUDA input takes the kernels (their instances above
+    256) as it does below it; the CPU runs the plain versions."""
     for seq in (4096, 8192):
-        with pytest.raises(NotImplementedError, match="head_dim above 256"):
-            ops.takes_kernels(head_dim, seq, "cuda")
-        with pytest.raises(NotImplementedError, match=f"head_dim {head_dim}"):
-            ops.use_kernels(*[_Inputs((1, 2, seq, head_dim))] * 3)
+        assert ops.takes_kernels(head_dim, seq, "cuda")
+        assert ops.use_kernels(*[_Inputs((1, 2, seq, head_dim))] * 3)
         assert ops.takes_kernels(256, seq, "cuda") and ops.takes_kernels(129, seq, "cuda")
         assert not ops.takes_kernels(head_dim, seq, "cpu")
+        assert not ops.use_kernels(*[_Inputs((1, 2, seq, head_dim), device="cpu")] * 3)
 
 
 def test_head_dim_256_takes_the_plain_path_and_computes_as_the_reference(monkeypatch):
@@ -1255,11 +1259,12 @@ def test_kernel_function_pads_and_casts(monkeypatch, head_dim, dtype, atol):
 
 
 def test_kernel_function_raises_where_no_kernel_computes(monkeypatch):
-    """head_dim above the largest kernel's, or a dtype no kernel takes,
-    raises on the way to the kernels: no plain version runs instead."""
+    """A head_dim below 1, or a dtype no kernel takes, raises on the way
+    to the kernels: no plain version runs instead. (Every head_dim from 1
+    up has a kernel: above 256 the instances that take multiples of 256.)"""
     _plain_kernels(monkeypatch, [])
-    with pytest.raises(ValueError, match="head_dim 320"):
-        ops._FlashAttentionCUDA.apply(*[torch.zeros(1, 1, 8, 320)] * 3, True)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        ops._FlashAttentionCUDA.apply(*[torch.zeros(1, 1, 8, 0)] * 3, True)
     with pytest.raises(TypeError, match="int32"):
         ops._FlashAttentionCUDA.apply(*[torch.zeros(1, 1, 8, 32, dtype=torch.int32)] * 3,
                                       True)

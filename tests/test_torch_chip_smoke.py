@@ -239,8 +239,8 @@ def test_step_errors_and_breaches(smoke):
 
 def test_kernel_line_carries_every_path(smoke):
     """Each kernel's entry holds its launches on the LM train run (the
-    main path of the kernels) and on every path, the ResNet's and the
-    repair checks' included."""
+    main path of the kernels) and on every path, the ResNet's, the repair
+    checks' and the head_dim-512 LM's (``wide_head_512``) included."""
     import torch
 
     timing = {name: {torch.float32: {"ms": 1.0, "bound_ms": 0.5},
@@ -251,6 +251,7 @@ def test_kernel_line_carries_every_path(smoke):
                 "resnet": {k: 0 for k in smoke.KERNELS},
                 "repair": {k: 12 for k in smoke.KERNELS},
                 "wide_head": {"flash_fwd": 40, "flash_dq": 24, "flash_dkv": 24},
+                "wide_head_512": {"flash_fwd": 40, "flash_dq": 24, "flash_dkv": 24},
                 "serving": {k: 0 for k in smoke.KERNELS},
                 "async": {k: 0 for k in smoke.KERNELS},
                 "estimator": {k: 0 for k in smoke.KERNELS},
@@ -262,6 +263,7 @@ def test_kernel_line_carries_every_path(smoke):
         assert e["launches"] == 176 and e["launches_by_path"]["resnet"] == 0
         assert e["launches_by_path"]["repair"] == 12
         assert e["launches_by_path"]["wide_head"] == (40 if e["name"] == "flash_fwd" else 24)
+        assert e["launches_by_path"]["wide_head_512"] == e["launches_by_path"]["wide_head"]
         assert e["launches_by_path"]["serving"] == 0
         assert e["launches_by_path"]["async"] == 0
         assert e["launches_by_path"]["estimator"] == 0
@@ -326,6 +328,122 @@ def test_wide_head_phase_holds_ragged_lengths(smoke):
     source = inspect.getsource(smoke.wide_head_phase)
     assert "for seq in WIDE_RAGGED:" in source
     assert "kernel_case(attention_cuda, (2, 2, seq, 256), causal, dtype, gen)" in source
+
+def test_wide_head_512_config_is_the_full_width_lm_in_heads_of_512(smoke):
+    """The wide-head 512 phase's LM: the head_dim-256 LM's 2048 columns
+    in 4 heads of 512, so the same parameter count (``qkv`` is d_model x 3
+    d_model whatever the heads) at the same 2 x 4096 tokens; the cases
+    sit at head_dim 512 (timed first, causal) and 768 (three chunks), the
+    zero-column route at 320 (to 512), the hop at (2, 4, 1024, 512)."""
+    import torch
+
+    from elephas_tpu_torch.models import get_model
+    from elephas_tpu_torch.ops.attention import kernel_layout
+
+    lm = smoke.WIDE_512_LM
+    assert lm == {**smoke.WIDE_LM, "num_heads": 4} and lm["d_model"] // lm["num_heads"] == 512
+    module = get_model("transformer_lm", device="meta", attention="flash", **lm)
+    assert sum(p.numel() for p in module.parameters()) == smoke.WIDE_PARAMS
+    assert smoke.WIDE_512_CASES == (((2, 4, 4096, 512), True), ((1, 4, 2048, 512), False),
+                                    ((1, 2, 2048, 768), True))
+    assert smoke.WIDE_512_ROUTE == (2, 4, 1000, 320) and smoke.WIDE_512_HOP == (2, 4, 1024, 512)
+    assert kernel_layout(smoke.WIDE_512_ROUTE[-1], torch.float32)[0] == 512
+
+
+def test_wide_head_512_phase_holds_ragged_lengths_and_the_lm(smoke):
+    """The wide-head 512 phase holds K1-K3 above 256 to their plain
+    versions at the ragged lengths (37, 100 and 1000 tokens, causal and
+    not, both dtypes) at head_dim 512, times SDPA under each backend
+    beside its first case, and runs the head_dim-512 LM as the
+    head_dim-256 one runs (``wide_lm_checks``)."""
+    source = inspect.getsource(smoke.wide_head_512_phase)
+    assert "for seq in WIDE_RAGGED:" in source
+    assert "kernel_case(attention_cuda, (2, 2, seq, 512), causal, dtype, gen)" in source
+    assert "sdpa_backends(shape, causal," in source
+    assert 'wide_lm_checks(attention_cuda, WIDE_512_LM, report, phase="wide_head_512")' in source
+    assert "wide_lm_checks(attention_cuda, WIDE_LM, report)" in inspect.getsource(
+        smoke.wide_head_phase)
+
+
+def test_main_runs_the_wide_head_512_phase_after_the_wide_head_phase():
+    """The wide-head 512 phase follows the wide-head phase, keeps its
+    launches under ``"wide_head_512"``, prints its report before the
+    kernel line and hands its timing and errors to it."""
+    source, phases = _main_source()
+    assert phases[phases.index("wide_head_512_phase") - 1] == "wide_head_phase"
+    assert "launches['wide_head_512'], wide_512_timing, wide_512_errors, report = " \
+        "wide_head_512_phase(attention_cuda)" in source
+    assert "wide_512=(wide_512_timing, wide_512_errors)" in source
+    assert source.index("wide_head: ") < source.index("wide_head_512: ") < \
+        source.index("'kernels'")
+
+
+def test_wide_512_kernel_report_reads_the_timed_case(smoke):
+    """The wide-head 512 phase's summary: each kernel's time and share of
+    its bound by dtype, K1 over SDPA's forward and K2 + K3 over SDPA's
+    backward (the library time both carry)."""
+    import torch
+
+    timing = {torch.float32: {
+        "flash_fwd": {"ms": 4.0, "bound_ms": 0.8, "library_ms": 2.0},
+        "flash_dq": {"ms": 5.0, "bound_ms": 1.25, "library_ms": 20.0},
+        "flash_dkv": {"ms": 15.0, "bound_ms": 1.5, "library_ms": 20.0}}}
+    report = smoke.wide_512_kernel_report(timing)["float32"]
+    assert report == pytest.approx({
+        "flash_fwd_ms": 4.0, "flash_dq_ms": 5.0, "flash_dkv_ms": 15.0,
+        "flash_fwd_bound_share": 0.2, "flash_dq_bound_share": 0.25,
+        "flash_dkv_bound_share": 0.1, "k1_vs_sdpa_fwd": 2.0, "k2_k3_vs_sdpa_bwd": 1.0})
+
+
+def test_kernel_line_carries_the_head_dim_512_instances(smoke):
+    """Given the wide-head 512 phase's timing and errors, each kernel's
+    entry also carries its head_dim-512 instances by dtype, beside the
+    head_dim-256 ones."""
+    import torch
+
+    timing = {name: {torch.float32: {"ms": 1.0}, torch.bfloat16: {"ms": 0.5}}
+              for name in smoke.KERNELS}
+    errors = {name: {torch.float32: 1e-6, torch.bfloat16: 1e-3} for name in smoke.KERNELS}
+    wide = ({dtype: {name: {"ms": 2.0} for name in smoke.KERNELS}
+             for dtype in (torch.float32, torch.bfloat16)},
+            {name: {torch.float32: 2e-6, torch.bfloat16: 4e-3} for name in smoke.KERNELS})
+    wide_512 = ({dtype: {name: {"ms": 6.0, "bound_ms": 0.8} for name in smoke.KERNELS}
+                 for dtype in (torch.float32, torch.bfloat16)},
+                {name: {torch.float32: 9e-6, torch.bfloat16: 8e-3} for name in smoke.KERNELS})
+    launches = {"train": {k: 176 for k in smoke.KERNELS}}
+    entries = smoke.kernel_entries(timing, errors, launches, wide=wide, wide_512=wide_512)
+    for e in entries:
+        assert e["head_dim_256"]["float32"] == {"ms": 2.0, "max_err": 2e-6}
+        assert e["head_dim_512"] == {"float32": {"ms": 6.0, "bound_ms": 0.8, "max_err": 9e-6},
+                                     "bfloat16": {"ms": 6.0, "bound_ms": 0.8, "max_err": 8e-3}}
+
+
+WIDE_DQ = ("_ZN45_GLOBAL__N__0f1e2d3c_12_flash_bwd_cu_a1b2c3d46hopper25"
+           "flash_dq_bf16_wide_kernelE14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiff")
+
+
+def test_sass_and_ptxas_name_the_instances_above_256(smoke, monkeypatch):
+    """The instances above 256 (one kernel per kernel and dtype, every
+    multiple of 256) read as ``D=256n`` instantiations of their own, in
+    the SASS counts and in the ptxas summary, and must hold wgmma and TMA
+    loads as every other instantiation does."""
+    sass = "\n".join([f"\t\tFunction : {WIDE_DQ}",
+                      "        /*0410*/                   UTMALDG.3D [UR8], [UR4] ;",
+                      "        /*0900*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12] ;",
+                      f"\t\tFunction : {HOPPER_FWD}",
+                      "        /*0900*/                   HGMMA.64x128x16.F32.BF16 R24 ;"])
+    monkeypatch.setattr(smoke.subprocess, "run",
+                        lambda cmd, **kw: subprocess.CompletedProcess(cmd, 0, sass, ""))
+    assert smoke.sass_counts("lib.so", "cuobjdump") == {
+        "flash_dq bf16 D=256n": {"HGMMA": 1, "UTMALDG": 1},
+        "flash_fwd bf16 D=64": {"HGMMA": 1, "UTMALDG": 0}}
+    log = "\n".join([f"ptxas info    : Compiling entry function '{WIDE_DQ}' for 'sm_90a'",
+                     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                     "ptxas info    : Used 234 registers, used 1 barriers"])
+    assert smoke.ptxas_summary(log) == "flash_dq bf16 D=256n: 234 registers, 0 bytes spill stores"
+    for name in ("flash_fwd f32 D=256n", "flash_dq bf16 D=256n", "flash_dkv f32 D=256n"):
+        assert smoke.required_ops(name) == ("HGMMA", "UTMALDG")
+
 
 def test_main_runs_the_wide_head_phase_after_the_repair_phase():
     """The wide-head phase follows the repair phase, keeps its launches
@@ -450,7 +568,7 @@ def test_main_runs_the_search_phase_last_and_keeps_the_last_line():
     source, phases = _main_source()
     assert phases == ["kernel_phase", "inference_phase", "train_phase", "seq_parallel_phase",
                       "tensor_parallel_phase", "resnet_phase", "repair_phase",
-                      "wide_head_phase", "serving_phase",
+                      "wide_head_phase", "wide_head_512_phase", "serving_phase",
                       "spec_handoff_phase", "fleet_phase", "async_phase", "async_multiproc_phase",
                       "ops_phase", "estimator_phase", "locksan_phase", "search_phase",
                       "fit_slice_phase", "chaos_phase"]
@@ -1043,8 +1161,8 @@ def test_main_runs_the_spec_handoff_phase_after_serving():
 def test_spec_handoff_config(smoke):
     """Gamma 4 over the serving phase's engine and traffic, a 2-of-4-layer
     self-draft and a 1-layer model draft, one injected pull failure, 16
-    requests handed off; the repair phase's plain-path shape is head_dim
-    512, which no kernel instance holds."""
+    requests handed off; the repair phase's head_dim-512 shape, which the
+    kernels' instances above 256 take on the card."""
     assert smoke.SPEC_GAMMA == 4 and smoke.SPEC_DRAFT_LAYERS == 2
     assert smoke.SPEC_MODEL_DRAFT_LAYERS == 1 and smoke.SPEC_PAIRS == 2
     assert smoke.HANDOFF_REQUESTS == 16 <= smoke.SERVE_ENGINE["max_slots"]
@@ -1114,11 +1232,15 @@ def test_drained_pool_and_imported_blocks_on_the_cpu(smoke, monkeypatch):
 
 def test_wide_head_checks_hold_the_plain_path(smoke):
     """The repair phase's head_dim 512 checks, run on the CPU at a small
-    length: both sides take the plain path, nothing launches, and every
-    error sits under K1-K3's limits."""
+    length: off the card both sides take the plain path and nothing
+    launches (on the card the kernels' instances above 256 take the
+    input, 2 launches of each kernel a dtype, held to the CPU's plain
+    versions), and every error sits under K1-K3's limits."""
     from elephas_tpu_torch.ops import attention_cuda
 
+    before = dict(attention_cuda.launches)
     out = smoke.wide_head_checks(attention_cuda, shape=(1, 2, 64, 512), device="cpu")
+    assert attention_cuda.launches == before
     assert set(out) == {"torch.float32", "torch.bfloat16"}
     for errors in out.values():
         assert set(errors) == {"o", "grads", "hop_o", "hop_lse", "hop_grads"}

@@ -1,14 +1,16 @@
-"""The head_dim-256 kernel instances of the port against the JAX package,
-on the CPU.
+"""The head_dim-256 kernel instances of the port, and those above 256,
+against the JAX package, on the CPU.
 
 On the card, CUDA inputs of head_dim 129-256 run K1-K3's head_dim-256
 instances (``ops.attention.takes_kernels``), padded with zero columns to
-256 (``kernel_layout``). Here the same inputs, made from a NumPy seed,
-go through the JAX package's ``flash_attention`` (its
-``_blockwise_reference`` and XLA VJP off the TPU) and through the
-port's plain versions at each head_dim-256 instance's tiling, which is
-what ``chip_smoke.py`` holds the kernels against on the card; then a
-small LM with heads of 256 trains on both sides from one set of weights.
+256 (``kernel_layout``), and wider ones the instances above 256, padded
+to the next multiple of 256 and computed in chunks of 256 columns. Here
+the same inputs, made from a NumPy seed, go through the JAX package's
+``flash_attention`` (its ``_blockwise_reference`` and XLA VJP off the
+TPU) and through the port's plain versions at each instance's tiling,
+which is what ``chip_smoke.py`` holds the kernels against on the card;
+then small LMs with heads of 256 and of 512 train on both sides from one
+set of weights.
 """
 
 import math
@@ -73,7 +75,7 @@ def test_kernel_layout_pads_wide_heads_to_256(head_dim, dtype):
     float32, as below 128)."""
     want = dtype if dtype != torch.float16 else torch.float32
     assert ops.kernel_layout(head_dim, dtype) == (256, want)
-    assert attention_cuda.HEAD_DIMS == (32, 64, 128, 256)
+    assert attention_cuda.HEAD_DIMS == (32, 64, 128, 256) and attention_cuda.WIDE == 256
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -251,6 +253,197 @@ def test_head_dim_256_lm_adam_steps_match_jax(wide_lm):
     step = jax.jit(jax_step.make_train_step(jm))
     state = jax_step.init_train_state(jm)
     pm = _port(params)
+    start = {n: v.clone() for n, v in pm.module.state_dict().items()}
+    pstep, pstate = port_step.make_train_step(pm), port_step.init_train_state(pm)
+    for _ in range(3):
+        state, metrics = step(state, x, y)
+        pstate, pmetrics = pstep(pstate, torch.from_numpy(x), torch.from_numpy(y))
+        for key in ("loss", "acc"):
+            np.testing.assert_allclose(float(pmetrics[key]), float(metrics[key]), rtol=1e-5)
+    want = from_flax_params(jax.device_get(state.params), pm.module)
+    noise = 2 * 3 * ADAM["learning_rate"]
+    for name, value in pm.module.state_dict().items():
+        got, ref, init = value.numpy(), want[name].numpy(), start[name].numpy()
+        if name.endswith("attn.qkv.bias"):
+            third = slice(len(got) // 3, 2 * len(got) // 3)
+            np.testing.assert_allclose(got[third], ref[third], atol=noise, err_msg=name)
+            got, ref, init = (np.delete(a, third) for a in (got, ref, init))
+        diff = np.abs(got - ref)
+        assert np.linalg.norm(got - ref) <= 1e-3 * np.linalg.norm(ref - init), name
+        assert (diff > 1e-5).mean() <= 1e-4 and diff.max() <= noise, name
+
+
+# -- above head_dim 256 -------------------------------------------------------
+
+ABOVE_SHAPE = (1, 2, 128)  # (batch, heads, seq) of the checks above 256
+# (query rows, keys) of every instance above 256, K1-K3 alike.
+ABOVE_TILES = {torch.bfloat16: (64, 64), torch.float32: (32, 32)}
+
+
+def _above_inputs(head_dim):
+    """q, k, v and the output's cotangent at ``ABOVE_SHAPE``, float32."""
+    rng = np.random.default_rng(1000 + head_dim)
+    return [rng.standard_normal((*ABOVE_SHAPE, head_dim)).astype(np.float32) for _ in range(4)]
+
+
+@pytest.fixture(scope="module")
+def jax_above():
+    """The JAX package's output and VJP at (causal, head_dim) above 256,
+    computed once."""
+    memo = {}
+
+    def get(causal, head_dim):
+        if (causal, head_dim) not in memo:
+            q, k, v, cot = _above_inputs(head_dim)
+            out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=causal), q, k, v)
+            memo[causal, head_dim] = (np.asarray(out), [np.asarray(g) for g in vjp(cot)])
+        return memo[causal, head_dim]
+
+    return get
+
+
+@pytest.mark.parametrize("tiling", sorted(set(ABOVE_TILES.values())))
+@pytest.mark.parametrize("head_dim", [512, 768, 320])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_versions_at_the_tilings_above_256_match_jax(jax_above, causal, head_dim, tiling):
+    """``blockwise_reference`` and ``flash_backward_reference`` at the
+    tiling of an instance above 256 (bf16 64 x 64, float32 32 x 32), on
+    the inputs as the kernels take them (head_dim 320 padded with zero
+    columns to 512, the scale 1/sqrt(320)), equal the JAX package's
+    ``flash_attention`` and its VJP at 1e-5; the padding stays zero."""
+    q, k, v, cot = (torch.from_numpy(a) for a in _above_inputs(head_dim))
+    kernel_dim = ops.kernel_layout(head_dim, torch.float32)[0]
+    assert kernel_dim == {512: 512, 768: 768, 320: 512}[head_dim]
+    assert attention_cuda.wide_chunks(kernel_dim) == kernel_dim // 256
+    scale = 1.0 / math.sqrt(head_dim)
+    padded = [_padded(t, kernel_dim) for t in (q, k, v, cot)]
+    o, lse = ops.blockwise_reference(*padded[:3], causal, *tiling, scale=scale)
+    grads = ops.flash_backward_reference(*padded[:3], o, lse, padded[3], causal, *tiling,
+                                         scale=scale)
+    want_o, want_grads = jax_above(causal, head_dim)
+    assert torch.equal(o[..., head_dim:], torch.zeros_like(o[..., head_dim:]))
+    np.testing.assert_allclose(o[..., :head_dim].numpy(), want_o, atol=1e-5, rtol=1e-5)
+    for got, want in zip(grads, want_grads):
+        assert torch.equal(got[..., head_dim:], torch.zeros_like(got[..., head_dim:]))
+        np.testing.assert_allclose(got[..., :head_dim].numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [512, 768])
+def test_kernel_tiles_above_256(name, dtype, head_dim):
+    """Every instance above 256 tiles as one: bf16 64 fixed rows against
+    64-row tiles, float32 32 (a stacked operand) against 32, K1-K3 alike,
+    at every multiple of 256; 384 is no multiple of 256."""
+    assert attention_cuda.kernel_tiles(name, dtype, head_dim) == ABOVE_TILES[dtype]
+    with pytest.raises(ValueError, match=f"no {name} kernel"):
+        attention_cuda.kernel_tiles(name, dtype, 384)
+
+
+class _CudaLike:
+    """What ``attention_cuda._check`` reads of a CUDA tensor, without a card."""
+
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __init__(self, shape, dtype=torch.float32):
+        self.shape, self.dtype = torch.Size(shape), dtype
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 0
+
+
+@pytest.mark.parametrize("head_dim, takes", [(512, True), (768, True), (384, False),
+                                             (100, False)])
+def test_c_wrappers_take_multiples_of_256(head_dim, takes):
+    """The wrappers' checks take head_dim 32, 64, 128, 256 and every
+    multiple of 256 above it, and refuse 384 and 100 (padding to them is
+    ``kernel_layout``'s work); K3, two blocks a chunk (dV and dK), refuses
+    more chunks than the grid's z dimension holds where K1 and K2 still
+    take them."""
+    t = _CudaLike((1, 2, 64, head_dim))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if takes:
+            attention_cuda._check(name, t, t, t)
+        else:
+            with pytest.raises(ValueError, match="multiple of 256"):
+                attention_cuda._check(name, t, t, t)
+    widest = _CudaLike((1, 1, 8, 256 * (attention_cuda.MAX_GRID_Z // 2 + 1)))
+    attention_cuda._check("flash_fwd", widest, widest, widest)
+    attention_cuda._check("flash_bwd_dq", widest, widest, widest)
+    with pytest.raises(ValueError, match="z dimension"):
+        attention_cuda._check("flash_bwd_dkv", widest, widest, widest)
+
+
+# A small LM whose heads are 512 wide: d_model 512 in one head.
+LM_512 = dict(vocab_size=512, d_model=512, num_heads=1, num_layers=2, max_seq_len=64)
+
+
+@pytest.fixture(scope="module")
+def wide_lm_512():
+    """The JAX LM with heads of 512 (``attention='flash'``, its blockwise
+    path off the TPU), its flax init, and a seeded batch of 4 x 64 tokens."""
+    jm = JaxCompiledModel(jax_get_model("transformer_lm", attention="flash", **LM_512),
+                          optimizer=ADAM, loss="sparse_categorical_crossentropy",
+                          metrics=["acc"], input_shape=(16,), input_dtype=jnp.int32, seed=0)
+    tokens = np.random.default_rng(25).integers(0, LM_512["vocab_size"], (4, 65)).astype(np.int32)
+    return jm, jax.device_get(jm.params), tokens[:, :-1], tokens[:, 1:]
+
+
+def _port_512(params):
+    module = get_model("transformer_lm", attention="flash", device="cpu", **LM_512)
+    return CompiledModel(module, from_flax_params(params, module), optimizer=ADAM,
+                         loss="sparse_categorical_crossentropy", metrics=["acc"])
+
+
+def test_head_dim_512_lm_logits_and_gradients_match_jax(wide_lm_512):
+    """The JAX parameters carried across (``from_flax_params``): logits
+    within 1e-5, the loss within 1e-5 relative and every gradient within
+    1e-5 of the larger of 1 and its largest entry (the key third of each
+    qkv bias left out: its exact gradient is 0)."""
+    jm, params, x, y = wide_lm_512
+    state = jax_step.init_train_state(jm)
+    pm = _port_512(params)
+    assert pm.module.d_model // pm.module.num_heads == 512
+    assert ops.kernel_layout(512, torch.float32) == (512, torch.float32)
+    want_logits = np.asarray(jm.apply_eval(params, state.batch_stats, jnp.asarray(x)))
+    np.testing.assert_allclose(pm.apply_eval(torch.from_numpy(x)).detach().numpy(),
+                               want_logits, atol=1e-5)
+    loss_fn = jax_step.make_loss_fn(jm)
+    want_loss, want_grads = jax.value_and_grad(lambda p: loss_fn(
+        p, state.batch_stats, jnp.asarray(x), jnp.asarray(y), jax.random.PRNGKey(0))[0])(params)
+    loss, _ = port_step.make_loss_fn(pm)(torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    want = from_flax_params(jax.device_get(want_grads), pm.module)
+    for name, p in pm.module.named_parameters():
+        got, ref = p.grad.numpy(), want[name].numpy()
+        if name.endswith("attn.qkv.bias"):
+            third = slice(len(got) // 3, 2 * len(got) // 3)
+            got, ref = np.delete(got, third), np.delete(ref, third)
+        assert np.abs(got - ref).max() <= 1e-5 * max(1.0, np.abs(ref).max()), name
+
+
+def test_head_dim_512_lm_adam_steps_match_jax(wide_lm_512):
+    """Three Adam steps from the same weights and batch: each step's loss
+    and accuracy within 1e-5 relative (``tests/test_torch_train.py``'s LM
+    limit), then each parameter's change within 1e-3 of the JAX run's by
+    norm and its entries within 1e-5 but for at most 1e-4 of them, whose
+    gradients are rounding noise that Adam steps by lr times its sign
+    (within 2 x 3 x lr), as the key third of each qkv bias is."""
+    jm, params, x, y = wide_lm_512
+    jm = JaxCompiledModel(jm.module, params, optimizer=ADAM,
+                          loss="sparse_categorical_crossentropy", metrics=["acc"],
+                          input_shape=(16,), input_dtype=jnp.int32, seed=0)
+    step = jax.jit(jax_step.make_train_step(jm))
+    state = jax_step.init_train_state(jm)
+    pm = _port_512(params)
     start = {n: v.clone() for n, v in pm.module.state_dict().items()}
     pstep, pstate = port_step.make_train_step(pm), port_step.init_train_state(pm)
     for _ in range(3):
